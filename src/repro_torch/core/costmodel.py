@@ -1,0 +1,695 @@
+"""Analytical hardware cost model for DNN operations (paper §3), the
+PyTorch port's own copy of the host-side pieces.
+
+It holds the Table-1 operation embeddings (`Op`, `OpStream`), the design
+point (`AccelConfig`, `ConfigBatch`), the unit-area model (`area_many`) and
+the fused scorer's per-(stream, hw, value-set) gather tables
+(`_FusedTables`).  Everything here is numpy on the host: the tables are
+built once per value set and uploaded to the device by
+`repro_torch.kernels.costmodel.FusedTorchScorer`, which runs the Eq. (1)-(13)
+scoring pass.
+
+Conventions:
+  * all memory quantities in **bits** unless suffixed `_bytes`
+  * `S` is the sliding stride; `batch` the input batch size
+  * an operation is the canonical 9-tuple of loop bounds
+    (Nif, Nix, Niy, Nkx, Nky, Nof, Nox, Noy, S) plus `batch`
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+import weakref
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+__all__ = [
+    "OpKind",
+    "Op",
+    "OpStream",
+    "HardwareConstants",
+    "LoopOrder",
+    "AccelConfig",
+    "ConfigBatch",
+    "area_many",
+]
+
+
+class OpKind(enum.Enum):
+    """DNN operation kinds covered by the cost model (paper Table 1)."""
+
+    CONV2D = "conv2d"
+    DEPTHWISE_CONV = "depthwise_conv"
+    CHANNEL_MIXING = "channel_mixing"
+    MATVEC = "matvec"
+    MATMUL = "matmul"
+
+
+@dataclasses.dataclass(frozen=True)
+class Op:
+    """One DNN operation in canonical 2-D-convolution coordinates.
+
+    The Table 1 embeddings are provided as constructors so that every
+    compute-intensive op is expressed in the *same* 9 loop bounds and can be
+    costed by one model.
+    """
+
+    kind: OpKind
+    nif: int
+    nix: int
+    niy: int
+    nkx: int
+    nky: int
+    nof: int
+    nox: int
+    noy: int
+    s: int = 1
+    batch: int = 1
+    name: str = ""
+    # Number of *logical* instances this canonical op stands for.  Depthwise
+    # convolution is embedded with Nof=1 (paper Table 1) and therefore
+    # repeats once per channel: repeat = Nif of the original depthwise layer.
+    repeat: int = 1
+
+    # ---------------------------------------------------------- constructors
+    @staticmethod
+    def conv2d(nif: int, nix: int, niy: int, nkx: int, nky: int, nof: int,
+               s: int = 1, batch: int = 1, name: str = "") -> "Op":
+        nox = (nix - nkx) // s + 1
+        noy = (niy - nky) // s + 1
+        return Op(OpKind.CONV2D, nif, nix, niy, nkx, nky, nof,
+                  max(nox, 1), max(noy, 1), s, batch, name)
+
+    @staticmethod
+    def depthwise(nif: int, nix: int, niy: int, nkx: int, nky: int,
+                  s: int = 1, batch: int = 1, name: str = "") -> "Op":
+        """Depthwise conv == 2-D conv with #filter kernels = 1 (Table 1 row 2).
+
+        The single-channel convolution repeats across the `nif` channels; we
+        keep `repeat = nif` and cost a per-channel op with Nif = 1 so the
+        arithmetic matches a true depthwise layer.
+        """
+        nox = (nix - nkx) // s + 1
+        noy = (niy - nky) // s + 1
+        return Op(OpKind.DEPTHWISE_CONV, 1, nix, niy, nkx, nky, 1,
+                  max(nox, 1), max(noy, 1), s, batch, name, repeat=nif)
+
+    @staticmethod
+    def channel_mixing(nif: int, nix: int, niy: int, nof: int,
+                       s: int = 1, batch: int = 1, name: str = "") -> "Op":
+        """1x1 convolution across channels (Table 1 row 3)."""
+        nox = (nix - 1) // s + 1
+        noy = (niy - 1) // s + 1
+        return Op(OpKind.CHANNEL_MIXING, nif, nix, niy, 1, 1, nof,
+                  nox, noy, s, batch, name)
+
+    @staticmethod
+    def matvec(col: int, row: int, batch: int = 1, name: str = "") -> "Op":
+        """Matrix-vector multiply (Table 1 row 4).
+
+        Nif=col, Nix=row, Niy=1, Nkx=Nky=1, Nof=1, Nox=row, Noy=1, S=1.
+        """
+        return Op(OpKind.MATVEC, col, row, 1, 1, 1, 1, row, 1, 1, batch, name)
+
+    @staticmethod
+    def matmul(col1: int, row1: int, col2: int, batch: int = 1,
+               name: str = "") -> "Op":
+        """Matrix-matrix multiply (Table 1 row 5).
+
+        [row1 x col1] @ [col1 x col2]:
+        Nif=col_1, Nix=row_1, Niy=1, Nkx=Nky=1, Nof=col_2, Nox=row_1, Noy=1.
+        """
+        return Op(OpKind.MATMUL, col1, row1, 1, 1, 1, col2, row1, 1, 1,
+                  batch, name)
+
+    @staticmethod
+    def batched_matmul(col1: int, row1: int, col2: int, instances: int = 1,
+                       batch: int = 1, name: str = "") -> "Op":
+        """Table 1 row 5 repeated `instances` times with *distinct* data.
+
+        This is the embedding for batched contractions whose leading
+        dimensions index independent problem instances — attention heads
+        (scores/values are one matmul per head) and MoE experts (one expert
+        GEMM per expert) — via the same `repeat` mechanism the depthwise
+        embedding uses.  `batch` remains the input-batch dimension that the
+        Pb unrolling of Fig. 2(e) exploits.
+        """
+        return Op(OpKind.MATMUL, col1, row1, 1, 1, 1, col2, row1, 1, 1,
+                  batch, name, repeat=instances)
+
+    @staticmethod
+    def batched_matvec(col: int, row: int, instances: int = 1,
+                       batch: int = 1, name: str = "") -> "Op":
+        """Table 1 row 4 repeated `instances` times (e.g. per-head decode
+        attention where the single query row multiplies each head's KV)."""
+        return Op(OpKind.MATVEC, col, row, 1, 1, 1, 1, row, 1, 1, batch,
+                  name, repeat=instances)
+
+    # ------------------------------------------------------------ properties
+    @property
+    def macs(self) -> int:
+        """N_MAC = Nif x Nkx x Nky x Nox x Noy x Nof (per batch element)."""
+        return (self.nif * self.nkx * self.nky * self.nox * self.noy
+                * self.nof * self.repeat)
+
+    @property
+    def weight_elems(self) -> int:
+        return self.nif * self.nkx * self.nky * self.nof * self.repeat
+
+    @property
+    def input_elems(self) -> int:
+        return self.nif * self.nix * self.niy * self.repeat
+
+    @property
+    def output_elems(self) -> int:
+        return self.nof * self.nox * self.noy * self.repeat
+
+
+class OpStream:
+    """Struct-of-arrays view over a sequence of `Op`s for vectorized costing."""
+
+    FIELDS = ("nif", "nix", "niy", "nkx", "nky", "nof", "nox", "noy", "s",
+              "batch", "repeat")
+
+    def __init__(self, ops: Sequence[Op]):
+        self.ops = list(ops)
+        n = len(self.ops)
+        for f in self.FIELDS:
+            setattr(self, f,
+                    np.asarray([getattr(op, f) for op in self.ops],
+                               dtype=np.int64).reshape(1, n))
+        # Table-1 element counts are loop-invariant across every config the
+        # engines score against this stream — precompute once.
+        self._weight_elems = (self.nif * self.nkx * self.nky * self.nof
+                              * self.repeat)
+        self._input_elems = self.nif * self.nix * self.niy * self.repeat
+        # [len(FIELDS), O] row-stacked field matrix for array backends
+        self._field_matrix: Optional[np.ndarray] = None
+        self._dedup: Optional[Tuple["OpStream", np.ndarray]] = None
+
+    def __len__(self) -> int:
+        return len(self.ops)
+
+    def dedup_columns(self) -> Tuple["OpStream", np.ndarray]:
+        """(unique-column view, expand) — repeated layers appear as repeated
+        op columns (transformer blocks, ResNet stages), so kernels can cost
+        the unique columns only; ``view_result[:, expand]`` restores the
+        original [*, O] layout (``original == view.field_matrix[:, expand]``
+        column-exactly).  Cached on the stream."""
+        if self._dedup is None:
+            uniq, first, inv = np.unique(self.field_matrix, axis=1,
+                                         return_index=True,
+                                         return_inverse=True)
+            view = OpStream([self.ops[int(i)] for i in first])
+            self._dedup = (view, np.asarray(inv, dtype=np.int64).ravel())
+        return self._dedup
+
+    def weight_elems_arr(self) -> np.ndarray:
+        """[1, O] weight element counts (Table 1), precomputed."""
+        return self._weight_elems
+
+    def input_elems_arr(self) -> np.ndarray:
+        """[1, O] input element counts (Table 1), precomputed."""
+        return self._input_elems
+
+    @property
+    def field_matrix(self) -> np.ndarray:
+        """[len(FIELDS), O] int64 matrix (row j = FIELDS[j]), lazily built
+        (`dedup_columns` finds repeated op columns on it)."""
+        if self._field_matrix is None:
+            self._field_matrix = np.concatenate(
+                [getattr(self, f) for f in self.FIELDS], axis=0)
+        return self._field_matrix
+
+    @property
+    def total_macs(self) -> int:
+        return int(sum(op.macs * op.batch for op in self.ops))
+
+    @property
+    def total_ops(self) -> int:
+        """Total arithmetic operations (1 MAC = 2 ops)."""
+        return 2 * self.total_macs
+
+
+@dataclasses.dataclass(frozen=True)
+class HardwareConstants:
+    """Technology constants for the unit-area model and timing (paper §4.3)."""
+
+    frequency_hz: float = 1.0e9          # accelerator clock
+    bit_width: int = 8                   # quantized datapath (cf. [7])
+    # unit-area model: "unit area for each component ... scaled according to
+    # the architectural configuration"
+    area_per_mac: float = 1.0
+    # 28 nm: an 8-bit MAC ~ 700 um^2, 6T SRAM ~ 0.12 um^2/bit -> ~1.7e-4
+    area_per_sram_bit: float = 1.7e-4
+    area_per_group_ctrl: float = 8.0
+    area_per_mac_regfile: float = 0.2
+    # off-chip transfer setup latency charged per computational block by the
+    # optional buffer simulator (cycles)
+    offchip_burst_setup: int = 64
+    offchip_words_per_cycle: int = 16
+
+
+# Loop-order dataflows (Table 2 `loop_order`).  The execution order of the
+# six convolution loops determines how often tiles are *re*-fetched from
+# off-chip memory (cf. Ma et al. [1] §4).  We expose the four canonical
+# orders; `PAPER` is the order the paper's Eqs. (5)-(8) assume (each weight /
+# input word is fetched once per use and discounted by the reuse factors).
+class LoopOrder(enum.IntEnum):
+    PAPER = 0              # Eqs. (5)-(8) verbatim
+    WEIGHT_STATIONARY = 1  # weight tiles resident; inputs streamed per tile
+    OUTPUT_STATIONARY = 2  # output tile resident; inputs+weights streamed
+    INPUT_STATIONARY = 3   # input tiles resident; weights streamed per tile
+
+
+@dataclasses.dataclass(frozen=True)
+class AccelConfig:
+    """One point in the accelerator design space (paper Table 2 + §2.2 P*).
+
+    Design variables:
+      loop_order            execution order of the convolution loops
+      pe_group              number of PE groups
+      mac_per_group         MACs per PE group
+      bank_height           buffer bank height (words)
+      bank_width            buffer bank width (bits)
+      weight_banks_pg       weight buffer banks per PE group
+      act_banks_pg          activation buffer banks per PE group
+      tif, tix, tiy, tof    loop-tiling sizes (Table 2)
+      pif, pof, pox, poy    loop-unrolling factors (§2.2, Fig. 2)
+      pkx, pky              kernel-window unrolling factors
+      pb                    batch unrolling factor (Fig. 2(e))
+    """
+
+    loop_order: int = LoopOrder.PAPER
+    pe_group: int = 8
+    mac_per_group: int = 64
+    bank_height: int = 1024
+    bank_width: int = 64
+    weight_banks_pg: int = 4
+    act_banks_pg: int = 4
+    tif: int = 64
+    tix: int = 32
+    tiy: int = 32
+    tof: int = 64
+    pif: int = 8
+    pof: int = 8
+    pox: int = 2
+    poy: int = 2
+    pkx: int = 1
+    pky: int = 1
+    pb: int = 1
+
+    # ------------------------------------------------------------- derived
+    @property
+    def total_macs(self) -> int:
+        return self.pe_group * self.mac_per_group
+
+    def weight_buffer_bits(self) -> int:
+        return self.weight_banks_pg * self.pe_group * self.bank_height * \
+            self.bank_width
+
+    def act_buffer_bits(self) -> int:
+        return self.act_banks_pg * self.pe_group * self.bank_height * \
+            self.bank_width
+
+    def weight_bandwidth(self, hw: HardwareConstants) -> int:
+        """On-chip weight words deliverable per cycle."""
+        return max(1, self.weight_banks_pg * self.pe_group * self.bank_width
+                   // hw.bit_width)
+
+    def input_bandwidth(self, hw: HardwareConstants) -> int:
+        return max(1, self.act_banks_pg * self.pe_group * self.bank_width
+                   // hw.bit_width)
+
+    def area(self, hw: HardwareConstants) -> float:
+        """Unit-area model (paper §4.3)."""
+        sram_bits = self.weight_buffer_bits() + self.act_buffer_bits()
+        return (self.total_macs * (hw.area_per_mac + hw.area_per_mac_regfile)
+                + sram_bits * hw.area_per_sram_bit
+                + self.pe_group * hw.area_per_group_ctrl)
+
+    def asdict(self) -> Dict[str, int]:
+        return dataclasses.asdict(self)
+
+
+# Canonical field order for every array view of the design space.  Cache
+# keys, ConfigBatch matrices, and the broadcast kernels all follow it.
+_CFG_FIELDS = ("loop_order", "pe_group", "mac_per_group", "bank_height",
+               "bank_width", "weight_banks_pg", "act_banks_pg",
+               "tif", "tix", "tiy", "tof",
+               "pif", "pof", "pox", "poy", "pkx", "pky", "pb")
+
+_CFG_DEFAULTS = {f.name: int(f.default)
+                 for f in dataclasses.fields(AccelConfig)}
+
+
+class ConfigBatch:
+    """Struct-of-arrays view over N accelerator configurations.
+
+    One `[N]` int64 column per `AccelConfig` field, stored as a contiguous
+    `[N, len(FIELDS)]` matrix in canonical `_CFG_FIELDS` order.  This is the
+    array-native currency of the evaluation pipeline: search engines build
+    it straight from `SpaceCodec` index arrays (no dataclass
+    materialization), `area_many` and the fused scorer consume it
+    directly, and the `Evaluator` keys its cache on the raw matrix rows.
+    `AccelConfig` remains the scalar / reporting view: `batch[i]` and
+    `batch.to_configs()` materialize dataclasses on demand.
+    """
+
+    FIELDS = _CFG_FIELDS
+    _INDEX = {f: j for j, f in enumerate(_CFG_FIELDS)}
+
+    __slots__ = ("matrix",)
+
+    def __init__(self, matrix: np.ndarray):
+        m = np.ascontiguousarray(matrix, dtype=np.int64)
+        if m.ndim != 2 or m.shape[1] != len(self.FIELDS):
+            raise ValueError(f"expected [N, {len(self.FIELDS)}] matrix, "
+                             f"got shape {m.shape}")
+        self.matrix = m
+
+    # ---------------------------------------------------------- constructors
+    @classmethod
+    def from_configs(cls, configs: "Sequence[AccelConfig] | ConfigBatch"
+                     ) -> "ConfigBatch":
+        """Batch view of dataclass configs (identity on a ConfigBatch)."""
+        if isinstance(configs, cls):
+            return configs
+        configs = list(configs)
+        m = np.empty((len(configs), len(cls.FIELDS)), dtype=np.int64)
+        for j, f in enumerate(cls.FIELDS):
+            m[:, j] = [getattr(c, f) for c in configs]
+        return cls(m)
+
+    @classmethod
+    def from_columns(cls, **cols: np.ndarray) -> "ConfigBatch":
+        """Build from named `[N]` field arrays; missing fields take the
+        `AccelConfig` defaults, scalars broadcast."""
+        unknown = set(cols) - set(cls.FIELDS)
+        if unknown:
+            raise ValueError(f"unknown AccelConfig fields: {sorted(unknown)}")
+        n = max((np.asarray(v).size for v in cols.values()), default=1)
+        m = np.empty((n, len(cls.FIELDS)), dtype=np.int64)
+        for j, f in enumerate(cls.FIELDS):
+            m[:, j] = np.asarray(cols.get(f, _CFG_DEFAULTS[f]),
+                                 dtype=np.int64)
+        return cls(m)
+
+    @classmethod
+    def concat(cls, batches: Sequence["ConfigBatch"]) -> "ConfigBatch":
+        return cls(np.vstack([b.matrix for b in batches]))
+
+    # -------------------------------------------------------------- accessors
+    def col(self, name: str) -> np.ndarray:
+        """[N] view of one field column."""
+        return self.matrix[:, self._INDEX[name]]
+
+    def __len__(self) -> int:
+        return self.matrix.shape[0]
+
+    def __getitem__(self, i):
+        if isinstance(i, (int, np.integer)):
+            row = self.matrix[i]
+            return AccelConfig(**{f: int(row[j])
+                                  for j, f in enumerate(self.FIELDS)})
+        return ConfigBatch(self.matrix[i])
+
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self[i]
+
+    def take(self, rows: np.ndarray) -> "ConfigBatch":
+        return ConfigBatch(self.matrix[np.asarray(rows, dtype=np.int64)])
+
+    def to_configs(self) -> List[AccelConfig]:
+        """Materialize the scalar/reporting view (one dataclass per row)."""
+        return [self[i] for i in range(len(self))]
+
+    def row_keys(self) -> List[bytes]:
+        """Stable per-row hashable identity: the raw bytes of each canonical
+        field row — the vectorized replacement for per-config
+        `config_key` dict sorting."""
+        return [r.tobytes() for r in self.matrix]
+
+    # ---------------------------------------------------------- derived arrays
+    def total_macs_arr(self) -> np.ndarray:
+        return self.col("pe_group") * self.col("mac_per_group")
+
+    def weight_buffer_bits_arr(self) -> np.ndarray:
+        return (self.col("weight_banks_pg") * self.col("pe_group")
+                * self.col("bank_height") * self.col("bank_width"))
+
+    def act_buffer_bits_arr(self) -> np.ndarray:
+        return (self.col("act_banks_pg") * self.col("pe_group")
+                * self.col("bank_height") * self.col("bank_width"))
+
+
+def area_many(configs: "Sequence[AccelConfig] | ConfigBatch",
+              hw: HardwareConstants = HardwareConstants()) -> np.ndarray:
+    """Vectorized unit-area model (paper §4.3): `[N]` float64 areas, equal
+    bit-for-bit to `[c.area(hw) for c in configs]`."""
+    b = ConfigBatch.from_configs(configs)
+    sram_bits = b.weight_buffer_bits_arr() + b.act_buffer_bits_arr()
+    return (b.total_macs_arr() * (hw.area_per_mac + hw.area_per_mac_regfile)
+            + sram_bits * hw.area_per_sram_bit
+            + b.col("pe_group") * hw.area_per_group_ctrl)
+
+
+def _ceil_div(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    return -(-a // np.maximum(b, 1))
+
+
+# --------------------------------------------------------------------------
+# Fused scoring tables.  Every expensive [C, O] term of Eqs. (1)-(13)
+# depends on the configuration only through one to four small-domain
+# fields, so it is computed once per unique field value (or value tuple) as
+# a [U, O] int64 table; the scorer gathers rows of these tables by per-row
+# codes.  All entries come from the exact reference expressions, so the
+# gathered values are bit-identical to computing the formulas per element.
+# --------------------------------------------------------------------------
+
+_FAST_FIELDS = ("tif", "tix", "tiy", "tof", "pif", "pof", "pox", "poy",
+                "pkx", "pky", "pb")
+
+
+# value->code lookup arrays are dense over [0, max_value]; fields with
+# absurdly large values (hand-built configs, not space-sampled ones) fall
+# back to np.searchsorted coding rather than allocating huge LUTs
+_FUSED_LUT_MAX = 1 << 22
+
+
+class _FusedTables:
+    """Shared per-(stream, hw, value-set) gather tables for the fused path.
+
+    Instances are cached in `_FUSED_TABLE_CACHE` keyed by the stream object
+    (weakly) + hw constants + the field-value sets, so every Evaluator on
+    the same (app, space) in the process reuses one table build.
+    """
+
+    def __init__(self, stream: OpStream, hw: HardwareConstants,
+                 values: Dict[str, np.ndarray]):
+        self.stream = stream
+        self.hw = hw
+        self.ops, self.expand = stream.dedup_columns()
+        self.values = {f: np.asarray(sorted(set(values[f].tolist())),
+                                     dtype=np.int64)
+                       for f in _FAST_FIELDS}
+        self.n_rebuilds = 0
+        self._build()
+
+    # ------------------------------------------------------------- building
+    def _build(self) -> None:
+        o, hw = self.ops, self.hw
+        v = self.values
+        self.nvals = {f: len(v[f]) for f in _FAST_FIELDS}
+        self.luts: Dict[str, Optional[np.ndarray]] = {}
+        for f in _FAST_FIELDS:
+            top = int(v[f][-1]) if len(v[f]) else 0
+            lo = int(v[f][0]) if len(v[f]) else 0
+            if 0 <= lo and top <= _FUSED_LUT_MAX:
+                lut = np.full(top + 2, -1, dtype=np.int64)
+                lut[v[f]] = np.arange(len(v[f]), dtype=np.int64)
+                self.luts[f] = lut
+            else:                      # degenerate values: searchsorted path
+                self.luts[f] = None
+
+        def col(vals: np.ndarray) -> np.ndarray:
+            return vals[:, None]
+
+        def tox_of(tix_vals: np.ndarray) -> np.ndarray:
+            return np.clip(
+                (np.minimum(col(tix_vals), o.nix) - o.nkx) // o.s + 1,
+                1, o.nox)
+
+        def toy_of(tiy_vals: np.ndarray) -> np.ndarray:
+            return np.clip(
+                (np.minimum(col(tiy_vals), o.niy) - o.nky) // o.s + 1,
+                1, o.noy)
+
+        def grid(*fields: str) -> List[np.ndarray]:
+            """Domain-complete value grids: one flat [prod(U_f)] array per
+            field, row-major over the field order (matching `_code`)."""
+            sizes = [self.nvals[f] for f in fields]
+            out = []
+            for k, f in enumerate(fields):
+                reps_in = int(np.prod(sizes[k + 1:], dtype=np.int64))
+                reps_out = int(np.prod(sizes[:k], dtype=np.int64))
+                out.append(np.tile(np.repeat(v[f], reps_in), reps_out))
+            return out
+
+        # -- base pair/triple tables (verbatim fast-path expressions) --
+        p_b = np.minimum(col(v["pb"]), o.batch)
+        self.pb_tbl = np.stack([_ceil_div(o.batch, p_b), p_b])
+
+        tif_u, pif_u = grid("tif", "pif")
+        tmp = np.minimum(col(tif_u), o.nif)
+        p_if = np.minimum(col(pif_u), tmp)
+        self.ifp_tbl = np.stack([_ceil_div(tmp, p_if), p_if])
+
+        tof_u, pof_u = grid("tof", "pof")
+        tmp = np.minimum(col(tof_u), o.nof)
+        p_of = np.minimum(col(pof_u), tmp)
+        self.ofp_tbl = np.stack([_ceil_div(tmp, p_of), p_of])
+
+        tix_u, pox_u = grid("tix", "pox")
+        tmp = tox_of(tix_u)
+        p_ox = np.minimum(col(pox_u), tmp)
+        self.xp_tbl = np.stack([_ceil_div(tmp, p_ox), p_ox])
+
+        tiy_u, poy_u = grid("tiy", "poy")
+        tmp = toy_of(tiy_u)
+        p_oy = np.minimum(col(poy_u), tmp)
+        self.yp_tbl = np.stack([_ceil_div(tmp, p_oy), p_oy])
+
+        pkx_u, pky_u = grid("pkx", "pky")
+        p_kx = np.minimum(col(pkx_u), o.nkx)
+        p_ky = np.minimum(col(pky_u), o.nky)
+        self.kk_tbl = np.stack(
+            [_ceil_div(o.nkx, p_kx) * _ceil_div(o.nky, p_ky), p_kx * p_ky])
+
+        tix_w, pox_w, pkx_w = grid("tix", "pox", "pkx")
+        self.win_x_tbl = ((np.minimum(col(pox_w), tox_of(tix_w)) - 1) * o.s
+                          + np.minimum(col(pkx_w), o.nkx))
+        tiy_w, poy_w, pky_w = grid("tiy", "poy", "pky")
+        self.win_y_tbl = ((np.minimum(col(poy_w), toy_of(tiy_w)) - 1) * o.s
+                          + np.minimum(col(pky_w), o.nky))
+
+        tif_w, tof_w = grid("tif", "tof")
+        t_if = np.minimum(col(tif_w), o.nif)
+        t_of = np.minimum(col(tof_w), o.nof)
+        self.wt_tbl = np.stack([
+            _ceil_div(o.nif, t_if) * _ceil_div(o.nof, t_of),
+            o.nkx * o.nky * t_if * t_of * hw.bit_width,      # Eq. (10), bits
+            _ceil_div(o.nof, t_of),
+        ])
+
+        tix_s, tiy_s = grid("tix", "tiy")
+        self.spatial_tbl = (_ceil_div(o.nox, tox_of(tix_s))
+                            * _ceil_div(o.noy, toy_of(tiy_s)))
+
+        # -- joint unroll-product tables for the validity screen (int64
+        # products are exact mod 2^64, so folding is bit-preserving) --
+        tif_1, pif_1, pkx_1, pky_1 = grid("tif", "pif", "pkx", "pky")
+        self.u1_tbl = (np.minimum(col(pif_1),
+                                  np.minimum(col(tif_1), o.nif))
+                       * np.minimum(col(pkx_1), o.nkx)
+                       * np.minimum(col(pky_1), o.nky))      # pif * pkx*pky
+        tix_2, pox_2, tiy_2, poy_2 = grid("tix", "pox", "tiy", "poy")
+        self.u2_tbl = (np.minimum(col(pox_2), tox_of(tix_2))
+                       * np.minimum(col(poy_2), toy_of(tiy_2)))  # pox * poy
+        tof_3, pof_3, pb_3 = grid("tof", "pof", "pb")
+        self.u3_tbl = (np.minimum(col(pof_3),
+                                  np.minimum(col(tof_3), o.nof))
+                       * np.minimum(col(pb_3), o.batch))     # pof * pb
+
+        # -- Eq. (12) activation-tile table, joint over all four fields --
+        tix_a, tiy_a, tif_a, tof_a = grid("tix", "tiy", "tif", "tof")
+        self.atile_tbl = ((np.minimum(col(tix_a), o.nix)
+                           * np.minimum(col(tiy_a), o.niy)
+                           * np.minimum(col(tif_a), o.nif)
+                           + tox_of(tix_a) * toy_of(tiy_a)
+                           * np.minimum(col(tof_a), o.nof))
+                          * hw.bit_width)                    # bits
+
+        # -- op-only constants hoisted for the latency tail --
+        self.num_weight = (o.nox * o.noy * o.nkx * o.nky * o.nif * o.nof
+                           * o.repeat).astype(np.float64)    # Eq. (5)
+        self.num_input = self.num_weight * o.batch           # Eq. (6)
+        self.ws_weight = o.weight_elems_arr() * 1.0
+        self.ie_batch = o.input_elems_arr() * o.batch
+        self.is_input = o.input_elems_arr() * o.batch * 1.0
+        self.weight_elems = o.weight_elems_arr()
+        self.repeat = o.repeat
+        self.max_batch = int(o.batch.max())
+        self.total_ops = self.stream.total_ops
+
+    # -------------------------------------------------------------- coding
+    def _code_field(self, f: str, vals: np.ndarray) -> Optional[np.ndarray]:
+        """[C] value -> table index for one field; None on unseen values."""
+        lut = self.luts[f]
+        if lut is not None:
+            if vals.size and (int(vals.max()) >= lut.shape[0]
+                              or int(vals.min()) < 0):
+                return None
+            code = lut[vals]
+            if vals.size and int(code.min()) < 0:
+                return None
+            return code
+        dom = self.values[f]
+        code = np.searchsorted(dom, vals)
+        code_c = np.minimum(code, len(dom) - 1)
+        if vals.size and not bool((dom[code_c] == vals).all()):
+            return None
+        return code_c
+
+    def codes(self, matrix: np.ndarray) -> Dict[str, np.ndarray]:
+        """Per-field table indices for every row, growing the value sets
+        (and rebuilding the tables) when a pool brings unseen values."""
+        out: Dict[str, np.ndarray] = {}
+        grown = False
+        for f in _FAST_FIELDS:
+            vals = matrix[:, ConfigBatch._INDEX[f]]
+            code = self._code_field(f, vals)
+            if code is None:
+                merged = np.union1d(self.values[f], np.unique(vals))
+                self.values[f] = merged.astype(np.int64)
+                grown = True
+                continue
+            out[f] = code
+        if grown:
+            self.n_rebuilds += 1
+            self._build()
+            return self.codes(matrix)
+        return out
+
+
+# stream (weak) -> {(hw fingerprint, value-set fingerprint): _FusedTables}
+_FUSED_TABLE_CACHE: ("weakref.WeakKeyDictionary[OpStream, "
+                     "Dict[Tuple, _FusedTables]]") = \
+    weakref.WeakKeyDictionary()
+
+
+def _fused_tables_for(stream: OpStream, hw: HardwareConstants,
+                      domains: Optional[Dict[str, Sequence[int]]]
+                      ) -> _FusedTables:
+    per_stream = _FUSED_TABLE_CACHE.setdefault(stream, {})
+    hw_key = (int(hw.bit_width), float(hw.frequency_hz))
+    if domains is not None:
+        dom_key = tuple((f, tuple(sorted(domains[f])))
+                        for f in _FAST_FIELDS if f in domains)
+    else:
+        dom_key = None
+    key = (hw_key, dom_key)
+    tables = per_stream.get(key)
+    if tables is None:
+        values = {}
+        for f in _FAST_FIELDS:
+            if domains is not None and f in domains:
+                values[f] = np.asarray(sorted(domains[f]), dtype=np.int64)
+            else:
+                values[f] = np.asarray([_CFG_DEFAULTS[f]], dtype=np.int64)
+        tables = _FusedTables(stream, hw, values)
+        per_stream[key] = tables
+    return tables

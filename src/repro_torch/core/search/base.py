@@ -1,0 +1,426 @@
+"""Optimizer interface, search driver, and discrete-space plumbing.
+
+See the package docstring (`repro_torch.core.search`) for the contract.
+The key pieces here:
+
+  * `Optimizer`      — the propose / observe / done interface every engine
+                       implements.
+  * `run_search`     — the driver loop: score each proposed pool through the
+                       shared `Evaluator` and feed the scores back.
+  * `SearchResult`   — uniform result record.
+  * `SpaceCodec`     — vectorized config <-> index-array conversion so
+                       population engines manipulate struct-of-arrays, not
+                       lists of dataclasses.
+  * `DiscreteSpace`  — minimal generic space (ordered discrete domains +
+                       config constructor) so the same engines drive spaces
+                       other than the accelerator one.
+"""
+
+from __future__ import annotations
+
+import abc
+import dataclasses
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from repro_torch.core.costmodel import ConfigBatch
+from repro_torch.core.search import rowcache
+
+__all__ = ["Optimizer", "SearchResult", "run_search", "SpaceCodec",
+           "DiscreteSpace"]
+
+
+# --------------------------------------------------------------------------
+# Vectorized config <-> index-array conversion
+# --------------------------------------------------------------------------
+
+class SpaceCodec:
+    """Bijective map between config objects and int index arrays [N, V].
+
+    Column `j` of the array indexes `domains[variables[j]]`.  Engines that
+    work on populations (genetic, annealing chains, random batches) keep the
+    index representation and only decode when a pool must be scored.
+    """
+
+    def __init__(self, domains: Dict[str, Sequence],
+                 make_config: Callable[..., Any]):
+        self.variables: List[str] = list(domains.keys())
+        self.domains: Dict[str, Tuple] = {k: tuple(v)
+                                          for k, v in domains.items()}
+        self.make_config = make_config
+        self.sizes = np.asarray([len(self.domains[v])
+                                 for v in self.variables], dtype=np.int64)
+        self._index_of = [
+            {val: i for i, val in enumerate(self.domains[v])}
+            for v in self.variables
+        ]
+        # per-variable numeric value LUTs for the array-native paths; None
+        # where a domain is non-numeric (e.g. string-valued ExecPoint vars)
+        self._value_luts: List[Optional[np.ndarray]] = []
+        for v in self.variables:
+            try:
+                self._value_luts.append(
+                    np.asarray(self.domains[v], dtype=np.int64))
+            except (TypeError, ValueError, OverflowError):
+                self._value_luts.append(None)
+
+    @property
+    def all_numeric(self) -> bool:
+        """True when every domain is int-valued (array decode possible)."""
+        return all(lut is not None for lut in self._value_luts)
+
+    @property
+    def n_vars(self) -> int:
+        return len(self.variables)
+
+    def encode(self, configs: Sequence[Any]) -> np.ndarray:
+        """configs -> [N, V] domain-index array (struct-of-arrays view)."""
+        n = len(configs)
+        out = np.empty((n, self.n_vars), dtype=np.int64)
+        for j, var in enumerate(self.variables):
+            lut = self._index_of[j]
+            out[:, j] = [lut[getattr(c, var)] for c in configs]
+        return out
+
+    def decode(self, idx: np.ndarray) -> List[Any]:
+        """[N, V] domain-index array -> config objects."""
+        idx = np.asarray(idx, dtype=np.int64)
+        cols = [
+            [self.domains[var][i] for i in idx[:, j]]
+            for j, var in enumerate(self.variables)
+        ]
+        return [
+            self.make_config(**{var: cols[j][r]
+                                for j, var in enumerate(self.variables)})
+            for r in range(idx.shape[0])
+        ]
+
+    def decode_values(self, idx: np.ndarray) -> Dict[str, np.ndarray]:
+        """[N, V] domain-index array -> {var: [N] int64 value array}.
+
+        The array-native decode: no config objects are materialized.  Only
+        valid for all-numeric spaces (`self.all_numeric`)."""
+        idx = np.asarray(idx, dtype=np.int64)
+        out: Dict[str, np.ndarray] = {}
+        for j, var in enumerate(self.variables):
+            lut = self._value_luts[j]
+            if lut is None:
+                raise TypeError(f"domain of {var!r} is not numeric; "
+                                "array decode unavailable")
+            out[var] = lut[idx[:, j]]
+        return out
+
+    def encode_values(self, values: Dict[str, np.ndarray]) -> np.ndarray:
+        """{var: [N] value array} -> [N, V] domain-index array (inverse of
+        `decode_values`; every value must be a domain member)."""
+        n = len(next(iter(values.values())))
+        out = np.empty((n, self.n_vars), dtype=np.int64)
+        for j, var in enumerate(self.variables):
+            lut = self._value_luts[j]
+            if lut is None:
+                raise TypeError(f"domain of {var!r} is not numeric; "
+                                "array encode unavailable")
+            order = np.argsort(lut, kind="stable")
+            pos = np.searchsorted(lut[order], values[var])
+            idx = order[np.clip(pos, 0, len(lut) - 1)]
+            if not np.array_equal(lut[idx], values[var]):
+                bad = values[var][lut[idx] != values[var]]
+                raise ValueError(f"values {bad[:4]}... of {var!r} are not "
+                                 "in its domain")
+            out[:, j] = idx
+        return out
+
+    def sample_indices(self, rng: np.random.Generator, n: int) -> np.ndarray:
+        """Uniform random [n, V] index population."""
+        return rng.integers(self.sizes[None, :], size=(n, self.n_vars))
+
+    def snap(self, cfg: Any) -> Any:
+        """Return `cfg` with any out-of-domain field replaced by the nearest
+        domain value (first value for non-numeric fields), so it encodes.
+
+        Needed for user-supplied `init` points whose fields fall outside a
+        mode-restricted space (e.g. a train-shaped ExecPoint baseline on a
+        decode cell)."""
+        kwargs = {}
+        changed = False
+        for j, var in enumerate(self.variables):
+            val = getattr(cfg, var)
+            if val in self._index_of[j]:
+                kwargs[var] = val
+            else:
+                dom = self.domains[var]
+                try:
+                    kwargs[var] = min(dom, key=lambda d: abs(d - val))
+                except TypeError:
+                    kwargs[var] = dom[0]
+                changed = True
+        return self.make_config(**kwargs) if changed else cfg
+
+    def mutate_indices(self, rng: np.random.Generator, idx: np.ndarray,
+                       rate: float) -> np.ndarray:
+        """Random-reset mutation: each gene is redrawn with prob `rate`."""
+        mask = rng.random(idx.shape) < rate
+        fresh = rng.integers(self.sizes[None, :], size=idx.shape)
+        return np.where(mask, fresh, idx)
+
+
+@dataclasses.dataclass
+class DiscreteSpace:
+    """Generic ordered-discrete design space.
+
+    The engines only need: `variables`, `domains`, `sample`,
+    `neighbors_over`, and a codec.  `repro_torch.core.space.DesignSpace`
+    offers the same surface (plus accelerator-specific validity repair);
+    this class adapts any other domain dict to the engines.
+    """
+
+    domains: Dict[str, Tuple]
+    make_config: Callable[..., Any]
+
+    @property
+    def variables(self) -> List[str]:
+        return list(self.domains.keys())
+
+    def codec(self) -> SpaceCodec:
+        return SpaceCodec(self.domains, self.make_config)
+
+    def sample(self, rng: np.random.Generator, max_tries: int = 1000,
+               validator=None) -> Any:
+        for _ in range(max_tries):
+            kwargs = {k: v[int(rng.integers(len(v)))]
+                      for k, v in self.domains.items()}
+            cfg = self.make_config(**kwargs)
+            if validator is not None and not validator(cfg):
+                continue
+            return cfg
+        raise RuntimeError("could not sample a valid configuration")
+
+    def neighbors_over(self, cfg: Any, variable: str) -> List[Any]:
+        return [dataclasses.replace(cfg, **{variable: v})
+                for v in self.domains[variable]]
+
+
+def codec_for(space: Any) -> SpaceCodec:
+    """Codec for either a DesignSpace (accelerator) or a DiscreteSpace."""
+    fn = getattr(space, "codec", None)
+    if fn is not None:
+        return fn()
+    raise TypeError(f"space {type(space).__name__} has no codec()")
+
+
+def _constraint_repairs(evaluator: Any, batch: Any, space: Any) -> Any:
+    """Chain the injected constraints' `repair` hooks (repro_torch.dse) over a
+    batch; identity when the evaluator carries none."""
+    for c in getattr(evaluator, "constraints", ()):
+        fn = getattr(c, "repair", None)
+        if fn is not None:
+            batch = fn(batch, space)
+    return batch
+
+
+def repair_with(space: Any, evaluator: Any, cfg: Any) -> Any:
+    """Apply the space's validity repair if it has one (Eq. 11/13 buffer
+    floors + area budget for the accelerator space; identity otherwise),
+    then any injected constraints' `repair` hooks.
+
+    Prefers the evaluator's batch-scaled activation floor
+    (`peak_input_bits_scaled`) because Eq. (13) multiplies the peak demand
+    by the stream's batch size."""
+    fn = getattr(space, "repair_for_peaks", None)
+    if fn is not None:
+        peak_in = getattr(evaluator, "peak_input_bits_scaled",
+                          getattr(evaluator, "peak_input_bits", 0))
+        cfg = fn(cfg, getattr(evaluator, "peak_weight_bits", 0), peak_in)
+    if getattr(evaluator, "constraints", ()):
+        batch = _constraint_repairs(evaluator,
+                                    ConfigBatch.from_configs([cfg]), space)
+        cfg = batch.to_configs()[0]
+    return cfg
+
+
+def repair_many_with(space: Any, evaluator: Any, batch: Any) -> Any:
+    """Batched `repair_with`: route a whole population (ConfigBatch or
+    config sequence) through `space.repair_for_peaks_many` with the
+    evaluator's peak floors, then the injected constraints' `repair`
+    hooks.  Returns None when the space has no batched repair (caller
+    falls back to the scalar path)."""
+    fn = getattr(space, "repair_for_peaks_many", None)
+    if fn is None:
+        return None
+    peak_in = getattr(evaluator, "peak_input_bits_scaled",
+                      getattr(evaluator, "peak_input_bits", 0))
+    out = fn(batch, getattr(evaluator, "peak_weight_bits", 0), peak_in)
+    return _constraint_repairs(evaluator, out, space)
+
+
+# --------------------------------------------------------------------------
+# Results
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class SearchResult:
+    """Uniform search outcome."""
+
+    best: Any
+    best_perf: float
+    history: List[Tuple[Any, float]]       # per-round incumbent
+    evaluated: List[Any]                   # every scored config, in order
+    evaluated_perf: np.ndarray             # aligned scores
+    rounds: int
+    engine: str = ""
+    evaluator: Any = dataclasses.field(default=None, repr=False)
+
+    @classmethod
+    def merge(cls, results: Sequence["SearchResult"],
+              evaluator: Any = None) -> "SearchResult":
+        """Deterministic reduce over restart results.
+
+        Evaluated logs concatenate in the given (restart) order; the
+        incumbent is the earliest result holding the maximum `best_perf`
+        (strict ``>`` — exactly the historical multi-restart rule) and
+        contributes its `history`/`engine`.  `rounds` sum.  `evaluator`
+        defaults to the first result's handle."""
+        results = list(results)
+        if not results:
+            raise ValueError("cannot merge zero SearchResults")
+        best = results[0]
+        for r in results[1:]:
+            if r.best_perf > best.best_perf:
+                best = r
+        evaluated: List[Any] = []
+        perf: List[float] = []
+        rounds = 0
+        for r in results:
+            evaluated.extend(r.evaluated)
+            perf.extend(np.asarray(r.evaluated_perf,
+                                   dtype=np.float64).tolist())
+            rounds += int(r.rounds)
+        if evaluator is None:
+            evaluator = next((r.evaluator for r in results
+                              if r.evaluator is not None), None)
+        return cls(best=best.best, best_perf=float(best.best_perf),
+                   history=list(best.history), evaluated=evaluated,
+                   evaluated_perf=np.asarray(perf), rounds=rounds,
+                   engine=best.engine, evaluator=evaluator)
+
+
+# --------------------------------------------------------------------------
+# Optimizer interface + driver
+# --------------------------------------------------------------------------
+
+class Optimizer(abc.ABC):
+    """Ask/tell search engine.
+
+    Contract (see package docstring): the driver alternates
+    `pool = engine.propose()` -> `scores = evaluator(pool)` ->
+    `engine.observe(pool, scores)` until `engine.done`.  Engines own their
+    RNG, their incumbent/`history` bookkeeping, and their stopping rule.
+    """
+
+    name: str = "engine"
+
+    def __init__(self) -> None:
+        self.best: Any = None
+        self.best_perf: float = -np.inf
+        self.history: List[Tuple[Any, float]] = []
+        self.rounds: int = 0
+
+    @staticmethod
+    def _scalar(scores) -> np.ndarray:
+        """Evaluator output as the float64 [N] vector engines optimize.
+
+        Non-finite entries (inf from a degenerate model) become -inf: an
+        invalid evaluation must never win the incumbent slot or poison a
+        comparison chain, and -inf keeps every engine's ordering logic
+        well-defined where NaN would not."""
+        scores = np.asarray(scores, dtype=np.float64)
+        return np.where(np.isfinite(scores), scores, -np.inf)
+
+    @abc.abstractmethod
+    def propose(self) -> List[Any]:
+        """Next pool of candidate configurations to score (may be empty)."""
+
+    @abc.abstractmethod
+    def observe(self, pool: Sequence[Any], scores: np.ndarray) -> None:
+        """Feed back the scores for the pool returned by `propose`."""
+
+    @property
+    @abc.abstractmethod
+    def done(self) -> bool:
+        """True once the engine has converged / exhausted its budget."""
+
+    # shared bookkeeping helper
+    def _track_best(self, pool: Sequence[Any], scores: np.ndarray) -> int:
+        i = int(np.argmax(scores))
+        if float(scores[i]) > self.best_perf:
+            self.best, self.best_perf = pool[i], float(scores[i])
+        return i
+
+
+class _CrossRoundDedup:
+    """Counts how many proposed rows were already proposed in an earlier
+    round of the same search (the engines re-propose heavily near
+    convergence).  Those rows never reach the cost model — the evaluator's
+    hashed row cache serves them as hits — so this is pure bookkeeping:
+    the count accumulates onto `evaluator.dedup_skipped`.  Counting is
+    hash-based (collisions could overcount by one-in-2^64); scores are
+    never affected."""
+
+    def __init__(self) -> None:
+        self._seen: set = set()
+
+    def observe(self, pool: Sequence[Any]) -> int:
+        if hasattr(pool, "matrix"):
+            keys = rowcache.hash_rows(pool.matrix).tolist()
+        elif pool and hasattr(pool[0], next(iter(ConfigBatch._INDEX))):
+            keys = rowcache.hash_rows(
+                ConfigBatch.from_configs(pool).matrix).tolist()
+        else:
+            # generic spaces carry arbitrary dataclass points; fall back to
+            # exact field-tuple keys
+            keys = [tuple(sorted(dataclasses.asdict(c).items()))
+                    for c in pool]
+        seen = self._seen
+        skipped = 0
+        for h in keys:
+            if h in seen:
+                skipped += 1
+            else:
+                seen.add(h)
+        return skipped
+
+
+def run_search(engine: Optimizer, evaluator) -> SearchResult:
+    """Drive `engine` to completion through `evaluator`; collect the log.
+
+    Engines may propose either config-object lists or array-native
+    `ConfigBatch` pools; batches stay arrays through scoring and are only
+    materialized to dataclasses once, after the loop, for the
+    `SearchResult.evaluated` log."""
+    pools: List[Any] = []
+    perf: List[float] = []
+    dedup = _CrossRoundDedup()
+    while not engine.done:
+        pool = engine.propose()
+        if pool is None or len(pool) == 0:
+            break
+        evaluator.dedup_skipped = (getattr(evaluator, "dedup_skipped", 0)
+                                   + dedup.observe(pool))
+        scores = np.asarray(evaluator(pool), dtype=np.float64)
+        pools.append(pool)
+        perf.extend(scores.tolist())
+        engine.observe(pool, scores)
+    evaluated: List[Any] = []
+    for pool in pools:
+        evaluated.extend(pool.to_configs() if hasattr(pool, "to_configs")
+                         else pool)
+    best = engine.best
+    best_perf = float(engine.best_perf)
+    if best is None and evaluated:          # engine kept no incumbent
+        i = int(np.argmax(perf))
+        best, best_perf = evaluated[i], float(perf[i])
+    return SearchResult(best=best, best_perf=best_perf,
+                        history=list(engine.history), evaluated=evaluated,
+                        evaluated_perf=np.asarray(perf), rounds=engine.rounds,
+                        engine=engine.name, evaluator=evaluator)

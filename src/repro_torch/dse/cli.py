@@ -1,0 +1,150 @@
+"""`python -m repro_torch.dse` — the command line of the port's DSE loop.
+
+    # per-app optimization (paper §4.3 / Table 3), scored on the GPU
+    PYTHONPATH=src python -m repro_torch.dse --apps resnet
+
+    # §5.1 joint geomean selection (Tables 4-5)
+    PYTHONPATH=src python -m repro_torch.dse --apps resnet --apps ptb \\
+        --apps wdl --objective geomean
+
+    # the same on the CPU
+    PYTHONPATH=src python -m repro_torch.dse --apps ptb --apps wdl \\
+        --smoke --device cpu
+
+Every run persists a `StudyResult` JSON (default
+``experiments/dse_study.json``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from pathlib import Path
+from typing import List, Optional, Tuple
+
+from repro_torch.dse.objectives import OBJECTIVES
+from repro_torch.dse.study import SearchBudget, Study, StudyResult
+
+DEFAULT_OUT = Path("experiments") / "dse_study.json"
+
+
+def _parse_engine_kwargs(pairs: List[str]) -> dict:
+    out = {}
+    for pair in pairs:
+        key, sep, val = pair.partition("=")
+        if not sep:
+            raise SystemExit(f"--engine-kwarg wants key=value, got {pair!r}")
+        try:
+            out[key] = int(val)
+        except ValueError:
+            try:
+                out[key] = float(val)
+            except ValueError:
+                out[key] = val
+    return out
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.dse",
+        description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--apps", action="append", default=None,
+                    help="applications to optimize for (repeatable): "
+                         "inception | deeplab | resnet | fasterRCNN | ptb | "
+                         "wdl | nasnet  [default: resnet]")
+    ap.add_argument("--engine", default="greedy",
+                    help="search engine: greedy | random")
+    ap.add_argument("--objective", default=None,
+                    choices=sorted(OBJECTIVES),
+                    help="optimization objective  [default: maxperf for one "
+                         "app, geomean for several]")
+    ap.add_argument("--area-budget", type=float, default=None,
+                    help="area constraint (cost-model units)  [default: the "
+                         "space's budget]")
+    ap.add_argument("--weight-peak-mode", default="streaming",
+                    choices=("strict", "streaming"),
+                    help="Eq. 11 weight-peak reading (strict: weight buffer "
+                         "holds the largest layer; streaming: tile bound "
+                         "only)")
+    ap.add_argument("--k", type=int, default=None,
+                    help="greedy variable-subset size (Algorithm 1) "
+                         "[default: 3; explicit values win over --smoke]")
+    ap.add_argument("--restarts", type=int, default=None,
+                    help="multi-start count per app  [default: 4; explicit "
+                         "values win over --smoke]")
+    ap.add_argument("--max-rounds", type=int, default=None,
+                    help="search rounds per start  [default: 40; explicit "
+                         "values win over --smoke]")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--engine-kwarg", action="append", default=[],
+                    metavar="KEY=VAL",
+                    help="extra engine knob (repeatable), e.g. batch=4096")
+    ap.add_argument("--smoke", action="store_true",
+                    help="seconds-scale budget (k=2, 1 restart, 4 rounds)")
+    ap.add_argument("--out", type=Path, default=DEFAULT_OUT,
+                    help=f"StudyResult JSON path  [default: {DEFAULT_OUT}]")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device that scores the pools  [default: "
+                         "cuda; fails when no GPU is available]")
+    return ap
+
+
+def study_from_cli(argv: Optional[List[str]] = None
+                   ) -> Tuple[Study, argparse.Namespace]:
+    """Parse flags into a ready-to-run `Study`."""
+    args = build_parser().parse_args(argv)
+    from repro_torch.core.space import default_space
+    from repro_torch.dse.constraints import AreaBudget
+
+    constraints = []
+    if args.area_budget is not None:
+        constraints.append(AreaBudget(args.area_budget))
+    # explicit flags always win; --smoke only fills the unspecified ones
+    base = SearchBudget.smoke() if args.smoke else SearchBudget()
+    budget = SearchBudget(
+        k=args.k if args.k is not None else base.k,
+        restarts=(args.restarts if args.restarts is not None
+                  else base.restarts),
+        max_rounds=(args.max_rounds if args.max_rounds is not None
+                    else base.max_rounds),
+        engine_kwargs=dict(base.engine_kwargs))
+    budget.engine_kwargs.update(_parse_engine_kwargs(args.engine_kwarg))
+    study = Study(apps=list(args.apps or ["resnet"]), space=default_space(),
+                  objective=args.objective, constraints=constraints,
+                  engine=args.engine, budget=budget, seed=args.seed,
+                  weight_peak_mode=args.weight_peak_mode, name="cli",
+                  device=args.device)
+    return study, args
+
+
+def _print_result(result: StudyResult) -> None:
+    meta = result.meta
+    print(f"[dse] objective={meta['objective']['name']} "
+          f"engine={meta['engine']} apps={','.join(meta['apps'])} "
+          f"seed={meta['seed']} device={meta['device']}")
+    for app, rec in result.per_app.items():
+        print(f"[dse]   {app:28s} best={rec['best_perf']:10.2f}  "
+              f"evaluated={rec['n_evaluated']}")
+    if result.multiapp is not None:
+        print("\nTable 4 (normalized cross-evaluation):")
+        print(result.multiapp.table4())
+        print("\nTable 5 (geomean improvements vs per-app bests):")
+        print(result.multiapp.table5())
+    if result.best is not None:
+        keys = ("pe_group", "mac_per_group", "bank_height", "tif", "tof")
+        print(f"\nbest (score={result.best_score:.2f}):",
+              {k: v for k, v in result.best.asdict().items() if k in keys})
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    study, args = study_from_cli(argv)
+    result = study.run()
+    _print_result(result)
+    path = result.save(args.out)
+    print(f"\n[dse] wrote {path}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,11 @@
+"""Device code of the PyTorch port.
+
+  * `gather`      — `gather_rows`, the validity screen's table gather: a
+                    hand-written CUDA kernel (`csrc/gather_rows.cu`) for
+                    Hopper, with its plain PyTorch version beside it.
+  * `costmodel`   — `FusedTorchScorer`, the fused (GOPS, area) scorer that
+                    runs on a torch device and calls `gather_rows`.
+  * `build`       — nvcc build and ctypes loading of the CUDA sources.
+
+Nothing is compiled or loaded when these modules are imported.
+"""

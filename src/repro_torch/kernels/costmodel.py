@@ -1,0 +1,280 @@
+"""Fused (GOPS, area) scorer on a torch device.
+
+`FusedTorchScorer` is the port's twin of the JAX package's
+`FusedJaxScorer`, with the same contract: `metrics(matrix)` returns what
+`(performance_gops(batch, ...), area_many(batch, ...))` returns for a
+`ConfigBatch` matrix.  The per-(stream, hw, value-set) gather tables are
+built on the host by `repro_torch.core.costmodel._fused_tables_for` and
+uploaded to the device once per table build.  Per call the host only
+codes the pool matrix against the tables (`_FusedTables.codes`, numpy);
+the device runs the rest in int64/float64:
+
+  * the Eq. (9)-(13) validity screen, whose five `[C, O]` table gathers go
+    through `gather_rows` (the hand-written CUDA kernel on a GPU, its
+    plain PyTorch version on the CPU);
+  * the Eq. (1)-(8) latency tail on the rows that pass the screen;
+  * the §4.3 area polynomial.
+
+Every floating-point operation runs in the operand order of the numpy
+`FusedStreamScorer`, and the per-config sum over ops runs in numpy's
+pairwise order (`numpy_order_sum`), so results are bit-identical to the
+numpy scorer on the CPU.  Divisions by constants divide by 0-dim device
+tensors, never by Python scalars: PyTorch's CUDA division by a host scalar
+multiplies by its reciprocal, which can differ in the last bit.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.costmodel import (ConfigBatch, HardwareConstants,
+                                        LoopOrder, OpStream, _FAST_FIELDS,
+                                        _fused_tables_for)
+from repro_torch.kernels.gather import gather_rows
+
+__all__ = ["FusedTorchScorer", "numpy_order_sum", "resolve_device"]
+
+_COL_FIELDS = ("loop_order", "pe_group", "mac_per_group", "bank_height",
+               "bank_width", "weight_banks_pg", "act_banks_pg")
+
+# `_FusedTables` arrays the device pass reads
+_TABLES = ("pb_tbl", "ifp_tbl", "ofp_tbl", "xp_tbl", "yp_tbl", "kk_tbl",
+           "win_x_tbl", "win_y_tbl", "wt_tbl", "spatial_tbl", "u1_tbl",
+           "u2_tbl", "u3_tbl", "atile_tbl", "num_weight", "num_input",
+           "ws_weight", "ie_batch", "is_input", "weight_elems", "repeat",
+           "expand")
+
+
+def resolve_device(device) -> torch.device:
+    """`torch.device(device)`, refusing a CUDA device that is not there
+    (the port never carries on silently on the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} requested but torch.cuda.is_available() "
+            "is False; pass device='cpu' to run on the CPU")
+    return dev
+
+
+def numpy_order_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sums over dim 0 of `x` ([n, R] -> [R]) in the order numpy's
+    `np.add.reduce` adds a contiguous float64 row: the identity 0.0 plus
+    the pairwise sum of the row (8 running partial sums for 8 <= n <= 128,
+    halving at multiples of 8 above).  Float addition is not associative,
+    so this order is what makes the per-config cycle totals bit-identical
+    to the numpy scorer; `torch.sum` keeps no particular order."""
+    return _pairwise(x, 0, x.shape[0]) + 0.0
+
+
+def _pairwise(x: torch.Tensor, lo: int, n: int) -> torch.Tensor:
+    if n < 8:
+        res = torch.zeros(x.shape[1:], dtype=x.dtype, device=x.device)
+        for i in range(lo, lo + n):
+            res = res + x[i]
+        return res
+    if n <= 128:
+        r = x[lo:lo + 8].clone()
+        i = 8
+        while i < n - n % 8:
+            r += x[lo + i:lo + i + 8]
+            i += 8
+        res = ((r[0] + r[1]) + (r[2] + r[3])) + ((r[4] + r[5])
+                                                 + (r[6] + r[7]))
+        for j in range(lo + i, lo + n):
+            res = res + x[j]
+        return res
+    n2 = n // 2
+    n2 -= n2 % 8
+    return _pairwise(x, lo, n2) + _pairwise(x, lo + n2, n - n2)
+
+
+class FusedTorchScorer:
+    """Device-resident fused (GOPS, area) scorer for `ConfigBatch`
+    matrices on one stream, `metrics()`-compatible with the numpy
+    `FusedStreamScorer`.
+
+    `n_uploads` counts table uploads (one per table build); `n_calls`
+    counts `metrics` calls."""
+
+    def __init__(self, stream: OpStream, hw: HardwareConstants,
+                 peak_weight_bits: int = 0, peak_input_bits: int = 0,
+                 domains: Optional[Dict[str, Sequence[int]]] = None,
+                 device="cuda"):
+        if not self.supports(stream):
+            raise ValueError("stream not supported by the fused scorer "
+                             "(zero-size kernel or stride)")
+        self.hw = hw
+        self.peak_weight_bits = int(peak_weight_bits)
+        self.peak_input_bits = int(peak_input_bits)
+        self.device = resolve_device(device)
+        self.t = _fused_tables_for(stream, hw, domains)
+        self._dev: Dict[str, torch.Tensor] = {}
+        self._uploaded_rebuilds = -1
+        self.n_uploads = 0
+        self.n_calls = 0
+
+        def scalar(v: float) -> torch.Tensor:
+            return torch.tensor(float(v), dtype=torch.float64,
+                                device=self.device)
+
+        self._freq = scalar(hw.frequency_hz)
+        self._giga = scalar(1e9)
+        self._total_ops = scalar(self.t.total_ops)
+
+    @staticmethod
+    def supports(stream: OpStream) -> bool:
+        return bool(len(stream)
+                    and (stream.nkx > 0).all() and (stream.nky > 0).all()
+                    and (stream.s > 0).all())
+
+    # ---------------------------------------------------------- device prep
+    def _ensure_uploaded(self) -> None:
+        """(Re)upload the tables after a value-set growth rebuilt them."""
+        if self._uploaded_rebuilds == self.t.n_rebuilds:
+            return
+        t = self.t
+
+        def up(a: np.ndarray) -> torch.Tensor:
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+        self._dev = {name: up(getattr(t, name)) for name in _TABLES}
+        # Eq. (10) weight tile, the screen's gather operand, on its own
+        self._dev["wt_tile"] = up(t.wt_tbl[1])
+        self._uploaded_rebuilds = t.n_rebuilds
+        self.n_uploads += 1
+
+    # -------------------------------------------------------------- scoring
+    def metrics(self, matrix: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """(gops[N], area[N]) float64 for an `[N, 18]` config matrix."""
+        self.n_calls += 1
+        n = matrix.shape[0]
+        if n == 0:
+            z = np.zeros(0, dtype=np.float64)
+            return z, z.copy()
+        t, hw = self.t, self.hw
+        code = t.codes(matrix)          # may grow and rebuild the tables
+        self._ensure_uploaded()
+        dv, nv = self._dev, t.nvals
+        J = ConfigBatch._INDEX
+        codes = torch.from_numpy(
+            np.stack([code[f] for f in _FAST_FIELDS], axis=1)
+        ).to(self.device)
+        cols = torch.from_numpy(
+            np.ascontiguousarray(matrix[:, [J[f] for f in _COL_FIELDS]],
+                                 dtype=np.int64)).to(self.device)
+        c = {f: codes[:, j] for j, f in enumerate(_FAST_FIELDS)}
+        k = {f: cols[:, j] for j, f in enumerate(_COL_FIELDS)}
+        f64 = torch.float64
+
+        pe_group = k["pe_group"]
+        total_macs = pe_group * k["mac_per_group"]
+        banks_w = k["weight_banks_pg"] * pe_group * k["bank_width"]
+        banks_a = k["act_banks_pg"] * pe_group * k["bank_width"]
+        wbuf = banks_w * k["bank_height"]
+        abuf = banks_a * k["bank_height"]
+        # §4.3 area, the `area_many` expression; an int64 tensor times a
+        # Python float would give float32, so convert first as numpy does
+        area = (total_macs.to(f64)
+                * (hw.area_per_mac + hw.area_per_mac_regfile)
+                + (wbuf + abuf).to(f64) * hw.area_per_sram_bit
+                + pe_group.to(f64) * hw.area_per_group_ctrl)
+
+        # joint table rows for the validity screen
+        i_u1 = ((c["tif"] * nv["pif"] + c["pif"]) * nv["pkx"]
+                + c["pkx"]) * nv["pky"] + c["pky"]
+        i_u2 = ((c["tix"] * nv["pox"] + c["pox"]) * nv["tiy"]
+                + c["tiy"]) * nv["poy"] + c["poy"]
+        i_u3 = (c["tof"] * nv["pof"] + c["pof"]) * nv["pb"] + c["pb"]
+        i_wt = c["tif"] * nv["tof"] + c["tof"]
+        i_at = ((c["tix"] * nv["tiy"] + c["tiy"]) * nv["tif"]
+                + c["tif"]) * nv["tof"] + c["tof"]
+
+        # Eq. (9): folded unroll product (int64); Eqs. (10) + (12): tiles
+        unroll = (gather_rows(dv["u1_tbl"], i_u1)
+                  * gather_rows(dv["u2_tbl"], i_u2)
+                  * gather_rows(dv["u3_tbl"], i_u3))
+        valid_ops = unroll <= total_macs[:, None]
+        valid_ops &= wbuf[:, None] >= gather_rows(dv["wt_tile"], i_wt)
+        valid_ops &= abuf[:, None] >= gather_rows(dv["atile_tbl"], i_at)
+        ok = valid_ops.all(dim=1)
+        # Eqs. (11) + (13): peak-residency floors are [C]-shaped
+        if self.peak_weight_bits:
+            ok &= wbuf >= self.peak_weight_bits
+        if self.peak_input_bits:
+            ok &= abuf >= self.peak_input_bits * t.max_batch
+
+        gops = torch.zeros(n, dtype=f64, device=self.device)
+        rows = torch.nonzero(ok).squeeze(1)
+        if rows.numel():
+            cycles = self._cycles(c, k, banks_w, banks_a, rows)
+            seconds = cycles / self._freq
+            gops[rows] = torch.where(
+                cycles > 0,
+                self._total_ops / torch.clamp(seconds, min=1e-30)
+                / self._giga, 0.0)
+        return gops.cpu().numpy(), area.cpu().numpy()
+
+    def _cycles(self, c: Dict[str, torch.Tensor], k: Dict[str, torch.Tensor],
+                banks_w: torch.Tensor, banks_a: torch.Tensor,
+                rows: torch.Tensor) -> torch.Tensor:
+        """Eq. (1)-(8) latency tail on the screen-surviving `rows`."""
+        dv, nv, f64 = self._dev, self.t.nvals, torch.float64
+        c = {f: v[rows] for f, v in c.items()}
+        g = dv["pb_tbl"][:, c["pb"]]
+        batch_iters, pb = g[0], g[1]
+        g = dv["ifp_tbl"][:, c["tif"] * nv["pif"] + c["pif"]]
+        cd_if, pif = g[0], g[1]
+        g = dv["ofp_tbl"][:, c["tof"] * nv["pof"] + c["pof"]]
+        cd_of, pof = g[0], g[1]
+        i_xp = c["tix"] * nv["pox"] + c["pox"]
+        g = dv["xp_tbl"][:, i_xp]
+        cd_ox, pox = g[0], g[1]
+        i_yp = c["tiy"] * nv["poy"] + c["poy"]
+        g = dv["yp_tbl"][:, i_yp]
+        cd_oy, poy = g[0], g[1]
+        g = dv["kk_tbl"][:, c["pkx"] * nv["pky"] + c["pky"]]
+        cd_kk, p_kxky = g[0], g[1]
+        g = dv["wt_tbl"][:, c["tif"] * nv["tof"] + c["tof"]]
+        chan_tiles, ofm_tiles = g[0], g[2]
+        spatial_tiles = dv["spatial_tbl"][c["tix"] * nv["tiy"] + c["tiy"]]
+
+        # Eq. (3): Tkx=Nkx / Tky=Nky make the kernel factors exactly 1
+        inter = chan_tiles * spatial_tiles
+        inner = cd_if * cd_kk * cd_ox * cd_oy * cd_of
+        compute_cycles = inter * inner * batch_iters * dv["repeat"]
+
+        poxy = pox * poy
+        weight_reuse = poxy * pb                                # Eq. (1)
+        in_win = (dv["win_x_tbl"][i_xp * nv["pkx"] + c["pkx"]]
+                  * dv["win_y_tbl"][i_yp * nv["pky"] + c["pky"]])
+        input_reuse = torch.clamp(
+            (pof * p_kxky * poxy) // torch.clamp(in_win, min=1),
+            min=1)                                              # Eq. (2)
+
+        # loop-order dataflows: each element takes its row's branch
+        lo = k["loop_order"][rows][:, None]
+        ws_in = (dv["ie_batch"] * ofm_tiles).to(f64)
+        osis_w = (dv["weight_elems"] * spatial_tiles).to(f64)
+        num_weight_eff = torch.where(
+            lo == int(LoopOrder.PAPER),
+            dv["num_weight"] / torch.clamp(weight_reuse, min=1),
+            torch.where(lo == int(LoopOrder.WEIGHT_STATIONARY),
+                        dv["ws_weight"], osis_w))
+        num_input_eff = torch.where(
+            lo == int(LoopOrder.PAPER),
+            dv["num_input"] / torch.clamp(input_reuse, min=1),
+            torch.where(lo == int(LoopOrder.INPUT_STATIONARY),
+                        dv["is_input"], ws_in))
+
+        bit_width = int(self.hw.bit_width)
+        wbw = torch.clamp(banks_w[rows] // bit_width, min=1)[:, None]
+        abw = torch.clamp(banks_a[rows] // bit_width, min=1)[:, None]
+        weight_cycles = torch.ceil(num_weight_eff / wbw)        # Eq. (7)
+        input_cycles = torch.ceil(num_input_eff / abw)          # Eq. (8)
+        total = torch.maximum(compute_cycles.to(f64),
+                              torch.maximum(weight_cycles, input_cycles))
+        # restore the repeated op columns, then sum them in numpy's order
+        return numpy_order_sum(total.t()[dv["expand"]].contiguous())

@@ -1,0 +1,64 @@
+"""The port stands alone: no source file of `src/repro_torch/` (nor
+`chip_smoke.py`) imports jax or the JAX package, and its CPU main path
+runs without either in `sys.modules`."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+# `import jax`, `from jax...`, `import repro`, `from repro...`; the module
+# name must end there, so `repro_torch` does not match
+FORBIDDEN = re.compile(
+    r"^\s*(?:import|from)\s+(?:jax|repro)(?:\.|\s|,|$)", re.MULTILINE)
+
+
+def sources():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_scan_matches_only_whole_module_names():
+    assert FORBIDDEN.search("import jax\n")
+    assert FORBIDDEN.search("    from repro.core import apps\n")
+    assert FORBIDDEN.search("import repro, os\n")
+    assert not FORBIDDEN.search("from repro_torch.core import apps\n")
+    assert not FORBIDDEN.search("import jaxlib_free_module\n")
+
+
+@pytest.mark.parametrize("path", sources(), ids=lambda p: p.name)
+def test_no_jax_or_repro_import_in_source(path):
+    hits = FORBIDDEN.findall(path.read_text())
+    assert not hits, f"{path.relative_to(ROOT)} imports {hits}"
+
+
+def _run(code, cwd=ROOT):
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    return subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, cwd=cwd, timeout=120)
+
+
+def test_cpu_main_path_loads_neither_jax_nor_repro():
+    proc = _run(
+        "import sys\n"
+        "from repro_torch.dse import Study, SearchBudget\n"
+        "r = Study(apps=['resnet'], engine='greedy', device='cpu',\n"
+        "          budget=SearchBudget.smoke()).run()\n"
+        "assert r.best_score > 0\n"
+        "print(sorted({m.split('.')[0] for m in sys.modules}"
+        " & {'jax', 'repro', 'jaxlib'}))\n")
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+
+
+def test_chip_smoke_refuses_to_run_without_a_gpu(tmp_path):
+    """Without CUDA it exits non-zero and prints no result line."""
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                          capture_output=True, text=True, cwd=tmp_path,
+                          timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
