@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from `src/repro_torch/kernels/csrc`, then
-runs these phases in order, printing one JSON line each:
+Builds the port's CUDA kernels from `src/repro_torch/kernels/csrc` (one
+nvcc per source, all started together), then runs these phases in order,
+printing one JSON line each:
 
   1. device      the card, its power limit, the nvcc build time;
-  2. kernel      `gather_rows` against its plain PyTorch version on the
+  2. kernel gather_rows
+                 `gather_rows` against its plain PyTorch version on the
                  card (the five screen tables of all seven paper apps and a
                  random float64 table; pools of 4097, 65536 and 262144;
                  out-of-range indices), bit-equal, with CUDA-event times of
@@ -20,7 +22,26 @@ runs these phases in order, printing one JSON line each:
   5. throughput  the random engine at 262144-config pools on inception and
                  nasnet, on the card, with where the time goes: the scorer's
                  device time by kind (`torch.profiler`) and the search's
-                 host time by function (`cProfile`, one round).
+                 host time by function (`cProfile`, one round);
+  6. kernel flash_attention
+                 `flash_attention` against its plain PyTorch version, every
+                 output element within a tolerance of about one bf16 ulp, on
+                 the sweep of `tests/test_kernels.py` and on qwen2-0.5b's
+                 heads at S = 512 to 32768 (causal Sq != Skv included, the
+                 prefill's two shapes on random inputs), with CUDA-event
+                 times of the kernel and of `scaled_dot_product_attention`
+                 at S = 32768 and 4096 and of the plain version at S = 4096;
+  7. prefill     the second main path: `make_prefill_step` of qwen2-0.5b at
+                 full width (24 layers, bf16 weights, `use_kernels=True`) at
+                 seq 32768 x batch 1 (prefill_32k with its batch cut from 32)
+                 and seq 2048 x batch 4, held against the same step through
+                 `blocked_attention` (logits and next token), with 24 kernel
+                 launches a forward; then the kernel against its plain
+                 version on the q, k, v that the first and the last layer
+                 hand it at both shapes, every row;
+  8. serve       `serve_requests` at full width (fp32 compute): 8 requests
+                 of 4-12 prompt tokens, batch 4, 16 new tokens each, held
+                 against the port's own CPU run on the same weights.
 
 Then the card's name and power limit as `nvidia-smi` gives them, a
 `{"kernels": [...]}` line, and last `{"ok": true, "device": {...}}`.  Any
@@ -40,12 +61,33 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-# H100 SXM data sheet: 3.35 TB/s of HBM3
+# H100 SXM data sheet: 3.35 TB/s of HBM3, 989 TFLOP/s dense bf16
 HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/gather_rows.cu"
 TPU_KERNEL = "src/repro/kernels/costmodel.py:57"
 POOLS = (4097, 65536, 262144)
 TIMED_POOLS = (65536, 262144)
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+FLASH_TPU = "src/repro/kernels/flash_attention.py:78"
+# |kernel - plain| <= atol + rtol * |plain|, element by element, as
+# (atol, rtol).  Both compute in fp32 (scores, p, accumulator) and differ
+# in summation order only, then round the output to the inputs' dtype:
+# bf16 may land one bf16 ulp apart, at most 2^-7 of the value; atol is
+# the fp32 floor for outputs near zero, where the relative term vanishes.
+FLASH_TOL = {torch.float32: (2e-6, 2e-5), torch.bfloat16: (2e-6, 2 ** -7)}
+# query rows of the plain version per call on long sequences, so that its
+# [B, KV, G, rows, Skv] fp32 scores stay a few GB
+PLAIN_ROWS = 1024
+ARCH = "qwen2-0.5b"
+# prefill logits, kernel path against the blocked path, both bf16:
+# |a - b| <= PREFILL_TOL * (1 + |b|), about 4x the largest gap measured
+# (0.0054 on the H100); the blocked path also rounds p to bf16
+PREFILL_TOL = 0.02
+# served logits, card against CPU, fp32 with TF32 off: the only gap is the
+# summation order, plus the odd K/V entry that rounds to the other bf16
+# neighbour in the cache; |a - b| <= SERVE_TOL * (1 + |b|)
+SERVE_TOL = 2e-3
 
 
 class SmokeFailure(RuntimeError):
@@ -59,6 +101,12 @@ def check(cond: bool, msg: str) -> None:
 
 def emit(phase: str, **rec) -> None:
     print(json.dumps({"phase": phase, **rec}), flush=True)
+
+
+def check_isolated() -> None:
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "repro"))
+    check(not leaked, f"the port imported {leaked[:5]}")
 
 
 def device_ms(fn, reps: int = 7, inner: int = 20) -> float:
@@ -215,9 +263,7 @@ def phase_study(names) -> int:
     check(gpu["launches"] > 0, "the cuda study never launched gather_rows")
     check(cpu["launches"] == 0, "gather_rows launched on the cpu study")
     check(gpu["scorer_calls"] > 0, "the cuda study never called the scorer")
-    leaked = sorted(m for m in sys.modules
-                    if m.split(".")[0] in ("jax", "repro"))
-    check(not leaked, f"the port imported {leaked[:5]}")
+    check_isolated()
     emit("study", apps=list(names), selected=gpu["result"].best.asdict(),
          same_selection=True, best_score=gpu["result"].best_score,
          cuda_s=gpu["seconds"], cpu_s=cpu["seconds"],
@@ -226,11 +272,14 @@ def phase_study(names) -> int:
     return gpu["launches"]
 
 
-def device_breakdown(calls: dict) -> dict:
+def device_breakdown(calls: dict, kinds: dict) -> dict:
     """Device time of one call of each function in `calls`, in us, from one
-    `torch.profiler` session: `gather_rows`'s, the other kernels', and the
-    host<->device copies'.  Device work belongs to the call whose host
-    range holds it (each call ends in a synchronise)."""
+    `torch.profiler` session, split by kind: `kinds` maps an output key to
+    the kernel-name substrings that mark it; the rest is
+    `other_kernels_us`, and host<->device copies are `copies_us`.  Device
+    work belongs to the call whose host range holds it (each call ends in
+    a synchronise); `wall_us` is that range and `kernels` the number of
+    kernels launched in it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -244,8 +293,9 @@ def device_breakdown(calls: dict) -> dict:
     spans = {e.name[len("smoke:"):]: e.time_range for e in events
              if e.device_type == DeviceType.CPU
              and e.name.startswith("smoke:")}
-    out = {name: {"gather_rows_us": 0.0, "other_kernels_us": 0.0,
+    out = {name: {**{k: 0.0 for k in kinds}, "other_kernels_us": 0.0,
                   "copies_us": 0.0} for name in calls}
+    counts = dict.fromkeys(calls, 0)
     for e in events:
         if (e.device_type != DeviceType.CUDA or e.name.startswith("smoke:")
                 or "Activity Buffer" in e.name):
@@ -256,13 +306,16 @@ def device_breakdown(calls: dict) -> dict:
             continue
         if e.name.startswith(("Memcpy", "Memset")):
             key = "copies_us"
-        elif "gather_rows_kernel" in e.name:
-            key = "gather_rows_us"
         else:
-            key = "other_kernels_us"
+            counts[owner[0]] += 1
+            key = next((k for k, marks in kinds.items()
+                        if any(m in e.name for m in marks)),
+                       "other_kernels_us")
         out[owner[0]][key] += e.time_range.elapsed_us()
-    for us in out.values():
+    for name, us in out.items():
         us["busy_us"] = sum(us.values())
+        us["wall_us"] = spans[name].elapsed_us()
+        us["kernels"] = counts[name]
     return out
 
 
@@ -331,12 +384,341 @@ def phase_throughput(specs, space, rng) -> None:
             "gather_rows_launches": launches,
             "host_profile_one_round": host_profile(lambda: search(1))}
     # the scorer's device time by kind, all apps in one profiler session
-    for name, device in device_breakdown(calls).items():
+    for name, device in device_breakdown(
+            calls, {"gather_rows_us": ("gather_rows_kernel",)}).items():
         rec = per_app[name]
         device["idle_share"] = 1.0 - device["busy_us"] / (rec["scorer_s"]
                                                           * 1e6)
         rec["scorer_device"] = device
     emit("throughput", apps=per_app)
+
+
+def flash_bound(b, sq, skv, h, kv, hd, causal, itemsize) -> dict:
+    """Least time for one call: the larger of its operations (two
+    products over the visible (query, key) pairs) at the bf16 tensor-core
+    peak and its bytes (q, k, v read once, out written once) at the HBM
+    rate.  Causal pairs are counted exactly (top-left mask)."""
+    if causal:
+        full = min(sq, skv)              # row i sees min(i + 1, skv) keys
+        pairs = full * (full + 1) // 2 + max(0, sq - skv) * skv
+    else:
+        pairs = sq * skv
+    flops = 4 * b * h * hd * pairs
+    nbytes = itemsize * (2 * b * sq * h * hd + 2 * b * skv * kv * hd)
+    t_ops, t_bytes = flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    return {"flop": flops, "bytes": nbytes,
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def flash_against_plain(q, k, v, causal: bool) -> dict:
+    """The kernel's output on every row against the plain version's, the
+    plain version run `PLAIN_ROWS` query rows at a time: the max abs
+    error and the worst |error| / (atol + rtol |plain|), which passes at
+    <= 1."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.models.layers import full_precision_products
+
+    atol, rtol = FLASH_TOL[q.dtype]
+    err = ratio = 0.0
+    with torch.inference_mode(), full_precision_products():
+        got = flash_attention(q, k, v, causal=causal).float()
+        for i in range(0, q.shape[1], PLAIN_ROWS):
+            want = flash_attention_plain(q[:, i:i + PLAIN_ROWS], k, v,
+                                         causal=causal, q_offset=i).float()
+            diff = (got[:, i:i + PLAIN_ROWS] - want).abs()
+            err = max(err, float(diff.max()))
+            ratio = max(ratio, float((diff / (atol + rtol * want.abs()))
+                                     .max()))
+    return {"max_abs_err": err, "tol_ratio": ratio}
+
+
+def phase_flash(gen) -> dict:
+    """The flash kernel against its plain version, then its times."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+
+    def inputs(b, sq, skv, h, kv, hd, dtype):
+        return [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                for shape in ((b, sq, h, hd), (b, skv, kv, hd),
+                              (b, skv, kv, hd))]
+
+    cases = [(2, sq, skv, h, kv, hd, causal, dtype)
+             for sq, skv, h, kv, hd in ((64, 64, 4, 4, 32), (96, 96, 4, 2, 32),
+                                        (128, 128, 8, 1, 16),
+                                        (80, 48, 4, 4, 32))
+             for causal in (True, False)
+             for dtype in (torch.float32, torch.bfloat16)]
+    cases += [(1, sq, skv, 14, 2, 64, causal, dtype)
+              for sq, skv, causal in ((512, 512, True), (512, 512, False),
+                                      (2048, 2048, True), (4096, 4096, True),
+                                      (1000, 4096, True), (4096, 1000, True),
+                                      (2048, 512, False))
+              for dtype in (torch.float32, torch.bfloat16)]
+    # the prefill's two shapes, all rows (its own inputs: prefill phase)
+    cases += [(4, 2048, 2048, 14, 2, 64, True, torch.bfloat16),
+              (1, 32768, 32768, 14, 2, 64, True, torch.bfloat16)]
+    worst = {"float32": {"max_abs_err": 0.0, "tol_ratio": 0.0},
+             "bfloat16": {"max_abs_err": 0.0, "tol_ratio": 0.0}}
+    failed = []
+    for b, sq, skv, h, kv, hd, causal, dtype in cases:
+        res = flash_against_plain(*inputs(b, sq, skv, h, kv, hd, dtype),
+                                  causal)
+        w = worst[str(dtype).split(".")[-1]]
+        for key in w:
+            w[key] = max(w[key], res[key])
+        if res["tol_ratio"] > 1.0:
+            failed.append(f"B={b} Sq={sq} Skv={skv} H={h} KV={kv} hd={hd} "
+                          f"causal={causal} {dtype}: {res}")
+
+    timings = {}
+    for s_len, with_plain in ((32768, False), (4096, True)):
+        q, k, v = inputs(1, s_len, s_len, 14, 2, 64, torch.bfloat16)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        reps = dict(reps=3, inner=2) if s_len > 4096 else {}
+        row = {"B": 1, "S": s_len, "H": 14, "KV": 2, "hd": 64,
+               "causal": True, "dtype": "bfloat16",
+               "kernel_ms": device_ms(
+                   lambda: flash_attention(q, k, v, causal=True), **reps),
+               "library_ms": device_ms(
+                   lambda: F.scaled_dot_product_attention(
+                       qt, kt, vt, is_causal=True, enable_gqa=True), **reps),
+               "plain_ms": (device_ms(lambda: flash_attention_plain(
+                   q, k, v, causal=True), reps=3, inner=2)
+                   if with_plain else None)}
+        row.update(flash_bound(1, s_len, s_len, 14, 2, 64, True, 2))
+        timings[str(s_len)] = row
+    emit("kernel flash_attention", cases=len(cases), worst=worst,
+         tolerance={"float32": FLASH_TOL[torch.float32],
+                    "bfloat16": FLASH_TOL[torch.bfloat16]},
+         failed=failed, timings=timings)
+    check(not failed, f"flash_attention != plain on {len(failed)} cases: "
+                      f"{failed[:3]}")
+    return {"max_abs_err": max(w["max_abs_err"] for w in worst.values()),
+            "timings": timings}
+
+
+def kernel_inputs(model, params, inputs, rt, layers) -> dict:
+    """{layer: (q, k, v)} for each of `layers`: what `gqa_attention_train`
+    hands `flash_attention` there in the prefill's forward, recomputed
+    with the port's own functions.  Each is tied to the main path: that
+    layer's attention through `gqa_attention_train` must equal, bit for
+    bit, `gqa_out` of the kernel on the recomputed q, k, v."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import layers as L
+    from repro_torch.models.lm import block_apply_train
+
+    cfg = model.cfg
+    hd, heads, kv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    out = {}
+    with torch.inference_mode(), L.full_precision_products():
+        x = model._embed_inputs(params, inputs, rt)
+        pos = torch.arange(x.shape[1], device=x.device)[None, :]
+        cos, sin = L.rope_cos_sin(pos, hd, cfg.rope_theta)
+        for i, (kind, p) in enumerate(zip(model.kinds, params["layers"])):
+            if i in layers:
+                h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+                q, k, v = L.gqa_project(p["attn"], h, heads, kv, hd, rt)
+                q, k = L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin)
+                main = L.gqa_attention_train(
+                    p["attn"], h, n_heads=heads, n_kv=kv, hd=hd,
+                    rope_theta=cfg.rope_theta, rt=rt, causal=True)
+                mine = L.gqa_out(p["attn"],
+                                 flash_attention(q, k, v, causal=True), rt)
+                check(torch.equal(main, mine),
+                      f"layer {i}'s recomputed kernel inputs are not the "
+                      f"main path's")
+                out[i] = (q, k, v)
+            if len(out) == len(layers):
+                return out
+            x = block_apply_train(cfg, kind, p, x, rt)
+    raise SmokeFailure(f"the model has no layers {sorted(layers)}")
+
+
+def phase_prefill() -> int:
+    """qwen2-0.5b's batched prefill at full width through the kernel,
+    against the blocked path; returns the kernel's launches."""
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.steps import (build_model, make_prefill_step,
+                                          make_runtime)
+
+    cfg = configs.get_arch(ARCH)
+    shape = configs.shape_by_name("prefill_32k")
+    model = build_model(cfg)
+    rt = make_runtime(cfg, shape, use_kernels=True)
+    rt_plain = make_runtime(cfg, shape, use_kernels=False)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = model.init(gen, rt)
+    step, step_plain = (make_prefill_step(model, rt),
+                        make_prefill_step(model, rt_plain))
+    runs, forwards, all_inputs = {}, 0, {}
+    flash_attention.launches = 0
+    # prefill_32k's sequence with its batch cut from 32 to 1, and a
+    # shorter batched prefill
+    for seq, batch in ((shape.seq_len, 1), (2048, 4)):
+        tokens = torch.randint(0, cfg.vocab_size, (batch, seq),
+                               generator=gen, device="cuda")
+        inputs = all_inputs[f"seq{seq}_batch{batch}"] = {"tokens": tokens}
+        walls = []
+        for rep in range(3):                      # warm-up + 2 timed
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = flash_attention.launches
+            t0 = time.perf_counter()
+            logits = step(params, inputs)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            per_forward = flash_attention.launches - before
+            check(per_forward == cfg.num_layers,
+                  f"prefill launched flash_attention {per_forward} times "
+                  f"in a forward, expected {cfg.num_layers}")
+            forwards += 1
+        peak = torch.cuda.max_memory_allocated()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = step_plain(params, inputs)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        v = cfg.vocab_size
+        got, want = logits[:, :v].float(), ref[:, :v].float()
+        check(tuple(logits.shape) == (batch, model.v_pad),
+              f"prefill logits {tuple(logits.shape)}")
+        check(bool(torch.isfinite(got).all()), "prefill logits not finite")
+        diff = (got - want).abs()
+        check(bool((diff <= PREFILL_TOL * (1 + want.abs())).all()),
+              f"prefill logits through the kernel differ from the blocked "
+              f"path by {float(diff.max())} at seq {seq}")
+        top1 = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+        top2 = want.topk(2, dim=-1).values
+        check(top1 == 1.0, f"prefill's next token through the kernel "
+                           f"differs from the blocked path's on "
+                           f"{(1 - top1) * batch:.0f} of {batch} rows")
+        wall = float(np.median(walls[1:]))
+        device = device_breakdown(
+            {"forward": lambda: step(params, inputs)},
+            {"flash_attention_us": ("flash_attention_kernel",),
+             "matmul_us": ("gemm", "nvjet", "xmma")})["forward"]
+        device["idle_share"] = 1.0 - device["busy_us"] / device["wall_us"]
+        forwards += 1
+        runs[f"seq{seq}_batch{batch}"] = {
+            "seq": seq, "batch": batch, "wall_s": wall, "walls_s": walls,
+            "tokens_per_s": seq * batch / wall,
+            "blocked_wall_s": plain_s,
+            "max_memory_allocated": peak,
+            "launches_per_forward": cfg.num_layers,
+            "max_abs_diff_vs_blocked": float(diff.max()),
+            "top1_agreement": top1,
+            "blocked_top1_margin_min": float((top2[:, 0] - top2[:, 1]).min()),
+            "tolerance": PREFILL_TOL,
+            "device_one_forward": device}
+    launches = flash_attention.launches
+    check(launches == forwards * cfg.num_layers,
+          f"prefill launched flash_attention {launches} times in "
+          f"{forwards} forwards")
+
+    # the kernel against its plain version on every row of what the main
+    # path hands it: the first and the last layer's q, k, v at both shapes
+    failed = []
+    for name, inputs in all_inputs.items():
+        runs[name]["kernel_vs_plain"] = {}
+        for layer, (q, k, v) in kernel_inputs(
+                model, params, inputs, rt, (0, cfg.num_layers - 1)).items():
+            res = flash_against_plain(q, k, v, causal=True)
+            res["shape"] = {"q": list(q.shape), "kv": list(k.shape),
+                            "dtype": str(q.dtype).split(".")[-1]}
+            runs[name]["kernel_vs_plain"][f"layer{layer}"] = res
+            if res["tol_ratio"] > 1.0:
+                failed.append(f"{name} layer {layer}: {res}")
+    check_isolated()
+    emit("prefill", arch=ARCH, layers=cfg.num_layers,
+         param_dtype="bfloat16", compute_dtype="bfloat16",
+         reduced={"prefill_32k": "global_batch 32 -> 1"},
+         flash_attention_launches=launches,
+         kernel_tolerance=FLASH_TOL[torch.bfloat16], failed=failed,
+         runs=runs)
+    check(not failed, f"flash_attention != plain on the prefill's own "
+                      f"inputs: {failed[:2]}")
+    return launches
+
+
+def phase_serve() -> None:
+    """`serve_requests` at full width on the card, held against the
+    port's CPU run on the same weights (teacher-forced logits)."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import serve_requests
+    from repro_torch.launch.steps import build_model, make_serve_step
+    from repro_torch.models.layers import Runtime
+
+    cfg = configs.get_arch(ARCH)
+    model = build_model(cfg)
+    rt = Runtime(compute_dtype=torch.float32)
+    params_cpu = model.init(torch.Generator().manual_seed(0), rt)
+    params = {"embed": params_cpu["embed"].cuda(),
+              "final_norm": params_cpu["final_norm"].cuda(),
+              "layers": [{k: (v.cuda() if torch.is_tensor(v)
+                              else {n: t.cuda() for n, t in v.items()})
+                          for k, v in layer.items()}
+                         for layer in params_cpu["layers"]]}
+    rng = np.random.default_rng(0)
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size,
+                                             size=rng.integers(4, 13))]
+               for _ in range(8)]
+    serve_requests(cfg, prompts[:1], batch=1, max_new=2, device="cuda",
+                   params=params)                 # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = serve_requests(cfg, prompts, batch=4, max_new=16,
+                             device="cuda", params=params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(len(results) == 8 and all(len(r.generated) == 16
+                                    for r in results),
+          "serve did not answer every request with 16 tokens")
+    check(all(0 <= t < cfg.vocab_size for r in results for t in r.generated),
+          "serve generated a token outside the vocabulary")
+
+    # teacher-forced: request 0's prompt and its first 8 generated tokens
+    # through the decode step on the card and on the CPU
+    seq = results[0].prompt + results[0].generated[:8]
+    out = {}
+    for dev, p in (("cuda", params), ("cpu", params_cpu)):
+        step = make_serve_step(model, rt)
+        cache = model.init_cache(1, 64, rt, dev)
+        rows = []
+        for pos, t in enumerate(seq):
+            tok = torch.full((1, 1), t, dtype=torch.int64, device=dev)
+            logits, cache = step(p, cache, tok, pos)
+            rows.append(logits[0, 0, :cfg.vocab_size].cpu())
+        out[dev] = torch.stack(rows)
+    # where one decode step's time goes (the cache already holds `seq`)
+    step = make_serve_step(model, rt)
+    cache = model.init_cache(1, 64, rt, "cuda")
+    tok = torch.full((1, 1), seq[0], dtype=torch.int64, device="cuda")
+    step(params, cache, tok, 0)
+    device = device_breakdown(
+        {"decode_step": lambda: step(params, cache, tok, 1)},
+        {"matmul_us": ("gemm", "gemv", "nvjet", "xmma")})["decode_step"]
+    device["idle_share"] = 1.0 - device["busy_us"] / device["wall_us"]
+    diff = (out["cuda"] - out["cpu"]).abs()
+    check(bool(torch.isfinite(out["cuda"]).all()), "served logits not finite")
+    check(bool((diff <= SERVE_TOL * (1 + out["cpu"].abs())).all()),
+          f"served logits on the card differ from the CPU by "
+          f"{float(diff.max())}")
+    same_next = float((out["cuda"].argmax(-1) == out["cpu"].argmax(-1))
+                      .float().mean())
+    generated = sum(len(r.generated) for r in results)
+    check_isolated()
+    emit("serve", arch=ARCH, layers=cfg.num_layers, compute_dtype="float32",
+         requests=len(results), batch=4, max_new=16,
+         prompt_lens=[len(p) for p in prompts], wall_s=wall,
+         generated_tokens=generated, tokens_per_s=generated / wall,
+         latency_s=[r.latency_s for r in results],
+         teacher_forced_steps=len(seq),
+         max_abs_diff_vs_cpu=float(diff.max()), tolerance=SERVE_TOL,
+         argmax_agreement_vs_cpu=same_next, device_one_step=device)
 
 
 def main() -> int:
@@ -365,7 +747,9 @@ def main() -> int:
     emit("device", name=torch.cuda.get_device_name(0), nvidia_smi=smi,
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, nvcc_build_s=build_s,
-         ptxas={k: v.strip().splitlines()[-3:] for k, v in logs.items()})
+         ptxas={k: [ln.strip() for ln in v.splitlines()
+                    if "Used" in ln or "spill" in ln]
+                for k, v in logs.items()})
 
     rng = np.random.default_rng(0)
     space = default_space()
@@ -375,8 +759,13 @@ def main() -> int:
     launches = phase_study(APP_NAMES)
     phase_throughput([s for s in specs if s.name in ("inception", "nasnet")],
                      space, rng)
+    flash = phase_flash(torch.Generator(device="cuda").manual_seed(0))
+    flash_launches = phase_prefill()
+    phase_serve()
+    check_isolated()
 
     t = kern["timings"][str(TIMED_POOLS[-1])]
+    f = flash["timings"]["32768"]
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
         "name": "gather_rows", "route": "cuda", "source": KERNEL_SOURCE,
@@ -387,7 +776,21 @@ def main() -> int:
         "bit_equal": True, "ms": t["int64_kernel_ms"],
         "kernel_ms": t["int64_kernel_ms"], "plain_ms": t["int64_plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": "bytes",
-        "library_ms": t["int64_library_ms"]}]}), flush=True)
+        "library_ms": t["int64_library_ms"]}, {
+        "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
+        "replaces": FLASH_TPU,
+        "tpu": "src/repro/kernels/flash_attention.py:_flash_kernel",
+        "shape": {k: f[k] for k in ("B", "S", "H", "KV", "hd", "causal",
+                                     "dtype")},
+        "launches": flash_launches, "max_abs_err": flash["max_abs_err"],
+        "ms": f["kernel_ms"], "kernel_ms": f["kernel_ms"],
+        "plain_ms": flash["timings"]["4096"]["plain_ms"],
+        "plain_shape": {"S": 4096},
+        "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
+        "library_ms": f["library_ms"],
+        "at_4096": {k: flash["timings"]["4096"][k]
+                    for k in ("kernel_ms", "plain_ms", "library_ms",
+                              "bound_ms", "bound_by")}}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,24 +1,27 @@
 """Carry the JAX package's state into the port, as plain data.
 
-The DSE system has no weights: its state is op streams, design spaces and
-configurations.  These functions build the port's objects from plain
-Python/numpy data that the JAX package's objects export, so a test can
-hand both packages the same inputs without the port importing the other
-package.
+The DSE loop's state is op streams, design spaces and configurations;
+the model zoo's is a parameter tree.  These functions build the port's
+objects from plain Python/numpy data that the JAX package's objects
+export, so a test can hand both packages the same inputs without the port
+importing the other package.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Mapping, Sequence
+from typing import Any, Dict, Iterable, Mapping, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.core.costmodel import (ConfigBatch, HardwareConstants, Op,
                                         OpKind, OpStream)
 from repro_torch.core.space import DesignSpace
+from repro_torch.models.config import ArchConfig
+from repro_torch.models.lm import plan_groups
 
 __all__ = ["ops_from_records", "space_from_domains",
-           "config_batch_from_matrix"]
+           "config_batch_from_matrix", "decoder_params_from_numpy"]
 
 
 def ops_from_records(records: Iterable[Mapping]) -> OpStream:
@@ -46,3 +49,39 @@ def config_batch_from_matrix(matrix: np.ndarray) -> ConfigBatch:
     """`ConfigBatch` from an `[N, 18]` integer matrix in the canonical
     `ConfigBatch.FIELDS` column order."""
     return ConfigBatch(np.asarray(matrix, dtype=np.int64))
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":          # ml_dtypes: no torch twin
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def _map_leaves(fn, tree):
+    if isinstance(tree, Mapping):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def decoder_params_from_numpy(cfg: ArchConfig, tree: Mapping[str, Any],
+                              device="cpu") -> Dict[str, Any]:
+    """The port's `DecoderLM` parameters from a reference `DecoderLM`
+    parameter tree with numpy leaves: ``{"embed", "final_norm",
+    ("lm_head",) "groups": [[unit dicts, leaves stacked on the group's
+    repeats]]}``.  Stacked leaves are sliced into one dict per layer;
+    every leaf keeps its layout (`wq` is `[d, H*hd]`) and dtype."""
+    out: Dict[str, Any] = {
+        k: _tensor(tree[k], device)
+        for k in ("embed", "final_norm", "lm_head") if k in tree}
+    layers = []
+    for g, gparams in zip(plan_groups(cfg), tree["groups"]):
+        for r in range(g.repeats):
+            for unit in gparams:
+                layers.append(_map_leaves(
+                    lambda a, r=r: _tensor(
+                        np.asarray(a)[r] if g.repeats > 1 else a, device),
+                    unit))
+    out["layers"] = layers
+    return out

@@ -1,0 +1,238 @@
+"""Decoder language model of the port, assembled from
+`repro_torch.models.layers`.
+
+The reference scans over pattern groups with each unit's parameters
+stacked along a `repeats` axis; here PyTorch runs eagerly, so the model
+is a Python loop over layers, each with its own parameter dict:
+
+    {"embed": [V_pad, d], "final_norm": [d], ("lm_head": [d, V_pad],)
+     "layers": [{"ln1", "attn": {wq, wk, wv, wo, (bq, bk, bv)}, "ln2",
+                 "mlp": {w1, w3, w2}}, ...]}
+
+`repro_torch.convert.decoder_params_from_numpy` carries a reference
+parameter tree into this layout.  Supported: dense GQA decoders (qwen2*,
+mistral-nemo) and the VLM stub (internvl2: a patch-embedding prefix).
+MLA, MoE, recurrent and xLSTM blocks, the training loss and remat are
+ported in a later slice (see ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.models import layers as L
+from repro_torch.models.config import ArchConfig
+from repro_torch.models.layers import Runtime, Spec
+
+Params = Any
+
+__all__ = ["DecoderLM", "Group", "plan_groups", "padded_vocab",
+           "cross_entropy"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Group:
+    """A pattern group: `unit` (tuple of block kinds) repeated `repeats`
+    times."""
+
+    unit: Tuple[str, ...]
+    repeats: int
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor
+                  ) -> torch.Tensor:
+    """Per-token cross-entropy [B, S] in fp32 (logsumexp minus the label's
+    logit)."""
+    x = logits.float()
+    m = x.amax(dim=-1, keepdim=True)
+    lse = torch.log(torch.exp(x - m).sum(dim=-1)) + m[..., 0]
+    return lse - x.gather(-1, targets[..., None])[..., 0]
+
+
+def plan_groups(cfg: ArchConfig) -> List[Group]:
+    n = cfg.num_layers
+    groups: List[Group] = []
+    if cfg.moe is not None and cfg.moe.first_dense:
+        groups.append(Group(("attn_dense",) * cfg.moe.first_dense, 1))
+        n -= cfg.moe.first_dense
+    unit = cfg.block_pattern
+    r, rem = divmod(n, len(unit))
+    if r:
+        groups.append(Group(unit, r))
+    if rem:
+        groups.append(Group(unit[:rem], 1))
+    return groups
+
+
+# =========================================================== block dispatch
+
+def _check_block(cfg: ArchConfig, kind: str) -> None:
+    if kind in ("local_attn", "rglru", "mlstm", "slstm"):
+        raise L.not_ported(f"the {kind!r} block")
+    if kind not in ("attn", "attn_dense"):
+        raise ValueError(kind)
+    if cfg.mla is not None:
+        raise L.not_ported("MLA attention")
+    if cfg.moe is not None:
+        raise L.not_ported("the MoE block")
+
+
+def block_specs(cfg: ArchConfig, kind: str) -> Dict[str, Any]:
+    _check_block(cfg, kind)
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    return {
+        "ln1": Spec((d,), ("embed",), "ones"),
+        "attn": L.gqa_specs(d, cfg.num_heads, cfg.num_kv_heads, hd,
+                            cfg.qkv_bias),
+        "ln2": Spec((d,), ("embed",), "ones"),
+        "mlp": L.swiglu_specs(d, cfg.d_ff),
+    }
+
+
+def block_apply_train(cfg: ArchConfig, kind: str, p: Params,
+                      x: torch.Tensor, rt: Runtime) -> torch.Tensor:
+    _check_block(cfg, kind)
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    x = x + L.gqa_attention_train(
+        p["attn"], h, n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads,
+        hd=cfg.resolved_head_dim, rope_theta=cfg.rope_theta, rt=rt,
+        causal=True)
+    h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + L.swiglu(p["mlp"], h2, rt)
+
+
+def block_cache_specs(cfg: ArchConfig, kind: str, batch: int,
+                      max_len: int) -> Dict[str, Spec]:
+    _check_block(cfg, kind)
+    shape = (batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    axes = ("batch", "kv_seq", "kv_heads", None)
+    return {"k": Spec(shape, axes, "zeros", "bf16"),
+            "v": Spec(shape, axes, "zeros", "bf16")}
+
+
+def block_apply_decode(cfg: ArchConfig, kind: str, p: Params,
+                       x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                       pos: int, rt: Runtime
+                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    _check_block(cfg, kind)
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    a, cache = L.gqa_attention_decode(
+        p["attn"], h, cache, pos, n_heads=cfg.num_heads,
+        n_kv=cfg.num_kv_heads, hd=cfg.resolved_head_dim,
+        rope_theta=cfg.rope_theta, rt=rt)
+    x = x + a
+    h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + L.swiglu(p["mlp"], h2, rt), cache
+
+
+# ================================================================= the model
+
+def padded_vocab(v: int) -> int:
+    """The vocabulary padded to a multiple of 256, as the reference pads
+    its embedding; padded logit columns are masked before any softmax."""
+    return -(-v // 256) * 256
+
+
+class DecoderLM(nn.Module):
+    """Decoder LM over an explicit parameter dict (see the module note).
+
+    The module holds the architecture, not the weights: `init` makes a
+    parameter dict and every call takes one, as the reference's pure
+    functions do, so converted reference weights and random ones go
+    through the same code."""
+
+    def __init__(self, cfg: ArchConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.groups = plan_groups(cfg)
+        self.kinds = [kind for g in self.groups for _ in range(g.repeats)
+                      for kind in g.unit]
+        self.v_pad = padded_vocab(cfg.vocab_size)
+
+    # ----------------------------------------------------------- param specs
+    def param_specs(self) -> Dict[str, Any]:
+        cfg = self.cfg
+        specs: Dict[str, Any] = {
+            "embed": Spec((self.v_pad, cfg.d_model), ("vocab", "embed")),
+            "final_norm": Spec((cfg.d_model,), ("embed",), "ones"),
+            "layers": [block_specs(cfg, kind) for kind in self.kinds],
+        }
+        if not cfg.tie_embeddings:
+            specs["lm_head"] = Spec((cfg.d_model, self.v_pad),
+                                    ("embed", "vocab"))
+        return specs
+
+    def init(self, generator: torch.Generator, rt: Runtime) -> Params:
+        """Random parameters on the generator's device."""
+        return L.init_params(self.param_specs(), generator, rt.param_dtype)
+
+    # -------------------------------------------------------------- forward
+    def _embed_inputs(self, params: Params, batch: Dict[str, torch.Tensor],
+                      rt: Runtime) -> torch.Tensor:
+        x = params["embed"][batch["tokens"]].to(rt.compute_dtype)
+        if self.cfg.frontend == "vit_stub" and "patch_embeds" in batch:
+            x = torch.cat([batch["patch_embeds"].to(rt.compute_dtype), x],
+                          dim=1)
+        return x
+
+    def _logits(self, params: Params, x: torch.Tensor, rt: Runtime
+                ) -> torch.Tensor:
+        """Final norm and the vocab projection; fp32 [B, S, V_pad]."""
+        x = L.rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+        head = (params["embed"].t() if self.cfg.tie_embeddings
+                else params["lm_head"])
+        return self._mask_pad(L.cd_matmul(x, head, rt.compute_dtype))
+
+    def forward(self, params: Params, batch: Dict[str, torch.Tensor],
+                rt: Runtime, last_only: bool = False) -> torch.Tensor:
+        """Full-sequence forward -> logits [B, S_total, V_pad] in the
+        compute dtype (or [B, 1, V_pad] when `last_only`: serving prefill
+        needs only the sampler's input, and the full logits of a 32k
+        sequence take GBs)."""
+        x = self._embed_inputs(params, batch, rt)
+        for kind, p in zip(self.kinds, params["layers"]):
+            x = block_apply_train(self.cfg, kind, p, x, rt)
+        if last_only:
+            x = x[:, -1:]
+        return self._logits(params, x, rt).to(rt.compute_dtype)
+
+    def _mask_pad(self, logits: torch.Tensor) -> torch.Tensor:
+        if self.v_pad == self.cfg.vocab_size:
+            return logits
+        pad = torch.arange(self.v_pad, device=logits.device) \
+            >= self.cfg.vocab_size
+        return logits.masked_fill(pad, -1e9)
+
+    # --------------------------------------------------------------- decode
+    def cache_specs(self, batch: int, max_len: int) -> List[Dict[str, Spec]]:
+        return [block_cache_specs(self.cfg, kind, batch, max_len)
+                for kind in self.kinds]
+
+    def init_cache(self, batch: int, max_len: int, rt: Runtime,
+                   device: torch.device | str = "cpu"
+                   ) -> List[Dict[str, torch.Tensor]]:
+        """Zeroed per-layer KV caches (bf16, as in the reference); the
+        decode step writes into them in place."""
+        if rt.kv_dtype != "bf16":
+            raise L.not_ported(f"the {rt.kv_dtype!r} KV cache")
+        return L.map_specs(
+            lambda s: torch.zeros(s.shape, device=device,
+                                  dtype=s.resolved_dtype(torch.bfloat16)),
+            self.cache_specs(batch, max_len))
+
+    def decode_step(self, params: Params,
+                    cache: List[Dict[str, torch.Tensor]],
+                    token: torch.Tensor, pos: int, rt: Runtime
+                    ) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
+        """One decode step: token [B, 1] int64, `pos` its position (an
+        int).  Returns fp32 logits [B, 1, V_pad] and the caches."""
+        x = params["embed"][token].to(rt.compute_dtype)
+        new_caches = []
+        for kind, p, c in zip(self.kinds, params["layers"], cache):
+            x, c = block_apply_decode(self.cfg, kind, p, x, c, pos, rt)
+            new_caches.append(c)
+        return self._logits(params, x, rt), new_caches

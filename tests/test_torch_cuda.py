@@ -16,6 +16,8 @@ import torch
 from repro_torch.core.multiapp import AppSpec
 from repro_torch.core.space import default_space
 from repro_torch.kernels.costmodel import FusedTorchScorer
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
 from repro_torch.kernels.gather import gather_rows, gather_rows_plain
 
 pytestmark = pytest.mark.cuda
@@ -77,3 +79,59 @@ def test_scorer_on_the_card_equals_the_cpu(gpu, app):
     assert (g_cpu > 0).any()
     np.testing.assert_array_equal(g_gpu, g_cpu)
     np.testing.assert_array_equal(a_gpu, a_cpu)
+
+
+# flash_attention: the sweep of tests/test_kernels.py plus causal Sq != Skv,
+# qwen2-0.5b's heads and head dim 128; fp32 to 3e-4, bf16 to 2e-2 (both
+# round the output to bf16)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,sq,skv,h,kv,hd", [
+    (2, 64, 64, 4, 4, 32), (2, 96, 96, 4, 2, 32), (2, 128, 128, 8, 1, 16),
+    (2, 80, 48, 4, 4, 32), (2, 48, 80, 4, 2, 16), (1, 300, 300, 14, 2, 64),
+    (1, 200, 333, 14, 2, 64), (2, 70, 70, 4, 1, 128)])
+def test_flash_kernel_matches_plain(gpu, b, sq, skv, h, kv, hd, causal,
+                                    dtype):
+    rng = np.random.default_rng(sq + skv + hd)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(gpu, dtype) for s in ((b, sq, h, hd), (b, skv, kv, hd),
+                                         (b, skv, kv, hd)))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 3e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), flash_attention_plain(
+        q, k, v, causal=causal).float(), rtol=tol, atol=tol)
+
+
+def test_flash_kernel_reads_strided_inputs(gpu):
+    """q, k, v as slices of one fused [B, S, H + 2 KV, hd] tensor, as a
+    projection could leave them: read by stride, not copied."""
+    rng = np.random.default_rng(0)
+    qkv = torch.from_numpy(rng.standard_normal((2, 50, 8, 32)).astype(
+        np.float32)).to(gpu)
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+    torch.testing.assert_close(flash_attention(q, k, v),
+                               flash_attention_plain(q, k, v),
+                               rtol=3e-4, atol=3e-4)
+
+
+def test_flash_kernel_refuses_what_it_does_not_take(gpu):
+    q = torch.zeros((1, 8, 4, 64), device=gpu)
+    k = torch.zeros((1, 8, 2, 64), device=gpu)
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), k.half(), k.half())
+    with pytest.raises(TypeError):
+        flash_attention(q, k.bfloat16(), k)
+    with pytest.raises(ValueError):
+        flash_attention(q[..., :48], k[..., :48], k[..., :48])
+    with pytest.raises(ValueError):
+        flash_attention(torch.zeros((1, 64, 4, 8), device=gpu)
+                        .permute(0, 3, 2, 1), k, k)  # hd not contiguous
+    with pytest.raises(ValueError):
+        flash_attention(q, k.cpu(), k)
+    with pytest.raises(ValueError):
+        flash_attention(q, torch.zeros((1, 8, 3, 64), device=gpu),
+                        torch.zeros((1, 8, 3, 64), device=gpu))

@@ -1,6 +1,7 @@
 """The port stands alone: no source file of `src/repro_torch/` (nor
-`chip_smoke.py`) imports jax or the JAX package, and its CPU main path
-runs without either in `sys.modules`."""
+`chip_smoke.py`) imports jax or the JAX package, and its CPU main paths
+(the DSE study and the model server) run without either in
+`sys.modules`."""
 
 import os
 import re
@@ -49,6 +50,20 @@ def test_cpu_main_path_loads_neither_jax_nor_repro():
         "r = Study(apps=['resnet'], engine='greedy', device='cpu',\n"
         "          budget=SearchBudget.smoke()).run()\n"
         "assert r.best_score > 0\n"
+        "print(sorted({m.split('.')[0] for m in sys.modules}"
+        " & {'jax', 'repro', 'jaxlib'}))\n")
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+
+
+def test_cpu_serve_path_loads_neither_jax_nor_repro():
+    proc = _run(
+        "import sys\n"
+        "from repro_torch import configs\n"
+        "from repro_torch.launch.serve import serve_requests\n"
+        "r = serve_requests(configs.get_smoke('qwen2-0.5b'), [[1, 2, 3]],\n"
+        "                   batch=1, max_new=3, max_len=16, device='cpu')\n"
+        "assert len(r[0].generated) == 3\n"
         "print(sorted({m.split('.')[0] for m in sys.modules}"
         " & {'jax', 'repro', 'jaxlib'}))\n")
     assert proc.returncode == 0, proc.stderr
