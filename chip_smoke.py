@@ -26,22 +26,44 @@ printing one JSON line each:
   6. kernel flash_attention
                  `flash_attention` against its plain PyTorch version, every
                  output element within a tolerance of about one bf16 ulp, on
-                 the sweep of `tests/test_kernels.py` and on qwen2-0.5b's
-                 heads at S = 512 to 32768 (causal Sq != Skv included, the
-                 prefill's two shapes on random inputs), with CUDA-event
-                 times of the kernel and of `scaled_dot_product_attention`
-                 at S = 32768 and 4096 and of the plain version at S = 4096;
-  7. prefill     the second main path: `make_prefill_step` of qwen2-0.5b at
-                 full width (24 layers, bf16 weights, `use_kernels=True`) at
-                 seq 32768 x batch 1 (prefill_32k with its batch cut from 32)
-                 and seq 2048 x batch 4, held against the same step through
-                 `blocked_attention` (logits and next token), with 24 kernel
+                 the sweep of `tests/test_kernels.py`, on qwen2-0.5b's heads
+                 at S = 512 to 32768 and on recurrentgemma-9b's (head dim
+                 256) (causal Sq != Skv included, the prefills' shapes on
+                 random inputs), with CUDA-event times of the kernel, of
+                 `scaled_dot_product_attention` and of the plain version;
+  7. kernel rglru_scan
+                 `rglru_scan` against its plain PyTorch version, every
+                 element, on the sweep of `tests/test_kernels.py` (the
+                 1024-step decay case and bf16 included) and on the
+                 recurrentgemma prefill's two shapes, with CUDA-event times
+                 of the kernel and the plain version;
+  8. prefill qwen2-0.5b
+                 the second main path: `make_prefill_step` at full width
+                 (24 layers, bf16 weights, `use_kernels=True`) at seq 32768
+                 x batch 1 (prefill_32k with its batch cut from 32) and seq
+                 2048 x batch 4, held against the same step through the
+                 plain paths (logits and next token), with 24 kernel
                  launches a forward; then the kernel against its plain
                  version on the q, k, v that the first and the last layer
                  hand it at both shapes, every row;
-  8. serve       `serve_requests` at full width (fp32 compute): 8 requests
+  9. serve qwen2-0.5b
+                 `serve_requests` at full width (fp32 compute): 8 requests
                  of 4-12 prompt tokens, batch 4, 16 new tokens each, held
-                 against the port's own CPU run on the same weights.
+                 against the port's own CPU run on the same weights;
+ 10. prefill recurrentgemma-9b
+                 the third main path, as phase 8 at the same two shapes (38
+                 layers: 26 RG-LRU, 12 local attention): 26 `rglru_scan`
+                 launches a forward at both shapes, 12 `flash_attention` at
+                 seq 2048 (S <= the 2048 window) and none at 32768 (local-
+                 block attention); then each kernel against its plain
+                 version on what the first and last layer of its kind hand
+                 it;
+ 11. serve recurrentgemma-9b
+                 `serve_requests` at full width, fp32 compute: 8 requests of
+                 4-12 prompt tokens, batch 4, 16 new tokens, caches of 256,
+                 held against a teacher-forced full-sequence forward on the
+                 card (fp32, `use_kernels=True`) over each request's prompt
+                 and generated tokens.
 
 Then the card's name and power limit as `nvidia-smi` gives them, a
 `{"kernels": [...]}` line, and last `{"ok": true, "device": {...}}`.  Any
@@ -79,15 +101,34 @@ FLASH_TOL = {torch.float32: (2e-6, 2e-5), torch.bfloat16: (2e-6, 2 ** -7)}
 # query rows of the plain version per call on long sequences, so that its
 # [B, KV, G, rows, Skv] fp32 scores stay a few GB
 PLAIN_ROWS = 1024
+RGLRU_SOURCE = "src/repro_torch/kernels/csrc/rglru_scan.cu"
+RGLRU_TPU = "src/repro/kernels/rg_lru.py:54"
+# |kernel - plain| <= atol + rtol * |plain|, element by element.  Both
+# compute in fp32 and differ only in how the recurrence is composed: the
+# kernel runs each chunk step by step from a composed carry, the plain
+# version composes by doubling.  fp32 rounding gaps grow as 1 / (1 - a) on
+# slow decays (the a = 0.999 case reads about 5e-6 relative); bf16 output
+# may land one bf16 ulp apart, at most 2^-7 of the value.
+RGLRU_TOL = {torch.float32: (2e-6, 2e-5), torch.bfloat16: (2e-6, 2 ** -7)}
+RGLRU_LIBRARY = ("none: no single PyTorch call computes h_t = a_t h_{t-1} "
+                 "+ b_t; a cumprod/cumsum rewrite divides by products of a "
+                 "that vanish, so it is not the same function")
 ARCH = "qwen2-0.5b"
-# prefill logits, kernel path against the blocked path, both bf16:
+RG_ARCH = "recurrentgemma-9b"
+# prefill logits, kernel path against the plain path, both bf16:
 # |a - b| <= PREFILL_TOL * (1 + |b|), about 4x the largest gap measured
-# (0.0054 on the H100); the blocked path also rounds p to bf16
+# (0.0054 on the H100 for qwen2-0.5b); the blocked path also rounds p to
+# bf16.  A next token may differ only where the plain path's top-1 margin
+# is within that tolerance: then either token is the model's.
 PREFILL_TOL = 0.02
 # served logits, card against CPU, fp32 with TF32 off: the only gap is the
 # summation order, plus the odd K/V entry that rounds to the other bf16
 # neighbour in the cache; |a - b| <= SERVE_TOL * (1 + |b|)
 SERVE_TOL = 2e-3
+# recurrentgemma's decode logits against its full-sequence forward, both
+# fp32 on the card: the decode path keeps K and V in a bf16 cache, the
+# forward does not; (atol, rtol) of tests/test_decode_parity.py
+SERVE_RG_TOL = (5e-3, 2e-2)
 
 
 class SmokeFailure(RuntimeError):
@@ -457,9 +498,16 @@ def phase_flash(gen) -> dict:
                                       (1000, 4096, True), (4096, 1000, True),
                                       (2048, 512, False))
               for dtype in (torch.float32, torch.bfloat16)]
-    # the prefill's two shapes, all rows (its own inputs: prefill phase)
+    # recurrentgemma-9b's heads: 16 query heads on one KV head of width 256
+    cases += [(2, 130, 130, 16, 1, 256, causal, dtype)
+              for causal in (True, False)
+              for dtype in (torch.float32, torch.bfloat16)]
+    cases += [(1, 1000, 2048, 16, 1, 256, True, torch.bfloat16),
+              (1, 2048, 1000, 16, 1, 256, True, torch.float32)]
+    # the prefills' shapes, all rows (their own inputs: prefill phases)
     cases += [(4, 2048, 2048, 14, 2, 64, True, torch.bfloat16),
-              (1, 32768, 32768, 14, 2, 64, True, torch.bfloat16)]
+              (1, 32768, 32768, 14, 2, 64, True, torch.bfloat16),
+              (4, 2048, 2048, 16, 1, 256, True, torch.bfloat16)]
     worst = {"float32": {"max_abs_err": 0.0, "tol_ratio": 0.0},
              "bfloat16": {"max_abs_err": 0.0, "tol_ratio": 0.0}}
     failed = []
@@ -473,12 +521,17 @@ def phase_flash(gen) -> dict:
             failed.append(f"B={b} Sq={sq} Skv={skv} H={h} KV={kv} hd={hd} "
                           f"causal={causal} {dtype}: {res}")
 
+    # qwen2-0.5b's prefill at S 32768 (the plain version's fp32 scores
+    # would need 60 GB there) and 4096; recurrentgemma-9b's at 4 x 2048
     timings = {}
-    for s_len, with_plain in ((32768, False), (4096, True)):
-        q, k, v = inputs(1, s_len, s_len, 14, 2, 64, torch.bfloat16)
+    for key, (b, s_len, h, kv, hd, with_plain) in {
+            "32768": (1, 32768, 14, 2, 64, False),
+            "4096": (1, 4096, 14, 2, 64, True),
+            "hd256": (4, 2048, 16, 1, 256, True)}.items():
+        q, k, v = inputs(b, s_len, s_len, h, kv, hd, torch.bfloat16)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         reps = dict(reps=3, inner=2) if s_len > 4096 else {}
-        row = {"B": 1, "S": s_len, "H": 14, "KV": 2, "hd": 64,
+        row = {"B": b, "S": s_len, "H": h, "KV": kv, "hd": hd,
                "causal": True, "dtype": "bfloat16",
                "kernel_ms": device_ms(
                    lambda: flash_attention(q, k, v, causal=True), **reps),
@@ -488,8 +541,8 @@ def phase_flash(gen) -> dict:
                "plain_ms": (device_ms(lambda: flash_attention_plain(
                    q, k, v, causal=True), reps=3, inner=2)
                    if with_plain else None)}
-        row.update(flash_bound(1, s_len, s_len, 14, 2, 64, True, 2))
-        timings[str(s_len)] = row
+        row.update(flash_bound(b, s_len, s_len, h, kv, hd, True, 2))
+        timings[key] = row
     emit("kernel flash_attention", cases=len(cases), worst=worst,
          tolerance={"float32": FLASH_TOL[torch.float32],
                     "bfloat16": FLASH_TOL[torch.bfloat16]},
@@ -500,13 +553,91 @@ def phase_flash(gen) -> dict:
             "timings": timings}
 
 
+def rglru_bound(b, s, w, itemsize) -> dict:
+    """Least time for one call: its bytes (a and b read once, h written
+    once) at the HBM rate; its one FMA per element at the fp32 peak takes
+    a hundredth of that."""
+    nbytes = 3 * b * s * w * itemsize
+    return {"flop": 2 * b * s * w, "bytes": nbytes,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+
+
+def rglru_against_plain(a, b) -> dict:
+    """The kernel's output on every element against the plain version's:
+    the max abs error and the worst |error| / (atol + rtol |plain|), which
+    passes at <= 1."""
+    from repro_torch.kernels.rg_lru import rglru_scan, rglru_scan_plain
+
+    atol, rtol = RGLRU_TOL[a.dtype]
+    with torch.inference_mode():
+        got = rglru_scan(a, b).float()
+        want = rglru_scan_plain(a, b).float()
+        diff = (got - want).abs()
+        return {"max_abs_err": float(diff.max()),
+                "tol_ratio": float((diff / (atol + rtol * want.abs())).max()),
+                "finite": bool(torch.isfinite(got).all())}
+
+
+def phase_rglru(gen) -> dict:
+    """The RG-LRU scan kernel against its plain version, then its times
+    at the recurrentgemma prefill's two shapes."""
+    from repro_torch.kernels.rg_lru import rglru_scan, rglru_scan_plain
+
+    def inputs(b, s_len, w, dtype):
+        # a in (0.6, 0.999) as in the sweep of tests/test_kernels.py
+        a = torch.rand((b, s_len, w), generator=gen, device="cuda")
+        return ((a * 0.399 + 0.6).to(dtype),
+                torch.randn((b, s_len, w), generator=gen,
+                            device="cuda").to(dtype))
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = {f"B{b} S{s_len} W{w} {str(dt)[6:]}": inputs(b, s_len, w, dt)
+             for b, s_len, w, dt in ((1, 64, 128, f32), (2, 100, 160, f32),
+                                     (3, 257, 130, f32), (3, 257, 130, bf16),
+                                     (1, 4096, 4096, bf16))}
+    decay = torch.full((1, 1024, 128), 0.999, device="cuda")
+    cases["decay B1 S1024 W128 float32"] = (decay, torch.ones_like(decay))
+    results, failed = {}, []
+    for label, (a, b) in cases.items():
+        results[label] = rglru_against_plain(a, b)
+    del cases
+    # the prefill's two shapes (its own inputs: prefill phase), timed
+    timings = {}
+    for b, s_len in ((1, 32768), (4, 2048)):
+        a, bb = inputs(b, s_len, 4096, f32)
+        label = f"B{b} S{s_len} W4096 float32"
+        results[label] = rglru_against_plain(a, bb)
+        reps = dict(reps=3, inner=2)
+        timings[f"{b}x{s_len}"] = {
+            "B": b, "S": s_len, "W": 4096, "dtype": "float32",
+            "kernel_ms": device_ms(lambda: rglru_scan(a, bb)),
+            "plain_ms": device_ms(lambda: rglru_scan_plain(a, bb), **reps),
+            "library_ms": None, "library": RGLRU_LIBRARY,
+            **rglru_bound(b, s_len, 4096, 4)}
+        del a, bb
+    for label, res in results.items():
+        if res["tol_ratio"] > 1.0 or not res["finite"]:
+            failed.append(f"{label}: {res}")
+    worst = {key: max(r[key] for r in results.values())
+             for key in ("max_abs_err", "tol_ratio")}
+    emit("kernel rglru_scan", cases=results, worst=worst,
+         tolerance={"float32": RGLRU_TOL[f32], "bfloat16": RGLRU_TOL[bf16]},
+         failed=failed, timings=timings)
+    check(not failed, f"rglru_scan != plain on {len(failed)} cases: "
+                      f"{failed[:3]}")
+    return {"max_abs_err": worst["max_abs_err"], "timings": timings}
+
+
 def kernel_inputs(model, params, inputs, rt, layers) -> dict:
-    """{layer: (q, k, v)} for each of `layers`: what `gqa_attention_train`
-    hands `flash_attention` there in the prefill's forward, recomputed
-    with the port's own functions.  Each is tied to the main path: that
-    layer's attention through `gqa_attention_train` must equal, bit for
-    bit, `gqa_out` of the kernel on the recomputed q, k, v."""
+    """{layer: (kernel, inputs)} for each of `layers`: what the layer's
+    block hands its kernel in the prefill's forward, recomputed with the
+    port's own functions — `rglru_scan`'s a and b in an RG-LRU layer,
+    `flash_attention`'s q, k, v in an attention layer that takes it.  Each
+    is tied to the main path: the layer's block output must equal, bit for
+    bit, the same block finished from the kernel on the recomputed
+    inputs."""
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rg_lru import rglru_scan
     from repro_torch.models import layers as L
     from repro_torch.models.lm import block_apply_train
 
@@ -520,32 +651,92 @@ def kernel_inputs(model, params, inputs, rt, layers) -> dict:
         for i, (kind, p) in enumerate(zip(model.kinds, params["layers"])):
             if i in layers:
                 h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-                q, k, v = L.gqa_project(p["attn"], h, heads, kv, hd, rt)
-                q, k = L.apply_rope(q, cos, sin), L.apply_rope(k, cos, sin)
-                main = L.gqa_attention_train(
-                    p["attn"], h, n_heads=heads, n_kv=kv, hd=hd,
-                    rope_theta=cfg.rope_theta, rt=rt, causal=True)
-                mine = L.gqa_out(p["attn"],
-                                 flash_attention(q, k, v, causal=True), rt)
+                if kind == "rglru":
+                    a, b, gate = L.rglru_scan_inputs(
+                        p["rglru"], h, n_heads=heads, rt=rt)
+                    main = L.rglru_block_train(p["rglru"], h, n_heads=heads,
+                                               rt=rt)
+                    mine = L.rglru_output(p["rglru"], rglru_scan(a, b), gate,
+                                          rt)
+                    out[i] = ("rglru_scan", (a, b))
+                else:
+                    q, k, v = L.gqa_project(p["attn"], h, heads, kv, hd, rt)
+                    q, k = L.apply_rope(q, cos, sin), L.apply_rope(k, cos,
+                                                                   sin)
+                    main = L.gqa_attention_train(
+                        p["attn"], h, n_heads=heads, n_kv=kv, hd=hd,
+                        rope_theta=cfg.rope_theta, rt=rt, causal=True,
+                        window=cfg.local_window if kind == "local_attn"
+                        else 0)
+                    mine = L.gqa_out(p["attn"],
+                                     flash_attention(q, k, v, causal=True),
+                                     rt)
+                    out[i] = ("flash_attention", (q, k, v))
                 check(torch.equal(main, mine),
                       f"layer {i}'s recomputed kernel inputs are not the "
                       f"main path's")
-                out[i] = (q, k, v)
             if len(out) == len(layers):
                 return out
             x = block_apply_train(cfg, kind, p, x, rt)
     raise SmokeFailure(f"the model has no layers {sorted(layers)}")
 
 
-def phase_prefill() -> int:
-    """qwen2-0.5b's batched prefill at full width through the kernel,
-    against the blocked path; returns the kernel's launches."""
-    from repro_torch import configs
+def kernel_counters() -> dict:
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rg_lru import rglru_scan
+    return {"flash_attention": flash_attention, "rglru_scan": rglru_scan}
+
+
+def expected_launches(model, seq: int) -> dict:
+    """Kernel launches of one prefill forward: one `rglru_scan` per RG-LRU
+    layer; one `flash_attention` per attention layer, and per local one
+    whose window holds the whole sequence (else local-block attention)."""
+    kinds, window = model.kinds, model.cfg.local_window
+    return {"flash_attention": sum(
+                k == "attn" or (k == "local_attn" and seq <= window)
+                for k in kinds),
+            "rglru_scan": kinds.count("rglru")}
+
+
+def checked_layers(model, seq: int) -> tuple:
+    """The first and last layer that hands each launched kernel its
+    inputs, at this sequence length."""
+    want = expected_launches(model, seq)
+    kind_of = {"flash_attention": ("attn", "local_attn"),
+               "rglru_scan": ("rglru",)}
+    layers = set()
+    for name, n in want.items():
+        idx = [i for i, k in enumerate(model.kinds) if k in kind_of[name]]
+        if n:
+            layers.update((idx[0], idx[-1]))
+    return tuple(sorted(layers))
+
+
+def next_token_check(got, want, label: str) -> dict:
+    """The next token through the kernels against the plain path's, row by
+    row; a flip passes only where the plain path's top-1 margin is within
+    the logit tolerance (then either token is the model's)."""
+    top2 = want.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    same = got.argmax(-1) == want.argmax(-1)
+    excused = ~same & (margin <= PREFILL_TOL * (1 + top2[:, 0].abs()))
+    check(bool((same | excused).all()),
+          f"{label}: the next token through the kernels differs from the "
+          f"plain path's on {int((~same & ~excused).sum())} rows whose "
+          f"margin exceeds the tolerance")
+    return {"top1_agreement": float(same.float().mean()),
+            "flips_excused": int(excused.sum()),
+            "plain_top1_margin_min": float(margin.min())}
+
+
+def phase_prefill(arch: str) -> dict:
+    """`arch`'s batched prefill at full width through the kernels, against
+    the plain paths; returns each kernel's launches in the forwards."""
+    from repro_torch import configs
     from repro_torch.launch.steps import (build_model, make_prefill_step,
                                           make_runtime)
 
-    cfg = configs.get_arch(ARCH)
+    cfg = configs.get_arch(arch)
     shape = configs.shape_by_name("prefill_32k")
     model = build_model(cfg)
     rt = make_runtime(cfg, shape, use_kernels=True)
@@ -554,28 +745,34 @@ def phase_prefill() -> int:
     params = model.init(gen, rt)
     step, step_plain = (make_prefill_step(model, rt),
                         make_prefill_step(model, rt_plain))
-    runs, forwards, all_inputs = {}, 0, {}
-    flash_attention.launches = 0
+    counters = kernel_counters()
+    runs, all_inputs = {}, {}
+    totals = dict.fromkeys(counters, 0)
+    for fn in counters.values():
+        fn.launches = 0
     # prefill_32k's sequence with its batch cut from 32 to 1, and a
     # shorter batched prefill
     for seq, batch in ((shape.seq_len, 1), (2048, 4)):
         tokens = torch.randint(0, cfg.vocab_size, (batch, seq),
                                generator=gen, device="cuda")
-        inputs = all_inputs[f"seq{seq}_batch{batch}"] = {"tokens": tokens}
+        inputs = all_inputs[(seq, batch)] = {"tokens": tokens}
+        want_launches = expected_launches(model, seq)
         walls = []
         for rep in range(3):                      # warm-up + 2 timed
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            before = flash_attention.launches
+            before = {n: fn.launches for n, fn in counters.items()}
             t0 = time.perf_counter()
             logits = step(params, inputs)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
-            per_forward = flash_attention.launches - before
-            check(per_forward == cfg.num_layers,
-                  f"prefill launched flash_attention {per_forward} times "
-                  f"in a forward, expected {cfg.num_layers}")
-            forwards += 1
+            got_launches = {n: fn.launches - before[n]
+                            for n, fn in counters.items()}
+            check(got_launches == want_launches,
+                  f"{arch} prefill at seq {seq} launched {got_launches} in "
+                  f"a forward, expected {want_launches}")
+            for n in totals:
+                totals[n] += want_launches[n]
         peak = torch.cuda.max_memory_allocated()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -589,58 +786,63 @@ def phase_prefill() -> int:
         check(bool(torch.isfinite(got).all()), "prefill logits not finite")
         diff = (got - want).abs()
         check(bool((diff <= PREFILL_TOL * (1 + want.abs())).all()),
-              f"prefill logits through the kernel differ from the blocked "
-              f"path by {float(diff.max())} at seq {seq}")
-        top1 = float((got.argmax(-1) == want.argmax(-1)).float().mean())
-        top2 = want.topk(2, dim=-1).values
-        check(top1 == 1.0, f"prefill's next token through the kernel "
-                           f"differs from the blocked path's on "
-                           f"{(1 - top1) * batch:.0f} of {batch} rows")
+              f"{arch} prefill logits through the kernels differ from the "
+              f"plain path by {float(diff.max())} at seq {seq}")
+        tokens_check = next_token_check(got, want, f"{arch} seq {seq}")
         wall = float(np.median(walls[1:]))
         device = device_breakdown(
             {"forward": lambda: step(params, inputs)},
-            {"flash_attention_us": ("flash_attention_kernel",),
+            {"rglru_scan_us": ("rglru_chunk",),
+             "flash_attention_us": ("flash_attention_kernel",),
              "matmul_us": ("gemm", "nvjet", "xmma")})["forward"]
         device["idle_share"] = 1.0 - device["busy_us"] / device["wall_us"]
-        forwards += 1
+        for n in totals:
+            totals[n] += want_launches[n]
         runs[f"seq{seq}_batch{batch}"] = {
             "seq": seq, "batch": batch, "wall_s": wall, "walls_s": walls,
             "tokens_per_s": seq * batch / wall,
-            "blocked_wall_s": plain_s,
+            "plain_wall_s": plain_s,
             "max_memory_allocated": peak,
-            "launches_per_forward": cfg.num_layers,
-            "max_abs_diff_vs_blocked": float(diff.max()),
-            "top1_agreement": top1,
-            "blocked_top1_margin_min": float((top2[:, 0] - top2[:, 1]).min()),
+            "launches_per_forward": want_launches,
+            "max_abs_diff_vs_plain": float(diff.max()),
+            **tokens_check,
             "tolerance": PREFILL_TOL,
             "device_one_forward": device}
-    launches = flash_attention.launches
-    check(launches == forwards * cfg.num_layers,
-          f"prefill launched flash_attention {launches} times in "
-          f"{forwards} forwards")
+    launches = {n: fn.launches for n, fn in counters.items()}
+    check(launches == totals,
+          f"{arch} prefill launched {launches}, expected {totals}")
 
-    # the kernel against its plain version on every row of what the main
-    # path hands it: the first and the last layer's q, k, v at both shapes
+    # each kernel against its plain version on every element of what the
+    # main path hands it: the first and the last layer of each kind that
+    # launches it, at both shapes
     failed = []
-    for name, inputs in all_inputs.items():
+    for (seq, batch), inputs in all_inputs.items():
+        name = f"seq{seq}_batch{batch}"
         runs[name]["kernel_vs_plain"] = {}
-        for layer, (q, k, v) in kernel_inputs(
-                model, params, inputs, rt, (0, cfg.num_layers - 1)).items():
-            res = flash_against_plain(q, k, v, causal=True)
-            res["shape"] = {"q": list(q.shape), "kv": list(k.shape),
-                            "dtype": str(q.dtype).split(".")[-1]}
+        for layer, (kernel, args) in kernel_inputs(
+                model, params, inputs, rt,
+                checked_layers(model, seq)).items():
+            if kernel == "rglru_scan":
+                res = rglru_against_plain(*args)
+            else:
+                res = flash_against_plain(*args, causal=True)
+            res["kernel"] = kernel
+            res["shape"] = {"inputs": [list(t.shape) for t in args],
+                            "dtype": str(args[0].dtype).split(".")[-1]}
             runs[name]["kernel_vs_plain"][f"layer{layer}"] = res
             if res["tol_ratio"] > 1.0:
-                failed.append(f"{name} layer {layer}: {res}")
+                failed.append(f"{name} layer {layer} {kernel}: {res}")
     check_isolated()
-    emit("prefill", arch=ARCH, layers=cfg.num_layers,
+    emit(f"prefill {arch}", arch=arch, layers=cfg.num_layers,
+         kinds={k: model.kinds.count(k) for k in sorted(set(model.kinds))},
          param_dtype="bfloat16", compute_dtype="bfloat16",
          reduced={"prefill_32k": "global_batch 32 -> 1"},
-         flash_attention_launches=launches,
-         kernel_tolerance=FLASH_TOL[torch.bfloat16], failed=failed,
-         runs=runs)
-    check(not failed, f"flash_attention != plain on the prefill's own "
-                      f"inputs: {failed[:2]}")
+         launches=launches,
+         kernel_tolerance={"flash_attention": FLASH_TOL[torch.bfloat16],
+                           "rglru_scan": RGLRU_TOL[torch.float32]},
+         failed=failed, runs=runs)
+    check(not failed, f"kernels != plain on the prefill's own inputs: "
+                      f"{failed[:2]}")
     return launches
 
 
@@ -711,7 +913,8 @@ def phase_serve() -> None:
                       .float().mean())
     generated = sum(len(r.generated) for r in results)
     check_isolated()
-    emit("serve", arch=ARCH, layers=cfg.num_layers, compute_dtype="float32",
+    emit(f"serve {ARCH}", arch=ARCH, layers=cfg.num_layers,
+         compute_dtype="float32",
          requests=len(results), batch=4, max_new=16,
          prompt_lens=[len(p) for p in prompts], wall_s=wall,
          generated_tokens=generated, tokens_per_s=generated / wall,
@@ -719,6 +922,129 @@ def phase_serve() -> None:
          teacher_forced_steps=len(seq),
          max_abs_diff_vs_cpu=float(diff.max()), tolerance=SERVE_TOL,
          argmax_agreement_vs_cpu=same_next, device_one_step=device)
+
+
+def phase_serve_recurrent() -> dict:
+    """recurrentgemma-9b's `serve_requests` at full width on the card,
+    fp32, held against a teacher-forced full-sequence forward on the card
+    (fp32, through the kernels) over each request's prompt and generated
+    tokens: every decode logit within `SERVE_RG_TOL` of the forward's, and
+    every served token the forward's greedy choice (a flip passes only
+    where the forward's top-1 margin is within that tolerance)."""
+    import gc
+
+    from repro_torch import configs
+    from repro_torch.launch.serve import serve_requests
+    from repro_torch.launch.steps import build_model, make_serve_step
+    from repro_torch.models.layers import Runtime, full_precision_products
+
+    gc.collect()
+    torch.cuda.empty_cache()                    # the prefill's bf16 weights
+    cfg = configs.get_arch(RG_ARCH)
+    model = build_model(cfg)
+    rt = Runtime(compute_dtype=torch.float32)
+    rt_fwd = Runtime(compute_dtype=torch.float32, use_kernels=True)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), rt)
+    rng = np.random.default_rng(0)
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size,
+                                             size=rng.integers(4, 13))]
+               for _ in range(8)]
+    serve_requests(cfg, prompts[:1], batch=1, max_new=2, max_len=256,
+                   device="cuda", params=params)               # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results = serve_requests(cfg, prompts, batch=4, max_new=16, max_len=256,
+                             device="cuda", params=params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(len(results) == 8 and all(len(r.generated) == 16
+                                    for r in results),
+          "serve did not answer every request with 16 tokens")
+    check(all(0 <= t < cfg.vocab_size for r in results for t in r.generated),
+          "serve generated a token outside the vocabulary")
+
+    atol, rtol = SERVE_RG_TOL
+    step = make_serve_step(model, rt)
+    v = cfg.vocab_size
+    worst = {"max_abs_diff": 0.0, "tol_ratio": 0.0}
+    steps = same = excused = reproduced = greedy = served = 0
+    margin_min = float("inf")
+    counters = kernel_counters()
+    before = {n: fn.launches for n, fn in counters.items()}
+    for r in results:
+        seq = r.prompt + r.generated
+        cache = model.init_cache(1, 256, rt, "cuda")
+        rows = []
+        for pos, t in enumerate(seq):
+            tok = torch.full((1, 1), t, dtype=torch.int64, device="cuda")
+            logits, cache = step(params, cache, tok, pos)
+            rows.append(logits[0, 0, :v])
+        dec = torch.stack(rows)
+        with torch.inference_mode(), full_precision_products():
+            fwd = model.forward(params, {"tokens": torch.tensor(
+                [seq], device="cuda")}, rt_fwd)[0, :, :v].float()
+        check(bool(torch.isfinite(dec).all() and torch.isfinite(fwd).all()),
+              "served or forward logits not finite")
+        diff = (dec - fwd).abs()
+        worst["max_abs_diff"] = max(worst["max_abs_diff"], float(diff.max()))
+        worst["tol_ratio"] = max(worst["tol_ratio"], float(
+            (diff / (atol + rtol * fwd.abs())).max()))
+        top2 = fwd.topk(2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        tol_top = atol + rtol * top2[:, 0].abs()
+        agree = dec.argmax(-1) == fwd.argmax(-1)
+        steps += len(seq)
+        same += int(agree.sum())
+        excused += int((~agree & (margin <= tol_top)).sum())
+        check(bool((agree | (margin <= tol_top)).all()),
+              f"request {r.request_id}: a decode argmax differs from the "
+              f"forward's where its margin exceeds the tolerance")
+        # each served token is the forward's greedy choice at the position
+        # before it, and the teacher-forced decode's
+        p0 = len(r.prompt) - 1
+        gen = torch.tensor(r.generated, device="cuda")
+        fwd_next = fwd[p0:p0 + len(gen)].argmax(-1)
+        ok = (fwd_next == gen) | (margin[p0:p0 + len(gen)]
+                                  <= tol_top[p0:p0 + len(gen)])
+        check(bool(ok.all()), f"request {r.request_id}: a served token is "
+                              f"not the forward's greedy choice")
+        reproduced += int((dec[p0:p0 + len(gen)].argmax(-1) == gen).sum())
+        greedy += int((fwd_next == gen).sum())
+        served += len(gen)
+        margin_min = min(margin_min, float(margin.min()))
+    fwd_launches = {n: fn.launches - before[n] for n, fn in counters.items()}
+    check(worst["tol_ratio"] <= 1.0,
+          f"decode logits differ from the forward's by "
+          f"{worst['max_abs_diff']} (ratio {worst['tol_ratio']})")
+    # where one decode step's time goes (a cache holding one token)
+    cache = model.init_cache(1, 256, rt, "cuda")
+    tok = torch.full((1, 1), prompts[0][0], dtype=torch.int64, device="cuda")
+    _, cache = step(params, cache, tok, 0)
+    device = device_breakdown(
+        {"decode_step": lambda: step(params, cache, tok, 1)},
+        {"matmul_us": ("gemm", "gemv", "nvjet", "xmma")})["decode_step"]
+    device["idle_share"] = 1.0 - device["busy_us"] / device["wall_us"]
+    generated = sum(len(r.generated) for r in results)
+    check_isolated()
+    rec = dict(arch=RG_ARCH, layers=cfg.num_layers, compute_dtype="float32",
+               level="smoke: toy context, no serve rate",
+               requests=len(results), batch=4, max_new=16, max_len=256,
+               prompt_lens=[len(p) for p in prompts], wall_s=wall,
+               generated_tokens=generated, tokens_per_s=generated / wall,
+               latency_s=[r.latency_s for r in results],
+               max_memory_allocated=peak,
+               teacher_forced_steps=steps, tolerance=SERVE_RG_TOL,
+               max_abs_diff_vs_forward=worst["max_abs_diff"],
+               tol_ratio=worst["tol_ratio"],
+               argmax_agreement_vs_forward=same / steps,
+               flips_excused=excused, forward_top1_margin_min=margin_min,
+               served_tokens_reproduced_by_decode=reproduced / served,
+               served_tokens_equal_forward_greedy=greedy / served,
+               forward_launches=fwd_launches, device_one_step=device)
+    emit(f"serve {RG_ARCH}", **rec)
+    return rec
 
 
 def main() -> int:
@@ -760,12 +1086,21 @@ def main() -> int:
     phase_throughput([s for s in specs if s.name in ("inception", "nasnet")],
                      space, rng)
     flash = phase_flash(torch.Generator(device="cuda").manual_seed(0))
-    flash_launches = phase_prefill()
+    rglru = phase_rglru(torch.Generator(device="cuda").manual_seed(1))
+    # the kernels' launches on each model path, counted from 0 just before
+    # it and read just after
+    paths = {ARCH: phase_prefill(ARCH)}
     phase_serve()
+    paths[RG_ARCH] = phase_prefill(RG_ARCH)
+    phase_serve_recurrent()
     check_isolated()
+    for name in ("flash_attention", "rglru_scan"):
+        check(paths[RG_ARCH][name] > 0,
+              f"the {RG_ARCH} prefill never launched {name}")
 
     t = kern["timings"][str(TIMED_POOLS[-1])]
     f = flash["timings"]["32768"]
+    r = rglru["timings"]["1x32768"]
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
         "name": "gather_rows", "route": "cuda", "source": KERNEL_SOURCE,
@@ -782,7 +1117,10 @@ def main() -> int:
         "tpu": "src/repro/kernels/flash_attention.py:_flash_kernel",
         "shape": {k: f[k] for k in ("B", "S", "H", "KV", "hd", "causal",
                                      "dtype")},
-        "launches": flash_launches, "max_abs_err": flash["max_abs_err"],
+        "launches": sum(p["flash_attention"] for p in paths.values()),
+        "launches_by_path": {f"prefill {a}": p["flash_attention"]
+                             for a, p in paths.items()},
+        "max_abs_err": flash["max_abs_err"],
         "ms": f["kernel_ms"], "kernel_ms": f["kernel_ms"],
         "plain_ms": flash["timings"]["4096"]["plain_ms"],
         "plain_shape": {"S": 4096},
@@ -790,7 +1128,26 @@ def main() -> int:
         "library_ms": f["library_ms"],
         "at_4096": {k: flash["timings"]["4096"][k]
                     for k in ("kernel_ms", "plain_ms", "library_ms",
-                              "bound_ms", "bound_by")}}]}), flush=True)
+                              "bound_ms", "bound_by")},
+        "at_hd256": {k: flash["timings"]["hd256"][k]
+                     for k in ("B", "S", "H", "KV", "hd", "kernel_ms",
+                               "plain_ms", "library_ms", "bound_ms",
+                               "bound_by")}}, {
+        "name": "rglru_scan", "route": "cuda", "source": RGLRU_SOURCE,
+        "replaces": RGLRU_TPU,
+        "tpu": "src/repro/kernels/rg_lru.py:_scan_kernel",
+        "shape": {k: r[k] for k in ("B", "S", "W", "dtype")},
+        "launches": paths[RG_ARCH]["rglru_scan"],
+        "launches_by_path": {f"prefill {RG_ARCH}":
+                             paths[RG_ARCH]["rglru_scan"]},
+        "max_abs_err": rglru["max_abs_err"],
+        "ms": r["kernel_ms"], "kernel_ms": r["kernel_ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": None,
+        "library": RGLRU_LIBRARY,
+        "at_4x2048": {k: rglru["timings"]["4x2048"][k]
+                      for k in ("kernel_ms", "plain_ms", "bound_ms",
+                                "bound_by")}}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -5,6 +5,10 @@
                     Hopper, with its plain PyTorch version beside it.
   * `costmodel`   — `FusedTorchScorer`, the fused (GOPS, area) scorer that
                     runs on a torch device and calls `gather_rows`.
+  * `flash_attention` — causal or full GQA attention (`csrc/
+                    flash_attention.cu`), with its plain version.
+  * `rg_lru`      — `rglru_scan`, the RG-LRU recurrence over the sequence
+                    (`csrc/rglru_scan.cu`), with its plain version.
   * `build`       — nvcc build and ctypes loading of the CUDA sources.
 
 Nothing is compiled or loaded when these modules are imported.

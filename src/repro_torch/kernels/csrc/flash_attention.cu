@@ -55,9 +55,11 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
 
 template <int HD>
 constexpr size_t smem_bytes() {
-  // q^T [HD][kLd], k^T [HD][kLd], v [kBKV][HD], p^T [kBKV][kLd]
+  // q^T [HD][kLd], k^T [HD][kLd], v [kBKV][HD], p^T [kBKV][kLd]; at HD 256
+  // 222,208 bytes, under the 232,448 a block may opt into (one block an SM)
   return sizeof(float) * (2 * HD * kLd + kBKV * HD + kBKV * kLd);
 }
+static_assert(smem_bytes<256>() <= 232448, "tiles exceed shared memory");
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
@@ -237,6 +239,7 @@ cudaError_t dispatch(int64_t hd, void* out, const void* q, const void* k,
     case 32: return launch<T, 32>(out, q, k, v, b, sq, skv, h, kv, causal, st, stream);
     case 64: return launch<T, 64>(out, q, k, v, b, sq, skv, h, kv, causal, st, stream);
     case 128: return launch<T, 128>(out, q, k, v, b, sq, skv, h, kv, causal, st, stream);
+    case 256: return launch<T, 256>(out, q, k, v, b, sq, skv, h, kv, causal, st, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -28,7 +28,7 @@ from repro_torch.kernels import build
 __all__ = ["flash_attention", "flash_attention_plain", "HEAD_DIMS"]
 
 #: head dims the kernel is instantiated for
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -1,7 +1,9 @@
-"""Model-zoo layers of the port, cut to what a dense GQA decoder needs:
-RMSNorm, RoPE, blocked (online-softmax) attention, GQA attention for a
-full sequence and for one decode step with a KV cache, and the SwiGLU MLP
-— plain functions on tensors over per-layer parameter dicts.
+"""Model-zoo layers of the port, cut to what dense GQA decoders and the
+Griffin hybrid (recurrentgemma) need: RMSNorm, RoPE, blocked
+(online-softmax) and local-block attention, GQA attention for a full
+sequence and for one decode step with a KV cache, the SwiGLU MLP and the
+RG-LRU recurrent block — plain functions on tensors over per-layer
+parameter dicts.
 
 Conventions (those of `repro.models.layers`)
 -------------------------------------------
@@ -18,8 +20,8 @@ Conventions (those of `repro.models.layers`)
 * Layouts are the reference's: q `[B, S, H, hd]`, k/v `[B, S, KV, hd]`,
   `wq` `[d, H*hd]`.
 
-MLA, MoE, RG-LRU, mLSTM/sLSTM, local-block attention and the GELU MLP are
-ported in a later slice (see ROADMAP.md).
+MLA, MoE, mLSTM/sLSTM and the GELU MLP are ported in a later slice (see
+ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -36,9 +38,11 @@ Params = Any
 
 __all__ = ["Runtime", "Spec", "init_params", "full_precision_products",
            "rms_norm", "rope_cos_sin", "apply_rope", "blocked_attention",
-           "kv_cache_write", "gqa_specs", "gqa_project", "gqa_out",
-           "gqa_attention_train", "gqa_attention_decode", "swiglu_specs",
-           "swiglu"]
+           "local_block_attention", "kv_cache_write", "gqa_specs",
+           "gqa_project", "gqa_out", "gqa_attention_train",
+           "gqa_attention_decode", "swiglu_specs", "swiglu", "rglru_specs",
+           "rglru_scan_inputs", "rglru_output", "rglru_block_train",
+           "rglru_block_decode"]
 
 
 @contextlib.contextmanager
@@ -72,8 +76,10 @@ class Runtime:
     """Execution knobs threaded through every layer.
 
     `use_kernels` is the counterpart of the reference's `use_pallas`: when
-    set, full-sequence attention goes through the hand-written kernel
-    `kernels.flash_attention` instead of `blocked_attention`.  The
+    set, full-sequence attention within the window goes through the
+    hand-written kernel `kernels.flash_attention` instead of
+    `blocked_attention`, and the RG-LRU block's scan through
+    `kernels.rg_lru.rglru_scan` instead of its plain version.  The
     reference's mesh, sharding rules and remat policy have no counterpart
     on one GPU."""
 
@@ -227,6 +233,47 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (acc / l_t).reshape(B, Sq, H, -1).to(q.dtype)
 
 
+def local_block_attention(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, window: int) -> torch.Tensor:
+    """Sliding-window causal attention, block-banded: query block n (of
+    `w = min(window, S)` rows) attends to key blocks n - 1 and n, masked
+    to `0 <= i - j < window`; block 0's previous block is zeros, masked
+    off.  O(S x window) work.
+
+    The reference builds the scores of all blocks at once
+    (`[B, n, KV, G, w, 2w]` fp32: 8.6 GB for recurrentgemma at S 32768);
+    here a loop over the query blocks does the same arithmetic one block
+    at a time, so the scores of one block are alive at once."""
+    B, S, H, hd = q.shape
+    w = min(window, S)
+    nblk = -(-S // w)
+    pad = nblk * w - S
+    if pad:
+        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+    KV = k.shape[2]
+    G = H // KV
+    qb = (q * (1.0 / math.sqrt(hd))).reshape(B, nblk, w, KV, G, hd)
+    kb = k.reshape(B, nblk, w, KV, hd)
+    vb = v.reshape(B, nblk, w, KV, hd)
+    dev = q.device
+    qpos = torch.arange(w, device=dev)[:, None]
+    kpos = torch.arange(2 * w, device=dev)[None, :] - w
+    mask = (qpos >= kpos) & (qpos - kpos < window)
+    mask_first = mask & (kpos >= 0)                     # no previous block
+    outs = []
+    for n in range(nblk):
+        k_prev = kb[:, n - 1] if n else torch.zeros_like(kb[:, 0])
+        v_prev = vb[:, n - 1] if n else torch.zeros_like(vb[:, 0])
+        k2 = torch.cat([k_prev, kb[:, n]], dim=1)       # [B, 2w, KV, hd]
+        v2 = torch.cat([v_prev, vb[:, n]], dim=1)
+        s = _gqa_scores(qb[:, n], k2)                   # [B,KV,G,w,2w]
+        s = s.masked_fill(~(mask_first if n == 0 else mask), -math.inf)
+        p = torch.softmax(s, dim=-1)
+        outs.append(_gqa_values(p, v2).to(q.dtype))     # [B,w,KV,G,hd]
+    o = torch.stack(outs, dim=1).reshape(B, nblk * w, H, hd)
+    return o[:, :S]
+
+
 def kv_cache_write(cache: torch.Tensor, new: torch.Tensor, pos: int
                    ) -> torch.Tensor:
     """Write `new` [B, 1, ...] into `cache` [B, S, ...] at seq position
@@ -288,8 +335,8 @@ def gqa_attention_train(p: Params, x: torch.Tensor, *, n_heads: int,
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     if window and window < S:
-        raise not_ported("local_block_attention")
-    if rt.use_kernels:
+        o = local_block_attention(q, k, v, window)
+    elif rt.use_kernels:
         from repro_torch.kernels.flash_attention import flash_attention
         o = flash_attention(q, k, v, causal=causal)
     else:
@@ -356,3 +403,120 @@ def swiglu(p: Params, x: torch.Tensor, rt: Runtime) -> torch.Tensor:
     u = cd_matmul(x, p["w3"], cd)
     h = (F.silu(g) * u).to(cd)
     return cd_matmul(h, p["w2"], cd).to(cd)
+
+
+# ================================================================== RG-LRU
+
+def rglru_specs(d: int, w: int, n_heads: int, conv_w: int) -> Dict[str, Spec]:
+    hd = w // n_heads
+    return {
+        "wx": Spec((d, w), ("embed", "lru")),
+        "wy": Spec((d, w), ("embed", "lru")),          # gelu gate branch
+        "conv_w": Spec((conv_w, w), (None, "lru"), "small"),
+        "conv_b": Spec((w,), ("lru",), "zeros"),
+        # block-diagonal (per-head) recurrence & input gates
+        "wa": Spec((n_heads, hd, hd), (None, None, None), "small"),
+        "ba": Spec((w,), ("lru",), "zeros"),
+        "wi": Spec((n_heads, hd, hd), (None, None, None), "small"),
+        "bi": Spec((w,), ("lru",), "zeros"),
+        "a_param": Spec((w,), ("lru",), "rglru_a"),
+        "wout": Spec((w, d), ("lru", "embed")),
+    }
+
+
+_RGLRU_C = 8.0
+
+
+def _rglru_gates(p: Params, xb: torch.Tensor, n_heads: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Block-diagonal gate projections; xb [B, S, W] fp32."""
+    B, S, W = xb.shape
+    hd = W // n_heads
+    xh = xb.reshape(B, S, n_heads, hd)
+    ra = torch.einsum("bshi,hij->bshj", xh, p["wa"].float())
+    ri = torch.einsum("bshi,hij->bshj", xh, p["wi"].float())
+    r = torch.sigmoid(ra.reshape(B, S, W) + p["ba"].float())
+    i = torch.sigmoid(ri.reshape(B, S, W) + p["bi"].float())
+    return r, i
+
+
+def _causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                   prefix: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Depthwise causal conv over seq; x [B,S,W], w [K,W].  `prefix`
+    [B,K-1,W] supplies decode-time history.  A shifted sum, the K terms
+    added in order and then the bias, as the reference adds them (no
+    `F.conv1d`: on the card it goes through cuDNN, in TF32 by default)."""
+    K, S = w.shape[0], x.shape[1]
+    if prefix is None:
+        prefix = torch.zeros((x.shape[0], K - 1, x.shape[2]), dtype=x.dtype,
+                             device=x.device)
+    xp = torch.cat([prefix, x], dim=1)
+    out = sum(xp[:, i:i + S] * w[i].to(x.dtype) for i in range(K))
+    return out + b.to(x.dtype)
+
+
+def _rglru_decay(p: Params, r: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """a = exp(log_a) and beta = sqrt(max(1 - a^2, 1e-6)), fp32, with
+    log_a = -8 softplus(a_param) r.  softplus is the reference's
+    logaddexp(x, 0): `F.softplus` returns x itself above its threshold of
+    20, a difference below an fp32 ulp there, but not the same function."""
+    a_param = p["a_param"].float()
+    log_a0 = -_RGLRU_C * torch.logaddexp(a_param, torch.zeros_like(a_param))
+    log_a = log_a0 * r
+    a = torch.exp(log_a)
+    beta = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-6))
+    return a, beta
+
+
+def rglru_scan_inputs(p: Params, x: torch.Tensor, *, n_heads: int,
+                      rt: Runtime
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The full-sequence block up to its scan: (a, b, gate), each
+    [B, S, W] fp32, where the scan's h_t = a_t h_{t-1} + b_t."""
+    cd = rt.compute_dtype
+    xb = cd_matmul(x, p["wx"], cd)
+    gate = cd_matmul(x, p["wy"], cd)
+    xb = _causal_conv1d(xb, p["conv_w"], p["conv_b"])
+    r, i = _rglru_gates(p, xb, n_heads)
+    a, beta = _rglru_decay(p, r)
+    return a, beta * (i * xb), gate
+
+
+def rglru_output(p: Params, h: torch.Tensor, gate: torch.Tensor,
+                 rt: Runtime) -> torch.Tensor:
+    """The block after its scan: h times the GeLU gate (the reference's
+    `jax.nn.gelu`, the tanh approximation), projected out."""
+    cd = rt.compute_dtype
+    y = h * F.gelu(gate, approximate="tanh")
+    return cd_matmul(y, p["wout"], cd).to(cd)
+
+
+def rglru_block_train(p: Params, x: torch.Tensor, *, n_heads: int,
+                      rt: Runtime) -> torch.Tensor:
+    """Griffin recurrent block: conv1d -> RG-LRU, gated by a GeLU branch.
+    The scan runs in the kernel `rglru_scan` under `rt.use_kernels`, else
+    in its plain version (the twin of the reference's
+    `associative_scan`)."""
+    from repro_torch.kernels import rg_lru
+    a, b, gate = rglru_scan_inputs(p, x, n_heads=n_heads, rt=rt)
+    scan = rg_lru.rglru_scan if rt.use_kernels else rg_lru.rglru_scan_plain
+    return rglru_output(p, scan(a, b), gate, rt)
+
+
+def rglru_block_decode(p: Params, x: torch.Tensor,
+                       state: Dict[str, torch.Tensor], *, n_heads: int,
+                       rt: Runtime
+                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One step; state = {"h": [B, W] fp32, "conv": [B, K-1, W] fp32}.
+    Returns the output and a new state (the old one is not written)."""
+    cd = rt.compute_dtype
+    xb = cd_matmul(x, p["wx"], cd)
+    gate = cd_matmul(x, p["wy"], cd)
+    conv_hist = torch.cat([state["conv"], xb], dim=1)
+    xc = _causal_conv1d(xb, p["conv_w"], p["conv_b"], prefix=state["conv"])
+    r, i = _rglru_gates(p, xc, n_heads)
+    a, beta = _rglru_decay(p, r)
+    h = a[:, 0] * state["h"] + (beta * (i * xc))[:, 0]
+    y = rglru_output(p, h[:, None, :], gate, rt)
+    return y, {"h": h, "conv": conv_hist[:, 1:]}

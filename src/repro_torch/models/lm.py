@@ -9,16 +9,19 @@ is a Python loop over layers, each with its own parameter dict:
      "layers": [{"ln1", "attn": {wq, wk, wv, wo, (bq, bk, bv)}, "ln2",
                  "mlp": {w1, w3, w2}}, ...]}
 
+(an "rglru" layer holds "rglru" in place of "attn").
 `repro_torch.convert.decoder_params_from_numpy` carries a reference
 parameter tree into this layout.  Supported: dense GQA decoders (qwen2*,
-mistral-nemo) and the VLM stub (internvl2: a patch-embedding prefix).
-MLA, MoE, recurrent and xLSTM blocks, the training loss and remat are
-ported in a later slice (see ROADMAP.md).
+mistral-nemo), the VLM stub (internvl2: a patch-embedding prefix) and the
+Griffin hybrid (recurrentgemma: RG-LRU and local-attention layers).  MLA,
+MoE and xLSTM blocks, the training loss and remat are ported in a later
+slice (see ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, List, Tuple
 
 import torch
@@ -71,9 +74,9 @@ def plan_groups(cfg: ArchConfig) -> List[Group]:
 # =========================================================== block dispatch
 
 def _check_block(cfg: ArchConfig, kind: str) -> None:
-    if kind in ("local_attn", "rglru", "mlstm", "slstm"):
+    if kind in ("mlstm", "slstm"):
         raise L.not_ported(f"the {kind!r} block")
-    if kind not in ("attn", "attn_dense"):
+    if kind not in ("attn", "attn_dense", "local_attn", "rglru"):
         raise ValueError(kind)
     if cfg.mla is not None:
         raise L.not_ported("MLA attention")
@@ -84,10 +87,15 @@ def _check_block(cfg: ArchConfig, kind: str) -> None:
 def block_specs(cfg: ArchConfig, kind: str) -> Dict[str, Any]:
     _check_block(cfg, kind)
     d, hd = cfg.d_model, cfg.resolved_head_dim
+    if kind == "rglru":
+        mixer = {"rglru": L.rglru_specs(d, cfg.lru_width or d, cfg.num_heads,
+                                        cfg.conv1d_width)}
+    else:
+        mixer = {"attn": L.gqa_specs(d, cfg.num_heads, cfg.num_kv_heads, hd,
+                                     cfg.qkv_bias)}
     return {
         "ln1": Spec((d,), ("embed",), "ones"),
-        "attn": L.gqa_specs(d, cfg.num_heads, cfg.num_kv_heads, hd,
-                            cfg.qkv_bias),
+        **mixer,
         "ln2": Spec((d,), ("embed",), "ones"),
         "mlp": L.swiglu_specs(d, cfg.d_ff),
     }
@@ -97,18 +105,33 @@ def block_apply_train(cfg: ArchConfig, kind: str, p: Params,
                       x: torch.Tensor, rt: Runtime) -> torch.Tensor:
     _check_block(cfg, kind)
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    x = x + L.gqa_attention_train(
-        p["attn"], h, n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads,
-        hd=cfg.resolved_head_dim, rope_theta=cfg.rope_theta, rt=rt,
-        causal=True)
+    if kind == "rglru":
+        x = x + L.rglru_block_train(p["rglru"], h, n_heads=cfg.num_heads,
+                                    rt=rt)
+    else:
+        x = x + L.gqa_attention_train(
+            p["attn"], h, n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads,
+            hd=cfg.resolved_head_dim, rope_theta=cfg.rope_theta, rt=rt,
+            causal=True,
+            window=cfg.local_window if kind == "local_attn" else 0)
     h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + L.swiglu(p["mlp"], h2, rt)
 
 
 def block_cache_specs(cfg: ArchConfig, kind: str, batch: int,
                       max_len: int) -> Dict[str, Spec]:
+    """A layer's decode state: the bf16 KV cache of an attention layer (a
+    ring of `min(local_window, max_len)` slots for local attention), or
+    the fp32 recurrent state of an RG-LRU layer."""
     _check_block(cfg, kind)
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    if kind == "rglru":
+        w = cfg.lru_width or cfg.d_model
+        return {"h": Spec((batch, w), ("batch", "lru"), "zeros", "f32"),
+                "conv": Spec((batch, cfg.conv1d_width - 1, w),
+                             ("batch", None, "lru"), "zeros", "f32")}
+    s_len = min(cfg.local_window, max_len) if kind == "local_attn" \
+        else max_len
+    shape = (batch, s_len, cfg.num_kv_heads, cfg.resolved_head_dim)
     axes = ("batch", "kv_seq", "kv_heads", None)
     return {"k": Spec(shape, axes, "zeros", "bf16"),
             "v": Spec(shape, axes, "zeros", "bf16")}
@@ -120,10 +143,15 @@ def block_apply_decode(cfg: ArchConfig, kind: str, p: Params,
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     _check_block(cfg, kind)
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    a, cache = L.gqa_attention_decode(
-        p["attn"], h, cache, pos, n_heads=cfg.num_heads,
-        n_kv=cfg.num_kv_heads, hd=cfg.resolved_head_dim,
-        rope_theta=cfg.rope_theta, rt=rt)
+    if kind == "rglru":
+        a, cache = L.rglru_block_decode(p["rglru"], h, cache,
+                                        n_heads=cfg.num_heads, rt=rt)
+    else:
+        a, cache = L.gqa_attention_decode(
+            p["attn"], h, cache, pos, n_heads=cfg.num_heads,
+            n_kv=cfg.num_kv_heads, hd=cfg.resolved_head_dim,
+            rope_theta=cfg.rope_theta, rt=rt,
+            window=cfg.local_window if kind == "local_attn" else 0)
     x = x + a
     h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + L.swiglu(p["mlp"], h2, rt), cache
@@ -171,9 +199,20 @@ class DecoderLM(nn.Module):
         return L.init_params(self.param_specs(), generator, rt.param_dtype)
 
     # -------------------------------------------------------------- forward
+    def _embed(self, params: Params, tokens: torch.Tensor, rt: Runtime
+               ) -> torch.Tensor:
+        """Embedding rows in the compute dtype; the hybrid family
+        (recurrentgemma) scales them by sqrt(d_model) rounded to that
+        dtype, as the reference does."""
+        x = params["embed"][tokens].to(rt.compute_dtype)
+        if self.cfg.family == "hybrid":
+            x = x * float(torch.tensor(math.sqrt(self.cfg.d_model),
+                                       dtype=rt.compute_dtype))
+        return x
+
     def _embed_inputs(self, params: Params, batch: Dict[str, torch.Tensor],
                       rt: Runtime) -> torch.Tensor:
-        x = params["embed"][batch["tokens"]].to(rt.compute_dtype)
+        x = self._embed(params, batch["tokens"], rt)
         if self.cfg.frontend == "vit_stub" and "patch_embeds" in batch:
             x = torch.cat([batch["patch_embeds"].to(rt.compute_dtype), x],
                           dim=1)
@@ -215,8 +254,9 @@ class DecoderLM(nn.Module):
     def init_cache(self, batch: int, max_len: int, rt: Runtime,
                    device: torch.device | str = "cpu"
                    ) -> List[Dict[str, torch.Tensor]]:
-        """Zeroed per-layer KV caches (bf16, as in the reference); the
-        decode step writes into them in place."""
+        """Zeroed per-layer decode states, as in the reference: bf16 KV
+        caches, which the decode step writes in place, and fp32 recurrent
+        states, which it replaces."""
         if rt.kv_dtype != "bf16":
             raise L.not_ported(f"the {rt.kv_dtype!r} KV cache")
         return L.map_specs(
@@ -230,7 +270,7 @@ class DecoderLM(nn.Module):
                     ) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
         """One decode step: token [B, 1] int64, `pos` its position (an
         int).  Returns fp32 logits [B, 1, V_pad] and the caches."""
-        x = params["embed"][token].to(rt.compute_dtype)
+        x = self._embed(params, token, rt)
         new_caches = []
         for kind, p, c in zip(self.kinds, params["layers"], cache):
             x, c = block_apply_decode(self.cfg, kind, p, x, c, pos, rt)

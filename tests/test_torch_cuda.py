@@ -19,6 +19,7 @@ from repro_torch.kernels.costmodel import FusedTorchScorer
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.gather import gather_rows, gather_rows_plain
+from repro_torch.kernels.rg_lru import rglru_scan, rglru_scan_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -89,7 +90,8 @@ def test_scorer_on_the_card_equals_the_cpu(gpu, app):
 @pytest.mark.parametrize("b,sq,skv,h,kv,hd", [
     (2, 64, 64, 4, 4, 32), (2, 96, 96, 4, 2, 32), (2, 128, 128, 8, 1, 16),
     (2, 80, 48, 4, 4, 32), (2, 48, 80, 4, 2, 16), (1, 300, 300, 14, 2, 64),
-    (1, 200, 333, 14, 2, 64), (2, 70, 70, 4, 1, 128)])
+    (1, 200, 333, 14, 2, 64), (2, 70, 70, 4, 1, 128),
+    (2, 130, 130, 16, 1, 256)])
 def test_flash_kernel_matches_plain(gpu, b, sq, skv, h, kv, hd, causal,
                                     dtype):
     rng = np.random.default_rng(sq + skv + hd)
@@ -135,3 +137,47 @@ def test_flash_kernel_refuses_what_it_does_not_take(gpu):
     with pytest.raises(ValueError):
         flash_attention(q, torch.zeros((1, 8, 3, 64), device=gpu),
                         torch.zeros((1, 8, 3, 64), device=gpu))
+
+
+# rglru_scan: fp32 within a few ulps of the plain version (both fp32, the
+# carries composed in another order); bf16 within one bf16 ulp
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,w", [(3, 257, 130), (2, 3000, 1024)])
+def test_rglru_kernel_matches_plain(gpu, b, s, w, dtype):
+    rng = np.random.default_rng(s + w)
+    a = torch.from_numpy(rng.uniform(0.6, 0.999, (b, s, w)).astype(
+        np.float32)).to(gpu, dtype)
+    bb = torch.from_numpy(rng.standard_normal((b, s, w)).astype(
+        np.float32)).to(gpu, dtype)
+    before = rglru_scan.launches
+    got = rglru_scan(a, bb)
+    torch.cuda.synchronize()
+    assert rglru_scan.launches == before + 1
+    assert got.dtype == dtype and got.shape == a.shape
+    tol = (1e-5, 1e-5) if dtype == torch.float32 else (1e-6, 2 ** -7)
+    torch.testing.assert_close(got.float(), rglru_scan_plain(a, bb).float(),
+                               atol=tol[0], rtol=tol[1])
+
+
+def test_rglru_kernel_reads_strided_batch_and_seq(gpu):
+    """a and b as slices of one [B, S, 2W] tensor: read by stride."""
+    rng = np.random.default_rng(1)
+    ab = torch.from_numpy(rng.uniform(0.6, 0.999, (2, 300, 256)).astype(
+        np.float32)).to(gpu)
+    a, bb = ab[..., :128], ab[..., 128:] - 0.8
+    torch.testing.assert_close(rglru_scan(a, bb), rglru_scan_plain(a, bb),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_rglru_kernel_refuses_what_it_does_not_take(gpu):
+    a = torch.zeros((1, 8, 64), device=gpu)
+    with pytest.raises(ValueError):
+        rglru_scan(a, a.cpu())                       # CPU/CUDA mix
+    with pytest.raises(ValueError):
+        rglru_scan(a.transpose(1, 2), a.transpose(1, 2))  # channel strided
+    with pytest.raises(TypeError):
+        rglru_scan(a.half(), a.half())
+    with pytest.raises(TypeError):
+        rglru_scan(a, a.bfloat16())
+    with pytest.raises(ValueError):
+        rglru_scan(a, a[:, :4])

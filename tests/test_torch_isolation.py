@@ -70,6 +70,21 @@ def test_cpu_serve_path_loads_neither_jax_nor_repro():
     assert proc.stdout.strip() == "[]"
 
 
+def test_cpu_recurrent_serve_path_loads_neither_jax_nor_repro():
+    proc = _run(
+        "import sys\n"
+        "from repro_torch import configs\n"
+        "from repro_torch.launch.serve import serve_requests\n"
+        "r = serve_requests(configs.get_smoke('recurrentgemma-9b'),\n"
+        "                   [[1, 2, 3]], batch=1, max_new=3, max_len=16,\n"
+        "                   device='cpu')\n"
+        "assert len(r[0].generated) == 3\n"
+        "print(sorted({m.split('.')[0] for m in sys.modules}"
+        " & {'jax', 'repro', 'jaxlib'}))\n")
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+
+
 def test_chip_smoke_refuses_to_run_without_a_gpu(tmp_path):
     """Without CUDA it exits non-zero and prints no result line."""
     proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],

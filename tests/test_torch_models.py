@@ -218,7 +218,6 @@ def test_dense_decoders_forward_match_the_reference(name):
 
 
 def test_cut_blocks_raise_not_implemented():
-    for name in ("olmoe-1b-7b", "deepseek-v2-lite-16b", "recurrentgemma-9b",
-                 "xlstm-1.3b"):
+    for name in ("olmoe-1b-7b", "deepseek-v2-lite-16b", "xlstm-1.3b"):
         with pytest.raises(NotImplementedError, match="later slice"):
             tlm.DecoderLM(tconfigs.get_smoke(name)).param_specs()
