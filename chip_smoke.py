@@ -43,7 +43,7 @@ printing one JSON line each:
                  x batch 1 (prefill_32k with its batch cut from 32) and seq
                  2048 x batch 4, held against the same step through the
                  plain paths (logits and next token), with 24 kernel
-                 launches a forward; then the kernel against its plain
+                 launches a forward (and none of `matmul`, counted); then the kernel against its plain
                  version on the q, k, v that the first and the last layer
                  hand it at both shapes, every row;
   9. serve qwen2-0.5b
@@ -63,7 +63,30 @@ printing one JSON line each:
                  4-12 prompt tokens, batch 4, 16 new tokens, caches of 256,
                  held against a teacher-forced full-sequence forward on the
                  card (fp32, `use_kernels=True`) over each request's prompt
-                 and generated tokens.
+                 and generated tokens;
+ 12. kernel matmul
+                 `matmul` against its plain PyTorch version on every element,
+                 within the fp32 summation bound (`matmul_against_plain`),
+                 on the sweep of `tests/test_kernels.py` at its two tiles
+                 (phase 13 holds the tile DSE's shapes, at every tile);
+ 13. tile_dse    the fourth main path: for each of `TILE_SHAPES` (bf16),
+                 `tune_matmul_tiles` picks a tile under the Hopper model and
+                 `matmul` runs at it and at every other tile the kernel is
+                 built for, each output held against the plain version;
+                 predicted and measured time per tile, their rank
+                 correlation, the tuned tile's regret against the fastest,
+                 and CUDA-event times of the plain version and
+                 `torch.matmul` beside the bound; the LM-head shape (M N >
+                 2^31) runs once, at its tuned tile;
+ 14. dryrun      `run_cell` for qwen2-0.5b and recurrentgemma-9b at
+                 prefill_32k and decode_32k on fake CUDA tensors (full batch),
+                 one greedy `autotune_search` over qwen2-0.5b's decode_32k
+                 (a cell whose points fit 80 GB; every record it writes
+                 must be OK with a finite peak and roofline, and its best
+                 score above 0), and qwen2-0.5b's plain prefill at seq 2048 x batch 4 counted
+                 on fake tensors and run for real on the card: equal FLOP
+                 counts, and the fake peak within `DRYRUN_PEAK_BAND` of
+                 `max_memory_allocated`.
 
 Then the card's name and power limit as `nvidia-smi` gives them, a
 `{"kernels": [...]}` line, and last `{"ok": true, "device": {...}}`.  Any
@@ -73,7 +96,10 @@ the repository's `src/` beside it, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
+import re
 import subprocess
 import sys
 import time
@@ -129,6 +155,25 @@ SERVE_TOL = 2e-3
 # fp32 on the card: the decode path keeps K and V in a bf16 cache, the
 # forward does not; (atol, rtol) of tests/test_decode_parity.py
 SERVE_RG_TOL = (5e-3, 2e-2)
+MATMUL_SOURCE = "src/repro_torch/kernels/csrc/matmul.cu"
+MATMUL_TPU = "src/repro/kernels/matmul.py:42"
+# the tile DSE's shapes (M, K, N), bf16: the reference quickstart's
+# product, qwen2-0.5b's MLP up-projection over a 32k prefill,
+# recurrentgemma-9b's up and down projections, a decode-like product, and
+# qwen2-0.5b's tied LM head over all 32k positions (M N > 2^31), run once
+TILE_SHAPES = {"quickstart 8192^3": (8192, 8192, 8192),
+               "qwen2-0.5b mlp up, 32k": (32768, 896, 4864),
+               "recurrentgemma-9b up, 32k": (32768, 4096, 12288),
+               "recurrentgemma-9b down, 32k": (32768, 12288, 4096),
+               "decode-like": (128, 4096, 12288),
+               "qwen2-0.5b lm head, 32k": (32768, 896, 151936)}
+ONCE = "qwen2-0.5b lm head, 32k"
+# output elements of the plain version per chunk on the largest shapes
+MATMUL_CHUNK = 1 << 28
+# the dry-run's peak of qwen2-0.5b's plain prefill at 2048 x 4 against the
+# card's max_memory_allocated of the same step: real / fake must lie in
+# this band (the card adds allocator rounding and cuBLAS workspaces)
+DRYRUN_PEAK_BAND = (0.9, 1.25)
 
 
 class SmokeFailure(RuntimeError):
@@ -683,19 +728,22 @@ def kernel_inputs(model, params, inputs, rt, layers) -> dict:
 
 def kernel_counters() -> dict:
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.matmul import matmul
     from repro_torch.kernels.rg_lru import rglru_scan
-    return {"flash_attention": flash_attention, "rglru_scan": rglru_scan}
+    return {"flash_attention": flash_attention, "rglru_scan": rglru_scan,
+            "matmul": matmul}
 
 
 def expected_launches(model, seq: int) -> dict:
     """Kernel launches of one prefill forward: one `rglru_scan` per RG-LRU
     layer; one `flash_attention` per attention layer, and per local one
-    whose window holds the whole sequence (else local-block attention)."""
+    whose window holds the whole sequence (else local-block attention);
+    no `matmul` (the models' projections are not tiled products)."""
     kinds, window = model.kinds, model.cfg.local_window
     return {"flash_attention": sum(
                 k == "attn" or (k == "local_attn" and seq <= window)
                 for k in kinds),
-            "rglru_scan": kinds.count("rglru")}
+            "rglru_scan": kinds.count("rglru"), "matmul": 0}
 
 
 def checked_layers(model, seq: int) -> tuple:
@@ -706,8 +754,9 @@ def checked_layers(model, seq: int) -> tuple:
                "rglru_scan": ("rglru",)}
     layers = set()
     for name, n in want.items():
-        idx = [i for i, k in enumerate(model.kinds) if k in kind_of[name]]
         if n:
+            idx = [i for i, k in enumerate(model.kinds)
+                   if k in kind_of[name]]
             layers.update((idx[0], idx[-1]))
     return tuple(sorted(layers))
 
@@ -1047,6 +1096,313 @@ def phase_serve_recurrent() -> dict:
     return rec
 
 
+def matmul_bound(m, k, n, itemsize) -> dict:
+    """Least time for one product: the larger of its 2 M K N FLOP at the
+    bf16 tensor-core peak and its bytes (x and y read once, the output
+    written once) at the HBM rate."""
+    flops = 2 * m * k * n
+    nbytes = itemsize * (m * k + k * n + m * n)
+    t_ops, t_bytes = flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    return {"flop": flops, "bytes": nbytes,
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def matmul_against_plain(x, y, outs: dict, bk: int) -> dict:
+    """Each output in `outs` (label -> [M, N]) against `matmul_plain(x, y,
+    bk=bk)` on every element: |out - plain| <= 2 gamma_K (|x| @ |y|),
+    gamma_K = K u / (1 - K u) with u = 2^-24, the bound of two fp32 sums of
+    the same K products in any two orders; plus one bf16 ulp of the larger
+    magnitude on bf16 outputs, where both round once.  The plain version
+    runs `MATMUL_CHUNK` output elements at a time.  Returns per label the
+    max abs error and the worst |error| / limit (passes at <= 1)."""
+    from repro_torch.kernels.matmul import matmul_plain
+    from repro_torch.models.layers import full_precision_products
+
+    M, K = x.shape
+    u = 2.0 ** -24
+    rtol = 2 * K * u / (1 - K * u)
+    rows = max(1, MATMUL_CHUNK // y.shape[1])
+    res = {lab: {"max_abs_err": 0.0, "tol_ratio": 0.0, "finite": True}
+           for lab in outs}
+    dtype = next(iter(outs.values())).dtype
+    with torch.inference_mode(), full_precision_products():
+        ay = y.float().abs()
+        for i in range(0, M, rows):
+            want = matmul_plain(x[i:i + rows], y, bk=bk,
+                                out_dtype=dtype).float()
+            lim = rtol * (x[i:i + rows].float().abs() @ ay)
+            for lab, out in outs.items():
+                got = out[i:i + rows].float()
+                diff = (got - want).abs()
+                cap = lim
+                if out.dtype == torch.bfloat16:
+                    _, e = torch.frexp(torch.maximum(got.abs(), want.abs()))
+                    cap = lim + torch.ldexp(torch.ones_like(lim), e - 8)
+                r = res[lab]
+                r["max_abs_err"] = max(r["max_abs_err"], float(diff.max()))
+                r["tol_ratio"] = max(r["tol_ratio"], float(
+                    (diff / cap.clamp_min(1e-38)).max()))
+                r["finite"] = r["finite"] and bool(torch.isfinite(got).all())
+                del got, diff, cap
+            del want, lim
+    return res
+
+
+def phase_matmul(gen) -> dict:
+    """The matmul kernel against its plain version on the sweep of
+    `tests/test_kernels.py` at its two tiles (16 cases); the tile DSE's
+    shapes are checked in its own phase."""
+    from repro_torch.kernels.matmul import matmul
+
+    results, failed = {}, []
+    for m, k, n in ((64, 64, 64), (200, 384, 136), (128, 1024, 96),
+                    (33, 65, 17)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+            y = torch.randn((k, n), generator=gen, device="cuda").to(dtype)
+            for bm, bk, bn in ((64, 128, 64), (128, 64, 128)):
+                label = f"{m}x{k}x{n} {str(dtype)[6:]} ({bm},{bk},{bn})"
+                got = matmul(x, y, bm=bm, bk=bk, bn=bn)
+                check(got.dtype == dtype and tuple(got.shape) == (m, n),
+                      f"matmul {label}: {got.dtype} {tuple(got.shape)}")
+                results[label] = matmul_against_plain(
+                    x, y, {"out": got}, bk)["out"]
+    torch.cuda.synchronize()
+    for label, res in results.items():
+        if res["tol_ratio"] > 1.0 or not res["finite"]:
+            failed.append(f"{label}: {res}")
+    worst = {key: max(r[key] for r in results.values())
+             for key in ("max_abs_err", "tol_ratio")}
+    emit("kernel matmul", cases=results, worst=worst,
+         tolerance="2 gamma_K (|x| @ |y|) + one bf16 ulp on bf16 outputs",
+         failed=failed)
+    check(not failed, f"matmul != plain on {len(failed)} cases: "
+                      f"{failed[:3]}")
+    return worst
+
+
+def spearman(a, b):
+    """Rank correlation of two sequences (average ranks for ties); None
+    where one of them is constant."""
+    def ranks(v):
+        v = np.asarray(v, dtype=float)
+        order = np.argsort(v, kind="stable")
+        r = np.empty(len(v))
+        r[order] = np.arange(len(v))
+        for val in np.unique(v):                 # ties share their mean
+            r[v == val] = r[v == val].mean()
+        return r
+    ra, rb = ranks(a), ranks(b)
+    if ra.std() == 0 or rb.std() == 0:
+        return None
+    return float(np.corrcoef(ra, rb)[0, 1])
+
+
+def phase_tile_dse(gen) -> dict:
+    """The tile DSE on the card: tune, then run every tile the kernel is
+    built for, each output against the plain version; returns the kernel's
+    launches in this phase and the per-shape records."""
+    from repro_torch.core.kernel_tune import tune_matmul_tiles
+    from repro_torch.kernels.matmul import matmul, matmul_plain
+    from repro_torch.models.layers import full_precision_products
+
+    matmul.launches = 0
+    shapes, failed = {}, []
+    for label, (m, k, n) in TILE_SHAPES.items():
+        x = torch.randn((m, k), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        y = torch.randn((k, n), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        best, cost, ranking = tune_matmul_tiles(m, k, n, dtype_bytes=2)
+        tuned = (best.bm, best.bk, best.bn)
+        tiles = [(t.bm, t.bk, t.bn) for t, _ in ranking]
+        if label == ONCE:
+            tiles = [tuned]
+        predicted = {(t.bm, t.bk, t.bn): lat * 1e3 for t, lat in ranking}
+        outs, measured = {}, {}
+        for t in tiles:
+            outs[t] = matmul(x, y, bm=t[0], bk=t[1], bn=t[2])
+            reps = dict(reps=1, inner=1) if label == ONCE \
+                else dict(reps=2, inner=1)
+            measured[t] = device_ms(
+                lambda: matmul(x, y, bm=t[0], bk=t[1], bn=t[2]), **reps)
+        torch.cuda.synchronize()
+        checks = matmul_against_plain(x, y, {str(t): o
+                                             for t, o in outs.items()},
+                                      tuned[1])
+        del outs
+        for t, res in checks.items():
+            if res["tol_ratio"] > 1.0 or not res["finite"]:
+                failed.append(f"{label} tile {t}: {res}")
+        with full_precision_products():
+            library_ms = device_ms(lambda: torch.matmul(x, y), reps=2,
+                                   inner=1)
+            plain_ms = None if label == ONCE else device_ms(
+                lambda: matmul_plain(x, y, bk=tuned[1]), reps=1, inner=1)
+        fastest = min(measured, key=measured.get)
+        shapes[label] = {
+            "M": m, "K": k, "N": n, "dtype": "bfloat16",
+            "tuned": list(tuned), "predicted_ms": predicted[tuned],
+            "tuned_cost": cost, "fastest": list(fastest),
+            "kernel_ms": measured[tuned],
+            "regret": (measured[tuned] / measured[fastest] - 1.0
+                       if len(measured) > 1 else None),
+            "rank_correlation": (spearman(
+                [predicted[t] for t in tiles], [measured[t] for t in tiles])
+                if len(tiles) > 1 else None),
+            "tiles": [{"tile": list(t), "predicted_ms": predicted[t],
+                       "measured_ms": measured[t],
+                       "tol_ratio": checks[str(t)]["tol_ratio"]}
+                      for t in tiles],
+            "max_abs_err": max(r["max_abs_err"] for r in checks.values()),
+            "tol_ratio": max(r["tol_ratio"] for r in checks.values()),
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            **matmul_bound(m, k, n, 2)}
+        del x, y
+    launches = matmul.launches
+    check_isolated()
+    emit("tile_dse", shapes=shapes, launches=launches, failed=failed,
+         tolerance="2 gamma_K (|x| @ |y|) + one bf16 ulp")
+    check(not failed, f"matmul != plain in the tile DSE on {len(failed)} "
+                      f"tiles: {failed[:3]}")
+    check(launches > 0, "the tile DSE never launched matmul")
+    return {"launches": launches, "shapes": shapes}
+
+
+def phase_dryrun() -> dict:
+    """Dry-runs of the two served archs at their serving cells on fake
+    CUDA tensors, one greedy autotune over qwen2-0.5b's decode_32k (every
+    record it wrote must be OK, its best score above 0), and the fake
+    count of qwen2-0.5b's plain prefill at 2048 x 4 against the same step
+    run on the card."""
+    import gc
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.core.autotune import CellEvaluator, autotune_search
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.steps import (build_model, count_step,
+                                          make_prefill_step, trace_step)
+
+    cells, keys = {}, ("flops_per_chip", "hbm_bytes_per_chip",
+                       "peak_memory_per_chip", "compute_s", "memory_s",
+                       "memory_s_hlo", "roofline_s", "bottleneck",
+                       "useful_compute_ratio")
+    with tempfile.TemporaryDirectory() as tmp:
+        for arch in (ARCH, RG_ARCH):
+            for shape in ("prefill_32k", "decode_32k"):
+                rec = run_cell(arch, shape, Path(tmp), device="cuda")
+                check(rec["status"] == "OK",
+                      f"dry-run {arch} {shape}: {rec.get('error')}")
+                roof = rec["roofline"]
+                check(roof["flops_per_chip"] > 0 and roof["roofline_s"] > 0,
+                      f"dry-run {arch} {shape} counted nothing")
+                cells[f"{arch} {shape}"] = {
+                    **{k: roof[k] for k in keys},
+                    "fits_hbm": rec["fits_hbm"], "trace_s": rec["compile_s"],
+                    "flops_by_op": rec["flops_by_op"]}
+        # the greedy search over a cell whose points fit the card's 80 GB
+        log = []
+        ev = CellEvaluator(ARCH, "decode_32k", cache_dir=tmp, device="cuda")
+        t0 = time.perf_counter()
+        best, score = autotune_search(ev, shape_mode="decode", seed=0,
+                                      log=log)
+        seconds = time.perf_counter() - t0
+        records = {}
+        for f in sorted(ev.dir.glob("*.json")):
+            rec = json.loads(f.read_text())
+            check(rec.get("status") == "OK",
+                  f"autotune record {f.name}: {rec.get('status')} "
+                  f"{rec.get('error')}")
+            roof = rec["roofline"]
+            check(all(math.isfinite(roof[k]) and roof[k] > 0 for k in
+                      ("peak_memory_per_chip", "roofline_s")),
+                  f"autotune record {f.name}: peak "
+                  f"{roof['peak_memory_per_chip']}, roofline "
+                  f"{roof['roofline_s']}")
+            records[f.stem] = {"point": rec.get("point"),
+                               "peak_memory_per_chip":
+                                   roof["peak_memory_per_chip"],
+                               "roofline_s": roof["roofline_s"]}
+        scores = [x for r in log for x in
+                  ([r["score"]] if r["event"] == "init" else r["scores"])]
+        autotune = {"cell": ev.cell, "best": dataclasses.asdict(best),
+                    "score": score, "dry_runs": ev.n_compiles,
+                    "seconds": seconds, "records": records,
+                    "rounds": [{"var": r["var"], "scores": r["scores"]}
+                               for r in log if r["event"] == "round"]}
+        check(score > 0 and max(scores) > 0,
+              f"the autotune scored {ev.cell} 0 at every point: {scores}")
+        check(score == max(scores),
+              f"the autotune kept {score}, below its best {max(scores)}")
+
+    # the plain prefill at 2048 x 4: counted on fake tensors, then run
+    cfg = configs.get_arch(ARCH)
+    shape = ShapeSpec("prefill_2048x4", 2048, 4, "prefill")
+    fake, rt = trace_step(cfg, shape, device="cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), rt)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 2048),
+                                     device="cuda")}
+    step = make_prefill_step(model, rt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    logits = step(params, batch)
+    torch.cuda.synchronize()
+    real_peak = torch.cuda.max_memory_allocated() - base
+    check(bool(torch.isfinite(logits.float()).all()),
+          "the plain prefill's logits are not finite")
+    del logits
+    _, real = count_step(step, params, batch)
+    torch.cuda.synchronize()
+    ratio = real_peak / fake.peak_bytes
+    check_isolated()
+    rec = {"cells": cells, "autotune": autotune,
+           "prefill_2048x4": {
+               "fake_flops": fake.flops, "real_flops": real.flops,
+               "fake_flops_by_op": fake.flops_by_op,
+               "fake_peak_bytes": fake.peak_bytes,
+               "real_counted_peak_bytes": real.peak_bytes,
+               "max_memory_allocated": real_peak,
+               "real_over_fake_peak": ratio, "band": DRYRUN_PEAK_BAND,
+               "fake_bytes_accessed": fake.bytes_accessed,
+               "real_bytes_accessed": real.bytes_accessed}}
+    emit("dryrun", **rec)
+    check(real.flops == fake.flops,
+          f"fake-tensor FLOPs {fake.flops} != the card's {real.flops}")
+    check(DRYRUN_PEAK_BAND[0] <= ratio <= DRYRUN_PEAK_BAND[1],
+          f"max_memory_allocated / dry-run peak = {ratio}, outside "
+          f"{DRYRUN_PEAK_BAND}")
+    return rec
+
+
+def ptxas_report(log: str) -> list:
+    """Registers and spills of each kernel in one source's ptxas output,
+    the kernel named by its template arguments."""
+    rows, name, spill = [], "", ""
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            mangled = m.group(1)
+            base = re.search(r"([a-z_]+_kernel)", mangled)
+            args = re.findall(r"Li(\d+)E", mangled)
+            dtype = "bf16" if "bfloat16" in mangled else "f32"
+            name = (f"{base.group(1) if base else mangled}<{dtype}"
+                    + "".join(f",{a}" for a in args) + ">")
+        elif "spill" in ln:
+            spill = ln.strip()
+        elif "Used" in ln and name:
+            rows.append(f"{name}: {ln.split(':', 1)[1].strip()}; {spill}")
+            name = ""
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1073,9 +1429,7 @@ def main() -> int:
     emit("device", name=torch.cuda.get_device_name(0), nvidia_smi=smi,
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, nvcc_build_s=build_s,
-         ptxas={k: [ln.strip() for ln in v.splitlines()
-                    if "Used" in ln or "spill" in ln]
-                for k, v in logs.items()})
+         ptxas={k: ptxas_report(v) for k, v in logs.items()})
 
     rng = np.random.default_rng(0)
     space = default_space()
@@ -1097,10 +1451,14 @@ def main() -> int:
     for name in ("flash_attention", "rglru_scan"):
         check(paths[RG_ARCH][name] > 0,
               f"the {RG_ARCH} prefill never launched {name}")
+    mm = phase_matmul(torch.Generator(device="cuda").manual_seed(2))
+    dse = phase_tile_dse(torch.Generator(device="cuda").manual_seed(3))
+    phase_dryrun()
 
     t = kern["timings"][str(TIMED_POOLS[-1])]
     f = flash["timings"]["32768"]
     r = rglru["timings"]["1x32768"]
+    q = dse["shapes"]["quickstart 8192^3"]
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
         "name": "gather_rows", "route": "cuda", "source": KERNEL_SOURCE,
@@ -1147,7 +1505,28 @@ def main() -> int:
         "library": RGLRU_LIBRARY,
         "at_4x2048": {k: rglru["timings"]["4x2048"][k]
                       for k in ("kernel_ms", "plain_ms", "bound_ms",
-                                "bound_by")}}]}), flush=True)
+                                "bound_by")}}, {
+        "name": "matmul", "route": "cuda", "source": MATMUL_SOURCE,
+        "replaces": MATMUL_TPU,
+        "tpu": "src/repro/kernels/matmul.py:_matmul_kernel",
+        "shape": {k: q[k] for k in ("M", "K", "N", "dtype", "tuned")},
+        "launches": dse["launches"],
+        "launches_by_path": {"tile_dse": dse["launches"],
+                             **{f"prefill {a}": p["matmul"]
+                                for a, p in paths.items()}},
+        "max_abs_err": max([mm["max_abs_err"]]
+                           + [r["max_abs_err"]
+                              for r in dse["shapes"].values()]),
+        "ms": q["kernel_ms"], "kernel_ms": q["kernel_ms"],
+        "plain_ms": q["plain_ms"], "bound_ms": q["bound_ms"],
+        "bound_by": q["bound_by"], "library_ms": q["library_ms"],
+        "library": "torch.matmul",
+        "at": {label: {k: r[k] for k in ("M", "K", "N", "tuned",
+                                         "kernel_ms", "plain_ms",
+                                         "library_ms", "bound_ms",
+                                         "bound_by", "regret",
+                                         "rank_correlation")}
+               for label, r in dse["shapes"].items()}}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

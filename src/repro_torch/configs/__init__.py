@@ -8,10 +8,10 @@ Every assigned architecture has its own module exporting:
 from __future__ import annotations
 
 import importlib
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 from repro_torch.models.config import ArchConfig
-from repro_torch.configs.shapes import SHAPES, shape_by_name
+from repro_torch.configs.shapes import SHAPES, ShapeSpec, shape_by_name
 
 _MODULES: Dict[str, str] = {
     "internvl2-1b": "repro_torch.configs.internvl2_1b",
@@ -37,4 +37,19 @@ def get_smoke(name: str) -> ArchConfig:
     return importlib.import_module(_MODULES[name]).SMOKE
 
 
-__all__ = ["ARCH_NAMES", "get_arch", "get_smoke", "SHAPES", "shape_by_name"]
+def cells() -> List[Tuple[str, ShapeSpec]]:
+    """All 40 (architecture x shape) cells, with applicability flags."""
+    return [(a, s) for a in ARCH_NAMES for s in SHAPES]
+
+
+def cell_applicable(arch_name: str, shape: ShapeSpec) -> Tuple[bool, str]:
+    arch = get_arch(arch_name)
+    if shape.needs_sub_quadratic and not arch.sub_quadratic:
+        return False, ("full-attention architecture: 500k dense KV decode "
+                       "is quadratic-cost with no sub-quadratic path "
+                       "(see DESIGN.md §Arch-applicability)")
+    return True, ""
+
+
+__all__ = ["ARCH_NAMES", "get_arch", "get_smoke", "cells", "cell_applicable",
+           "SHAPES", "shape_by_name"]

@@ -9,6 +9,9 @@
                     flash_attention.cu`), with its plain version.
   * `rg_lru`      — `rglru_scan`, the RG-LRU recurrence over the sequence
                     (`csrc/rglru_scan.cu`), with its plain version.
+  * `matmul`      — the tiled matrix product whose tiles the tile DSE
+                    (`core.kernel_tune`) picks (`csrc/matmul.cu`), with its
+                    plain version.
   * `build`       — nvcc build and ctypes loading of the CUDA sources.
 
 Nothing is compiled or loaded when these modules are imported.

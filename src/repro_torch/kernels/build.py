@@ -25,7 +25,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "library_path", "build",
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 #: every kernel source of the port, by stem
-SOURCES = ("gather_rows", "flash_attention", "rglru_scan")
+SOURCES = ("gather_rows", "flash_attention", "rglru_scan", "matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

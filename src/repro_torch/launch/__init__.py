@@ -1,2 +1,3 @@
-"""Step builders (`steps`) and the slot-based serving loop (`serve`) of
-the port, for dense GQA decoders on one GPU."""
+"""Step builders (`steps`), the slot-based serving loop (`serve`) and the
+fake-tensor dry-run of a serving step (`dryrun`) of the port, on one
+GPU."""

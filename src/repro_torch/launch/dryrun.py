@@ -1,0 +1,185 @@
+"""Dry-run of one serving step on one GPU, counted on fake tensors.
+
+For every (architecture x serving shape) cell, run the cell's step once on
+fake tensors (`launch.steps.trace_step`) and record:
+
+  * the FLOPs of the matmul family (`FlopCounterMode`) and the operand and
+    result bytes of every aten op (an upper bound on traffic);
+  * the peak bytes of live storage (proves the step fits the card, or not);
+  * the roofline on one H100 (`core.roofline`), with the analytic traffic
+    model as its memory term, as in the reference.
+
+Nothing is allocated and no kernel runs, so a full-batch 32k prefill is
+counted in seconds.  The reference (`repro.launch.dryrun`) compiles each
+cell with XLA for a 256- or 512-chip mesh; the port runs on one chip (mesh
+"1gpu"), so sharding mode, remat and layout rules change nothing here and
+are only recorded.  Train shapes and the archs whose blocks the port does
+not have yet (MLA, MoE, xLSTM, encoder-decoder) raise
+`NotImplementedError`; other failures are recorded as FAILED.  Records are
+written to `<out>/<cell>.json`.
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-0.5b \\
+      --shape prefill_32k [--device cuda|cpu] [--out DIR]
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --device cpu
+
+`--device` names the fake tensors' device: `cuda` (the default) needs a
+CUDA build of PyTorch and a GPU, as every entry point of the port does.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+import traceback
+from pathlib import Path
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch import configs
+from repro_torch.configs.shapes import SHAPES, shape_by_name
+from repro_torch.core.roofline import (HW, CollectiveStats,
+                                       analytic_hbm_bytes, model_flops,
+                                       roofline_from_totals)
+from repro_torch.launch.steps import trace_step
+from repro_torch.models.layers import not_ported
+
+__all__ = ["MESH", "OUT_DIR", "run_cell", "main"]
+
+OUT_DIR = Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
+MESH = "1gpu"                          # one card, no mesh
+# the reference's fp8 KV cache for archs whose bf16 cache and weights
+# exceed its chips' memory at decode_32k (the port's f8 cache raises:
+# ported in a later slice)
+DEFAULT_SERVE_KV_DTYPE = {"qwen2.5-32b": "f8"}
+
+
+def run_cell(arch_name: str, shape_name: str, out_dir: Path, *,
+             device: str = "cuda", sharding_mode: str = "fsdp",
+             remat: str = "full", microbatches: int = 0,
+             overrides: Optional[Dict[str, Any]] = None,
+             rule_updates: Optional[Dict[str, Any]] = None,
+             tag: str = "") -> dict:
+    """Count one cell's step and write its record to `out_dir`.
+
+    `overrides` may set `attn_kv_block` (the plain attention's KV tile);
+    `moe_group_size` touches only MoE blocks, which raise here.
+    `sharding_mode`, `remat`, `microbatches` and `rule_updates` change
+    nothing on one chip: they exist only to fill the `config` entry of the
+    reference's record shape."""
+    cell_id = f"{arch_name}_{shape_name}_{MESH}{tag}"
+    out_path = Path(out_dir) / f"{cell_id}.json"
+
+    shape = shape_by_name(shape_name)
+    ok, why = configs.cell_applicable(arch_name, shape)
+    if not ok:
+        rec = {"cell": cell_id, "status": "SKIPPED", "reason": why}
+        out_path.parent.mkdir(parents=True, exist_ok=True)
+        out_path.write_text(json.dumps(rec, indent=2))
+        print(f"[dryrun] {cell_id}: SKIPPED ({why.split(':')[0]})")
+        return rec
+
+    if shape.mode == "train":
+        raise not_ported("the train step (and its dry-run)")
+    arch = configs.get_arch(arch_name)
+    microbatches = max(microbatches, 1)
+    rt_overrides = {k: v for k, v in (overrides or {}).items()
+                    if k != "moe_group_size"}
+    if shape.mode == "decode" and arch_name in DEFAULT_SERVE_KV_DTYPE:
+        rt_overrides.setdefault("kv_dtype", DEFAULT_SERVE_KV_DTYPE[arch_name])
+    t0 = time.time()
+    try:
+        counts, rt = trace_step(arch, shape, device=device,
+                                overrides=rt_overrides)
+        t_trace = time.time() - t0
+        hw = HW()
+        rep = roofline_from_totals(
+            arch=arch_name, shape=shape_name, mesh_name=MESH, chips=1,
+            flops=counts.flops, hbm_bytes=counts.bytes_accessed,
+            coll=CollectiveStats(), peak_bytes=counts.peak_bytes,
+            analytic_bytes=analytic_hbm_bytes(arch, shape, 1, tp=1,
+                                              kv_bytes=2),
+            model_flops_total=model_flops(arch, shape), hw=hw)
+        rec = {
+            "cell": cell_id, "status": "OK",
+            # nothing is lowered or compiled: the trace is the whole cost
+            "lower_s": 0.0, "compile_s": round(t_trace, 2),
+            "total_s": round(time.time() - t0, 2),
+            "memory_analysis": (f"peak live storage {counts.peak_bytes} "
+                                f"bytes (params, inputs and caches "
+                                f"included) on fake {device} tensors"),
+            "fits_hbm": bool(counts.peak_bytes <= hw.hbm_bytes),
+            "roofline": rep.to_json(),
+            "probes": [],
+            "config": {"sharding_mode": sharding_mode, "remat": remat,
+                       "microbatches": microbatches,
+                       "overrides": overrides or {},
+                       "rule_updates": {k: str(v) for k, v in
+                                        (rule_updates or {}).items()}},
+            "device": device,
+            "runtime": {"param_dtype": str(rt.param_dtype),
+                        "compute_dtype": str(rt.compute_dtype),
+                        "attn_kv_block": rt.attn_kv_block,
+                        "use_kernels": rt.use_kernels},
+            "flops_by_op": counts.flops_by_op,
+        }
+        print(f"[dryrun] {cell_id}: OK peak={counts.peak_bytes/1e9:.2f}GB "
+              f"trace={t_trace:.1f}s  {rep.row()}")
+    except NotImplementedError:
+        raise
+    except Exception as e:   # noqa: BLE001 — record the failure, keep going
+        rec = {"cell": cell_id, "status": "FAILED",
+               "error": f"{type(e).__name__}: {e}",
+               "traceback": traceback.format_exc()[-4000:]}
+        print(f"[dryrun] {cell_id}: FAILED {type(e).__name__}: {e}")
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    out_path.write_text(json.dumps(rec, indent=2))
+    return rec
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
+    ap.add_argument("--arch", choices=list(configs.ARCH_NAMES))
+    ap.add_argument("--shape", choices=[s.name for s in SHAPES])
+    ap.add_argument("--all", action="store_true",
+                    help="sweep every (arch x shape) cell")
+    ap.add_argument("--device", default="cuda",
+                    help="device of the fake tensors: cuda (default; fails "
+                         "without a GPU) or cpu")
+    ap.add_argument("--out", default=str(OUT_DIR))
+    args = ap.parse_args(argv)
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda needs a GPU "
+                           "(torch.cuda.is_available() is False); pass "
+                           "--device cpu to count on fake CPU tensors")
+
+    out_dir = Path(args.out)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    if args.all:
+        cells = [(a, s.name) for a in configs.ARCH_NAMES for s in SHAPES]
+    else:
+        if not args.arch or not args.shape:
+            ap.error("--arch and --shape required unless --all")
+        cells = [(args.arch, args.shape)]
+
+    n_fail = n_cut = 0
+    for arch_name, shape_name in cells:
+        try:
+            rec = run_cell(arch_name, shape_name, out_dir,
+                           device=args.device)
+        except NotImplementedError as e:
+            n_cut += 1
+            print(f"[dryrun] {arch_name}_{shape_name}_{MESH}: "
+                  f"NOT PORTED ({e})")
+            continue
+        n_fail += rec["status"] == "FAILED"
+    print(f"[dryrun] done; {n_fail} failures, {n_cut} cells not ported")
+    return 1 if n_fail or (n_cut and not args.all) else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,6 +1,7 @@
 """Step builders of the port: `build_model`, `make_runtime`,
-`input_specs`, and the serving steps `make_prefill_step` /
-`make_serve_step`.
+`input_specs`, the serving steps `make_prefill_step` / `make_serve_step`,
+and `trace_step`, which counts one serving step on fake tensors for the
+dry-run (`launch.dryrun`).
 
 The reference builds jit-able steps over a device mesh; on one GPU a step
 is a plain function that runs eagerly under `torch.inference_mode` and
@@ -11,18 +12,23 @@ slice (see ROADMAP.md).
 
 from __future__ import annotations
 
+import dataclasses
+import weakref
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (Runtime, full_precision_products,
-                                       not_ported)
+                                       map_specs, not_ported)
 from repro_torch.models.lm import DecoderLM
 
 __all__ = ["build_model", "make_runtime", "input_specs",
-           "make_prefill_step", "make_serve_step"]
+           "make_prefill_step", "make_serve_step", "StepCounts",
+           "count_step", "trace_step"]
 
 
 def build_model(arch: ArchConfig) -> DecoderLM:
@@ -78,3 +84,127 @@ def make_serve_step(model: DecoderLM, rt: Runtime) -> Callable:
         with torch.inference_mode(), full_precision_products():
             return model.decode_step(params, cache, token, pos, rt)
     return serve_step
+
+
+# ------------------------------------------------------ counting one step
+
+@dataclasses.dataclass
+class StepCounts:
+    """What one run of a step does, counted op by op.
+
+    `flops`: `torch.utils.flop_counter.FlopCounterMode`'s count, which
+    covers the matmul family (mm, addmm, bmm, baddbmm, convolution, SDPA)
+    only; XLA's count in the reference also counts elementwise work.
+    `bytes_accessed`: operand and result bytes of every aten op that is not
+    a view — the counterpart of XLA's pre-fusion "bytes accessed", an upper
+    bound on device-memory traffic.  `peak_bytes`: the most bytes of
+    storage alive at once, the step's arguments included (params, inputs,
+    caches), in use by tensors; no allocator rounding, no library
+    workspace."""
+
+    flops: int
+    flops_by_op: Dict[str, int]
+    bytes_accessed: int
+    peak_bytes: int
+    ops: int
+
+
+class _Counter(TorchDispatchMode):
+    """Live storage bytes (with their peak) for every op, and operand and
+    result bytes while `counting` is set."""
+
+    def __init__(self):
+        super().__init__()
+        self.sizes: Dict[int, int] = {}
+        self.live = self.peak = 0
+        self.bytes_accessed = self.ops = 0
+        self.counting = False
+
+    def hold(self, t: torch.Tensor) -> None:
+        st = t.untyped_storage()
+        key = st._cdata
+        if key in self.sizes:
+            return
+        self.sizes[key] = st.nbytes()
+        self.live += st.nbytes()
+        self.peak = max(self.peak, self.live)
+        weakref.finalize(st, self._free, key)
+
+    def _free(self, key: int) -> None:
+        self.live -= self.sizes.pop(key)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
+        for t in outs:
+            self.hold(t)
+        # ops with no tensor result (device or size queries) move nothing
+        if self.counting and outs and not func.is_view:
+            self.ops += 1
+            self.bytes_accessed += sum(
+                t.numel() * t.element_size()
+                for t in tree_leaves((args, kwargs)) + outs
+                if isinstance(t, torch.Tensor))
+        return out
+
+
+def count_step(step: Callable, *args) -> Tuple[Any, StepCounts]:
+    """Run `step(*args)` once and count it (`StepCounts`); on real or fake
+    tensors alike.  Returns the step's output and the counts."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    counter = _Counter()
+    with counter:
+        for t in tree_leaves(args):
+            if isinstance(t, torch.Tensor):
+                counter.hold(t)
+        counter.counting = True
+        with FlopCounterMode(display=False) as flop_counter:
+            out = step(*args)
+        counter.counting = False
+    by_op = {str(op): int(n) for op, n in
+             flop_counter.get_flop_counts().get("Global", {}).items()}
+    return out, StepCounts(flops=int(flop_counter.get_total_flops()),
+                           flops_by_op=by_op,
+                           bytes_accessed=counter.bytes_accessed,
+                           peak_bytes=counter.peak, ops=counter.ops)
+
+
+def trace_step(arch: ArchConfig, shape: ShapeSpec, *, device: str = "cuda",
+               overrides: Optional[Dict[str, Any]] = None
+               ) -> Tuple[StepCounts, Runtime]:
+    """Count one serving step of `arch` at `shape` on fake tensors of
+    `device` (`torch._subclasses.fake_tensor.FakeTensorMode`): no memory is
+    allocated and no kernel runs, whatever the shape.  The step is the one
+    `make_prefill_step` / `make_serve_step` build, through the plain paths
+    (`use_kernels=False`, as the reference's dry-run traces without
+    Pallas; the ctypes kernels are invisible to dispatch modes anyway), on
+    parameters in the serving dtype.  A decode step writes one token at
+    position `seq_len - 1` against a `seq_len`-deep cache.  The port
+    unrolls its layers, so the whole step is counted once (the reference's
+    scan probes have no counterpart)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    if shape.mode == "train":
+        raise not_ported("the train step")
+    model = build_model(arch)
+    rt = make_runtime(arch, shape, overrides=overrides)
+    with FakeTensorMode():
+        params = map_specs(
+            lambda s: torch.empty(s.shape, device=device,
+                                  dtype=s.resolved_dtype(rt.param_dtype)),
+            model.param_specs())
+        specs = input_specs(arch, shape)
+        if shape.mode == "prefill":
+            batch = {name: torch.zeros(shp, dtype=dt, device=device)
+                     for name, (shp, dt) in specs.items()}
+            _, counts = count_step(make_prefill_step(model, rt), params,
+                                   batch)
+        else:
+            cache = model.init_cache(shape.global_batch, shape.seq_len, rt,
+                                     device)
+            token = torch.zeros(specs["token"][0], dtype=torch.int64,
+                                device=device)
+            _, counts = count_step(make_serve_step(model, rt), params,
+                                   cache, token, shape.seq_len - 1)
+    return counts, rt

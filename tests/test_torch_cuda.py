@@ -19,7 +19,9 @@ from repro_torch.kernels.costmodel import FusedTorchScorer
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.gather import gather_rows, gather_rows_plain
+from repro_torch.kernels.matmul import MATMUL_TILES, matmul, matmul_plain
 from repro_torch.kernels.rg_lru import rglru_scan, rglru_scan_plain
+from repro_torch.models.layers import full_precision_products
 
 pytestmark = pytest.mark.cuda
 
@@ -181,3 +183,105 @@ def test_rglru_kernel_refuses_what_it_does_not_take(gpu):
         rglru_scan(a, a.bfloat16())
     with pytest.raises(ValueError):
         rglru_scan(a, a[:, :4])
+
+
+# matmul: |kernel - plain| <= 2 gamma_K (|x| @ |y|), gamma_K = K u / (1 - K u)
+# with u = 2^-24 (two fp32 sums of the same products in two orders), plus
+# one bf16 ulp of the larger magnitude on bf16 outputs (both round once)
+def assert_matmul_close(x, y, got, bk, rows=4096):
+    k = x.shape[1]
+    u = 2.0 ** -24
+    rtol = 2 * k * u / (1 - k * u)
+    with full_precision_products():
+        for i in range(0, x.shape[0], rows):
+            want = matmul_plain(x[i:i + rows], y, bk=bk,
+                                out_dtype=got.dtype).float()
+            g = got[i:i + rows].float()
+            lim = rtol * (x[i:i + rows].float().abs() @ y.float().abs())
+            if got.dtype == torch.bfloat16:
+                _, e = torch.frexp(torch.maximum(g.abs(), want.abs()))
+                lim = lim + torch.ldexp(torch.ones_like(lim), e - 8)
+            assert bool(torch.isfinite(g).all())
+            assert bool(((g - want).abs() <= lim).all()), \
+                float(((g - want).abs() / lim.clamp_min(1e-38)).max())
+
+
+def _matmul_inputs(m, k, n, dtype, device, seed=0):
+    rng = np.random.default_rng(seed + m + k + n)
+    return (torch.from_numpy(rng.standard_normal((m, k)).astype(
+                np.float32)).to(device, dtype),
+            torch.from_numpy(rng.standard_normal((k, n)).astype(
+                np.float32)).to(device, dtype))
+
+
+@pytest.mark.parametrize("tiles", [(64, 128, 64), (128, 64, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(64, 64, 64), (200, 384, 136),
+                                   (128, 1024, 96), (33, 65, 17)])
+def test_matmul_kernel_matches_plain(gpu, m, k, n, dtype, tiles):
+    """The sweep of tests/test_kernels.py."""
+    x, y = _matmul_inputs(m, k, n, dtype, gpu)
+    bm, bk, bn = tiles
+    before = matmul.launches
+    got = matmul(x, y, bm=bm, bk=bk, bn=bn)
+    torch.cuda.synchronize()
+    assert matmul.launches == before + 1
+    assert got.dtype == dtype and got.shape == (m, n)
+    assert_matmul_close(x, y, got, bk)
+
+
+@pytest.mark.parametrize("tile", MATMUL_TILES, ids=str)
+def test_matmul_every_tile(gpu, tile):
+    """Every instantiated tile, ragged on all three dims, both dtypes and
+    both output dtypes."""
+    bm, bk, bn = tile
+    for dtype in (torch.float32, torch.bfloat16):
+        x, y = _matmul_inputs(300, 1000, 260, dtype, gpu)
+        for out_dtype in (torch.float32, torch.bfloat16):
+            got = matmul(x, y, bm=bm, bk=bk, bn=bn, out_dtype=out_dtype)
+            torch.cuda.synchronize()
+            assert got.dtype == out_dtype
+            assert_matmul_close(x, y, got, bk)
+
+
+def test_matmul_output_beyond_2_to_the_31(gpu):
+    """M * N > 2^31 elements in bf16: the output is indexed in 64 bits."""
+    m, k, n = 32768, 64, 65600
+    assert m * n > 2 ** 31
+    x, y = _matmul_inputs(m, k, n, torch.bfloat16, gpu)
+    got = matmul(x, y, bm=128, bk=64, bn=128)
+    torch.cuda.synchronize()
+    assert_matmul_close(x, y, got, 64)
+
+
+def test_matmul_kernel_refuses_what_it_does_not_take(gpu):
+    x = torch.zeros((64, 64), device=gpu)
+    with pytest.raises(ValueError):
+        matmul(x, x, bm=32, bk=32, bn=32)              # no such tile
+    with pytest.raises(ValueError):
+        matmul(x, x.cpu(), bm=64, bk=64, bn=64)        # CPU/CUDA mix
+    with pytest.raises(ValueError):
+        matmul(x.t()[:, :32], x, bm=64, bk=64, bn=64)  # shapes, strides
+    with pytest.raises(ValueError):
+        matmul(x[:, ::2], x[::2], bm=64, bk=64, bn=64)  # not contiguous
+    with pytest.raises(TypeError):
+        matmul(x.half(), x.half(), bm=64, bk=64, bn=64)
+    with pytest.raises(TypeError):
+        matmul(x, x.bfloat16(), bm=64, bk=64, bn=64)
+
+
+def test_dry_run_counts_fake_cuda_tensors_as_fake_cpu(gpu):
+    """A tiny dry-run on fake CUDA tensors counts what the same step on
+    fake CPU tensors counts."""
+    from repro_torch import configs
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch.steps import trace_step
+
+    arch = configs.get_smoke("qwen2-0.5b")
+    for shape in (ShapeSpec("p", 64, 2, "prefill"),
+                  ShapeSpec("d", 64, 2, "decode")):
+        on_cuda, _ = trace_step(arch, shape, device="cuda")
+        on_cpu, _ = trace_step(arch, shape, device="cpu")
+        assert on_cuda.flops == on_cpu.flops > 0
+        assert on_cuda.peak_bytes == on_cpu.peak_bytes > 0
+        assert on_cuda.bytes_accessed == on_cpu.bytes_accessed

@@ -1,0 +1,179 @@
+"""`repro_torch.launch.dryrun` and `launch.steps.trace_step` on the CPU, at
+smoke size: the FLOPs, bytes and peak counted on fake tensors equal those
+of the same step run for real, and a closed-form FLOP count; the records
+carry the reference record's keys; inapplicable cells are SKIPPED and the
+cuts raise `NotImplementedError`.  Counts are integers and compared
+exactly."""
+
+import json
+
+import pytest
+import torch
+
+from repro_torch import configs
+from repro_torch.configs.shapes import ShapeSpec
+from repro_torch.core.roofline import (CollectiveStats, analytic_hbm_bytes,
+                                       model_flops, roofline_from_totals)
+from repro_torch.launch import dryrun
+from repro_torch.launch.steps import (build_model, count_step,
+                                      make_prefill_step, make_serve_step,
+                                      trace_step)
+from repro_torch.models.lm import padded_vocab
+
+# the keys of an OK record of the reference's run_cell
+# (src/repro/launch/dryrun.py, the `rec` of its try block)
+REF_OK_KEYS = {"cell", "status", "lower_s", "compile_s", "total_s",
+               "memory_analysis", "fits_hbm", "roofline", "probes",
+               "config"}
+REF_CONFIG_KEYS = {"sharding_mode", "remat", "microbatches", "overrides",
+                   "rule_updates"}
+PREFILL = ShapeSpec("prefill_64x2", 64, 2, "prefill")
+DECODE = ShapeSpec("decode_64x2", 64, 2, "decode")
+
+
+@pytest.fixture
+def smoke_registry(monkeypatch):
+    """`run_cell` on the smoke configs (same families, small widths)."""
+    monkeypatch.setattr(dryrun.configs, "get_arch", configs.get_smoke)
+
+
+def _real_counts(arch, shape, rt):
+    model = build_model(arch)
+    params = model.init(torch.Generator().manual_seed(0), rt)
+    B, S = shape.global_batch, shape.seq_len
+    if shape.mode == "prefill":
+        batch = {"tokens": torch.randint(0, arch.vocab_size, (B, S),
+                                         generator=torch.Generator()
+                                         .manual_seed(1))}
+        return count_step(make_prefill_step(model, rt), params, batch)[1]
+    cache = model.init_cache(B, S, rt, "cpu")
+    return count_step(make_serve_step(model, rt), params, cache,
+                      torch.zeros((B, 1), dtype=torch.int64), S - 1)[1]
+
+
+@pytest.mark.parametrize("shape", [PREFILL, DECODE], ids=lambda s: s.mode)
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "recurrentgemma-9b"])
+def test_fake_counts_equal_a_real_run(arch, shape):
+    cfg = configs.get_smoke(arch)
+    fake, rt = trace_step(cfg, shape, device="cpu")
+    real = _real_counts(cfg, shape, rt)
+    assert rt.param_dtype == torch.bfloat16 and not rt.use_kernels
+    assert fake.flops == real.flops > 0
+    assert fake.flops_by_op == real.flops_by_op
+    assert fake.bytes_accessed == real.bytes_accessed > 0
+    assert fake.peak_bytes == real.peak_bytes > 0
+    assert fake.ops == real.ops
+
+
+def _closed_form_flops(cfg, B, S, mode):
+    """The matmul-family FLOPs of the plain dense-GQA step: q/k/v/o and
+    the SwiGLU projections per token, scores and values over every
+    (query, key) pair of the blocked attention (it masks, it does not
+    skip), and the LM head on the last position only (prefill) or the one
+    new token (decode)."""
+    d, H, KV, hd, f = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                       cfg.resolved_head_dim, cfg.d_ff)
+    tokens = B * S if mode == "prefill" else B
+    keys = S                                # prefill: S keys; decode: cache
+    per_token = 2 * d * (H * hd + 2 * KV * hd) + 2 * H * hd * d \
+        + 3 * 2 * d * f
+    attn = 4 * B * H * hd * keys * (S if mode == "prefill" else 1)
+    head = 2 * B * d * padded_vocab(cfg.vocab_size)
+    return cfg.num_layers * (tokens * per_token + attn) + head
+
+
+@pytest.mark.parametrize("shape", [PREFILL, DECODE], ids=lambda s: s.mode)
+def test_fake_flops_match_the_closed_form(shape):
+    cfg = configs.get_smoke("qwen2-0.5b")
+    fake, _ = trace_step(cfg, shape, device="cpu")
+    assert fake.flops == _closed_form_flops(cfg, shape.global_batch,
+                                            shape.seq_len, shape.mode)
+
+
+def test_kv_block_moves_the_peak_not_the_flops():
+    cfg = configs.get_smoke("qwen2-0.5b")
+    shape = ShapeSpec("p", 512, 2, "prefill")
+    small, rt = trace_step(cfg, shape, device="cpu",
+                           overrides={"attn_kv_block": 64})
+    large, _ = trace_step(cfg, shape, device="cpu",
+                          overrides={"attn_kv_block": 512})
+    assert rt.attn_kv_block == 64
+    assert small.flops == large.flops
+    assert small.peak_bytes < large.peak_bytes
+
+
+def test_run_cell_record_carries_the_reference_keys(tmp_path,
+                                                    smoke_registry):
+    rec = dryrun.run_cell("qwen2-0.5b", "decode_32k", tmp_path,
+                          device="cpu", tag="_t")
+    assert rec["status"] == "OK" and rec["cell"] == \
+        "qwen2-0.5b_decode_32k_1gpu_t"
+    assert REF_OK_KEYS <= set(rec)
+    assert set(rec["config"]) == REF_CONFIG_KEYS
+    assert json.loads((tmp_path / f"{rec['cell']}.json").read_text()) == rec
+    # the roofline is the one of the counts, on one H100
+    cfg, shape = configs.get_smoke("qwen2-0.5b"), \
+        configs.shape_by_name("decode_32k")
+    counts, _ = trace_step(cfg, shape, device="cpu")
+    want = roofline_from_totals(
+        arch="qwen2-0.5b", shape="decode_32k", mesh_name="1gpu", chips=1,
+        flops=counts.flops, hbm_bytes=counts.bytes_accessed,
+        coll=CollectiveStats(), peak_bytes=counts.peak_bytes,
+        analytic_bytes=analytic_hbm_bytes(cfg, shape, 1, tp=1),
+        model_flops_total=model_flops(cfg, shape))
+    assert rec["roofline"] == want.to_json()
+    assert rec["fits_hbm"] == (counts.peak_bytes <= 80e9)
+    assert rec["flops_by_op"] == counts.flops_by_op
+
+
+def test_run_cell_records_the_execution_point(tmp_path, smoke_registry):
+    rec = dryrun.run_cell("recurrentgemma-9b", "decode_32k", tmp_path,
+                          device="cpu", sharding_mode="tp", remat="none",
+                          overrides={"attn_kv_block": 512,
+                                     "moe_group_size": 4096},
+                          rule_updates={"kv_seq": None})
+    assert rec["status"] == "OK"
+    assert rec["config"] == {"sharding_mode": "tp", "remat": "none",
+                             "microbatches": 1,
+                             "overrides": {"attn_kv_block": 512,
+                                           "moe_group_size": 4096},
+                             "rule_updates": {"kv_seq": "None"}}
+    assert rec["runtime"]["attn_kv_block"] == 512
+
+
+def test_inapplicable_cell_is_skipped(tmp_path, smoke_registry):
+    rec = dryrun.run_cell("qwen2-0.5b", "long_500k", tmp_path, device="cpu")
+    assert rec["status"] == "SKIPPED" and "500k" in rec["reason"]
+
+
+@pytest.mark.parametrize("arch,shape", [
+    ("qwen2-0.5b", "train_4k"),             # the train step
+    ("olmoe-1b-7b", "prefill_32k"),         # MoE
+    ("deepseek-v2-lite-16b", "decode_32k"),  # MLA
+    ("xlstm-1.3b", "decode_32k"),           # xLSTM
+    ("whisper-medium", "prefill_32k"),      # encoder-decoder
+    ("qwen2.5-32b", "decode_32k"),          # the reference's fp8 KV cache
+])
+def test_cuts_raise_not_implemented(tmp_path, smoke_registry, arch, shape):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        dryrun.run_cell(arch, shape, tmp_path, device="cpu")
+    assert not list(tmp_path.iterdir())     # no FAILED record
+
+
+def test_cli_writes_a_record_with_a_roofline(tmp_path, smoke_registry,
+                                             capsys):
+    assert dryrun.main(["--arch", "qwen2-0.5b", "--shape", "prefill_32k",
+                        "--device", "cpu", "--out", str(tmp_path)]) == 0
+    rec = json.loads((tmp_path / "qwen2-0.5b_prefill_32k_1gpu.json")
+                     .read_text())
+    assert rec["status"] == "OK" and rec["device"] == "cpu"
+    assert rec["roofline"]["roofline_s"] > 0
+    assert "OK peak=" in capsys.readouterr().out
+
+
+def test_cli_defaults_to_cuda_and_refuses_without_a_gpu(tmp_path,
+                                                        monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs a GPU"):
+        dryrun.main(["--arch", "qwen2-0.5b", "--shape", "decode_32k",
+                     "--out", str(tmp_path)])

@@ -92,3 +92,26 @@ def test_chip_smoke_refuses_to_run_without_a_gpu(tmp_path):
                           timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_cpu_dry_run_loads_neither_jax_nor_repro(tmp_path):
+    proc = _run(
+        "import sys\n"
+        "from repro_torch import configs\n"
+        "from repro_torch.core.autotune import CellEvaluator, ExecPoint\n"
+        "from repro_torch.core.kernel_tune import tune_matmul_tiles\n"
+        "from repro_torch.kernels.matmul import matmul\n"
+        "from repro_torch.launch import dryrun\n"
+        "import torch\n"
+        "dryrun.configs.get_arch = configs.get_smoke\n"
+        f"ev = CellEvaluator('qwen2-0.5b', 'decode_32k', r'{tmp_path}',\n"
+        "                   device='cpu')\n"
+        "assert ev.score(ExecPoint()) > 0\n"
+        "t, _, _ = tune_matmul_tiles(100, 200, 300)\n"
+        "x, y = torch.ones((100, 200)), torch.ones((200, 300))\n"
+        "assert matmul(x, y, bm=t.bm, bk=t.bk, bn=t.bn).shape == (100, 300)\n"
+        "print(sorted({m.split('.')[0] for m in sys.modules}"
+        " & {'jax', 'repro', 'jaxlib'}))\n")
+    assert proc.returncode == 0, proc.stderr
+    # run_cell prints one summary line first
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
