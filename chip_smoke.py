@@ -7,7 +7,9 @@ Builds the port's CUDA kernels from `src/repro_torch/kernels/csrc` (one
 nvcc per source, all started together), then runs these phases in order,
 printing one JSON line each:
 
-  1. device      the card, its power limit, the nvcc build time;
+  1. device      the card, its power limit, the nvcc build time, each
+                 kernel's registers, spills and ptxas warnings, and the
+                 HGMMA instructions of each flash kernel (`cuobjdump`);
   2. kernel gather_rows
                  `gather_rows` against its plain PyTorch version on the
                  card (the five screen tables of all seven paper apps and a
@@ -27,10 +29,15 @@ printing one JSON line each:
                  `flash_attention` against its plain PyTorch version, every
                  output element within a tolerance of about one bf16 ulp, on
                  the sweep of `tests/test_kernels.py`, on qwen2-0.5b's heads
-                 at S = 512 to 32768 and on recurrentgemma-9b's (head dim
-                 256) (causal Sq != Skv included, the prefills' shapes on
-                 random inputs), with CUDA-event times of the kernel, of
-                 `scaled_dot_product_attention` and of the plain version;
+                 at S = 512 to 32768, on recurrentgemma-9b's (head dim 256)
+                 and on mistral-nemo-12b's (32 heads on 8 KV heads of 128)
+                 (causal Sq != Skv included, the prefills' shapes on random
+                 inputs): bf16 at head dims 64-256 runs the tensor-core
+                 kernel, fp32 and bf16 at 16-32 the CUDA-core one.  Then
+                 CUDA-event times of the kernel, of
+                 `scaled_dot_product_attention` and of the plain version,
+                 each row with the kernel that ran, its TFLOP/s and its
+                 share of the bound;
   7. kernel rglru_scan
                  `rglru_scan` against its plain PyTorch version, every
                  element, on the sweep of `tests/test_kernels.py` (the
@@ -43,9 +50,10 @@ printing one JSON line each:
                  x batch 1 (prefill_32k with its batch cut from 32) and seq
                  2048 x batch 4, held against the same step through the
                  plain paths (logits and next token), with 24 kernel
-                 launches a forward (and none of `matmul`, counted); then the kernel against its plain
-                 version on the q, k, v that the first and the last layer
-                 hand it at both shapes, every row;
+                 launches a forward, every one on the tensor cores (and
+                 none of `matmul`, counted); then the kernel against its
+                 plain version on the q, k, v that the first and the last
+                 layer hand it at both shapes, every row;
   9. serve qwen2-0.5b
                  `serve_requests` at full width (fp32 compute): 8 requests
                  of 4-12 prompt tokens, batch 4, 16 new tokens each, held
@@ -53,16 +61,17 @@ printing one JSON line each:
  10. prefill recurrentgemma-9b
                  the third main path, as phase 8 at the same two shapes (38
                  layers: 26 RG-LRU, 12 local attention): 26 `rglru_scan`
-                 launches a forward at both shapes, 12 `flash_attention` at
-                 seq 2048 (S <= the 2048 window) and none at 32768 (local-
-                 block attention); then each kernel against its plain
-                 version on what the first and last layer of its kind hand
-                 it;
+                 launches a forward at both shapes, 12 `flash_attention` (on
+                 the tensor cores) at seq 2048 (S <= the 2048 window) and
+                 none at 32768 (local-block attention); then each kernel
+                 against its plain version on what the first and last
+                 layer of its kind hand it;
  11. serve recurrentgemma-9b
                  `serve_requests` at full width, fp32 compute: 8 requests of
                  4-12 prompt tokens, batch 4, 16 new tokens, caches of 256,
                  held against a teacher-forced full-sequence forward on the
-                 card (fp32, `use_kernels=True`) over each request's prompt
+                 card (fp32, `use_kernels=True`: its attention on the
+                 CUDA-core flash kernel only) over each request's prompt
                  and generated tokens;
  12. kernel matmul
                  `matmul` against its plain PyTorch version on every element,
@@ -100,6 +109,7 @@ import dataclasses
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -112,6 +122,8 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM data sheet: 3.35 TB/s of HBM3, 989 TFLOP/s dense bf16
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+# fp32 outside the tensor cores (the fp32 paths stay free of TF32)
+FP32_FLOP_PER_S = 67e12
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/gather_rows.cu"
 TPU_KERNEL = "src/repro/kernels/costmodel.py:57"
 POOLS = (4097, 65536, 262144)
@@ -481,9 +493,10 @@ def phase_throughput(specs, space, rng) -> None:
 
 def flash_bound(b, sq, skv, h, kv, hd, causal, itemsize) -> dict:
     """Least time for one call: the larger of its operations (two
-    products over the visible (query, key) pairs) at the bf16 tensor-core
-    peak and its bytes (q, k, v read once, out written once) at the HBM
-    rate.  Causal pairs are counted exactly (top-left mask)."""
+    products over the visible (query, key) pairs) at the peak for the
+    inputs' type (bf16: the tensor cores; fp32: the CUDA cores) and its
+    bytes (q, k, v read once, out written once) at the HBM rate.  Causal
+    pairs are counted exactly (top-left mask)."""
     if causal:
         full = min(sq, skv)              # row i sees min(i + 1, skv) keys
         pairs = full * (full + 1) // 2 + max(0, sq - skv) * skv
@@ -491,7 +504,8 @@ def flash_bound(b, sq, skv, h, kv, hd, causal, itemsize) -> dict:
         pairs = sq * skv
     flops = 4 * b * h * hd * pairs
     nbytes = itemsize * (2 * b * sq * h * hd + 2 * b * skv * kv * hd)
-    t_ops, t_bytes = flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    peak = BF16_FLOP_PER_S if itemsize == 2 else FP32_FLOP_PER_S
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
     return {"flop": flops, "bytes": nbytes,
             "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
@@ -524,7 +538,8 @@ def phase_flash(gen) -> dict:
     """The flash kernel against its plain version, then its times."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_plain)
+                                                     flash_attention_plain,
+                                                     kernel_for)
 
     def inputs(b, sq, skv, h, kv, hd, dtype):
         return [torch.randn(shape, generator=gen, device="cuda").to(dtype)
@@ -549,10 +564,15 @@ def phase_flash(gen) -> dict:
               for dtype in (torch.float32, torch.bfloat16)]
     cases += [(1, 1000, 2048, 16, 1, 256, True, torch.bfloat16),
               (1, 2048, 1000, 16, 1, 256, True, torch.float32)]
+    # head dim 128 (mistral-nemo-12b's 32 heads on 8 KV heads), Sq != Skv
+    cases += [(2, sq, skv, 32, 8, 128, causal, torch.bfloat16)
+              for sq, skv in ((1000, 1536), (1536, 1000))
+              for causal in (True, False)]
     # the prefills' shapes, all rows (their own inputs: prefill phases)
     cases += [(4, 2048, 2048, 14, 2, 64, True, torch.bfloat16),
               (1, 32768, 32768, 14, 2, 64, True, torch.bfloat16),
-              (4, 2048, 2048, 16, 1, 256, True, torch.bfloat16)]
+              (4, 2048, 2048, 16, 1, 256, True, torch.bfloat16),
+              (1, 8192, 8192, 32, 8, 128, True, torch.bfloat16)]
     worst = {"float32": {"max_abs_err": 0.0, "tol_ratio": 0.0},
              "bfloat16": {"max_abs_err": 0.0, "tol_ratio": 0.0}}
     failed = []
@@ -567,17 +587,22 @@ def phase_flash(gen) -> dict:
                           f"causal={causal} {dtype}: {res}")
 
     # qwen2-0.5b's prefill at S 32768 (the plain version's fp32 scores
-    # would need 60 GB there) and 4096; recurrentgemma-9b's at 4 x 2048
+    # would need 60 GB there) and 4096; recurrentgemma-9b's at 4 x 2048;
+    # head dim 128 at 8192 (mistral-nemo-12b's heads); and the CUDA-core
+    # kernel's fp32 at qwen2-0.5b's S 4096
     timings = {}
-    for key, (b, s_len, h, kv, hd, with_plain) in {
-            "32768": (1, 32768, 14, 2, 64, False),
-            "4096": (1, 4096, 14, 2, 64, True),
-            "hd256": (4, 2048, 16, 1, 256, True)}.items():
-        q, k, v = inputs(b, s_len, s_len, h, kv, hd, torch.bfloat16)
+    for key, (b, s_len, h, kv, hd, dtype, with_plain) in {
+            "32768": (1, 32768, 14, 2, 64, torch.bfloat16, False),
+            "4096": (1, 4096, 14, 2, 64, torch.bfloat16, True),
+            "hd256": (4, 2048, 16, 1, 256, torch.bfloat16, True),
+            "hd128": (1, 8192, 32, 8, 128, torch.bfloat16, True),
+            "fp32_4096": (1, 4096, 14, 2, 64, torch.float32, True)}.items():
+        q, k, v = inputs(b, s_len, s_len, h, kv, hd, dtype)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         reps = dict(reps=3, inner=2) if s_len > 4096 else {}
         row = {"B": b, "S": s_len, "H": h, "KV": kv, "hd": hd,
-               "causal": True, "dtype": "bfloat16",
+               "causal": True, "dtype": str(dtype).split(".")[-1],
+               "kernel": kernel_for(dtype, hd).name,
                "kernel_ms": device_ms(
                    lambda: flash_attention(q, k, v, causal=True), **reps),
                "library_ms": device_ms(
@@ -586,7 +611,10 @@ def phase_flash(gen) -> dict:
                "plain_ms": (device_ms(lambda: flash_attention_plain(
                    q, k, v, causal=True), reps=3, inner=2)
                    if with_plain else None)}
-        row.update(flash_bound(b, s_len, s_len, h, kv, hd, True, 2))
+        row.update(flash_bound(b, s_len, s_len, h, kv, hd, True,
+                               q.element_size()))
+        row["tflops"] = row["flop"] / row["kernel_ms"] * 1e-9
+        row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
         timings[key] = row
     emit("kernel flash_attention", cases=len(cases), worst=worst,
          tolerance={"float32": FLASH_TOL[torch.float32],
@@ -594,7 +622,7 @@ def phase_flash(gen) -> dict:
          failed=failed, timings=timings)
     check(not failed, f"flash_attention != plain on {len(failed)} cases: "
                       f"{failed[:3]}")
-    return {"max_abs_err": max(w["max_abs_err"] for w in worst.values()),
+    return {"max_abs_err": {d: w["max_abs_err"] for d, w in worst.items()},
             "timings": timings}
 
 
@@ -727,23 +755,31 @@ def kernel_inputs(model, params, inputs, rt, layers) -> dict:
 
 
 def kernel_counters() -> dict:
-    from repro_torch.kernels.flash_attention import flash_attention
+    """Each counted launch site by name: the flash wrapper (both of its
+    kernels) and each of its kernels, the scan and matmul."""
+    from repro_torch.kernels.flash_attention import (CUDA_CORE, TENSOR_CORE,
+                                                     flash_attention)
     from repro_torch.kernels.matmul import matmul
     from repro_torch.kernels.rg_lru import rglru_scan
-    return {"flash_attention": flash_attention, "rglru_scan": rglru_scan,
-            "matmul": matmul}
+    return {"flash_attention": flash_attention,
+            TENSOR_CORE.name: TENSOR_CORE, CUDA_CORE.name: CUDA_CORE,
+            "rglru_scan": rglru_scan, "matmul": matmul}
 
 
 def expected_launches(model, seq: int) -> dict:
-    """Kernel launches of one prefill forward: one `rglru_scan` per RG-LRU
-    layer; one `flash_attention` per attention layer, and per local one
-    whose window holds the whole sequence (else local-block attention);
-    no `matmul` (the models' projections are not tiled products)."""
+    """Kernel launches of one bf16 prefill forward: one `rglru_scan` per
+    RG-LRU layer; one `flash_attention` per attention layer, and per local
+    one whose window holds the whole sequence (else local-block
+    attention), every one on the tensor cores (bf16 at head dim 64 or 256)
+    and none on the CUDA cores; no `matmul` (the models' projections are
+    not tiled products)."""
+    from repro_torch.kernels.flash_attention import CUDA_CORE, TENSOR_CORE
     kinds, window = model.kinds, model.cfg.local_window
-    return {"flash_attention": sum(
-                k == "attn" or (k == "local_attn" and seq <= window)
-                for k in kinds),
-            "rglru_scan": kinds.count("rglru"), "matmul": 0}
+    flash = sum(k == "attn" or (k == "local_attn" and seq <= window)
+                for k in kinds)
+    return {"flash_attention": flash, TENSOR_CORE.name: flash,
+            CUDA_CORE.name: 0, "rglru_scan": kinds.count("rglru"),
+            "matmul": 0}
 
 
 def checked_layers(model, seq: int) -> tuple:
@@ -754,7 +790,7 @@ def checked_layers(model, seq: int) -> tuple:
                "rglru_scan": ("rglru",)}
     layers = set()
     for name, n in want.items():
-        if n:
+        if n and name in kind_of:
             idx = [i for i, k in enumerate(model.kinds)
                    if k in kind_of[name]]
             layers.update((idx[0], idx[-1]))
@@ -1064,6 +1100,12 @@ def phase_serve_recurrent() -> dict:
         served += len(gen)
         margin_min = min(margin_min, float(margin.min()))
     fwd_launches = {n: fn.launches - before[n] for n, fn in counters.items()}
+    # the fp32 forward's attention runs the CUDA-core kernel only
+    check(fwd_launches["flash_attention_cuda_core"]
+          == fwd_launches["flash_attention"] > 0
+          and fwd_launches["flash_attention_tensor_core"] == 0,
+          f"the fp32 forward launched {fwd_launches}: expected flash on "
+          f"the CUDA cores only")
     check(worst["tol_ratio"] <= 1.0,
           f"decode logits differ from the forward's by "
           f"{worst['max_abs_diff']} (ratio {worst['tol_ratio']})")
@@ -1382,25 +1424,54 @@ def phase_dryrun() -> dict:
     return rec
 
 
+def kernel_label(mangled: str) -> str:
+    """A kernel's name and template arguments from its mangled symbol:
+    `flash_attention_kernel_wgmma<bf16,64>` (the tensor-core kernel takes
+    bf16 only)."""
+    base = re.search(r"([a-z_]+_kernel(?:_[a-z]+)?)", mangled)
+    args = re.findall(r"Li(\d+)E", mangled)
+    dtype = ("bf16" if "bfloat16" in mangled or "wgmma" in mangled
+             else "f32")
+    return (f"{base.group(1) if base else mangled}<{dtype}"
+            + "".join(f",{a}" for a in args) + ">")
+
+
 def ptxas_report(log: str) -> list:
     """Registers and spills of each kernel in one source's ptxas output,
-    the kernel named by its template arguments."""
+    the kernel named by its template arguments, and any warning (a wgmma
+    serialised, a setmaxnreg ignored)."""
     rows, name, spill = [], "", ""
     for ln in log.splitlines():
         m = re.search(r"Function properties for (\S+)", ln)
         if m:
-            mangled = m.group(1)
-            base = re.search(r"([a-z_]+_kernel)", mangled)
-            args = re.findall(r"Li(\d+)E", mangled)
-            dtype = "bf16" if "bfloat16" in mangled else "f32"
-            name = (f"{base.group(1) if base else mangled}<{dtype}"
-                    + "".join(f",{a}" for a in args) + ">")
+            name = kernel_label(m.group(1))
         elif "spill" in ln:
             spill = ln.strip()
         elif "Used" in ln and name:
             rows.append(f"{name}: {ln.split(':', 1)[1].strip()}; {spill}")
             name = ""
+        elif "warning" in ln.lower():
+            rows.append(ln.strip())
     return rows
+
+
+def sass_counts(lib: Path, opcode: str) -> dict:
+    """Instructions of `opcode` in each kernel of a built library, from
+    `cuobjdump -sass`, where the toolkit has it; else {}."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).is_file():
+        return {}
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, name = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            name = kernel_label(m.group(1))
+            counts[name] = 0
+        elif name and re.search(rf"\b{opcode}\b", ln):
+            counts[name] += 1
+    return counts
 
 
 def main() -> int:
@@ -1429,7 +1500,8 @@ def main() -> int:
     emit("device", name=torch.cuda.get_device_name(0), nvidia_smi=smi,
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, nvcc_build_s=build_s,
-         ptxas={k: ptxas_report(v) for k, v in logs.items()})
+         ptxas={k: ptxas_report(v) for k, v in logs.items()},
+         hgmma=sass_counts(build.library_path("flash_attention"), "HGMMA"))
 
     rng = np.random.default_rng(0)
     space = default_space()
@@ -1446,19 +1518,24 @@ def main() -> int:
     paths = {ARCH: phase_prefill(ARCH)}
     phase_serve()
     paths[RG_ARCH] = phase_prefill(RG_ARCH)
-    phase_serve_recurrent()
+    fp32_fwd = phase_serve_recurrent()["forward_launches"]
     check_isolated()
-    for name in ("flash_attention", "rglru_scan"):
+    for name in ("flash_attention", "flash_attention_tensor_core",
+                 "rglru_scan"):
         check(paths[RG_ARCH][name] > 0,
               f"the {RG_ARCH} prefill never launched {name}")
+    check(paths[ARCH]["flash_attention_tensor_core"] > 0,
+          f"the {ARCH} prefill never launched the tensor-core flash kernel")
     mm = phase_matmul(torch.Generator(device="cuda").manual_seed(2))
     dse = phase_tile_dse(torch.Generator(device="cuda").manual_seed(3))
     phase_dryrun()
 
     t = kern["timings"][str(TIMED_POOLS[-1])]
-    f = flash["timings"]["32768"]
+    f, f32 = flash["timings"]["32768"], flash["timings"]["fp32_4096"]
     r = rglru["timings"]["1x32768"]
     q = dse["shapes"]["quickstart 8192^3"]
+    flash_keys = ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                  "bound_by", "tflops", "bound_share")
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
         "name": "gather_rows", "route": "cuda", "source": KERNEL_SOURCE,
@@ -1470,27 +1547,42 @@ def main() -> int:
         "kernel_ms": t["int64_kernel_ms"], "plain_ms": t["int64_plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": "bytes",
         "library_ms": t["int64_library_ms"]}, {
-        "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
-        "replaces": FLASH_TPU,
+        "name": "flash_attention_tensor_core", "route": "cuda",
+        "source": FLASH_SOURCE, "replaces": FLASH_TPU,
         "tpu": "src/repro/kernels/flash_attention.py:_flash_kernel",
+        "symbol": "flash_attention_kernel_wgmma",
         "shape": {k: f[k] for k in ("B", "S", "H", "KV", "hd", "causal",
                                      "dtype")},
-        "launches": sum(p["flash_attention"] for p in paths.values()),
-        "launches_by_path": {f"prefill {a}": p["flash_attention"]
+        "launches": sum(p["flash_attention_tensor_core"]
+                        for p in paths.values()),
+        "launches_by_path": {f"prefill {a}": p["flash_attention_tensor_core"]
                              for a, p in paths.items()},
-        "max_abs_err": flash["max_abs_err"],
+        "max_abs_err": flash["max_abs_err"]["bfloat16"],
         "ms": f["kernel_ms"], "kernel_ms": f["kernel_ms"],
         "plain_ms": flash["timings"]["4096"]["plain_ms"],
         "plain_shape": {"S": 4096},
         "bound_ms": f["bound_ms"], "bound_by": f["bound_by"],
-        "library_ms": f["library_ms"],
-        "at_4096": {k: flash["timings"]["4096"][k]
-                    for k in ("kernel_ms", "plain_ms", "library_ms",
-                              "bound_ms", "bound_by")},
-        "at_hd256": {k: flash["timings"]["hd256"][k]
-                     for k in ("B", "S", "H", "KV", "hd", "kernel_ms",
-                               "plain_ms", "library_ms", "bound_ms",
-                               "bound_by")}}, {
+        "library_ms": f["library_ms"], "tflops": f["tflops"],
+        "bound_share": f["bound_share"],
+        **{f"at_{key}": {k: flash["timings"][key][k]
+                         for k in ("B", "S", "H", "KV", "hd") + flash_keys}
+           for key in ("4096", "hd256", "hd128")}}, {
+        "name": "flash_attention_cuda_core", "route": "cuda",
+        "source": FLASH_SOURCE, "replaces": FLASH_TPU,
+        "tpu": "src/repro/kernels/flash_attention.py:_flash_kernel",
+        "symbol": "flash_attention_kernel",
+        "shape": {k: f32[k] for k in ("B", "S", "H", "KV", "hd", "causal",
+                                       "dtype")},
+        "launches": fp32_fwd["flash_attention_cuda_core"],
+        "launches_by_path": {f"serve {RG_ARCH}, fp32 teacher-forced "
+                             "forward": fp32_fwd["flash_attention_cuda_core"],
+                             **{f"prefill {a}": p["flash_attention_cuda_core"]
+                                for a, p in paths.items()}},
+        "max_abs_err": flash["max_abs_err"]["float32"],
+        "ms": f32["kernel_ms"], "kernel_ms": f32["kernel_ms"],
+        "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
+        "bound_by": f32["bound_by"], "library_ms": f32["library_ms"],
+        "tflops": f32["tflops"], "bound_share": f32["bound_share"]}, {
         "name": "rglru_scan", "route": "cuda", "source": RGLRU_SOURCE,
         "replaces": RGLRU_TPU,
         "tpu": "src/repro/kernels/rg_lru.py:_scan_kernel",

@@ -6,7 +6,9 @@
   * `costmodel`   — `FusedTorchScorer`, the fused (GOPS, area) scorer that
                     runs on a torch device and calls `gather_rows`.
   * `flash_attention` — causal or full GQA attention (`csrc/
-                    flash_attention.cu`), with its plain version.
+                    flash_attention.cu`: a tensor-core kernel for bf16 at
+                    head dims 64-256, a CUDA-core one for the rest), with
+                    its plain version.
   * `rg_lru`      — `rglru_scan`, the RG-LRU recurrence over the sequence
                     (`csrc/rglru_scan.cu`), with its plain version.
   * `matmul`      — the tiled matrix product whose tiles the tile DSE

@@ -6,32 +6,70 @@
 // src/repro/kernels/flash_attention.py.  On the TPU the KV dimension is the
 // innermost, sequential grid axis, and the online-softmax state (m, l) and
 // the fp32 accumulator live in VMEM scratch from one grid step to the next.
-// GPU blocks run in no order and carry nothing between them, so here one
-// block owns one (batch, query head, tile of 64 query rows) and loops over
-// the KV tiles itself, with m and l in registers and the accumulator in
-// registers.  The numerics are the Pallas kernel's: masked scores are
-// -1e30, a row whose scores are all masked so far is not "alive" (its p is
-// 0 and its correction 1), l is floored at 1e-30 before the division, the
-// scale is 1/sqrt(hd), and the causal mask is top-left, q_pos >= k_pos.
-// KV tiles strictly above the diagonal are skipped, which halves the causal
-// work; the diagonal tile and the ragged ends are masked element by
-// element.  Query head h reads KV head h / G in place: K and V are never
-// widened to H heads, transposed or padded in device memory.  q, k and v
-// are read in the JAX layout [B, S, heads, hd] through their strides; the
-// head dim must be contiguous.  `out` is a contiguous [B, Sq, H, hd].
+// GPU blocks run in no order and carry nothing between them, so here a
+// block owns one (batch, query head, tile of query rows) and loops over the
+// KV tiles itself, with m, l and the accumulator in registers.  The
+// numerics are the Pallas kernel's: masked scores are -1e30, a row whose
+// scores are all masked so far is not "alive" (its p is 0 and its
+// correction 1), l is summed from the fp32 p and floored at 1e-30 before
+// the division, the scale is 1/sqrt(hd), and the causal mask is top-left,
+// q_pos >= k_pos.  KV tiles strictly above the diagonal are skipped, which
+// halves the causal work; the diagonal tile and the ragged ends are masked
+// element by element.  Query head h reads KV head h / G in place: K and V
+// are never widened to H heads, transposed or padded in device memory.  q,
+// k and v are read in the JAX layout [B, S, heads, hd] through their
+// strides; the head dim must be contiguous.  `out` is a contiguous
+// [B, Sq, H, hd].
 //
 // Bound on an H100: operations.  A causal call at B = 1, S = 32768, H = 14,
 // hd = 64 does 4 * S^2 * H * hd / 2 = 1.92e12 FLOP, 1.95 ms at the bf16
 // tensor-core peak of 989 TFLOP/s; its bytes (q, k, v read once, out
-// written once: about 134 MB in bf16) take 0.04 ms at 3.35 TB/s.  This
-// first version multiplies with fp32 FMAs on the CUDA cores (67 TFLOP/s
-// peak, so at least 29 ms for that call), from fp32 tiles in shared
-// memory: each thread owns a 4 x 4 tile of the 64 x 64 score tile and a
-// 4 x hd/16 tile of the output, and reads q^T, k^T and p^T as float4s.
-// mma.sync or wgmma with TMA-fed tiles is the way to the bound (later work).
+// written once: about 134 MB in bf16) take 0.04 ms at 3.35 TB/s.
+//
+// Two kernels, chosen by the caller (`kernels/flash_attention.py`, one
+// table keyed by dtype and head dim):
+//
+// * `flash_attention_kernel_wgmma` (bf16 at head dims 64, 128, 256): the
+//   tensor cores.  A block owns 128 query rows: two consumer warpgroups of
+//   64 rows and one producer warpgroup, whose first thread keeps TMA loads
+//   of K and V tiles in flight into two-stage rings of shared memory, each
+//   tile guarded by a full and an empty mbarrier.  Q, K and V arrive as
+//   64 x 64 boxes (128 bytes a row, 128-byte swizzle), read through 4-D
+//   tensor maps over the JAX layout's strides (built in the C entry
+//   point); rows past the end arrive as zeros.  S = Q K^T is `wgmma` with
+//   both operands in shared memory, K-major; the softmax runs on the
+//   accumulator fragments in registers (a row lives in one quad of
+//   lanes), with exp(scale (s - m)) as 2^(s c - m c), c = scale log2(e):
+//   one FFMA and one MUFU.EX2 a score.  The Pallas kernel keeps p in fp32
+//   and multiplies p @ v in fp32, which one bf16 operand cannot: p is
+//   split into three bf16 terms, hi + mid + lo, that carry all 24 bits of
+//   its significand (exactly, for every p >= 2^-110), and each term goes
+//   straight from the accumulator fragment into a `wgmma` A operand (the
+//   m64nNk16 accumulator layout is the A-fragment layout), with B = the V
+//   tile, MN-major.  The tensor cores align each product to the running
+//   sum and truncate, which over a long row loses the small terms, so each
+//   KV tile's p @ v goes into a fresh accumulator, smallest terms first,
+//   and is added to the output accumulator with fp32 FMAs (acc corr +
+//   tile, as the Pallas kernel adds).  Every product is exact and every
+//   sum fp32, so the kernel computes the Pallas kernel's function; the
+//   price is the p @ v product three times, twice the bound's tensor-core
+//   work, so half the bound is its ceiling.  The two consumer
+//   warpgroups take turns to issue their products (named barriers), so
+//   that one's softmax overlaps the other's products.  Query tiles launch
+//   heaviest first (causal work grows with the tile index).  The producer
+//   gives its registers to the consumers (`setmaxnreg`): at hd 256 the
+//   64 x 256 fp32 accumulator alone is 128 registers a thread.
+// * `flash_attention_kernel` (fp32 at every head dim, bf16 at 16 and 32):
+//   fp32 FMAs on the CUDA cores (67 TFLOP/s peak), from fp32 tiles in
+//   shared memory: each thread owns a 4 x 4 tile of the 64 x 64 score tile
+//   and a 4 x hd/16 tile of the output, and reads q^T, k^T and p^T as
+//   float4s.  fp32 inputs stay in fp32 throughout (no TF32).
 
+#include <climits>
 #include <cstdint>
 #include <cmath>
+#include <cuda.h>             // CUtensorMap and its enums (types only:
+                             // libcuda's encoder is looked up at run time)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -244,33 +282,646 @@ cudaError_t dispatch(int64_t hd, void* out, const void* q, const void* k,
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// The tensor-core kernel (bf16, head dims 64, 128, 256)
+
+namespace tc {
+
+constexpr int kConsumers = 2;            // warpgroups of 64 query rows
+constexpr int kBQ = 64 * kConsumers;     // query rows per block
+constexpr int kThreads = 128 * (kConsumers + 1);   // + the producer's
+constexpr int kStages = 2;               // K/V ring depth
+constexpr int kBox = 64;                 // TMA box: 64 rows x 64 bf16
+constexpr uint32_t kBoxBytes = kBox * kBox * 2;     // 8 KB, 1024-aligned
+constexpr int kProducerRegs = 24;        // setmaxnreg: 384 threads start at
+constexpr int kConsumerRegs = 240;       // 168; 24 + 2 x 240 = 3 x 168
+
+// keys per KV tile, and 64-column boxes of a tile's p @ V per pass: the
+// score tile (kBKV / 2 registers a thread), the three bf16 terms of p
+// (3 kBKV / 8) and a pass's fresh accumulator (32 a box) must fit beside
+// the hd / 2 of the accumulator; at hd 256 only one box does
+template <int HD> struct Tile;
+template <> struct Tile<64> { static constexpr int kBKV = 128, kPass = 1; };
+template <> struct Tile<128> { static constexpr int kBKV = 64, kPass = 2; };
+template <> struct Tile<256> { static constexpr int kBKV = 64, kPass = 1; };
+
+template <int HD>                        // one warpgroup's Q
+__host__ __device__ constexpr uint32_t q_bytes() { return 64 * HD * 2; }
+template <int HD>
+__host__ __device__ constexpr uint32_t kv_bytes() {
+  return Tile<HD>::kBKV * HD * 2;
+}
+template <int HD>
+constexpr size_t smem_bytes() {
+  // 1024 of slack to align the tiles, Q, the K and V rings, 9 mbarriers;
+  // 197,704 bytes at hd 256
+  return 1024 + kConsumers * q_bytes<HD>() + 2 * kStages * kv_bytes<HD>()
+         + 8 * (1 + 4 * kStages);
+}
+static_assert(smem_bytes<256>() <= 232448, "tiles exceed shared memory");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               :: "r"(bar) : "memory");
+}
+// returns once the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
+}
+
+// one 64 x 64 box of a [B, S, heads, hd] tensor into shared memory, at
+// (hd column c0, sequence row c1, head c2, batch c3); rows past the end
+// arrive as zeros
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma descriptor of a 128-byte-swizzled operand in shared memory (the
+// layout TMA writes under CU_TENSOR_MAP_SWIZZLE_128B): start address and
+// the leading and stride byte offsets, in 16-byte units; layout type 1
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
+         | static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16
+         | static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32
+         | static_cast<uint64_t>(1) << 62;
+}
+// K-major (rows of 128 bytes along K): 8-row groups 1024 bytes apart; the
+// leading offset is unused under the swizzle
+__device__ __forceinline__ uint64_t desc_k(uint32_t addr) {
+  return desc(addr, 16, 1024);
+}
+// MN-major (each 128-byte row is one K index, 64 elements along N): 8-row
+// groups 1024 bytes apart.  N is 64, one swizzle atom, so the offset
+// between atoms along N is never used; both fields carry the row-group
+// stride
+__device__ __forceinline__ uint64_t desc_mn(uint32_t addr) {
+  return desc(addr, 1024, 1024);
+}
+
+// named barrier `id` over `n` threads: wait for it, or only arrive
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" :: "r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;" :: "r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {   // every committed group
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// keeps the compiler from moving reads or writes of `d` across the
+// asynchronous wgmma that owns it
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+#define TC_D8(i)                                                         \
+  "+f"(d[(i)]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3]),    \
+      "+f"(d[(i) + 4]), "+f"(d[(i) + 5]), "+f"(d[(i) + 6]), "+f"(d[(i) + 7])
+#define TC_D32 TC_D8(0), TC_D8(8), TC_D8(16), TC_D8(24)
+#define TC_REGS32                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+
+// d[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B in shared memory, both
+// K-major; fp32 accumulate.  scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " TC_REGS32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : TC_D32
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d[64 x 64] (+)= A[64 x 16] B[16 x 64], A from registers (the fragment of
+// an m64nNk16 accumulator, packed to bf16 pairs), B in shared memory,
+// MN-major; fp32 accumulate.  scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " TC_REGS32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : TC_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+#undef TC_REGS32
+#undef TC_D32
+#undef TC_D8
+
+// p = hi + mid + lo, three bf16 values as the high halves of fp32 words,
+// by truncation: hi keeps p's sign, exponent and top 7 mantissa bits; the
+// rest, r = p - hi (exact), holds at most 16 significant bits, and so on.
+// The sum is exactly p whenever p is a multiple of 2^-133 (bf16's finest
+// step), which covers every p >= 2^-110; below that it drops less than
+// 2^-133.  Only the high halves are read (`pack_hi`), so lo is not masked.
+__device__ __forceinline__ void split3(float p, uint32_t& hi, uint32_t& mid,
+                                       uint32_t& lo) {
+  hi = __float_as_uint(p) & 0xFFFF0000u;
+  const float r = p - __uint_as_float(hi);
+  mid = __float_as_uint(r) & 0xFFFF0000u;
+  lo = __float_as_uint(r - __uint_as_float(mid));
+}
+
+// two bf16 held in the high halves of x (low lane) and y (high lane)
+__device__ __forceinline__ uint32_t pack_hi(uint32_t x, uint32_t y) {
+  return __byte_perm(x, y, 0x7632);
+}
+
+// 2^x, one MUFU.EX2 (relative error about 2^-22; 0 below 2^-126)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// one warpgroup's state and steps; a thread holds rows row0 and row0 + 8
+// of the warpgroup's 64, each spread over the 4 lanes of a quad, and in
+// each group of 8 columns the pair col0, col0 + 1 (the m64nNk16
+// accumulator layout)
+template <int HD>
+struct Consumer {
+  static constexpr int kBKV = Tile<HD>::kBKV;
+  static constexpr int kCB = HD / kBox;     // 64-column boxes across hd
+  static constexpr int kRB = kBKV / kBox;   // 64-row boxes down a KV tile
+  static constexpr int kKS = kBKV / 16;     // k16 slices of p @ v
+  static constexpr int kPass = Tile<HD>::kPass;
+
+  float o[kCB][32];                  // the fp32 accumulator, 64 x hd
+  float sc[kRB][32];                 // scores, then p, 64 x kBKV
+  uint32_t ph[kKS][4], pm[kKS][4], pl[kKS][4];   // p's bf16 terms
+  float m[2], l[2], corr[2];
+  int row0, col0, wg_row0;
+
+  // S = Q K^T over the head dim, 16 columns a step (not committed)
+  __device__ __forceinline__ void issue_qk(uint32_t s_q, uint32_t s_k) {
+#pragma unroll
+    for (int c = 0; c < kRB; ++c)
+#pragma unroll
+      for (int ks = 0; ks < HD / 16; ++ks) {
+        const uint32_t col = (ks / 4) * kBoxBytes + (ks % 4) * 32;
+        wgmma_ss(sc[c], desc_k(s_q + col),
+                 desc_k(s_k + c * kCB * kBoxBytes + col), ks > 0);
+      }
+  }
+
+  // O = O corr + p @ V.  The tensor cores align each product to the
+  // running sum and truncate, so a term far below the sum is lost: each
+  // pass takes kPass column boxes of p @ V into a fresh fp32 accumulator,
+  // the terms of p from the smallest (all lo, all mid, then all hi), and
+  // adds it to O with fp32 FMAs (rounded to nearest), as the Pallas kernel
+  // adds its tile's product to its accumulator.  Slice ks (keys 16 ks ..
+  // + 15) is rows 16 (ks % 4) .. of V's row box ks / 4.
+  __device__ __forceinline__ void pv(uint32_t s_v) {
+#pragma unroll
+    for (int g = 0; g < kCB; g += kPass) {
+      float t[kPass][32];
+#pragma unroll
+      for (int j = 0; j < kPass; ++j) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) t[j][i] = 0.f;
+        fence_regs(t[j]);
+      }
+      fence_terms();
+      wgmma_fence();
+      auto term = [&](const uint32_t (&x)[kKS][4], bool first) {
+#pragma unroll
+        for (int ks = 0; ks < kKS; ++ks)
+#pragma unroll
+          for (int j = 0; j < kPass; ++j)
+            wgmma_rs(t[j], x[ks],
+                     desc_mn(s_v + ((ks / 4) * kCB + g + j) * kBoxBytes
+                             + (ks % 4) * 16 * 128),
+                     !(first && ks == 0));
+      };
+      term(pl, true);
+      term(pm, false);
+      term(ph, false);
+      wgmma_commit();
+      wgmma_wait();
+#pragma unroll
+      for (int j = 0; j < kPass; ++j) {
+        fence_regs(t[j]);
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          o[g + j][i] = fmaf(o[g + j][i], corr[(i / 2) % 2], t[j][i]);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void fence_sc() {
+#pragma unroll
+    for (int c = 0; c < kRB; ++c) fence_regs(sc[c]);
+  }
+  __device__ __forceinline__ void fence_terms() {
+#pragma unroll
+    for (int ks = 0; ks < kKS; ++ks)
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+        asm volatile("" : "+r"(ph[ks][a]), "+r"(pm[ks][a]), "+r"(pl[ks][a])
+                     :: "memory");
+  }
+
+  // mask the raw scores of keys k0 .., then the online softmax: p and
+  // corr in the Pallas kernel's terms, with exp(scale (x - m)) as
+  // 2^(x c - m c), c = scale log2(e): one FFMA and one MUFU a score
+  __device__ __forceinline__ void softmax(int k0, int skv, int causal,
+                                          float c) {
+    const bool edge = k0 + kBKV > skv || (causal && k0 + kBKV - 1 > wg_row0);
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int cc = 0; cc < kRB; ++cc)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i / 2) % 2;
+        if (edge) {
+          const int key = k0 + kBox * cc + 8 * (i / 4) + col0 + i % 2;
+          if (key >= skv || (causal && row0 + 8 * r < key))
+            sc[cc][i] = kNegInf;
+        }
+        mx[r] = fmaxf(mx[r], sc[cc][i]);
+      }
+    bool alive[2];
+    float mc[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alive[r] = m_new > 0.5f * kNegInf;
+      mc[r] = m_new * c;
+      corr[r] = alive[r] ? ex2(fmaf(m[r], c, -mc[r])) : 1.f;
+      m[r] = m_new;
+    }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int cc = 0; cc < kRB; ++cc)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i / 2) % 2;
+        const float p = alive[r] ? ex2(fmaf(sc[cc][i], c, -mc[r])) : 0.f;
+        sc[cc][i] = p;
+        sum[r] += p;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+      l[r] = l[r] * corr[r] + sum[r];
+    }
+  }
+
+  // p's terms as A fragments: slice ks is accumulator registers
+  // 8 (ks % 4) .. + 7 of score block ks / 4
+  __device__ __forceinline__ void split() {
+#pragma unroll
+    for (int ks = 0; ks < kKS; ++ks)
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int i = 8 * (ks % 4) + 2 * a;
+        uint32_t h0, m0, l0, h1, m1, l1;
+        split3(sc[ks / 4][i], h0, m0, l0);
+        split3(sc[ks / 4][i + 1], h1, m1, l1);
+        ph[ks][a] = pack_hi(h0, h1);
+        pm[ks][a] = pack_hi(m0, m1);
+        pl[ks][a] = pack_hi(l0, l1);
+      }
+  }
+};
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                             const __grid_constant__ CUtensorMap tm_k,
+                             const __grid_constant__ CUtensorMap tm_v,
+                             __nv_bfloat16* __restrict__ out, int sq, int skv,
+                             int n_heads, int batch, int group, int causal,
+                             float scale) {
+  constexpr int kBKV = Tile<HD>::kBKV;
+  constexpr int kCB = HD / kBox;
+  constexpr int kRB = kBKV / kBox;
+  constexpr uint32_t kQ = q_bytes<HD>(), kKV = kv_bytes<HD>();
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t s_q = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t s_k = s_q + kConsumers * kQ;
+  const uint32_t s_v = s_k + kStages * kKV;
+  const uint32_t bars = s_v + kStages * kKV;
+  const uint32_t q_full = bars;
+  // stage s of the K ring and of the V ring: full (loaded), empty (read)
+  auto k_full = [&](int s) { return bars + 8 * (1 + s); };
+  auto v_full = [&](int s) { return bars + 8 * (1 + kStages + s); };
+  auto k_empty = [&](int s) { return bars + 8 * (1 + 2 * kStages + s); };
+  auto v_empty = [&](int s) { return bars + 8 * (1 + 3 * kStages + s); };
+
+  // block -> (head, batch, query tile); the last query tiles, which see
+  // the most keys under the causal mask, take the first blocks
+  const int n_qt = (sq + kBQ - 1) / kBQ;
+  int idx = blockIdx.x;
+  const int h = idx % n_heads;
+  idx /= n_heads;
+  const int bb = idx % batch;
+  const int q0 = (n_qt - 1 - idx / batch) * kBQ;
+  const int kvh = h / group;
+  const int q_last = min(q0 + kBQ, sq) - 1;
+  const int kv_end = causal ? min(q_last + 1, skv) : skv;
+  const int n_kv = (kv_end + kBKV - 1) / kBKV;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(k_empty(s), kConsumers * 128);
+      mbar_init(v_empty(s), kConsumers * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    // ---- producer: one thread issues every load, K(j) before V(j) ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" :: "n"(kProducerRegs));
+    if (threadIdx.x == kConsumers * 128) {
+      mbar_expect_tx(q_full, kConsumers * kQ);
+      for (int w = 0; w < kConsumers; ++w)
+        for (int cb = 0; cb < kCB; ++cb)
+          tma_load(s_q + w * kQ + cb * kBoxBytes, &tm_q, q_full, cb * kBox,
+                   q0 + w * kBox, h, bb);
+      for (int it = 0; it < n_kv; ++it) {
+        const int s = it % kStages;
+        const uint32_t free_parity = ((it / kStages) & 1) ^ 1;
+        const int k0 = it * kBKV;
+        mbar_wait(k_empty(s), free_parity);
+        mbar_expect_tx(k_full(s), kKV);
+        for (int rb = 0; rb < kRB; ++rb)
+          for (int cb = 0; cb < kCB; ++cb)
+            tma_load(s_k + s * kKV + (rb * kCB + cb) * kBoxBytes, &tm_k,
+                     k_full(s), cb * kBox, k0 + rb * kBox, kvh, bb);
+        mbar_wait(v_empty(s), free_parity);
+        mbar_expect_tx(v_full(s), kKV);
+        for (int rb = 0; rb < kRB; ++rb)
+          for (int cb = 0; cb < kCB; ++cb)
+            tma_load(s_v + s * kKV + (rb * kCB + cb) * kBoxBytes, &tm_v,
+                     v_full(s), cb * kBox, k0 + rb * kBox, kvh, bb);
+      }
+    }
+  } else {
+    // ---- consumer warpgroup `wg`: query rows q0 + 64 wg .. + 63 ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" :: "n"(kConsumerRegs));
+    Consumer<HD> cs;
+    const int t = threadIdx.x % 128;
+    cs.wg_row0 = q0 + kBox * wg;
+    cs.row0 = cs.wg_row0 + 16 * (t / 32) + (t % 32) / 4;
+    cs.col0 = 2 * (t % 4);
+    const uint32_t s_qw = s_q + wg * kQ;
+    const float c = scale * 1.4426950408889634f;     // scale log2(e)
+#pragma unroll
+    for (int cb = 0; cb < kCB; ++cb)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) cs.o[cb][i] = 0.f;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      cs.m[r] = kNegInf;
+      cs.l[r] = 0.f;
+    }
+
+    // the two consumer warpgroups take turns to issue their products
+    // (named barrier 1 + wg is this warpgroup's turn), so that one's
+    // softmax runs while the other's products do; warpgroup 0 goes first
+    auto turn_wait = [&] { bar_sync(1 + wg, 256); };
+    auto turn_pass = [&] { bar_arrive(2 - wg, 256); };
+    if (wg == 1) turn_pass();
+
+    // tile 0's scores and p
+    mbar_wait(q_full, 0);
+    mbar_wait(k_full(0), 0);
+    turn_wait();
+    cs.fence_sc();
+    wgmma_fence();
+    cs.issue_qk(s_qw, s_k);
+    wgmma_commit();
+    turn_pass();
+    wgmma_wait();
+    cs.fence_sc();
+    mbar_arrive(k_empty(0));
+    cs.softmax(0, skv, causal, c);
+    cs.split();
+
+    // each step, in one turn: tile it's p @ V, then tile it+1's
+    // S = Q K^T; then tile it+1's softmax.  Warpgroup 1 passes no turn
+    // after its last, so every arrival on a barrier is waited for.
+    for (int it = 0;; ++it) {
+      const int s = it % kStages, sn = (it + 1) % kStages;
+      const bool next = it + 1 < n_kv;
+      mbar_wait(v_full(s), (it / kStages) & 1);
+      if (next) mbar_wait(k_full(sn), ((it + 1) / kStages) & 1);
+      turn_wait();
+      cs.pv(s_v + s * kKV);
+      mbar_arrive(v_empty(s));
+      if (!next) {
+        if (wg == 0) turn_pass();
+        break;
+      }
+      cs.fence_sc();
+      wgmma_fence();
+      cs.issue_qk(s_qw, s_k + sn * kKV);
+      wgmma_commit();
+      turn_pass();
+      wgmma_wait();
+      cs.fence_sc();
+      mbar_arrive(k_empty(sn));
+      cs.softmax((it + 1) * kBKV, skv, causal, c);
+      cs.split();
+    }
+
+    // out = acc / max(l, 1e-30), rounded to bf16 once
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = cs.row0 + 8 * r;
+      if (row >= sq) continue;
+      const float lr = fmaxf(cs.l[r], 1e-30f);
+      __nv_bfloat16* orow =
+          out + ((static_cast<int64_t>(bb) * sq + row) * n_heads + h) * HD;
+#pragma unroll
+      for (int cb = 0; cb < kCB; ++cb)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int i = 4 * j + 2 * r;
+          *reinterpret_cast<__nv_bfloat162*>(orow + kBox * cb + 8 * j +
+                                             cs.col0) =
+              __floats2bfloat162_rn(cs.o[cb][i] / lr, cs.o[cb][i + 1] / lr);
+        }
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, looked up through the CUDA runtime so
+// that the library links no -lcuda; null where it is missing
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// the 4-D map of a bf16 [batch, seq, heads, hd] tensor with element
+// strides (sb, ss, sh, 1), read in 64 x 64 boxes (hd columns x seq rows)
+// under the 128-byte swizzle; out-of-range rows read as zeros
+bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
+              int64_t hd, int64_t seq, int64_t heads, int64_t batch,
+              int64_t sb, int64_t ss, int64_t sh) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
+                              static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2,
+                                 static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {kBox, kBox, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+cudaError_t launch(void* out, const void* q, const void* k, const void* v,
+                   int64_t b, int64_t sq, int64_t skv, int64_t h, int64_t kv,
+                   int causal, const int64_t* st, cudaStream_t stream) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  CUtensorMap mq, mk, mv;
+  if (!make_map(encode, &mq, q, HD, sq, h, b, st[0], st[1], st[2]) ||
+      !make_map(encode, &mk, k, HD, skv, kv, b, st[3], st[4], st[5]) ||
+      !make_map(encode, &mv, v, HD, skv, kv, b, st[6], st[7], st[8]))
+    return cudaErrorInvalidValue;
+  auto kernel = flash_attention_kernel_wgmma<HD>;
+  constexpr size_t smem = smem_bytes<HD>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int64_t blocks = (sq + kBQ - 1) / kBQ * h * b;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  const float scale = static_cast<float>(1.0 / std::sqrt(double(HD)));
+  kernel<<<static_cast<unsigned int>(blocks), kThreads, smem, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(out), static_cast<int>(sq),
+      static_cast<int>(skv), static_cast<int>(h), static_cast<int>(b),
+      static_cast<int>(h / kv), causal, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch(int64_t hd, void* out, const void* q, const void* k,
+                     const void* v, int64_t b, int64_t sq, int64_t skv,
+                     int64_t h, int64_t kv, int causal, const int64_t* st,
+                     cudaStream_t stream) {
+  switch (hd) {
+    case 64: return launch<64>(out, q, k, v, b, sq, skv, h, kv, causal, st, stream);
+    case 128: return launch<128>(out, q, k, v, b, sq, skv, h, kv, causal, st, stream);
+    case 256: return launch<256>(out, q, k, v, b, sq, skv, h, kv, causal, st, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // out: contiguous [b, sq, h, hd]; q: [b, sq, h, hd], k and v: [b, skv, kv,
 // hd], each with the head dim contiguous and strides (batch, seq, head) in
 // elements.  dtype 0 = float32, 1 = bfloat16 (all four tensors alike).
-// All pointers are device pointers on the current device; `stream` is a
-// cudaStream_t.  Returns cudaGetLastError() after the launch (0 = success)
-// or cudaErrorInvalidValue for arguments the kernel does not take.
+// kernel 0 = `flash_attention_kernel` (CUDA cores: either dtype, hd 16, 32,
+// 64, 128 or 256), 1 = `flash_attention_kernel_wgmma` (tensor cores:
+// bfloat16, hd 64, 128 or 256, skv > 0, q, k and v 16-byte aligned with
+// strides of a multiple of 8 elements, as TMA reads them).  All pointers
+// are device pointers on the current device; `stream` is a cudaStream_t.
+// Returns cudaGetLastError() after the launch (0 = success),
+// cudaErrorInvalidValue for arguments the chosen kernel does not take, or
+// cudaErrorNotSupported where libcuda has no tensor-map encoder.
 extern "C" int flash_attention_launch(
-    void* out, const void* q, const void* k, const void* v, int dtype,
-    int64_t b, int64_t sq, int64_t skv, int64_t h, int64_t kv, int64_t hd,
-    int causal, int64_t qsb, int64_t qss, int64_t qsh, int64_t ksb,
-    int64_t kss, int64_t ksh, int64_t vsb, int64_t vss, int64_t vsh,
-    void* stream) {
+    int kernel, void* out, const void* q, const void* k, const void* v,
+    int dtype, int64_t b, int64_t sq, int64_t skv, int64_t h, int64_t kv,
+    int64_t hd, int causal, int64_t qsb, int64_t qss, int64_t qsh,
+    int64_t ksb, int64_t kss, int64_t ksh, int64_t vsb, int64_t vss,
+    int64_t vsh, void* stream) {
   if (b <= 0 || sq <= 0 || h <= 0 || kv <= 0 || h % kv != 0 || skv < 0 ||
       h > 65535 || b > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   (void)cudaGetLastError();        // report only this launch's error
   const int64_t st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
   const auto s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0)
+  cudaError_t err = cudaErrorInvalidValue;
+  if (kernel == 0 && dtype == 0) {
     err = dispatch<float>(hd, out, q, k, v, b, sq, skv, h, kv, causal, st, s);
-  else if (dtype == 1)
+  } else if (kernel == 0 && dtype == 1) {
     err = dispatch<__nv_bfloat16>(hd, out, q, k, v, b, sq, skv, h, kv,
                                   causal, st, s);
-  else
-    err = cudaErrorInvalidValue;
+  } else if (kernel == 1 && dtype == 1 && skv > 0 && sq < INT_MAX &&
+             skv < INT_MAX) {
+    bool aligned = (reinterpret_cast<uintptr_t>(q) |
+                    reinterpret_cast<uintptr_t>(k) |
+                    reinterpret_cast<uintptr_t>(v)) % 16 == 0;
+    for (int64_t x : st) aligned &= x % 8 == 0;
+    if (aligned)
+      err = tc::dispatch(hd, out, q, k, v, b, sq, skv, h, kv, causal, st, s);
+  }
   return static_cast<int>(err);
 }

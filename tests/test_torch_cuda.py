@@ -9,6 +9,9 @@ This file imports neither jax nor the JAX package, so it runs where only
 PyTorch is installed.
 """
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -16,7 +19,8 @@ import torch
 from repro_torch.core.multiapp import AppSpec
 from repro_torch.core.space import default_space
 from repro_torch.kernels.costmodel import FusedTorchScorer
-from repro_torch.kernels.flash_attention import (flash_attention,
+from repro_torch.kernels.flash_attention import (CUDA_CORE, TENSOR_CORE,
+                                                 flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.gather import gather_rows, gather_rows_plain
 from repro_torch.kernels.matmul import MATMUL_TILES, matmul, matmul_plain
@@ -24,6 +28,11 @@ from repro_torch.kernels.rg_lru import rglru_scan, rglru_scan_plain
 from repro_torch.models.layers import full_precision_products
 
 pytestmark = pytest.mark.cuda
+
+_SMOKE = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_SMOKE)
+_SMOKE.loader.exec_module(chip_smoke)
 
 
 @pytest.fixture
@@ -86,7 +95,8 @@ def test_scorer_on_the_card_equals_the_cpu(gpu, app):
 
 # flash_attention: the sweep of tests/test_kernels.py plus causal Sq != Skv,
 # qwen2-0.5b's heads and head dim 128; fp32 to 3e-4, bf16 to 2e-2 (both
-# round the output to bf16)
+# round the output to bf16); bf16 at head dims 64, 128 and 256 runs the
+# tensor-core kernel, the rest the CUDA-core one
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("b,sq,skv,h,kv,hd", [
@@ -139,6 +149,91 @@ def test_flash_kernel_refuses_what_it_does_not_take(gpu):
     with pytest.raises(ValueError):
         flash_attention(q, torch.zeros((1, 8, 3, 64), device=gpu),
                         torch.zeros((1, 8, 3, 64), device=gpu))
+
+
+def _flash_inputs(gpu, shapes, dtype=torch.bfloat16, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            .to(gpu, dtype) for s in shapes]
+
+
+def _flash_tol_ratio(got, want):
+    """The worst |kernel - plain| / (atol + rtol |plain|) over every
+    element, with `chip_smoke.FLASH_TOL` (about one bf16 ulp)."""
+    atol, rtol = chip_smoke.FLASH_TOL[want.dtype]
+    diff = (got.float() - want.float()).abs()
+    return float((diff / (atol + rtol * want.float().abs())).max())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,skv", [(300, 517), (517, 300)])
+def test_flash_tensor_core_at_hd_128_with_sq_not_skv(gpu, sq, skv, causal):
+    """32 query heads on 8 KV heads of width 128, on the tensor cores,
+    every element within the chip's tolerance."""
+    q, k, v = _flash_inputs(gpu, ((2, sq, 32, 128), (2, skv, 8, 128),
+                                  (2, skv, 8, 128)), seed=sq)
+    before = TENSOR_CORE.launches
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert TENSOR_CORE.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal=causal)
+    assert _flash_tol_ratio(got, want) <= 1.0
+
+
+def test_flash_tensor_core_reads_fused_qkv_slices(gpu):
+    """bf16 q, k, v as head slices of one [B, S, H + 2 KV, hd] tensor
+    (strides of 18 heads), read in place through TMA."""
+    (qkv,) = _flash_inputs(gpu, ((2, 150, 14 + 2 + 2, 64),))
+    q, k, v = qkv[:, :, :14], qkv[:, :, 14:16], qkv[:, :, 16:]
+    before = TENSOR_CORE.launches
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert TENSOR_CORE.launches == before + 1
+    assert _flash_tol_ratio(got, flash_attention_plain(q, k, v)) <= 1.0
+
+
+def test_flash_tensor_core_refuses_a_misaligned_input(gpu):
+    """A view at an odd storage offset has no 16-byte-aligned start, which
+    TMA needs: the wrapper raises rather than re-route it."""
+    flat = torch.zeros(2 * 64 * 4 * 64 + 8, dtype=torch.bfloat16, device=gpu)
+    q = flat[1:1 + 2 * 64 * 4 * 64].view(2, 64, 4, 64)
+    (k,) = _flash_inputs(gpu, ((2, 64, 2, 64),))
+    before = (TENSOR_CORE.launches, CUDA_CORE.launches)
+    with pytest.raises(ValueError):
+        flash_attention(q, k, k)
+    assert (TENSOR_CORE.launches, CUDA_CORE.launches) == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_with_no_keys_gives_zeros(gpu, dtype):
+    q, k = _flash_inputs(gpu, ((1, 70, 4, 64), (1, 0, 2, 64)), dtype)
+    before = flash_attention.launches
+    for causal in (True, False):
+        out = flash_attention(q, k, k, causal=causal)
+        assert out.dtype == dtype and torch.equal(out, torch.zeros_like(q))
+    assert flash_attention.launches == before
+
+
+def test_flash_counts_each_kernel_and_their_sum(gpu):
+    """fp32 and bf16 at head dims 16, 32 on the CUDA cores, bf16 at 64,
+    128, 256 on the tensor cores; `flash_attention.launches` counts
+    both."""
+    for kernel in (CUDA_CORE, TENSOR_CORE):
+        kernel.launches = 0
+    flash_attention.launches = 0
+    calls = [(torch.float32, 64, CUDA_CORE), (torch.float32, 256, CUDA_CORE),
+             (torch.bfloat16, 16, CUDA_CORE), (torch.bfloat16, 32, CUDA_CORE),
+             (torch.bfloat16, 64, TENSOR_CORE),
+             (torch.bfloat16, 128, TENSOR_CORE),
+             (torch.bfloat16, 256, TENSOR_CORE)]
+    for dtype, hd, kernel in calls:
+        before = kernel.launches
+        q, k = _flash_inputs(gpu, ((1, 40, 4, hd), (1, 40, 2, hd)), dtype)
+        flash_attention(q, k, k)
+        assert kernel.launches == before + 1
+    torch.cuda.synchronize()
+    assert (CUDA_CORE.launches, TENSOR_CORE.launches) == (4, 3)
+    assert flash_attention.launches == 7
 
 
 # rglru_scan: fp32 within a few ulps of the plain version (both fp32, the
