@@ -537,9 +537,11 @@ def flash_against_plain(q, k, v, causal: bool) -> dict:
 def phase_flash(gen) -> dict:
     """The flash kernel against its plain version, then its times."""
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import (flash_attention,
+    from repro_torch.kernels.flash_attention import (CUDA_CORE, TENSOR_CORE,
+                                                     flash_attention,
                                                      flash_attention_plain,
                                                      kernel_for)
+    flash_kernels = (TENSOR_CORE, CUDA_CORE)
 
     def inputs(b, sq, skv, h, kv, hd, dtype):
         return [torch.randn(shape, generator=gen, device="cuda").to(dtype)
@@ -600,11 +602,18 @@ def phase_flash(gen) -> dict:
         q, k, v = inputs(b, s_len, s_len, h, kv, hd, dtype)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         reps = dict(reps=3, inner=2) if s_len > 4096 else {}
+        # the kernel that ran: the one whose counter the timed calls moved
+        before = {fk.name: fk.launches for fk in flash_kernels}
+        kernel_ms = device_ms(
+            lambda: flash_attention(q, k, v, causal=True), **reps)
+        moved = [fk.name for fk in flash_kernels
+                 if fk.launches != before[fk.name]]
+        check(moved == [kernel_for(dtype, hd).name],
+              f"timing {key}: the timed calls launched {moved}, expected "
+              f"{kernel_for(dtype, hd).name} alone")
         row = {"B": b, "S": s_len, "H": h, "KV": kv, "hd": hd,
                "causal": True, "dtype": str(dtype).split(".")[-1],
-               "kernel": kernel_for(dtype, hd).name,
-               "kernel_ms": device_ms(
-                   lambda: flash_attention(q, k, v, causal=True), **reps),
+               "kernel": moved[0], "kernel_ms": kernel_ms,
                "library_ms": device_ms(
                    lambda: F.scaled_dot_product_attention(
                        qt, kt, vt, is_causal=True, enable_gqa=True), **reps),
@@ -1057,7 +1066,7 @@ def phase_serve_recurrent() -> dict:
     steps = same = excused = reproduced = greedy = served = 0
     margin_min = float("inf")
     counters = kernel_counters()
-    before = {n: fn.launches for n, fn in counters.items()}
+    fwd_launches = dict.fromkeys(counters, 0)
     for r in results:
         seq = r.prompt + r.generated
         cache = model.init_cache(1, 256, rt, "cuda")
@@ -1067,9 +1076,20 @@ def phase_serve_recurrent() -> dict:
             logits, cache = step(params, cache, tok, pos)
             rows.append(logits[0, 0, :v])
         dec = torch.stack(rows)
+        # the forward's launches, counted from 0 just before it
+        for fn in counters.values():
+            fn.launches = 0
         with torch.inference_mode(), full_precision_products():
             fwd = model.forward(params, {"tokens": torch.tensor(
                 [seq], device="cuda")}, rt_fwd)[0, :, :v].float()
+        got = {n: fn.launches for n, fn in counters.items()}
+        want = expected_launches(model, len(seq))
+        want.update({"flash_attention_tensor_core": 0,
+                     "flash_attention_cuda_core": want["flash_attention"]})
+        check(got == want, f"request {r.request_id}: the fp32 forward "
+                           f"launched {got}, expected {want}")
+        for n in fwd_launches:
+            fwd_launches[n] += got[n]
         check(bool(torch.isfinite(dec).all() and torch.isfinite(fwd).all()),
               "served or forward logits not finite")
         diff = (dec - fwd).abs()
@@ -1099,7 +1119,6 @@ def phase_serve_recurrent() -> dict:
         greedy += int((fwd_next == gen).sum())
         served += len(gen)
         margin_min = min(margin_min, float(margin.min()))
-    fwd_launches = {n: fn.launches - before[n] for n, fn in counters.items()}
     # the fp32 forward's attention runs the CUDA-core kernel only
     check(fwd_launches["flash_attention_cuda_core"]
           == fwd_launches["flash_attention"] > 0

@@ -51,9 +51,12 @@
 //   KV tile's p @ v goes into a fresh accumulator, smallest terms first,
 //   and is added to the output accumulator with fp32 FMAs (acc corr +
 //   tile, as the Pallas kernel adds).  Every product is exact and every
-//   sum fp32, so the kernel computes the Pallas kernel's function; the
-//   price is the p @ v product three times, twice the bound's tensor-core
-//   work, so half the bound is its ceiling.  The two consumer
+//   sum fp32, so the kernel is within one bf16 ulp of the Pallas kernel's
+//   function (not equal to it: ex2 is approximate, and the scale is
+//   folded into the exponent, where Pallas scales q first; at hd 128 the
+//   scale is not a power of two).  The price is the p @ v product three
+//   times, twice the bound's tensor-core work, so half the bound is its
+//   ceiling.  The two consumer
 //   warpgroups take turns to issue their products (named barriers), so
 //   that one's softmax overlaps the other's products.  Query tiles launch
 //   heaviest first (causal work grows with the tile index).  The producer
@@ -916,12 +919,10 @@ extern "C" int flash_attention_launch(
                                   causal, st, s);
   } else if (kernel == 1 && dtype == 1 && skv > 0 && sq < INT_MAX &&
              skv < INT_MAX) {
-    bool aligned = (reinterpret_cast<uintptr_t>(q) |
-                    reinterpret_cast<uintptr_t>(k) |
-                    reinterpret_cast<uintptr_t>(v)) % 16 == 0;
-    for (int64_t x : st) aligned &= x % 8 == 0;
-    if (aligned)
-      err = tc::dispatch(hd, out, q, k, v, b, sq, skv, h, kv, causal, st, s);
+    // TMA's rule (16-byte-aligned starts and strides) is checked by the
+    // wrapper's `tma_readable`; here cuTensorMapEncodeTiled refuses what
+    // breaks it (cudaErrorInvalidValue from `launch`)
+    err = tc::dispatch(hd, out, q, k, v, b, sq, skv, h, kv, causal, st, s);
   }
   return static_cast<int>(err);
 }
