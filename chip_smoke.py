@@ -9,7 +9,8 @@ printing one JSON line each:
 
   1. device      the card, its power limit, the nvcc build time, each
                  kernel's registers, spills and ptxas warnings, and the
-                 HGMMA instructions of each flash kernel (`cuobjdump`);
+                 HGMMA instructions of each flash and matmul kernel
+                 (`cuobjdump`);
   2. kernel gather_rows
                  `gather_rows` against its plain PyTorch version on the
                  card (the five screen tables of all seven paper apps and a
@@ -77,24 +78,33 @@ printing one JSON line each:
                  `matmul` against its plain PyTorch version on every element,
                  within the fp32 summation bound (`matmul_against_plain`),
                  on the sweep of `tests/test_kernels.py` at its two tiles
-                 (phase 13 holds the tile DSE's shapes, at every tile);
+                 (fp32 on the CUDA-core kernel, bf16 on the tensor-core
+                 one: each case must move only its kernel's counter) and on
+                 an all-positive bf16 product at K = 12288, both output
+                 dtypes (phase 13 holds the tile DSE's shapes, at every
+                 tile);
  13. tile_dse    the fourth main path: for each of `TILE_SHAPES` (bf16),
-                 `tune_matmul_tiles` picks a tile under the Hopper model and
-                 `matmul` runs at it and at every other tile the kernel is
-                 built for, each output held against the plain version;
-                 predicted and measured time per tile, their rank
-                 correlation, the tuned tile's regret against the fastest,
-                 and CUDA-event times of the plain version and
-                 `torch.matmul` beside the bound; the LM-head shape (M N >
-                 2^31) runs once, at its tuned tile;
+                 `tune_matmul_tiles` picks a tile under the tensor-core
+                 model and `matmul` runs at it and at every other tile the
+                 tensor-core kernel is built for, each output held against
+                 the plain version; predicted and measured time per tile,
+                 their rank correlation, the tuned tile's regret against
+                 the fastest, its share of the bound, and CUDA-event times
+                 of the plain version and `torch.matmul`; the LM-head shape
+                 (M N > 2^31) runs once, at its tuned tile.  Then the fp32
+                 `FP32_SHAPE` on the CUDA-core kernel at the CUDA-core
+                 model's pick, beside its 67 TFLOP/s bound;
  14. dryrun      `run_cell` for qwen2-0.5b and recurrentgemma-9b at
                  prefill_32k and decode_32k on fake CUDA tensors (full batch),
-                 one greedy `autotune_search` over qwen2-0.5b's decode_32k
-                 (a cell whose points fit 80 GB; every record it writes
-                 must be OK with a finite peak and roofline, and its best
-                 score above 0), and qwen2-0.5b's plain prefill at seq 2048 x batch 4 counted
-                 on fake tensors and run for real on the card: equal FLOP
-                 counts, and the fake peak within `DRYRUN_PEAK_BAND` of
+                 each cell's matmul and elementwise FLOPs and
+                 transcendentals, one greedy `autotune_search` over
+                 qwen2-0.5b's decode_32k (a cell whose points fit 80 GB;
+                 every record it writes must be OK with a finite peak and
+                 roofline, and its best score above 0; whether its pick
+                 moved from `MATMUL_ONLY_PICK`), and qwen2-0.5b's plain
+                 prefill at seq 2048 x batch 4 counted on fake tensors and
+                 run for real on the card: the three counts equal, and the
+                 fake peak within `DRYRUN_PEAK_BAND` of
                  `max_memory_allocated`.
 
 Then the card's name and power limit as `nvidia-smi` gives them, a
@@ -180,6 +190,17 @@ TILE_SHAPES = {"quickstart 8192^3": (8192, 8192, 8192),
                "decode-like": (128, 4096, 12288),
                "qwen2-0.5b lm head, 32k": (32768, 896, 151936)}
 ONCE = "qwen2-0.5b lm head, 32k"
+# the all-positive bf16 product of the matmul phase (K of the longest
+# tuned shape)
+POSITIVE_SHAPE = (1024, 12288, 1024)
+# the fp32 product the tile DSE tunes for the CUDA-core kernel
+FP32_SHAPE = (8192, 8192, 8192)
+# the greedy autotune's pick of qwen2-0.5b's decode_32k when the dry-run
+# counted the matmul family's FLOPs only: the dry-run phase records whether
+# counting the elementwise FLOPs moved it
+MATMUL_ONLY_PICK = {"sharding_mode": "fsdp", "remat": "full",
+                    "microbatches": 1, "attn_kv_block": 1024,
+                    "moe_group_size": 4096, "extra_rules": []}
 # output elements of the plain version per chunk on the largest shapes
 MATMUL_CHUNK = 1 << 28
 # the dry-run's peak of qwen2-0.5b's plain prefill at 2048 x 4 against the
@@ -765,14 +786,17 @@ def kernel_inputs(model, params, inputs, rt, layers) -> dict:
 
 def kernel_counters() -> dict:
     """Each counted launch site by name: the flash wrapper (both of its
-    kernels) and each of its kernels, the scan and matmul."""
+    kernels) and each of its kernels, the scan, and the matmul wrapper and
+    each of its kernels."""
+    from repro_torch.kernels import matmul as mm
     from repro_torch.kernels.flash_attention import (CUDA_CORE, TENSOR_CORE,
                                                      flash_attention)
-    from repro_torch.kernels.matmul import matmul
     from repro_torch.kernels.rg_lru import rglru_scan
     return {"flash_attention": flash_attention,
             TENSOR_CORE.name: TENSOR_CORE, CUDA_CORE.name: CUDA_CORE,
-            "rglru_scan": rglru_scan, "matmul": matmul}
+            "rglru_scan": rglru_scan, "matmul": mm.matmul,
+            mm.TENSOR_CORE.name: mm.TENSOR_CORE,
+            mm.CUDA_CORE.name: mm.CUDA_CORE}
 
 
 def expected_launches(model, seq: int) -> dict:
@@ -788,7 +812,7 @@ def expected_launches(model, seq: int) -> dict:
                 for k in kinds)
     return {"flash_attention": flash, TENSOR_CORE.name: flash,
             CUDA_CORE.name: 0, "rglru_scan": kinds.count("rglru"),
-            "matmul": 0}
+            "matmul": 0, "matmul_tensor_core": 0, "matmul_cuda_core": 0}
 
 
 def checked_layers(model, seq: int) -> tuple:
@@ -1211,12 +1235,19 @@ def matmul_against_plain(x, y, outs: dict, bk: int) -> dict:
 
 
 def phase_matmul(gen) -> dict:
-    """The matmul kernel against its plain version on the sweep of
-    `tests/test_kernels.py` at its two tiles (16 cases); the tile DSE's
-    shapes are checked in its own phase."""
-    from repro_torch.kernels.matmul import matmul
+    """The matmul kernels against their plain version on the sweep of
+    `tests/test_kernels.py` at its two tiles (16 cases: fp32 on the
+    CUDA-core kernel, bf16 on the tensor-core one, K and N ragged in
+    (33, 65, 17), which the wrapper zero-pads for TMA), and on an
+    all-positive bf16 product at K = 12288 (x and y uniform in [0, 1): no
+    cancellation, so a one-sided rounding bias of the tensor cores'
+    accumulation shows at its largest against the bound), at both output
+    dtypes; each dtype must move only its own kernel's counter.  The tile
+    DSE's shapes are checked in its own phase."""
+    from repro_torch.core.kernel_tune import tune_matmul_tiles
+    from repro_torch.kernels import matmul as mm
 
-    results, failed = {}, []
+    results, failed, moved = {}, [], {}
     for m, k, n in ((64, 64, 64), (200, 384, 136), (128, 1024, 96),
                     (33, 65, 17)):
         for dtype in (torch.float32, torch.bfloat16):
@@ -1224,18 +1255,42 @@ def phase_matmul(gen) -> dict:
             y = torch.randn((k, n), generator=gen, device="cuda").to(dtype)
             for bm, bk, bn in ((64, 128, 64), (128, 64, 128)):
                 label = f"{m}x{k}x{n} {str(dtype)[6:]} ({bm},{bk},{bn})"
-                got = matmul(x, y, bm=bm, bk=bk, bn=bn)
+                before = (mm.TENSOR_CORE.launches, mm.CUDA_CORE.launches)
+                got = mm.matmul(x, y, bm=bm, bk=bk, bn=bn)
+                moved[label] = ((mm.TENSOR_CORE.launches - before[0],
+                                 mm.CUDA_CORE.launches - before[1]),
+                                (0, 1) if dtype == torch.float32 else (1, 0))
                 check(got.dtype == dtype and tuple(got.shape) == (m, n),
                       f"matmul {label}: {got.dtype} {tuple(got.shape)}")
                 results[label] = matmul_against_plain(
                     x, y, {"out": got}, bk)["out"]
+    m, k, n = POSITIVE_SHAPE
+    x = torch.rand((m, k), generator=gen, device="cuda").bfloat16()
+    y = torch.rand((k, n), generator=gen, device="cuda").bfloat16()
+    best, _, _ = tune_matmul_tiles(m, k, n)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        label = (f"all-positive {m}x{k}x{n} bfloat16 -> {str(out_dtype)[6:]}"
+                 f" ({best.bm},{best.bk},{best.bn})")
+        before = (mm.TENSOR_CORE.launches, mm.CUDA_CORE.launches)
+        got = mm.matmul(x, y, bm=best.bm, bk=best.bk, bn=best.bn,
+                        out_dtype=out_dtype)
+        moved[label] = ((mm.TENSOR_CORE.launches - before[0],
+                         mm.CUDA_CORE.launches - before[1]), (1, 0))
+        results[label] = matmul_against_plain(x, y, {"out": got},
+                                              best.bk)["out"]
     torch.cuda.synchronize()
     for label, res in results.items():
         if res["tol_ratio"] > 1.0 or not res["finite"]:
             failed.append(f"{label}: {res}")
+        got_moved, want = moved[label]
+        if got_moved != want:
+            failed.append(f"{label}: (tensor-core, CUDA-core) launches "
+                          f"{got_moved}, expected {want}")
     worst = {key: max(r[key] for r in results.values())
              for key in ("max_abs_err", "tol_ratio")}
-    emit("kernel matmul", cases=results, worst=worst,
+    positive = {lab: r for lab, r in results.items()
+                if lab.startswith("all-positive")}
+    emit("kernel matmul", cases=results, worst=worst, positive=positive,
          tolerance="2 gamma_K (|x| @ |y|) + one bf16 ulp on bf16 outputs",
          failed=failed)
     check(not failed, f"matmul != plain on {len(failed)} cases: "
@@ -1261,14 +1316,18 @@ def spearman(a, b):
 
 
 def phase_tile_dse(gen) -> dict:
-    """The tile DSE on the card: tune, then run every tile the kernel is
-    built for, each output against the plain version; returns the kernel's
-    launches in this phase and the per-shape records."""
+    """The tile DSE on the card: for each of `TILE_SHAPES` (bf16), tune
+    under the tensor-core tile model, then run every tile the tensor-core
+    kernel is built for, each output against the plain version; then tune
+    the fp32 `FP32_SHAPE` under the CUDA-core model and time the CUDA-core
+    kernel at its pick.  Returns the launches of each kernel in this phase
+    and the per-shape records."""
     from repro_torch.core.kernel_tune import tune_matmul_tiles
-    from repro_torch.kernels.matmul import matmul, matmul_plain
+    from repro_torch.kernels import matmul as mm
     from repro_torch.models.layers import full_precision_products
 
-    matmul.launches = 0
+    for fn in (mm.matmul, mm.TENSOR_CORE, mm.CUDA_CORE):
+        fn.launches = 0
     shapes, failed = {}, []
     for label, (m, k, n) in TILE_SHAPES.items():
         x = torch.randn((m, k), generator=gen, device="cuda").to(
@@ -1283,11 +1342,11 @@ def phase_tile_dse(gen) -> dict:
         predicted = {(t.bm, t.bk, t.bn): lat * 1e3 for t, lat in ranking}
         outs, measured = {}, {}
         for t in tiles:
-            outs[t] = matmul(x, y, bm=t[0], bk=t[1], bn=t[2])
-            reps = dict(reps=1, inner=1) if label == ONCE \
-                else dict(reps=2, inner=1)
+            outs[t] = mm.matmul(x, y, bm=t[0], bk=t[1], bn=t[2])
+            reps = dict(reps=2, inner=1) if label == ONCE \
+                else dict(reps=3, inner=2)
             measured[t] = device_ms(
-                lambda: matmul(x, y, bm=t[0], bk=t[1], bn=t[2]), **reps)
+                lambda: mm.matmul(x, y, bm=t[0], bk=t[1], bn=t[2]), **reps)
         torch.cuda.synchronize()
         checks = matmul_against_plain(x, y, {str(t): o
                                              for t, o in outs.items()},
@@ -1297,16 +1356,20 @@ def phase_tile_dse(gen) -> dict:
             if res["tol_ratio"] > 1.0 or not res["finite"]:
                 failed.append(f"{label} tile {t}: {res}")
         with full_precision_products():
-            library_ms = device_ms(lambda: torch.matmul(x, y), reps=2,
-                                   inner=1)
+            library_ms = device_ms(lambda: torch.matmul(x, y), reps=3,
+                                   inner=2)
             plain_ms = None if label == ONCE else device_ms(
-                lambda: matmul_plain(x, y, bk=tuned[1]), reps=1, inner=1)
+                lambda: mm.matmul_plain(x, y, bk=tuned[1]), reps=1, inner=1)
         fastest = min(measured, key=measured.get)
+        bound = matmul_bound(m, k, n, 2)
         shapes[label] = {
             "M": m, "K": k, "N": n, "dtype": "bfloat16",
+            "kernel": mm.TENSOR_CORE.name,
             "tuned": list(tuned), "predicted_ms": predicted[tuned],
             "tuned_cost": cost, "fastest": list(fastest),
             "kernel_ms": measured[tuned],
+            "bound_share": bound["bound_ms"] / measured[tuned],
+            "library_share": library_ms / measured[tuned],
             "regret": (measured[tuned] / measured[fastest] - 1.0
                        if len(measured) > 1 else None),
             "rank_correlation": (spearman(
@@ -1318,17 +1381,51 @@ def phase_tile_dse(gen) -> dict:
                       for t in tiles],
             "max_abs_err": max(r["max_abs_err"] for r in checks.values()),
             "tol_ratio": max(r["tol_ratio"] for r in checks.values()),
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            **matmul_bound(m, k, n, 2)}
+            "plain_ms": plain_ms, "library_ms": library_ms, **bound}
         del x, y
-    launches = matmul.launches
+    # the fp32 product on the CUDA cores, at the CUDA-core model's pick
+    m, k, n = FP32_SHAPE
+    x = torch.randn((m, k), generator=gen, device="cuda")
+    y = torch.randn((k, n), generator=gen, device="cuda")
+    best, cost, _ = tune_matmul_tiles(m, k, n, dtype_bytes=4)
+    tuned = (best.bm, best.bk, best.bn)
+    out = mm.matmul(x, y, bm=tuned[0], bk=tuned[1], bn=tuned[2])
+    kernel_ms = device_ms(
+        lambda: mm.matmul(x, y, bm=tuned[0], bk=tuned[1], bn=tuned[2]),
+        reps=2, inner=1)
+    res = matmul_against_plain(x, y, {"out": out}, tuned[1])["out"]
+    del out
+    if res["tol_ratio"] > 1.0 or not res["finite"]:
+        failed.append(f"fp32 {FP32_SHAPE} tile {tuned}: {res}")
+    with full_precision_products():
+        library_ms = device_ms(lambda: torch.matmul(x, y), reps=2, inner=1)
+        plain_ms = device_ms(lambda: mm.matmul_plain(x, y, bk=tuned[1]),
+                             reps=1, inner=1)
+    flop = 2 * m * k * n
+    fp32 = {"M": m, "K": k, "N": n, "dtype": "float32",
+            "kernel": mm.CUDA_CORE.name, "tuned": list(tuned),
+            "predicted_ms": cost["latency_s"] * 1e3, "kernel_ms": kernel_ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "flop": flop, "bytes": 4 * (m * k + k * n + m * n),
+            "bound_ms": flop / FP32_FLOP_PER_S * 1e3,
+            "bound_by": "operations (67 TFLOP/s fp32 FMA)",
+            "bound_share": flop / FP32_FLOP_PER_S * 1e3 / kernel_ms,
+            "max_abs_err": res["max_abs_err"], "tol_ratio": res["tol_ratio"]}
+    del x, y
+    launches = {fn.name: fn.launches for fn in (mm.TENSOR_CORE,
+                                                mm.CUDA_CORE)}
+    launches["matmul"] = mm.matmul.launches
     check_isolated()
-    emit("tile_dse", shapes=shapes, launches=launches, failed=failed,
-         tolerance="2 gamma_K (|x| @ |y|) + one bf16 ulp")
+    emit("tile_dse", shapes=shapes, fp32=fp32, launches=launches,
+         failed=failed, tolerance="2 gamma_K (|x| @ |y|) + one bf16 ulp")
     check(not failed, f"matmul != plain in the tile DSE on {len(failed)} "
                       f"tiles: {failed[:3]}")
-    check(launches > 0, "the tile DSE never launched matmul")
-    return {"launches": launches, "shapes": shapes}
+    for name, n_launch in launches.items():
+        check(n_launch > 0, f"the tile DSE never launched {name}")
+    check(launches["matmul"] == launches[mm.TENSOR_CORE.name]
+          + launches[mm.CUDA_CORE.name],
+          f"matmul launches {launches} do not add up")
+    return {"launches": launches, "shapes": shapes, "fp32": fp32}
 
 
 def phase_dryrun() -> dict:
@@ -1360,8 +1457,22 @@ def phase_dryrun() -> dict:
                 roof = rec["roofline"]
                 check(roof["flops_per_chip"] > 0 and roof["roofline_s"] > 0,
                       f"dry-run {arch} {shape} counted nothing")
+                # the three counts of the same step (the record keeps the
+                # reference's keys, so they are counted again here)
+                counts, _ = trace_step(configs.get_arch(arch),
+                                       configs.shape_by_name(shape),
+                                       device="cuda")
+                check(counts.flops == roof["flops_per_chip"] ==
+                      counts.matmul_flops + counts.elementwise_flops,
+                      f"dry-run {arch} {shape}: {counts.flops} FLOPs "
+                      f"counted, {roof['flops_per_chip']} in the record")
                 cells[f"{arch} {shape}"] = {
                     **{k: roof[k] for k in keys},
+                    "matmul_flops": counts.matmul_flops,
+                    "elementwise_flops": counts.elementwise_flops,
+                    "transcendentals": counts.transcendentals,
+                    "elementwise_share": counts.elementwise_flops
+                    / counts.flops,
                     "fits_hbm": rec["fits_hbm"], "trace_s": rec["compile_s"],
                     "flops_by_op": rec["flops_by_op"]}
         # the greedy search over a cell whose points fit the card's 80 GB
@@ -1389,7 +1500,10 @@ def phase_dryrun() -> dict:
                                "roofline_s": roof["roofline_s"]}
         scores = [x for r in log for x in
                   ([r["score"]] if r["event"] == "init" else r["scores"])]
-        autotune = {"cell": ev.cell, "best": dataclasses.asdict(best),
+        picked = json.loads(json.dumps(dataclasses.asdict(best)))
+        autotune = {"cell": ev.cell, "best": picked,
+                    "matmul_only_pick": MATMUL_ONLY_PICK,
+                    "pick_moved": picked != MATMUL_ONLY_PICK,
                     "score": score, "dry_runs": ev.n_compiles,
                     "seconds": seconds, "records": records,
                     "rounds": [{"var": r["var"], "scores": r["scores"]}
@@ -1424,9 +1538,11 @@ def phase_dryrun() -> dict:
     torch.cuda.synchronize()
     ratio = real_peak / fake.peak_bytes
     check_isolated()
+    three = ("flops", "matmul_flops", "elementwise_flops", "transcendentals")
     rec = {"cells": cells, "autotune": autotune,
            "prefill_2048x4": {
-               "fake_flops": fake.flops, "real_flops": real.flops,
+               **{f"fake_{k}": getattr(fake, k) for k in three},
+               **{f"real_{k}": getattr(real, k) for k in three},
                "fake_flops_by_op": fake.flops_by_op,
                "fake_peak_bytes": fake.peak_bytes,
                "real_counted_peak_bytes": real.peak_bytes,
@@ -1435,8 +1551,10 @@ def phase_dryrun() -> dict:
                "fake_bytes_accessed": fake.bytes_accessed,
                "real_bytes_accessed": real.bytes_accessed}}
     emit("dryrun", **rec)
-    check(real.flops == fake.flops,
-          f"fake-tensor FLOPs {fake.flops} != the card's {real.flops}")
+    for k in three:
+        check(getattr(real, k) == getattr(fake, k),
+              f"fake-tensor {k} {getattr(fake, k)} != the card's "
+              f"{getattr(real, k)}")
     check(DRYRUN_PEAK_BAND[0] <= ratio <= DRYRUN_PEAK_BAND[1],
           f"max_memory_allocated / dry-run peak = {ratio}, outside "
           f"{DRYRUN_PEAK_BAND}")
@@ -1520,7 +1638,8 @@ def main() -> int:
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, nvcc_build_s=build_s,
          ptxas={k: ptxas_report(v) for k, v in logs.items()},
-         hgmma=sass_counts(build.library_path("flash_attention"), "HGMMA"))
+         hgmma={name: sass_counts(build.library_path(name), "HGMMA")
+                for name in ("flash_attention", "matmul")})
 
     rng = np.random.default_rng(0)
     space = default_space()
@@ -1553,6 +1672,7 @@ def main() -> int:
     f, f32 = flash["timings"]["32768"], flash["timings"]["fp32_4096"]
     r = rglru["timings"]["1x32768"]
     q = dse["shapes"]["quickstart 8192^3"]
+    f32mm = dse["fp32"]
     flash_keys = ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
                   "bound_by", "tflops", "bound_share")
     print(smi, flush=True)
@@ -1617,27 +1737,45 @@ def main() -> int:
         "at_4x2048": {k: rglru["timings"]["4x2048"][k]
                       for k in ("kernel_ms", "plain_ms", "bound_ms",
                                 "bound_by")}}, {
-        "name": "matmul", "route": "cuda", "source": MATMUL_SOURCE,
-        "replaces": MATMUL_TPU,
+        "name": "matmul_tensor_core", "route": "cuda",
+        "source": MATMUL_SOURCE, "replaces": MATMUL_TPU,
         "tpu": "src/repro/kernels/matmul.py:_matmul_kernel",
+        "symbol": "tc::matmul_kernel_wgmma",
         "shape": {k: q[k] for k in ("M", "K", "N", "dtype", "tuned")},
-        "launches": dse["launches"],
-        "launches_by_path": {"tile_dse": dse["launches"],
-                             **{f"prefill {a}": p["matmul"]
-                                for a, p in paths.items()}},
+        "launches": dse["launches"]["matmul_tensor_core"],
+        "launches_by_path": {
+            "tile_dse": dse["launches"]["matmul_tensor_core"],
+            **{f"prefill {a}": p["matmul_tensor_core"]
+               for a, p in paths.items()}},
         "max_abs_err": max([mm["max_abs_err"]]
                            + [r["max_abs_err"]
                               for r in dse["shapes"].values()]),
         "ms": q["kernel_ms"], "kernel_ms": q["kernel_ms"],
         "plain_ms": q["plain_ms"], "bound_ms": q["bound_ms"],
         "bound_by": q["bound_by"], "library_ms": q["library_ms"],
-        "library": "torch.matmul",
-        "at": {label: {k: r[k] for k in ("M", "K", "N", "tuned",
+        "library": "torch.matmul", "bound_share": q["bound_share"],
+        "at": {label: {k: r[k] for k in ("M", "K", "N", "tuned", "fastest",
                                          "kernel_ms", "plain_ms",
                                          "library_ms", "bound_ms",
-                                         "bound_by", "regret",
+                                         "bound_by", "bound_share", "regret",
                                          "rank_correlation")}
-               for label, r in dse["shapes"].items()}}]}), flush=True)
+               for label, r in dse["shapes"].items()}}, {
+        "name": "matmul_cuda_core", "route": "cuda", "source": MATMUL_SOURCE,
+        "replaces": MATMUL_TPU,
+        "tpu": "src/repro/kernels/matmul.py:_matmul_kernel",
+        "symbol": "matmul_kernel",
+        "shape": {k: f32mm[k] for k in ("M", "K", "N", "dtype", "tuned")},
+        "launches": dse["launches"]["matmul_cuda_core"],
+        "launches_by_path": {
+            "tile_dse": dse["launches"]["matmul_cuda_core"],
+            **{f"prefill {a}": p["matmul_cuda_core"]
+               for a, p in paths.items()}},
+        "max_abs_err": f32mm["max_abs_err"],
+        "ms": f32mm["kernel_ms"], "kernel_ms": f32mm["kernel_ms"],
+        "plain_ms": f32mm["plain_ms"], "bound_ms": f32mm["bound_ms"],
+        "bound_by": "operations", "library_ms": f32mm["library_ms"],
+        "library": "torch.matmul (fp32, TF32 off)",
+        "bound_share": f32mm["bound_share"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -12,7 +12,7 @@ table gathers in a hand-written CUDA kernel (`kernels.gather`).
 
 The package also serves two of the model zoo's decoders (`models`,
 `launch.serve`) and runs the execution-space DSE: the Hopper tile model
-(`core.kernel_tune`) picks the tiles of a hand-written matmul kernel
+(`core.kernel_tune`) picks the tiles of the hand-written matmul kernels
 (`kernels.matmul`), and a dry-run of a serving step on fake tensors
 (`launch.dryrun`) feeds the roofline (`core.roofline`) that the
 execution-point search (`core.autotune`) scores.

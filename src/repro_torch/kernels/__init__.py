@@ -12,9 +12,12 @@
   * `rg_lru`      — `rglru_scan`, the RG-LRU recurrence over the sequence
                     (`csrc/rglru_scan.cu`), with its plain version.
   * `matmul`      — the tiled matrix product whose tiles the tile DSE
-                    (`core.kernel_tune`) picks (`csrc/matmul.cu`), with its
-                    plain version.
-  * `build`       — nvcc build and ctypes loading of the CUDA sources.
+                    (`core.kernel_tune`) picks (`csrc/matmul.cu`: a
+                    tensor-core kernel for bf16, a CUDA-core one for fp32),
+                    with its plain version.
+  * `build`       — nvcc build and ctypes loading of the CUDA sources
+                    (`csrc/hopper.cuh` holds the Hopper helpers the two
+                    tensor-core sources share).
 
 Nothing is compiled or loaded when these modules are imported.
 """

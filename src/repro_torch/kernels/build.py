@@ -3,8 +3,9 @@
 Each kernel is one source in `csrc/` with a plain C launch function, so
 nvcc compiles it in seconds without PyTorch's headers.  A source is
 compiled at first use into `build/repro_torch/` at the repository root
-(listed in `.gitignore`), under a name keyed by a hash of the source and
-the flags, so an edited source is rebuilt and an unchanged one is reused.
+(listed in `.gitignore`), under a name keyed by a hash of the source, the
+`csrc/*.cuh` headers it includes and the flags, so an edited source or
+header is rebuilt and an unchanged one is reused.
 Nothing is compiled or loaded when this module is imported.
 """
 
@@ -13,14 +14,15 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
-__all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "library_path", "build",
-           "load"]
+__all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "headers", "library_path",
+           "build", "load"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -43,12 +45,20 @@ def _nvcc() -> str:
                        "kernels are built on the machine with the GPU")
 
 
+def headers(name: str) -> Tuple[str, ...]:
+    """The `csrc/*.cuh` headers that source `name` includes, by name."""
+    text = (CSRC / f"{name}.cu").read_text()
+    return tuple(sorted(set(re.findall(r'^\s*#include\s+"(\w+\.cuh)"', text,
+                                       re.MULTILINE))))
+
+
 def library_path(name: str) -> Path:
     """Where the shared library of source `name` lives once built."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in headers(name):
+        h.update(header.encode() + (CSRC / header).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Sequence[str] = SOURCES) -> Dict[str, str]:

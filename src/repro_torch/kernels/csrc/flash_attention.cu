@@ -76,6 +76,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kBQ = 64;            // query rows per block
@@ -289,7 +291,7 @@ cudaError_t dispatch(int64_t hd, void* out, const void* q, const void* k,
 // ---------------------------------------------------------------------------
 // The tensor-core kernel (bf16, head dims 64, 128, 256)
 
-namespace tc {
+namespace tc {      // (its mbarrier, TMA and wgmma helpers: hopper.cuh)
 
 constexpr int kConsumers = 2;            // warpgroups of 64 query rows
 constexpr int kBQ = 64 * kConsumers;     // query rows per block
@@ -324,114 +326,12 @@ constexpr size_t smem_bytes() {
 }
 static_assert(smem_bytes<256>() <= 232448, "tiles exceed shared memory");
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
-               :: "r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
-               :: "r"(bar) : "memory");
-}
-// returns once the barrier's phase of this parity has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  }
-}
-
-// one 64 x 64 box of a [B, S, heads, hd] tensor into shared memory, at
-// (hd column c0, sequence row c1, head c2, batch c3); rows past the end
-// arrive as zeros
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
-         "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma descriptor of a 128-byte-swizzled operand in shared memory (the
-// layout TMA writes under CU_TENSOR_MAP_SWIZZLE_128B): start address and
-// the leading and stride byte offsets, in 16-byte units; layout type 1
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
-         | static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16
-         | static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32
-         | static_cast<uint64_t>(1) << 62;
-}
-// K-major (rows of 128 bytes along K): 8-row groups 1024 bytes apart; the
-// leading offset is unused under the swizzle
-__device__ __forceinline__ uint64_t desc_k(uint32_t addr) {
-  return desc(addr, 16, 1024);
-}
-// MN-major (each 128-byte row is one K index, 64 elements along N): 8-row
-// groups 1024 bytes apart.  N is 64, one swizzle atom, so the offset
-// between atoms along N is never used; both fields carry the row-group
-// stride
-__device__ __forceinline__ uint64_t desc_mn(uint32_t addr) {
-  return desc(addr, 1024, 1024);
-}
-
 // named barrier `id` over `n` threads: wait for it, or only arrive
 __device__ __forceinline__ void bar_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;" :: "r"(id), "r"(n) : "memory");
 }
 __device__ __forceinline__ void bar_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;" :: "r"(id), "r"(n) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait() {   // every committed group
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-// keeps the compiler from moving reads or writes of `d` across the
-// asynchronous wgmma that owns it
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-#define TC_D8(i)                                                         \
-  "+f"(d[(i)]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3]),    \
-      "+f"(d[(i) + 4]), "+f"(d[(i) + 5]), "+f"(d[(i) + 6]), "+f"(d[(i) + 7])
-#define TC_D32 TC_D8(0), TC_D8(8), TC_D8(16), TC_D8(24)
-#define TC_REGS32                                                          \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
-  "%30, %31}"
-
-// d[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B in shared memory, both
-// K-major; fp32 accumulate.  scale_d = 0 overwrites d.
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
-                                         uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " TC_REGS32
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : TC_D32
-      : "l"(a), "l"(b), "r"(scale_d));
 }
 
 // d[64 x 64] (+)= A[64 x 16] B[16 x 64], A from registers (the fragment of
@@ -683,7 +583,7 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
   const int wg = threadIdx.x / 128;
   if (wg == kConsumers) {
     // ---- producer: one thread issues every load, K(j) before V(j) ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" :: "n"(kProducerRegs));
+    setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x == kConsumers * 128) {
       mbar_expect_tx(q_full, kConsumers * kQ);
       for (int w = 0; w < kConsumers; ++w)
@@ -710,7 +610,7 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
     }
   } else {
     // ---- consumer warpgroup `wg`: query rows q0 + 64 wg .. + 63 ----
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" :: "n"(kConsumerRegs));
+    setmaxnreg_inc<kConsumerRegs>();
     Consumer<HD> cs;
     const int t = threadIdx.x % 128;
     cs.wg_row0 = q0 + kBox * wg;
@@ -796,31 +696,6 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
         }
     }
   }
-}
-
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, looked up through the CUDA runtime so
-// that the library links no -lcuda; null where it is missing
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
 }
 
 // the 4-D map of a bf16 [batch, seq, heads, hd] tensor with element

@@ -92,32 +92,89 @@ def make_serve_step(model: DecoderLM, rt: Runtime) -> Callable:
 class StepCounts:
     """What one run of a step does, counted op by op.
 
-    `flops`: `torch.utils.flop_counter.FlopCounterMode`'s count, which
-    covers the matmul family (mm, addmm, bmm, baddbmm, convolution, SDPA)
-    only; XLA's count in the reference also counts elementwise work.
-    `bytes_accessed`: operand and result bytes of every aten op that is not
-    a view — the counterpart of XLA's pre-fusion "bytes accessed", an upper
-    bound on device-memory traffic.  `peak_bytes`: the most bytes of
-    storage alive at once, the step's arguments included (params, inputs,
-    caches), in use by tensors; no allocator rounding, no library
-    workspace."""
+    `matmul_flops`: `torch.utils.flop_counter.FlopCounterMode`'s count, the
+    matmul family (mm, addmm, bmm, baddbmm, convolution, SDPA), by op in
+    `flops_by_op`.  `elementwise_flops`: the pointwise ops and reductions,
+    and `transcendentals` apart, as XLA's `HloCostAnalysis` counts them
+    (`_ELEMENTWISE`).  `flops` is their sum, `matmul_flops +
+    elementwise_flops`: XLA's "flops", which the reference's roofline
+    divides by the peak.  `bytes_accessed`: operand and result bytes of
+    every aten op that is not a view — the counterpart of XLA's pre-fusion
+    "bytes accessed", an upper bound on device-memory traffic.
+    `peak_bytes`: the most bytes of storage alive at once, the step's
+    arguments included (params, inputs, caches), in use by tensors; no
+    allocator rounding, no library workspace."""
 
     flops: int
     flops_by_op: Dict[str, int]
     bytes_accessed: int
     peak_bytes: int
     ops: int
+    matmul_flops: int = 0
+    elementwise_flops: int = 0
+    transcendentals: int = 0
+
+
+# (FLOPs, transcendentals) per output element of a pointwise aten op, as
+# XLA's HloCostAnalysis counts the reference's op after XLA's own
+# expansions (probed with jax 0.9.0's XLA:CPU `cost_analysis()` at [8, 64]
+# fp32; tests/test_torch_flops.py holds each).  Every pointwise op not
+# listed counts (1, 0): add, sub, mul, div, neg, abs, maximum, clamp,
+# comparisons, logical ops, where / masked_fill (select), x ** 2 (a
+# product).  Transcendentals count apart and add no FLOPs.
+_ELEMENTWISE = {
+    **{op: (0, 1) for op in ("exp", "exp2", "expm1", "log", "log1p", "log2",
+                             "rsqrt", "sqrt", "tanh", "sin", "cos", "erf",
+                             "pow")},
+    "sigmoid": (3, 1),      # logistic -> 1 / (1 + exp(-x))
+    "silu": (4, 1),         # x * logistic(x)
+    "gelu": (8, 1),         # the tanh approximation, the only gelu the
+                            # port calls: 0.5 x (1 + tanh(c (x + a x^3)))
+    "logaddexp": (8, 2),    # max, sub, abs, neg, exp, log1p, add, isnan,
+                            # select
+    "addcmul": (2, 0),      # input + t1 * t2
+}
+# ops that move data and compute nothing (XLA's copy, concatenate,
+# broadcast, iota and gather count 0), unless they convert the dtype (XLA:
+# convert, 1 an element)
+_COPIES = {"clone", "copy", "_to_copy"}
+
+
+def _elementwise_cost(func, args, outs) -> Tuple[int, int]:
+    """(FLOPs, transcendentals) of one aten op in XLA's convention: a
+    pointwise op per output element (`_ELEMENTWISE`), a reduction n - 1
+    per output (a mean one more, its division), softmax as its max, sub,
+    exp, sum and div; a matmul-family op counts 0 here (FlopCounterMode
+    counts it)."""
+    name = func.overloadpacket.__name__.rstrip("_")
+    out = outs[0].numel()
+    if name in _COPIES:
+        src = args[1] if name == "copy" else args[0]
+        return (out if src.dtype != outs[0].dtype else 0), 0
+    if name == "_softmax":            # max, sub, exp, sum, div along a dim
+        rows = out // max(1, args[0].shape[args[1]])
+        return 4 * out - 2 * rows, out
+    if torch.Tag.reduction in func.tags:
+        return args[0].numel() - out + (out if name == "mean" else 0), 0
+    if torch.Tag.pointwise not in func.tags:
+        return 0, 0
+    if name == "pow" and isinstance(args[1], (int, float)) and args[1] == 2:
+        return out, 0                 # x * x
+    f, tr = _ELEMENTWISE.get(name, (1, 0))
+    return f * out, tr * out
 
 
 class _Counter(TorchDispatchMode):
     """Live storage bytes (with their peak) for every op, and operand and
-    result bytes while `counting` is set."""
+    result bytes, elementwise FLOPs and transcendentals while `counting` is
+    set."""
 
     def __init__(self):
         super().__init__()
         self.sizes: Dict[int, int] = {}
         self.live = self.peak = 0
         self.bytes_accessed = self.ops = 0
+        self.elementwise_flops = self.transcendentals = 0
         self.counting = False
 
     def hold(self, t: torch.Tensor) -> None:
@@ -145,6 +202,9 @@ class _Counter(TorchDispatchMode):
                 t.numel() * t.element_size()
                 for t in tree_leaves((args, kwargs)) + outs
                 if isinstance(t, torch.Tensor))
+            flops, trans = _elementwise_cost(func, args, outs)
+            self.elementwise_flops += flops
+            self.transcendentals += trans
         return out
 
 
@@ -164,10 +224,14 @@ def count_step(step: Callable, *args) -> Tuple[Any, StepCounts]:
         counter.counting = False
     by_op = {str(op): int(n) for op, n in
              flop_counter.get_flop_counts().get("Global", {}).items()}
-    return out, StepCounts(flops=int(flop_counter.get_total_flops()),
+    mm = int(flop_counter.get_total_flops())
+    return out, StepCounts(flops=mm + counter.elementwise_flops,
                            flops_by_op=by_op,
                            bytes_accessed=counter.bytes_accessed,
-                           peak_bytes=counter.peak, ops=counter.ops)
+                           peak_bytes=counter.peak, ops=counter.ops,
+                           matmul_flops=mm,
+                           elementwise_flops=counter.elementwise_flops,
+                           transcendentals=counter.transcendentals)
 
 
 def trace_step(arch: ArchConfig, shape: ShapeSpec, *, device: str = "cuda",

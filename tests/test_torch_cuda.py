@@ -23,7 +23,10 @@ from repro_torch.kernels.flash_attention import (CUDA_CORE, TENSOR_CORE,
                                                  flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.gather import gather_rows, gather_rows_plain
-from repro_torch.kernels.matmul import MATMUL_TILES, matmul, matmul_plain
+from repro_torch.kernels.matmul import (CUDA_CORE as MM_CUDA_CORE,
+                                        TENSOR_CORE as MM_TENSOR_CORE,
+                                        kernel_for as mm_kernel_for, matmul,
+                                        matmul_plain)
 from repro_torch.kernels.rg_lru import rglru_scan, rglru_scan_plain
 from repro_torch.models.layers import full_precision_products
 
@@ -317,35 +320,74 @@ def test_matmul_kernel_matches_plain(gpu, m, k, n, dtype, tiles):
     """The sweep of tests/test_kernels.py."""
     x, y = _matmul_inputs(m, k, n, dtype, gpu)
     bm, bk, bn = tiles
-    before = matmul.launches
+    kernel = mm_kernel_for(dtype)
+    other = MM_CUDA_CORE if kernel is MM_TENSOR_CORE else MM_TENSOR_CORE
+    before = (matmul.launches, kernel.launches, other.launches)
     got = matmul(x, y, bm=bm, bk=bk, bn=bn)
     torch.cuda.synchronize()
-    assert matmul.launches == before + 1
+    assert (matmul.launches, kernel.launches, other.launches) == \
+        (before[0] + 1, before[1] + 1, before[2])
     assert got.dtype == dtype and got.shape == (m, n)
     assert_matmul_close(x, y, got, bk)
 
 
-@pytest.mark.parametrize("tile", MATMUL_TILES, ids=str)
-def test_matmul_every_tile(gpu, tile):
-    """Every instantiated tile, ragged on all three dims, both dtypes and
-    both output dtypes."""
+@pytest.mark.parametrize(
+    "dtype,tile",
+    [(torch.float32, t) for t in MM_CUDA_CORE.tiles]
+    + [(torch.bfloat16, t) for t in MM_TENSOR_CORE.tiles], ids=str)
+def test_matmul_every_tile(gpu, dtype, tile):
+    """Every tile each kernel is instantiated for (fp32 on the CUDA cores,
+    bf16 on the tensor cores), ragged on all three dims (K and N not
+    multiples of 8: the wrapper pads them for TMA), both output dtypes."""
     bm, bk, bn = tile
-    for dtype in (torch.float32, torch.bfloat16):
-        x, y = _matmul_inputs(300, 1000, 260, dtype, gpu)
-        for out_dtype in (torch.float32, torch.bfloat16):
-            got = matmul(x, y, bm=bm, bk=bk, bn=bn, out_dtype=out_dtype)
-            torch.cuda.synchronize()
-            assert got.dtype == out_dtype
-            assert_matmul_close(x, y, got, bk)
+    x, y = _matmul_inputs(300, 1000, 260, dtype, gpu)
+    x, y = x[:, :997].contiguous(), y[:997, :259].contiguous()
+    for out_dtype in (torch.float32, torch.bfloat16):
+        got = matmul(x, y, bm=bm, bk=bk, bn=bn, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert got.dtype == out_dtype and got.shape == (300, 259)
+        assert_matmul_close(x, y, got, bk)
 
 
 def test_matmul_output_beyond_2_to_the_31(gpu):
-    """M * N > 2^31 elements in bf16: the output is indexed in 64 bits."""
+    """M * N > 2^31 elements in bf16, on the tensor-core kernel: the
+    output is indexed in 64 bits."""
     m, k, n = 32768, 64, 65600
     assert m * n > 2 ** 31
     x, y = _matmul_inputs(m, k, n, torch.bfloat16, gpu)
+    before = MM_TENSOR_CORE.launches
     got = matmul(x, y, bm=128, bk=64, bn=128)
     torch.cuda.synchronize()
+    assert MM_TENSOR_CORE.launches == before + 1
+    assert_matmul_close(x, y, got, 64)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_matmul_all_positive_long_k(gpu, out_dtype):
+    """x, y uniform in [0, 1) at (1024, 12288, 1024): no cancellation, so a
+    one-sided rounding bias of the tensor cores' accumulation over K =
+    12288 shows at its largest against the bound."""
+    g = torch.Generator(device=gpu).manual_seed(0)
+    x = torch.rand((1024, 12288), generator=g, device=gpu).bfloat16()
+    y = torch.rand((12288, 1024), generator=g, device=gpu).bfloat16()
+    got = matmul(x, y, bm=128, bk=64, bn=256, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert_matmul_close(x, y, got, 64)
+
+
+def test_matmul_misaligned_k_runs_on_the_tensor_cores(gpu):
+    """K = 1001 (rows of 2002 bytes) and a start 2 bytes past an aligned
+    one: the wrapper zero-pads for TMA, and the tensor-core kernel runs."""
+    x, y = _matmul_inputs(256, 1001, 192, torch.bfloat16, gpu)
+    xs = torch.empty(x.numel() + 1, dtype=x.dtype, device=gpu)[1:]
+    xs = xs.view(x.shape)
+    xs.copy_(x)
+    assert xs.data_ptr() % 16
+    before = (MM_TENSOR_CORE.launches, MM_CUDA_CORE.launches)
+    got = matmul(xs, y, bm=128, bk=64, bn=128)
+    torch.cuda.synchronize()
+    assert (MM_TENSOR_CORE.launches, MM_CUDA_CORE.launches) == \
+        (before[0] + 1, before[1])
     assert_matmul_close(x, y, got, 64)
 
 
@@ -378,5 +420,8 @@ def test_dry_run_counts_fake_cuda_tensors_as_fake_cpu(gpu):
         on_cuda, _ = trace_step(arch, shape, device="cuda")
         on_cpu, _ = trace_step(arch, shape, device="cpu")
         assert on_cuda.flops == on_cpu.flops > 0
+        assert on_cuda.matmul_flops == on_cpu.matmul_flops > 0
+        assert on_cuda.elementwise_flops == on_cpu.elementwise_flops > 0
+        assert on_cuda.transcendentals == on_cpu.transcendentals > 0
         assert on_cuda.peak_bytes == on_cpu.peak_bytes > 0
         assert on_cuda.bytes_accessed == on_cpu.bytes_accessed

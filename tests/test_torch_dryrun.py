@@ -1,6 +1,7 @@
 """`repro_torch.launch.dryrun` and `launch.steps.trace_step` on the CPU, at
-smoke size: the FLOPs, bytes and peak counted on fake tensors equal those
-of the same step run for real, and a closed-form FLOP count; the records
+smoke size: the FLOPs (matmul and elementwise), transcendentals, bytes and
+peak counted on fake tensors equal those of the same step run for real,
+and a closed-form matmul FLOP count and a hand count; the records
 carry the reference record's keys; inapplicable cells are SKIPPED and the
 cuts raise `NotImplementedError`.  Counts are integers and compared
 exactly."""
@@ -59,6 +60,10 @@ def test_fake_counts_equal_a_real_run(arch, shape):
     real = _real_counts(cfg, shape, rt)
     assert rt.param_dtype == torch.bfloat16 and not rt.use_kernels
     assert fake.flops == real.flops > 0
+    assert fake.matmul_flops == real.matmul_flops > 0
+    assert fake.elementwise_flops == real.elementwise_flops > 0
+    assert fake.transcendentals == real.transcendentals > 0
+    assert fake.flops == fake.matmul_flops + fake.elementwise_flops
     assert fake.flops_by_op == real.flops_by_op
     assert fake.bytes_accessed == real.bytes_accessed > 0
     assert fake.peak_bytes == real.peak_bytes > 0
@@ -84,13 +89,36 @@ def _closed_form_flops(cfg, B, S, mode):
 
 @pytest.mark.parametrize("shape", [PREFILL, DECODE], ids=lambda s: s.mode)
 def test_fake_flops_match_the_closed_form(shape):
+    """The matmul family's FLOPs; the elementwise ones are counted apart
+    (`test_elementwise_flops_match_a_hand_count`,
+    tests/test_torch_flops.py)."""
     cfg = configs.get_smoke("qwen2-0.5b")
     fake, _ = trace_step(cfg, shape, device="cpu")
-    assert fake.flops == _closed_form_flops(cfg, shape.global_batch,
-                                            shape.seq_len, shape.mode)
+    assert fake.matmul_flops == _closed_form_flops(
+        cfg, shape.global_batch, shape.seq_len, shape.mode)
+    assert sum(fake.flops_by_op.values()) == fake.matmul_flops
+
+
+def test_elementwise_flops_match_a_hand_count():
+    """x [4, 8], y [4, 8] fp32: sigmoid (XLA: 1 / (1 + exp(-x)), 3 FLOPs
+    and 1 transcendental an element), a product, a row sum (7 adds a row),
+    a broadcast add, a bf16 convert (1 an element), a copy (0), and a
+    4 x 8 @ 8 x 4 product (2 M K N, counted apart)."""
+    def fn(x, y):
+        h = torch.sigmoid(x) * y                  # 3 * 32 + 32, exp 32
+        h = h + h.sum(-1, keepdim=True)           # 4 * 7 + 32
+        return h.to(torch.bfloat16).clone(), x @ y.T   # 32 + 0; 2 * 128
+    counts = count_step(fn, torch.ones(4, 8), torch.ones(4, 8))[1]
+    assert counts.elementwise_flops == 3 * 32 + 32 + 4 * 7 + 32 + 32
+    assert counts.transcendentals == 32
+    assert counts.matmul_flops == 2 * 4 * 8 * 4
+    assert counts.flops == counts.matmul_flops + counts.elementwise_flops
 
 
 def test_kv_block_moves_the_peak_not_the_flops():
+    """The KV block sets the peak, not the matmul FLOPs; its elementwise
+    FLOPs grow with the number of blocks (the online softmax rescales its
+    running sums once a block)."""
     cfg = configs.get_smoke("qwen2-0.5b")
     shape = ShapeSpec("p", 512, 2, "prefill")
     small, rt = trace_step(cfg, shape, device="cpu",
@@ -98,7 +126,8 @@ def test_kv_block_moves_the_peak_not_the_flops():
     large, _ = trace_step(cfg, shape, device="cpu",
                           overrides={"attn_kv_block": 512})
     assert rt.attn_kv_block == 64
-    assert small.flops == large.flops
+    assert small.matmul_flops == large.matmul_flops
+    assert small.elementwise_flops > large.elementwise_flops
     assert small.peak_bytes < large.peak_bytes
 
 

@@ -1,9 +1,11 @@
 """`repro_torch.core.kernel_tune` on the CPU: with the reference's
 constants passed in, the port's tile model returns the reference's tile,
-cost and ranking exactly; with its Hopper default, every pick is a tile
-the CUDA kernel is built for and fits the kernel's shared memory and
-register budgets (a property test, like tests/test_property.py).  Exact
-equality throughout: the same arithmetic in the same order."""
+cost and ranking exactly; with its Hopper defaults (the tensor-core chip
+for bf16, the CUDA-core chip for fp32), every pick is a tile the dtype's
+CUDA kernel is built for and fits the kernel's shared memory and register
+budgets (a property test, like tests/test_property.py), and the GPU terms
+rank the tiles.  Exact equality throughout: the same arithmetic in the
+same order."""
 
 import itertools
 
@@ -16,10 +18,12 @@ except ImportError:                       # pragma: no cover - container
 
 from repro.core import kernel_tune as ref_kt
 from repro.core.roofline import HW as RefHW
-from repro_torch.core.kernel_tune import (H100_TILES, TileChip, TileConfig,
-                                          tile_cost, tune_matmul_tiles)
+from repro_torch.core.kernel_tune import (H100_TC_TILES, H100_TILES,
+                                          TileChip, TileConfig, tc_consumers,
+                                          tc_stages, tile_cost,
+                                          tune_matmul_tiles)
 from repro_torch.core.roofline import HW
-from repro_torch.kernels.matmul import MATMUL_TILES
+from repro_torch.kernels.matmul import CUDA_CORE, TENSOR_CORE
 
 #: the reference's chip: v5e VMEM, the MXU's alignment, the accumulator
 #: beside the double-buffered inputs, no register budget
@@ -68,17 +72,26 @@ def test_reference_constants_give_the_reference_cost(tile):
 
 
 def test_every_kernel_tile_is_a_candidate_on_the_h100():
-    for tile in MATMUL_TILES:
+    for tile in CUDA_CORE.tiles:
         for dtype_bytes in (2, 4):
             assert tile_cost(4096, 4096, 4096, TileConfig(*tile),
                              dtype_bytes=dtype_bytes,
                              chip=H100_TILES)["valid"], tile
+    for tile in TENSOR_CORE.tiles:
+        assert tile_cost(4096, 4096, 4096, TileConfig(*tile),
+                         chip=H100_TC_TILES)["valid"], tile
 
 
 def test_h100_chip_is_the_datasheet_fp32_fma_rate():
+    """The CUDA-core chip multiplies at the fp32 FMA rate, the tensor-core
+    chip at the bf16 tensor-core peak; both read HBM at 3.35 TB/s and
+    spread blocks over 132 SMs."""
     assert H100_TILES.peak_flops == HW().fp32_flops == 67e12
-    assert H100_TILES.hbm_bw == HW().hbm_bw == 3.35e12
-    assert H100_TILES.smem_bytes == 232448 and not H100_TILES.acc_in_smem
+    assert H100_TC_TILES.peak_flops == HW().peak_flops == 989e12
+    for chip in (H100_TILES, H100_TC_TILES):
+        assert chip.hbm_bw == HW().hbm_bw == 3.35e12
+        assert chip.smem_bytes == 232448 and not chip.acc_in_smem
+        assert chip.sms == 132
 
 
 def test_tiles_the_budgets_rule_out():
@@ -93,24 +106,71 @@ def test_tiles_the_budgets_rule_out():
 
 
 def test_ties_keep_the_order_of_the_tiles():
-    """On a compute-bound shape with no padding all kernel tiles tie; the
-    first of `tiles` is picked and the ranking keeps their order."""
-    best, _, rank = tune_matmul_tiles(4096, 4096, 4096)
-    assert len({lat for _, lat in rank}) == 1
-    assert (best.bm, best.bk, best.bn) == MATMUL_TILES[0]
-    assert [(t.bm, t.bk, t.bn) for t, _ in rank] == list(MATMUL_TILES)
-    rev = tuple(reversed(MATMUL_TILES))
-    best, _, _ = tune_matmul_tiles(4096, 4096, 4096, tiles=rev)
-    assert (best.bm, best.bk, best.bn) == rev[0]
+    """The fp32 chip still ties tiles that fill the same waves with the
+    same work (at 4096^3 the eleven tiles of 8192 output elements in one
+    block an SM): the ranking keeps their order in `tiles`, and the first
+    of them is picked, whichever way the tuple runs."""
+    tiles = CUDA_CORE.tiles
+    best, _, rank = tune_matmul_tiles(4096, 4096, 4096, dtype_bytes=4)
+    top = [(t.bm, t.bk, t.bn) for t, lat in rank if lat == rank[0][1]]
+    assert len(top) > 1
+    assert top == [t for t in tiles if t in top]
+    assert (best.bm, best.bk, best.bn) == tiles[0] == top[0]
+    rev = tuple(reversed(tiles))
+    best, _, rank = tune_matmul_tiles(4096, 4096, 4096, dtype_bytes=4,
+                                      tiles=rev)
+    assert (best.bm, best.bk, best.bn) == [t for t in rev if t in top][0]
 
 
 def test_padding_moves_the_pick():
-    """A ragged M of 130 pads 128-row tiles to 256 rows and 64-row ones to
-    192: the model picks bm = 64."""
+    """A ragged M of 130 pads 128- and 256-row tiles to 256 rows and
+    64-row ones to 192: the tensor-core model picks bm = 64, and its
+    compute term covers the padded rows at the tensor-core peak."""
     best, cost, _ = tune_matmul_tiles(130, 4096, 4096)
     assert best.bm == 64
-    assert cost["compute_s"] == pytest.approx(
-        2 * 192 * 4096 * 4096 / H100_TILES.peak_flops)
+    assert cost["compute_s"] >= 2 * 192 * 4096 * 4096 / 989e12
+
+
+def test_8192_cubed_no_longer_ties():
+    """bf16 8192^3: the operand, latency and wave terms set the tiles
+    apart, and the pick is the widest tile with four stages, 128 x 256 x
+    64 (the fastest of the kernel's tiles on the card, PERF.md)."""
+    best, cost, rank = tune_matmul_tiles(8192, 8192, 8192)
+    lats = [lat for _, lat in rank]
+    assert len(set(lats)) > len(lats) // 2 and lats[0] < lats[1]
+    assert (best.bm, best.bk, best.bn) == (128, 64, 256)
+    assert tc_stages(128, 64, 256) == 4 and cost["compute_s"] > \
+        cost["memory_s"]
+    # two-stage tiles wait on their loads: the same tile at bk 128 is slower
+    deep = tile_cost(8192, 8192, 8192, TileConfig(128, 128, 256),
+                     chip=H100_TC_TILES)
+    assert tc_stages(128, 128, 256) == 2
+    assert deep["latency_s"] > cost["latency_s"]
+
+
+def test_decode_like_shape_is_bound_by_its_bytes():
+    """(128, 4096, 12288): the pick's time is its memory term (y read
+    once), and no 256-row tile, which pads M = 128 to 256 and multiplies
+    zeros, is picked."""
+    best, cost, rank = tune_matmul_tiles(128, 4096, 12288)
+    assert cost["latency_s"] == cost["memory_s"] >= cost["compute_s"]
+    assert cost["memory_s"] == pytest.approx(
+        2 * (128 * 4096 + 4096 * 12288 + 128 * 12288) / 3.35e12)
+    assert best.bm <= 128
+    assert all(lat > cost["latency_s"] for t, lat in rank if t.bm == 256)
+
+
+def test_stage_formula_and_consumer_split():
+    """The ring holds as many stages as fit beside the 2048-byte reserve,
+    at least two for every bf16 tile; two consumer warpgroups split the
+    rows from bm 128, else the columns from bn 128."""
+    for bm, bk, bn in TENSOR_CORE.tiles:
+        s = tc_stages(bm, bk, bn)
+        assert s >= 2 and s * (bm + bn) * bk * 2 <= 232448 - 2048 < \
+            (s + 1) * (bm + bn) * bk * 2
+    assert tc_consumers(256, 128) == (2, 128, 128)
+    assert tc_consumers(64, 256) == (2, 64, 128)
+    assert tc_consumers(64, 64) == (1, 64, 64)
 
 
 @settings(max_examples=30, deadline=None)
@@ -119,12 +179,20 @@ def test_padding_moves_the_pick():
 def test_h100_pick_is_a_kernel_tile_within_budgets(m, k, n, dtype_bytes):
     best, cost, ranking = tune_matmul_tiles(m, k, n,
                                             dtype_bytes=dtype_bytes)
-    assert (best.bm, best.bk, best.bn) in MATMUL_TILES
+    kernel, chip = ((TENSOR_CORE, H100_TC_TILES) if dtype_bytes == 2
+                    else (CUDA_CORE, H100_TILES))
+    assert (best.bm, best.bk, best.bn) in kernel.tiles
     assert cost["valid"]
-    assert cost["smem_bytes"] <= H100_TILES.smem_bytes
-    regs = (best.bm * best.bn + best.bm * best.bk + best.bk * best.bn) \
-        / H100_TILES.threads
-    assert regs <= H100_TILES.reg_budget <= 255
+    assert cost["smem_bytes"] <= chip.smem_bytes
+    if dtype_bytes == 4:
+        regs = (best.bm * best.bn + best.bm * best.bk
+                + best.bk * best.bn) / chip.threads
+    else:
+        regs = best.bm * best.bn / (128 * tc_consumers(best.bm, best.bn)[0])
+    assert regs <= chip.reg_budget <= 255
     assert cost["latency_s"] == min(lat for _, lat in ranking) > 0
-    # the compute term never beats the fp32 FMA roofline of the product
-    assert cost["compute_s"] >= 2.0 * m * k * n / HW().fp32_flops
+    # the compute term never beats the roofline of the product on the
+    # datapath the kernel multiplies on: the tensor cores for bf16, fp32
+    # FMAs for fp32
+    peak = HW().peak_flops if dtype_bytes == 2 else HW().fp32_flops
+    assert cost["compute_s"] >= 2.0 * m * k * n / peak

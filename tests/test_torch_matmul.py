@@ -1,7 +1,8 @@
 """`repro_torch.kernels.matmul` on the CPU: its plain version against the
 JAX package's oracle (`ref.matmul_ref`) and Pallas kernel (interpret
-mode), and the wrapper's contract, including that its tile set is the
-one `csrc/matmul.cu` is built for.
+mode), and the wrapper's contract: each kernel's tile set is the one
+`csrc/matmul.cu` is built for, the dispatch by dtype, the tensor-core
+kernel's stage formula and the zero padding that TMA's alignment needs.
 
 Inputs come from numpy with a seed.  Tolerance: |port - reference| <=
 2 gamma_K (|x| @ |y|), gamma_K = K u / (1 - K u) with u = 2^-24 — the
@@ -9,6 +10,7 @@ bound of two fp32 sums of the same K products in two orders — plus one
 bf16 ulp of the larger magnitude where both sides round to bf16."""
 
 import re
+import shutil
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -17,7 +19,11 @@ import pytest
 import torch
 
 from repro.kernels import ops, ref
-from repro_torch.kernels.matmul import MATMUL_TILES, matmul, matmul_plain
+from repro_torch.core.kernel_tune import tc_stages
+from repro_torch.kernels import build
+from repro_torch.kernels.matmul import (CUDA_CORE, DISPATCH, TENSOR_CORE,
+                                        kernel_for, matmul, matmul_plain,
+                                        tma_operands)
 
 CSRC = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
         / "kernels" / "csrc" / "matmul.cu")
@@ -115,11 +121,105 @@ def test_tile_without_an_instantiation_raises_on_every_device(tile):
         matmul(x, y, bm=tile[0], bk=tile[1], bn=tile[2])
 
 
+def _instantiations(macro):
+    return [tuple(int(v) for v in m) for m in re.findall(
+        rf"^\s*{macro}\((\d+), (\d+), (\d+)\)", CSRC.read_text(),
+        re.MULTILINE)]
+
+
 def test_tile_set_is_the_kernels_instantiations():
-    built = {tuple(int(v) for v in m) for m in re.findall(
-        r"^\s*MATMUL_TILE\((\d+), (\d+), (\d+)\)", CSRC.read_text(),
-        re.MULTILINE)}
-    assert built == set(MATMUL_TILES)
-    assert len(MATMUL_TILES) == len(set(MATMUL_TILES))
-    # the two tiles of tests/test_kernels.py are among them
-    assert set(TILES) <= built
+    """Each kernel's tiles are its instantiation lines in the source, and
+    both keep the two tiles of tests/test_kernels.py."""
+    for kernel, macro in ((CUDA_CORE, "MATMUL_TILE"),
+                          (TENSOR_CORE, "MATMUL_TC_TILE")):
+        built = _instantiations(macro)
+        assert set(built) == set(kernel.tiles), kernel.name
+        assert len(set(built)) == len(built) == len(kernel.tiles)
+        assert set(TILES) <= set(built)
+    assert len(CUDA_CORE.tiles) == 15 and len(TENSOR_CORE.tiles) == 16
+
+
+def test_dispatch_sends_bf16_to_the_tensor_cores():
+    assert DISPATCH == {torch.bfloat16: TENSOR_CORE,
+                        torch.float32: CUDA_CORE}
+    assert kernel_for(torch.bfloat16) is TENSOR_CORE
+    assert kernel_for(torch.float32) is CUDA_CORE
+    with pytest.raises(TypeError):
+        kernel_for(torch.float16)
+    # the tensor-core tiles: bm, bn in {64, 128, 256} but 256 x 256, bk
+    # in {64, 128}
+    assert set(TENSOR_CORE.tiles) == {
+        (bm, bk, bn) for bm in (64, 128, 256) for bn in (64, 128, 256)
+        for bk in (64, 128) if (bm, bn) != (256, 256)}
+
+
+def test_stage_formula_matches_the_kernel():
+    """The ring's stages: the .cu's constants are the tile model's, and
+    every bf16 tile gets at least two stages."""
+    text = CSRC.read_text()
+    limit = int(re.search(r"kSmemLimit = (\d+);", text).group(1))
+    reserve = int(re.search(r"kSmemReserve = (\d+);", text).group(1))
+    assert "return (kSmemLimit - kSmemReserve) / ((bm + bn) * bk * 2);" \
+        in text
+    for bm, bk, bn in TENSOR_CORE.tiles:
+        s = tc_stages(bm, bk, bn)
+        assert s == (limit - reserve) // ((bm + bn) * bk * 2) >= 2
+
+
+@pytest.mark.parametrize("m,k,n", [(33, 65, 17), (200, 384, 136)])
+def test_tma_padding_keeps_the_product_bit_for_bit(m, k, n):
+    """K (and y's N) zero-padded to a multiple of 8, or the operands copied
+    to an aligned start: the plain version of the padded operands, cut to
+    N columns, equals the plain version of the originals bit for bit."""
+    x, y = _inputs(m, k, n, "bfloat16", seed=3)
+    # an unaligned start (one bf16 element past an aligned one)
+    xs = torch.empty(m * k + 1, dtype=torch.bfloat16)[1:].view(m, k)
+    xs.copy_(x)
+    assert xs.data_ptr() % 16
+    xp, yp = tma_operands(xs, y)
+    kp, np_ = -(-k // 8) * 8, -(-n // 8) * 8
+    assert xp.shape == (m, kp) and yp.shape == (kp, np_)
+    assert xp.data_ptr() % 16 == 0 and yp.data_ptr() % 16 == 0
+    assert torch.equal(xp[:, k:], torch.zeros_like(xp[:, k:]))
+    assert torch.equal(yp[k:], torch.zeros_like(yp[k:]))
+    assert torch.equal(yp[:, n:], torch.zeros_like(yp[:, n:]))
+    for bk in (64, 128):
+        for od in (torch.float32, torch.bfloat16):
+            want = matmul_plain(x, y, bk=bk, out_dtype=od)
+            got = matmul_plain(xp, yp, bk=bk, out_dtype=od)[:, :n]
+            assert torch.equal(got, want)
+    # aligned and a multiple of 8 already: no copy
+    xa, ya = tma_operands(y.new_zeros((4, 64)), y.new_zeros((64, 24)))
+    assert xa.shape == (4, 64) and ya.shape == (64, 24)
+
+
+@pytest.mark.parametrize("tile", [(128, 128, 128), (256, 64, 64)])
+def test_fp32_at_a_bf16_only_tile_raises(tile):
+    """A tile the tensor-core kernel has and the CUDA-core one lacks: bf16
+    runs it, fp32 raises, on every device."""
+    assert tile in TENSOR_CORE.tiles and tile not in CUDA_CORE.tiles
+    x, y = _inputs(8, 8, 8, "float32")
+    with pytest.raises(ValueError, match="no kernel for tile"):
+        matmul(x, y, bm=tile[0], bk=tile[1], bn=tile[2])
+    got = matmul(x.bfloat16(), y.bfloat16(), bm=tile[0], bk=tile[1],
+                 bn=tile[2])
+    assert torch.equal(got, matmul_plain(x.bfloat16(), y.bfloat16(),
+                                         bk=tile[1]))
+
+
+def test_an_edited_header_rebuilds_both_libraries(tmp_path, monkeypatch):
+    """The library names hash each source with the `csrc/*.cuh` it
+    includes: an edit to `hopper.cuh` renames the flash and matmul
+    libraries (both include it) and no other."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    assert build.headers("matmul") == build.headers("flash_attention") == \
+        ("hopper.cuh",)
+    assert build.headers("gather_rows") == build.headers("rglru_scan") == ()
+    before = {n: build.library_path(n) for n in build.SOURCES}
+    with open(csrc / "hopper.cuh", "a") as f:
+        f.write("// edited\n")
+    after = {n: build.library_path(n) for n in build.SOURCES}
+    changed = {n for n in build.SOURCES if before[n] != after[n]}
+    assert changed == {"matmul", "flash_attention"}
