@@ -40,11 +40,20 @@ printing one JSON line each:
                  each row with the kernel that ran, its TFLOP/s and its
                  share of the bound;
   7. kernel rglru_scan
-                 `rglru_scan` against its plain PyTorch version, every
-                 element, on the sweep of `tests/test_kernels.py` (the
-                 1024-step decay case and bf16 included) and on the
-                 recurrentgemma prefill's two shapes, with CUDA-event times
-                 of the kernel and the plain version;
+                 both bare-scan kernels (the channel-slab walk and the
+                 chunked passes, each moving only its counter) against
+                 their plain PyTorch version, every element, on the sweep
+                 of `tests/test_kernels.py` (the 1024-step decay case and
+                 bf16 included) and on the recurrentgemma prefill's two
+                 shapes, with CUDA-event times of both, the plain version
+                 and the dispatch rule's sweep (S 32768, 16-128 slabs);
+                 `rglru_gated_scan` against its plain version on the same
+                 shapes (head-major and contiguous gate logits, bf16 and
+                 fp32 gates and outputs, the long-memory end of the decay)
+                 and timed at the two prefill shapes in the model's
+                 dtypes; then one full-width RG-LRU block by the route
+                 before the gated kernel and by the gated kernel, each
+                 timed and split by `torch.profiler`;
   8. prefill qwen2-0.5b
                  the second main path: `make_prefill_step` at full width
                  (24 layers, bf16 weights, `use_kernels=True`) at seq 32768
@@ -61,8 +70,9 @@ printing one JSON line each:
                  against the port's own CPU run on the same weights;
  10. prefill recurrentgemma-9b
                  the third main path, as phase 8 at the same two shapes (38
-                 layers: 26 RG-LRU, 12 local attention): 26 `rglru_scan`
-                 launches a forward at both shapes, 12 `flash_attention` (on
+                 layers: 26 RG-LRU, 12 local attention): 26
+                 `rglru_gated_scan` launches a forward at both shapes (and
+                 no bare scan), 12 `flash_attention` (on
                  the tensor cores) at seq 2048 (S <= the 2048 window) and
                  none at 32768 (local-block attention); then each kernel
                  against its plain version on what the first and last
@@ -158,6 +168,20 @@ RGLRU_TPU = "src/repro/kernels/rg_lru.py:54"
 # slow decays (the a = 0.999 case reads about 5e-6 relative); bf16 output
 # may land one bf16 ulp apart, at most 2^-7 of the value.
 RGLRU_TOL = {torch.float32: (2e-6, 2e-5), torch.bfloat16: (2e-6, 2 ** -7)}
+# rglru_gated_scan against rglru_gated_scan_plain, element by element,
+# |kernel - plain| <= atol + rtol |plain|: the scan's RGLRU_TOL[float32]
+# (the kernel steps the recurrence, the plain version composes it by
+# doubling), its rtol widened by 8 fp32 ulps (2^-20) for the card's expf,
+# log1pf and tanhf and nvcc's FMA contractions against PyTorch's compiled
+# kernels of the same functions (the odd last bit of a, b or gelu(gate));
+# a bf16 y may land one bf16 ulp further, as it rounds once
+GATED_TOL = (RGLRU_TOL[torch.float32][0],
+             RGLRU_TOL[torch.float32][1] + 2 ** -20)
+# fp32 operations of rglru_gated_scan an element, each transcendental one:
+# two sigmoids (add, exp, add, divide: 8), log_a 1, exp 1, 2 log_a 1,
+# exp 1, 1 - e 1, max 1, sqrt 1, i xc 1, beta (.) 1, the scan's FMA 2,
+# gelu_tanh 9, h g 1
+GATED_OPS = 29
 RGLRU_LIBRARY = ("none: no single PyTorch call computes h_t = a_t h_{t-1} "
                  "+ b_t; a cumprod/cumsum rewrite divides by products of a "
                  "that vanish, so it is not the same function")
@@ -665,26 +689,148 @@ def rglru_bound(b, s, w, itemsize) -> dict:
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
 
 
-def rglru_against_plain(a, b) -> dict:
-    """The kernel's output on every element against the plain version's:
-    the max abs error and the worst |error| / (atol + rtol |plain|), which
-    passes at <= 1."""
-    from repro_torch.kernels.rg_lru import rglru_scan, rglru_scan_plain
+def rglru_against_plain(a, b, kernel=None) -> dict:
+    """A bare-scan kernel's output (`kernel`, else the one `kernel_for`
+    names) on every element against the plain version's: the max abs
+    error and the worst |error| / (atol + rtol |plain|), which passes at
+    <= 1.  The call must move only that kernel's counter (and the
+    wrapper's)."""
+    from repro_torch.kernels import rg_lru as R
 
     atol, rtol = RGLRU_TOL[a.dtype]
+    ran = kernel or R.kernel_for(a.shape[0], a.shape[2])
+    before = {k.name: k.launches for k in (R.SLAB, R.CHUNKED)}
     with torch.inference_mode():
-        got = rglru_scan(a, b).float()
-        want = rglru_scan_plain(a, b).float()
+        got = R.rglru_scan(a, b, kernel=kernel).float()
+        want = R.rglru_scan_plain(a, b).float()
         diff = (got - want).abs()
-        return {"max_abs_err": float(diff.max()),
+        moved = {k.name: k.launches - before[k.name]
+                 for k in (R.SLAB, R.CHUNKED)}
+        check(moved == {k.name: int(k is ran) for k in (R.SLAB, R.CHUNKED)},
+              f"rglru_scan on {tuple(a.shape)} moved {moved}, expected "
+              f"{ran.name} only")
+        return {"kernel": ran.name, "max_abs_err": float(diff.max()),
                 "tol_ratio": float((diff / (atol + rtol * want.abs())).max()),
                 "finite": bool(torch.isfinite(got).all())}
 
 
+def bf16_ulp(x):
+    """One bf16 ulp of each |x| (the smallest normal at 0)."""
+    _, e = torch.frexp(x.abs())
+    return torch.where(x == 0, torch.finfo(torch.bfloat16).tiny,
+                       torch.ldexp(torch.ones_like(x), e - 8))
+
+
+def rglru_gated_bound(args, out_dtype) -> dict:
+    """Least time for one `rglru_gated_scan` call: the bytes it must move
+    (xc, ra, ri, gate and the three [W] vectors read once in the dtypes
+    handed, y written once in `out_dtype`) at the HBM rate, and its
+    `GATED_OPS` fp32 operations an element at the fp32 peak; bytes bound
+    it."""
+    n = args[0].numel()
+    nbytes = (sum(t.numel() * t.element_size() for t in args)
+              + n * torch.empty((), dtype=out_dtype).element_size())
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, GATED_OPS * n / FP32_FLOP_PER_S
+    return {"flop": GATED_OPS * n, "bytes": nbytes,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def gated_against_plain(args, out_dtype) -> dict:
+    """`rglru_gated_scan` on every element against
+    `rglru_gated_scan_plain` on the same inputs, within `GATED_TOL` (plus
+    one bf16 ulp of |plain| on a bf16 output); the call must launch the
+    kernel once."""
+    from repro_torch.kernels.rg_lru import (rglru_gated_scan,
+                                            rglru_gated_scan_plain)
+
+    atol, rtol = GATED_TOL
+    before = rglru_gated_scan.launches
+    with torch.inference_mode():
+        got = rglru_gated_scan(*args, out_dtype)
+        check(rglru_gated_scan.launches == before + 1,
+              "rglru_gated_scan did not count its launch")
+        check(got.dtype == out_dtype and got.shape == args[0].shape,
+              f"rglru_gated_scan gave {got.dtype} {tuple(got.shape)}")
+        want = rglru_gated_scan_plain(*args, out_dtype).float()
+        got = got.float()
+        diff = (got - want).abs()
+        lim = atol + rtol * want.abs()
+        if out_dtype == torch.bfloat16:
+            lim = lim + bf16_ulp(want)
+        return {"max_abs_err": float(diff.max()),
+                "tol_ratio": float((diff / lim).max()),
+                "finite": bool(torch.isfinite(got).all()),
+                "out_dtype": str(out_dtype)[6:]}
+
+
+def rglru_block_times(gen, routes=("today",)) -> dict:
+    """One RG-LRU block of recurrentgemma-9b at full width (d 4096, lru
+    width 4096, 16 gate heads of 256, conv width 4), random bf16
+    parameters from `gen`, bf16 compute, at the prefill's two shapes, by
+    each of `routes`: "today" composes `rglru_scan_inputs` ->
+    `rglru_scan` -> `rglru_output` (the route before the gated kernel, the
+    yardstick); "fused" is `rglru_block_train` under `use_kernels`
+    (projections, conv and the gate einsums, then `rglru_gated_scan`,
+    then `wout`).  Per route and shape: CUDA-event time and one profiled
+    call split into cuBLAS products, the scan kernels and the rest; the
+    two routes' outputs are held to each other within `PREFILL_TOL`."""
+    from repro_torch import configs
+    from repro_torch.kernels.rg_lru import rglru_scan
+    from repro_torch.models import layers as L
+
+    cfg = configs.get_arch(RG_ARCH)
+    w, heads = cfg.lru_width, cfg.num_heads
+    rt = L.Runtime(compute_dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+                   use_kernels=True)
+    p = L.init_params(L.rglru_specs(cfg.d_model, w, heads,
+                                    cfg.conv1d_width), gen, torch.bfloat16)
+
+    def block(x, route):
+        with torch.inference_mode(), L.full_precision_products():
+            if route == "fused":
+                return L.rglru_block_train(p, x, n_heads=heads, rt=rt)
+            a, b, gate = L.rglru_scan_inputs(p, x, n_heads=heads, rt=rt)
+            return L.rglru_output(p, rglru_scan(a, b), gate, rt)
+
+    out = {}
+    for b, s_len in ((1, 32768), (4, 2048)):
+        x = torch.randn((b, s_len, cfg.d_model), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        rec = {"B": b, "S": s_len, "d_model": cfg.d_model, "lru_width": w,
+               "heads": heads}
+        ys = {}
+        for route in routes:
+            ys[route] = block(x, route)
+            rec[f"{route}_ms"] = device_ms(lambda: block(x, route), reps=3,
+                                           inner=2)
+            rec[f"{route}_device"] = device_breakdown(
+                {route: lambda: block(x, route)},
+                {"cublas_us": ("gemm", "nvjet", "xmma"),
+                 "gated_us": ("rglru_gated",),
+                 "scan_us": ("rglru_slab", "rglru_chunk")})[route]
+        if len(ys) == 2:
+            y0, y1 = ys["today"].float(), ys["fused"].float()
+            diff = (y0 - y1).abs()
+            rec["max_abs_diff_fused_vs_today"] = float(diff.max())
+            rec["fused_over_today"] = rec["fused_ms"] / rec["today_ms"]
+            check(bool((diff <= PREFILL_TOL * (1 + y0.abs())).all()),
+                  f"the fused RG-LRU block differs from today's route by "
+                  f"{float(diff.max())} at [{b}, {s_len}]")
+        out[f"{b}x{s_len}"] = rec
+        del x, ys
+    return out
+
+
 def phase_rglru(gen) -> dict:
-    """The RG-LRU scan kernel against its plain version, then its times
-    at the recurrentgemma prefill's two shapes."""
-    from repro_torch.kernels.rg_lru import rglru_scan, rglru_scan_plain
+    """The RG-LRU kernels against their plain versions, then their times:
+    both bare-scan kernels on every case (the dispatch rule's sweep timed
+    too), the gated kernel on the same shapes, head-major and contiguous
+    gate logits, both output dtypes and the long-memory end of the decay,
+    each at the recurrentgemma prefill's two shapes; then one RG-LRU block
+    by today's route and by the gated kernel.  Returns each kernel's
+    launches in this phase, the block path's counted from 0 apart."""
+    from repro_torch.kernels import rg_lru as R
 
     def inputs(b, s_len, w, dtype):
         # a in (0.6, 0.999) as in the sweep of tests/test_kernels.py
@@ -693,6 +839,33 @@ def phase_rglru(gen) -> dict:
                 torch.randn((b, s_len, w), generator=gen,
                             device="cuda").to(dtype))
 
+    def gated_inputs(b, s_len, w, heads, gate_dtype, head_major,
+                     long_memory=False):
+        # the gate logits as the einsum leaves them ([heads, B, S, hd]
+        # storage) or contiguous; a_param at the reference's init
+        # (logit(u), u in [0.81, 0.998]) or at the long-memory end
+        # (softplus(a_param) 1.2e-4 to 5.5e-4: a 0.998 to 0.9995 at r 0.5)
+        hd = w // heads
+
+        def logits():
+            if head_major:
+                return torch.randn((heads, b, s_len, hd), generator=gen,
+                                   device="cuda").permute(1, 2, 0, 3)
+            return torch.randn((b, s_len, w), generator=gen, device="cuda")
+
+        u = torch.rand(w, generator=gen, device="cuda")
+        a_param = (-9.0 + 1.5 * u if long_memory else
+                   torch.logit(0.81 + (0.998 - 0.81) * u))
+        return (torch.randn((b, s_len, w), generator=gen, device="cuda"),
+                logits(), logits(),
+                torch.randn((b, s_len, w), generator=gen,
+                            device="cuda").to(gate_dtype),
+                0.5 * torch.randn(w, generator=gen, device="cuda"),
+                0.5 * torch.randn(w, generator=gen, device="cuda"), a_param)
+
+    counters = (R.SLAB, R.CHUNKED, R.rglru_gated_scan)
+    start = {k.__name__ if callable(k) else k.name: k.launches
+             for k in counters}
     f32, bf16 = torch.float32, torch.bfloat16
     cases = {f"B{b} S{s_len} W{w} {str(dt)[6:]}": inputs(b, s_len, w, dt)
              for b, s_len, w, dt in ((1, 64, 128, f32), (2, 100, 160, f32),
@@ -702,45 +875,135 @@ def phase_rglru(gen) -> dict:
     cases["decay B1 S1024 W128 float32"] = (decay, torch.ones_like(decay))
     results, failed = {}, []
     for label, (a, b) in cases.items():
-        results[label] = rglru_against_plain(a, b)
+        for kernel in (R.SLAB, R.CHUNKED):
+            results[f"{label} {kernel.name}"] = rglru_against_plain(a, b,
+                                                                    kernel)
     del cases
+    # the dispatch rule: both kernels at S 32768 over the slab counts
+    # around MIN_SLABS (fp32; W 512-4096 is 16-128 slabs)
+    dispatch = {}
+    for w in (512, 1024, 2048, 4096):
+        a, bb = inputs(1, 32768, w, f32)
+        row = {"slabs": R.slabs(1, w), "rule": R.kernel_for(1, w).name,
+               **rglru_bound(1, 32768, w, 4)}
+        for kernel in (R.SLAB, R.CHUNKED):
+            row[f"{kernel.name}_ms"] = device_ms(
+                lambda: R.rglru_scan(a, bb, kernel=kernel), reps=3, inner=5)
+        row["rule_is_faster"] = row[f"{row['rule']}_ms"] == min(
+            row[f"{k.name}_ms"] for k in (R.SLAB, R.CHUNKED))
+        dispatch[f"W{w}"] = row
+        del a, bb
     # the prefill's two shapes (its own inputs: prefill phase), timed
     timings = {}
     for b, s_len in ((1, 32768), (4, 2048)):
         a, bb = inputs(b, s_len, 4096, f32)
         label = f"B{b} S{s_len} W4096 float32"
-        results[label] = rglru_against_plain(a, bb)
+        for kernel in (R.SLAB, R.CHUNKED):
+            results[f"{label} {kernel.name}"] = rglru_against_plain(a, bb,
+                                                                    kernel)
         reps = dict(reps=3, inner=2)
-        timings[f"{b}x{s_len}"] = {
-            "B": b, "S": s_len, "W": 4096, "dtype": "float32",
-            "kernel_ms": device_ms(lambda: rglru_scan(a, bb)),
-            "plain_ms": device_ms(lambda: rglru_scan_plain(a, bb), **reps),
-            "library_ms": None, "library": RGLRU_LIBRARY,
-            **rglru_bound(b, s_len, 4096, 4)}
+        bound = rglru_bound(b, s_len, 4096, 4)
+        row = {"B": b, "S": s_len, "W": 4096, "dtype": "float32",
+               "kernel": R.kernel_for(b, 4096).name,
+               "plain_ms": device_ms(lambda: R.rglru_scan_plain(a, bb),
+                                     **reps),
+               "library_ms": None, "library": RGLRU_LIBRARY, **bound}
+        for kernel in (R.SLAB, R.CHUNKED):
+            row[f"{kernel.name}_ms"] = device_ms(
+                lambda: R.rglru_scan(a, bb, kernel=kernel))
+        row["kernel_ms"] = row[f"{row['kernel']}_ms"]
+        row["bound_share"] = bound["bound_ms"] / row["kernel_ms"]
+        timings[f"{b}x{s_len}"] = row
         del a, bb
     for label, res in results.items():
         if res["tol_ratio"] > 1.0 or not res["finite"]:
             failed.append(f"{label}: {res}")
+
+    # the gated kernel: the same shapes, both layouts of the gate logits,
+    # bf16 and fp32 gates and outputs, the long-memory decay
+    gated, gated_failed = {}, []
+    for b, s_len, w, heads in ((1, 64, 128, 4), (2, 100, 160, 5),
+                               (3, 257, 130, 1), (1, 4096, 4096, 16)):
+        for gdt, odt, hm in ((f32, f32, heads > 1), (bf16, bf16, False),
+                             (bf16, f32, heads > 1), (f32, bf16, True)):
+            if hm and heads == 1:
+                continue
+            args = gated_inputs(b, s_len, w, heads, gdt, hm)
+            gated[(f"B{b} S{s_len} W{w} h{heads} gate {str(gdt)[6:]} "
+                   f"{'head-major' if hm else 'contiguous'}")
+                  + f" -> {str(odt)[6:]}"] = gated_against_plain(args, odt)
+    for odt in (f32, bf16):
+        args = gated_inputs(1, 1024, 128, 4, bf16, True, long_memory=True)
+        gated[f"long memory B1 S1024 W128 h4 -> {str(odt)[6:]}"] = \
+            gated_against_plain(args, odt)
+    gated_timings = {}
+    for b, s_len in ((1, 32768), (4, 2048)):
+        # the model's operands: xc, ra, ri fp32 (ra, ri head-major), gate
+        # and y bf16
+        args = gated_inputs(b, s_len, 4096, 16, bf16, True)
+        gated[f"B{b} S{s_len} W4096 h16 model dtypes -> bfloat16"] = \
+            gated_against_plain(args, bf16)
+        bound = rglru_gated_bound(args, bf16)
+        row = {"B": b, "S": s_len, "W": 4096, "heads": 16,
+               "dtypes": "xc, ra, ri float32; gate, y bfloat16",
+               "kernel_ms": device_ms(
+                   lambda: R.rglru_gated_scan(*args, bf16)),
+               "plain_ms": device_ms(
+                   lambda: R.rglru_gated_scan_plain(*args, bf16), reps=3,
+                   inner=2),
+               "library_ms": None, **bound}
+        row["bound_share"] = bound["bound_ms"] / row["kernel_ms"]
+        gated_timings[f"{b}x{s_len}"] = row
+        del args
+    for label, res in gated.items():
+        if res["tol_ratio"] > 1.0 or not res["finite"]:
+            gated_failed.append(f"{label}: {res}")
+    launches = {n: k.launches - start[n] for n, k in
+                zip(start, counters)}
+
+    # the block by today's route (the bare scan, dispatched) and by the
+    # gated kernel, each kernel's launches counted from 0 around it
+    for k in counters:
+        k.launches = 0
+    block = rglru_block_times(gen, routes=("today", "fused"))
+    block_launches = {n: k.launches for n, k in zip(start, counters)}
+    check(block_launches["rglru_scan_slab"] > 0
+          and block_launches["rglru_gated_scan"] > 0,
+          f"the block's two routes launched {block_launches}")
+
     worst = {key: max(r[key] for r in results.values())
              for key in ("max_abs_err", "tol_ratio")}
+    gworst = {key: max(r[key] for r in gated.values())
+              for key in ("max_abs_err", "tol_ratio")}
     emit("kernel rglru_scan", cases=results, worst=worst,
          tolerance={"float32": RGLRU_TOL[f32], "bfloat16": RGLRU_TOL[bf16]},
-         failed=failed, timings=timings)
+         failed=failed, dispatch=dispatch, min_slabs=R.MIN_SLABS,
+         timings=timings, gated_cases=gated, gated_worst=gworst,
+         gated_tolerance={"float32": GATED_TOL,
+                          "bfloat16": "float32's plus one bf16 ulp"},
+         gated_failed=gated_failed, gated_timings=gated_timings,
+         launches=launches, block=block, block_launches=block_launches)
     check(not failed, f"rglru_scan != plain on {len(failed)} cases: "
                       f"{failed[:3]}")
-    return {"max_abs_err": worst["max_abs_err"], "timings": timings}
+    check(not gated_failed, f"rglru_gated_scan != plain on "
+                            f"{len(gated_failed)} cases: {gated_failed[:3]}")
+    return {"max_abs_err": worst["max_abs_err"],
+            "gated_max_abs_err": gworst["max_abs_err"], "timings": timings,
+            "dispatch": dispatch, "gated_timings": gated_timings,
+            "launches": launches, "block_launches": block_launches,
+            "block": block}
 
 
 def kernel_inputs(model, params, inputs, rt, layers) -> dict:
     """{layer: (kernel, inputs)} for each of `layers`: what the layer's
     block hands its kernel in the prefill's forward, recomputed with the
-    port's own functions — `rglru_scan`'s a and b in an RG-LRU layer,
-    `flash_attention`'s q, k, v in an attention layer that takes it.  Each
-    is tied to the main path: the layer's block output must equal, bit for
-    bit, the same block finished from the kernel on the recomputed
-    inputs."""
+    port's own functions — `rglru_gated_scan`'s xc, ra, ri, gate, ba, bi
+    and a_param in an RG-LRU layer, `flash_attention`'s q, k, v in an
+    attention layer that takes it.  Each is tied to the main path: the
+    layer's block output must equal, bit for bit, the same block finished
+    from the kernel on the recomputed inputs."""
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.rg_lru import rglru_scan
+    from repro_torch.kernels.rg_lru import _tma_geometry, rglru_gated_scan
     from repro_torch.models import layers as L
     from repro_torch.models.lm import block_apply_train
 
@@ -755,13 +1018,19 @@ def kernel_inputs(model, params, inputs, rt, layers) -> dict:
             if i in layers:
                 h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
                 if kind == "rglru":
-                    a, b, gate = L.rglru_scan_inputs(
-                        p["rglru"], h, n_heads=heads, rt=rt)
-                    main = L.rglru_block_train(p["rglru"], h, n_heads=heads,
-                                               rt=rt)
-                    mine = L.rglru_output(p["rglru"], rglru_scan(a, b), gate,
-                                          rt)
-                    out[i] = ("rglru_scan", (a, b))
+                    pr, cd = p["rglru"], rt.compute_dtype
+                    args = (*L.rglru_gated_inputs(pr, h, n_heads=heads,
+                                                  rt=rt),
+                            pr["ba"], pr["bi"], pr["a_param"])
+                    main = L.rglru_block_train(pr, h, n_heads=heads, rt=rt)
+                    mine = L.cd_matmul(rglru_gated_scan(*args, cd),
+                                       pr["wout"], cd).to(cd)
+                    # the gate logits as the einsums leave them (head-major
+                    # views) are what TMA reads: no copy on the main path
+                    check(all(_tma_geometry(t)[0] is t for t in args[1:3]),
+                          f"layer {i}'s gate logits {args[1].stride()} are "
+                          f"copied before the gated kernel reads them")
+                    out[i] = ("rglru_gated_scan", args)
                 else:
                     q, k, v = L.gqa_project(p["attn"], h, heads, kv, hd, rt)
                     q, k = L.apply_rope(q, cos, sin), L.apply_rope(k, cos,
@@ -786,22 +1055,26 @@ def kernel_inputs(model, params, inputs, rt, layers) -> dict:
 
 def kernel_counters() -> dict:
     """Each counted launch site by name: the flash wrapper (both of its
-    kernels) and each of its kernels, the scan, and the matmul wrapper and
+    kernels) and each of its kernels, the gated RG-LRU kernel, the bare
+    scan's wrapper and each of its kernels, and the matmul wrapper and
     each of its kernels."""
     from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import rg_lru as rg
     from repro_torch.kernels.flash_attention import (CUDA_CORE, TENSOR_CORE,
                                                      flash_attention)
-    from repro_torch.kernels.rg_lru import rglru_scan
     return {"flash_attention": flash_attention,
             TENSOR_CORE.name: TENSOR_CORE, CUDA_CORE.name: CUDA_CORE,
-            "rglru_scan": rglru_scan, "matmul": mm.matmul,
+            "rglru_gated_scan": rg.rglru_gated_scan,
+            "rglru_scan": rg.rglru_scan, rg.SLAB.name: rg.SLAB,
+            rg.CHUNKED.name: rg.CHUNKED, "matmul": mm.matmul,
             mm.TENSOR_CORE.name: mm.TENSOR_CORE,
             mm.CUDA_CORE.name: mm.CUDA_CORE}
 
 
 def expected_launches(model, seq: int) -> dict:
-    """Kernel launches of one bf16 prefill forward: one `rglru_scan` per
-    RG-LRU layer; one `flash_attention` per attention layer, and per local
+    """Kernel launches of one bf16 prefill forward: one `rglru_gated_scan`
+    per RG-LRU layer and no bare scan; one `flash_attention` per attention
+    layer, and per local
     one whose window holds the whole sequence (else local-block
     attention), every one on the tensor cores (bf16 at head dim 64 or 256)
     and none on the CUDA cores; no `matmul` (the models' projections are
@@ -811,7 +1084,8 @@ def expected_launches(model, seq: int) -> dict:
     flash = sum(k == "attn" or (k == "local_attn" and seq <= window)
                 for k in kinds)
     return {"flash_attention": flash, TENSOR_CORE.name: flash,
-            CUDA_CORE.name: 0, "rglru_scan": kinds.count("rglru"),
+            CUDA_CORE.name: 0, "rglru_gated_scan": kinds.count("rglru"),
+            "rglru_scan": 0, "rglru_scan_slab": 0, "rglru_scan_chunked": 0,
             "matmul": 0, "matmul_tensor_core": 0, "matmul_cuda_core": 0}
 
 
@@ -820,7 +1094,7 @@ def checked_layers(model, seq: int) -> tuple:
     inputs, at this sequence length."""
     want = expected_launches(model, seq)
     kind_of = {"flash_attention": ("attn", "local_attn"),
-               "rglru_scan": ("rglru",)}
+               "rglru_gated_scan": ("rglru",)}
     layers = set()
     for name, n in want.items():
         if n and name in kind_of:
@@ -910,7 +1184,8 @@ def phase_prefill(arch: str) -> dict:
         wall = float(np.median(walls[1:]))
         device = device_breakdown(
             {"forward": lambda: step(params, inputs)},
-            {"rglru_scan_us": ("rglru_chunk",),
+            {"rglru_gated_us": ("rglru_gated",),
+             "rglru_scan_us": ("rglru_slab", "rglru_chunk"),
              "flash_attention_us": ("flash_attention_kernel",),
              "matmul_us": ("gemm", "nvjet", "xmma")})["forward"]
         device["idle_share"] = 1.0 - device["busy_us"] / device["wall_us"]
@@ -940,8 +1215,8 @@ def phase_prefill(arch: str) -> dict:
         for layer, (kernel, args) in kernel_inputs(
                 model, params, inputs, rt,
                 checked_layers(model, seq)).items():
-            if kernel == "rglru_scan":
-                res = rglru_against_plain(*args)
+            if kernel == "rglru_gated_scan":
+                res = gated_against_plain(args, rt.compute_dtype)
             else:
                 res = flash_against_plain(*args, causal=True)
             res["kernel"] = kernel
@@ -957,7 +1232,8 @@ def phase_prefill(arch: str) -> dict:
          reduced={"prefill_32k": "global_batch 32 -> 1"},
          launches=launches,
          kernel_tolerance={"flash_attention": FLASH_TOL[torch.bfloat16],
-                           "rglru_scan": RGLRU_TOL[torch.float32]},
+                           "rglru_gated_scan": [*GATED_TOL,
+                                                "+ one bf16 ulp"]},
          failed=failed, runs=runs)
     check(not failed, f"kernels != plain on the prefill's own inputs: "
                       f"{failed[:2]}")
@@ -1659,7 +1935,7 @@ def main() -> int:
     fp32_fwd = phase_serve_recurrent()["forward_launches"]
     check_isolated()
     for name in ("flash_attention", "flash_attention_tensor_core",
-                 "rglru_scan"):
+                 "rglru_gated_scan"):
         check(paths[RG_ARCH][name] > 0,
               f"the {RG_ARCH} prefill never launched {name}")
     check(paths[ARCH]["flash_attention_tensor_core"] > 0,
@@ -1671,6 +1947,7 @@ def main() -> int:
     t = kern["timings"][str(TIMED_POOLS[-1])]
     f, f32 = flash["timings"]["32768"], flash["timings"]["fp32_4096"]
     r = rglru["timings"]["1x32768"]
+    rg = rglru["gated_timings"]["1x32768"]
     q = dse["shapes"]["quickstart 8192^3"]
     f32mm = dse["fp32"]
     flash_keys = ("kernel_ms", "plain_ms", "library_ms", "bound_ms",
@@ -1722,21 +1999,55 @@ def main() -> int:
         "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
         "bound_by": f32["bound_by"], "library_ms": f32["library_ms"],
         "tflops": f32["tflops"], "bound_share": f32["bound_share"]}, {
-        "name": "rglru_scan", "route": "cuda", "source": RGLRU_SOURCE,
+        "name": "rglru_gated_scan", "route": "cuda", "source": RGLRU_SOURCE,
         "replaces": RGLRU_TPU,
         "tpu": "src/repro/kernels/rg_lru.py:_scan_kernel",
-        "shape": {k: r[k] for k in ("B", "S", "W", "dtype")},
-        "launches": paths[RG_ARCH]["rglru_scan"],
-        "launches_by_path": {f"prefill {RG_ARCH}":
-                             paths[RG_ARCH]["rglru_scan"]},
-        "max_abs_err": rglru["max_abs_err"],
-        "ms": r["kernel_ms"], "kernel_ms": r["kernel_ms"],
-        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-        "bound_by": r["bound_by"], "library_ms": None,
-        "library": RGLRU_LIBRARY,
-        "at_4x2048": {k: rglru["timings"]["4x2048"][k]
+        "symbol": "rglru_gated_kernel",
+        "shape": {k: rg[k] for k in ("B", "S", "W", "heads", "dtypes")},
+        "launches": paths[RG_ARCH]["rglru_gated_scan"],
+        "launches_by_path": {
+            f"prefill {RG_ARCH}": paths[RG_ARCH]["rglru_gated_scan"],
+            f"serve {RG_ARCH}, fp32 teacher-forced forward":
+                fp32_fwd["rglru_gated_scan"],
+            "rglru block, fused route": rglru["block_launches"][
+                "rglru_gated_scan"]},
+        "max_abs_err": rglru["gated_max_abs_err"],
+        "ms": rg["kernel_ms"], "kernel_ms": rg["kernel_ms"],
+        "plain_ms": rg["plain_ms"], "bound_ms": rg["bound_ms"],
+        "bound_by": rg["bound_by"], "bound_share": rg["bound_share"],
+        "library_ms": None, "library": RGLRU_LIBRARY,
+        "at_4x2048": {k: rglru["gated_timings"]["4x2048"][k]
                       for k in ("kernel_ms", "plain_ms", "bound_ms",
-                                "bound_by")}}, {
+                                "bound_by", "bound_share")},
+        "block_ms": {shape: {k: blk[k] for k in ("today_ms", "fused_ms")}
+                     for shape, blk in rglru["block"].items()}}, *[{
+        "name": kname, "route": "cuda", "source": RGLRU_SOURCE,
+        "replaces": RGLRU_TPU,
+        "tpu": "src/repro/kernels/rg_lru.py:_scan_kernel",
+        "symbol": symbol,
+        "shape": {k: r[k] for k in ("B", "S", "W", "dtype")},
+        "launches": (rglru["launches"][kname]
+                     + rglru["block_launches"][kname]),
+        "launches_by_path": {
+            f"prefill {RG_ARCH}": paths[RG_ARCH][kname],
+            "rglru block, today's route (dispatched)":
+                rglru["block_launches"][kname],
+            "kernel rglru_scan phase": rglru["launches"][kname]},
+        "max_abs_err": rglru["max_abs_err"],
+        "ms": r[f"{kname}_ms"], "kernel_ms": r[f"{kname}_ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"],
+        "bound_share": r["bound_ms"] / r[f"{kname}_ms"],
+        "library_ms": None, "library": RGLRU_LIBRARY,
+        "at_4x2048": {
+            "kernel_ms": rglru["timings"]["4x2048"][f"{kname}_ms"],
+            **{k: rglru["timings"]["4x2048"][k]
+               for k in ("plain_ms", "bound_ms", "bound_by")}},
+        "dispatch_sweep_ms": {w: row[f"{kname}_ms"]
+                              for w, row in rglru["dispatch"].items()}}
+        for kname, symbol in (("rglru_scan_slab", "rglru_slab_kernel"),
+                              ("rglru_scan_chunked",
+                               "rglru_chunk_{maps,carries,outputs}"))], {
         "name": "matmul_tensor_core", "route": "cuda",
         "source": MATMUL_SOURCE, "replaces": MATMUL_TPU,
         "tpu": "src/repro/kernels/matmul.py:_matmul_kernel",

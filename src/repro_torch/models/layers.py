@@ -41,7 +41,8 @@ __all__ = ["Runtime", "Spec", "init_params", "full_precision_products",
            "local_block_attention", "kv_cache_write", "gqa_specs",
            "gqa_project", "gqa_out", "gqa_attention_train",
            "gqa_attention_decode", "swiglu_specs", "swiglu", "rglru_specs",
-           "rglru_scan_inputs", "rglru_output", "rglru_block_train",
+           "rglru_scan_inputs", "rglru_gated_inputs", "rglru_output",
+           "rglru_block_train",
            "rglru_block_decode"]
 
 
@@ -78,8 +79,9 @@ class Runtime:
     `use_kernels` is the counterpart of the reference's `use_pallas`: when
     set, full-sequence attention within the window goes through the
     hand-written kernel `kernels.flash_attention` instead of
-    `blocked_attention`, and the RG-LRU block's scan through
-    `kernels.rg_lru.rglru_scan` instead of its plain version.  The
+    `blocked_attention`, and the RG-LRU block's gates, decay, scan and
+    gating through `kernels.rg_lru.rglru_gated_scan` instead of tensor ops
+    around the scan's plain version.  The
     reference's mesh, sharding rules and remat policy have no counterpart
     on one GPU."""
 
@@ -427,14 +429,24 @@ def rglru_specs(d: int, w: int, n_heads: int, conv_w: int) -> Dict[str, Spec]:
 _RGLRU_C = 8.0
 
 
-def _rglru_gates(p: Params, xb: torch.Tensor, n_heads: int
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Block-diagonal gate projections; xb [B, S, W] fp32."""
+def _rglru_gate_logits(p: Params, xb: torch.Tensor, n_heads: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Block-diagonal gate projections before their biases; xb [B, S, W]
+    fp32 -> ra, ri [B, S, heads, W / heads] fp32, as the einsum leaves
+    them (on the card a head-major view)."""
     B, S, W = xb.shape
     hd = W // n_heads
     xh = xb.reshape(B, S, n_heads, hd)
     ra = torch.einsum("bshi,hij->bshj", xh, p["wa"].float())
     ri = torch.einsum("bshi,hij->bshj", xh, p["wi"].float())
+    return ra, ri
+
+
+def _rglru_gates(p: Params, xb: torch.Tensor, n_heads: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Block-diagonal gate projections; xb [B, S, W] fp32."""
+    B, S, W = xb.shape
+    ra, ri = _rglru_gate_logits(p, xb, n_heads)
     r = torch.sigmoid(ra.reshape(B, S, W) + p["ba"].float())
     i = torch.sigmoid(ri.reshape(B, S, W) + p["bi"].float())
     return r, i
@@ -483,6 +495,23 @@ def rglru_scan_inputs(p: Params, x: torch.Tensor, *, n_heads: int,
     return a, beta * (i * xb), gate
 
 
+def rglru_gated_inputs(p: Params, x: torch.Tensor, *, n_heads: int,
+                       rt: Runtime
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                  torch.Tensor]:
+    """The full-sequence block up to the kernel `rglru_gated_scan`: (xc,
+    ra, ri, gate) — the conv output [B, S, W] fp32, the gate logits
+    [B, S, heads, W / heads] fp32 as the einsums leave them, and the GeLU
+    branch's product [B, S, W] in the compute dtype (the kernel widens it
+    to fp32 in its loads, exactly)."""
+    cd = rt.compute_dtype
+    xb = cd_matmul(x, p["wx"], cd)
+    gate = torch.matmul(x.to(cd), p["wy"].to(cd))
+    xc = _causal_conv1d(xb, p["conv_w"], p["conv_b"])
+    ra, ri = _rglru_gate_logits(p, xc, n_heads)
+    return xc, ra, ri, gate
+
+
 def rglru_output(p: Params, h: torch.Tensor, gate: torch.Tensor,
                  rt: Runtime) -> torch.Tensor:
     """The block after its scan: h times the GeLU gate (the reference's
@@ -495,13 +524,20 @@ def rglru_output(p: Params, h: torch.Tensor, gate: torch.Tensor,
 def rglru_block_train(p: Params, x: torch.Tensor, *, n_heads: int,
                       rt: Runtime) -> torch.Tensor:
     """Griffin recurrent block: conv1d -> RG-LRU, gated by a GeLU branch.
-    The scan runs in the kernel `rglru_scan` under `rt.use_kernels`, else
-    in its plain version (the twin of the reference's
-    `associative_scan`)."""
+    Under `rt.use_kernels` the gates' biases and sigmoids, the decay, the
+    scan and the GeLU gating run in the one kernel `rglru_gated_scan`
+    between the gate einsums and the output projection; else the block
+    composes them in tensor ops around the scan's plain version (the twin
+    of the reference's `associative_scan`)."""
     from repro_torch.kernels import rg_lru
-    a, b, gate = rglru_scan_inputs(p, x, n_heads=n_heads, rt=rt)
-    scan = rg_lru.rglru_scan if rt.use_kernels else rg_lru.rglru_scan_plain
-    return rglru_output(p, scan(a, b), gate, rt)
+    if not rt.use_kernels:
+        a, b, gate = rglru_scan_inputs(p, x, n_heads=n_heads, rt=rt)
+        return rglru_output(p, rg_lru.rglru_scan_plain(a, b), gate, rt)
+    cd = rt.compute_dtype
+    xc, ra, ri, gate = rglru_gated_inputs(p, x, n_heads=n_heads, rt=rt)
+    y = rg_lru.rglru_gated_scan(xc, ra, ri, gate, p["ba"], p["bi"],
+                                p["a_param"], cd)
+    return cd_matmul(y, p["wout"], cd).to(cd)
 
 
 def rglru_block_decode(p: Params, x: torch.Tensor,

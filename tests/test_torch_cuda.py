@@ -27,7 +27,9 @@ from repro_torch.kernels.matmul import (CUDA_CORE as MM_CUDA_CORE,
                                         TENSOR_CORE as MM_TENSOR_CORE,
                                         kernel_for as mm_kernel_for, matmul,
                                         matmul_plain)
+from repro_torch.kernels import rg_lru
 from repro_torch.kernels.rg_lru import rglru_scan, rglru_scan_plain
+from repro_torch.models import layers as TL
 from repro_torch.models.layers import full_precision_products
 
 pytestmark = pytest.mark.cuda
@@ -281,6 +283,150 @@ def test_rglru_kernel_refuses_what_it_does_not_take(gpu):
         rglru_scan(a, a.bfloat16())
     with pytest.raises(ValueError):
         rglru_scan(a, a[:, :4])
+
+
+def _scan_inputs(gpu, b, s, w, dtype, seed):
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy(rng.uniform(0.6, 0.999, (b, s, w)).astype(
+        np.float32)).to(gpu, dtype)
+    bb = torch.from_numpy(rng.standard_normal((b, s, w)).astype(
+        np.float32)).to(gpu, dtype)
+    return a, bb
+
+
+# each bare-scan kernel on any shape (the dispatch rule overridden), held
+# to chip_smoke.RGLRU_TOL on every element; a call moves only its
+# kernel's counter and the wrapper's
+@pytest.mark.parametrize("kernel", ["SLAB", "CHUNKED"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,w", [(3, 257, 130), (2, 3000, 1024),
+                                   (1, 1000, 4096)])
+def test_rglru_each_scan_kernel_matches_plain(gpu, kernel, b, s, w, dtype):
+    kern = getattr(rg_lru, kernel)
+    other = rg_lru.CHUNKED if kern is rg_lru.SLAB else rg_lru.SLAB
+    a, bb = _scan_inputs(gpu, b, s, w, dtype, s + w)
+    res = chip_smoke.rglru_against_plain(a, bb, kern)
+    assert res["kernel"] == kern.name and other.name != kern.name
+    assert res["finite"] and res["tol_ratio"] <= 1.0, res
+
+
+@pytest.mark.parametrize("b,w,kernel", [(1, 4096, "SLAB"), (4, 4096, "SLAB"),
+                                        (1, 1024, "CHUNKED"),
+                                        (3, 130, "CHUNKED")])
+def test_rglru_scan_dispatches_by_shape(gpu, b, w, kernel):
+    a, bb = _scan_inputs(gpu, b, 300, w, torch.float32, w)
+    kern = getattr(rg_lru, kernel)
+    before = (kern.launches, rglru_scan.launches)
+    rglru_scan(a, bb)
+    torch.cuda.synchronize()
+    assert (kern.launches, rglru_scan.launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    assert rg_lru.kernel_for(b, w) is kern
+
+
+def test_rglru_slab_reads_strided_and_odd_widths(gpu):
+    """Slices of one [B, S, 2W] tensor read by stride in place, and a
+    width whose rows are not whole 16 bytes (copied for TMA, the output a
+    view of a padded buffer)."""
+    a, bb = _scan_inputs(gpu, 2, 300, 512, torch.float32, 2)
+    ab = torch.cat([a, bb], dim=-1)
+    got = rglru_scan(ab[..., :512], ab[..., 512:], kernel=rg_lru.SLAB)
+    torch.testing.assert_close(got, rglru_scan_plain(a, bb), rtol=2e-5,
+                               atol=2e-6)
+    a, bb = _scan_inputs(gpu, 3, 257, 130, torch.bfloat16, 3)
+    got = rglru_scan(a, bb, kernel=rg_lru.SLAB)
+    assert got.shape == (3, 257, 130) and got.stride(1) == 136
+    torch.testing.assert_close(got.float(), rglru_scan_plain(a, bb).float(),
+                               rtol=2 ** -7, atol=2e-6)
+
+
+def _gated_inputs(gpu, b, s, w, heads, gate_dtype, head_major,
+                  long_memory=False, seed=0):
+    g = torch.Generator(device=gpu).manual_seed(seed)
+    hd = w // heads
+
+    def logits():
+        if head_major:
+            return torch.randn((heads, b, s, hd), generator=g,
+                               device=gpu).permute(1, 2, 0, 3)
+        return torch.randn((b, s, w), generator=g, device=gpu)
+
+    u = torch.rand(w, generator=g, device=gpu)
+    a_param = (-9.0 + 1.5 * u if long_memory
+               else torch.logit(0.81 + (0.998 - 0.81) * u))
+    return (torch.randn((b, s, w), generator=g, device=gpu), logits(),
+            logits(), torch.randn((b, s, w), generator=g,
+                                  device=gpu).to(gate_dtype),
+            0.5 * torch.randn(w, generator=g, device=gpu),
+            0.5 * torch.randn(w, generator=g, device=gpu), a_param)
+
+
+# the gated kernel against its plain version on every element, within
+# chip_smoke.GATED_TOL (plus one bf16 ulp on bf16 outputs)
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gate_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,w,heads,head_major", [
+    (2, 300, 256, 8, True), (2, 300, 256, 8, False), (3, 257, 130, 1, False),
+    (1, 2048, 4096, 16, True)])
+def test_rglru_gated_kernel_matches_plain(gpu, b, s, w, heads, head_major,
+                                          gate_dtype, out_dtype):
+    args = _gated_inputs(gpu, b, s, w, heads, gate_dtype, head_major,
+                         seed=s + w)
+    res = chip_smoke.gated_against_plain(args, out_dtype)
+    assert res["finite"] and res["tol_ratio"] <= 1.0, res
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_rglru_gated_kernel_at_long_memory(gpu, out_dtype):
+    """a_param at the long-memory end (a 0.998 to 0.9995 at r 0.5), not
+    only at the reference's nearly memoryless init."""
+    args = _gated_inputs(gpu, 1, 1024, 128, 4, torch.bfloat16, True,
+                         long_memory=True, seed=5)
+    res = chip_smoke.gated_against_plain(args, out_dtype)
+    assert res["finite"] and res["tol_ratio"] <= 1.0, res
+
+
+def test_rglru_block_train_launches_the_gated_kernel_only(gpu):
+    """The block under `use_kernels` on the card: one gated launch, no
+    bare scan, and the plain branch's output within the gated tolerance
+    carried through `wout`: |got - want| <= (atol + rtol |y|) @ |wout| +
+    2 gamma_K (|y| @ |wout|), the second term the two fp32 products'
+    rounding (gamma_K = K u, u = 2^-24)."""
+    specs = TL.rglru_specs(64, 256, 8, 4)
+    p = TL.init_params(specs, torch.Generator(device=gpu).manual_seed(0))
+    x = torch.randn((2, 300, 64), generator=torch.Generator(
+        device=gpu).manual_seed(1), device=gpu)
+    rt = TL.Runtime(compute_dtype=torch.float32, use_kernels=True)
+    counts = lambda: (rg_lru.rglru_gated_scan.launches, rglru_scan.launches)
+    before = counts()
+    with full_precision_products():
+        got = TL.rglru_block_train(p, x, n_heads=8, rt=rt)
+        torch.cuda.synchronize()
+        assert counts() == (before[0] + 1, before[1])
+        want = TL.rglru_block_train(p, x, n_heads=8, rt=TL.Runtime(
+            compute_dtype=torch.float32))
+        y = rg_lru.rglru_gated_scan_plain(
+            *TL.rglru_gated_inputs(p, x, n_heads=8, rt=rt), p["ba"],
+            p["bi"], p["a_param"], torch.float32)
+        atol, rtol = chip_smoke.GATED_TOL
+        w = p["wout"].abs()
+        lim = ((atol + rtol * y.abs()) @ w
+               + 2 * 256 * 2.0 ** -24 * (y.abs() @ w))
+    assert bool(((got - want).abs() <= lim).all())
+
+
+def test_rglru_gated_refuses_what_it_does_not_take(gpu):
+    args = list(_gated_inputs(gpu, 1, 8, 64, 2, torch.float32, True))
+    mixed = list(args)
+    mixed[3] = mixed[3].cpu()
+    with pytest.raises(ValueError):
+        rg_lru.rglru_gated_scan(*mixed, torch.float32)
+    half = list(args)
+    half[1] = half[1].half()
+    with pytest.raises(TypeError):
+        rg_lru.rglru_gated_scan(*half, torch.float32)
+    with pytest.raises(TypeError):
+        rg_lru.rglru_gated_scan(*args, torch.float16)
 
 
 # matmul: |kernel - plain| <= 2 gamma_K (|x| @ |y|), gamma_K = K u / (1 - K u)

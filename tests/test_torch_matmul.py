@@ -209,17 +209,17 @@ def test_fp32_at_a_bf16_only_tile_raises(tile):
 
 def test_an_edited_header_rebuilds_both_libraries(tmp_path, monkeypatch):
     """The library names hash each source with the `csrc/*.cuh` it
-    includes: an edit to `hopper.cuh` renames the flash and matmul
-    libraries (both include it) and no other."""
+    includes: an edit to `hopper.cuh` renames the flash, matmul and
+    rglru_scan libraries (all three include it) and no other."""
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)
     monkeypatch.setattr(build, "CSRC", csrc)
     assert build.headers("matmul") == build.headers("flash_attention") == \
-        ("hopper.cuh",)
-    assert build.headers("gather_rows") == build.headers("rglru_scan") == ()
+        build.headers("rglru_scan") == ("hopper.cuh",)
+    assert build.headers("gather_rows") == ()
     before = {n: build.library_path(n) for n in build.SOURCES}
     with open(csrc / "hopper.cuh", "a") as f:
         f.write("// edited\n")
     after = {n: build.library_path(n) for n in build.SOURCES}
     changed = {n for n in build.SOURCES if before[n] != after[n]}
-    assert changed == {"matmul", "flash_attention"}
+    assert changed == {"matmul", "flash_attention", "rglru_scan"}
