@@ -40,20 +40,20 @@ printing one JSON line each:
                  each row with the kernel that ran, its TFLOP/s and its
                  share of the bound;
   7. kernel rglru_scan
-                 both bare-scan kernels (the channel-slab walk and the
-                 chunked passes, each moving only its counter) against
-                 their plain PyTorch version, every element, on the sweep
-                 of `tests/test_kernels.py` (the 1024-step decay case and
+                 the bare scan (the channel-slab walk) against its plain
+                 PyTorch version, every element, on the sweep of
+                 `tests/test_kernels.py` (the 1024-step decay case and
                  bf16 included) and on the recurrentgemma prefill's two
-                 shapes, with CUDA-event times of both, the plain version
-                 and the dispatch rule's sweep (S 32768, 16-128 slabs);
+                 shapes, with CUDA-event times of it and the plain
+                 version;
                  `rglru_gated_scan` against its plain version on the same
                  shapes (head-major and contiguous gate logits, bf16 and
                  fp32 gates and outputs, the long-memory end of the decay)
                  and timed at the two prefill shapes in the model's
                  dtypes; then one full-width RG-LRU block by the route
-                 before the gated kernel and by the gated kernel, each
-                 timed and split by `torch.profiler`;
+                 before the gated kernel (the bare scan's path) and by the
+                 gated kernel, each call's launches counted from 0, each
+                 route timed and split by `torch.profiler`;
   8. prefill qwen2-0.5b
                  the second main path: `make_prefill_step` at full width
                  (24 layers, bf16 weights, `use_kernels=True`) at seq 32768
@@ -163,8 +163,7 @@ RGLRU_SOURCE = "src/repro_torch/kernels/csrc/rglru_scan.cu"
 RGLRU_TPU = "src/repro/kernels/rg_lru.py:54"
 # |kernel - plain| <= atol + rtol * |plain|, element by element.  Both
 # compute in fp32 and differ only in how the recurrence is composed: the
-# kernel runs each chunk step by step from a composed carry, the plain
-# version composes by doubling.  fp32 rounding gaps grow as 1 / (1 - a) on
+# kernel steps it in order, the plain version composes it by doubling.  fp32 rounding gaps grow as 1 / (1 - a) on
 # slow decays (the a = 0.999 case reads about 5e-6 relative); bf16 output
 # may land one bf16 ulp apart, at most 2^-7 of the value.
 RGLRU_TOL = {torch.float32: (2e-6, 2e-5), torch.bfloat16: (2e-6, 2 ** -7)}
@@ -689,27 +688,22 @@ def rglru_bound(b, s, w, itemsize) -> dict:
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
 
 
-def rglru_against_plain(a, b, kernel=None) -> dict:
-    """A bare-scan kernel's output (`kernel`, else the one `kernel_for`
-    names) on every element against the plain version's: the max abs
-    error and the worst |error| / (atol + rtol |plain|), which passes at
-    <= 1.  The call must move only that kernel's counter (and the
-    wrapper's)."""
-    from repro_torch.kernels import rg_lru as R
+def rglru_against_plain(a, b) -> dict:
+    """The bare-scan kernel's output on every element against the plain
+    version's: the max abs error and the worst |error| / (atol + rtol
+    |plain|), which passes at <= 1.  The call must launch the kernel
+    once."""
+    from repro_torch.kernels.rg_lru import rglru_scan, rglru_scan_plain
 
     atol, rtol = RGLRU_TOL[a.dtype]
-    ran = kernel or R.kernel_for(a.shape[0], a.shape[2])
-    before = {k.name: k.launches for k in (R.SLAB, R.CHUNKED)}
+    before = rglru_scan.launches
     with torch.inference_mode():
-        got = R.rglru_scan(a, b, kernel=kernel).float()
-        want = R.rglru_scan_plain(a, b).float()
+        got = rglru_scan(a, b).float()
+        check(rglru_scan.launches == before + 1,
+              f"rglru_scan on {tuple(a.shape)} did not count its launch")
+        want = rglru_scan_plain(a, b).float()
         diff = (got - want).abs()
-        moved = {k.name: k.launches - before[k.name]
-                 for k in (R.SLAB, R.CHUNKED)}
-        check(moved == {k.name: int(k is ran) for k in (R.SLAB, R.CHUNKED)},
-              f"rglru_scan on {tuple(a.shape)} moved {moved}, expected "
-              f"{ran.name} only")
-        return {"kernel": ran.name, "max_abs_err": float(diff.max()),
+        return {"max_abs_err": float(diff.max()),
                 "tol_ratio": float((diff / (atol + rtol * want.abs())).max()),
                 "finite": bool(torch.isfinite(got).all())}
 
@@ -764,19 +758,22 @@ def gated_against_plain(args, out_dtype) -> dict:
                 "out_dtype": str(out_dtype)[6:]}
 
 
-def rglru_block_times(gen, routes=("today",)) -> dict:
+def rglru_block_times(gen) -> dict:
     """One RG-LRU block of recurrentgemma-9b at full width (d 4096, lru
     width 4096, 16 gate heads of 256, conv width 4), random bf16
     parameters from `gen`, bf16 compute, at the prefill's two shapes, by
-    each of `routes`: "today" composes `rglru_scan_inputs` ->
-    `rglru_scan` -> `rglru_output` (the route before the gated kernel, the
-    yardstick); "fused" is `rglru_block_train` under `use_kernels`
-    (projections, conv and the gate einsums, then `rglru_gated_scan`,
-    then `wout`).  Per route and shape: CUDA-event time and one profiled
-    call split into cuBLAS products, the scan kernels and the rest; the
-    two routes' outputs are held to each other within `PREFILL_TOL`."""
+    two routes: "today" composes `rglru_scan_inputs` -> `rglru_scan` ->
+    `rglru_output` (the route before the gated kernel, the yardstick);
+    "fused" is `rglru_block_train` under `use_kernels` (projections, conv
+    and the gate einsums, then `rglru_gated_scan`, then `wout`).  Per
+    route and shape: the kernels one call launches (counted from 0 just
+    before it, read just after: the bare scan once on "today", the gated
+    kernel once on "fused"), CUDA-event time and one profiled call split
+    into cuBLAS products, the RG-LRU kernels and the rest; the two
+    routes' outputs are held to each other within `PREFILL_TOL`.  Returns
+    the records and each kernel's launches per route over both shapes."""
     from repro_torch import configs
-    from repro_torch.kernels.rg_lru import rglru_scan
+    from repro_torch.kernels.rg_lru import rglru_gated_scan, rglru_scan
     from repro_torch.models import layers as L
 
     cfg = configs.get_arch(RG_ARCH)
@@ -793,43 +790,57 @@ def rglru_block_times(gen, routes=("today",)) -> dict:
             a, b, gate = L.rglru_scan_inputs(p, x, n_heads=heads, rt=rt)
             return L.rglru_output(p, rglru_scan(a, b), gate, rt)
 
+    counters = {"rglru_scan": rglru_scan,
+                "rglru_gated_scan": rglru_gated_scan}
+    want = {"today": {"rglru_scan": 1, "rglru_gated_scan": 0},
+            "fused": {"rglru_scan": 0, "rglru_gated_scan": 1}}
     out = {}
+    launches = {route: dict.fromkeys(counters, 0) for route in want}
     for b, s_len in ((1, 32768), (4, 2048)):
         x = torch.randn((b, s_len, cfg.d_model), generator=gen,
                         device="cuda").to(torch.bfloat16)
         rec = {"B": b, "S": s_len, "d_model": cfg.d_model, "lru_width": w,
                "heads": heads}
         ys = {}
-        for route in routes:
+        for route in want:
+            for fn in counters.values():
+                fn.launches = 0
             ys[route] = block(x, route)
+            torch.cuda.synchronize()
+            got = {n: fn.launches for n, fn in counters.items()}
+            check(got == want[route], f"one RG-LRU block by the {route} "
+                                      f"route launched {got}")
+            for n in counters:
+                launches[route][n] += got[n]
+            rec[f"{route}_launches"] = got
             rec[f"{route}_ms"] = device_ms(lambda: block(x, route), reps=3,
                                            inner=2)
             rec[f"{route}_device"] = device_breakdown(
                 {route: lambda: block(x, route)},
                 {"cublas_us": ("gemm", "nvjet", "xmma"),
                  "gated_us": ("rglru_gated",),
-                 "scan_us": ("rglru_slab", "rglru_chunk")})[route]
-        if len(ys) == 2:
-            y0, y1 = ys["today"].float(), ys["fused"].float()
-            diff = (y0 - y1).abs()
-            rec["max_abs_diff_fused_vs_today"] = float(diff.max())
-            rec["fused_over_today"] = rec["fused_ms"] / rec["today_ms"]
-            check(bool((diff <= PREFILL_TOL * (1 + y0.abs())).all()),
-                  f"the fused RG-LRU block differs from today's route by "
-                  f"{float(diff.max())} at [{b}, {s_len}]")
+                 "scan_us": ("rglru_slab",)})[route]
+        y0, y1 = ys["today"].float(), ys["fused"].float()
+        diff = (y0 - y1).abs()
+        rec["max_abs_diff_fused_vs_today"] = float(diff.max())
+        rec["fused_over_today"] = rec["fused_ms"] / rec["today_ms"]
+        check(bool((diff <= PREFILL_TOL * (1 + y0.abs())).all()),
+              f"the fused RG-LRU block differs from today's route by "
+              f"{float(diff.max())} at [{b}, {s_len}]")
         out[f"{b}x{s_len}"] = rec
         del x, ys
-    return out
+    return out, launches
 
 
 def phase_rglru(gen) -> dict:
     """The RG-LRU kernels against their plain versions, then their times:
-    both bare-scan kernels on every case (the dispatch rule's sweep timed
-    too), the gated kernel on the same shapes, head-major and contiguous
-    gate logits, both output dtypes and the long-memory end of the decay,
-    each at the recurrentgemma prefill's two shapes; then one RG-LRU block
-    by today's route and by the gated kernel.  Returns each kernel's
-    launches in this phase, the block path's counted from 0 apart."""
+    the bare scan on every case, the gated kernel on the same shapes,
+    head-major and contiguous gate logits, both output dtypes and the
+    long-memory end of the decay, each at the recurrentgemma prefill's two
+    shapes; then one RG-LRU block by today's route and by the gated
+    kernel.  Returns each kernel's launches in the checks (counted from 0
+    at the phase's start) and on each block route (from 0 before each
+    call)."""
     from repro_torch.kernels import rg_lru as R
 
     def inputs(b, s_len, w, dtype):
@@ -863,9 +874,10 @@ def phase_rglru(gen) -> dict:
                 0.5 * torch.randn(w, generator=gen, device="cuda"),
                 0.5 * torch.randn(w, generator=gen, device="cuda"), a_param)
 
-    counters = (R.SLAB, R.CHUNKED, R.rglru_gated_scan)
-    start = {k.__name__ if callable(k) else k.name: k.launches
-             for k in counters}
+    counters = {"rglru_scan": R.rglru_scan,
+                "rglru_gated_scan": R.rglru_gated_scan}
+    for fn in counters.values():
+        fn.launches = 0
     f32, bf16 = torch.float32, torch.bfloat16
     cases = {f"B{b} S{s_len} W{w} {str(dt)[6:]}": inputs(b, s_len, w, dt)
              for b, s_len, w, dt in ((1, 64, 128, f32), (2, 100, 160, f32),
@@ -875,43 +887,21 @@ def phase_rglru(gen) -> dict:
     cases["decay B1 S1024 W128 float32"] = (decay, torch.ones_like(decay))
     results, failed = {}, []
     for label, (a, b) in cases.items():
-        for kernel in (R.SLAB, R.CHUNKED):
-            results[f"{label} {kernel.name}"] = rglru_against_plain(a, b,
-                                                                    kernel)
+        results[label] = rglru_against_plain(a, b)
     del cases
-    # the dispatch rule: both kernels at S 32768 over the slab counts
-    # around MIN_SLABS (fp32; W 512-4096 is 16-128 slabs)
-    dispatch = {}
-    for w in (512, 1024, 2048, 4096):
-        a, bb = inputs(1, 32768, w, f32)
-        row = {"slabs": R.slabs(1, w), "rule": R.kernel_for(1, w).name,
-               **rglru_bound(1, 32768, w, 4)}
-        for kernel in (R.SLAB, R.CHUNKED):
-            row[f"{kernel.name}_ms"] = device_ms(
-                lambda: R.rglru_scan(a, bb, kernel=kernel), reps=3, inner=5)
-        row["rule_is_faster"] = row[f"{row['rule']}_ms"] == min(
-            row[f"{k.name}_ms"] for k in (R.SLAB, R.CHUNKED))
-        dispatch[f"W{w}"] = row
-        del a, bb
     # the prefill's two shapes (its own inputs: prefill phase), timed
     timings = {}
     for b, s_len in ((1, 32768), (4, 2048)):
         a, bb = inputs(b, s_len, 4096, f32)
         label = f"B{b} S{s_len} W4096 float32"
-        for kernel in (R.SLAB, R.CHUNKED):
-            results[f"{label} {kernel.name}"] = rglru_against_plain(a, bb,
-                                                                    kernel)
+        results[label] = rglru_against_plain(a, bb)
         reps = dict(reps=3, inner=2)
         bound = rglru_bound(b, s_len, 4096, 4)
         row = {"B": b, "S": s_len, "W": 4096, "dtype": "float32",
-               "kernel": R.kernel_for(b, 4096).name,
+               "kernel_ms": device_ms(lambda: R.rglru_scan(a, bb)),
                "plain_ms": device_ms(lambda: R.rglru_scan_plain(a, bb),
                                      **reps),
                "library_ms": None, "library": RGLRU_LIBRARY, **bound}
-        for kernel in (R.SLAB, R.CHUNKED):
-            row[f"{kernel.name}_ms"] = device_ms(
-                lambda: R.rglru_scan(a, bb, kernel=kernel))
-        row["kernel_ms"] = row[f"{row['kernel']}_ms"]
         row["bound_share"] = bound["bound_ms"] / row["kernel_ms"]
         timings[f"{b}x{s_len}"] = row
         del a, bb
@@ -958,18 +948,10 @@ def phase_rglru(gen) -> dict:
     for label, res in gated.items():
         if res["tol_ratio"] > 1.0 or not res["finite"]:
             gated_failed.append(f"{label}: {res}")
-    launches = {n: k.launches - start[n] for n, k in
-                zip(start, counters)}
+    launches = {n: fn.launches for n, fn in counters.items()}
 
-    # the block by today's route (the bare scan, dispatched) and by the
-    # gated kernel, each kernel's launches counted from 0 around it
-    for k in counters:
-        k.launches = 0
-    block = rglru_block_times(gen, routes=("today", "fused"))
-    block_launches = {n: k.launches for n, k in zip(start, counters)}
-    check(block_launches["rglru_scan_slab"] > 0
-          and block_launches["rglru_gated_scan"] > 0,
-          f"the block's two routes launched {block_launches}")
+    # the block by today's route (the bare scan) and by the gated kernel
+    block, block_launches = rglru_block_times(gen)
 
     worst = {key: max(r[key] for r in results.values())
              for key in ("max_abs_err", "tol_ratio")}
@@ -977,8 +959,7 @@ def phase_rglru(gen) -> dict:
               for key in ("max_abs_err", "tol_ratio")}
     emit("kernel rglru_scan", cases=results, worst=worst,
          tolerance={"float32": RGLRU_TOL[f32], "bfloat16": RGLRU_TOL[bf16]},
-         failed=failed, dispatch=dispatch, min_slabs=R.MIN_SLABS,
-         timings=timings, gated_cases=gated, gated_worst=gworst,
+         failed=failed, timings=timings, gated_cases=gated, gated_worst=gworst,
          gated_tolerance={"float32": GATED_TOL,
                           "bfloat16": "float32's plus one bf16 ulp"},
          gated_failed=gated_failed, gated_timings=gated_timings,
@@ -989,7 +970,7 @@ def phase_rglru(gen) -> dict:
                             f"{len(gated_failed)} cases: {gated_failed[:3]}")
     return {"max_abs_err": worst["max_abs_err"],
             "gated_max_abs_err": gworst["max_abs_err"], "timings": timings,
-            "dispatch": dispatch, "gated_timings": gated_timings,
+            "gated_timings": gated_timings,
             "launches": launches, "block_launches": block_launches,
             "block": block}
 
@@ -1003,7 +984,7 @@ def kernel_inputs(model, params, inputs, rt, layers) -> dict:
     layer's block output must equal, bit for bit, the same block finished
     from the kernel on the recomputed inputs."""
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.rg_lru import _tma_geometry, rglru_gated_scan
+    from repro_torch.kernels.rg_lru import read_in_place, rglru_gated_scan
     from repro_torch.models import layers as L
     from repro_torch.models.lm import block_apply_train
 
@@ -1025,11 +1006,14 @@ def kernel_inputs(model, params, inputs, rt, layers) -> dict:
                     main = L.rglru_block_train(pr, h, n_heads=heads, rt=rt)
                     mine = L.cd_matmul(rglru_gated_scan(*args, cd),
                                        pr["wout"], cd).to(cd)
-                    # the gate logits as the einsums leave them (head-major
-                    # views) are what TMA reads: no copy on the main path
-                    check(all(_tma_geometry(t)[0] is t for t in args[1:3]),
-                          f"layer {i}'s gate logits {args[1].stride()} are "
-                          f"copied before the gated kernel reads them")
+                    # xc, gate and the gate logits as the einsums leave
+                    # them (head-major views) are what TMA reads: no copy
+                    # on the main path
+                    copied = [n for n, t in zip(("xc", "ra", "ri", "gate"),
+                                                args[:4])
+                              if not read_in_place(t)]
+                    check(not copied, f"layer {i}'s {copied} are copied "
+                                      f"before the gated kernel reads them")
                     out[i] = ("rglru_gated_scan", args)
                 else:
                     q, k, v = L.gqa_project(p["attn"], h, heads, kv, hd, rt)
@@ -1056,8 +1040,7 @@ def kernel_inputs(model, params, inputs, rt, layers) -> dict:
 def kernel_counters() -> dict:
     """Each counted launch site by name: the flash wrapper (both of its
     kernels) and each of its kernels, the gated RG-LRU kernel, the bare
-    scan's wrapper and each of its kernels, and the matmul wrapper and
-    each of its kernels."""
+    scan, and the matmul wrapper and each of its kernels."""
     from repro_torch.kernels import matmul as mm
     from repro_torch.kernels import rg_lru as rg
     from repro_torch.kernels.flash_attention import (CUDA_CORE, TENSOR_CORE,
@@ -1065,8 +1048,7 @@ def kernel_counters() -> dict:
     return {"flash_attention": flash_attention,
             TENSOR_CORE.name: TENSOR_CORE, CUDA_CORE.name: CUDA_CORE,
             "rglru_gated_scan": rg.rglru_gated_scan,
-            "rglru_scan": rg.rglru_scan, rg.SLAB.name: rg.SLAB,
-            rg.CHUNKED.name: rg.CHUNKED, "matmul": mm.matmul,
+            "rglru_scan": rg.rglru_scan, "matmul": mm.matmul,
             mm.TENSOR_CORE.name: mm.TENSOR_CORE,
             mm.CUDA_CORE.name: mm.CUDA_CORE}
 
@@ -1085,8 +1067,7 @@ def expected_launches(model, seq: int) -> dict:
                 for k in kinds)
     return {"flash_attention": flash, TENSOR_CORE.name: flash,
             CUDA_CORE.name: 0, "rglru_gated_scan": kinds.count("rglru"),
-            "rglru_scan": 0, "rglru_scan_slab": 0, "rglru_scan_chunked": 0,
-            "matmul": 0, "matmul_tensor_core": 0, "matmul_cuda_core": 0}
+            "rglru_scan": 0, "matmul": 0, "matmul_tensor_core": 0, "matmul_cuda_core": 0}
 
 
 def checked_layers(model, seq: int) -> tuple:
@@ -1185,7 +1166,7 @@ def phase_prefill(arch: str) -> dict:
         device = device_breakdown(
             {"forward": lambda: step(params, inputs)},
             {"rglru_gated_us": ("rglru_gated",),
-             "rglru_scan_us": ("rglru_slab", "rglru_chunk"),
+             "rglru_scan_us": ("rglru_slab",),
              "flash_attention_us": ("flash_attention_kernel",),
              "matmul_us": ("gemm", "nvjet", "xmma")})["forward"]
         device["idle_share"] = 1.0 - device["busy_us"] / device["wall_us"]
@@ -2009,7 +1990,7 @@ def main() -> int:
             f"prefill {RG_ARCH}": paths[RG_ARCH]["rglru_gated_scan"],
             f"serve {RG_ARCH}, fp32 teacher-forced forward":
                 fp32_fwd["rglru_gated_scan"],
-            "rglru block, fused route": rglru["block_launches"][
+            "rglru block, fused route": rglru["block_launches"]["fused"][
                 "rglru_gated_scan"]},
         "max_abs_err": rglru["gated_max_abs_err"],
         "ms": rg["kernel_ms"], "kernel_ms": rg["kernel_ms"],
@@ -2020,34 +2001,29 @@ def main() -> int:
                       for k in ("kernel_ms", "plain_ms", "bound_ms",
                                 "bound_by", "bound_share")},
         "block_ms": {shape: {k: blk[k] for k in ("today_ms", "fused_ms")}
-                     for shape, blk in rglru["block"].items()}}, *[{
-        "name": kname, "route": "cuda", "source": RGLRU_SOURCE,
+                     for shape, blk in rglru["block"].items()}}, {
+        "name": "rglru_scan", "route": "cuda", "source": RGLRU_SOURCE,
         "replaces": RGLRU_TPU,
         "tpu": "src/repro/kernels/rg_lru.py:_scan_kernel",
-        "symbol": symbol,
+        "symbol": "rglru_slab_kernel",
         "shape": {k: r[k] for k in ("B", "S", "W", "dtype")},
-        "launches": (rglru["launches"][kname]
-                     + rglru["block_launches"][kname]),
+        "launches": rglru["block_launches"]["today"]["rglru_scan"],
         "launches_by_path": {
-            f"prefill {RG_ARCH}": paths[RG_ARCH][kname],
-            "rglru block, today's route (dispatched)":
-                rglru["block_launches"][kname],
-            "kernel rglru_scan phase": rglru["launches"][kname]},
+            "rglru block, the route before the gated kernel":
+                rglru["block_launches"]["today"]["rglru_scan"],
+            "rglru block, fused route":
+                rglru["block_launches"]["fused"]["rglru_scan"],
+            f"prefill {RG_ARCH}": paths[RG_ARCH]["rglru_scan"],
+            f"serve {RG_ARCH}, fp32 teacher-forced forward":
+                fp32_fwd["rglru_scan"]},
         "max_abs_err": rglru["max_abs_err"],
-        "ms": r[f"{kname}_ms"], "kernel_ms": r[f"{kname}_ms"],
+        "ms": r["kernel_ms"], "kernel_ms": r["kernel_ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-        "bound_by": r["bound_by"],
-        "bound_share": r["bound_ms"] / r[f"{kname}_ms"],
+        "bound_by": r["bound_by"], "bound_share": r["bound_share"],
         "library_ms": None, "library": RGLRU_LIBRARY,
-        "at_4x2048": {
-            "kernel_ms": rglru["timings"]["4x2048"][f"{kname}_ms"],
-            **{k: rglru["timings"]["4x2048"][k]
-               for k in ("plain_ms", "bound_ms", "bound_by")}},
-        "dispatch_sweep_ms": {w: row[f"{kname}_ms"]
-                              for w, row in rglru["dispatch"].items()}}
-        for kname, symbol in (("rglru_scan_slab", "rglru_slab_kernel"),
-                              ("rglru_scan_chunked",
-                               "rglru_chunk_{maps,carries,outputs}"))], {
+        "at_4x2048": {k: rglru["timings"]["4x2048"][k]
+                      for k in ("kernel_ms", "plain_ms", "bound_ms",
+                                "bound_by", "bound_share")}}, {
         "name": "matmul_tensor_core", "route": "cuda",
         "source": MATMUL_SOURCE, "replaces": MATMUL_TPU,
         "tpu": "src/repro/kernels/matmul.py:_matmul_kernel",

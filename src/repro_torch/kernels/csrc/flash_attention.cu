@@ -576,7 +576,7 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
       mbar_init(k_empty(s), kConsumers * 128);
       mbar_init(v_empty(s), kConsumers * 128);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    fence_barrier_init();
   }
   __syncthreads();
 

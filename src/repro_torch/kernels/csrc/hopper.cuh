@@ -1,12 +1,13 @@
-// Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
-// (`flash_attention.cu`, `matmul.cu`): mbarriers, TMA loads, wgmma
-// descriptors and synchronisation, the m64n64k16 shared-memory product,
-// register rebalancing (`setmaxnreg`) and the run-time lookup of libcuda's
-// tensor-map encoder.  Each source that includes this header gets its own
-// copy (an anonymous namespace), so the libraries stay independent.
+// Hopper (sm_90a) building blocks shared by the port's TMA kernels
+// (`flash_attention.cu`, `matmul.cu`, `rglru_scan.cu`): mbarriers, TMA
+// loads and stores, wgmma descriptors and synchronisation, the m64n64k16
+// shared-memory product, register rebalancing (`setmaxnreg`) and the
+// run-time lookup of libcuda's tensor-map encoder.  Each source that
+// includes this header gets its own copy (an anonymous namespace), so the
+// libraries stay independent.
 //
 // `kernels/build.py` hashes this header with every source that includes
-// it: an edit here rebuilds both libraries.
+// it: an edit here rebuilds all three libraries.
 
 #pragma once
 
@@ -46,6 +47,13 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
+// makes the mbarrier inits visible to TMA (the async proxy) and to the
+// other threads; once, by the thread that initialised them, before the
+// block's __syncthreads
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
 // one 64 x 64 box of a [B, S, heads, hd] tensor into shared memory, at
 // (hd column c0, sequence row c1, head c2, batch c3); rows past the end
 // arrive as zeros
@@ -70,6 +78,32 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst,
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
          "r"(c1)
       : "memory");
+}
+
+// TMA store of one box of shared memory into a 4-D map (coordinates as
+// `tma_load`'s); boxes past either end of the tensor are clipped
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          uint32_t src, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1),
+         "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+// until at most N committed stores still read their shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" :: "n"(N) : "memory");
+}
+// orders this thread's writes to shared memory before a TMA store reads
+// them
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
 // wgmma descriptor of a 128-byte-swizzled operand in shared memory (the

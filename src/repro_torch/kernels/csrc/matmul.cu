@@ -375,7 +375,7 @@ matmul_kernel_wgmma(const __grid_constant__ CUtensorMap tm_x,
       mbar_init(full(s), 1);
       mbar_init(empty(s), 4 * C::kCons);      // one arrival a warp
     }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    fence_barrier_init();
   }
   __syncthreads();
 

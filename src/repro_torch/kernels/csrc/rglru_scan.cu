@@ -7,11 +7,11 @@
 // Replaces the Pallas kernel `rglru_scan` (`_scan_kernel`) in
 // src/repro/kernels/rg_lru.py.  On the TPU the sequence is the innermost,
 // sequential grid axis: h is carried in VMEM from one 256-step tile to the
-// next.  Three kernels here, two of them one walk:
+// next.  Two kernels here, both one walk:
 //
-// * `rglru_slab_kernel` (the channel-slab walk).  One block of one warp
-//   owns 32 contiguous channels of one batch row (128 bytes of fp32) for
-//   the whole sequence and carries h in registers, as the TPU kernel
+// * `rglru_slab_kernel` (the channel-slab walk, the bare scan).  One
+//   block of one warp owns 32 contiguous channels of one batch row (128
+//   bytes of fp32) for the whole sequence and carries h in registers, as the TPU kernel
 //   carries it in VMEM.  Lane 0 keeps kSlabStages - 1 tiles of
 //   [kSlabT steps x 32 channels] of a and b in flight into a ring in
 //   shared memory (TMA on mbarriers); each lane runs h = fmaf(a, h, b) step
@@ -22,19 +22,14 @@
 //   bytes, and no carry is composed, so the result is the sequential
 //   recurrence's.  Its parallelism is the slab count, B x W / 32: 128
 //   slabs at [1, 32768, 4096] for 132 SMs, 512 at [4, 2048, 4096].  A
+//   shape with fewer slabs than SMs leaves SMs idle: one slab streams at
+//   about 20 GB/s, so the time is the sequence's length, flat in the slab
+//   count (0.625 ms at S 32768 from 16 to 128 slabs on an H100).  A
 //   single-pass scan with decoupled look-back (Merrill & Garland) would
-//   also read once, but it composes carries across chunks (another order
-//   than the recurrence) and needs a flag protocol between blocks; the
-//   model's shapes give enough slabs without it.
-//
-// * `rglru_chunk_*` (three passes), for shapes with too few slabs to fill
-//   the card (`DISPATCH` in kernels/rg_lru.py chooses by shape before the
-//   launch).  The sequence is cut into chunks: (1) one thread per (batch,
-//   chunk, channel) composes its chunk's map h -> A h + T; (2) one thread
-//   per (batch, channel) turns the maps into carry-ins; (3) one thread per
-//   (batch, chunk, channel) re-runs its chunk from its carry-in and writes
-//   h.  Passes 1 and 3 both read a and b: 5/3 of the bound's bytes, but
-//   B x chunks x W threads where the slab walk has B x W / 32 warps.
+//   also read once and fill the card at any width, but it composes
+//   carries across chunks (another order than the recurrence) and needs a
+//   flag protocol between blocks; the model's shapes give enough slabs
+//   without it.
 //
 // * `rglru_gated_kernel`: the slab walk with the RG-LRU block's operands
 //   made in its loads and its output gated in its stores.  Per element,
@@ -77,14 +72,18 @@
 
 namespace {
 
+using tc::bulk_commit;
+using tc::bulk_wait_read;
+using tc::fence_barrier_init;
+using tc::fence_proxy_async;
 using tc::mbar_arrive;
 using tc::mbar_expect_tx;
 using tc::mbar_init;
 using tc::mbar_wait;
 using tc::smem_u32;
 using tc::tma_load;
+using tc::tma_store;
 
-constexpr int kThreads = 256;      // chunked passes: channels per block
 constexpr int kAhead = 8;          // steps loaded before they are consumed
 constexpr int kC = 32;             // channels of a slab: one warp's lanes
 
@@ -101,134 +100,6 @@ template <typename T>
 constexpr CUtensorMapDataType tma_dtype() {
   return sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-}
-
-__device__ __forceinline__ void fence_barrier_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-}
-
-// ============================================ chunked scan (three passes)
-
-// Runs steps [t0, t1) of one channel from carry-in `h`, calling
-// `step(t, a_t, h)` after each h = fmaf(a_t, h, b_t), in order.
-template <typename T, typename Step>
-__device__ __forceinline__ float run(const T* ap, const T* bp, int64_t ass,
-                                     int64_t bss, int64_t t0, int64_t t1,
-                                     float h, Step step) {
-  int64_t t = t0;
-  for (; t + kAhead <= t1; t += kAhead) {
-    float av[kAhead], bv[kAhead];
-#pragma unroll
-    for (int u = 0; u < kAhead; ++u) {
-      av[u] = to_float(ap[(t + u) * ass]);
-      bv[u] = to_float(bp[(t + u) * bss]);
-    }
-#pragma unroll
-    for (int u = 0; u < kAhead; ++u) {
-      h = fmaf(av[u], h, bv[u]);
-      step(t + u, av[u], h);
-    }
-  }
-  for (; t < t1; ++t) {
-    const float at = to_float(ap[t * ass]);
-    h = fmaf(at, h, to_float(bp[t * bss]));
-    step(t, at, h);
-  }
-  return h;
-}
-
-// pass 1: prod = the product of a over the chunk, tail = its last h from a
-// zero carry-in; both [batch, n_chunks, w] fp32
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-rglru_chunk_maps(float* __restrict__ prod, float* __restrict__ tail,
-                 const T* __restrict__ a, const T* __restrict__ b, int64_t s,
-                 int64_t w, int64_t chunk, int64_t asb, int64_t ass,
-                 int64_t bsb, int64_t bss) {
-  const int64_t c = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (c >= w) return;
-  const int64_t k = blockIdx.y, bi = blockIdx.z;
-  const int64_t t0 = k * chunk, t1 = t0 + chunk < s ? t0 + chunk : s;
-  float A = 1.f;
-  const float h = run(a + bi * asb + c, b + bi * bsb + c, ass, bss, t0, t1,
-                      0.f, [&](int64_t, float at, float) { A *= at; });
-  const int64_t o = (bi * gridDim.y + k) * w + c;
-  prod[o] = A;
-  tail[o] = h;
-}
-
-// pass 2: prod[k] becomes chunk k's carry-in, in place
-__global__ void __launch_bounds__(kThreads)
-rglru_chunk_carries(float* __restrict__ prod,
-                    const float* __restrict__ tail, int64_t w,
-                    int64_t n_chunks) {
-  const int64_t c = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (c >= w) return;
-  const int64_t base = static_cast<int64_t>(blockIdx.y) * n_chunks * w + c;
-  float h = 0.f;
-  int64_t k = 0;
-  for (; k + kAhead <= n_chunks; k += kAhead) {
-    float A[kAhead], Tl[kAhead];
-#pragma unroll
-    for (int u = 0; u < kAhead; ++u) {
-      A[u] = prod[base + (k + u) * w];
-      Tl[u] = tail[base + (k + u) * w];
-    }
-#pragma unroll
-    for (int u = 0; u < kAhead; ++u) {
-      prod[base + (k + u) * w] = h;
-      h = fmaf(A[u], h, Tl[u]);
-    }
-  }
-  for (; k < n_chunks; ++k) {
-    const float A = prod[base + k * w];
-    prod[base + k * w] = h;
-    h = fmaf(A, h, tail[base + k * w]);
-  }
-}
-
-// pass 3: each chunk from its carry-in, every h written to the contiguous
-// out [batch, s, w]
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-rglru_chunk_outputs(T* __restrict__ out, const float* __restrict__ carry,
-                    const T* __restrict__ a, const T* __restrict__ b,
-                    int64_t s, int64_t w, int64_t chunk, int64_t asb,
-                    int64_t ass, int64_t bsb, int64_t bss) {
-  const int64_t c = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (c >= w) return;
-  const int64_t k = blockIdx.y, bi = blockIdx.z;
-  const int64_t t0 = k * chunk, t1 = t0 + chunk < s ? t0 + chunk : s;
-  T* o = out + bi * s * w + c;
-  run(a + bi * asb + c, b + bi * bsb + c, ass, bss, t0, t1,
-      carry[(bi * gridDim.y + k) * w + c],
-      [&](int64_t t, float, float h) { store(o + t * w, h); });
-}
-
-template <typename T>
-cudaError_t launch_chunked(void* out, float* prod, float* tail,
-                           const void* a, const void* b, int64_t batch,
-                           int64_t s, int64_t w, int64_t chunk, int64_t asb,
-                           int64_t ass, int64_t bsb, int64_t bss,
-                           cudaStream_t stream) {
-  const int64_t n_chunks = (s + chunk - 1) / chunk;
-  const unsigned int wx = static_cast<unsigned int>((w + kThreads - 1)
-                                                    / kThreads);
-  const dim3 grid(wx, static_cast<unsigned int>(n_chunks),
-                  static_cast<unsigned int>(batch));
-  const T* at = static_cast<const T*>(a);
-  const T* bt = static_cast<const T*>(b);
-  rglru_chunk_maps<T><<<grid, kThreads, 0, stream>>>(
-      prod, tail, at, bt, s, w, chunk, asb, ass, bsb, bss);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  rglru_chunk_carries<<<dim3(wx, static_cast<unsigned int>(batch)),
-                        kThreads, 0, stream>>>(prod, tail, w, n_chunks);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  rglru_chunk_outputs<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<T*>(out), prod, at, bt, s, w, chunk, asb, ass, bsb, bss);
-  return cudaGetLastError();
 }
 
 // ==================================================== the channel-slab walk
@@ -262,32 +133,6 @@ struct Operand {
   const void* ptr;
   int64_t inner, groups, ss, sg, sb;
 };
-
-// TMA store of one box of shared memory into a 4-D map (coordinates as
-// `tma_load`'s); boxes past either end of the tensor are clipped
-__device__ __forceinline__ void tma_store(const CUtensorMap* map,
-                                          uint32_t src, int c0, int c1,
-                                          int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
-      " [%0, {%2, %3, %4, %5}], [%1];"
-      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1),
-         "r"(c2), "r"(c3)
-      : "memory");
-}
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-}
-// until at most N committed stores still read their shared memory
-template <int N>
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read %0;" :: "n"(N) : "memory");
-}
-// orders this thread's writes to shared memory before a TMA store reads
-// them
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
 
 // --------------------------------------------------------------- bare scan
 
@@ -700,7 +545,7 @@ bool operand(Operand* op, const void* ptr, const int64_t* g, int elem,
   return true;
 }
 
-// shapes both slab kernels take: coordinates in int, the output's row
+// shapes both kernels take: coordinates in int, the output's row
 // stride ldo >= w in whole 16-byte rows, 16-byte aligned
 bool slab_shape(const void* out, int64_t ldo, int elem, int64_t batch,
                 int64_t s, int64_t w) {
@@ -712,55 +557,35 @@ bool slab_shape(const void* out, int64_t ldo, int elem, int64_t batch,
 
 }  // namespace
 
-// kernel 0 = the three chunked passes, 1 = the slab walk.
-// a and b: [batch, s, w] with the channel dim contiguous.  Chunked: out
-// contiguous [batch, s, w] (ldo = w); a and b read by their batch and step
-// strides (asb, ass, bsb, bss, elements); prod and tail fp32 scratch of
-// batch * ceil(s / chunk) * w elements each.  Slab walk: out [batch, s, w]
-// with row stride ldo (elements, whole 16-byte rows); a and b read by TMA
-// (16-byte aligned, strides multiples of 16 bytes); chunk, prod and tail
-// unused.  dtype 0 = float32, 1 = bfloat16 (out, a and b alike).  All
-// pointers are device pointers on the current device; `stream` is a
-// cudaStream_t.  Returns cudaGetLastError() after the launches (0 =
-// success), cudaErrorInvalidValue for arguments the kernel does not take,
-// or cudaErrorNotSupported where libcuda has no tensor-map encoder.
-extern "C" int rglru_scan_launch(int kernel, void* out, int64_t ldo,
-                                 void* prod, void* tail, const void* a,
+// h = scan(a, b): a and b [batch, s, w] read by TMA, their channel dim
+// contiguous, their batch and step strides (asb, ass, bsb, bss, elements)
+// and their start 16-byte multiples; out [batch, s, w] with row stride ldo
+// (elements, whole 16-byte rows).  dtype 0 = float32, 1 = bfloat16 (out, a
+// and b alike).  All pointers are device pointers on the current device;
+// `stream` is a cudaStream_t.  Returns cudaGetLastError() after the launch
+// (0 = success), cudaErrorInvalidValue for arguments the kernel does not
+// take, or cudaErrorNotSupported where libcuda has no tensor-map encoder.
+extern "C" int rglru_scan_launch(void* out, int64_t ldo, const void* a,
                                  const void* b, int dtype, int64_t batch,
-                                 int64_t s, int64_t w, int64_t chunk,
-                                 int64_t asb, int64_t ass, int64_t bsb,
-                                 int64_t bss, void* stream) {
-  if (batch <= 0 || s <= 0 || w <= 0 || (dtype != 0 && dtype != 1))
+                                 int64_t s, int64_t w, int64_t asb,
+                                 int64_t ass, int64_t bsb, int64_t bss,
+                                 void* stream) {
+  if (dtype & ~1) return static_cast<int>(cudaErrorInvalidValue);
+  const int elem = dtype == 0 ? 4 : 2;
+  const int64_t ga[5] = {w, 1, ass, ass, asb};
+  const int64_t gb[5] = {w, 1, bss, bss, bsb};
+  Operand oa, ob;
+  if (!slab_shape(out, ldo, elem, batch, s, w) ||
+      !operand(&oa, a, ga, elem, w) || !operand(&ob, b, gb, elem, w))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (tc::encode_tiled() == nullptr)
+    return static_cast<int>(cudaErrorNotSupported);
   (void)cudaGetLastError();        // report only this call's error
   const auto st = static_cast<cudaStream_t>(stream);
-  const int elem = dtype == 0 ? 4 : 2;
-  cudaError_t err = cudaErrorInvalidValue;
-  if (kernel == 0) {
-    if (chunk <= 0 || ldo != w || batch > 65535 ||
-        (s + chunk - 1) / chunk > 65535)
-      return static_cast<int>(cudaErrorInvalidValue);
-    float* p = static_cast<float*>(prod);
-    float* t = static_cast<float*>(tail);
-    err = dtype == 0
-        ? launch_chunked<float>(out, p, t, a, b, batch, s, w, chunk, asb, ass,
-                                bsb, bss, st)
-        : launch_chunked<__nv_bfloat16>(out, p, t, a, b, batch, s, w, chunk,
-                                        asb, ass, bsb, bss, st);
-  } else if (kernel == 1) {
-    if (tc::encode_tiled() == nullptr)
-      return static_cast<int>(cudaErrorNotSupported);
-    const int64_t ga[5] = {w, 1, ass, ass, asb};
-    const int64_t gb[5] = {w, 1, bss, bss, bsb};
-    Operand oa, ob;
-    if (!operand(&oa, a, ga, elem, w) || !operand(&ob, b, gb, elem, w) ||
-        !slab_shape(out, ldo, elem, batch, s, w))
-      return static_cast<int>(cudaErrorInvalidValue);
-    err = dtype == 0
-        ? launch_slab<float>(out, ldo, oa, ob, batch, s, w, st)
-        : launch_slab<__nv_bfloat16>(out, ldo, oa, ob, batch, s, w, st);
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(
+      dtype == 0 ? launch_slab<float>(out, ldo, oa, ob, batch, s, w, st)
+                 : launch_slab<__nv_bfloat16>(out, ldo, oa, ob, batch, s, w,
+                                              st));
 }
 
 // y = scan(a, b) * gelu_tanh(gate), a and b made from xc, ra, ri and the

@@ -6,12 +6,10 @@ output, with the recurrence inside.
 `h[:, t] = a[:, t] * h[:, t-1] + b[:, t]` and `h[:, -1] = 0`, computed in
 fp32 and returned in a's dtype — the function of the Pallas kernel
 `rglru_scan` in the JAX package, and of the `associative_scan` in its
-`rglru_block_train`.  On CUDA tensors it launches one of the two
-hand-written kernels in `csrc/rglru_scan.cu` (built by `kernels.build`),
-the one `kernel_for` names for the shape: the channel-slab walk (`SLAB`,
-a and b read once) where the shape has `MIN_SLABS` slabs of 32 channels
-or more, else the three chunked passes (`CHUNKED`).  Each kernel counts
-its launches in its `launches`, and `rglru_scan.launches` counts both.
+`rglru_block_train`.  On CUDA tensors it launches the hand-written
+`rglru_slab_kernel` in `csrc/rglru_scan.cu` (built by `kernels.build`):
+one warp walks each slab of 32 channels through the sequence, a and b
+read once, and the launch is counted in `rglru_scan.launches`.
 
 `rglru_gated_scan(xc, ra, ri, gate, ba, bi, a_param, out_dtype)` returns
 `y = h * gelu_tanh(gate)` in `out_dtype`, where h is the recurrence of
@@ -30,7 +28,6 @@ a slab) is copied, zero-padded, into a layout it can: the kernel runs.
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 import functools
 
 import torch
@@ -39,47 +36,13 @@ import torch.nn.functional as F
 from repro_torch.kernels import build
 
 __all__ = ["rglru_scan", "rglru_scan_plain", "rglru_gated_scan",
-           "rglru_gated_scan_plain", "chunk_len", "ScanKernel", "CHUNKED",
-           "SLAB", "MIN_SLABS", "SLAB_CHANNELS", "slabs", "kernel_for"]
+           "rglru_gated_scan_plain", "SLAB_CHANNELS", "read_in_place"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: threads the chunked passes want in flight (about 2048 on each of 132 SMs)
-_TARGET_THREADS = 1 << 18
 #: channels of one slab: one warp's lanes, one 128-byte TMA row of fp32
 SLAB_CHANNELS = 32
-#: slabs (batch rows x 32-channel groups) from which the slab walk runs.
-#: One slab streams at about 20 GB/s on an H100 (its loads in flight over
-#: the memory latency) and the chunked passes at about 1.6 TB/s of the
-#: bound's bytes (chip_smoke.py's dispatch sweep): the walk wins from
-#: about 1.6e12 / 20e9 = 80 slabs on
-MIN_SLABS = 80
 #: the RG-LRU decay's constant c in log a = -c softplus(a_param) r
 _C = 8.0
-
-
-@dataclasses.dataclass(eq=False)
-class ScanKernel:
-    """One bare-scan kernel of `csrc/rglru_scan.cu` and its launch
-    count."""
-    name: str
-    code: int        # its number at the C entry point
-    launches: int = 0
-
-
-#: `rglru_chunk_{maps,carries,outputs}`: three passes, a and b read twice
-CHUNKED = ScanKernel("rglru_scan_chunked", 0)
-#: `rglru_slab_kernel`: one warp per 32-channel slab walks the sequence
-SLAB = ScanKernel("rglru_scan_slab", 1)
-
-
-def slabs(batch: int, width: int) -> int:
-    """Slabs of a [batch, S, width] scan: the slab walk's blocks."""
-    return batch * -(-width // SLAB_CHANNELS)
-
-
-def kernel_for(batch: int, width: int) -> ScanKernel:
-    """The dispatch rule of `rglru_scan`, by shape, before the launch."""
-    return SLAB if slabs(batch, width) >= MIN_SLABS else CHUNKED
 
 
 def rglru_scan_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -122,22 +85,12 @@ def rglru_gated_scan_plain(xc: torch.Tensor, ra: torch.Tensor,
     return (h * F.gelu(gate.float(), approximate="tanh")).to(out_dtype)
 
 
-def chunk_len(batch: int, seq: int, width: int) -> int:
-    """Steps per chunk of the chunked passes: the longest power of two in
-    [32, 256] that still gives their first and last passes
-    `_TARGET_THREADS` threads (one per batch row, chunk and channel)."""
-    n = 256
-    while n > 32 and batch * width * -(-seq // n) < _TARGET_THREADS:
-        n //= 2
-    return n
-
-
 @functools.cache
 def _launcher():
     fn = build.load("rglru_scan").rglru_scan_launch
-    fn.argtypes = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_int64]
-                   + [ctypes.c_void_p] * 4 + [ctypes.c_int]
-                   + [ctypes.c_int64] * 8 + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int] + [ctypes.c_int64] * 7
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -170,13 +123,16 @@ def _check(a: torch.Tensor, b: torch.Tensor) -> None:
 
 
 def _tma_geometry(t: torch.Tensor):
-    """(t, geometry) for the slab kernels: t [B, S, G, I] (G groups of I
-    channels, W = G I; I contiguous) and its six numbers (I, G, step,
-    group and batch strides in elements, 0).  TMA reads t in place where
-    its start and strides are multiples of 16 bytes and a 32-channel slab
-    stays in one group (I a multiple of 32, or G = 1); else t becomes a
-    contiguous copy [B, S, 1, Wp], zero-padded to whole 16-byte rows.  A
-    dim of size 1 gets a stride TMA takes (it is never stepped)."""
+    """(t4, geometry) for the slab kernels: t [B, S, W] (one group) or
+    [B, S, G, I] (G groups of I channels, W = G I; I contiguous) as t4
+    [B, S, G, I], and its six numbers (I, G, step, group and batch strides
+    in elements, 0).  TMA reads t in place where its start and strides are
+    multiples of 16 bytes and a 32-channel slab stays in one group (I a
+    multiple of 32, or G = 1); else t4 is a contiguous copy [B, S, 1, Wp],
+    zero-padded to whole 16-byte rows.  A dim of size 1 gets a stride TMA
+    takes (it is never stepped)."""
+    if t.dim() == 3:
+        t = t.unsqueeze(2)
     B, S, G, I = t.shape
     item = t.element_size()
     row = -(-I * item // 16) * 16 // item          # I rounded up to 16 B
@@ -195,6 +151,12 @@ def _tma_geometry(t: torch.Tensor):
     return c, (W, 1, wp, wp, S * wp, 0)
 
 
+def read_in_place(t: torch.Tensor) -> bool:
+    """Whether the slab kernels read the operand t where it lies (no
+    copy before the launch)."""
+    return _tma_geometry(t)[0].data_ptr() == t.data_ptr()
+
+
 def _slab_out(B: int, S: int, W: int, dtype: torch.dtype,
               device: torch.device) -> torch.Tensor:
     """The slab kernels' output [B, S, W]: TMA stores whole 16-byte rows,
@@ -206,46 +168,27 @@ def _slab_out(B: int, S: int, W: int, dtype: torch.dtype,
     return out if wp == W else out[..., :W]
 
 
-def rglru_scan(a: torch.Tensor, b: torch.Tensor, *,
-               kernel: ScanKernel = None) -> torch.Tensor:
+def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a, b [B, S, W] -> h [B, S, W] in a's dtype.
 
     CUDA tensors: float32 or bfloat16, both alike, the channel dim
-    contiguous; batch and sequence are read by stride.  `kernel` (`SLAB`
-    or `CHUNKED`) overrides `kernel_for`'s choice, to hold each kernel on
-    any shape; None takes it."""
+    contiguous; batch and sequence are read by stride."""
     if a.device.type == "cpu" and b.device.type == "cpu":
         return rglru_scan_plain(a, b)
     _check(a, b)
     B, S, W = a.shape
-    if kernel is None:
-        kernel = kernel_for(B, W)
-    if kernel is SLAB:
-        out = _slab_out(B, S, W, a.dtype, a.device)
-    else:
-        out = torch.empty((B, S, W), dtype=a.dtype, device=a.device)
+    out = _slab_out(B, S, W, a.dtype, a.device)
     if out.numel() == 0:
         return out
-    if kernel is SLAB:
-        (a, ga), (b, gb) = (_tma_geometry(t.unsqueeze(2)) for t in (a, b))
-        chunk, ptrs = 0, (0, 0)
-        strides = (ga[4], ga[2], gb[4], gb[2])
-    else:
-        chunk = chunk_len(B, S, W)
-        scratch = torch.empty((2, B, -(-S // chunk), W), dtype=torch.float32,
-                              device=a.device)
-        strides = (a.stride(0), a.stride(1), b.stride(0), b.stride(1))
-        ptrs = (scratch[0].data_ptr(), scratch[1].data_ptr())
+    (a, ga), (b, gb) = (_tma_geometry(t) for t in (a, b))
     with torch.cuda.device(a.device):
         err = _launcher()(
-            kernel.code, out.data_ptr(), out.stride(1), *ptrs, a.data_ptr(),
-            b.data_ptr(),
-            _DTYPE_CODES[a.dtype], B, S, W, chunk, *strides,
+            out.data_ptr(), out.stride(1), a.data_ptr(), b.data_ptr(),
+            _DTYPE_CODES[a.dtype], B, S, W, ga[4], ga[2], gb[4], gb[2],
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"rglru_scan: {kernel.name} launch failed with "
-                           f"CUDA error {err}")
-    kernel.launches += 1
+        raise RuntimeError(f"rglru_scan: kernel launch failed with CUDA "
+                           f"error {err}")
     rglru_scan.launches += 1
     return out
 
@@ -304,8 +247,7 @@ def rglru_gated_scan(xc: torch.Tensor, ra: torch.Tensor, ri: torch.Tensor,
         return out
     ops, geom = [], []
     for t in (xc, ra, ri, gate):
-        t4 = t.unsqueeze(2) if t.dim() == 3 else t
-        t4, g = _tma_geometry(t4)
+        t4, g = _tma_geometry(t)
         ops.append(t4)
         geom.extend(g)
     vecs = [v.float().contiguous() for v in (ba, bi, a_param)]

@@ -149,10 +149,12 @@ def init_params(specs, generator: torch.Generator,
     return map_specs(draw, specs)
 
 
-def cd_matmul(x: torch.Tensor, w: torch.Tensor, cd: torch.dtype
-              ) -> torch.Tensor:
-    """`x @ w` with both operands in the compute dtype; fp32 result."""
-    return torch.matmul(x.to(cd), w.to(cd)).float()
+def cd_matmul(x: torch.Tensor, w: torch.Tensor, cd: torch.dtype, *,
+              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """`x @ w` with both operands in the compute dtype; the result in
+    `out_dtype` (fp32 by default; the compute dtype keeps the product as
+    cuBLAS returns it)."""
+    return torch.matmul(x.to(cd), w.to(cd)).to(out_dtype)
 
 
 # ================================================================= norms/rope
@@ -442,14 +444,20 @@ def _rglru_gate_logits(p: Params, xb: torch.Tensor, n_heads: int
     return ra, ri
 
 
+def _rglru_gate_sigmoids(p: Params, ra: torch.Tensor, ri: torch.Tensor,
+                         shape: torch.Size
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gates r, i [B, S, W] from their logits and biases."""
+    r = torch.sigmoid(ra.reshape(shape) + p["ba"].float())
+    i = torch.sigmoid(ri.reshape(shape) + p["bi"].float())
+    return r, i
+
+
 def _rglru_gates(p: Params, xb: torch.Tensor, n_heads: int
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Block-diagonal gate projections; xb [B, S, W] fp32."""
-    B, S, W = xb.shape
     ra, ri = _rglru_gate_logits(p, xb, n_heads)
-    r = torch.sigmoid(ra.reshape(B, S, W) + p["ba"].float())
-    i = torch.sigmoid(ri.reshape(B, S, W) + p["bi"].float())
-    return r, i
+    return _rglru_gate_sigmoids(p, ra, ri, xb.shape)
 
 
 def _causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -486,13 +494,10 @@ def rglru_scan_inputs(p: Params, x: torch.Tensor, *, n_heads: int,
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The full-sequence block up to its scan: (a, b, gate), each
     [B, S, W] fp32, where the scan's h_t = a_t h_{t-1} + b_t."""
-    cd = rt.compute_dtype
-    xb = cd_matmul(x, p["wx"], cd)
-    gate = cd_matmul(x, p["wy"], cd)
-    xb = _causal_conv1d(xb, p["conv_w"], p["conv_b"])
-    r, i = _rglru_gates(p, xb, n_heads)
+    xc, ra, ri, gate = rglru_gated_inputs(p, x, n_heads=n_heads, rt=rt)
+    r, i = _rglru_gate_sigmoids(p, ra, ri, xc.shape)
     a, beta = _rglru_decay(p, r)
-    return a, beta * (i * xb), gate
+    return a, beta * (i * xc), gate.float()
 
 
 def rglru_gated_inputs(p: Params, x: torch.Tensor, *, n_heads: int,
@@ -506,7 +511,7 @@ def rglru_gated_inputs(p: Params, x: torch.Tensor, *, n_heads: int,
     to fp32 in its loads, exactly)."""
     cd = rt.compute_dtype
     xb = cd_matmul(x, p["wx"], cd)
-    gate = torch.matmul(x.to(cd), p["wy"].to(cd))
+    gate = cd_matmul(x, p["wy"], cd, out_dtype=cd)
     xc = _causal_conv1d(xb, p["conv_w"], p["conv_b"])
     ra, ri = _rglru_gate_logits(p, xc, n_heads)
     return xc, ra, ri, gate

@@ -19,7 +19,7 @@ import torch
 from repro.kernels import ops, ref
 from repro.models import layers as JL
 from repro_torch.kernels.flash_attention import flash_attention_plain
-from repro_torch.kernels.rg_lru import chunk_len, rglru_scan, rglru_scan_plain
+from repro_torch.kernels.rg_lru import rglru_scan, rglru_scan_plain
 from repro_torch.models import layers as TL
 
 JRT = JL.Runtime(compute_dtype=jnp.float32)
@@ -108,14 +108,6 @@ def test_mixed_devices_raise():
         rglru_scan(a, bb.to("meta"))
     with pytest.raises(ValueError):
         rglru_scan(a.to("meta"), bb.to("meta"))
-
-
-@pytest.mark.parametrize("b,s,w,want", [
-    (1, 32768, 4096, 256),       # 128 chunks x 4096 channels
-    (4, 2048, 4096, 128),        # 16 chunks x 16384 rows
-    (1, 64, 128, 32)])           # tiny: the shortest chunk
-def test_chunk_len(b, s, w, want):
-    assert chunk_len(b, s, w) == want
 
 
 # -------------------------------------------------------- flash at hd 256

@@ -1,14 +1,12 @@
 """`repro_torch.kernels.rg_lru.rglru_gated_scan` (the RG-LRU block from its
-gate logits to its gated output, the scan inside) and the bare scan's
-dispatch rule on the CPU.
+gate logits to its gated output, the scan inside) on the CPU, and the
+layouts the slab kernels read in place.
 
 On the CPU the wrapper runs `rglru_gated_scan_plain`, which must be the
 port's own block arithmetic (`models.layers`) bit for bit, and the JAX
 package's block (`rglru_block_train`) within a stated tolerance.  The
 kernel itself runs only on the card (`tests/test_torch_cuda.py`,
 `chip_smoke.py`).  Inputs come from numpy with a seed."""
-
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -81,6 +79,23 @@ def test_plain_equals_the_layers_composition(cd, out_dtype):
     assert torch.equal(got, want)
     if cd == torch.bfloat16:
         assert TL.rglru_gated_inputs(tp, x, n_heads=H, rt=rt)[3].dtype == cd
+
+
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+def test_scan_inputs_are_the_block_spelled_out(cd):
+    """`rglru_scan_inputs`, built on `rglru_gated_inputs`, equals bit for
+    bit the block spelled out op by op: both products widened to fp32,
+    the conv, the gates, the decay and b = beta (i xc)."""
+    _, tp = _params(seed=9)
+    x = torch.from_numpy(_x(seed=9))
+    a, b, gate = TL.rglru_scan_inputs(tp, x, n_heads=H, rt=_rt(cd))
+    xb = TL._causal_conv1d(TL.cd_matmul(x, tp["wx"], cd), tp["conv_w"],
+                           tp["conv_b"])
+    r, i = TL._rglru_gates(tp, xb, H)
+    a0, beta = TL._rglru_decay(tp, r)
+    assert torch.equal(a, a0) and torch.equal(b, beta * (i * xb))
+    assert torch.equal(gate, TL.cd_matmul(x, tp["wy"], cd))
+    assert gate.dtype == a.dtype == b.dtype == torch.float32
 
 
 @pytest.mark.parametrize("use_kernels", [False, True])
@@ -178,7 +193,7 @@ def test_gate_logits_are_read_in_place_where_tma_can():
 def test_cpu_path_launches_nothing():
     _, tp = _params(seed=6)
     x = torch.from_numpy(_x(seed=6))
-    counters = (R.rglru_gated_scan, R.rglru_scan, R.SLAB, R.CHUNKED)
+    counters = (R.rglru_gated_scan, R.rglru_scan)
     before = [c.launches for c in counters]
     got = _gated(tp, x, _rt(torch.float32), torch.float32)
     assert [c.launches for c in counters] == before
@@ -228,25 +243,54 @@ def test_refuses_mixed_devices_and_what_it_does_not_take(case, error):
         R.rglru_gated_scan(xc, ra, ri, gate, ba, bi, ap, out)
 
 
-@pytest.mark.parametrize("b,w,slabs,kernel", [
-    (1, 4096, 128, "SLAB"),       # recurrentgemma-9b's 32k prefill
-    (4, 4096, 512, "SLAB"),       # its 2048 x 4 prefill
-    (1, 2560, 80, "SLAB"),        # at the threshold
-    (2, 1248, 78, "CHUNKED"),     # two slabs below it
-    (1, 2048, 64, "CHUNKED"),     # the crossover's other side
-    (3, 130, 15, "CHUNKED"),      # the test_kernels sweep
-    (1, 1, 1, "CHUNKED")])
-def test_scan_dispatch_by_shape(b, w, slabs, kernel):
-    """The bare scan's kernel is chosen by slab count, before the launch,
-    the same for every sequence length and dtype."""
-    assert R.slabs(b, w) == slabs
-    assert R.kernel_for(b, w) is getattr(R, kernel)
-    assert R.MIN_SLABS == 80 and R.SLAB_CHANNELS == 32
+# (shape, how the tensor is made from a contiguous one, read in place?)
+@pytest.mark.parametrize("case,read", [
+    ("head-major [2, 37, 16, 256] fp32", True),     # the gate einsum's view
+    ("[2, 37, 4096] fp32", True),                   # xc at full width
+    ("[2, 37, 4096] bf16", True),                   # the gate product
+    ("a [2, 37, 512] slice of [2, 37, 1024]", True),  # by its strides
+    ("[2, 37, 130] fp32", False),                   # rows off 16 bytes
+    ("head-major [2, 37, 8, 16] fp32", False),      # heads under a slab
+    ("a [2, 37, 128] slice from channel 1", False)])  # start off 16 bytes
+def test_what_the_slab_kernels_read_in_place(case, read):
+    """`read_in_place` on each layout: the kernels' operands lie where TMA
+    reads them (16-byte start and strides, a 32-channel slab inside one
+    group) or are copied first."""
+    if case.startswith("head-major"):
+        heads, hd = (16, 256) if "16, 256" in case else (8, 16)
+        t = torch.zeros(heads, 2, 37, hd).permute(1, 2, 0, 3)
+    elif "slice of" in case:
+        t = torch.zeros(2, 37, 1024)[..., 512:]
+    elif "from channel 1" in case:
+        t = torch.zeros(2, 37, 129)[..., 1:]
+    else:
+        dtype = torch.bfloat16 if "bf16" in case else torch.float32
+        t = torch.zeros(2, 37, 130 if "130" in case else 4096, dtype=dtype)
+    assert R.read_in_place(t) is read
+    t4, g = R._tma_geometry(t)
+    assert t4.shape[:2] == (2, 37) and g[0] * g[1] >= t.shape[-1] * (
+        t.shape[-2] if t.dim() == 4 else 1)
 
 
-def test_each_scan_kernel_has_its_own_counter():
-    assert {R.SLAB.name, R.CHUNKED.name} == {"rglru_scan_slab",
-                                            "rglru_scan_chunked"}
-    assert (R.SLAB.code, R.CHUNKED.code) == (1, 0)
-    assert R.SLAB is not R.CHUNKED
-    assert dataclasses.replace(R.SLAB).launches == R.SLAB.launches
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+def test_the_block_hands_the_kernel_operands_it_reads_in_place(cd):
+    """`rglru_gated_inputs` at gate heads of 32 channels: xc, ra, ri and
+    the gate all go to the kernel uncopied (what `chip_smoke.py` checks on
+    the model's own layers)."""
+    _, tp = _params(seed=8)
+    x = torch.from_numpy(_x(seed=8))
+    ops = TL.rglru_gated_inputs(tp, x, n_heads=H, rt=_rt(cd))
+    assert [R.read_in_place(t) for t in ops] == [True] * 4
+    assert ops[3].dtype == cd and ops[0].dtype == torch.float32
+
+
+@pytest.mark.parametrize("w,dtype,stride", [
+    (4096, torch.float32, 4096), (130, torch.float32, 132),
+    (130, torch.bfloat16, 136)])
+def test_slab_output_rows_are_whole_16_byte_rows(w, dtype, stride):
+    """The slab kernels' output [B, S, W]: TMA stores whole 16-byte rows,
+    so a width off them is a view of a padded buffer."""
+    out = R._slab_out(2, 5, w, dtype, torch.device("cpu"))
+    assert out.shape == (2, 5, w) and out.dtype == dtype
+    assert out.stride() == (5 * stride, stride, 1)
+    assert out.is_contiguous() is (stride == w)
