@@ -22,11 +22,19 @@ printing one JSON line each:
   4. study       the main path: a seven-app `GeomeanAcrossApps` greedy
                  `Study` on the card and on the CPU must select the same
                  config, with the kernel launched and jax never imported;
-  5. throughput  the random engine at 262144-config pools on inception and
+  5. study zoo   the model-zoo frontend on the main path: the twelve zoo
+                 apps of the six ported archs traced on meta tensors (each
+                 app's seconds and compute ops), a twelve-app
+                 `GeomeanAcrossApps` greedy `Study` on the card and on the
+                 CPU selecting the same config and per-app bests (the
+                 kernel launched on the card only, neither jax nor the JAX
+                 package imported), then the genetic and anneal engines on
+                 qwen2-0.5b:prefill on both, each with the same best;
+  6. throughput  the random engine at 262144-config pools on inception and
                  nasnet, on the card, with where the time goes: the scorer's
                  device time by kind (`torch.profiler`) and the search's
                  host time by function (`cProfile`, one round);
-  6. kernel flash_attention
+  7. kernel flash_attention
                  `flash_attention` against its plain PyTorch version, every
                  output element within a tolerance of about one bf16 ulp, on
                  the sweep of `tests/test_kernels.py`, on qwen2-0.5b's heads
@@ -39,7 +47,7 @@ printing one JSON line each:
                  `scaled_dot_product_attention` and of the plain version,
                  each row with the kernel that ran, its TFLOP/s and its
                  share of the bound;
-  7. kernel rglru_scan
+  8. kernel rglru_scan
                  the bare scan (the channel-slab walk) against its plain
                  PyTorch version, every element, on the sweep of
                  `tests/test_kernels.py` (the 1024-step decay case and
@@ -54,7 +62,7 @@ printing one JSON line each:
                  before the gated kernel (the bare scan's path) and by the
                  gated kernel, each call's launches counted from 0, each
                  route timed and split by `torch.profiler`;
-  8. prefill qwen2-0.5b
+  9. prefill qwen2-0.5b
                  the second main path: `make_prefill_step` at full width
                  (24 layers, bf16 weights, `use_kernels=True`) at seq 32768
                  x batch 1 (prefill_32k with its batch cut from 32) and seq
@@ -64,12 +72,12 @@ printing one JSON line each:
                  none of `matmul`, counted); then the kernel against its
                  plain version on the q, k, v that the first and the last
                  layer hand it at both shapes, every row;
-  9. serve qwen2-0.5b
+ 10. serve qwen2-0.5b
                  `serve_requests` at full width (fp32 compute): 8 requests
                  of 4-12 prompt tokens, batch 4, 16 new tokens each, held
                  against the port's own CPU run on the same weights;
- 10. prefill recurrentgemma-9b
-                 the third main path, as phase 8 at the same two shapes (38
+ 11. prefill recurrentgemma-9b
+                 the third main path, as phase 9 at the same two shapes (38
                  layers: 26 RG-LRU, 12 local attention): 26
                  `rglru_gated_scan` launches a forward at both shapes (and
                  no bare scan), 12 `flash_attention` (on
@@ -77,23 +85,23 @@ printing one JSON line each:
                  none at 32768 (local-block attention); then each kernel
                  against its plain version on what the first and last
                  layer of its kind hand it;
- 11. serve recurrentgemma-9b
+ 12. serve recurrentgemma-9b
                  `serve_requests` at full width, fp32 compute: 8 requests of
                  4-12 prompt tokens, batch 4, 16 new tokens, caches of 256,
                  held against a teacher-forced full-sequence forward on the
                  card (fp32, `use_kernels=True`: its attention on the
                  CUDA-core flash kernel only) over each request's prompt
                  and generated tokens;
- 12. kernel matmul
+ 13. kernel matmul
                  `matmul` against its plain PyTorch version on every element,
                  within the fp32 summation bound (`matmul_against_plain`),
                  on the sweep of `tests/test_kernels.py` at its two tiles
                  (fp32 on the CUDA-core kernel, bf16 on the tensor-core
                  one: each case must move only its kernel's counter) and on
                  an all-positive bf16 product at K = 12288, both output
-                 dtypes (phase 13 holds the tile DSE's shapes, at every
+                 dtypes (phase 14 holds the tile DSE's shapes, at every
                  tile);
- 13. tile_dse    the fourth main path: for each of `TILE_SHAPES` (bf16),
+ 14. tile_dse    the fourth main path: for each of `TILE_SHAPES` (bf16),
                  `tune_matmul_tiles` picks a tile under the tensor-core
                  model and `matmul` runs at it and at every other tile the
                  tensor-core kernel is built for, each output held against
@@ -104,7 +112,7 @@ printing one JSON line each:
                  (M N > 2^31) runs once, at its tuned tile.  Then the fp32
                  `FP32_SHAPE` on the CUDA-core kernel at the CUDA-core
                  model's pick, beside its 67 TFLOP/s bound;
- 14. dryrun      `run_cell` for qwen2-0.5b and recurrentgemma-9b at
+ 15. dryrun      `run_cell` for qwen2-0.5b and recurrentgemma-9b at
                  prefill_32k and decode_32k on fake CUDA tensors (full batch),
                  each cell's matmul and elementwise FLOPs and
                  transcendentals, one greedy `autotune_search` over
@@ -412,6 +420,92 @@ def phase_study(names) -> int:
          gather_rows_launches=gpu["launches"],
          scorer_calls=gpu["scorer_calls"])
     return gpu["launches"]
+
+
+def phase_study_zoo() -> dict:
+    """The main path over the traced zoo apps: the twelve apps of the six
+    ported archs, the greedy geomean study on the card and on the CPU, then
+    the genetic and anneal engines on one app on both.  Returns the
+    kernel's launches on each card run."""
+    from repro_torch.core.apps import build_app
+    from repro_torch.core.multiapp import AppSpec
+    from repro_torch.core.search import optimize_for_app
+    from repro_torch.core.space import default_space
+    from repro_torch.dse import GeomeanAcrossApps, SearchBudget, Study
+    from repro_torch.frontend.zoo import PORTED_ARCHS, ZOO_VARIANTS
+    from repro_torch.kernels.gather import gather_rows
+
+    names = [f"{a}:{v}" for a in PORTED_ARCHS for v in ZOO_VARIANTS]
+    traced = {}
+    for name in names:
+        t0 = time.perf_counter()
+        ops = len(build_app(name).op_stream())
+        traced[name] = {"seconds": time.perf_counter() - t0,
+                        "compute_ops": ops}
+        check(ops > 0, f"the zoo app {name} traced no compute op")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        study = Study(apps=names, objective=GeomeanAcrossApps(),
+                      engine="greedy",
+                      budget=SearchBudget(k=2, restarts=2, max_rounds=6),
+                      seed=0, device=dev)
+        gather_rows.launches = 0
+        t0 = time.perf_counter()
+        result = study.run()
+        torch.cuda.synchronize()
+        runs[dev] = {"result": result, "seconds": time.perf_counter() - t0,
+                     "launches": gather_rows.launches}
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    check(gpu["result"].best == cpu["result"].best,
+          "the cuda and cpu zoo studies selected different configs")
+    check(gpu["result"].per_app == cpu["result"].per_app,
+          "the cuda and cpu zoo studies found different per-app bests")
+    check(gpu["launches"] > 0, "the cuda zoo study never launched "
+          "gather_rows")
+    check(cpu["launches"] == 0, "gather_rows launched on the cpu zoo study")
+    app = "qwen2-0.5b:prefill"
+    spec = AppSpec.from_app(app)
+    engines = {}
+    for engine in ("genetic", "anneal"):
+        res = {}
+        for dev in ("cuda", "cpu"):
+            gather_rows.launches = 0
+            t0 = time.perf_counter()
+            r = optimize_for_app(
+                spec.stream, default_space(), engine=engine, k=2,
+                restarts=2, seed=0, max_rounds=6, device=dev,
+                peak_weight_bits=spec.peak_weight_bits,
+                peak_input_bits=spec.peak_input_bits,
+                engine_kwargs={"population": 64, "chains": 8})
+            torch.cuda.synchronize()
+            res[dev] = {"r": r, "seconds": time.perf_counter() - t0,
+                        "launches": gather_rows.launches}
+        check(res["cuda"]["r"].best.asdict() == res["cpu"]["r"].best.asdict()
+              and res["cuda"]["r"].best_perf == res["cpu"]["r"].best_perf,
+              f"{engine} found different bests on the cuda and the cpu")
+        check(np.array_equal(res["cuda"]["r"].evaluated_perf,
+                             res["cpu"]["r"].evaluated_perf),
+              f"{engine} scored differently on the cuda and the cpu")
+        check(res["cuda"]["launches"] > 0 and res["cpu"]["launches"] == 0,
+              f"{engine} launched gather_rows "
+              f"{res['cuda']['launches']} / {res['cpu']['launches']} times "
+              "on the cuda / the cpu")
+        engines[engine] = {
+            "best_perf": res["cuda"]["r"].best_perf,
+            "evaluated": len(res["cuda"]["r"].evaluated),
+            "cuda_s": res["cuda"]["seconds"], "cpu_s": res["cpu"]["seconds"],
+            "gather_rows_launches": res["cuda"]["launches"]}
+    check_isolated()
+    emit("study zoo", apps=traced,
+         trace_s=sum(t["seconds"] for t in traced.values()),
+         selected=gpu["result"].best.asdict(), same_selection=True,
+         best_score=gpu["result"].best_score,
+         per_app_best={a: r["best_perf"]
+                       for a, r in gpu["result"].per_app.items()},
+         cuda_s=gpu["seconds"], cpu_s=cpu["seconds"],
+         gather_rows_launches=gpu["launches"], engines={app: engines})
+    return {"study": gpu["launches"],
+            **{e: r["gather_rows_launches"] for e, r in engines.items()}}
 
 
 def device_breakdown(calls: dict, kinds: dict) -> dict:
@@ -1221,6 +1315,11 @@ def phase_prefill(arch: str) -> dict:
     return launches
 
 
+def position(pos: int, device="cuda") -> torch.Tensor:
+    """A decode step's position: a 0-d int64 tensor on the device."""
+    return torch.full((), pos, dtype=torch.int64, device=device)
+
+
 def phase_serve() -> None:
     """`serve_requests` at full width on the card, held against the
     port's CPU run on the same weights (teacher-forced logits)."""
@@ -1267,16 +1366,17 @@ def phase_serve() -> None:
         rows = []
         for pos, t in enumerate(seq):
             tok = torch.full((1, 1), t, dtype=torch.int64, device=dev)
-            logits, cache = step(p, cache, tok, pos)
+            logits, cache = step(p, cache, tok, position(pos, dev))
             rows.append(logits[0, 0, :cfg.vocab_size].cpu())
         out[dev] = torch.stack(rows)
     # where one decode step's time goes (the cache already holds `seq`)
     step = make_serve_step(model, rt)
     cache = model.init_cache(1, 64, rt, "cuda")
     tok = torch.full((1, 1), seq[0], dtype=torch.int64, device="cuda")
-    step(params, cache, tok, 0)
+    step(params, cache, tok, position(0))
+    pos1 = position(1)
     device = device_breakdown(
-        {"decode_step": lambda: step(params, cache, tok, 1)},
+        {"decode_step": lambda: step(params, cache, tok, pos1)},
         {"matmul_us": ("gemm", "gemv", "nvjet", "xmma")})["decode_step"]
     device["idle_share"] = 1.0 - device["busy_us"] / device["wall_us"]
     diff = (out["cuda"] - out["cpu"]).abs()
@@ -1354,7 +1454,7 @@ def phase_serve_recurrent() -> dict:
         rows = []
         for pos, t in enumerate(seq):
             tok = torch.full((1, 1), t, dtype=torch.int64, device="cuda")
-            logits, cache = step(params, cache, tok, pos)
+            logits, cache = step(params, cache, tok, position(pos))
             rows.append(logits[0, 0, :v])
         dec = torch.stack(rows)
         # the forward's launches, counted from 0 just before it
@@ -1412,9 +1512,10 @@ def phase_serve_recurrent() -> dict:
     # where one decode step's time goes (a cache holding one token)
     cache = model.init_cache(1, 256, rt, "cuda")
     tok = torch.full((1, 1), prompts[0][0], dtype=torch.int64, device="cuda")
-    _, cache = step(params, cache, tok, 0)
+    _, cache = step(params, cache, tok, position(0))
+    pos1 = position(1)
     device = device_breakdown(
-        {"decode_step": lambda: step(params, cache, tok, 1)},
+        {"decode_step": lambda: step(params, cache, tok, pos1)},
         {"matmul_us": ("gemm", "gemv", "nvjet", "xmma")})["decode_step"]
     device["idle_share"] = 1.0 - device["busy_us"] / device["wall_us"]
     generated = sum(len(r.generated) for r in results)
@@ -1904,6 +2005,7 @@ def main() -> int:
     kern = phase_kernel(specs, space, rng)
     phase_scorer(specs, space, rng)
     launches = phase_study(APP_NAMES)
+    zoo = phase_study_zoo()
     phase_throughput([s for s in specs if s.name in ("inception", "nasnet")],
                      space, rng)
     flash = phase_flash(torch.Generator(device="cuda").manual_seed(0))
@@ -1939,7 +2041,13 @@ def main() -> int:
         "replaces": TPU_KERNEL,
         "tpu": "src/repro/kernels/costmodel.py:gather_rows",
         "shape": {"C": t["C"], "U": t["U"], "O": t["O"], "dtype": "int64"},
-        "launches": launches, "max_abs_err": kern["max_abs_err"],
+        "launches": launches,
+        "launches_by_path": {
+            "study, seven paper apps": launches,
+            "study zoo, twelve traced apps": zoo["study"],
+            "study zoo, genetic on qwen2-0.5b:prefill": zoo["genetic"],
+            "study zoo, anneal on qwen2-0.5b:prefill": zoo["anneal"]},
+        "max_abs_err": kern["max_abs_err"],
         "bit_equal": True, "ms": t["int64_kernel_ms"],
         "kernel_ms": t["int64_kernel_ms"], "plain_ms": t["int64_plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": "bytes",

@@ -1,7 +1,8 @@
 """PyTorch/CUDA port of the software-defined accelerator design-space
 explorer (`repro`).
 
-The DSE loop — paper app graph (`core.apps`) -> op stream + peak floors
+The DSE loop — app graph (`core.apps`: the paper's seven, or a model-zoo
+decoder traced on meta tensors by `frontend`) -> op stream + peak floors
 (`core.multiapp.AppSpec`) -> memoizing `core.search.Evaluator` -> fused
 (GOPS, area) scorer (`kernels.costmodel.FusedTorchScorer`) -> ask/tell
 engine -> `dse.Study` selection — runs on a GPU through

@@ -24,7 +24,8 @@ from repro_torch.core.costmodel import Op, OpKind
 from repro_torch.core.graph import ComputationGraph
 
 __all__ = [
-    "build_app", "APP_BUILDERS", "APP_NAMES",
+    "build_app", "APP_BUILDERS", "APP_NAMES", "zoo_app_names",
+    "all_app_names",
     "inception_v3", "deeplab_v3", "resnet_v1_50", "faster_rcnn",
     "ptb_lstm", "wide_and_deep", "nasnet_a",
     "multi_context", "faster_rcnn_step",
@@ -521,17 +522,29 @@ APP_BUILDERS = {
 APP_NAMES = tuple(APP_BUILDERS.keys())
 
 
-def build_app(name: str) -> ComputationGraph:
-    """Resolve one of the seven hand-built §5.1 graphs by name.
+def zoo_app_names() -> Tuple[str, ...]:
+    """Traced model-zoo workloads (`<arch>:prefill` / `<arch>:decode`, see
+    `repro_torch.frontend.zoo`), all twenty; the archs whose models are
+    not ported yet raise when built."""
+    from repro_torch.frontend.zoo import ZOO_APP_NAMES
+    return ZOO_APP_NAMES
 
-    Traced model-zoo workloads (``"<arch>:prefill"`` / ``"<arch>:decode"``)
-    need the torch frontend, which is not ported yet."""
+
+def all_app_names() -> Tuple[str, ...]:
+    """The seven paper CNN apps plus every zoo workload."""
+    return APP_NAMES + zoo_app_names()
+
+
+def build_app(name: str) -> ComputationGraph:
+    """Resolve any app name: the seven hand-built §5.1 graphs by bare
+    name, traced model-zoo workloads by `<arch>:<variant>`."""
     builder = APP_BUILDERS.get(name)
     if builder is not None:
         return builder()
     if ":" in name:
-        raise NotImplementedError(
-            f"zoo app {name!r} needs the model zoo and its frontend, "
-            "ported in a later slice, see ROADMAP.md")
-    raise KeyError(f"unknown app {name!r}; hand-built apps: "
-                   f"{sorted(APP_BUILDERS)}")
+        from repro_torch.frontend.zoo import build_zoo_app
+        return build_zoo_app(name)
+    raise KeyError(
+        f"unknown app {name!r}; hand-built apps: {sorted(APP_BUILDERS)}, "
+        f"zoo apps look like 'qwen2-0.5b:prefill' (see "
+        f"repro_torch.frontend.zoo)")

@@ -53,7 +53,8 @@ class AppSpec:
     def from_app(name: str,
                  weight_peak_mode: str = "streaming") -> "AppSpec":
         """Resolve a `build_app` name (one of the seven hand-built §5.1
-        graphs) under either Eq. 10/11 weight-peak reading."""
+        graphs or a traced `<arch>:<variant>` zoo workload) under either
+        Eq. 10/11 weight-peak reading."""
         from repro_torch.core.apps import build_app
         return AppSpec.from_graph(name, build_app(name),
                                   weight_peak_mode=weight_peak_mode)

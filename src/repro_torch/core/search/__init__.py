@@ -31,12 +31,26 @@ Engines
 ============  ==========================================================
 ``greedy``    Multi-step greedy, Algorithm 1 verbatim (bit-for-bit with
               the JAX package's engine at a fixed seed).
+``anneal``    Simulated annealing: `chains` parallel Metropolis walkers,
+              single-variable moves, geometric cooling.
+``genetic``   Evolutionary search over the power-of-two domains:
+              tournament selection, uniform crossover, random-reset
+              mutation, elitism; population kept as a struct-of-arrays
+              index matrix (`SpaceCodec`).
 ``random``    Uniform random draws (validity-repaired) — the baseline,
               and the engine that scores large pools.
+``tpe``       Tree-structured Parzen Estimator: per-dimension smoothed
+              categorical densities over the codec index columns, good/
+              bad split at the `gamma` quantile, batched candidates
+              ranked by EI ratio.
+``nsga2``     NSGA-II: fast non-dominated sort + crowding distance over
+              (GOPS, -area) rows (or an evaluator's [N, M] objective
+              rows), (mu + lambda) elitism, offspring repaired in bulk.
 ============  ==========================================================
 
-The JAX package's ``anneal``, ``genetic``, ``tpe`` and ``nsga2`` engines
-are not ported yet: `make_engine` raises `NotImplementedError` for them.
+Each engine is a numpy copy of the JAX package's, proposal for proposal at
+a fixed seed; `synthetic` holds the closed-form problems with known optima
+that test them.
 """
 
 from __future__ import annotations
@@ -44,27 +58,37 @@ from __future__ import annotations
 import inspect
 from typing import Any, Callable, Dict, List, Optional, Union
 
+from repro_torch.core.search.anneal import AnnealOptimizer
 from repro_torch.core.search.base import (DiscreteSpace, Optimizer,
                                           SearchResult, SpaceCodec,
+                                          pack_config, pareto_front_indices,
                                           repair_many_with, repair_with,
-                                          run_search)
+                                          run_search, unpack_config)
 from repro_torch.core.search.evaluator import Evaluator
+from repro_torch.core.search.genetic import GeneticOptimizer
 from repro_torch.core.search.greedy import GreedyOptimizer
+from repro_torch.core.search.nsga2 import NSGA2Optimizer
 from repro_torch.core.search.random_search import RandomSearchOptimizer
+from repro_torch.core.search.tpe import TPEOptimizer
 
 __all__ = [
     "Optimizer", "SearchResult", "run_search", "SpaceCodec",
-    "DiscreteSpace", "repair_with", "repair_many_with", "Evaluator",
-    "GreedyOptimizer", "RandomSearchOptimizer", "ENGINES", "EngineSpec",
-    "filter_kwargs", "make_engine", "optimize_for_app", "multi_step_greedy",
+    "DiscreteSpace", "pareto_front_indices", "repair_with",
+    "repair_many_with", "pack_config", "unpack_config", "Evaluator",
+    "GreedyOptimizer", "AnnealOptimizer", "GeneticOptimizer",
+    "RandomSearchOptimizer", "TPEOptimizer", "NSGA2Optimizer", "ENGINES",
+    "EngineSpec", "filter_kwargs", "make_engine", "optimize_for_app",
+    "multi_step_greedy",
 ]
 
 ENGINES: Dict[str, type] = {
     "greedy": GreedyOptimizer,
+    "anneal": AnnealOptimizer,
+    "genetic": GeneticOptimizer,
     "random": RandomSearchOptimizer,
+    "tpe": TPEOptimizer,
+    "nsga2": NSGA2Optimizer,
 }
-# engines of the JAX package this port does not carry yet
-_LATER = ("anneal", "genetic", "tpe", "nsga2")
 
 EngineSpec = Union[str, Callable[..., Optimizer]]
 
@@ -84,12 +108,8 @@ def make_engine(engine: EngineSpec, space, evaluator, **kwargs) -> Optimizer:
 
     Keyword arguments the engine's constructor does not accept are dropped
     (`filter_kwargs`), so callers can pass a superset (e.g. greedy's
-    `k`/`patience` alongside random's `batch`)."""
+    `k`/`patience` alongside genetic's `population`)."""
     if isinstance(engine, str):
-        if engine in _LATER:
-            raise NotImplementedError(
-                f"engine {engine!r} is ported in a later slice, see "
-                "ROADMAP.md")
         if engine not in ENGINES:
             raise ValueError(f"unknown engine {engine!r}; available: "
                              f"{sorted(ENGINES)}")

@@ -28,7 +28,8 @@ from repro_torch.core.costmodel import ConfigBatch
 from repro_torch.core.search import rowcache
 
 __all__ = ["Optimizer", "SearchResult", "run_search", "SpaceCodec",
-           "DiscreteSpace"]
+           "DiscreteSpace", "pareto_front_indices", "pack_config",
+           "unpack_config"]
 
 
 # --------------------------------------------------------------------------
@@ -209,6 +210,16 @@ def codec_for(space: Any) -> SpaceCodec:
     raise TypeError(f"space {type(space).__name__} has no codec()")
 
 
+def pack_config(codec: SpaceCodec, cfg: Any) -> List[int]:
+    """Config -> JSON-able domain-index row (for engine `state_dict`)."""
+    return [int(x) for x in codec.encode([cfg])[0]]
+
+
+def unpack_config(codec: SpaceCodec, row: Sequence[int]) -> Any:
+    """Inverse of `pack_config` (exact integer round-trip)."""
+    return codec.decode(np.asarray([row], dtype=np.int64))[0]
+
+
 def _constraint_repairs(evaluator: Any, batch: Any, space: Any) -> Any:
     """Chain the injected constraints' `repair` hooks (repro_torch.dse) over a
     batch; identity when the evaluator carries none."""
@@ -258,6 +269,28 @@ def repair_many_with(space: Any, evaluator: Any, batch: Any) -> Any:
 # Results
 # --------------------------------------------------------------------------
 
+def pareto_front_indices(perf: np.ndarray, area: np.ndarray) -> List[int]:
+    """Indices of the non-dominated set for (maximize perf, minimize area).
+
+    Zero-performance (constraint-violating) points never enter the front.
+    """
+    perf = np.asarray(perf, dtype=np.float64)
+    area = np.asarray(area, dtype=np.float64)
+    cand = np.flatnonzero(perf > 0)
+    if cand.size == 0:
+        return []
+    # sweep by ascending area; a point joins the front iff it beats the best
+    # perf seen at any smaller-or-equal area
+    order = cand[np.lexsort((-perf[cand], area[cand]))]
+    front: List[int] = []
+    best = -np.inf
+    for i in order:
+        if perf[i] > best:
+            front.append(int(i))
+            best = perf[i]
+    return front
+
+
 @dataclasses.dataclass
 class SearchResult:
     """Uniform search outcome."""
@@ -266,10 +299,13 @@ class SearchResult:
     best_perf: float
     history: List[Tuple[Any, float]]       # per-round incumbent
     evaluated: List[Any]                   # every scored config, in order
-    evaluated_perf: np.ndarray             # aligned scores
+    evaluated_perf: np.ndarray             # aligned scores (scalarized)
     rounds: int
     engine: str = ""
     evaluator: Any = dataclasses.field(default=None, repr=False)
+    # [N, M] objective-value rows when the evaluator scored a vector
+    # objective; None for scalar runs
+    evaluated_values: Optional[np.ndarray] = None
 
     @classmethod
     def merge(cls, results: Sequence["SearchResult"],
@@ -290,9 +326,12 @@ class SearchResult:
                 best = r
         evaluated: List[Any] = []
         perf: List[float] = []
+        values: List[np.ndarray] = []
         rounds = 0
         for r in results:
             evaluated.extend(r.evaluated)
+            if r.evaluated_values is not None:
+                values.append(r.evaluated_values)
             perf.extend(np.asarray(r.evaluated_perf,
                                    dtype=np.float64).tolist())
             rounds += int(r.rounds)
@@ -302,7 +341,8 @@ class SearchResult:
         return cls(best=best.best, best_perf=float(best.best_perf),
                    history=list(best.history), evaluated=evaluated,
                    evaluated_perf=np.asarray(perf), rounds=rounds,
-                   engine=best.engine, evaluator=evaluator)
+                   engine=best.engine, evaluator=evaluator,
+                   evaluated_values=(np.vstack(values) if values else None))
 
 
 # --------------------------------------------------------------------------
@@ -316,9 +356,20 @@ class Optimizer(abc.ABC):
     `pool = engine.propose()` -> `scores = evaluator(pool)` ->
     `engine.observe(pool, scores)` until `engine.done`.  Engines own their
     RNG, their incumbent/`history` bookkeeping, and their stopping rule.
+
+    Vector scores: an evaluator carrying a multi-objective may hand back
+    an [N, M] value matrix instead of an [N] score vector.  Engines stay
+    single-objective internally — every `observe` first routes scores
+    through `_scalar`, which keeps the first column (by convention the
+    perf-like term) — while the driver keeps the full rows.
     """
 
     name: str = "engine"
+    #: engines that consume the full [N, M] objective-value matrix in
+    #: `observe` (NSGA-II non-dominated sorting) set this True; the driver
+    #: then hands them the raw rows while still logging the scalarized
+    #: signal for `SearchResult.evaluated_perf`
+    observes_vector: bool = False
 
     def __init__(self) -> None:
         self.best: Any = None
@@ -330,12 +381,28 @@ class Optimizer(abc.ABC):
     def _scalar(scores) -> np.ndarray:
         """Evaluator output as the float64 [N] vector engines optimize.
 
-        Non-finite entries (inf from a degenerate model) become -inf: an
-        invalid evaluation must never win the incumbent slot or poison a
-        comparison chain, and -inf keeps every engine's ordering logic
-        well-defined where NaN would not."""
+        Non-finite entries (NaN from a crashed measurement, inf from a
+        degenerate model) become -inf: an invalid evaluation must never win
+        the incumbent slot or poison a comparison chain, and -inf keeps
+        every engine's ordering logic well-defined where NaN would not."""
         scores = np.asarray(scores, dtype=np.float64)
+        if scores.ndim != 1:
+            scores = scores[:, 0]
         return np.where(np.isfinite(scores), scores, -np.inf)
+
+    # --------------------------------------------- optional state round-trip
+    def state_dict(self) -> Dict:
+        """JSON-able snapshot of the engine's search state, taken at a
+        round boundary (after `observe`, before the next `propose`).
+        Engines that support mid-study checkpointing (tpe, nsga2) override
+        both hooks; `load_state` into a freshly constructed engine must
+        continue bit-identically to the uninterrupted run."""
+        raise NotImplementedError(
+            f"engine {self.name!r} does not serialize search state")
+
+    def load_state(self, state: Dict) -> None:
+        raise NotImplementedError(
+            f"engine {self.name!r} does not serialize search state")
 
     @abc.abstractmethod
     def propose(self) -> List[Any]:
@@ -397,9 +464,16 @@ def run_search(engine: Optimizer, evaluator) -> SearchResult:
     Engines may propose either config-object lists or array-native
     `ConfigBatch` pools; batches stay arrays through scoring and are only
     materialized to dataclasses once, after the loop, for the
-    `SearchResult.evaluated` log."""
+    `SearchResult.evaluated` log.
+
+    When the evaluator returns an [N, M] objective-value matrix (vector
+    objective), the driver scalarizes once (`Optimizer._scalar`);
+    engines with `observes_vector` (NSGA-II) receive the raw rows, the
+    others the scalars, and the full rows are kept in
+    `SearchResult.evaluated_values`."""
     pools: List[Any] = []
     perf: List[float] = []
+    value_rows: List[np.ndarray] = []
     dedup = _CrossRoundDedup()
     while not engine.done:
         pool = engine.propose()
@@ -408,9 +482,15 @@ def run_search(engine: Optimizer, evaluator) -> SearchResult:
         evaluator.dedup_skipped = (getattr(evaluator, "dedup_skipped", 0)
                                    + dedup.observe(pool))
         scores = np.asarray(evaluator(pool), dtype=np.float64)
+        if scores.ndim == 2:
+            value_rows.append(scores)
+            scalar = engine._scalar(scores)
+            observed = scores if engine.observes_vector else scalar
+        else:
+            scalar = observed = scores
         pools.append(pool)
-        perf.extend(scores.tolist())
-        engine.observe(pool, scores)
+        perf.extend(scalar.tolist())
+        engine.observe(pool, observed)
     evaluated: List[Any] = []
     for pool in pools:
         evaluated.extend(pool.to_configs() if hasattr(pool, "to_configs")
@@ -423,4 +503,6 @@ def run_search(engine: Optimizer, evaluator) -> SearchResult:
     return SearchResult(best=best, best_perf=best_perf,
                         history=list(engine.history), evaluated=evaluated,
                         evaluated_perf=np.asarray(perf), rounds=engine.rounds,
-                        engine=engine.name, evaluator=evaluator)
+                        engine=engine.name, evaluator=evaluator,
+                        evaluated_values=(np.vstack(value_rows)
+                                          if value_rows else None))

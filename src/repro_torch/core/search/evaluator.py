@@ -118,6 +118,15 @@ class Evaluator:
             mask &= np.asarray(c.feasible_mask(batch, metrics), dtype=bool)
         return mask
 
+    def score_with_area(self, pool) -> Tuple[np.ndarray, np.ndarray]:
+        """(gops[N], area[N]) with the area budget applied to gops, through
+        the cache (NSGA-II's objective rows), independent of any injected
+        objective."""
+        perf, area = self._metrics_of(ConfigBatch.from_configs(pool))
+        if self.area_budget > 0:
+            perf = np.where(area <= self.area_budget, perf, 0.0)
+        return perf, area
+
     def raw_metrics(self, pool) -> Tuple[np.ndarray, np.ndarray]:
         """Raw (gops[N], area[N]) through the cache: Eq. 9-13 zeroing
         only, no area budget, no objective."""

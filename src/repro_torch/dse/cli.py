@@ -11,6 +11,11 @@
     PYTHONPATH=src python -m repro_torch.dse --apps ptb --apps wdl \\
         --smoke --device cpu
 
+    # traced model-zoo workloads (the port's models, traced on meta
+    # tensors), with another engine
+    PYTHONPATH=src python -m repro_torch.dse --apps qwen2-0.5b:prefill \\
+        --apps qwen2-0.5b:decode --engine genetic
+
 Every run persists a `StudyResult` JSON (default
 ``experiments/dse_study.json``).
 """
@@ -52,9 +57,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--apps", action="append", default=None,
                     help="applications to optimize for (repeatable): "
                          "inception | deeplab | resnet | fasterRCNN | ptb | "
-                         "wdl | nasnet  [default: resnet]")
+                         "wdl | nasnet, or a '<arch>:prefill' / "
+                         "'<arch>:decode' zoo workload of internvl2-1b, "
+                         "recurrentgemma-9b, qwen2-0.5b, qwen2.5-3b, "
+                         "qwen2.5-32b or mistral-nemo-12b  [default: "
+                         "resnet]")
     ap.add_argument("--engine", default="greedy",
-                    help="search engine: greedy | random")
+                    help="search engine: greedy | anneal | genetic | "
+                         "random | tpe | nsga2")
     ap.add_argument("--objective", default=None,
                     choices=sorted(OBJECTIVES),
                     help="optimization objective  [default: maxperf for one "
@@ -64,9 +74,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "space's budget]")
     ap.add_argument("--weight-peak-mode", default="streaming",
                     choices=("strict", "streaming"),
-                    help="Eq. 11 weight-peak reading (strict: weight buffer "
-                         "holds the largest layer; streaming: tile bound "
-                         "only)")
+                    help="Eq. 11 weight-peak reading for every app incl. "
+                         "traced zoo graphs (strict: weight buffer holds "
+                         "the largest layer; streaming: tile bound only)")
     ap.add_argument("--k", type=int, default=None,
                     help="greedy variable-subset size (Algorithm 1) "
                          "[default: 3; explicit values win over --smoke]")

@@ -56,6 +56,9 @@ def serve_requests(arch, prompts: List[List[int]], *, batch: int = 4,
     def token(t):
         return torch.full((1, 1), int(t), dtype=torch.int64, device=dev)
 
+    def position(p):
+        return torch.full((), p, dtype=torch.int64, device=dev)
+
     results: List[ServeResult] = []
     queue = list(enumerate(prompts))
     # one position per slot; slots decode one after another
@@ -70,7 +73,8 @@ def serve_requests(arch, prompts: List[List[int]], *, batch: int = 4,
                 # prefill token by token (cache-correct and simple; the
                 # batched prefill path is `make_prefill_step`)
                 for pos, t in enumerate(prompt):
-                    logits, cache = decode(params, cache, token(t), pos)
+                    logits, cache = decode(params, cache, token(t),
+                                           position(pos))
                 pool[i] = {"rid": rid, "prompt": prompt, "cache": cache,
                            "pos": len(prompt), "out": [], "t0": t0,
                            "next": int(torch.argmax(logits[0, -1]))}
@@ -79,7 +83,7 @@ def serve_requests(arch, prompts: List[List[int]], *, batch: int = 4,
             if s is None:
                 continue
             logits, s["cache"] = decode(params, s["cache"], token(s["next"]),
-                                        s["pos"])
+                                        position(s["pos"]))
             s["out"].append(s["next"])
             s["pos"] += 1
             s["next"] = int(torch.argmax(logits[0, -1]))

@@ -269,6 +269,8 @@ def trace_step(arch: ArchConfig, shape: ShapeSpec, *, device: str = "cuda",
                                      device)
             token = torch.zeros(specs["token"][0], dtype=torch.int64,
                                 device=device)
+            pos = torch.full((), shape.seq_len - 1, dtype=torch.int64,
+                             device=device)
             _, counts = count_step(make_serve_step(model, rt), params,
-                                   cache, token, shape.seq_len - 1)
+                                   cache, token, pos)
     return counts, rt

@@ -205,26 +205,37 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     flash kernel's algorithm, written with tensor ops).
 
     q [B, Sq, H, hd]; k, v [B, Skv, KV, hd].  The causal mask is `i >= j`
-    (top-left).  Memory stays O(Sq x kv_block).  The reference's window,
-    query offset and padded-cache length come with the slices that call
-    them (local attention, the padded decode cache)."""
+    (top-left).  K and V are padded to a multiple of `kv_block` and the
+    padded tail is masked, as in the reference: the values are those of
+    the unpadded keys, the work (and the products a traced graph sees) is
+    the reference's.  Memory stays O(Sq x kv_block).  The reference's
+    window, query offset and padded-cache length come with the slices that
+    call them (local attention, the padded decode cache)."""
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
     scale = 1.0 / math.sqrt(hd)
     qg = (q * scale).reshape(B, Sq, KV, G, hd)
+    nblk = -(-Skv // kv_block)
+    pad = nblk * kv_block - Skv
+    if pad:
+        k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (k, v))
     dev = q.device
     q_pos = torch.arange(Sq, device=dev)
 
     m = torch.full((B, KV, G, Sq), -math.inf, device=dev)
     l = torch.zeros((B, KV, G, Sq), device=dev)
     acc = torch.zeros((B, Sq, KV, G, v.shape[-1]), device=dev)
-    for j0 in range(0, Skv, kv_block):
+    for j0 in range(0, nblk * kv_block, kv_block):
         kj, vj = k[:, j0:j0 + kv_block], v[:, j0:j0 + kv_block]
         s = _gqa_scores(qg, kj)                          # [B,KV,G,Sq,kb]
-        if causal:
-            kv_pos = j0 + torch.arange(kj.shape[1], device=dev)
-            s = s.masked_fill(q_pos[:, None] < kv_pos[None, :], -math.inf)
+        kv_pos = j0 + torch.arange(kv_block, device=dev)
+        drop = q_pos[:, None] < kv_pos[None, :] if causal else None
+        if pad:
+            tail = (kv_pos >= Skv)[None, :]
+            drop = tail if drop is None else drop | tail
+        if drop is not None:
+            s = s.masked_fill(drop, -math.inf)
         m_new = torch.maximum(m, s.amax(dim=-1))
         # guard fully-masked rows
         m_safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
@@ -278,13 +289,13 @@ def local_block_attention(q: torch.Tensor, k: torch.Tensor,
     return o[:, :S]
 
 
-def kv_cache_write(cache: torch.Tensor, new: torch.Tensor, pos: int
-                   ) -> torch.Tensor:
+def kv_cache_write(cache: torch.Tensor, new: torch.Tensor,
+                   pos: torch.Tensor) -> torch.Tensor:
     """Write `new` [B, 1, ...] into `cache` [B, S, ...] at seq position
-    `pos`, in place (the reference returns a new buffer; writing in place
-    saves a copy of the whole cache per layer and step)."""
-    cache[:, pos:pos + 1] = new.to(cache.dtype)
-    return cache
+    `pos` (a 0-d int64 tensor on the cache's device), in place (the
+    reference returns a new buffer; writing in place saves a copy of the
+    whole cache per layer and step)."""
+    return cache.index_copy_(1, pos.reshape(1), new.to(cache.dtype))
 
 
 # ========================================================== GQA attention
@@ -350,19 +361,20 @@ def gqa_attention_train(p: Params, x: torch.Tensor, *, n_heads: int,
 
 
 def gqa_attention_decode(p: Params, x: torch.Tensor,
-                         cache: Dict[str, torch.Tensor], pos: int, *,
+                         cache: Dict[str, torch.Tensor],
+                         pos: torch.Tensor, *,
                          n_heads: int, n_kv: int, hd: int, rope_theta: float,
                          rt: Runtime, window: int = 0
                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token decode with a statically-sized KV cache.
 
     cache = {"k": [B, S_max, KV, hd], "v": ...}, written in place; `pos`
-    (an int) is the position of the new token.  For window attention the
-    cache is a ring buffer of `window` slots."""
+    (a 0-d int64 tensor on the device, as the reference's traced scalar)
+    is the position of the new token.  For window attention the cache is
+    a ring buffer of `window` slots."""
     B = x.shape[0]
     q, k_new, v_new = gqa_project(p, x, n_heads, n_kv, hd, rt)
-    cos, sin = rope_cos_sin(torch.full((1, 1), pos, device=x.device), hd,
-                            rope_theta)
+    cos, sin = rope_cos_sin(pos.reshape(1, 1), hd, rope_theta)
     q = apply_rope(q, cos, sin)
     k_new = apply_rope(k_new, cos, sin)
     S_max = cache["k"].shape[1]

@@ -139,7 +139,7 @@ def block_cache_specs(cfg: ArchConfig, kind: str, batch: int,
 
 def block_apply_decode(cfg: ArchConfig, kind: str, p: Params,
                        x: torch.Tensor, cache: Dict[str, torch.Tensor],
-                       pos: int, rt: Runtime
+                       pos: torch.Tensor, rt: Runtime
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     _check_block(cfg, kind)
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
@@ -266,10 +266,11 @@ class DecoderLM(nn.Module):
 
     def decode_step(self, params: Params,
                     cache: List[Dict[str, torch.Tensor]],
-                    token: torch.Tensor, pos: int, rt: Runtime
+                    token: torch.Tensor, pos: torch.Tensor, rt: Runtime
                     ) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
-        """One decode step: token [B, 1] int64, `pos` its position (an
-        int).  Returns fp32 logits [B, 1, V_pad] and the caches."""
+        """One decode step: token [B, 1] int64, `pos` its position (a 0-d
+        int64 tensor on the device).  Returns fp32 logits [B, 1, V_pad]
+        and the caches."""
         x = self._embed(params, token, rt)
         new_caches = []
         for kind, p, c in zip(self.kinds, params["layers"], cache):

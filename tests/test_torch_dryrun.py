@@ -49,7 +49,8 @@ def _real_counts(arch, shape, rt):
         return count_step(make_prefill_step(model, rt), params, batch)[1]
     cache = model.init_cache(B, S, rt, "cpu")
     return count_step(make_serve_step(model, rt), params, cache,
-                      torch.zeros((B, 1), dtype=torch.int64), S - 1)[1]
+                      torch.zeros((B, 1), dtype=torch.int64),
+                      torch.tensor(S - 1))[1]
 
 
 @pytest.mark.parametrize("shape", [PREFILL, DECODE], ids=lambda s: s.mode)
@@ -70,16 +71,18 @@ def test_fake_counts_equal_a_real_run(arch, shape):
     assert fake.ops == real.ops
 
 
-def _closed_form_flops(cfg, B, S, mode):
+def _closed_form_flops(cfg, B, S, mode, kv_block):
     """The matmul-family FLOPs of the plain dense-GQA step: q/k/v/o and
     the SwiGLU projections per token, scores and values over every
     (query, key) pair of the blocked attention (it masks, it does not
-    skip), and the LM head on the last position only (prefill) or the one
-    new token (decode)."""
+    skip; its keys padded to a multiple of the KV block, as the
+    reference's), and the LM head on the last position only (prefill) or
+    the one new token (decode)."""
     d, H, KV, hd, f = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                        cfg.resolved_head_dim, cfg.d_ff)
     tokens = B * S if mode == "prefill" else B
-    keys = S                                # prefill: S keys; decode: cache
+    # prefill: S keys padded to the KV block; decode: the cache
+    keys = -(-S // kv_block) * kv_block if mode == "prefill" else S
     per_token = 2 * d * (H * hd + 2 * KV * hd) + 2 * H * hd * d \
         + 3 * 2 * d * f
     attn = 4 * B * H * hd * keys * (S if mode == "prefill" else 1)
@@ -93,9 +96,10 @@ def test_fake_flops_match_the_closed_form(shape):
     (`test_elementwise_flops_match_a_hand_count`,
     tests/test_torch_flops.py)."""
     cfg = configs.get_smoke("qwen2-0.5b")
-    fake, _ = trace_step(cfg, shape, device="cpu")
+    fake, rt = trace_step(cfg, shape, device="cpu")
     assert fake.matmul_flops == _closed_form_flops(
-        cfg, shape.global_batch, shape.seq_len, shape.mode)
+        cfg, shape.global_batch, shape.seq_len, shape.mode,
+        rt.attn_kv_block)
     assert sum(fake.flops_by_op.values()) == fake.matmul_flops
 
 

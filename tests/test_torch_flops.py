@@ -157,7 +157,7 @@ def test_rglru_gates_count_as_xla_does():
 # arch, layers, compute dtype, tolerances on |port / XLA - 1| of the
 # FLOPs and of the transcendentals: qwen2-0.5b with one layer (the
 # reference scans repeated layers, and XLA counts a loop's body once) and a
-# KV block equal to S (the reference pads the keys to a whole block): fp32
+# KV block equal to S (both pad the keys to a whole block): fp32
 # FLOPs within 0.5 % (measured 0.07 %); bf16 within 2 % (measured 1.25 %:
 # XLA:CPU computes bf16 arithmetic in fp32 and counts the converts, as in
 # rms_norm); transcendentals within 2 % (measured 1.4 %: the reference's

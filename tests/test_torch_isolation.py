@@ -1,7 +1,7 @@
 """The port stands alone: no source file of `src/repro_torch/` (nor
 `chip_smoke.py`) imports jax or the JAX package, and its CPU main paths
-(the DSE study and the model server) run without either in
-`sys.modules`."""
+(the DSE study, the zoo's traced apps and the model server) run without
+either in `sys.modules`."""
 
 import os
 import re
@@ -44,12 +44,19 @@ def _run(code, cwd=ROOT):
 
 
 def test_cpu_main_path_loads_neither_jax_nor_repro():
+    """The DSE study on a paper app, and a zoo study over traced apps."""
     proc = _run(
         "import sys\n"
+        "from repro_torch.core.apps import build_app\n"
         "from repro_torch.dse import Study, SearchBudget\n"
         "r = Study(apps=['resnet'], engine='greedy', device='cpu',\n"
         "          budget=SearchBudget.smoke()).run()\n"
         "assert r.best_score > 0\n"
+        "assert len(build_app('qwen2-0.5b:prefill').op_stream()) == 217\n"
+        "z = Study(apps=['qwen2-0.5b:prefill', 'recurrentgemma-9b:decode'],\n"
+        "          engine='greedy', device='cpu',\n"
+        "          budget=SearchBudget.smoke()).run()\n"
+        "assert z.best_score > 0\n"
         "print(sorted({m.split('.')[0] for m in sys.modules}"
         " & {'jax', 'repro', 'jaxlib'}))\n")
     assert proc.returncode == 0, proc.stderr

@@ -116,7 +116,7 @@ def test_kv_cache_write_in_place():
     jn, tn = _both(r.standard_normal((2, 1, 2, 8)).astype(np.float32))
     want = JL.kv_cache_write(jc.astype(jnp.bfloat16), jn, 3, JRT)
     tcb = tc.to(torch.bfloat16)
-    got = TL.kv_cache_write(tcb, tn, 3)
+    got = TL.kv_cache_write(tcb, tn, torch.tensor(3))
     assert got is tcb and got.dtype == torch.bfloat16
     _close(got, want, rtol=0, atol=0)
 
@@ -156,8 +156,8 @@ def test_gqa_attention_decode(window):
     for pos, x in enumerate(xs):
         jy, jc = JL.gqa_attention_decode(jp, jnp.asarray(x), jc,
                                          jnp.int32(pos), rt=JRT, **kw)
-        ty, tc = TL.gqa_attention_decode(tp, torch.from_numpy(x), tc, pos,
-                                         rt=TRT, **kw)
+        ty, tc = TL.gqa_attention_decode(tp, torch.from_numpy(x), tc,
+                                         torch.tensor(pos), rt=TRT, **kw)
         _close(ty, jy, rtol=1e-4, atol=1e-4)
     for n in "kv":
         _close(tc[n], jc[n], rtol=0, atol=0)

@@ -133,7 +133,8 @@ def test_decode_steps_match_the_reference(models):
     for t in range(tok.shape[1]):
         want, jc = jm.decode_step(jp, jc, jnp.asarray(tok[:, t:t + 1]),
                                   jnp.int32(t), JRT)
-        got, tc = step(tp, tc, torch.from_numpy(tok[:, t:t + 1]), t)
+        got, tc = step(tp, tc, torch.from_numpy(tok[:, t:t + 1]),
+                       torch.tensor(t))
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
@@ -146,7 +147,8 @@ def test_forward_vs_decode_across_the_window(models):
     cache = tm.init_cache(1, 24, TRT)
     steps = []
     for t in range(tok.shape[1]):
-        lg, cache = tm.decode_step(tp, cache, tok[:, t:t + 1], t, TRT)
+        lg, cache = tm.decode_step(tp, cache, tok[:, t:t + 1],
+                                   torch.tensor(t), TRT)
         steps.append(lg[:, 0])
     v = tcfg.vocab_size
     np.testing.assert_allclose(torch.stack(steps, 1)[..., :v].numpy(),
