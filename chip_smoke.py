@@ -30,11 +30,29 @@ printing one JSON line each:
                  kernel launched on the card only, neither jax nor the JAX
                  package imported), then the genetic and anneal engines on
                  qwen2-0.5b:prefill on both, each with the same best;
-  6. throughput  the random engine at 262144-config pools on inception and
+  6. study pareto
+                 the analysis API on the main path: `evaluate_stream_many`'s
+                 broadcast pass on the card against the numpy oracle
+                 (`backend="numpy-ref"`, in worker processes) bit for bit
+                 (total cycles, validity and the five [C, O] parts) on the
+                 seven paper apps and two traced zoo apps at pools of 4097
+                 and 65536 from the Table-2 space (peaks on and off, every
+                 loop order), at 262144 (cycles and validity) on inception
+                 and qwen2-0.5b:prefill, and on a stream with a zero-size
+                 kernel; its time against `FusedTorchScorer.metrics` on the
+                 same pools and its peak memory; then a
+                 `ParetoObjective(["perf", "-area"])` study over ptb and wdl
+                 with genetic and with nsga2 at three area budgets, on the
+                 card (telemetry on and off: the same JSON; trace and
+                 journal validated) and on the CPU, the same front and
+                 selections, the kernel launched on the card only;
+                 `Evaluator.explain` of the selection and the §5.3 radar
+                 (resnet, the four Faster R-CNN steps) equal on both;
+  7. throughput  the random engine at 262144-config pools on inception and
                  nasnet, on the card, with where the time goes: the scorer's
                  device time by kind (`torch.profiler`) and the search's
                  host time by function (`cProfile`, one round);
-  7. kernel flash_attention
+  8. kernel flash_attention
                  `flash_attention` against its plain PyTorch version, every
                  output element within a tolerance of about one bf16 ulp, on
                  the sweep of `tests/test_kernels.py`, on qwen2-0.5b's heads
@@ -47,7 +65,7 @@ printing one JSON line each:
                  `scaled_dot_product_attention` and of the plain version,
                  each row with the kernel that ran, its TFLOP/s and its
                  share of the bound;
-  8. kernel rglru_scan
+  9. kernel rglru_scan
                  the bare scan (the channel-slab walk) against its plain
                  PyTorch version, every element, on the sweep of
                  `tests/test_kernels.py` (the 1024-step decay case and
@@ -62,7 +80,7 @@ printing one JSON line each:
                  before the gated kernel (the bare scan's path) and by the
                  gated kernel, each call's launches counted from 0, each
                  route timed and split by `torch.profiler`;
-  9. prefill qwen2-0.5b
+ 10. prefill qwen2-0.5b
                  the second main path: `make_prefill_step` at full width
                  (24 layers, bf16 weights, `use_kernels=True`) at seq 32768
                  x batch 1 (prefill_32k with its batch cut from 32) and seq
@@ -72,12 +90,12 @@ printing one JSON line each:
                  none of `matmul`, counted); then the kernel against its
                  plain version on the q, k, v that the first and the last
                  layer hand it at both shapes, every row;
- 10. serve qwen2-0.5b
+ 11. serve qwen2-0.5b
                  `serve_requests` at full width (fp32 compute): 8 requests
                  of 4-12 prompt tokens, batch 4, 16 new tokens each, held
                  against the port's own CPU run on the same weights;
- 11. prefill recurrentgemma-9b
-                 the third main path, as phase 9 at the same two shapes (38
+ 12. prefill recurrentgemma-9b
+                 the third main path, as phase 10 at the same two shapes (38
                  layers: 26 RG-LRU, 12 local attention): 26
                  `rglru_gated_scan` launches a forward at both shapes (and
                  no bare scan), 12 `flash_attention` (on
@@ -85,23 +103,23 @@ printing one JSON line each:
                  none at 32768 (local-block attention); then each kernel
                  against its plain version on what the first and last
                  layer of its kind hand it;
- 12. serve recurrentgemma-9b
+ 13. serve recurrentgemma-9b
                  `serve_requests` at full width, fp32 compute: 8 requests of
                  4-12 prompt tokens, batch 4, 16 new tokens, caches of 256,
                  held against a teacher-forced full-sequence forward on the
                  card (fp32, `use_kernels=True`: its attention on the
                  CUDA-core flash kernel only) over each request's prompt
                  and generated tokens;
- 13. kernel matmul
+ 14. kernel matmul
                  `matmul` against its plain PyTorch version on every element,
                  within the fp32 summation bound (`matmul_against_plain`),
                  on the sweep of `tests/test_kernels.py` at its two tiles
                  (fp32 on the CUDA-core kernel, bf16 on the tensor-core
                  one: each case must move only its kernel's counter) and on
                  an all-positive bf16 product at K = 12288, both output
-                 dtypes (phase 14 holds the tile DSE's shapes, at every
+                 dtypes (phase 15 holds the tile DSE's shapes, at every
                  tile);
- 14. tile_dse    the fourth main path: for each of `TILE_SHAPES` (bf16),
+ 15. tile_dse    the fourth main path: for each of `TILE_SHAPES` (bf16),
                  `tune_matmul_tiles` picks a tile under the tensor-core
                  model and `matmul` runs at it and at every other tile the
                  tensor-core kernel is built for, each output held against
@@ -112,7 +130,7 @@ printing one JSON line each:
                  (M N > 2^31) runs once, at its tuned tile.  Then the fp32
                  `FP32_SHAPE` on the CUDA-core kernel at the CUDA-core
                  model's pick, beside its 67 TFLOP/s bound;
- 15. dryrun      `run_cell` for qwen2-0.5b and recurrentgemma-9b at
+ 16. dryrun      `run_cell` for qwen2-0.5b and recurrentgemma-9b at
                  prefill_32k and decode_32k on fake CUDA tensors (full batch),
                  each cell's matmul and elementwise FLOPs and
                  transcendentals, one greedy `autotune_search` over
@@ -134,12 +152,15 @@ the repository's `src/` beside it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import math
+import multiprocessing
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -238,6 +259,18 @@ MATMUL_CHUNK = 1 << 28
 # card's max_memory_allocated of the same step: real / fake must lie in
 # this band (the card adds allocator rounding and cuBLAS workspaces)
 DRYRUN_PEAK_BAND = (0.9, 1.25)
+# phase study pareto: the analysis API's broadcast pass against the numpy
+# oracle, at the paper apps and two traced zoo apps
+BROADCAST_POOLS = (4097, 65536)
+BROADCAST_BIG = 262144
+BROADCAST_BIG_APPS = ("inception", "qwen2-0.5b:prefill")
+BROADCAST_ZOO = ("qwen2-0.5b:prefill", "recurrentgemma-9b:decode")
+BROADCAST_TIMED = "inception"
+# the numpy oracle is host-bound: it runs in worker processes, each in row
+# chunks (rows are independent, so chunks change no bit)
+ORACLE_WORKERS = 7
+ORACLE_CHUNK = 16384
+PARETO_BUDGETS = (30000.0, 60000.0, 90000.0)
 
 
 class SmokeFailure(RuntimeError):
@@ -506,6 +539,288 @@ def phase_study_zoo() -> dict:
          gather_rows_launches=gpu["launches"], engines={app: engines})
     return {"study": gpu["launches"],
             **{e: r["gather_rows_launches"] for e, r in engines.items()}}
+
+
+class Digest:
+    """sha256 of the bytes of each array `evaluate_stream_many` returns
+    (total cycles, validity and the five parts), fed row chunk by row
+    chunk: the chunks of a C-order [C, O] array concatenate to its bytes,
+    so a whole array and its chunks digest alike."""
+
+    KEYS = ("cycles", "valid", "compute", "weight", "input", "total",
+            "valid_ops")
+
+    def __init__(self):
+        self.h = {k: hashlib.sha256() for k in self.KEYS}
+
+    def update(self, out) -> None:
+        arrays = {"cycles": out[0], "valid": out[1], **(out[2] or {})}
+        for k, a in arrays.items():
+            self.h[k].update(np.ascontiguousarray(a).data)
+
+    def hexdigest(self) -> dict:
+        return {k: h.hexdigest() for k, h in self.h.items()}
+
+
+def oracle_digest(task) -> tuple:
+    """The numpy oracle (`backend="numpy-ref"`) in a worker process: its
+    `Digest` and its host seconds."""
+    from repro_torch.core.costmodel import ConfigBatch, evaluate_stream_many
+    matrix, stream, hw, pw, pi, with_parts = task
+    digest = Digest()
+    t0 = time.perf_counter()
+    for lo in range(0, matrix.shape[0], ORACLE_CHUNK):
+        digest.update(evaluate_stream_many(
+            ConfigBatch(matrix[lo:lo + ORACLE_CHUNK]), stream, hw, pw, pi,
+            backend="numpy-ref", with_parts=with_parts))
+    return digest.hexdigest(), time.perf_counter() - t0
+
+
+def call_ms(fn, reps: int = 5) -> float:
+    """Median CUDA-event time of one call that ends in a copy to the host
+    (so each call synchronises), after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def broadcast_cases(space, rng) -> tuple:
+    """The pools by size, and (label, matrix, stream, pw, pi, with_parts)
+    of every check of the broadcast pass against the oracle."""
+    from repro_torch.core.costmodel import Op, OpKind, OpStream
+    from repro_torch.core.apps import APP_NAMES
+    from repro_torch.core.multiapp import AppSpec
+
+    specs = [AppSpec.from_app(n) for n in APP_NAMES + BROADCAST_ZOO]
+    pools = {n: space.decode_batch(space.sample_indices(rng, n)).matrix
+             for n in BROADCAST_POOLS + (BROADCAST_BIG,)}
+    cases = []
+    for spec in specs:
+        peaks = (spec.peak_weight_bits, spec.peak_input_bits)
+        for n in BROADCAST_POOLS:
+            cases.append((f"{spec.name} C={n} peaks", pools[n], spec.stream,
+                          *peaks, True))
+        cases.append((f"{spec.name} C={BROADCAST_POOLS[0]} no peaks",
+                      pools[BROADCAST_POOLS[0]], spec.stream, 0, 0, True))
+        if spec.name in BROADCAST_BIG_APPS:
+            cases.append((f"{spec.name} C={BROADCAST_BIG} peaks",
+                          pools[BROADCAST_BIG], spec.stream, *peaks, False))
+    # a zero-size kernel and a zero stride: the fused scorer refuses it
+    zero = OpStream([Op(OpKind.CONV2D, 16, 12, 12, 0, 0, 32, 12, 12),
+                     Op(OpKind.CONV2D, 8, 9, 9, 3, 3, 8, 4, 4, s=0),
+                     Op.matmul(64, 32, 48)])
+    cases.append((f"zero-size kernel and stride C={BROADCAST_POOLS[0]}",
+                  pools[BROADCAST_POOLS[0]], zero, 1 << 10, 1 << 10, True))
+    return pools, cases
+
+
+def phase_study_pareto() -> int:
+    """The analysis API on the card: `evaluate_stream_many`'s broadcast
+    pass bit for bit against the numpy oracle, its time against the fused
+    scorer's, then Pareto studies, `explain` and the radar on the card and
+    on the CPU.  Returns the kernel's launches in the card's studies."""
+    from repro_torch import obs
+    from repro_torch.core import apps
+    from repro_torch.core.costmodel import (ConfigBatch, evaluate_stream_many,
+                                            performance_gops)
+    from repro_torch.core.multiapp import AppSpec
+    from repro_torch.core.sensitivity import (radar_of_top_configs,
+                                              sensitivity_study)
+    from repro_torch.core.space import default_space
+    from repro_torch.dse import ParetoObjective, SearchBudget, Study
+    from repro_torch.kernels.costmodel import FusedTorchScorer
+    from repro_torch.kernels.gather import gather_rows
+    from repro_torch.obs.validate import validate_chrome_trace, \
+        validate_journal
+
+    t_phase = time.perf_counter()
+    space = default_space()
+    pools, cases = broadcast_cases(space, np.random.default_rng(5))
+    check(set(np.unique(pools[BROADCAST_POOLS[0]][:, 0]).tolist())
+          == {0, 1, 2, 3}, "the pool misses a loop order")
+    check(not FusedTorchScorer.supports(cases[-1][2]),
+          "the fused scorer takes the zero-size stream")
+    ctx = multiprocessing.get_context("spawn")
+    broadcast, timed = {}, {}
+    # the longest oracle runs (configs x ops) start first
+    order = sorted(range(len(cases)),
+                   key=lambda i: -cases[i][1].shape[0] * len(cases[i][2]))
+    with ctx.Pool(ORACLE_WORKERS) as pool:
+        pending = pool.map_async(
+            oracle_digest, [(m, st, space.hw, pw, pi, parts) for
+                            _, m, st, pw, pi, parts in (cases[i]
+                                                        for i in order)],
+            chunksize=1)
+        # the broadcast pass on the card while the oracle runs on the host
+        for label, m, stream, pw, pi, parts in cases:
+            digest = Digest()
+            digest.update(evaluate_stream_many(
+                ConfigBatch(m), stream, space.hw, pw, pi,
+                with_parts=parts, device="cuda"))
+            broadcast[label] = digest.hexdigest()
+            # dtypes and values on a slice, in this process
+            head = ConfigBatch(m[:64])
+            want = evaluate_stream_many(head, stream, space.hw, pw, pi,
+                                        backend="numpy-ref")
+            got = evaluate_stream_many(head, stream, space.hw, pw, pi,
+                                       device="cuda")
+            for k in want[2]:
+                check(got[2][k].dtype == want[2][k].dtype
+                      and np.array_equal(got[2][k], want[2][k]),
+                      f"broadcast part {k} differs on {label}")
+        oracle = dict(zip(order, pending.get()))
+    oracle_s = time.perf_counter() - t_phase
+    checked = {}
+    for i, (label, m, stream, *_) in enumerate(cases):
+        digest, secs = oracle[i]
+        differ = [k for k in Digest.KEYS
+                  if broadcast[label][k] != digest[k]]
+        check(not differ, f"broadcast != numpy-ref on {label}: {differ}")
+        checked[label] = {"ops": len(stream), "oracle_s": secs}
+
+    # times: the broadcast pass (cycles and validity only), the fused
+    # scorer on the same pool, and the oracle's host seconds
+    for name in (BROADCAST_TIMED, BROADCAST_BIG_APPS[-1]):
+        spec = AppSpec.from_app(name)
+        scorer = FusedTorchScorer(spec.stream, space.hw,
+                                  spec.peak_weight_bits,
+                                  spec.peak_input_bits,
+                                  domains=space.domains, device="cuda")
+        sizes = (BROADCAST_POOLS + (BROADCAST_BIG,)
+                 if name == BROADCAST_TIMED else (BROADCAST_BIG,))
+        for n in sizes:
+            m = pools[n]
+            batch = ConfigBatch(m)
+
+            def twin():
+                return evaluate_stream_many(
+                    batch, spec.stream, space.hw, spec.peak_weight_bits,
+                    spec.peak_input_bits, with_parts=False, device="cuda")
+
+            twin_ms = call_ms(twin)
+            torch.cuda.reset_peak_memory_stats()
+            twin()
+            peak = torch.cuda.max_memory_allocated()
+            fused_ms = call_ms(lambda: scorer.metrics(m))
+            gops = performance_gops(batch, spec.stream, space.hw,
+                                    spec.peak_weight_bits,
+                                    spec.peak_input_bits, device="cuda")
+            check(np.array_equal(gops, scorer.metrics(m)[0]),
+                  f"performance_gops != the fused scorer on {name} C={n}")
+            label = f"{name} C={n} peaks"
+            timed[f"{name} C={n}"] = {
+                "ops": len(spec.stream), "broadcast_ms": twin_ms,
+                "fused_ms": fused_ms,
+                "broadcast_over_fused": twin_ms / fused_ms,
+                "oracle_s": checked[label]["oracle_s"],
+                "broadcast_max_memory_allocated": peak}
+
+    # the Pareto studies: the card's telemetry-on runs are the main path
+    studies = {}
+    tmp = tempfile.TemporaryDirectory()
+    with_obs = Path(tmp.name)
+
+    def pareto(engine, device):
+        return Study(apps=["ptb", "wdl"],
+                     objective=ParetoObjective(["perf", "-area"]),
+                     engine=engine,
+                     budget=SearchBudget(restarts=1, max_rounds=6,
+                                         engine_kwargs={"population": 20}),
+                     area_budgets=PARETO_BUDGETS, seed=0, device=device)
+
+    gather_rows.launches = 0
+    for engine in ("genetic", "nsga2"):
+        obs.enable(trace=True, metrics=True, journal=True)
+        t0 = time.perf_counter()
+        study = pareto(engine, "cuda")
+        res = study.run()
+        torch.cuda.synchronize()
+        studies[engine] = {"cuda": res, "cuda_s": time.perf_counter() - t0,
+                           "study": study}
+        obs.tracer().write(with_obs / f"{engine}_trace.json")
+        obs.journal().write_jsonl(with_obs / f"{engine}_journal.jsonl")
+        obs.disable(reset=True)
+    launches = gather_rows.launches
+    check(launches > 0, "the cuda pareto studies never launched gather_rows")
+    out = {}
+    for engine, rec in studies.items():
+        events = validate_chrome_trace(with_obs / f"{engine}_trace.json")
+        journal = validate_journal(with_obs / f"{engine}_journal.jsonl")
+        quiet = pareto(engine, "cuda").run()
+        gather_rows.launches = 0
+        t0 = time.perf_counter()
+        cpu_study = pareto(engine, "cpu")
+        cpu = cpu_study.run()
+        cpu_s = time.perf_counter() - t0
+        check(gather_rows.launches == 0, "gather_rows launched on the cpu")
+        gpu = rec["cuda"]
+        gj, qj, cj = gpu.to_json(), quiet.to_json(), cpu.to_json()
+        check(json.dumps(gj) == json.dumps(qj),
+              f"{engine}: telemetry changed the StudyResult JSON")
+        for key in ("front", "budget_selections", "per_app", "best",
+                    "best_score"):
+            check(gj[key] == cj[key],
+                  f"{engine}: the cuda and cpu studies differ in {key}")
+        check(gpu.front and any(v is not None for v in
+                                gpu.budget_selections.values()),
+              f"{engine}: empty front or no budget selection")
+        explain = {}
+        for i, app in enumerate(("ptb", "wdl")):
+            e_gpu = rec["study"]._evaluators[i].explain(gpu.best)
+            e_cpu = cpu_study._evaluators[i].explain(gpu.best)
+            check(e_gpu.to_json() == e_cpu.to_json(),
+                  f"{engine}: explain differs on {app}")
+            explain[app] = {"ops": len(e_gpu.ops), "gops": e_gpu.gops,
+                            "feasible": e_gpu.feasible,
+                            "bottlenecks": e_gpu.bottleneck_counts}
+        out[engine] = {
+            "front": len(gpu.front),
+            "selections": {b: (None if v is None else
+                               {"score": v["score"], "area": v["area"]})
+                           for b, v in gpu.budget_selections.items()},
+            "best_score": gpu.best_score, "cuda_s": rec["cuda_s"],
+            "cpu_s": cpu_s, "trace_events": len(events),
+            "journal_records": len(journal),
+            "telemetry": {k: gpu.meta["telemetry"][k] for k in
+                          ("wall_seconds", "configs_scored",
+                           "configs_per_second", "cache_hits")},
+            "explain": explain}
+    tmp.cleanup()
+
+    # the §5.3 radar on both devices
+    radar = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        r = [radar_of_top_configs("resnet", AppSpec.from_app("resnet"),
+                                  space, k=2, restarts=1, max_rounds=4,
+                                  device=dev)]
+        r += sensitivity_study(
+            [lambda s=s: apps.faster_rcnn_step(s) for s in (1, 2, 3, 4)],
+            [f"fasterRCNN-step{s}" for s in (1, 2, 3, 4)], space, k=2,
+            restarts=1, max_rounds=3, device=dev)
+        radar[dev] = (r, time.perf_counter() - t0)
+    for a, b in zip(radar["cuda"][0], radar["cpu"][0]):
+        check((a.values, a.n_configs, a.extras)
+              == (b.values, b.n_configs, b.extras),
+              f"the radar of {a.app} differs on the cuda and the cpu")
+    check_isolated()
+    emit("study pareto", broadcast_cases=len(checked),
+         broadcast_bit_equal=True, broadcast=checked,
+         oracle_workers=ORACLE_WORKERS, oracle_wall_s=oracle_s,
+         timings=timed, studies=out, gather_rows_launches=launches,
+         radar={r.app: {"n_configs": r.n_configs, "extras": r.extras}
+                for r in radar["cuda"][0]},
+         radar_cuda_s=radar["cuda"][1], radar_cpu_s=radar["cpu"][1],
+         phase_s=time.perf_counter() - t_phase)
+    return launches
 
 
 def device_breakdown(calls: dict, kinds: dict) -> dict:
@@ -2006,6 +2321,7 @@ def main() -> int:
     phase_scorer(specs, space, rng)
     launches = phase_study(APP_NAMES)
     zoo = phase_study_zoo()
+    pareto_launches = phase_study_pareto()
     phase_throughput([s for s in specs if s.name in ("inception", "nasnet")],
                      space, rng)
     flash = phase_flash(torch.Generator(device="cuda").manual_seed(0))
@@ -2046,7 +2362,9 @@ def main() -> int:
             "study, seven paper apps": launches,
             "study zoo, twelve traced apps": zoo["study"],
             "study zoo, genetic on qwen2-0.5b:prefill": zoo["genetic"],
-            "study zoo, anneal on qwen2-0.5b:prefill": zoo["anneal"]},
+            "study zoo, anneal on qwen2-0.5b:prefill": zoo["anneal"],
+            "study pareto, genetic and nsga2 on ptb + wdl":
+                pareto_launches},
         "max_abs_err": kern["max_abs_err"],
         "bit_equal": True, "ms": t["int64_kernel_ms"],
         "kernel_ms": t["int64_kernel_ms"], "plain_ms": t["int64_plain_ms"],

@@ -1,13 +1,20 @@
 """Analytical hardware cost model for DNN operations (paper §3), the
-PyTorch port's own copy of the host-side pieces.
+PyTorch port's own copy.
 
 It holds the Table-1 operation embeddings (`Op`, `OpStream`), the design
-point (`AccelConfig`, `ConfigBatch`), the unit-area model (`area_many`) and
+point (`AccelConfig`, `ConfigBatch`), the unit-area model (`area_many`),
 the fused scorer's per-(stream, hw, value-set) gather tables
-(`_FusedTables`).  Everything here is numpy on the host: the tables are
-built once per value set and uploaded to the device by
-`repro_torch.kernels.costmodel.FusedTorchScorer`, which runs the Eq. (1)-(13)
-scoring pass.
+(`_FusedTables`, numpy on the host, uploaded to the device by
+`repro_torch.kernels.costmodel.FusedTorchScorer`) and the analysis API:
+
+  * `evaluate_stream_many` — the Eqs. (1)-(13) broadcast formulas over a
+    `[C, O]` (configs x ops) grid.  ``backend="broadcast"`` (the default)
+    runs them on a torch device in int64/float64, row chunk by row chunk;
+    ``backend="numpy-ref"`` is the verbatim host formulas, the oracle the
+    device pass equals bit for bit;
+  * `evaluate_stream` (one config, per-op `LatencyBreakdown`),
+    `performance_gops` (GOPS per config) and the block-level
+    `BufferSimulator`.
 
 Conventions:
   * all memory quantities in **bits** unless suffixed `_bytes`
@@ -24,6 +31,7 @@ import weakref
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 __all__ = [
     "OpKind",
@@ -33,7 +41,14 @@ __all__ = [
     "LoopOrder",
     "AccelConfig",
     "ConfigBatch",
+    "LatencyBreakdown",
+    "evaluate_stream",
+    "evaluate_stream_many",
     "area_many",
+    "performance_gops",
+    "BufferSimulator",
+    "numpy_order_sum",
+    "resolve_device",
 ]
 
 
@@ -447,14 +462,80 @@ class ConfigBatch:
 
 
 def area_many(configs: "Sequence[AccelConfig] | ConfigBatch",
-              hw: HardwareConstants = HardwareConstants()) -> np.ndarray:
+              hw: HardwareConstants = HardwareConstants(),
+              device=None) -> np.ndarray:
     """Vectorized unit-area model (paper §4.3): `[N]` float64 areas, equal
-    bit-for-bit to `[c.area(hw) for c in configs]`."""
+    bit-for-bit to `[c.area(hw) for c in configs]`.  With a `device` the
+    polynomial runs there (`_area_t`), to the same bits."""
     b = ConfigBatch.from_configs(configs)
+    if device is not None:
+        m = torch.from_numpy(b.matrix).to(resolve_device(device))
+        col = {f: m[:, j] for j, f in enumerate(ConfigBatch.FIELDS)}
+        pe_group = col["pe_group"]
+        sram_bits = ((col["weight_banks_pg"] * pe_group * col["bank_height"]
+                      * col["bank_width"])
+                     + (col["act_banks_pg"] * pe_group * col["bank_height"]
+                        * col["bank_width"]))
+        return _area_t(pe_group, pe_group * col["mac_per_group"], sram_bits,
+                       hw).cpu().numpy()
     sram_bits = b.weight_buffer_bits_arr() + b.act_buffer_bits_arr()
     return (b.total_macs_arr() * (hw.area_per_mac + hw.area_per_mac_regfile)
             + sram_bits * hw.area_per_sram_bit
             + b.col("pe_group") * hw.area_per_group_ctrl)
+
+
+def _area_t(pe_group: torch.Tensor, total_macs: torch.Tensor,
+            sram_bits: torch.Tensor, hw: HardwareConstants) -> torch.Tensor:
+    """`area_many`'s polynomial on int64 tensors, in its operand order.  An
+    int64 tensor times a Python float is float32 in torch, so each term is
+    converted to float64 first, as numpy does."""
+    f64 = torch.float64
+    return (total_macs.to(f64) * (hw.area_per_mac + hw.area_per_mac_regfile)
+            + sram_bits.to(f64) * hw.area_per_sram_bit
+            + pe_group.to(f64) * hw.area_per_group_ctrl)
+
+
+def resolve_device(device) -> torch.device:
+    """`torch.device(device)`, refusing a CUDA device that is not there
+    (the port never carries on silently on the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} requested but torch.cuda.is_available() "
+            "is False; pass device='cpu' to run on the CPU")
+    return dev
+
+
+def numpy_order_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sums over dim 0 of `x` ([n, R] -> [R]) in the order numpy's
+    `np.add.reduce` adds a contiguous float64 row: the identity 0.0 plus
+    the pairwise sum of the row (8 running partial sums for 8 <= n <= 128,
+    halving at multiples of 8 above).  Float addition is not associative,
+    so this order is what makes the per-config cycle totals bit-identical
+    to the numpy scorer; `torch.sum` keeps no particular order."""
+    return _pairwise(x, 0, x.shape[0]) + 0.0
+
+
+def _pairwise(x: torch.Tensor, lo: int, n: int) -> torch.Tensor:
+    if n < 8:
+        res = torch.zeros(x.shape[1:], dtype=x.dtype, device=x.device)
+        for i in range(lo, lo + n):
+            res = res + x[i]
+        return res
+    if n <= 128:
+        r = x[lo:lo + 8].clone()
+        i = 8
+        while i < n - n % 8:
+            r += x[lo + i:lo + i + 8]
+            i += 8
+        res = ((r[0] + r[1]) + (r[2] + r[3])) + ((r[4] + r[5])
+                                                 + (r[6] + r[7]))
+        for j in range(lo + i, lo + n):
+            res = res + x[j]
+        return res
+    n2 = n // 2
+    n2 -= n2 % 8
+    return _pairwise(x, lo, n2) + _pairwise(x, lo + n2, n - n2)
 
 
 def _ceil_div(a: np.ndarray, b: np.ndarray) -> np.ndarray:
@@ -693,3 +774,522 @@ def _fused_tables_for(stream: OpStream, hw: HardwareConstants,
         tables = _FusedTables(stream, hw, values)
         per_stream[key] = tables
     return tables
+
+
+# --------------------------------------------------------------------------
+# The analysis API: Eqs. (1)-(13) broadcast over [C, O].  `cfg_arrays` maps
+# each AccelConfig field to an int64 column of shape [C, 1]; the op stream
+# contributes row vectors of shape [1, O].
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class LatencyBreakdown:
+    """Per-stream latency decomposition (cycles)."""
+
+    compute_cycles: np.ndarray        # [ops]
+    weight_cycles: np.ndarray         # [ops]
+    input_cycles: np.ndarray          # [ops]
+    total_cycles: np.ndarray          # [ops] max(compute, memory)
+    valid: np.ndarray                 # [ops] Eq. 9-13 satisfied
+
+    @property
+    def stream_cycles(self) -> float:
+        return float(self.total_cycles.sum())
+
+    @property
+    def stream_valid(self) -> bool:
+        return bool(self.valid.all())
+
+    def latency_shares(self) -> np.ndarray:
+        """[ops] fraction of the stream's total latency each op carries."""
+        total = float(self.total_cycles.sum())
+        if total <= 0:
+            return np.zeros_like(np.asarray(self.total_cycles,
+                                            dtype=np.float64))
+        return np.asarray(self.total_cycles, dtype=np.float64) / total
+
+    def bottlenecks(self) -> List[str]:
+        """Per-op bottleneck resource under the max(compute, weight,
+        input) latency model.  Ties resolve compute > weight > input so
+        the label is deterministic (a perfectly balanced op reads as
+        compute-bound, matching the paper's Table-1 framing)."""
+        out: List[str] = []
+        for c, w, i in zip(self.compute_cycles, self.weight_cycles,
+                           self.input_cycles):
+            if c >= w and c >= i:
+                out.append("compute")
+            elif w >= i:
+                out.append("weight")
+            else:
+                out.append("input")
+        return out
+
+
+def _configs_to_arrays(configs: "Sequence[AccelConfig] | ConfigBatch"
+                       ) -> Dict[str, np.ndarray]:
+    if isinstance(configs, ConfigBatch):
+        m = configs.matrix
+        return {f: m[:, j:j + 1] for j, f in enumerate(_CFG_FIELDS)}
+    return {
+        f: np.asarray([getattr(c, f) for c in configs],
+                      dtype=np.int64).reshape(len(configs), 1)
+        for f in _CFG_FIELDS
+    }
+
+
+# rows of one device pass: about 40 [chunk, O] int64/float64 temporaries
+# are live at once, about 3 GB at a 577-op zoo stream (a whole 262,144-row
+# pool would need about 48 GB).  Rows are independent, so the chunking
+# changes no bit.
+_BROADCAST_CHUNK = 16384
+
+_BACKENDS = ("broadcast", "numpy-ref")
+
+
+def evaluate_stream_many(
+    configs: "Sequence[AccelConfig] | ConfigBatch",
+    stream: OpStream,
+    hw: HardwareConstants = HardwareConstants(),
+    peak_weight_bits: int = 0,
+    peak_input_bits: int = 0,
+    backend: str = "broadcast",
+    with_parts: bool = True,
+    device="cuda",
+) -> Tuple[np.ndarray, np.ndarray, Optional[Dict[str, np.ndarray]]]:
+    """Evaluate many configurations against one op stream.
+
+    Backends (bit for bit the same):
+      "broadcast"  (default) the Eqs. (1)-(13) broadcast formulas on
+                   `device`, in int64/float64, `_BROADCAST_CHUNK` config
+                   rows at a time;
+      "numpy-ref"  the same formulas verbatim in numpy on the host — the
+                   oracle the device pass is tested against (`device` is
+                   not used).
+
+    Returns ``(total_cycles[C], valid[C], parts)`` as numpy arrays, where
+    parts carries the [C, O] compute / weight / input / total cycle
+    matrices and the per-op validity for analysis (``with_parts=False``
+    returns None there: cycles and validity only, as scoring consumes)."""
+    if backend == "numpy-ref":
+        total_cycles, valid, parts = _evaluate_stream_many_ref(
+            configs, stream, hw, peak_weight_bits, peak_input_bits)
+        return total_cycles, valid, (parts if with_parts else None)
+    if backend != "broadcast":
+        raise ValueError(f"unknown backend {backend!r}; expected one of "
+                         f"{_BACKENDS}")
+    return _evaluate_stream_many_broadcast(
+        configs, stream, hw, peak_weight_bits, peak_input_bits,
+        with_parts, resolve_device(device))
+
+
+def _evaluate_stream_many_ref(configs, stream: OpStream,
+                              hw: HardwareConstants, peak_weight_bits: int,
+                              peak_input_bits: int):
+    """The verbatim numpy formulas (the JAX package's `numpy-ref`)."""
+    c = _configs_to_arrays(configs)
+    o = stream  # row vectors [1, O]
+
+    # ---- effective tiling (T* clamped into [1, N*]; Tkx=Nkx, Tky=Nky) ----
+    tif = np.minimum(c["tif"], o.nif)
+    tix = np.minimum(c["tix"], o.nix)
+    tiy = np.minimum(c["tiy"], o.niy)
+    tof = np.minimum(c["tof"], o.nof)
+    tkx, tky = o.nkx, o.nky
+    # output-tile extents implied by the input tile (stride-aware); numpy
+    # gives 0 for an integer division by a zero stride
+    with np.errstate(divide="ignore"):
+        tox = np.clip((tix - o.nkx) // o.s + 1, 1, o.nox)
+        toy = np.clip((tiy - o.nky) // o.s + 1, 1, o.noy)
+
+    # ---- effective unrolling (P* <= T* <= N*) ----
+    pif = np.minimum(c["pif"], tif)
+    pof = np.minimum(c["pof"], tof)
+    pox = np.minimum(c["pox"], tox)
+    poy = np.minimum(c["poy"], toy)
+    pkx = np.minimum(c["pkx"], tkx)
+    pky = np.minimum(c["pky"], tky)
+    pb = np.minimum(c["pb"], o.batch)
+
+    unroll = pif * pof * pox * poy * pkx * pky * pb
+    total_macs = c["pe_group"] * c["mac_per_group"]
+    # Eq. (9): PE_group x MAC/group >= required parallel MACs/cycle
+    valid_macs = unroll <= total_macs
+
+    # ---- compute latency: Eq. (3) inter-tiling x inner-tiling ----
+    inter = (_ceil_div(o.nif, tif) * _ceil_div(o.nkx, tkx)
+             * _ceil_div(o.nky, tky) * _ceil_div(o.nox, tox)
+             * _ceil_div(o.noy, toy) * _ceil_div(o.nof, tof))
+    inner = (_ceil_div(tif, pif) * _ceil_div(tkx, pkx) * _ceil_div(tky, pky)
+             * _ceil_div(tox, pox) * _ceil_div(toy, poy)
+             * _ceil_div(tof, pof))
+    batch_iters = _ceil_div(o.batch, pb)
+    compute_cycles = inter * inner * batch_iters * o.repeat
+
+    # ---- data reuse: Eqs. (1)-(2) (Pix ~ Pox, Piy ~ Poy as in [1]) ----
+    weight_reuse = pox * poy * pb                                   # Eq. (1)
+    in_win_x = (pox - 1) * o.s + pkx
+    in_win_y = (poy - 1) * o.s + pky
+    input_reuse = np.maximum(
+        (pof * pkx * pky * pox * poy) // np.maximum(in_win_x * in_win_y, 1),
+        1)                                                          # Eq. (2)
+
+    # ---- memory fetch volume: Eqs. (5)-(6), + loop-order refetch model ----
+    num_weight = (o.nox * o.noy * o.nkx * o.nky * o.nif * o.nof
+                  * o.repeat).astype(np.float64)                    # Eq. (5)
+    num_input = num_weight * o.batch                                # Eq. (6)
+
+    lo = c["loop_order"]
+    spatial_tiles = _ceil_div(o.nox, tox) * _ceil_div(o.noy, toy)
+    ofm_tiles = _ceil_div(o.nof, tof)
+    # WEIGHT_STATIONARY: each weight word loaded once per (ifm x ofm) tile
+    # pass; inputs refetched for every output-channel tile.
+    ws_weight = (o.weight_elems_arr() * 1.0)
+    ws_input = (o.input_elems_arr() * o.batch * ofm_tiles).astype(np.float64)
+    # OUTPUT_STATIONARY: outputs resident; weights refetched per spatial
+    # tile, inputs refetched per output-channel tile.
+    os_weight = (o.weight_elems_arr() * spatial_tiles).astype(np.float64)
+    os_input = ws_input
+    # INPUT_STATIONARY: inputs resident once; weights refetched per spatial
+    # tile pass.
+    is_weight = os_weight
+    is_input = (o.input_elems_arr() * o.batch * 1.0)
+
+    num_weight_eff = np.where(
+        lo == LoopOrder.PAPER, num_weight / np.maximum(weight_reuse, 1),
+        np.where(lo == LoopOrder.WEIGHT_STATIONARY, ws_weight,
+                 np.where(lo == LoopOrder.OUTPUT_STATIONARY, os_weight,
+                          is_weight)))
+    num_input_eff = np.where(
+        lo == LoopOrder.PAPER, num_input / np.maximum(input_reuse, 1),
+        np.where(lo == LoopOrder.WEIGHT_STATIONARY, ws_input,
+                 np.where(lo == LoopOrder.OUTPUT_STATIONARY, os_input,
+                          is_input)))
+
+    wbw = np.maximum(c["weight_banks_pg"] * c["pe_group"] * c["bank_width"]
+                     // hw.bit_width, 1)
+    abw = np.maximum(c["act_banks_pg"] * c["pe_group"] * c["bank_width"]
+                     // hw.bit_width, 1)
+    weight_cycles = np.ceil(num_weight_eff / wbw)                   # Eq. (7)
+    input_cycles = np.ceil(num_input_eff / abw)                     # Eq. (8)
+
+    # ---- total: max(compute, memory) ----
+    total = np.maximum(compute_cycles,
+                       np.maximum(weight_cycles, input_cycles))
+
+    # ---- buffer-capacity constraints: Eqs. (10)-(13) ----
+    wbuf = (c["weight_banks_pg"] * c["pe_group"] * c["bank_height"]
+            * c["bank_width"])
+    abuf = (c["act_banks_pg"] * c["pe_group"] * c["bank_height"]
+            * c["bank_width"])
+    need_w_tile = tkx * tky * tif * tof * hw.bit_width              # Eq. (10)
+    need_a_tile = (tix * tiy * tif + tox * toy * tof) * hw.bit_width  # Eq.(12)
+    valid_buf = (wbuf >= need_w_tile) & (abuf >= need_a_tile)
+    if peak_weight_bits:
+        valid_buf = valid_buf & (wbuf >= peak_weight_bits)          # Eq. (11)
+    if peak_input_bits:
+        # Eq. (13): peak input demand scales with batch
+        valid_buf = valid_buf & (abuf >= peak_input_bits * o.batch.max())
+
+    valid = (valid_macs & valid_buf).all(axis=1)
+    total_cycles = total.sum(axis=1)
+    parts = {
+        "compute": compute_cycles,
+        "weight": weight_cycles,
+        "input": input_cycles,
+        "total": total,
+        "valid_ops": (valid_macs & valid_buf),
+    }
+    return total_cycles, valid, parts
+
+
+def _floor_div_t(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """numpy's `a // b` on int64 tensors: floor rounding, and 0 where b is
+    0 (torch raises on the CPU and gives garbage on a GPU there)."""
+    zero = b == 0
+    q = torch.div(a, torch.where(zero, 1, b), rounding_mode="floor")
+    return torch.where(zero, 0, q)
+
+
+def _ceil_div_t(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return -torch.div(-a, torch.clamp(b, min=1), rounding_mode="floor")
+
+
+def _broadcast_pass(c: Dict[str, torch.Tensor], o: Dict[str, torch.Tensor],
+                    bit_width: int, peak_weight_bits: int,
+                    peak_input_scaled: int) -> Tuple[torch.Tensor, ...]:
+    """`_evaluate_stream_many_ref` on device tensors: `c` maps each config
+    field to a [C, 1] int64 column, `o` each stream field (and the Table-1
+    element counts) to a [1, O] int64 row.  Every operation is the
+    reference's, in its order and its types: int64 stays int64, and each
+    `* 1.0` / `.astype(np.float64)` is an explicit float64 conversion (a
+    Python float would make float32).  Returns (total_cycles, valid,
+    compute, weight, input, total, valid_ops)."""
+    f64 = torch.float64
+    mn = torch.minimum
+    tif = mn(c["tif"], o["nif"])
+    tix = mn(c["tix"], o["nix"])
+    tiy = mn(c["tiy"], o["niy"])
+    tof = mn(c["tof"], o["nof"])
+    tkx, tky = o["nkx"], o["nky"]
+    tox = mn(torch.clamp(_floor_div_t(tix - o["nkx"], o["s"]) + 1, min=1),
+             o["nox"])
+    toy = mn(torch.clamp(_floor_div_t(tiy - o["nky"], o["s"]) + 1, min=1),
+             o["noy"])
+
+    pif = mn(c["pif"], tif)
+    pof = mn(c["pof"], tof)
+    pox = mn(c["pox"], tox)
+    poy = mn(c["poy"], toy)
+    pkx = mn(c["pkx"], tkx)
+    pky = mn(c["pky"], tky)
+    pb = mn(c["pb"], o["batch"])
+
+    unroll = pif * pof * pox * poy * pkx * pky * pb
+    total_macs = c["pe_group"] * c["mac_per_group"]
+    valid_macs = unroll <= total_macs                               # Eq. (9)
+
+    cd = _ceil_div_t
+    inter = (cd(o["nif"], tif) * cd(o["nkx"], tkx) * cd(o["nky"], tky)
+             * cd(o["nox"], tox) * cd(o["noy"], toy) * cd(o["nof"], tof))
+    inner = (cd(tif, pif) * cd(tkx, pkx) * cd(tky, pky) * cd(tox, pox)
+             * cd(toy, poy) * cd(tof, pof))
+    batch_iters = cd(o["batch"], pb)
+    compute_cycles = inter * inner * batch_iters * o["repeat"]      # Eq. (3)
+
+    weight_reuse = pox * poy * pb                                   # Eq. (1)
+    in_win_x = (pox - 1) * o["s"] + pkx
+    in_win_y = (poy - 1) * o["s"] + pky
+    input_reuse = torch.clamp(
+        torch.div(pof * pkx * pky * pox * poy,
+                  torch.clamp(in_win_x * in_win_y, min=1),
+                  rounding_mode="floor"), min=1)                    # Eq. (2)
+
+    num_weight = (o["nox"] * o["noy"] * o["nkx"] * o["nky"] * o["nif"]
+                  * o["nof"] * o["repeat"]).to(f64)                 # Eq. (5)
+    num_input = num_weight * o["batch"]                             # Eq. (6)
+
+    lo = c["loop_order"]
+    spatial_tiles = cd(o["nox"], tox) * cd(o["noy"], toy)
+    ofm_tiles = cd(o["nof"], tof)
+    ws_weight = o["weight_elems"].to(f64)
+    ws_input = (o["input_elems"] * o["batch"] * ofm_tiles).to(f64)
+    os_weight = (o["weight_elems"] * spatial_tiles).to(f64)
+    os_input = ws_input
+    is_weight = os_weight
+    is_input = (o["input_elems"] * o["batch"]).to(f64)
+
+    paper = lo == int(LoopOrder.PAPER)
+    ws = lo == int(LoopOrder.WEIGHT_STATIONARY)
+    os_ = lo == int(LoopOrder.OUTPUT_STATIONARY)
+    # float64 / int64 divides in float64 (IEEE, correctly rounded), as
+    # numpy does; the divisors are device tensors, never host scalars
+    num_weight_eff = torch.where(
+        paper, num_weight / torch.clamp(weight_reuse, min=1),
+        torch.where(ws, ws_weight, torch.where(os_, os_weight, is_weight)))
+    num_input_eff = torch.where(
+        paper, num_input / torch.clamp(input_reuse, min=1),
+        torch.where(ws, ws_input, torch.where(os_, os_input, is_input)))
+
+    wbw = torch.clamp(torch.div(
+        c["weight_banks_pg"] * c["pe_group"] * c["bank_width"], bit_width,
+        rounding_mode="floor"), min=1)
+    abw = torch.clamp(torch.div(
+        c["act_banks_pg"] * c["pe_group"] * c["bank_width"], bit_width,
+        rounding_mode="floor"), min=1)
+    weight_cycles = torch.ceil(num_weight_eff / wbw)                # Eq. (7)
+    input_cycles = torch.ceil(num_input_eff / abw)                  # Eq. (8)
+
+    total = torch.maximum(compute_cycles.to(f64),
+                          torch.maximum(weight_cycles, input_cycles))
+
+    wbuf = (c["weight_banks_pg"] * c["pe_group"] * c["bank_height"]
+            * c["bank_width"])
+    abuf = (c["act_banks_pg"] * c["pe_group"] * c["bank_height"]
+            * c["bank_width"])
+    need_w_tile = tkx * tky * tif * tof * bit_width                 # Eq. (10)
+    need_a_tile = (tix * tiy * tif + tox * toy * tof) * bit_width   # Eq. (12)
+    valid_ops = valid_macs & (wbuf >= need_w_tile) & (abuf >= need_a_tile)
+    if peak_weight_bits:
+        valid_ops &= wbuf >= peak_weight_bits                       # Eq. (11)
+    if peak_input_scaled:
+        valid_ops &= abuf >= peak_input_scaled                      # Eq. (13)
+
+    valid = valid_ops.all(dim=1)
+    # the row sums in numpy's pairwise order (the terms are integers, so
+    # below 2^53 any order gives these bits; this one does at any size)
+    total_cycles = numpy_order_sum(total.t().contiguous())
+    return (total_cycles, valid, compute_cycles, weight_cycles, input_cycles,
+            total, valid_ops)
+
+
+_PARTS = ("compute", "weight", "input", "total", "valid_ops")
+
+
+def _evaluate_stream_many_broadcast(configs, stream: OpStream,
+                                    hw: HardwareConstants,
+                                    peak_weight_bits: int,
+                                    peak_input_bits: int, with_parts: bool,
+                                    device: torch.device):
+    matrix = ConfigBatch.from_configs(configs).matrix
+    n, n_ops = matrix.shape[0], len(stream)
+    peak_input_scaled = (int(peak_input_bits) * int(stream.batch.max())
+                         if peak_input_bits else 0)
+    rows = {f: getattr(stream, f) for f in OpStream.FIELDS}
+    rows["weight_elems"] = stream.weight_elems_arr()
+    rows["input_elems"] = stream.input_elems_arr()
+    o = {f: torch.from_numpy(np.ascontiguousarray(v, dtype=np.int64)).to(
+        device) for f, v in rows.items()}
+
+    total_cycles = np.empty(n, dtype=np.float64)
+    valid = np.empty(n, dtype=bool)
+    parts = None
+    if with_parts:
+        dtypes = (np.int64, np.float64, np.float64, np.float64, bool)
+        parts = {k: np.empty((n, n_ops), dtype=d)
+                 for k, d in zip(_PARTS, dtypes)}
+    step = max(1, int(_BROADCAST_CHUNK))
+    for lo in range(0, n, step):
+        hi = min(n, lo + step)
+        m = torch.from_numpy(matrix[lo:hi]).to(device)
+        c = {f: m[:, j:j + 1] for j, f in enumerate(_CFG_FIELDS)}
+        out = _broadcast_pass(c, o, int(hw.bit_width),
+                              int(peak_weight_bits), peak_input_scaled)
+        total_cycles[lo:hi] = out[0].cpu().numpy()
+        valid[lo:hi] = out[1].cpu().numpy()
+        if with_parts:
+            for k, t in zip(_PARTS, out[2:]):
+                parts[k][lo:hi] = t.cpu().numpy()
+    return total_cycles, valid, parts
+
+
+def evaluate_stream(config: AccelConfig, stream: OpStream,
+                    hw: HardwareConstants = HardwareConstants(),
+                    peak_weight_bits: int = 0,
+                    peak_input_bits: int = 0,
+                    device="cuda") -> LatencyBreakdown:
+    """Evaluate a single configuration on `device`; returns the per-op
+    breakdown."""
+    _, _, parts = evaluate_stream_many(
+        [config], stream, hw, peak_weight_bits, peak_input_bits,
+        device=device)
+    return LatencyBreakdown(
+        compute_cycles=parts["compute"][0],
+        weight_cycles=parts["weight"][0],
+        input_cycles=parts["input"][0],
+        total_cycles=parts["total"][0],
+        valid=parts["valid_ops"][0],
+    )
+
+
+def performance_gops(configs: "Sequence[AccelConfig] | ConfigBatch",
+                     stream: OpStream,
+                     hw: HardwareConstants = HardwareConstants(),
+                     peak_weight_bits: int = 0,
+                     peak_input_bits: int = 0,
+                     backend: str = "broadcast",
+                     device="cuda") -> np.ndarray:
+    """GOPS per configuration; 0.0 where the config violates constraints
+    (the paper plots constraint-violating configurations at 0 GOPS, Fig.
+    7).  The cycles and validity come from `evaluate_stream_many` on
+    `device`; the tail runs on the host in numpy, as the JAX package's
+    does, so a division by a host scalar never runs on the device."""
+    cycles, valid, _ = evaluate_stream_many(
+        configs, stream, hw, peak_weight_bits, peak_input_bits,
+        backend=backend, with_parts=False, device=device)
+    seconds = cycles / hw.frequency_hz
+    gops = np.where(valid & (cycles > 0),
+                    stream.total_ops / np.maximum(seconds, 1e-30) / 1e9,
+                    0.0)
+    return gops
+
+
+# --------------------------------------------------------------------------
+# Optional finer-grained buffer simulator (paper §3, last paragraph).
+# --------------------------------------------------------------------------
+
+class BufferSimulator:
+    """Block-level buffer residency simulator.
+
+    The layer is split into `n_blocks` computational blocks (loop-tile
+    granularity).  Each block costs its compute latency; if its input/weight
+    tile is not resident in the on-chip buffer, an off-chip transfer latency
+    is charged and the tile is installed with LRU eviction.  This refines the
+    idealized max(compute, memory) model when the working set exceeds the
+    buffer ("The number of computational blocks is a trade-off between
+    estimation speed and accuracy").
+    """
+
+    def __init__(self, config: AccelConfig,
+                 hw: HardwareConstants = HardwareConstants(),
+                 n_blocks: int = 64):
+        self.cfg = config
+        self.hw = hw
+        self.n_blocks = n_blocks
+
+    def simulate_op(self, op: Op) -> int:
+        cfg, hw = self.cfg, self.hw
+        tif = min(cfg.tif, op.nif)
+        tix = min(cfg.tix, op.nix)
+        tiy = min(cfg.tiy, op.niy)
+        tof = min(cfg.tof, op.nof)
+        tox = max(min((tix - op.nkx) // op.s + 1, op.nox), 1)
+        toy = max(min((tiy - op.nky) // op.s + 1, op.noy), 1)
+
+        n_if = -(-op.nif // tif)
+        n_of = -(-op.nof // tof)
+        n_sp = -(-op.nox // tox) * -(-op.noy // toy)
+        blocks = []
+        for b in range(min(self.n_blocks, n_if * n_of * n_sp)):
+            i = b % n_if
+            f = (b // n_if) % n_of
+            sp = b // (n_if * n_of)
+            blocks.append((i, f, sp))
+        scale = max(1, (n_if * n_of * n_sp) / max(len(blocks), 1))
+
+        w_tile_bits = op.nkx * op.nky * tif * tof * hw.bit_width
+        a_tile_bits = tix * tiy * tif * hw.bit_width
+        wbuf = cfg.weight_buffer_bits()
+        abuf = cfg.act_buffer_bits()
+        w_slots = max(1, wbuf // max(w_tile_bits, 1))
+        a_slots = max(1, abuf // max(a_tile_bits, 1))
+
+        # per-block compute latency (inner-tiling latency of Eq. (4))
+        pif = min(cfg.pif, tif)
+        pof = min(cfg.pof, tof)
+        pox = min(cfg.pox, tox)
+        poy = min(cfg.poy, toy)
+        pkx = min(cfg.pkx, op.nkx)
+        pky = min(cfg.pky, op.nky)
+        inner = (-(-tif // pif) * -(-op.nkx // pkx) * -(-op.nky // pky)
+                 * -(-tox // pox) * -(-toy // poy) * -(-tof // pof))
+
+        w_lru: List[Tuple[int, int]] = []   # (ifm_tile, ofm_tile)
+        a_lru: List[Tuple[int, int]] = []   # (ifm_tile, spatial_tile)
+        cycles = 0
+        xfer = hw.offchip_words_per_cycle
+        for (i, f, sp) in blocks:
+            cycles += inner
+            wkey, akey = (i, f), (i, sp)
+            if wkey not in w_lru:
+                cycles += hw.offchip_burst_setup + \
+                    w_tile_bits // hw.bit_width // xfer
+                w_lru.append(wkey)
+                if len(w_lru) > w_slots:
+                    w_lru.pop(0)
+            else:
+                w_lru.remove(wkey)
+                w_lru.append(wkey)
+            if akey not in a_lru:
+                cycles += hw.offchip_burst_setup + \
+                    a_tile_bits // hw.bit_width // xfer
+                a_lru.append(akey)
+                if len(a_lru) > a_slots:
+                    a_lru.pop(0)
+            else:
+                a_lru.remove(akey)
+                a_lru.append(akey)
+        return int(cycles * scale * op.repeat * op.batch)
+
+    def simulate(self, stream: OpStream) -> int:
+        return sum(self.simulate_op(op) for op in stream.ops)

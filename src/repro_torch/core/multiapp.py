@@ -1,24 +1,34 @@
-"""Multi-application configuration selection (paper §5.1, Tables 4-5):
-the application record `AppSpec` and the selection result
-`MultiAppResult`.
+"""Multi-application configuration selection (paper §5.1, Tables 4-5).
 
-The pipeline — per-app DSE, top-10 % candidates per app, cross-evaluation
-of every candidate on every app, geometric-mean selection, Table 4/5
-report — lives in `repro_torch.dse.Study._synthesize_geomean`.
+Pipeline:
+  1. per application: run the multi-step greedy DSE (with restarts), keep
+     every evaluated configuration and its performance;
+  2. select the configurations with top-10 % performance per application as
+     candidates ("We select the obtained architectural configurations with
+     top 10% performance for each DNN application");
+  3. cross-evaluate every candidate on every application (vectorized);
+  4. pick the candidate with the highest **geometric mean** performance
+     across applications (Table 4's "Selected optimized result");
+  5. report per-application normalized performance (Table 4) and the
+     geomean improvement of the selection over each per-app best (Table 5).
+
+The pipeline lives in `repro_torch.dse.Study._synthesize_geomean`;
+`run_multiapp_study` is its historical signature.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
 from repro_torch.core.costmodel import AccelConfig, OpStream
 from repro_torch.core.graph import ComputationGraph
 from repro_torch.core.search.base import SearchResult
+from repro_torch.core.space import DesignSpace
 
-__all__ = ["AppSpec", "MultiAppResult"]
+__all__ = ["AppSpec", "MultiAppResult", "run_multiapp_study"]
 
 
 @dataclasses.dataclass
@@ -91,3 +101,40 @@ class MultiAppResult:
         vals = [f"{100.0 * v:.1f}%" for v in self.improvements]
         return "\t".join(hdr) + "\n" + "\t".join(vals)
 
+
+def run_multiapp_study(
+    specs: Sequence[AppSpec],
+    space: DesignSpace,
+    k: int = 3,
+    restarts: int = 4,
+    seed: int = 0,
+    top_frac: float = 0.10,
+    max_candidates_per_app: int = 200,
+    max_rounds: int = 40,
+    engine="greedy",
+    engine_kwargs: Optional[Dict] = None,
+    device="cuda",
+) -> MultiAppResult:
+    """Thin composition over the declarative `repro_torch.dse.Study`
+    facade: per-app DSE (steps 1-2), cross-evaluation (step 3), and the
+    `GeomeanAcrossApps` selection + Table 4/5 synthesis (steps 4-5), all
+    on `device`.
+
+    `engine` selects the per-app DSE strategy by name or factory
+    ("greedy" | "anneal" | "genetic" | "random" | "tpe" | "nsga2", see
+    `repro_torch.core.search`); the default reproduces the paper's
+    multi-step greedy pipeline."""
+    from repro_torch.dse import GeomeanAcrossApps, SearchBudget, Study
+
+    study = Study(apps=list(specs), space=space,
+                  objective=GeomeanAcrossApps(), engine=engine,
+                  budget=SearchBudget(k=k, restarts=restarts,
+                                      max_rounds=max_rounds,
+                                      engine_kwargs=dict(engine_kwargs
+                                                         or {})),
+                  seed=seed, top_frac=top_frac,
+                  max_candidates_per_app=max_candidates_per_app,
+                  name="multiapp", device=device)
+    result = study.run()
+    assert result.multiapp is not None
+    return result.multiapp

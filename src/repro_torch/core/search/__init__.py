@@ -21,9 +21,12 @@ and `run_search(engine, evaluator)` drives it::
         engine.observe(pool, scores)
 
 The shared `Evaluator` memoizes in a vectorized row cache on the host and
-scores cache misses through `FusedTorchScorer` on its device.  Pools are
-array-native `ConfigBatch` populations built from `SpaceCodec` index
-arrays and validity-repaired in bulk by `repair_for_peaks_many`.
+scores cache misses on its device, through `FusedTorchScorer` or the
+broadcast `performance_gops` (its `backend`).  Pools are array-native
+`ConfigBatch` populations built from `SpaceCodec` index arrays and
+validity-repaired in bulk by `repair_for_peaks_many`.  An evaluator with a
+vector objective (`ParetoObjective`) hands back [N, M] rows; `make_engine`
+installs its `scalarize` as the engine's `scalarizer`.
 
 Engines
 =======
@@ -64,7 +67,7 @@ from repro_torch.core.search.base import (DiscreteSpace, Optimizer,
                                           pack_config, pareto_front_indices,
                                           repair_many_with, repair_with,
                                           run_search, unpack_config)
-from repro_torch.core.search.evaluator import Evaluator
+from repro_torch.core.search.evaluator import Evaluator, config_key
 from repro_torch.core.search.genetic import GeneticOptimizer
 from repro_torch.core.search.greedy import GreedyOptimizer
 from repro_torch.core.search.nsga2 import NSGA2Optimizer
@@ -75,6 +78,7 @@ __all__ = [
     "Optimizer", "SearchResult", "run_search", "SpaceCodec",
     "DiscreteSpace", "pareto_front_indices", "repair_with",
     "repair_many_with", "pack_config", "unpack_config", "Evaluator",
+    "config_key",
     "GreedyOptimizer", "AnnealOptimizer", "GeneticOptimizer",
     "RandomSearchOptimizer", "TPEOptimizer", "NSGA2Optimizer", "ENGINES",
     "EngineSpec", "filter_kwargs", "make_engine", "optimize_for_app",
@@ -116,7 +120,15 @@ def make_engine(engine: EngineSpec, space, evaluator, **kwargs) -> Optimizer:
         factory = ENGINES[engine]
     else:
         factory = engine
-    return factory(space, evaluator, **filter_kwargs(factory, kwargs))
+    eng = factory(space, evaluator, **filter_kwargs(factory, kwargs))
+    # vector-objective evaluators (repro_torch.dse ParetoObjective) expose a
+    # scalarize hook; install it so engines reduce [N, M] rows themselves
+    # when driven outside run_search
+    if getattr(eng, "scalarizer", None) is None:
+        obj = getattr(evaluator, "objective", None)
+        if obj is not None and hasattr(obj, "scalarize"):
+            eng.scalarizer = evaluator.scalarize
+    return eng
 
 
 def optimize_for_app(

@@ -20,10 +20,12 @@ from __future__ import annotations
 
 import abc
 import dataclasses
+import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core.costmodel import ConfigBatch
 from repro_torch.core.search import rowcache
 
@@ -357,11 +359,14 @@ class Optimizer(abc.ABC):
     `engine.observe(pool, scores)` until `engine.done`.  Engines own their
     RNG, their incumbent/`history` bookkeeping, and their stopping rule.
 
-    Vector scores: an evaluator carrying a multi-objective may hand back
-    an [N, M] value matrix instead of an [N] score vector.  Engines stay
-    single-objective internally — every `observe` first routes scores
-    through `_scalar`, which keeps the first column (by convention the
-    perf-like term) — while the driver keeps the full rows.
+    Vector scores: an evaluator carrying a multi-objective (e.g.
+    `ParetoObjective`) may hand back an [N, M] value matrix instead of an
+    [N] score vector.  Engines stay single-objective internally — every
+    `observe` first routes scores through `_scalar`, which applies the
+    engine's `scalarizer` hook (installed by `make_engine` from the
+    evaluator's `scalarize`) so the incumbent/acceptance logic sees one
+    number per candidate while the search loop keeps the full rows for
+    the Pareto front.
     """
 
     name: str = "engine"
@@ -376,18 +381,25 @@ class Optimizer(abc.ABC):
         self.best_perf: float = -np.inf
         self.history: List[Tuple[Any, float]] = []
         self.rounds: int = 0
+        # [N, M] -> [N] reduction for vector-scored pools; None = take the
+        # first objective column (by convention the perf-like term)
+        self.scalarizer: Optional[Callable[[np.ndarray], np.ndarray]] = None
 
-    @staticmethod
-    def _scalar(scores) -> np.ndarray:
-        """Evaluator output as the float64 [N] vector engines optimize.
+    def _scalar(self, scores) -> np.ndarray:
+        """Reduce evaluator output to the [N] vector engines optimize.
 
         Non-finite entries (NaN from a crashed measurement, inf from a
         degenerate model) become -inf: an invalid evaluation must never win
         the incumbent slot or poison a comparison chain, and -inf keeps
-        every engine's ordering logic well-defined where NaN would not."""
+        every engine's ordering logic (argmax, Metropolis accept, quantile
+        splits) well-defined where NaN would not."""
         scores = np.asarray(scores, dtype=np.float64)
         if scores.ndim != 1:
-            scores = scores[:, 0]
+            if self.scalarizer is not None:
+                scores = np.asarray(self.scalarizer(scores),
+                                    dtype=np.float64)
+            else:
+                scores = scores[:, 0]
         return np.where(np.isfinite(scores), scores, -np.inf)
 
     # --------------------------------------------- optional state round-trip
@@ -423,6 +435,49 @@ class Optimizer(abc.ABC):
         if float(scores[i]) > self.best_perf:
             self.best, self.best_perf = pool[i], float(scores[i])
         return i
+
+
+class _RoundJournal:
+    """Per-round search-journal emitter (active only while the obs journal
+    is enabled, so the search loop pays nothing otherwise).
+
+    Result-inert by construction: `hypervolume` re-reads the pool's
+    (GOPS, area) through `score_with_area` — every row is a cache hit
+    because `run_search` just scored the pool — so no engine-visible value
+    changes whether the journal is on or off."""
+
+    def __init__(self, engine: Optimizer, evaluator: Any) -> None:
+        self.engine = engine
+        self.evaluator = evaluator
+        self.ref_area = float(getattr(evaluator, "area_budget", 0.0) or 0.0)
+        self.can_hv = (self.ref_area > 0
+                       and hasattr(evaluator, "score_with_area"))
+        self._perf: List[float] = []
+        self._area: List[float] = []
+
+    def emit(self, pool: Sequence[Any], scalar: np.ndarray,
+             dedup_skipped: int = 0) -> None:
+        hv = None
+        if self.can_hv:
+            from repro_torch.core.search.synthetic import hypervolume_2d
+            p, a = self.evaluator.score_with_area(pool)
+            self._perf.extend(np.asarray(p, dtype=np.float64).tolist())
+            self._area.extend(np.asarray(a, dtype=np.float64).tolist())
+            hv = float(hypervolume_2d(np.asarray(self._perf),
+                                      np.asarray(self._area),
+                                      self.ref_area))
+        best = float(self.engine.best_perf)
+        obs.journal_record(
+            kind="round",
+            engine=self.engine.name,
+            round=int(self.engine.rounds),
+            pool=int(len(pool)),
+            n_scored=int(getattr(self.evaluator, "n_scored", 0)),
+            dedup_skipped=int(dedup_skipped),
+            best=(best if np.isfinite(best) else None),
+            feasible_frac=(float(np.mean(np.asarray(scalar) > 0))
+                           if len(scalar) else 0.0),
+            hypervolume=hv)
 
 
 class _CrossRoundDedup:
@@ -467,30 +522,50 @@ def run_search(engine: Optimizer, evaluator) -> SearchResult:
     `SearchResult.evaluated` log.
 
     When the evaluator returns an [N, M] objective-value matrix (vector
-    objective), the driver scalarizes once (`Optimizer._scalar`);
-    engines with `observes_vector` (NSGA-II) receive the raw rows, the
-    others the scalars, and the full rows are kept in
-    `SearchResult.evaluated_values`."""
+    objective), the loop scalarizes ONCE through the engine's hook —
+    scalar engines then observe plain scalars (their `_scalar` is finite-
+    identity on 1-D input, so the stateful scalarizer is not applied
+    twice), while engines with `observes_vector` (NSGA-II) receive the raw
+    rows — and the full rows are kept in
+    `SearchResult.evaluated_values`.
+
+    With `repro_torch.obs` on, each round is an ``ask_tell_round`` span,
+    its seconds a ``round_seconds.<engine>`` histogram sample and one
+    journal record."""
     pools: List[Any] = []
     perf: List[float] = []
     value_rows: List[np.ndarray] = []
+    jrn = _RoundJournal(engine, evaluator) if obs.journal().enabled else None
+    timed = obs.metrics().enabled
     dedup = _CrossRoundDedup()
     while not engine.done:
-        pool = engine.propose()
-        if pool is None or len(pool) == 0:
-            break
-        evaluator.dedup_skipped = (getattr(evaluator, "dedup_skipped", 0)
-                                   + dedup.observe(pool))
-        scores = np.asarray(evaluator(pool), dtype=np.float64)
-        if scores.ndim == 2:
-            value_rows.append(scores)
-            scalar = engine._scalar(scores)
-            observed = scores if engine.observes_vector else scalar
-        else:
-            scalar = observed = scores
-        pools.append(pool)
-        perf.extend(scalar.tolist())
-        engine.observe(pool, observed)
+        t0 = time.perf_counter() if timed else 0.0
+        with obs.span("ask_tell_round", engine=engine.name,
+                      round=engine.rounds):
+            pool = engine.propose()
+            if pool is None or len(pool) == 0:
+                break
+            round_skipped = dedup.observe(pool)
+            evaluator.dedup_skipped = (
+                getattr(evaluator, "dedup_skipped", 0) + round_skipped)
+            scores = np.asarray(evaluator(pool), dtype=np.float64)
+            if scores.ndim == 2:
+                value_rows.append(scores)
+                scalar = engine._scalar(scores)
+                # vector-observing engines (NSGA-II) get the raw rows; the
+                # stateful scalarizer was already fed this batch, so the
+                # engine's own `_scalar` call on it is idempotent
+                observed = scores if engine.observes_vector else scalar
+            else:
+                scalar = observed = scores
+            pools.append(pool)
+            perf.extend(scalar.tolist())
+            engine.observe(pool, observed)
+        if timed:
+            obs.observe(f"round_seconds.{engine.name}",
+                        time.perf_counter() - t0)
+        if jrn is not None:
+            jrn.emit(pool, scalar, dedup_skipped=round_skipped)
     evaluated: List[Any] = []
     for pool in pools:
         evaluated.extend(pool.to_configs() if hasattr(pool, "to_configs")

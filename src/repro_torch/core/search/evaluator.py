@@ -1,32 +1,53 @@
 """Shared memoizing evaluator.
 
-`Evaluator` is the accelerator-space scorer: one batched fused-scorer call
-per pool, behind a cache keyed by the raw canonical field bytes of each
-config, so repeated points — within a run, across rounds, across restarts,
-across engines sharing the evaluator — are never re-scored.  It returns the
-GOPS of the op stream, zeroed where the area budget or the Eq. 9-13
-constraints are violated.
+`Evaluator` is the accelerator-space scorer: one batched model call per
+pool, behind a cache keyed by the raw canonical field bytes of each config,
+so repeated points — within a run, across rounds, across restarts, across
+engines sharing the evaluator — are never re-scored.  It returns the GOPS
+of the op stream, zeroed where the area budget or the Eq. 9-13 constraints
+are violated.  Areas are cached alongside scores so the multi-objective
+Pareto mode costs nothing extra.
 
 The cache is the vectorized `rowcache.RowHashCache` (a 64-bit row hash over
 the canonical field matrix feeding an open-addressed int64 table with
-exact-key collision fallback), on the host.  Cache misses go to the one
-scorer, `FusedTorchScorer`, on `device` — the GPU unless the caller asks
-for the CPU.
+exact-key collision fallback), on the host.  Cache misses go to one of two
+backends on `device` — the GPU unless the caller asks for the CPU:
+
+  * ``"fused"`` (the default): `FusedTorchScorer`, the table-gather
+    scorer with the `gather_rows` kernel.  It refuses a stream with a
+    zero-size kernel or stride;
+  * ``"broadcast"``: `performance_gops` and `area_many`, the
+    Eqs. (1)-(13) broadcast pass, which scores any stream.
+
+Both give the same bits; only the caller chooses, nothing falls back.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core.costmodel import (AccelConfig, ConfigBatch,
-                                        HardwareConstants, OpStream)
+                                        HardwareConstants, OpStream,
+                                        area_many, performance_gops,
+                                        resolve_device)
 from repro_torch.core.search import rowcache
 from repro_torch.core.search.rowcache import RowHashCache
-from repro_torch.kernels.costmodel import FusedTorchScorer, resolve_device
+from repro_torch.kernels.costmodel import FusedTorchScorer
 
-__all__ = ["Evaluator"]
+__all__ = ["Evaluator", "config_key", "BACKENDS"]
+
+BACKENDS = ("fused", "broadcast")
+
+
+def config_key(cfg: Any) -> Tuple:
+    """Stable hashable identity of a config (dataclass field tuple)."""
+    if hasattr(cfg, "asdict"):
+        return tuple(sorted(cfg.asdict().items()))
+    return tuple(sorted(dataclasses.asdict(cfg).items()))
 
 
 class Evaluator:
@@ -37,15 +58,17 @@ class Evaluator:
     uncached, in any batch composition.
 
     Objective/constraint injection (the `repro_torch.dse` facade): pass
-    `objective` (an object with `score(metrics) -> [N]`) and/or
+    `objective` (an object with `score(metrics) -> [N]`, or with
+    `values(metrics) -> [N, M]` + `scalarize` for vector objectives) and/or
     `constraints` (objects with `feasible_mask(batch, metrics) -> bool[N]`)
     to reshape what `evaluator(pool)` hands the engines.  The cache always
     stores the *raw* (GOPS, area) metrics — Eq. 9-13 zeroing only — so one
     cache serves every objective.  With the defaults the output is the
     GOPS vector above.
 
-    A stream the fused scorer does not support (a zero-size kernel or
-    stride) raises at construction.
+    Under ``backend="fused"`` a stream the fused scorer does not support
+    (a zero-size kernel or stride) raises at construction; under
+    ``"broadcast"`` it is scored.
     """
 
     def __init__(self, stream: OpStream,
@@ -57,7 +80,10 @@ class Evaluator:
                  objective: Optional[Any] = None,
                  constraints: Optional[Sequence[Any]] = None,
                  domains: Optional[Dict[str, Sequence[int]]] = None,
-                 device="cuda"):
+                 device="cuda", backend: str = "fused"):
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown backend {backend!r}; expected one of "
+                             f"{BACKENDS}")
         self.stream = stream
         self.hw = hw or HardwareConstants()
         self.peak_weight_bits = peak_weight_bits
@@ -76,9 +102,12 @@ class Evaluator:
         self.domains = ({k: tuple(v) for k, v in domains.items()}
                         if domains else None)
         self.device = resolve_device(device)
-        self.scorer = FusedTorchScorer(stream, self.hw, peak_weight_bits,
-                                       peak_input_bits, domains=self.domains,
-                                       device=self.device)
+        self.backend = backend
+        self.scorer = (FusedTorchScorer(stream, self.hw, peak_weight_bits,
+                                        peak_input_bits,
+                                        domains=self.domains,
+                                        device=self.device)
+                       if backend == "fused" else None)
         self._cache = RowHashCache(len(ConfigBatch._INDEX), cache_size)
         self.n_batches = 0       # batched model invocations
         self.n_scored = 0        # configs actually sent to the model
@@ -90,23 +119,50 @@ class Evaluator:
                   cache_size: int = 1 << 16,
                   objective: Optional[Any] = None,
                   constraints: Optional[Sequence[Any]] = None,
-                  device="cuda") -> "Evaluator":
+                  device="cuda", backend: str = "fused") -> "Evaluator":
         """Evaluator bound to a DesignSpace's hw constants + area budget."""
         return cls(stream, hw=space.hw,
                    peak_weight_bits=peak_weight_bits,
                    peak_input_bits=peak_input_bits,
                    area_budget=space.area_budget, cache_size=cache_size,
                    objective=objective, constraints=constraints,
-                   domains=getattr(space, "domains", None), device=device)
+                   domains=getattr(space, "domains", None), device=device,
+                   backend=backend)
 
     # -------------------------------------------------------------- scoring
+    def _score_batch(self, matrix: np.ndarray
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+        """Uncached path: ONE model call for the whole `[N, 18]` matrix.
+
+        Returns *raw* metrics: GOPS with only the Eq. 9-13 stream
+        constraints applied (what `performance_gops` does), plus areas.
+        Area-budget masking happens post-cache so the cached values are
+        objective-independent."""
+        with obs.span("evaluate_batch", n=int(matrix.shape[0]),
+                      backend=self.backend):
+            if self.scorer is not None:
+                perf, areas = self.scorer.metrics(matrix)
+            else:
+                batch = ConfigBatch(matrix)
+                perf = performance_gops(batch, self.stream, self.hw,
+                                        self.peak_weight_bits,
+                                        self.peak_input_bits,
+                                        device=self.device)
+                areas = area_many(batch, self.hw, device=self.device)
+        self.n_batches += 1
+        self.n_scored += int(matrix.shape[0])
+        return perf, areas
+
     def __call__(self, pool) -> np.ndarray:
         batch = ConfigBatch.from_configs(pool)
         perf, area = self._metrics_of(batch)
         mask = self.feasible_mask(batch, {"perf": perf, "area": area})
-        if self.objective is None:
-            return np.where(mask, perf, 0.0)
         metrics = {"perf": np.where(mask, perf, 0.0), "area": area}
+        if self.objective is None:
+            return metrics["perf"]
+        values_fn = getattr(self.objective, "values", None)
+        if values_fn is not None:            # vector objective: [N, M] rows
+            return values_fn(metrics)
         return np.where(mask, self.objective.score(metrics), 0.0)
 
     def feasible_mask(self, batch, metrics) -> np.ndarray:
@@ -117,6 +173,13 @@ class Evaluator:
         for c in self.constraints:
             mask &= np.asarray(c.feasible_mask(batch, metrics), dtype=bool)
         return mask
+
+    def scalarize(self, values: np.ndarray) -> np.ndarray:
+        """[N, M] objective rows -> [N] engine scores (vector objectives)."""
+        fn = getattr(self.objective, "scalarize", None)
+        if fn is not None:
+            return np.asarray(fn(values), dtype=np.float64)
+        return np.asarray(values, dtype=np.float64)[:, 0]
 
     def score_with_area(self, pool) -> Tuple[np.ndarray, np.ndarray]:
         """(gops[N], area[N]) with the area budget applied to gops, through
@@ -137,7 +200,7 @@ class Evaluator:
 
         One 64-bit hash pass over the row matrix, exact in-pool dedup
         (duplicates count neither as hits nor misses), one batched table
-        probe for the unique rows, one scorer call for the miss set, one
+        probe for the unique rows, one model call for the miss set, one
         scatter back."""
         matrix = np.ascontiguousarray(batch.matrix)
         n = matrix.shape[0]
@@ -157,9 +220,7 @@ class Evaluator:
         area[hit_rows] = vals[found, 1]
         miss_rows = uniq[~found]
         if miss_rows.size:
-            fp, fa = self.scorer.metrics(matrix[miss_rows])
-            self.n_batches += 1
-            self.n_scored += int(miss_rows.size)
+            fp, fa = self._score_batch(matrix[miss_rows])
             perf[miss_rows] = fp
             area[miss_rows] = fa
             cache.insert(matrix[miss_rows], hashes[miss_rows],
@@ -170,7 +231,23 @@ class Evaluator:
         return perf, area
 
     def score_one(self, cfg: AccelConfig) -> float:
-        return float(self([cfg])[0])
+        s = np.asarray(self([cfg]), dtype=np.float64)
+        if s.ndim == 2:                     # vector objective: scalarize
+            s = self.scalarize(s)
+        return float(s[0])
+
+    def explain(self, cfg: AccelConfig):
+        """Per-op Table-1 attribution of one config on this evaluator's
+        stream, computed on its device: cycles, bottleneck resource,
+        latency share, roofline position —
+        `repro_torch.obs.attribution.CostExplanation` (its `.table()`
+        renders the paper-style breakdown)."""
+        from repro_torch.obs.attribution import explain_config
+        return explain_config(cfg, self.stream, hw=self.hw,
+                              peak_weight_bits=self.peak_weight_bits,
+                              peak_input_bits=self.peak_input_bits,
+                              area_budget=self.area_budget,
+                              device=self.device)
 
     # ---------------------------------------------------------------- stats
     @property

@@ -1,9 +1,10 @@
 """`Study`: the declarative front door of the DSE loop.
 
 The paper frames accelerator design as one optimization problem (§4.3)
-evaluated under different objectives — per-app GOPS (Table 3) or joint
-geomean across applications (§5.1, Tables 4-5).  A `Study` is that problem
-as a value::
+evaluated under different objectives — per-app GOPS (Table 3), joint
+geomean across applications (§5.1, Tables 4-5), perf/area trade-off
+curves at several area budgets (Co-Design-style).  A `Study` is that
+problem as a value::
 
     from repro_torch.dse import Study, SearchBudget, GeomeanAcrossApps
 
@@ -18,9 +19,17 @@ Each app gets a multi-restart engine run through its own memoizing
 them.  With the same arguments a `Study` selects what the JAX package's
 `repro.dse.Study` selects, bit for bit.
 
+`ParetoObjective` studies run the per-app searches under a scalarized
+multi-objective signal, cross-evaluate the union of the per-app
+non-dominated sets on every app, and sweep the joint (geomean-GOPS, area)
+front for one selected design per area budget (Tables 4-5 style).  With
+`repro_torch.obs` on, a run records the spans ``study``, ``phase.search``,
+``search_app``, ``phase.synthesize`` and ``cross_eval`` (the engines and
+the evaluator add theirs) and a telemetry snapshot in
+``meta["telemetry"]``, which the persisted JSON leaves out.
+
 Not ported yet (each raises `NotImplementedError`): parallel workers,
-checkpoint/resume, Pareto objectives, compositions and evaluator-mode
-studies.
+checkpoint/resume, compositions and evaluator-mode studies.
 """
 
 from __future__ import annotations
@@ -28,23 +37,31 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import time
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
-from repro_torch.core.costmodel import AccelConfig, ConfigBatch, area_many
+from repro_torch import obs
+from repro_torch.core.costmodel import (AccelConfig, ConfigBatch, area_many,
+                                        resolve_device)
 from repro_torch.core.multiapp import AppSpec, MultiAppResult
 from repro_torch.core.search import (EngineSpec, Evaluator, SearchResult,
-                                     optimize_for_app)
+                                     optimize_for_app, pareto_front_indices)
 from repro_torch.core.space import DesignSpace, default_space
 from repro_torch.dse.constraints import (AreaBudget, Constraint, PeakBuffers,
                                          feasible_mask_all)
 from repro_torch.dse.objectives import (GeomeanAcrossApps, MaxPerf,
-                                        Objective, geomean, make_objective)
-from repro_torch.kernels.costmodel import resolve_device
+                                        Objective, ParetoObjective, geomean,
+                                        make_objective)
+from repro_torch.dse.parallel import canonical_front_indices
 
-__all__ = ["SearchBudget", "Study", "StudyResult"]
+__all__ = ["SearchBudget", "Study", "StudyResult", "FrontPoint",
+           "DEFAULT_BUDGET_FACTORS"]
+
+# Tables 4-5 style sweep: relative area budgets when the caller names none
+DEFAULT_BUDGET_FACTORS = (0.75, 1.0, 1.25)
 
 
 def _later(feature: str) -> NotImplementedError:
@@ -77,6 +94,20 @@ class SearchBudget:
         return SearchBudget(**dict(spec))
 
 
+@dataclasses.dataclass
+class FrontPoint:
+    """One non-dominated design on the joint (score up, area down) front."""
+
+    config: Any
+    score: float                  # objective value (GOPS or geomean GOPS)
+    area: float
+    per_app: Dict[str, float] = dataclasses.field(default_factory=dict)
+
+    def to_json(self) -> Dict:
+        return {"config": _cfg_dict(self.config), "score": self.score,
+                "area": self.area, "per_app": dict(self.per_app)}
+
+
 def _cfg_dict(cfg: Any) -> Optional[Dict]:
     if cfg is None:
         return None
@@ -92,15 +123,17 @@ class StudyResult:
     """Outcome of `Study.run`, JSON-persistable for cross-run comparison.
 
     `save`/`load` round-trip the declarative summary (meta, best, per-app
-    bests, Table-4/5 numbers); the runtime handles (`per_app_results`
-    SearchResults, `multiapp` MultiAppResult) are rebuilt only by
-    re-running the study.
+    bests, front, per-budget selections, Table-4/5 numbers); the runtime
+    handles (`per_app_results` SearchResults, `multiapp` MultiAppResult)
+    are rebuilt only by re-running the study.
     """
 
     meta: Dict
     best: Any
     best_score: float
     per_app: Dict[str, Dict]
+    front: Optional[List[FrontPoint]] = None
+    budget_selections: Optional[Dict[str, Optional[Dict]]] = None
     multiapp_summary: Optional[Dict] = None
     # runtime-only handles (never serialized)
     multiapp: Optional[MultiAppResult] = \
@@ -109,12 +142,19 @@ class StudyResult:
         dataclasses.field(default_factory=dict, repr=False, compare=False)
 
     def to_json(self) -> Dict:
+        # `meta["telemetry"]` (runtime observability snapshot, attached
+        # only when `repro_torch.obs` is active) is excluded: persisted
+        # results stay byte-identical whether telemetry was on or off
         return {
             "version": 1,
-            "meta": self.meta,
+            "meta": {k: v for k, v in self.meta.items()
+                     if k != "telemetry"},
             "best": _cfg_dict(self.best),
             "best_score": float(self.best_score),
             "per_app": self.per_app,
+            "front": ([p.to_json() for p in self.front]
+                      if self.front is not None else None),
+            "budget_selections": self.budget_selections,
             "multiapp": self.multiapp_summary,
         }
 
@@ -127,11 +167,18 @@ class StudyResult:
     @staticmethod
     def load(path) -> "StudyResult":
         rec = json.loads(Path(path).read_text())
+        front = rec.get("front")
         return StudyResult(
             meta=rec["meta"],
             best=_cfg_load(rec.get("best")),
             best_score=float(rec.get("best_score", 0.0)),
             per_app=rec.get("per_app", {}),
+            front=([FrontPoint(config=_cfg_load(p["config"]),
+                               score=float(p["score"]),
+                               area=float(p["area"]),
+                               per_app=dict(p.get("per_app", {})))
+                    for p in front] if front is not None else None),
+            budget_selections=rec.get("budget_selections"),
             multiapp_summary=rec.get("multiapp"),
         )
 
@@ -142,7 +189,8 @@ class Study:
 
     `apps` is a list of `AppSpec`s or `build_app` names; `device` is where
     every evaluator scores (``"cuda"`` by default, which raises when no GPU
-    is available; tests pass ``"cpu"``)."""
+    is available; tests pass ``"cpu"``) and `backend` how (``"fused"`` or
+    ``"broadcast"``, see `Evaluator`)."""
 
     def __init__(self, apps: Sequence = (),
                  space: Optional[DesignSpace] = None,
@@ -153,9 +201,11 @@ class Study:
                  seed: int = 0, *,
                  top_frac: float = 0.10,
                  max_candidates_per_app: int = 200,
+                 area_budgets: Optional[Sequence[float]] = None,
                  weight_peak_mode: str = "streaming",
                  name: str = "study",
                  device="cuda",
+                 backend: str = "fused",
                  workers: int = 1,
                  composition: int = 1,
                  evaluator: Any = None):
@@ -166,6 +216,7 @@ class Study:
         if evaluator is not None:
             raise _later("an evaluator-mode Study")
         self.device = resolve_device(device)
+        self.backend = backend
         self.name = name
         self.engine = engine
         self.budget = SearchBudget.of(budget)
@@ -198,18 +249,48 @@ class Study:
                 self._peak_override = c
             else:
                 self._extra.append(c)
+
+        # Pareto sweep budgets (Tables 4-5 style); the search itself runs
+        # at the loosest budget so the front spans every requested point
+        self.area_budgets: Optional[Tuple[float, ...]] = None
+        if isinstance(self.objective, ParetoObjective):
+            # the joint synthesis stage cross-evaluates candidates into a
+            # (geomean-GOPS, area) front; terms outside perf/area have no
+            # cross-app reading there, so reject them up front instead of
+            # silently dropping them from the persisted result
+            labels = {t.key for t in self.objective.terms}
+            if not labels <= {"perf", "area"}:
+                raise ValueError(
+                    f"application-mode Pareto studies support only "
+                    f"'perf'/'-area' terms (got {sorted(labels)}); "
+                    f"custom terms need a cost model that produces "
+                    f"those metrics columns")
+            budgets = tuple(sorted(float(b) for b in (
+                area_budgets
+                or [f * self._area_budget for f in DEFAULT_BUDGET_FACTORS])))
+            self.area_budgets = budgets
+            self._search_area_budget = max(max(budgets), self._area_budget)
+        else:
+            if area_budgets is not None:
+                raise ValueError("area_budgets= is only meaningful with a "
+                                 "ParetoObjective (perf/area sweep)")
+            self._search_area_budget = self._area_budget
+
         self._search_space = (
-            self.space if self._area_budget == self.space.area_budget
+            self.space if self._search_area_budget == self.space.area_budget
             else dataclasses.replace(self.space,
-                                     area_budget=self._area_budget))
+                                     area_budget=self._search_area_budget))
         self._evaluators: List[Evaluator] = []
 
     # ----------------------------------------------------------- plumbing
     def _engine_objective(self) -> Optional[Objective]:
         """Objective injected into each per-app Evaluator.  `MaxPerf` and
         `GeomeanAcrossApps` leave the evaluator on its raw-GOPS contract;
-        others reshape the engine-facing score (deep-copied per evaluator,
-        so no state is shared)."""
+        others reshape the engine-facing score.  Stateful objectives
+        (`ParetoObjective` keeps running normalization bounds for its
+        scalarizer) are deep-copied per evaluator so one app's GOPS scale
+        never leaks into another's scalarization and repeated `run()`
+        calls of the same Study are reproducible."""
         if isinstance(self.objective, (MaxPerf, GeomeanAcrossApps)):
             return None
         return copy.deepcopy(self.objective)
@@ -224,12 +305,12 @@ class Study:
         pw, pi = self._peaks_for(spec)
         return Evaluator(spec.stream, hw=self.space.hw,
                          peak_weight_bits=pw, peak_input_bits=pi,
-                         area_budget=self._area_budget,
+                         area_budget=self._search_area_budget,
                          objective=self._engine_objective(),
                          constraints=tuple(self._extra),
                          domains={k: tuple(v) for k, v
                                   in self.space.domains.items()},
-                         device=self.device)
+                         device=self.device, backend=self.backend)
 
     def _meta(self) -> Dict:
         eng = (self.engine if isinstance(self.engine, str)
@@ -241,9 +322,11 @@ class Study:
             "objective": self.objective.describe(),
             "constraints": [c.describe() for c in self.constraints],
             "area_budget": self._area_budget,
+            "area_budgets": (list(self.area_budgets)
+                             if self.area_budgets else None),
             "budget": dataclasses.asdict(self.budget),
             "seed": self.seed,
-            "backend": "torch",
+            "backend": self.backend,
             "device": str(self.device),
             "weight_peak_mode": self.weight_peak_mode,
         }
@@ -254,27 +337,101 @@ class Study:
         objective's selection stage."""
         if checkpoint_path is not None:
             raise _later("checkpoint/resume")
-        self._evaluators = [self._make_evaluator(s) for s in self.specs]
-        per_app_results: Dict[str, SearchResult] = {}
-        for i, spec in enumerate(self.specs):
-            # the JAX package's canonical per-app seed schedule
-            per_app_results[spec.name] = optimize_for_app(
-                spec.stream, self._search_space,
-                k=self.budget.k, restarts=self.budget.restarts,
-                seed=self.seed + 7919 * i,
-                max_rounds=self.budget.max_rounds, engine=self.engine,
-                engine_kwargs=dict(self.budget.engine_kwargs) or None,
-                evaluator=self._evaluators[i])
-        return self._synthesize(per_app_results)
+        self._run_stats: Dict[str, Dict[str, int]] = {}
+        t0 = time.perf_counter()
+        with obs.span("study", study=self.name, apps=len(self.specs)):
+            with obs.span("phase.search", apps=len(self.specs),
+                          jobs=len(self.specs)):
+                self._evaluators = [self._make_evaluator(s)
+                                    for s in self.specs]
+                per_app_results = {spec.name: self._search_app(i)
+                                   for i, spec in enumerate(self.specs)}
+            with obs.span("phase.synthesize"):
+                result = self._synthesize(per_app_results)
+        self._attach_telemetry(result, time.perf_counter() - t0)
+        return result
+
+    def _search_app(self, i: int) -> SearchResult:
+        """One app's multi-restart search; its journal records carry the
+        app's name."""
+        spec, ev = self.specs[i], self._evaluators[i]
+        # the JAX package's canonical per-app seed schedule
+        seed = self.seed + 7919 * i
+        prev_ctx = obs.get_context()
+        obs.set_context(app=spec.name)
+        try:
+            with obs.span("search_app", app=spec.name,
+                          engine=str(self.engine), seed=seed,
+                          restarts=int(self.budget.restarts)):
+                res = optimize_for_app(
+                    spec.stream, self._search_space,
+                    k=self.budget.k, restarts=self.budget.restarts,
+                    seed=seed, max_rounds=self.budget.max_rounds,
+                    engine=self.engine,
+                    engine_kwargs=dict(self.budget.engine_kwargs) or None,
+                    evaluator=ev)
+        finally:
+            obs.replace_context(prev_ctx)
+        self._run_stats[spec.name] = dict(ev.stats())
+        return res
+
+    # ----------------------------------------------- telemetry snapshot
+    def _attach_telemetry(self, result: StudyResult, wall: float) -> None:
+        """Runtime observability snapshot into `meta["telemetry"]` (only
+        when `repro_torch.obs` is active; `StudyResult.to_json` excludes
+        the key, so persisted output is byte-identical either way)."""
+        if not obs.active():
+            return
+        per_app = {a: dict(s) for a, s in self._run_stats.items()}
+        total = {k: sum(int(s.get(k, 0)) for s in per_app.values())
+                 for k in ("scored", "cache_hits", "cache_misses",
+                           "cache_evictions", "dedup_skipped")}
+        obs.counter("evaluator.scored", total["scored"])
+        obs.counter("evaluator.cache_hits", total["cache_hits"])
+        obs.counter("evaluator.cache_misses", total["cache_misses"])
+        obs.counter("evaluator.cache_evictions", total["cache_evictions"])
+        obs.counter("search.dedup_skipped", total["dedup_skipped"])
+        result.meta["telemetry"] = {
+            "wall_seconds": float(wall),
+            "configs_scored": total["scored"],
+            "configs_per_second": (total["scored"] / wall if wall > 0
+                                   else 0.0),
+            "cache_hits": total["cache_hits"],
+            "cache_misses": total["cache_misses"],
+            "cache_evictions": total["cache_evictions"],
+            "dedup_skipped": total["dedup_skipped"],
+            "per_app": per_app,
+            # serial: one in-process worker, never retried or degraded
+            "executor": {"workers": 1, "retry_rounds": 0,
+                         "degraded": False},
+            "metrics": (obs.metrics().summary()
+                        if obs.metrics().enabled else None),
+            "journal_records": len(obs.journal()),
+            "trace_events": len(obs.tracer()),
+        }
 
     # ----------------------------------------------------- synthesis stage
     def _synthesize(self, per_app_results: Dict[str, SearchResult]
                     ) -> StudyResult:
-        per_app = {name: {"best": _cfg_dict(res.best),
-                          "best_perf": float(res.best_perf),
-                          "n_evaluated": len(res.evaluated),
-                          "rounds": int(res.rounds)}
-                   for name, res in per_app_results.items()}
+        vector = isinstance(self.objective, ParetoObjective)
+        per_app = {}
+        for name, res in per_app_results.items():
+            rec = {"best": _cfg_dict(res.best),
+                   "best_perf": float(res.best_perf),
+                   "n_evaluated": len(res.evaluated),
+                   "rounds": int(res.rounds)}
+            if vector:
+                # engines maximized the scalarized signal; keep best_perf
+                # in GOPS so the field is commensurable across objectives
+                # (a cache hit: the incumbent was scored during search)
+                rec["best_scalarized"] = rec["best_perf"]
+                rec["best_perf"] = (
+                    float(res.evaluator.score_with_area([res.best])[0][0])
+                    if res.best is not None else 0.0)
+            per_app[name] = rec
+
+        if vector:
+            return self._synthesize_pareto(per_app_results, per_app)
         if self.objective.cross_app:
             return self._synthesize_geomean(per_app_results, per_app)
         # per-app objective (MaxPerf / PerfPerArea / user scalar): the
@@ -322,11 +479,13 @@ class Study:
         """[n_apps, n_cands] GOPS matrix; columns infeasible under any
         injected extra constraint are zeroed wholesale (selection-time
         metrics offer `area`)."""
-        cross = self._gops_matrix(cands)
-        if self._extra:
-            batch = ConfigBatch.from_configs(list(cands))
-            metrics = {"area": area_many(batch, self.space.hw)}
-            cross[:, ~feasible_mask_all(self._extra, batch, metrics)] = 0.0
+        with obs.span("cross_eval", candidates=len(cands), shards=1):
+            cross = self._gops_matrix(cands)
+            if self._extra:
+                batch = ConfigBatch.from_configs(list(cands))
+                metrics = {"area": area_many(batch, self.space.hw)}
+                mask = feasible_mask_all(self._extra, batch, metrics)
+                cross[:, ~mask] = 0.0
         return cross
 
     def _synthesize_geomean(self, per_app_results, per_app) -> StudyResult:
@@ -393,3 +552,65 @@ class Study:
                            best_score=float(geo.max()), per_app=per_app,
                            multiapp_summary=summary, multiapp=multiapp,
                            per_app_results=per_app_results)
+
+    # ------------------------------------- Pareto front + budget sweep
+    def _synthesize_pareto(self, per_app_results, per_app) -> StudyResult:
+        apps = [s.name for s in self.specs]
+        # candidate pool: each app's local non-dominated set (recomputed
+        # from the shared evaluator's cached raw metrics) plus its
+        # incumbent, deduped across apps in app order
+        seen = set()
+        cands: List[Any] = []
+
+        def _add(cfg: Any) -> None:
+            key = tuple(sorted(cfg.asdict().items()))
+            if key not in seen:
+                seen.add(key)
+                cands.append(cfg)
+
+        for name, res in per_app_results.items():
+            if res.best is not None:
+                _add(res.best)
+            if not res.evaluated:
+                continue
+            perf, area = res.evaluator.score_with_area(res.evaluated)
+            local = pareto_front_indices(perf, area)
+            for j in local[:self.max_candidates_per_app]:
+                _add(res.evaluated[j])
+
+        cross = self._cross_eval(cands)
+        areas = area_many(ConfigBatch.from_configs(cands), self.space.hw)
+        valid = (cross > 0).all(axis=0)
+        score = np.where(valid, geomean(cross, axis=0), 0.0)
+
+        # canonical (content-tie-broken) sweep: the joint front is invariant
+        # to candidate arrival order
+        keys = [tuple(sorted(c.asdict().items())) for c in cands]
+        front_idx = canonical_front_indices(score, areas, keys)
+        front = [FrontPoint(config=cands[i], score=float(score[i]),
+                            area=float(areas[i]),
+                            per_app={a: float(cross[k, i])
+                                     for k, a in enumerate(apps)})
+                 for i in front_idx]
+
+        selections: Dict[str, Optional[Dict]] = {}
+        best_pt: Optional[FrontPoint] = None
+        for b in self.area_budgets:
+            eligible = [p for p in front if p.area <= b and p.score > 0]
+            if not eligible:
+                selections[f"{b:g}"] = None
+                continue
+            pick = max(eligible, key=lambda p: p.score)
+            selections[f"{b:g}"] = pick.to_json()
+            if b <= self._area_budget and (best_pt is None
+                                           or pick.score > best_pt.score):
+                best_pt = pick
+        if best_pt is None and front:
+            best_pt = max(front, key=lambda p: p.score)
+
+        return StudyResult(
+            meta=self._meta(),
+            best=best_pt.config if best_pt else None,
+            best_score=float(best_pt.score) if best_pt else 0.0,
+            per_app=per_app, front=front, budget_selections=selections,
+            per_app_results=per_app_results)

@@ -32,7 +32,8 @@ import torch
 
 from repro_torch.core.costmodel import (ConfigBatch, HardwareConstants,
                                         LoopOrder, OpStream, _FAST_FIELDS,
-                                        _fused_tables_for)
+                                        _area_t, _fused_tables_for,
+                                        numpy_order_sum, resolve_device)
 from repro_torch.kernels.gather import gather_rows
 
 __all__ = ["FusedTorchScorer", "numpy_order_sum", "resolve_device"]
@@ -46,49 +47,6 @@ _TABLES = ("pb_tbl", "ifp_tbl", "ofp_tbl", "xp_tbl", "yp_tbl", "kk_tbl",
            "u2_tbl", "u3_tbl", "atile_tbl", "num_weight", "num_input",
            "ws_weight", "ie_batch", "is_input", "weight_elems", "repeat",
            "expand")
-
-
-def resolve_device(device) -> torch.device:
-    """`torch.device(device)`, refusing a CUDA device that is not there
-    (the port never carries on silently on the CPU)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {str(dev)!r} requested but torch.cuda.is_available() "
-            "is False; pass device='cpu' to run on the CPU")
-    return dev
-
-
-def numpy_order_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sums over dim 0 of `x` ([n, R] -> [R]) in the order numpy's
-    `np.add.reduce` adds a contiguous float64 row: the identity 0.0 plus
-    the pairwise sum of the row (8 running partial sums for 8 <= n <= 128,
-    halving at multiples of 8 above).  Float addition is not associative,
-    so this order is what makes the per-config cycle totals bit-identical
-    to the numpy scorer; `torch.sum` keeps no particular order."""
-    return _pairwise(x, 0, x.shape[0]) + 0.0
-
-
-def _pairwise(x: torch.Tensor, lo: int, n: int) -> torch.Tensor:
-    if n < 8:
-        res = torch.zeros(x.shape[1:], dtype=x.dtype, device=x.device)
-        for i in range(lo, lo + n):
-            res = res + x[i]
-        return res
-    if n <= 128:
-        r = x[lo:lo + 8].clone()
-        i = 8
-        while i < n - n % 8:
-            r += x[lo + i:lo + i + 8]
-            i += 8
-        res = ((r[0] + r[1]) + (r[2] + r[3])) + ((r[4] + r[5])
-                                                 + (r[6] + r[7]))
-        for j in range(lo + i, lo + n):
-            res = res + x[j]
-        return res
-    n2 = n // 2
-    n2 -= n2 % 8
-    return _pairwise(x, lo, n2) + _pairwise(x, lo + n2, n - n2)
 
 
 class FusedTorchScorer:
@@ -175,12 +133,7 @@ class FusedTorchScorer:
         banks_a = k["act_banks_pg"] * pe_group * k["bank_width"]
         wbuf = banks_w * k["bank_height"]
         abuf = banks_a * k["bank_height"]
-        # §4.3 area, the `area_many` expression; an int64 tensor times a
-        # Python float would give float32, so convert first as numpy does
-        area = (total_macs.to(f64)
-                * (hw.area_per_mac + hw.area_per_mac_regfile)
-                + (wbuf + abuf).to(f64) * hw.area_per_sram_bit
-                + pe_group.to(f64) * hw.area_per_group_ctrl)
+        area = _area_t(pe_group, total_macs, wbuf + abuf, hw)     # §4.3
 
         # joint table rows for the validity screen
         i_u1 = ((c["tif"] * nv["pif"] + c["pif"]) * nv["pkx"]

@@ -43,7 +43,7 @@ def test_maxperf_study_golden():
     assert {k: int(v) for k, v in res.best.asdict().items()} == GOLD_MULTI
     assert res.best_score == GOLD_MULTI_PERF
     assert res.per_app["resnet"]["n_evaluated"] == 454
-    assert res.meta["backend"] == "torch"
+    assert res.meta["backend"] == "fused"
     assert res.meta["device"] == "cpu"
 
 
@@ -105,7 +105,9 @@ def test_cuda_without_a_gpu_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs", [{"workers": 2}, {"composition": 2},
-                                    {"objective": "pareto"}])
+                                    {"evaluator": object()}])
 def test_features_of_a_later_slice_raise(kwargs):
     with pytest.raises(NotImplementedError, match="later slice"):
         Study(apps=["ptb"], device="cpu", **kwargs)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        Study(apps=["ptb"], device="cpu").run(checkpoint_path="ckpt.json")

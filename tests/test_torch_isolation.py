@@ -63,6 +63,46 @@ def test_cpu_main_path_loads_neither_jax_nor_repro():
     assert proc.stdout.strip() == "[]"
 
 
+def test_scan_covers_obs_and_the_analysis_modules():
+    names = {p.relative_to(PORT).as_posix() for p in sources()
+             if PORT in p.parents}
+    assert {"obs/__init__.py", "obs/trace.py", "obs/metrics.py",
+            "obs/journal.py", "obs/oblog.py", "obs/attribution.py",
+            "obs/validate.py", "core/sensitivity.py",
+            "dse/parallel.py"} <= names
+
+
+def test_cpu_pareto_obs_radar_path_loads_neither_jax_nor_repro(tmp_path):
+    """A Pareto study with telemetry, `explain` and the radar."""
+    proc = _run(
+        "import sys\n"
+        "from repro_torch import obs\n"
+        "from repro_torch.core.sensitivity import radar_of_top_configs\n"
+        "from repro_torch.dse import (ParetoObjective, SearchBudget,\n"
+        "                             Study)\n"
+        "from repro_torch.obs.validate import main as validate\n"
+        "obs.enable(trace=True, metrics=True, journal=True)\n"
+        "s = Study(apps=['ptb', 'wdl'], objective=ParetoObjective(),\n"
+        "          engine='genetic', device='cpu',\n"
+        "          budget=SearchBudget(restarts=1, max_rounds=3,\n"
+        "                              engine_kwargs={'population': 8}),\n"
+        "          area_budgets=(30000.0, 60000.0, 90000.0))\n"
+        "r = s.run()\n"
+        "assert r.front and 'telemetry' in r.meta\n"
+        f"obs.tracer().write(r'{tmp_path}/t.json')\n"
+        f"obs.journal().write_jsonl(r'{tmp_path}/j.jsonl')\n"
+        f"assert validate(['--trace', r'{tmp_path}/t.json',\n"
+        f"                 '--journal', r'{tmp_path}/j.jsonl']) == 0\n"
+        "assert s._evaluators[0].explain(r.best).ops\n"
+        "rad = radar_of_top_configs('ptb', s.specs[0], s.space, k=2,\n"
+        "                           restarts=1, max_rounds=2, device='cpu')\n"
+        "assert rad.n_configs > 0\n"
+        "print(sorted({m.split('.')[0] for m in sys.modules}"
+        " & {'jax', 'repro', 'jaxlib'}))\n")
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
+
+
 def test_cpu_serve_path_loads_neither_jax_nor_repro():
     proc = _run(
         "import sys\n"
