@@ -48,11 +48,28 @@ printing one JSON line each:
                  selections, the kernel launched on the card only;
                  `Evaluator.explain` of the selection and the §5.3 radar
                  (resnet, the four Faster R-CNN steps) equal on both;
-  7. throughput  the random engine at 262144-config pools on inception and
+  7. study parallel
+                 the parallel, resumable and composed `Study` on the card:
+                 phase 4's seven-app greedy study at workers=4 (a spawn
+                 pool; every worker scores on the card and reports its own
+                 gather_rows launches) byte-equal to workers=1 and
+                 selecting what the CPU selects; a random study over ptb +
+                 wdl crashed at its first checkpoint and resumed at
+                 workers=2, and a checkpoint written on the CPU resumed on
+                 the card, each equal to the uninterrupted run; a killed
+                 pool worker (one retry round, no degradation); and
+                 `benchmarks/composition_sweep.py`'s configuration (K=2
+                 over qwen2-0.5b prefill + decode, genetic, 90,000 area)
+                 byte-identical at workers 1 and 2, equal to the CPU's,
+                 beating the monolithic design, with `explain_composition`
+                 equal on both devices.  A `ParallelExecutionWarning` is an
+                 error; each run's wall, the pool start-up times and the
+                 launches are printed;
+  8. throughput  the random engine at 262144-config pools on inception and
                  nasnet, on the card, with where the time goes: the scorer's
                  device time by kind (`torch.profiler`) and the search's
                  host time by function (`cProfile`, one round);
-  8. kernel flash_attention
+  9. kernel flash_attention
                  `flash_attention` against its plain PyTorch version, every
                  output element within a tolerance of about one bf16 ulp, on
                  the sweep of `tests/test_kernels.py`, on qwen2-0.5b's heads
@@ -65,7 +82,7 @@ printing one JSON line each:
                  `scaled_dot_product_attention` and of the plain version,
                  each row with the kernel that ran, its TFLOP/s and its
                  share of the bound;
-  9. kernel rglru_scan
+ 10. kernel rglru_scan
                  the bare scan (the channel-slab walk) against its plain
                  PyTorch version, every element, on the sweep of
                  `tests/test_kernels.py` (the 1024-step decay case and
@@ -80,7 +97,7 @@ printing one JSON line each:
                  before the gated kernel (the bare scan's path) and by the
                  gated kernel, each call's launches counted from 0, each
                  route timed and split by `torch.profiler`;
- 10. prefill qwen2-0.5b
+ 11. prefill qwen2-0.5b
                  the second main path: `make_prefill_step` at full width
                  (24 layers, bf16 weights, `use_kernels=True`) at seq 32768
                  x batch 1 (prefill_32k with its batch cut from 32) and seq
@@ -90,12 +107,12 @@ printing one JSON line each:
                  none of `matmul`, counted); then the kernel against its
                  plain version on the q, k, v that the first and the last
                  layer hand it at both shapes, every row;
- 11. serve qwen2-0.5b
+ 12. serve qwen2-0.5b
                  `serve_requests` at full width (fp32 compute): 8 requests
                  of 4-12 prompt tokens, batch 4, 16 new tokens each, held
                  against the port's own CPU run on the same weights;
- 12. prefill recurrentgemma-9b
-                 the third main path, as phase 10 at the same two shapes (38
+ 13. prefill recurrentgemma-9b
+                 the third main path, as phase 11 at the same two shapes (38
                  layers: 26 RG-LRU, 12 local attention): 26
                  `rglru_gated_scan` launches a forward at both shapes (and
                  no bare scan), 12 `flash_attention` (on
@@ -103,23 +120,23 @@ printing one JSON line each:
                  none at 32768 (local-block attention); then each kernel
                  against its plain version on what the first and last
                  layer of its kind hand it;
- 13. serve recurrentgemma-9b
+ 14. serve recurrentgemma-9b
                  `serve_requests` at full width, fp32 compute: 8 requests of
                  4-12 prompt tokens, batch 4, 16 new tokens, caches of 256,
                  held against a teacher-forced full-sequence forward on the
                  card (fp32, `use_kernels=True`: its attention on the
                  CUDA-core flash kernel only) over each request's prompt
                  and generated tokens;
- 14. kernel matmul
+ 15. kernel matmul
                  `matmul` against its plain PyTorch version on every element,
                  within the fp32 summation bound (`matmul_against_plain`),
                  on the sweep of `tests/test_kernels.py` at its two tiles
                  (fp32 on the CUDA-core kernel, bf16 on the tensor-core
                  one: each case must move only its kernel's counter) and on
                  an all-positive bf16 product at K = 12288, both output
-                 dtypes (phase 15 holds the tile DSE's shapes, at every
+                 dtypes (phase 16 holds the tile DSE's shapes, at every
                  tile);
- 15. tile_dse    the fourth main path: for each of `TILE_SHAPES` (bf16),
+ 16. tile_dse    the fourth main path: for each of `TILE_SHAPES` (bf16),
                  `tune_matmul_tiles` picks a tile under the tensor-core
                  model and `matmul` runs at it and at every other tile the
                  tensor-core kernel is built for, each output held against
@@ -130,14 +147,16 @@ printing one JSON line each:
                  (M N > 2^31) runs once, at its tuned tile.  Then the fp32
                  `FP32_SHAPE` on the CUDA-core kernel at the CUDA-core
                  model's pick, beside its 67 TFLOP/s bound;
- 16. dryrun      `run_cell` for qwen2-0.5b and recurrentgemma-9b at
+ 17. dryrun      `run_cell` for qwen2-0.5b and recurrentgemma-9b at
                  prefill_32k and decode_32k on fake CUDA tensors (full batch),
                  each cell's matmul and elementwise FLOPs and
                  transcendentals, one greedy `autotune_search` over
                  qwen2-0.5b's decode_32k (a cell whose points fit 80 GB;
                  every record it writes must be OK with a finite peak and
                  roofline, and its best score above 0; whether its pick
-                 moved from `MATMUL_ONLY_PICK`), and qwen2-0.5b's plain
+                 moved from `MATMUL_ONLY_PICK`), one random-engine
+                 `autotune_search` (the evaluator-mode `Study`) over the
+                 same cell, and qwen2-0.5b's plain
                  prefill at seq 2048 x batch 4 counted on fake tensors and
                  run for real on the card: the three counts equal, and the
                  fake peak within `DRYRUN_PEAK_BAND` of
@@ -271,6 +290,9 @@ BROADCAST_TIMED = "inception"
 ORACLE_WORKERS = 7
 ORACLE_CHUNK = 16384
 PARETO_BUDGETS = (30000.0, 60000.0, 90000.0)
+# phase study parallel: benchmarks/composition_sweep.py's apps and budget
+COMP_APPS = ("qwen2-0.5b:prefill", "qwen2-0.5b:decode")
+COMP_AREA = 90000.0
 
 
 class SmokeFailure(RuntimeError):
@@ -433,11 +455,14 @@ def phase_study(names) -> int:
         t0 = time.perf_counter()
         result = study.run()
         torch.cuda.synchronize()
+        # the searches' scorer calls (their evaluators' batches) and the
+        # synthesis's, on the study's own evaluators
         runs[dev] = {
             "result": result, "seconds": time.perf_counter() - t0,
             "launches": gather_rows.launches,
-            "scorer_calls": sum(ev.scorer.n_calls
-                                for ev in study._evaluators)}
+            "scorer_calls": sum(s["batches"]
+                                for s in study._run_stats.values())
+            + sum(ev.scorer.n_calls for ev in study._evaluators)}
     gpu, cpu = runs["cuda"], runs["cpu"]
     check(gpu["result"].best == cpu["result"].best,
           "the cuda and cpu studies selected different configs")
@@ -819,6 +844,209 @@ def phase_study_pareto() -> int:
          radar={r.app: {"n_configs": r.n_configs, "extras": r.extras}
                 for r in radar["cuda"][0]},
          radar_cuda_s=radar["cuda"][1], radar_cpu_s=radar["cpu"][1],
+         phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
+def pool_record(study_or_ex, fault: bool = False) -> dict:
+    """Checks one pooled run on the card and returns its pool numbers: no
+    serial degradation, no retry round (one, under a `FaultPlan`), and
+    every task a pool worker ran reports its own `gather_rows` launches."""
+    ex = getattr(study_or_ex, "_run_executor", study_or_ex)
+    check(not ex.degraded, "a pooled run degraded to serial")
+    check(ex.retry_rounds == (1 if fault else 0),
+          f"{ex.retry_rounds} retry rounds, expected {int(fault)}")
+    tasks = [t for t in ex.tasks if t["pool"]]
+    check(tasks, "no task ran in a pool worker")
+    for t in tasks:
+        check(t["launches"] > 0, f"pool task {t['fn']}[{t['task']}] on "
+              f"pid {t['pid']} launched gather_rows 0 times")
+    return {"workers": ex.workers, "retry_rounds": ex.retry_rounds,
+            "pool_start_s": list(ex.pool_start_seconds),
+            "worker_launches": sum(t["launches"] for t in tasks),
+            "tasks": [{k: t[k] for k in ("fn", "task", "pid", "launches",
+                                         "seconds")} for t in tasks]}
+
+
+def problem_json(result) -> str:
+    """A StudyResult's JSON outside the execution resources."""
+    rec = result.to_json()
+    rec["meta"] = {k: v for k, v in rec["meta"].items() if k != "device"}
+    return json.dumps(rec, sort_keys=True)
+
+
+def phase_study_parallel() -> dict:
+    """The parallel, resumable and composed Study on the card: the
+    seven-app greedy study at workers=4 against workers=1 and the CPU; a
+    random study over ptb + wdl crashed at its first checkpoint and resumed
+    at workers=2 (and a checkpoint written on the CPU resumed on the card);
+    a killed pool worker; the composition sweep's configuration at workers
+    1 and 2 against the CPU and the monolithic design.  Every pool worker
+    scores on the card (its own CUDA context and scorer tables) and must
+    report gather_rows launches; a `ParallelExecutionWarning` is an error.
+    Returns the parent's and the workers' launches."""
+    import warnings
+
+    from repro_torch.core.apps import APP_NAMES
+    from repro_torch.dse import (Composition, CompositionEvaluator,
+                                 FaultPlan, GeomeanAcrossApps,
+                                 ParallelExecutionWarning, ParallelExecutor,
+                                 SearchBudget, Study)
+    from repro_torch.kernels.gather import gather_rows
+    from repro_torch.obs.attribution import explain_composition
+
+    t_phase = time.perf_counter()
+    parent = {}
+
+    def run(label, fn):
+        """fn() with gather_rows counted from 0, timed."""
+        gather_rows.launches = 0
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        parent[label] = gather_rows.launches
+        return res, time.perf_counter() - t0
+
+    out = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", ParallelExecutionWarning)
+        # 1. workers: the seven-app greedy study of phase `study`
+        def seven(workers, device):
+            return Study(apps=list(APP_NAMES), objective=GeomeanAcrossApps(),
+                         engine="greedy",
+                         budget=SearchBudget(k=2, restarts=2, max_rounds=6),
+                         seed=0, device=device, workers=workers)
+
+        s4 = seven(4, "cuda")
+        r4, w4 = run("workers=4", s4.run)
+        r1, w1 = run("workers=1", seven(1, "cuda").run)
+        rc, wc = run("cpu", seven(1, "cpu").run)
+        check(json.dumps(r4.to_json()) == json.dumps(r1.to_json()),
+              "the seven-app study differs at workers 4 and 1")
+        check(r4.best == rc.best and r4.per_app == rc.per_app,
+              "the seven-app study differs on the card and the cpu")
+        check(parent["cpu"] == 0, "gather_rows launched on the cpu study")
+        out["workers"] = {"wall_s": {"workers=4": w4, "workers=1": w1,
+                                     "cpu": wc},
+                          "parent_launches": parent["workers=4"],
+                          "serial_launches": parent["workers=1"],
+                          **pool_record(s4)}
+
+        # 2. resume: random over ptb + wdl, a checkpoint every job
+        tmp = tempfile.TemporaryDirectory()
+        d = Path(tmp.name)
+
+        def small(device, **kw):
+            return Study(apps=["ptb", "wdl"], engine="random",
+                         budget=SearchBudget(restarts=1, max_rounds=3,
+                                             engine_kwargs={"batch": 12}),
+                         seed=0, device=device, **kw)
+
+        class Crash(Exception):
+            pass
+
+        def crash(n):
+            if n == 1:
+                raise Crash
+
+        base, wb = run("uninterrupted", small("cuda").run)
+        resumed, resume_s = {}, {}
+        # a checkpoint written by a run on the card, and one on the host
+        for written, dev in (("card", "cuda"), ("host", "cpu")):
+            ckpt = d / f"{written}.ckpt"
+            try:
+                small(dev).run(checkpoint_path=ckpt, checkpoint_every=1,
+                               on_checkpoint=crash)
+            except Crash:
+                pass
+            check(ckpt.exists(), f"the crashed {dev} run left no checkpoint")
+            resumed[written], resume_s[written] = run(
+                f"resume {written} checkpoint",
+                lambda: Study.resume(ckpt, workers=2, device="cuda"))
+            check(not ckpt.exists(), "resume left its checkpoint behind")
+        check(json.dumps(resumed["card"].to_json())
+              == json.dumps(base.to_json()),
+              "the resumed study differs from the uninterrupted one")
+        check(resumed["host"].meta["device"] == base.meta["device"]
+              and json.dumps(resumed["host"].to_json())
+              == json.dumps(base.to_json()),
+              "the cpu checkpoint resumed on the card differs")
+        out["resume"] = {"uninterrupted_s": wb,
+                         "resume_s": resume_s["card"],
+                         "host_checkpoint_resume_s": resume_s["host"],
+                         "parent_launches": parent["resume card checkpoint"]}
+
+        # 3. a killed worker costs one retry round, no degradation
+        ex = ParallelExecutor(workers=2, fault=FaultPlan(
+            state_dir=str(d / "fault"), mode="kill", times=1))
+        killed, wk = run("kill", small("cuda", executor=ex).run)
+        check(json.dumps(killed.to_json()) == json.dumps(base.to_json()),
+              "the study with a killed worker differs")
+        out["kill"] = {"wall_s": wk, "parent_launches": parent["kill"],
+                       **pool_record(ex, fault=True)}
+        tmp.cleanup()
+
+        # 4. composition: benchmarks/composition_sweep.py's configuration
+        budget = SearchBudget(restarts=2, max_rounds=16,
+                              engine_kwargs={"population": 32, "chains": 4,
+                                             "batch": 32})
+        traffic = {a: 0.5 for a in COMP_APPS}
+
+        def comp(workers, device):
+            return Study(apps=list(COMP_APPS), composition=2,
+                         engine="genetic", budget=budget, seed=0,
+                         traffic=traffic, area_budgets=[COMP_AREA],
+                         workers=workers, device=device,
+                         name="composition-sweep")
+
+        c1, wc1 = run("composition workers=1", comp(1, "cuda").run)
+        s2 = comp(2, "cuda")
+        c2, wc2 = run("composition workers=2", s2.run)
+        ccpu, wccpu = run("composition cpu", comp(1, "cpu").run)
+        check(json.dumps(c1.to_json()) == json.dumps(c2.to_json()),
+              "the composition differs at workers 1 and 2")
+        check(problem_json(c1) == problem_json(ccpu),
+              "the composition differs on the card and the cpu")
+        mono, wm = run("monolithic", Study(
+            apps=list(COMP_APPS), objective="pareto", engine="genetic",
+            budget=budget, seed=0, area_budgets=[COMP_AREA], device="cuda",
+            name="composition-sweep-mono").run)
+        ev = CompositionEvaluator(s2.specs, traffic=traffic,
+                                  area_budget=COMP_AREA, device="cuda")
+        mono_score = ev.score_one(Composition(
+            engines=(mono.best,), assignment=(0, 0), apps=tuple(COMP_APPS)))
+        best = c1.best
+        area = best.area(ev.hw)
+        check(isinstance(best, Composition) and area <= COMP_AREA
+              and c1.best_score > mono_score,
+              f"the composition ({c1.best_score}, area {area}) does not "
+              f"beat the monolithic design ({mono_score}) at {COMP_AREA}")
+        exp = {dev: explain_composition(best, s2.specs, traffic=traffic,
+                                        area_budget=COMP_AREA, device=dev)
+               for dev in ("cuda", "cpu")}
+        check(exp["cuda"].to_json() == exp["cpu"].to_json(),
+              "explain_composition differs on the card and the cpu")
+        check(exp["cuda"].score == c1.best_score,
+              "explain_composition's score is not the study's")
+        out["composition"] = {
+            "score": c1.best_score, "area": area,
+            "monolithic_score": mono_score,
+            "advantage": c1.best_score / mono_score,
+            "best": best.to_json(), "front": len(c1.front),
+            "wall_s": {"workers=1": wc1, "workers=2": wc2, "cpu": wccpu,
+                       "monolithic": wm},
+            "parent_launches": parent["composition workers=2"],
+            "serial_launches": parent["composition workers=1"],
+            "explain": exp["cuda"].to_json(), **pool_record(s2)}
+    check_isolated()
+    launches = {"parent": sum(v for k, v in parent.items() if k != "cpu"
+                              and k != "composition cpu"),
+                "workers": sum(out[k]["worker_launches"]
+                               for k in ("workers", "kill", "composition"))}
+    check(parent["composition cpu"] == 0,
+          "gather_rows launched on the cpu composition")
+    emit("study parallel", **out, parent_launches_by_run=parent,
+         gather_rows_launches=launches,
          phase_s=time.perf_counter() - t_phase)
     return launches
 
@@ -2155,8 +2383,28 @@ def phase_dryrun() -> dict:
         best, score = autotune_search(ev, shape_mode="decode", seed=0,
                                       log=log)
         seconds = time.perf_counter() - t0
+        greedy_runs = ev.n_compiles
+        # another engine through FunctionEvaluator and the evaluator-mode
+        # Study, over the same cell with its own memo (so it dry-runs its
+        # points itself; its records are checked below too)
+        rev = CellEvaluator(ARCH, "decode_32k",
+                            cache_dir=Path(tmp) / "evaluator_mode",
+                            device="cuda")
+        t0 = time.perf_counter()
+        rbest, rscore = autotune_search(rev, engine="random",
+                                        shape_mode="decode", seed=0,
+                                        max_rounds=2, batch=2)
+        evaluator_mode = {
+            "engine": "random", "rounds": 2, "batch": 2,
+            "best": json.loads(json.dumps(dataclasses.asdict(rbest))),
+            "score": rscore, "dry_runs": rev.n_compiles,
+            "seconds": time.perf_counter() - t0}
+        check(rscore > 0 and rev.n_compiles > 0,
+              f"the random autotune scored {rev.cell} {rscore} after "
+              f"{rev.n_compiles} dry-runs")
         records = {}
-        for f in sorted(ev.dir.glob("*.json")):
+        for f in sorted(ev.dir.glob("*.json")) + sorted(
+                rev.dir.glob("*.json")):
             rec = json.loads(f.read_text())
             check(rec.get("status") == "OK",
                   f"autotune record {f.name}: {rec.get('status')} "
@@ -2167,20 +2415,21 @@ def phase_dryrun() -> dict:
                   f"autotune record {f.name}: peak "
                   f"{roof['peak_memory_per_chip']}, roofline "
                   f"{roof['roofline_s']}")
-            records[f.stem] = {"point": rec.get("point"),
-                               "peak_memory_per_chip":
-                                   roof["peak_memory_per_chip"],
-                               "roofline_s": roof["roofline_s"]}
+            records[str(f.relative_to(tmp))] = {
+                "point": rec.get("point"),
+                "peak_memory_per_chip": roof["peak_memory_per_chip"],
+                "roofline_s": roof["roofline_s"]}
         scores = [x for r in log for x in
                   ([r["score"]] if r["event"] == "init" else r["scores"])]
         picked = json.loads(json.dumps(dataclasses.asdict(best)))
         autotune = {"cell": ev.cell, "best": picked,
                     "matmul_only_pick": MATMUL_ONLY_PICK,
                     "pick_moved": picked != MATMUL_ONLY_PICK,
-                    "score": score, "dry_runs": ev.n_compiles,
+                    "score": score, "dry_runs": greedy_runs,
                     "seconds": seconds, "records": records,
                     "rounds": [{"var": r["var"], "scores": r["scores"]}
-                               for r in log if r["event"] == "round"]}
+                               for r in log if r["event"] == "round"],
+                    "evaluator_mode": evaluator_mode}
         check(score > 0 and max(scores) > 0,
               f"the autotune scored {ev.cell} 0 at every point: {scores}")
         check(score == max(scores),
@@ -2322,6 +2571,7 @@ def main() -> int:
     launches = phase_study(APP_NAMES)
     zoo = phase_study_zoo()
     pareto_launches = phase_study_pareto()
+    parallel = phase_study_parallel()
     phase_throughput([s for s in specs if s.name in ("inception", "nasnet")],
                      space, rng)
     flash = phase_flash(torch.Generator(device="cuda").manual_seed(0))
@@ -2357,9 +2607,12 @@ def main() -> int:
         "replaces": TPU_KERNEL,
         "tpu": "src/repro/kernels/costmodel.py:gather_rows",
         "shape": {"C": t["C"], "U": t["U"], "O": t["O"], "dtype": "int64"},
-        "launches": launches,
+        "launches": launches + parallel["parent"] + parallel["workers"],
         "launches_by_path": {
             "study, seven paper apps": launches,
+            "study parallel, parent": parallel["parent"],
+            "study parallel, pool workers (their own counts)":
+                parallel["workers"],
             "study zoo, twelve traced apps": zoo["study"],
             "study zoo, genetic on qwen2-0.5b:prefill": zoo["genetic"],
             "study zoo, anneal on qwen2-0.5b:prefill": zoo["anneal"],

@@ -23,8 +23,9 @@ packages.  On one GPU, serving only: sharding mode, remat, microbatches
 and the layout rules (`extra_rules`) change nothing in the step, and
 `moe_group_size` only MoE blocks, which the port does not have yet; the
 plain attention's KV tile (`attn_kv_block`) is the variable that moves the
-step (its peak memory, not its FLOPs).  Engines other than greedy need the
-evaluator-mode `Study`, ported in a later slice (see ROADMAP.md).
+step (its peak memory, not its FLOPs).  Engines other than greedy run
+through a `FunctionEvaluator` and the evaluator-mode `Study` on the host:
+each point they score is one dry-run on fake tensors.
 """
 
 from __future__ import annotations
@@ -38,8 +39,8 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 
 from repro_torch.core.roofline import HW
-from repro_torch.core.search import DiscreteSpace, EngineSpec, filter_kwargs
-from repro_torch.models.layers import not_ported
+from repro_torch.core.search import (DiscreteSpace, EngineSpec,
+                                     FunctionEvaluator, filter_kwargs)
 
 __all__ = ["ExecPoint", "EXEC_DOMAINS", "CellEvaluator", "exec_space",
            "greedy_autotune", "autotune_search", "select_geomean_config"]
@@ -165,17 +166,63 @@ def autotune_search(evaluator: CellEvaluator, *, engine: EngineSpec = "greedy",
                     init: Optional[ExecPoint] = None,
                     log: Optional[list] = None,
                     **engine_kwargs) -> Tuple[ExecPoint, float]:
-    """Autotuning of one cell.  "greedy" is the k=1 memoized loop below;
-    the other engines run through the evaluator-mode `Study`, which is
-    ported in a later slice."""
-    if engine != "greedy":
-        raise not_ported(f"autotune_search(engine={engine!r}) (needs the "
-                         "evaluator-mode Study and FunctionEvaluator)")
-    # forward only what greedy_autotune understands, as make_engine does
-    return greedy_autotune(evaluator, shape_mode=shape_mode,
-                           has_moe=has_moe, seed=seed,
-                           max_rounds=max_rounds, init=init, log=log,
-                           **filter_kwargs(greedy_autotune, engine_kwargs))
+    """Engine-pluggable autotuning of one cell.
+
+    "greedy" keeps the k=1 memoized loop below; other engines run through
+    the evaluator-mode `Study` with deliberately small population defaults
+    — every scored point is one dry-run, memoized by `CellEvaluator` on
+    disk and by `FunctionEvaluator` in memory.
+    """
+    if engine == "greedy":
+        # forward only what greedy_autotune understands, as make_engine
+        # does for the other engines
+        return greedy_autotune(evaluator, shape_mode=shape_mode,
+                               has_moe=has_moe, seed=seed,
+                               max_rounds=max_rounds, init=init, log=log,
+                               **filter_kwargs(greedy_autotune,
+                                               engine_kwargs))
+    from repro_torch.dse import SearchBudget, Study
+
+    space = exec_space(shape_mode, has_moe)
+    # each pool's cache misses go to score_batch in one call where the
+    # evaluator has one; score-only evaluators take the scalar path
+    fev = FunctionEvaluator(evaluator.score,
+                            batch_score_fn=getattr(evaluator, "score_batch",
+                                                   None))
+    kw: Dict[str, Any] = {"chains": 2, "population": 6, "batch": 4,
+                          "elite": 1}
+    kw.update(engine_kwargs)
+    if init is not None:
+        kw.setdefault("init", init)
+    # one engine run over the execution space through the evaluator-mode
+    # Study: make_engine's kwarg filtering, the same seed, the same
+    # ask/tell loop
+    study = Study(space=space, evaluator=fev, engine=engine,
+                  budget=SearchBudget(restarts=1, max_rounds=max_rounds,
+                                      engine_kwargs=kw),
+                  seed=seed, name="autotune")
+    res = study.run().per_app_results["space"]
+    best, best_perf = res.best, res.best_perf
+    if init is not None:
+        # engines without an `init` parameter (genetic, random) drop it in
+        # make_engine's kwarg filtering — score it explicitly so the
+        # starting point is always a candidate (memoized: free if an
+        # init-seeded engine already scored it)
+        init_score = fev.score_one(init)
+        if best is None or init_score > best_perf:
+            best, best_perf = init, init_score
+    if best is None:
+        raise ValueError(
+            f"{engine} search evaluated no candidates (max_rounds="
+            f"{max_rounds}); use max_rounds >= 1 or pass init=")
+    if log is not None:
+        log.append({"event": "search", "engine": res.engine,
+                    "rounds": res.rounds,
+                    "evaluated": [dataclasses.asdict(c)
+                                  for c in res.evaluated],
+                    "scores": res.evaluated_perf.tolist(),
+                    "best": dataclasses.asdict(best)})
+    return best, best_perf
 
 
 def greedy_autotune(evaluator: CellEvaluator, *, shape_mode: str = "train",

@@ -53,7 +53,9 @@ Engines
 
 Each engine is a numpy copy of the JAX package's, proposal for proposal at
 a fixed seed; `synthetic` holds the closed-form problems with known optima
-that test them.
+that test them.  `FunctionEvaluator` gives the same pool interface over an
+arbitrary scalar scorer (the execution space's dry-runs), and `partition`
+the assignment/split combinatorics of multi-engine compositions.
 """
 
 from __future__ import annotations
@@ -67,10 +69,16 @@ from repro_torch.core.search.base import (DiscreteSpace, Optimizer,
                                           pack_config, pareto_front_indices,
                                           repair_many_with, repair_with,
                                           run_search, unpack_config)
-from repro_torch.core.search.evaluator import Evaluator, config_key
+from repro_torch.core.search.evaluator import (Evaluator, FunctionEvaluator,
+                                               config_key)
 from repro_torch.core.search.genetic import GeneticOptimizer
 from repro_torch.core.search.greedy import GreedyOptimizer
 from repro_torch.core.search.nsga2 import NSGA2Optimizer
+from repro_torch.core.search.partition import (Partition,
+                                               enumerate_assignments,
+                                               enumerate_partitions,
+                                               enumerate_splits,
+                                               group_members, tier_shares)
 from repro_torch.core.search.random_search import RandomSearchOptimizer
 from repro_torch.core.search.tpe import TPEOptimizer
 
@@ -78,7 +86,9 @@ __all__ = [
     "Optimizer", "SearchResult", "run_search", "SpaceCodec",
     "DiscreteSpace", "pareto_front_indices", "repair_with",
     "repair_many_with", "pack_config", "unpack_config", "Evaluator",
-    "config_key",
+    "FunctionEvaluator", "config_key", "Partition", "enumerate_assignments",
+    "enumerate_splits", "enumerate_partitions", "tier_shares",
+    "group_members",
     "GreedyOptimizer", "AnnealOptimizer", "GeneticOptimizer",
     "RandomSearchOptimizer", "TPEOptimizer", "NSGA2Optimizer", "ENGINES",
     "EngineSpec", "filter_kwargs", "make_engine", "optimize_for_app",

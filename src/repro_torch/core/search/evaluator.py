@@ -20,12 +20,24 @@ backends on `device` — the GPU unless the caller asks for the CPU:
     Eqs. (1)-(13) broadcast pass, which scores any stream.
 
 Both give the same bits; only the caller chooses, nothing falls back.
+
+The cache is shard-safe: `cache_export` / `cache_merge` move it between
+evaluators of the same stream (a process-pool worker's shard and the
+parent's evaluator) as plain bytes and floats.
+
+`FunctionEvaluator` wraps an arbitrary scalar scoring function (e.g. the
+dry-run `CellEvaluator` of `core/autotune.py`) behind the same pool
+interface, with its own memo, so every engine also drives spaces that are
+not the accelerator's.  Pass `batch_score_fn` when the scorer can take a
+whole pool at once: each pool's cache misses are then scored in one call.
+It runs on the host and never touches a device.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -38,7 +50,7 @@ from repro_torch.core.search import rowcache
 from repro_torch.core.search.rowcache import RowHashCache
 from repro_torch.kernels.costmodel import FusedTorchScorer
 
-__all__ = ["Evaluator", "config_key", "BACKENDS"]
+__all__ = ["Evaluator", "FunctionEvaluator", "config_key", "BACKENDS"]
 
 BACKENDS = ("fused", "broadcast")
 
@@ -48,6 +60,34 @@ def config_key(cfg: Any) -> Tuple:
     if hasattr(cfg, "asdict"):
         return tuple(sorted(cfg.asdict().items()))
     return tuple(sorted(dataclasses.asdict(cfg).items()))
+
+
+class _LRU:
+    """Tiny LRU dict: key -> value, bounded size, hit/miss counters."""
+
+    def __init__(self, maxsize: int):
+        self.maxsize = maxsize
+        self.data: "collections.OrderedDict[Tuple, Any]" = \
+            collections.OrderedDict()
+        self.hits = 0
+        self.misses = 0
+
+    def get(self, key: Tuple) -> Optional[Any]:
+        if key in self.data:
+            self.data.move_to_end(key)
+            self.hits += 1
+            return self.data[key]
+        self.misses += 1
+        return None
+
+    def put(self, key: Tuple, value: Any) -> None:
+        self.data[key] = value
+        self.data.move_to_end(key)
+        self.trim()
+
+    def trim(self) -> None:
+        while len(self.data) > self.maxsize:
+            self.data.popitem(last=False)
 
 
 class Evaluator:
@@ -249,6 +289,25 @@ class Evaluator:
                               area_budget=self.area_budget,
                               device=self.device)
 
+    # ------------------------------------------------------- shard merging
+    def cache_export(self) -> Dict[bytes, Tuple[float, float]]:
+        """Snapshot of the raw-metric cache: content-addressed row key ->
+        (gops, area), host values only.  Keys are pure functions of config
+        content, independent of scoring order, worker, device or shard, so
+        two evaluator shards that score the same config produce the same
+        key and the same value, and exports merge without conflicts."""
+        return self._cache.export_bytes()
+
+    def cache_merge(self, exported: Dict[bytes, Tuple[float, float]]) -> int:
+        """Fold a worker shard's `cache_export` into this evaluator.
+
+        First-writer-wins per key; keys are content-addressed and values
+        deterministic, so the merged values do not depend on merge order or
+        shard count (only LRU recency does).  Returns the number of new
+        entries.  The hit/miss counters do not move (a merge scores
+        nothing)."""
+        return self._cache.merge_bytes(exported)
+
     # ---------------------------------------------------------------- stats
     @property
     def cache_hits(self) -> int:
@@ -258,6 +317,10 @@ class Evaluator:
     def cache_misses(self) -> int:
         return self._cache.misses
 
+    @property
+    def cache_evictions(self) -> int:
+        return self._cache.evictions
+
     def stats(self) -> Dict[str, int]:
         return {"batches": self.n_batches, "scored": self.n_scored,
                 "cache_hits": self._cache.hits,
@@ -265,3 +328,86 @@ class Evaluator:
                 "cache_evictions": self._cache.evictions,
                 "dedup_skipped": self.dedup_skipped,
                 "cache_size": len(self._cache)}
+
+
+class FunctionEvaluator:
+    """Pool interface + LRU memoization over a scalar score function.
+
+    Adapts expensive per-config scorers (one dry-run per point of the
+    execution space) to the engines' search loop.  `hw`/peaks default to
+    neutral values so generic engine code can read them.
+
+    When the underlying scorer can handle a whole pool at once, pass
+    `batch_score_fn(configs) -> sequence of floats`: the cache-missing
+    subset of each pool is then scored in ONE call instead of one call per
+    config.  `score_fn` remains the scalar fallback/reference.
+    """
+
+    def __init__(self, score_fn: Callable[[Any], float],
+                 cache_size: int = 1 << 12,
+                 batch_score_fn: Optional[
+                     Callable[[Sequence[Any]], Sequence[float]]] = None):
+        self.score_fn = score_fn
+        self.batch_score_fn = batch_score_fn
+        self.hw = None
+        self.peak_weight_bits = 0
+        self.peak_input_bits = 0
+        self._cache = _LRU(cache_size)
+        self.n_scored = 0
+        self.n_batches = 0
+
+    def __call__(self, pool: Sequence[Any]) -> np.ndarray:
+        pool = list(pool)
+        keys = [config_key(cfg) for cfg in pool]
+        vals: Dict[Tuple, float] = {}
+        miss_seen = set()
+        miss_keys: List[Tuple] = []
+        miss_cfgs: List[Any] = []
+        for k, cfg in zip(keys, pool):
+            if k in vals or k in miss_seen:
+                continue
+            hit = self._cache.get(k)
+            if hit is not None:
+                vals[k] = hit
+            else:
+                miss_seen.add(k)
+                miss_keys.append(k)
+                miss_cfgs.append(cfg)
+        if miss_cfgs:
+            if self.batch_score_fn is not None:
+                scores = [float(s) for s in self.batch_score_fn(miss_cfgs)]
+                if len(scores) != len(miss_cfgs):
+                    raise ValueError(
+                        f"batch_score_fn returned {len(scores)} scores for "
+                        f"{len(miss_cfgs)} configs")
+                self.n_batches += 1
+            else:
+                scores = [float(self.score_fn(cfg)) for cfg in miss_cfgs]
+            self.n_scored += len(miss_cfgs)
+            for k, s in zip(miss_keys, scores):
+                self._cache.put(k, s)
+                vals[k] = s
+        return np.asarray([vals[k] for k in keys], dtype=np.float64)
+
+    def score_one(self, cfg: Any) -> float:
+        return float(self([cfg])[0])
+
+    def cache_export(self) -> Dict[Tuple, float]:
+        """Shard-safe cache snapshot (config-content key -> score)."""
+        return dict(self._cache.data)
+
+    def cache_merge(self, exported: Dict[Tuple, float]) -> int:
+        """Fold another FunctionEvaluator shard's export in (first-writer-
+        wins per content key; values are deterministic so order is moot)."""
+        data = self._cache.data
+        new = 0
+        for k, v in exported.items():
+            if k not in data:
+                data[k] = v
+                new += 1
+        self._cache.trim()
+        return new
+
+    def stats(self) -> Dict[str, int]:
+        return {"scored": self.n_scored, "cache_hits": self._cache.hits,
+                "cache_misses": self._cache.misses}

@@ -11,27 +11,46 @@
     `SearchBudget`, with `.run() -> StudyResult` and JSON persistence;
     Pareto studies add the joint front (`FrontPoint`s) and one selection
     per area budget.
+  * `ParallelExecutor` — `Study(..., workers=N)` fans the per-app
+    searches over a spawn process pool (results are invariant to worker
+    count), `Study.run(checkpoint_path=...)` streams crash-safe progress
+    fragments, and `Study.resume(path)` continues a killed study to a
+    bit-identical result (`repro_torch.dse.parallel`).
+  * `Study(composition=K)` — K sub-accelerators under one shared area
+    budget with traffic routing (`repro_torch.dse.composition`).
 
 CLI: ``python -m repro_torch.dse --apps resnet --apps ptb`` (see
 `repro_torch.dse.cli`).  `run_multiapp_study` and the sensitivity radar
 (`repro_torch.core.sensitivity`) are thin compositions over `Study`.
 """
 
+from repro_torch.dse.composition import (Composition, CompositionEvaluator,
+                                         TrafficMix, composition_score)
 from repro_torch.dse.constraints import (AreaBudget, Constraint, PeakBuffers,
-                                         UserConstraint, feasible_mask_all)
+                                         UserConstraint,
+                                         constraint_from_describe,
+                                         feasible_mask_all)
 from repro_torch.dse.objectives import (OBJECTIVES, GeomeanAcrossApps,
                                         MaxPerf, Objective, ParetoObjective,
                                         PerfPerArea, geomean, make_objective)
-from repro_torch.dse.parallel import (canonical_front_indices,
-                                      merge_pareto_fronts)
+from repro_torch.dse.parallel import (EvalParams, FaultPlan,
+                                      ParallelExecutionWarning,
+                                      ParallelExecutor,
+                                      canonical_front_indices,
+                                      merge_pareto_fronts,
+                                      score_population_sharded)
 from repro_torch.dse.study import FrontPoint, SearchBudget, Study, StudyResult
 
 __all__ = [
     "Objective", "MaxPerf", "PerfPerArea", "GeomeanAcrossApps",
     "ParetoObjective", "OBJECTIVES", "make_objective", "geomean",
     "Constraint", "AreaBudget", "PeakBuffers", "UserConstraint",
-    "feasible_mask_all", "Study", "StudyResult", "SearchBudget",
-    "FrontPoint", "canonical_front_indices", "merge_pareto_fronts",
+    "feasible_mask_all", "constraint_from_describe", "Study",
+    "StudyResult", "SearchBudget", "FrontPoint", "Composition",
+    "CompositionEvaluator", "TrafficMix", "composition_score",
+    "ParallelExecutor", "ParallelExecutionWarning", "FaultPlan",
+    "EvalParams", "canonical_front_indices", "merge_pareto_fronts",
+    "score_population_sharded",
     "study_from_cli", "main",
 ]
 

@@ -24,6 +24,18 @@
     PYTHONPATH=src python -m repro_torch.obs.validate --trace t.json \\
         --journal j.jsonl
 
+    # fan per-app searches over 4 workers with crash-safe checkpoints;
+    # a killed run continues via --resume (bit-identical result)
+    PYTHONPATH=src python -m repro_torch.dse --apps resnet --apps ptb \\
+        --apps wdl --workers 4 --checkpoint-every 1
+    PYTHONPATH=src python -m repro_torch.dse \\
+        --resume experiments/dse_study.json.ckpt
+
+    # a two-engine composition for mixed prefill/decode traffic
+    PYTHONPATH=src python -m repro_torch.dse --apps qwen2-0.5b:prefill \\
+        --apps qwen2-0.5b:decode --composition 2 --engine genetic \\
+        --traffic qwen2-0.5b:prefill=1 --traffic qwen2-0.5b:decode=1
+
 Every run persists a `StudyResult` JSON (default
 ``experiments/dse_study.json``).
 """
@@ -36,6 +48,7 @@ from pathlib import Path
 from typing import List, Optional, Tuple
 
 from repro_torch.core.search.evaluator import BACKENDS
+from repro_torch.dse.composition import Composition
 from repro_torch.dse.objectives import OBJECTIVES
 from repro_torch.dse.study import SearchBudget, Study, StudyResult
 
@@ -74,6 +87,20 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--engine", default="greedy",
                     help="search engine: greedy | anneal | genetic | "
                          "random | tpe | nsga2")
+    ap.add_argument("--composition", type=int, default=1, metavar="K",
+                    help="search a K-sub-accelerator composition under one "
+                         "shared area budget (CDSE->CDAC; needs >= K apps "
+                         "and a pareto objective)  [default: 1 = one "
+                         "monolithic accelerator]")
+    ap.add_argument("--traffic", action="append", default=None,
+                    metavar="APP=WEIGHT",
+                    help="traffic weight per app for composition scoring "
+                         "(repeatable; normalized to sum 1)  [default: "
+                         "uniform]")
+    ap.add_argument("--split-grid", type=int, default=4, metavar="G",
+                    help="area-split granularity for compositions: each "
+                         "engine's budget share is a positive multiple of "
+                         "1/G  [default: 4]")
     ap.add_argument("--objective", default=None,
                     choices=sorted(OBJECTIVES),
                     help="optimization objective  [default: maxperf for one "
@@ -116,8 +143,23 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--out", type=Path, default=DEFAULT_OUT,
                     help=f"StudyResult JSON path  [default: {DEFAULT_OUT}]")
     ap.add_argument("--device", default="cuda",
-                    help="torch device that scores the pools  [default: "
-                         "cuda; fails when no GPU is available]")
+                    help="torch device that scores the pools, in every "
+                         "worker too  [default: cuda; fails when no GPU is "
+                         "available]")
+    ap.add_argument("--workers", type=int, default=1,
+                    help="process-pool width for the per-app searches; "
+                         "results are bit-identical at any value  "
+                         "[default: 1 = serial]")
+    ap.add_argument("--checkpoint-every", type=int, default=None,
+                    metavar="K",
+                    help="write a crash-safe checkpoint (<out>.ckpt) after "
+                         "every K completed per-app searches; resume a "
+                         "killed run with --resume  [default: off]")
+    ap.add_argument("--resume", type=Path, default=None, metavar="CKPT",
+                    help="continue a killed study from its checkpoint file "
+                         "on --device with --backend and --workers "
+                         "(produces the same result the uninterrupted run "
+                         "would have)")
     grp = ap.add_argument_group(
         "observability (result-inert: the StudyResult JSON is byte-"
         "identical with or without these)")
@@ -159,15 +201,28 @@ def study_from_cli(argv: Optional[List[str]] = None
                     else base.max_rounds),
         engine_kwargs=dict(base.engine_kwargs))
     budget.engine_kwargs.update(_parse_engine_kwargs(args.engine_kwarg))
+
+    traffic = None
+    if args.traffic:
+        traffic = {}
+        for pair in args.traffic:
+            key, sep, val = pair.partition("=")
+            if not sep:
+                raise SystemExit(
+                    f"--traffic wants APP=WEIGHT, got {pair!r}")
+            traffic[key] = float(val)
     # objective=None defers to Study's own default (maxperf for one app,
-    # geomean for several); --budgets flows through unconditionally so
-    # Study rejects it for non-pareto objectives instead of dropping it
+    # geomean for several, pareto for compositions); --budgets flows
+    # through unconditionally so Study rejects it for non-pareto
+    # objectives instead of dropping it
     study = Study(apps=list(args.apps or ["resnet"]), space=default_space(),
                   objective=args.objective, constraints=constraints,
                   engine=args.engine, budget=budget, seed=args.seed,
                   top_frac=args.top_frac, area_budgets=args.budgets,
                   weight_peak_mode=args.weight_peak_mode, name="cli",
-                  device=args.device, backend=args.backend)
+                  device=args.device, backend=args.backend,
+                  workers=args.workers, composition=args.composition,
+                  traffic=traffic, split_grid=args.split_grid)
     return study, args
 
 
@@ -195,8 +250,17 @@ def _print_result(result: StudyResult) -> None:
             else:
                 print(f"  area<={b}: score={sel['score']:.2f} "
                       f"area={sel['area']:.0f}")
-    if result.best is not None:
-        keys = ("pe_group", "mac_per_group", "bank_height", "tif", "tof")
+    keys = ("pe_group", "mac_per_group", "bank_height", "tif", "tof")
+    if isinstance(result.best, Composition):
+        comp = result.best
+        print(f"\nbest composition (score={result.best_score:.2f}, "
+              f"{comp.k} engines):")
+        groups = comp.groups()
+        for g, eng in enumerate(comp.engines):
+            served = ",".join(comp.apps[i] for i in groups[g])
+            print(f"  engine {g} <- {served}:",
+                  {k: v for k, v in eng.asdict().items() if k in keys})
+    elif result.best is not None:
         print(f"\nbest (score={result.best_score:.2f}):",
               {k: v for k, v in result.best.asdict().items() if k in keys})
 
@@ -233,7 +297,17 @@ def main(argv: Optional[List[str]] = None) -> int:
                    metrics=args.metrics,
                    journal=args.journal is not None)
 
-    result = study.run()
+    if args.resume is not None:
+        if not args.resume.exists():
+            raise SystemExit(f"--resume: no checkpoint at {args.resume}")
+        result = Study.resume(args.resume, workers=args.workers,
+                              device=args.device, backend=args.backend)
+    elif args.checkpoint_every is not None:
+        ckpt = args.out.with_name(args.out.name + ".ckpt")
+        result = study.run(checkpoint_path=ckpt,
+                           checkpoint_every=args.checkpoint_every)
+    else:
+        result = study.run()
     _print_result(result)
 
     if args.radar:

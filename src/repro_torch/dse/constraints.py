@@ -31,7 +31,7 @@ import numpy as np
 from repro_torch.core.costmodel import ConfigBatch
 
 __all__ = ["Constraint", "AreaBudget", "PeakBuffers", "UserConstraint",
-           "feasible_mask_all"]
+           "feasible_mask_all", "constraint_from_describe"]
 
 
 class Constraint:
@@ -130,3 +130,18 @@ def feasible_mask_all(constraints: Sequence[Constraint], batch: ConfigBatch,
     for c in constraints:
         mask &= np.asarray(c.feasible_mask(batch, metrics), dtype=bool)
     return mask
+
+
+def constraint_from_describe(d: Dict) -> Constraint:
+    """Rebuild a constraint from its `describe()` record (the inverse used
+    by study checkpoints).  Only the declarative built-ins round-trip;
+    `UserConstraint` carries an arbitrary callable and cannot."""
+    name = d.get("name")
+    if name == "area-budget":
+        return AreaBudget(budget=float(d["budget"]))
+    if name == "peak-buffers":
+        return PeakBuffers(weight_bits=int(d["weight_bits"]),
+                           input_bits=int(d["input_bits"]))
+    raise ValueError(
+        f"constraint {name!r} is not reconstructible from its describe() "
+        "record (only area-budget / peak-buffers round-trip)")

@@ -25,10 +25,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, List, Optional
 
+import numpy as np
+
 from repro_torch.core.costmodel import (AccelConfig, HardwareConstants,
                                         OpStream, evaluate_stream)
 
 __all__ = ["OpCost", "CostExplanation", "explain_config",
+           "EngineAttribution", "CompositionExplanation",
            "explain_composition"]
 
 
@@ -165,8 +168,123 @@ def explain_config(config: AccelConfig, stream: OpStream,
                            valid=valid, feasible=feasible, ops=ops)
 
 
-def explain_composition(*args, **kwargs):
-    """Per-engine attribution of a heterogeneous composition; it comes
-    with the composition studies."""
-    raise NotImplementedError("explain_composition is ported in a later "
-                              "slice, see ROADMAP.md")
+# --------------------------------------------------------------------------
+# Composition attribution (heterogeneous multi-accelerator designs)
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class EngineAttribution:
+    """One sub-accelerator's row of a composition breakdown."""
+
+    index: int
+    config: Dict[str, int]
+    area: float
+    area_share: float             # this engine's fraction of the total area
+    budget_share: float           # the split share the CDAC stage budgeted
+    apps: List[Dict[str, Any]]    # per served app: weight, fraction, gops,
+                                  # effective_gops
+
+    def to_json(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+
+@dataclasses.dataclass
+class CompositionExplanation:
+    """Per-engine attribution of one `Composition` under a traffic mix."""
+
+    score: float                  # traffic-weighted geomean effective GOPS
+    total_area: float
+    area_budget: float
+    feasible: bool                # every routed app valid AND within budget
+    traffic: Dict[str, float]
+    engines: List[EngineAttribution]
+
+    def to_json(self) -> Dict[str, Any]:
+        return {
+            "score": self.score,
+            "total_area": self.total_area,
+            "area_budget": self.area_budget,
+            "feasible": self.feasible,
+            "traffic": dict(self.traffic),
+            "engines": [e.to_json() for e in self.engines],
+        }
+
+    def table(self) -> str:
+        """Text rendering: one block per engine, one row per served app."""
+        head = (f"{'engine/app':30s} {'weight':>7s} {'frac':>6s} "
+                f"{'gops':>10s} {'eff gops':>10s} {'area':>10s}")
+        lines = [head, "-" * len(head)]
+        for e in self.engines:
+            lines.append(f"engine {e.index} "
+                         f"(area {e.area:.0f}, {e.area_share:.0%} of total, "
+                         f"budgeted {e.budget_share:.0%})")
+            for a in e.apps:
+                lines.append(
+                    f"  {a['name'][:28]:28s} {a['weight']:7.3f} "
+                    f"{a['fraction']:6.2f} {a['gops']:10.1f} "
+                    f"{a['effective_gops']:10.1f} {e.area:10.0f}"
+                    + ("" if a["gops"] > 0 else "  [infeasible]"))
+        lines.append("-" * len(head))
+        lines.append(f"{'traffic score':30s} {self.score:>42.1f} "
+                     f"{self.total_area:10.0f}"
+                     f"{'' if self.feasible else '  [over budget]'}")
+        return "\n".join(lines)
+
+
+def explain_composition(comp, specs, hw: Optional[HardwareConstants] = None,
+                        traffic=None, area_budget: float = 0.0,
+                        device="cuda") -> CompositionExplanation:
+    """Per-engine attribution of a `Composition` on its applications, each
+    engine's GOPS computed on `device`.
+
+    `specs` are the `AppSpec`s in composition app order; `traffic` is a
+    `TrafficMix` / dict / None (uniform).  Numbers agree bit-for-bit with
+    `CompositionEvaluator.score_with_area` (the same raw GOPS, the same
+    time-shared effective-rate formula)."""
+    from repro_torch.core.costmodel import ConfigBatch, performance_gops
+    from repro_torch.dse.composition import TrafficMix, composition_score
+
+    hw = hw or HardwareConstants()
+    specs = list(specs)
+    by_name = {s.name: s for s in specs}
+    mix = TrafficMix.of(traffic, comp.apps)
+    w = mix.vector()
+
+    gops = np.zeros(len(comp.apps))
+    for i, app in enumerate(comp.apps):
+        spec = by_name[app]
+        batch = ConfigBatch.from_configs([comp.engine_of(app)])
+        gops[i] = performance_gops(batch, spec.stream, hw,
+                                   spec.peak_weight_bits,
+                                   spec.peak_input_bits, device=device)[0]
+    assignment = np.asarray(comp.assignment, dtype=np.int64)
+    group_w = np.zeros(comp.k)
+    np.add.at(group_w, assignment, w)
+    frac = w / group_w[assignment]
+
+    areas = [float(e.area(hw)) for e in comp.engines]
+    total = float(sum(areas))
+    split = comp.split or tuple(1.0 / comp.k for _ in range(comp.k))
+    engines: List[EngineAttribution] = []
+    for g in range(comp.k):
+        served = [i for i, a in enumerate(comp.assignment) if a == g]
+        engines.append(EngineAttribution(
+            index=g,
+            config={k: int(v) for k, v in comp.engines[g].asdict().items()},
+            area=areas[g],
+            area_share=(areas[g] / total if total > 0 else 0.0),
+            budget_share=float(split[g]),
+            apps=[{"name": comp.apps[i],
+                   "weight": float(w[i]),
+                   "fraction": float(frac[i]),
+                   "gops": float(gops[i]),
+                   "effective_gops": float(frac[i] * gops[i])}
+                  for i in served]))
+    score = composition_score(w, comp.assignment, gops)
+    feasible = bool(score > 0 and (area_budget <= 0 or total <= area_budget))
+    if area_budget > 0 and total > area_budget:
+        score = 0.0
+    return CompositionExplanation(score=float(score), total_area=total,
+                                  area_budget=float(area_budget),
+                                  feasible=feasible,
+                                  traffic=mix.to_json(), engines=engines)

@@ -553,3 +553,23 @@ def test_dry_run_counts_fake_cuda_tensors_as_fake_cpu(gpu):
         assert on_cuda.transcendentals == on_cpu.transcendentals > 0
         assert on_cuda.peak_bytes == on_cpu.peak_bytes > 0
         assert on_cuda.bytes_accessed == on_cpu.bytes_accessed
+
+
+def test_parallel_study_on_the_card_equals_serial(gpu):
+    """workers=2 on the card (spawned workers, each with its own CUDA
+    context) gives the workers=1 bytes, and every pool task launched
+    gather_rows in its own process."""
+    import json
+
+    from repro_torch.dse import SearchBudget, Study
+
+    kw = dict(apps=["ptb", "wdl"], engine="greedy", seed=0, device="cuda",
+              budget=SearchBudget.smoke())
+    serial = Study(**kw).run()
+    pooled = Study(workers=2, **kw)
+    res = pooled.run()
+    assert json.dumps(res.to_json()) == json.dumps(serial.to_json())
+    tasks = pooled.launch_stats["tasks"]
+    assert tasks and all(t["pool"] and t["launches"] > 0 for t in tasks)
+    assert pooled.launch_stats["workers"] == sum(t["launches"]
+                                                 for t in tasks)

@@ -2,6 +2,7 @@
 bit for bit, a seven-app study against `repro.dse.Study`, persistence, and
 the refusal to run on a GPU that is not there."""
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -13,8 +14,9 @@ import torch
 
 import repro.dse as ref_dse
 from repro_torch.core.apps import APP_NAMES
-from repro_torch.dse import (GeomeanAcrossApps, MaxPerf, SearchBudget, Study,
-                             StudyResult)
+from repro_torch.core.search import DiscreteSpace, FunctionEvaluator
+from repro_torch.dse import (Composition, GeomeanAcrossApps, MaxPerf,
+                             SearchBudget, Study, StudyResult)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -104,10 +106,41 @@ def test_cuda_without_a_gpu_raises(monkeypatch):
         Study(apps=["ptb"])                        # the default is cuda
 
 
-@pytest.mark.parametrize("kwargs", [{"workers": 2}, {"composition": 2},
-                                    {"evaluator": object()}])
-def test_features_of_a_later_slice_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        Study(apps=["ptb"], device="cpu", **kwargs)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Study(apps=["ptb"], device="cpu").run(checkpoint_path="ckpt.json")
+@dataclasses.dataclass(frozen=True)
+class _Point:
+    x: int = 1
+    y: int = 0
+
+
+@pytest.mark.parametrize("feature", ["workers", "composition", "evaluator",
+                                     "checkpoint"])
+def test_the_study_front_door_features_construct_and_run(feature, tmp_path):
+    """Workers, compositions, evaluator mode and checkpoints (held against
+    the reference in test_torch_parallel/composition/generic/resume.py)
+    construct and run on the CPU."""
+    budget = SearchBudget.smoke()
+    if feature == "evaluator":
+        space = DiscreteSpace(domains={"x": (1, 2, 4), "y": (0, 1)},
+                              make_config=lambda **kw: _Point(**kw))
+        res = Study(space=space, budget=budget, seed=0,
+                    evaluator=FunctionEvaluator(
+                        lambda c: float(c.x + c.y))).run()
+        assert res.best == _Point(4, 1) and res.best_score == 5.0
+        assert res.to_json()["best"] == {"x": 4, "y": 1}
+        return
+    if feature == "composition":
+        res = Study(apps=["ptb", "wdl"], composition=2, budget=budget,
+                    device="cpu").run()
+        assert isinstance(res.best, Composition) and res.best_score > 0
+        return
+    plain = Study(apps=["ptb"], budget=budget, device="cpu").run()
+    if feature == "workers":
+        # one app is one task: the executor keeps it in this process
+        res = Study(apps=["ptb"], budget=budget, device="cpu",
+                    workers=2).run()
+    else:
+        ckpt = tmp_path / "ckpt.json"
+        res = Study(apps=["ptb"], budget=budget, device="cpu").run(
+            checkpoint_path=ckpt)
+        assert not ckpt.exists()
+    assert json.dumps(res.to_json()) == json.dumps(plain.to_json())

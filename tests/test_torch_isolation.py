@@ -63,13 +63,34 @@ def test_cpu_main_path_loads_neither_jax_nor_repro():
     assert proc.stdout.strip() == "[]"
 
 
+def test_cpu_parallel_study_loads_neither_jax_nor_repro():
+    """A workers=2 study (spawned pool workers) and a composition."""
+    proc = _run(
+        "import os, sys\n"
+        "from repro_torch.dse import Study, SearchBudget\n"
+        "s = Study(apps=['ptb', 'wdl'], engine='greedy', device='cpu',\n"
+        "          budget=SearchBudget.smoke(), workers=2)\n"
+        "assert s.run().best_score > 0\n"
+        "tasks = s.launch_stats['tasks']\n"
+        "assert tasks and all(t['pool'] and t['pid'] != os.getpid()\n"
+        "                     for t in tasks)\n"
+        "c = Study(apps=['ptb', 'wdl'], composition=2, device='cpu',\n"
+        "          budget=SearchBudget.smoke()).run()\n"
+        "assert c.best.k == 2\n"
+        "print(sorted({m.split('.')[0] for m in sys.modules}"
+        " & {'jax', 'repro', 'jaxlib'}))\n")
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+
+
 def test_scan_covers_obs_and_the_analysis_modules():
     names = {p.relative_to(PORT).as_posix() for p in sources()
              if PORT in p.parents}
     assert {"obs/__init__.py", "obs/trace.py", "obs/metrics.py",
             "obs/journal.py", "obs/oblog.py", "obs/attribution.py",
             "obs/validate.py", "core/sensitivity.py",
-            "dse/parallel.py"} <= names
+            "dse/parallel.py", "dse/composition.py",
+            "core/search/partition.py"} <= names
 
 
 def test_cpu_pareto_obs_radar_path_loads_neither_jax_nor_repro(tmp_path):

@@ -179,8 +179,23 @@ def test_explain_equals_reference(app):
         assert got.table(max_rows=5) == want.table(max_rows=5)
     assert got.feasible
     assert got.gops == ev.score_with_area([cfgs[-1]])[0][0]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        explain_composition(None, [])
+    # a two-engine composition of the same configs on ptb and wdl
+    from repro.dse import Composition as RefComposition
+    from repro.obs.attribution import explain_composition as ref_explain
+    from repro_torch.dse import Composition
+    comp = Composition(engines=(repaired[good], cfgs[0]), assignment=(0, 1),
+                       apps=("ptb", "wdl"), split=(0.75, 0.25))
+    ref_comp = RefComposition.from_json(comp.to_json())
+    specs = [AppSpec.from_app(a) for a in comp.apps]
+    ref_specs = [RefAppSpec.from_app(a) for a in comp.apps]
+    for traffic, budget in ((None, 0.0), ({"ptb": 3, "wdl": 1}, 1e9),
+                            ({"ptb": 1, "wdl": 1}, 1.0)):
+        mine = explain_composition(comp, specs, traffic=traffic,
+                                   area_budget=budget, device="cpu")
+        want = ref_explain(ref_comp, ref_specs, traffic=traffic,
+                           area_budget=budget)
+        assert mine.to_json() == want.to_json()
+        assert mine.table() == want.table()
 
 
 def test_logger_is_quiet_by_default():

@@ -175,9 +175,19 @@ def test_greedy_autotune_equals_the_reference(seed, mode, moe):
     assert mine_ev.calls == ref_ev.calls
 
 
-def test_other_engines_are_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        at.autotune_search(_Synthetic(), engine="anneal")
+@pytest.mark.parametrize("engine", ["anneal", "genetic", "random", "tpe",
+                                    "nsga2"])
+def test_other_engines_run_and_equal_the_reference(engine):
+    """Every engine besides greedy runs through the evaluator-mode Study
+    (tests/test_torch_generic.py holds more cases)."""
+    mine_ev, ref_ev = _Synthetic(), _Synthetic()
+    best, score = at.autotune_search(mine_ev, engine=engine, seed=0,
+                                     max_rounds=3)
+    ref_best, ref_score = ref_at.autotune_search(ref_ev, engine=engine,
+                                                 seed=0, max_rounds=3)
+    assert dataclasses.asdict(best) == dataclasses.asdict(ref_best)
+    assert score == ref_score > 0
+    assert mine_ev.calls == ref_ev.calls
 
 
 @pytest.fixture
