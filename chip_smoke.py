@@ -32,15 +32,21 @@ printing one JSON line each:
                  qwen2-0.5b:prefill on both, each with the same best;
   6. study pareto
                  the analysis API on the main path: `evaluate_stream_many`'s
-                 broadcast pass on the card against the numpy oracle
+                 two device passes on the card, the table pass (the
+                 default: `gather_rows` over the unique op columns) and
+                 the broadcast pass, against one numpy oracle
                  (`backend="numpy-ref"`, in worker processes) bit for bit
                  (total cycles, validity and the five [C, O] parts) on the
                  seven paper apps and two traced zoo apps at pools of 4097
                  and 65536 from the Table-2 space (peaks on and off, every
                  loop order), at 262144 (cycles and validity) on inception
                  and qwen2-0.5b:prefill, and on a stream with a zero-size
-                 kernel; its time against `FusedTorchScorer.metrics` on the
-                 same pools and its peak memory; then a
+                 kernel (which the default sends to the broadcast pass);
+                 the dispatch at 63 and 64 configs; both passes' times
+                 against `FusedTorchScorer.metrics` on the same pools, with
+                 their peak memory and `gather_rows` launches a call, and
+                 one `torch.profiler` call of each at qwen2-0.5b:prefill
+                 262144, by kind, with the host's share; then a
                  `ParetoObjective(["perf", "-area"])` study over ptb and wdl
                  with genetic and with nsga2 at three area budgets, on the
                  card (telemetry on and off: the same JSON; trace and
@@ -65,11 +71,18 @@ printing one JSON line each:
                  equal on both devices.  A `ParallelExecutionWarning` is an
                  error; each run's wall, the pool start-up times and the
                  launches are printed;
-  8. throughput  the random engine at 262144-config pools on inception and
+  8. examples    the port's four DSE examples (`examples/torch_*.py`:
+                 quickstart, dse_accelerator with greedy, compose_serving
+                 with --smoke, trace_model) as subprocesses on the card
+                 and with --device cpu, all at once: exit code 0, the same
+                 stdout, wall seconds, and the `gather_rows` launches each
+                 prints on stderr (> 0 on the card for the three that
+                 search);
+  9. throughput  the random engine at 262144-config pools on inception and
                  nasnet, on the card, with where the time goes: the scorer's
                  device time by kind (`torch.profiler`) and the search's
                  host time by function (`cProfile`, one round);
-  9. kernel flash_attention
+ 10. kernel flash_attention
                  `flash_attention` against its plain PyTorch version, every
                  output element within a tolerance of about one bf16 ulp, on
                  the sweep of `tests/test_kernels.py`, on qwen2-0.5b's heads
@@ -82,7 +95,7 @@ printing one JSON line each:
                  `scaled_dot_product_attention` and of the plain version,
                  each row with the kernel that ran, its TFLOP/s and its
                  share of the bound;
- 10. kernel rglru_scan
+ 11. kernel rglru_scan
                  the bare scan (the channel-slab walk) against its plain
                  PyTorch version, every element, on the sweep of
                  `tests/test_kernels.py` (the 1024-step decay case and
@@ -97,7 +110,7 @@ printing one JSON line each:
                  before the gated kernel (the bare scan's path) and by the
                  gated kernel, each call's launches counted from 0, each
                  route timed and split by `torch.profiler`;
- 11. prefill qwen2-0.5b
+ 12. prefill qwen2-0.5b
                  the second main path: `make_prefill_step` at full width
                  (24 layers, bf16 weights, `use_kernels=True`) at seq 32768
                  x batch 1 (prefill_32k with its batch cut from 32) and seq
@@ -107,12 +120,12 @@ printing one JSON line each:
                  none of `matmul`, counted); then the kernel against its
                  plain version on the q, k, v that the first and the last
                  layer hand it at both shapes, every row;
- 12. serve qwen2-0.5b
+ 13. serve qwen2-0.5b
                  `serve_requests` at full width (fp32 compute): 8 requests
                  of 4-12 prompt tokens, batch 4, 16 new tokens each, held
                  against the port's own CPU run on the same weights;
- 13. prefill recurrentgemma-9b
-                 the third main path, as phase 11 at the same two shapes (38
+ 14. prefill recurrentgemma-9b
+                 the third main path, as phase 12 at the same two shapes (38
                  layers: 26 RG-LRU, 12 local attention): 26
                  `rglru_gated_scan` launches a forward at both shapes (and
                  no bare scan), 12 `flash_attention` (on
@@ -120,23 +133,23 @@ printing one JSON line each:
                  none at 32768 (local-block attention); then each kernel
                  against its plain version on what the first and last
                  layer of its kind hand it;
- 14. serve recurrentgemma-9b
+ 15. serve recurrentgemma-9b
                  `serve_requests` at full width, fp32 compute: 8 requests of
                  4-12 prompt tokens, batch 4, 16 new tokens, caches of 256,
                  held against a teacher-forced full-sequence forward on the
                  card (fp32, `use_kernels=True`: its attention on the
                  CUDA-core flash kernel only) over each request's prompt
                  and generated tokens;
- 15. kernel matmul
+ 16. kernel matmul
                  `matmul` against its plain PyTorch version on every element,
                  within the fp32 summation bound (`matmul_against_plain`),
                  on the sweep of `tests/test_kernels.py` at its two tiles
                  (fp32 on the CUDA-core kernel, bf16 on the tensor-core
                  one: each case must move only its kernel's counter) and on
                  an all-positive bf16 product at K = 12288, both output
-                 dtypes (phase 16 holds the tile DSE's shapes, at every
+                 dtypes (phase 17 holds the tile DSE's shapes, at every
                  tile);
- 16. tile_dse    the fourth main path: for each of `TILE_SHAPES` (bf16),
+ 17. tile_dse    the fourth main path: for each of `TILE_SHAPES` (bf16),
                  `tune_matmul_tiles` picks a tile under the tensor-core
                  model and `matmul` runs at it and at every other tile the
                  tensor-core kernel is built for, each output held against
@@ -147,7 +160,7 @@ printing one JSON line each:
                  (M N > 2^31) runs once, at its tuned tile.  Then the fp32
                  `FP32_SHAPE` on the CUDA-core kernel at the CUDA-core
                  model's pick, beside its 67 TFLOP/s bound;
- 17. dryrun      `run_cell` for qwen2-0.5b and recurrentgemma-9b at
+ 18. dryrun      `run_cell` for qwen2-0.5b and recurrentgemma-9b at
                  prefill_32k and decode_32k on fake CUDA tensors (full batch),
                  each cell's matmul and elementwise FLOPs and
                  transcendentals, one greedy `autotune_search` over
@@ -285,12 +298,32 @@ BROADCAST_BIG = 262144
 BROADCAST_BIG_APPS = ("inception", "qwen2-0.5b:prefill")
 BROADCAST_ZOO = ("qwen2-0.5b:prefill", "recurrentgemma-9b:decode")
 BROADCAST_TIMED = "inception"
+# the table pass, the broadcast pass and the fused scorer timed at
+# BROADCAST_BIG on these (and on BROADCAST_TIMED at every pool), one
+# `torch.profiler` call of each at PROFILED_APP
+TIMED_APPS = (BROADCAST_TIMED, "nasnet", "qwen2-0.5b:prefill",
+              "recurrentgemma-9b:decode")
+PROFILED_APP = "qwen2-0.5b:prefill"
+PROFILE_KINDS = {"gather_rows_us": ("gather_rows_kernel",),
+                 "index_us": ("index_elementwise", "indexSelect",
+                              "index_put", "gather_kernel"),
+                 "reduce_us": ("reduce_kernel",),
+                 "elementwise_us": ("elementwise_kernel",)}
 # the numpy oracle is host-bound: it runs in worker processes, each in row
 # chunks (rows are independent, so chunks change no bit)
 ORACLE_WORKERS = 7
 ORACLE_CHUNK = 16384
 PARETO_BUDGETS = (30000.0, 60000.0, 90000.0)
 # phase study parallel: benchmarks/composition_sweep.py's apps and budget
+# the port's examples (examples/<name>.py) and their arguments, run with
+# --device cuda and --device cpu
+EXAMPLES = {"torch_quickstart": [],
+            "torch_dse_accelerator": ["--engine", "greedy"],
+            "torch_compose_serving": ["--smoke"],
+            "torch_trace_model": []}
+EXAMPLES_THAT_SEARCH = ("torch_quickstart", "torch_dse_accelerator",
+                        "torch_compose_serving")
+EXAMPLES_TIMEOUT = 300
 COMP_APPS = ("qwen2-0.5b:prefill", "qwen2-0.5b:decode")
 COMP_AREA = 90000.0
 
@@ -654,7 +687,9 @@ def phase_study_pareto() -> int:
     on the CPU.  Returns the kernel's launches in the card's studies."""
     from repro_torch import obs
     from repro_torch.core import apps
-    from repro_torch.core.costmodel import (ConfigBatch, evaluate_stream_many,
+    from repro_torch.core import costmodel as cm
+    from repro_torch.core.costmodel import (ConfigBatch, _fused_tables_for,
+                                            evaluate_stream_many,
                                             performance_gops)
     from repro_torch.core.multiapp import AppSpec
     from repro_torch.core.sensitivity import (radar_of_top_configs,
@@ -674,7 +709,7 @@ def phase_study_pareto() -> int:
     check(not FusedTorchScorer.supports(cases[-1][2]),
           "the fused scorer takes the zero-size stream")
     ctx = multiprocessing.get_context("spawn")
-    broadcast, timed = {}, {}
+    broadcast, tables, routes, timed = {}, {}, {}, {}
     # the longest oracle runs (configs x ops) start first
     order = sorted(range(len(cases)),
                    key=lambda i: -cases[i][1].shape[0] * len(cases[i][2]))
@@ -684,36 +719,67 @@ def phase_study_pareto() -> int:
                             _, m, st, pw, pi, parts in (cases[i]
                                                         for i in order)],
             chunksize=1)
-        # the broadcast pass on the card while the oracle runs on the host
+        # both device passes on the card while the oracle runs on the host
         for label, m, stream, pw, pi, parts in cases:
             digest = Digest()
             digest.update(evaluate_stream_many(
                 ConfigBatch(m), stream, space.hw, pw, pi,
-                with_parts=parts, device="cuda"))
+                backend="broadcast", with_parts=parts, device="cuda"))
             broadcast[label] = digest.hexdigest()
             # dtypes and values on a slice, in this process
             head = ConfigBatch(m[:64])
             want = evaluate_stream_many(head, stream, space.hw, pw, pi,
                                         backend="numpy-ref")
-            got = evaluate_stream_many(head, stream, space.hw, pw, pi,
-                                       device="cuda")
-            for k in want[2]:
-                check(got[2][k].dtype == want[2][k].dtype
-                      and np.array_equal(got[2][k], want[2][k]),
-                      f"broadcast part {k} differs on {label}")
+            for backend in ("broadcast", "tables"):
+                got = evaluate_stream_many(head, stream, space.hw, pw, pi,
+                                           backend=backend, device="cuda")
+                for k in want[2]:
+                    check(got[2][k].dtype == want[2][k].dtype
+                          and np.array_equal(got[2][k], want[2][k]),
+                          f"{backend} part {k} differs on {label}")
+        # the table pass (the default), its launches counted from 0
+        gather_rows.launches = 0
+        for label, m, stream, pw, pi, parts in cases:
+            digest = Digest()
+            cm.PASSES.clear()
+            digest.update(evaluate_stream_many(
+                ConfigBatch(m), stream, space.hw, pw, pi, with_parts=parts,
+                device="cuda"))
+            tables[label] = digest.hexdigest()
+            routes[label] = next(iter(cm.PASSES))
+            check(dict(cm.PASSES) == {routes[label]: 1},
+                  f"{label}: passes {dict(cm.PASSES)}")
+        table_launches = gather_rows.launches
+        check(table_launches > 0,
+              "the table pass never launched gather_rows")
         oracle = dict(zip(order, pending.get()))
     oracle_s = time.perf_counter() - t_phase
     checked = {}
     for i, (label, m, stream, *_) in enumerate(cases):
         digest, secs = oracle[i]
-        differ = [k for k in Digest.KEYS
-                  if broadcast[label][k] != digest[k]]
-        check(not differ, f"broadcast != numpy-ref on {label}: {differ}")
-        checked[label] = {"ops": len(stream), "oracle_s": secs}
+        for name, dev in (("broadcast", broadcast), ("tables", tables)):
+            differ = [k for k in Digest.KEYS if dev[label][k] != digest[k]]
+            check(not differ, f"{name} != numpy-ref on {label}: {differ}")
+        want = "broadcast" if label.startswith("zero") else "tables"
+        check(routes[label] == want,
+              f"{label} took the {routes[label]} pass, expected {want}")
+        checked[label] = {"ops": len(stream), "oracle_s": secs,
+                          "route": routes[label]}
+    # the dispatch by pool size
+    dispatch, least = {}, cm._TABLES_MIN_POOL
+    for n in (least - 1, least):
+        cm.PASSES.clear()
+        evaluate_stream_many(ConfigBatch(pools[BROADCAST_POOLS[0]][:n]),
+                             cases[0][2], space.hw, device="cuda")
+        dispatch[n] = dict(cm.PASSES)
+    check(dispatch == {least - 1: {"broadcast": 1}, least: {"tables": 1}},
+          f"the dispatch at 63 / 64 configs: {dispatch}")
 
-    # times: the broadcast pass (cycles and validity only), the fused
-    # scorer on the same pool, and the oracle's host seconds
-    for name in (BROADCAST_TIMED, BROADCAST_BIG_APPS[-1]):
+    # times: the table pass and the broadcast pass (cycles and validity
+    # only), the fused scorer on the same pool, and the oracle's host
+    # seconds
+    calls = {}
+    for name in TIMED_APPS:
         spec = AppSpec.from_app(name)
         scorer = FusedTorchScorer(spec.stream, space.hw,
                                   spec.peak_weight_bits,
@@ -725,28 +791,50 @@ def phase_study_pareto() -> int:
             m = pools[n]
             batch = ConfigBatch(m)
 
-            def twin():
+            def run(backend, batch=batch, spec=spec):
                 return evaluate_stream_many(
                     batch, spec.stream, space.hw, spec.peak_weight_bits,
-                    spec.peak_input_bits, with_parts=False, device="cuda")
+                    spec.peak_input_bits, backend=backend, with_parts=False,
+                    device="cuda")
 
-            twin_ms = call_ms(twin)
-            torch.cuda.reset_peak_memory_stats()
-            twin()
-            peak = torch.cuda.max_memory_allocated()
-            fused_ms = call_ms(lambda: scorer.metrics(m))
+            rec = {"ops": len(spec.stream),
+                   "unique_ops": len(spec.stream.dedup_columns()[0])}
+            for backend in ("tables", "broadcast"):
+                rec[f"{backend}_ms"] = call_ms(lambda b=backend: run(b))
+                torch.cuda.reset_peak_memory_stats()
+                gather_rows.launches = 0
+                run(backend)
+                rec[f"{backend}_max_memory_allocated"] = \
+                    torch.cuda.max_memory_allocated()
+                rec[f"{backend}_gather_rows_per_call"] = gather_rows.launches
+            rec["fused_ms"] = call_ms(lambda: scorer.metrics(m))
+            t0 = time.perf_counter()
+            _fused_tables_for(spec.stream, space.hw, None).codes(m)
+            rec["tables_host_codes_s"] = time.perf_counter() - t0
+            rec["tables_over_broadcast"] = rec["tables_ms"] / rec[
+                "broadcast_ms"]
+            rec["tables_over_fused"] = rec["tables_ms"] / rec["fused_ms"]
+            rec["broadcast_over_fused"] = rec["broadcast_ms"] / rec[
+                "fused_ms"]
             gops = performance_gops(batch, spec.stream, space.hw,
                                     spec.peak_weight_bits,
                                     spec.peak_input_bits, device="cuda")
             check(np.array_equal(gops, scorer.metrics(m)[0]),
                   f"performance_gops != the fused scorer on {name} C={n}")
             label = f"{name} C={n} peaks"
-            timed[f"{name} C={n}"] = {
-                "ops": len(spec.stream), "broadcast_ms": twin_ms,
-                "fused_ms": fused_ms,
-                "broadcast_over_fused": twin_ms / fused_ms,
-                "oracle_s": checked[label]["oracle_s"],
-                "broadcast_max_memory_allocated": peak}
+            if label in checked:
+                rec["oracle_s"] = checked[label]["oracle_s"]
+            timed[f"{name} C={n}"] = rec
+            if name == PROFILED_APP and n == BROADCAST_BIG:
+                calls = {"tables": lambda r=run: r("tables"),
+                         "broadcast": lambda r=run: r("broadcast"),
+                         "fused": lambda sc=scorer, m=m: sc.metrics(m)}
+                host = host_profile(lambda: run("tables"))
+    # where the time goes at the largest pool, by kind, one call each
+    profile = device_breakdown(calls, PROFILE_KINDS)
+    for name, rec in profile.items():
+        rec["host_share"] = 1.0 - rec["busy_us"] / rec["wall_us"]
+    profile["tables_host_profile"] = host
 
     # the Pareto studies: the card's telemetry-on runs are the main path
     studies = {}
@@ -838,14 +926,16 @@ def phase_study_pareto() -> int:
               f"the radar of {a.app} differs on the cuda and the cpu")
     check_isolated()
     emit("study pareto", broadcast_cases=len(checked),
-         broadcast_bit_equal=True, broadcast=checked,
+         broadcast_bit_equal=True, tables_bit_equal=True, broadcast=checked,
+         dispatch=dispatch, table_pass_gather_rows_launches=table_launches,
          oracle_workers=ORACLE_WORKERS, oracle_wall_s=oracle_s,
-         timings=timed, studies=out, gather_rows_launches=launches,
+         timings=timed, profile=profile, studies=out,
+         gather_rows_launches=launches,
          radar={r.app: {"n_configs": r.n_configs, "extras": r.extras}
                 for r in radar["cuda"][0]},
          radar_cuda_s=radar["cuda"][1], radar_cpu_s=radar["cpu"][1],
          phase_s=time.perf_counter() - t_phase)
-    return launches
+    return {"studies": launches, "table pass": table_launches}
 
 
 def pool_record(study_or_ex, fault: bool = False) -> dict:
@@ -1049,6 +1139,56 @@ def phase_study_parallel() -> dict:
          gather_rows_launches=launches,
          phase_s=time.perf_counter() - t_phase)
     return launches
+
+
+def phase_examples() -> dict:
+    """The port's four DSE examples on the card, as subprocesses, each
+    against the same command with ``--device cpu``, all eight at once:
+    exit code 0, the same stdout, wall seconds, and the `gather_rows`
+    launches each prints on stderr (> 0 on the card for the three that
+    search)."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+
+    def run(key):
+        name, device = key
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "examples" / f"{name}.py"),
+             *EXAMPLES[name], "--device", device], capture_output=True,
+            text=True, env=env, cwd=ROOT, timeout=EXAMPLES_TIMEOUT)
+        return proc, time.perf_counter() - t0
+
+    keys = [(n, d) for n in EXAMPLES for d in ("cuda", "cpu")]
+    with ThreadPoolExecutor(len(keys)) as pool:
+        runs = dict(zip(keys, pool.map(run, keys)))
+    out = {}
+    for (name, device), (proc, wall) in runs.items():
+        stdout, stderr = proc.stdout, proc.stderr
+        check(proc.returncode == 0,
+              f"{name} --device {device} exited {proc.returncode}: "
+              f"{stderr[-2000:]}")
+        last = stderr.strip().splitlines()[-1]
+        check(last.startswith("gather_rows launches: "),
+              f"{name} --device {device}: no launch count on stderr")
+        rec = out.setdefault(name, {"args": EXAMPLES[name]})
+        rec[device] = {"wall_s": wall, "stdout": stdout,
+                       "gather_rows_launches": int(last.split()[-1])}
+    for name, rec in out.items():
+        check(rec["cuda"]["stdout"] == rec["cpu"]["stdout"],
+              f"{name}: the card's stdout differs from the cpu's")
+        check(rec["cpu"]["gather_rows_launches"] == 0,
+              f"{name}: gather_rows launched on the cpu")
+        if name in EXAMPLES_THAT_SEARCH:
+            check(rec["cuda"]["gather_rows_launches"] > 0,
+                  f"{name} never launched gather_rows on the card")
+        rec["stdout_lines"] = rec["cuda"]["stdout"].count("\n")
+        for device in ("cuda", "cpu"):
+            del rec[device]["stdout"]
+    emit("examples", examples=out)
+    return {n: r["cuda"]["gather_rows_launches"] for n, r in out.items()}
 
 
 def device_breakdown(calls: dict, kinds: dict) -> dict:
@@ -2572,6 +2712,7 @@ def main() -> int:
     zoo = phase_study_zoo()
     pareto_launches = phase_study_pareto()
     parallel = phase_study_parallel()
+    example_launches = phase_examples()
     phase_throughput([s for s in specs if s.name in ("inception", "nasnet")],
                      space, rng)
     flash = phase_flash(torch.Generator(device="cuda").manual_seed(0))
@@ -2617,7 +2758,9 @@ def main() -> int:
             "study zoo, genetic on qwen2-0.5b:prefill": zoo["genetic"],
             "study zoo, anneal on qwen2-0.5b:prefill": zoo["anneal"],
             "study pareto, genetic and nsga2 on ptb + wdl":
-                pareto_launches},
+                pareto_launches["studies"],
+            "study pareto, table pass": pareto_launches["table pass"],
+            "examples": example_launches},
         "max_abs_err": kern["max_abs_err"],
         "bit_equal": True, "ms": t["int64_kernel_ms"],
         "kernel_ms": t["int64_kernel_ms"], "plain_ms": t["int64_plain_ms"],

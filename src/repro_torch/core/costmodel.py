@@ -3,15 +3,20 @@ PyTorch port's own copy.
 
 It holds the Table-1 operation embeddings (`Op`, `OpStream`), the design
 point (`AccelConfig`, `ConfigBatch`), the unit-area model (`area_many`),
-the fused scorer's per-(stream, hw, value-set) gather tables
-(`_FusedTables`, numpy on the host, uploaded to the device by
-`repro_torch.kernels.costmodel.FusedTorchScorer`) and the analysis API:
+the per-(stream, hw, value-set) gather tables (`_FusedTables`, numpy on
+the host, put on a device by `DeviceTables` for the fused scorer
+`repro_torch.kernels.costmodel.FusedTorchScorer` and the table pass) and
+the analysis API:
 
-  * `evaluate_stream_many` — the Eqs. (1)-(13) broadcast formulas over a
-    `[C, O]` (configs x ops) grid.  ``backend="broadcast"`` (the default)
-    runs them on a torch device in int64/float64, row chunk by row chunk;
-    ``backend="numpy-ref"`` is the verbatim host formulas, the oracle the
-    device pass equals bit for bit;
+  * `evaluate_stream_many` — Eqs. (1)-(13) over a `[C, O]` (configs x
+    ops) grid.  ``backend="tables"`` (the default) takes the table pass
+    for pools of at least `_TABLES_MIN_POOL` configs on a stream with no
+    zero-size kernel or stride: it costs the stream's unique op columns,
+    fetching each config's rows of the tables with `gather_rows`; other
+    inputs take the broadcast pass.  ``backend="broadcast"`` runs the
+    broadcast formulas on a torch device in int64/float64, row chunk by
+    row chunk; ``backend="numpy-ref"`` is the verbatim host formulas, the
+    oracle both device passes equal bit for bit;
   * `evaluate_stream` (one config, per-op `LatencyBreakdown`),
     `performance_gops` (GOPS per config) and the block-level
     `BufferSimulator`.
@@ -25,6 +30,7 @@ Conventions:
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import enum
 import weakref
@@ -32,6 +38,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch import obs
+from repro_torch.kernels.gather import gather_rows
 
 __all__ = [
     "OpKind",
@@ -49,6 +58,8 @@ __all__ = [
     "BufferSimulator",
     "numpy_order_sum",
     "resolve_device",
+    "DeviceTables",
+    "PASSES",
 ]
 
 
@@ -776,6 +787,61 @@ def _fused_tables_for(stream: OpStream, hw: HardwareConstants,
     return tables
 
 
+# `_FusedTables` arrays the device passes read.  The stacked [k, U, O]
+# tables go to the device as [U, k * O], so one gather of a row fetches
+# all k tables of its index.
+_DEVICE_ARRAYS = ("pb_tbl", "ifp_tbl", "ofp_tbl", "xp_tbl", "yp_tbl",
+                  "kk_tbl", "win_x_tbl", "win_y_tbl", "wt_tbl",
+                  "spatial_tbl", "u1_tbl", "u2_tbl", "u3_tbl", "atile_tbl",
+                  "num_weight", "num_input", "ws_weight", "ie_batch",
+                  "is_input", "weight_elems", "repeat", "expand")
+_STACKED = ("pb_tbl", "ifp_tbl", "ofp_tbl", "xp_tbl", "yp_tbl", "kk_tbl",
+            "wt_tbl")
+
+
+def split_rows(g: torch.Tensor, k: int) -> Tuple[torch.Tensor, ...]:
+    """The k [R, O] tables of gathered [R, k * O] rows of a stacked table."""
+    return g.unflatten(1, (k, -1)).unbind(1)
+
+
+class DeviceTables:
+    """One `_FusedTables` on a torch device, uploaded again after a pool
+    with unseen values rebuilt it; `n_uploads` counts the uploads.  The
+    fused scorer and the table pass each keep their own."""
+
+    def __init__(self, tables: _FusedTables, device: torch.device):
+        self.tables = tables
+        self.device = device
+        self.n_uploads = 0
+        self._rebuilds = -1
+        self._dev: Dict[str, torch.Tensor] = {}
+
+    def get(self) -> Dict[str, torch.Tensor]:
+        t = self.tables
+        if self._rebuilds != t.n_rebuilds:
+            def up(a: np.ndarray) -> torch.Tensor:
+                return torch.from_numpy(np.ascontiguousarray(a)).to(
+                    self.device)
+
+            self._dev = {}
+            for name in _DEVICE_ARRAYS:
+                a = getattr(t, name)
+                if name in _STACKED:
+                    a = a.transpose(1, 0, 2).reshape(a.shape[1], -1)
+                self._dev[name] = up(a)
+            # the Eq. (10) weight tile on its own, the screen's operand
+            self._dev["wt_tile"] = up(t.wt_tbl[1])
+            self._rebuilds = t.n_rebuilds
+            self.n_uploads += 1
+        return self._dev
+
+
+# _FusedTables (weak) -> {device: DeviceTables} of the table pass
+_TABLE_PASS_UPLOADS: ("weakref.WeakKeyDictionary[_FusedTables, "
+                      "Dict[str, DeviceTables]]") = \
+    weakref.WeakKeyDictionary()
+
+
 # --------------------------------------------------------------------------
 # The analysis API: Eqs. (1)-(13) broadcast over [C, O].  `cfg_arrays` maps
 # each AccelConfig field to an int64 column of shape [C, 1]; the op stream
@@ -844,7 +910,15 @@ def _configs_to_arrays(configs: "Sequence[AccelConfig] | ConfigBatch"
 # changes no bit.
 _BROADCAST_CHUNK = 16384
 
-_BACKENDS = ("broadcast", "numpy-ref")
+_BACKENDS = ("tables", "broadcast", "numpy-ref")
+
+# below this many configs the table pass's setup outweighs what it saves
+# (the reference's `_FAST_PATH_MIN_POOL`)
+_TABLES_MIN_POOL = 64
+
+#: the passes `evaluate_stream_many` ran, by name ("tables", "broadcast",
+#: "numpy-ref"), one count a call; callers clear it to count a run
+PASSES: "collections.Counter[str]" = collections.Counter()
 
 
 def evaluate_stream_many(
@@ -853,34 +927,62 @@ def evaluate_stream_many(
     hw: HardwareConstants = HardwareConstants(),
     peak_weight_bits: int = 0,
     peak_input_bits: int = 0,
-    backend: str = "broadcast",
+    backend: str = "tables",
     with_parts: bool = True,
     device="cuda",
 ) -> Tuple[np.ndarray, np.ndarray, Optional[Dict[str, np.ndarray]]]:
     """Evaluate many configurations against one op stream.
 
     Backends (bit for bit the same):
-      "broadcast"  (default) the Eqs. (1)-(13) broadcast formulas on
-                   `device`, in int64/float64, `_BROADCAST_CHUNK` config
-                   rows at a time;
+      "tables"     (default) the JAX package's default ("numpy") on
+                   `device`: pools of at least `_TABLES_MIN_POOL` configs
+                   on a non-empty stream whose kernels and strides are all
+                   > 0 take the table pass, which costs the stream's
+                   unique op columns from `_FusedTables` rows fetched with
+                   `gather_rows`; every other input takes the broadcast
+                   pass.  The choice is by input, never a fallback on
+                   failure;
+      "broadcast"  the Eqs. (1)-(13) broadcast formulas on `device`, in
+                   int64/float64, `_BROADCAST_CHUNK` config rows at a time;
       "numpy-ref"  the same formulas verbatim in numpy on the host — the
-                   oracle the device pass is tested against (`device` is
-                   not used).
+                   oracle the device passes are tested against (`device`
+                   is not used).
 
-    Returns ``(total_cycles[C], valid[C], parts)`` as numpy arrays, where
-    parts carries the [C, O] compute / weight / input / total cycle
-    matrices and the per-op validity for analysis (``with_parts=False``
-    returns None there: cycles and validity only, as scoring consumes)."""
-    if backend == "numpy-ref":
-        total_cycles, valid, parts = _evaluate_stream_many_ref(
-            configs, stream, hw, peak_weight_bits, peak_input_bits)
-        return total_cycles, valid, (parts if with_parts else None)
-    if backend != "broadcast":
+    The pass that ran is counted in `PASSES` and named in the
+    ``evaluate_stream_many`` span's ``route``.  Returns
+    ``(total_cycles[C], valid[C], parts)`` as numpy arrays, where parts
+    carries the [C, O] compute / weight / input / total cycle matrices and
+    the per-op validity for analysis (``with_parts=False`` returns None
+    there: cycles and validity only, as scoring consumes)."""
+    if backend not in _BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of "
                          f"{_BACKENDS}")
-    return _evaluate_stream_many_broadcast(
-        configs, stream, hw, peak_weight_bits, peak_input_bits,
-        with_parts, resolve_device(device))
+    route = backend
+    if backend == "tables":
+        route = ("tables" if len(configs) >= _TABLES_MIN_POOL
+                 and _tables_support(stream) else "broadcast")
+    PASSES[route] += 1
+    with obs.span("evaluate_stream_many", backend=backend, route=route,
+                  ops=len(stream)):
+        if route == "numpy-ref":
+            total_cycles, valid, parts = _evaluate_stream_many_ref(
+                configs, stream, hw, peak_weight_bits, peak_input_bits)
+            return total_cycles, valid, (parts if with_parts else None)
+        if route == "tables":
+            return _evaluate_stream_many_tables(
+                configs, stream, hw, peak_weight_bits, peak_input_bits,
+                with_parts, resolve_device(device))
+        return _evaluate_stream_many_broadcast(
+            configs, stream, hw, peak_weight_bits, peak_input_bits,
+            with_parts, resolve_device(device))
+
+
+def _tables_support(stream: OpStream) -> bool:
+    """The table pass takes non-empty streams whose kernels and strides
+    are all > 0 (the fused scorer's rule, `FusedTorchScorer.supports`)."""
+    return bool(len(stream)
+                and (stream.nkx > 0).all() and (stream.nky > 0).all()
+                and (stream.s > 0).all())
 
 
 def _evaluate_stream_many_ref(configs, stream: OpStream,
@@ -1163,13 +1265,189 @@ def _evaluate_stream_many_broadcast(configs, stream: OpStream,
     return total_cycles, valid, parts
 
 
+# config fields the device passes' tails read directly
+_TAIL_FIELDS = ("loop_order", "pe_group", "mac_per_group", "bank_height",
+                "bank_width", "weight_banks_pg", "act_banks_pg")
+# live tensors at the peak of one pass, with some margin: the broadcast
+# pass holds about 40 [rows, O] ones, the table pass 35-51 [rows, U] ones
+# and one or two [rows, O] float64 expansions of the totals (an H100's
+# `max_memory_allocated` on four streams, `chip_smoke.py` study pareto)
+_BROADCAST_LIVE = 40
+_TABLES_LIVE = 64
+
+
+def _tables_chunk(n_unique: int, n_ops: int) -> int:
+    """Rows of one table pass, so that its live bytes stay within the
+    broadcast pass's at `_BROADCAST_CHUNK` rows.  Rows are independent,
+    so the chunking changes no bit."""
+    budget = max(1, int(_BROADCAST_CHUNK)) * _BROADCAST_LIVE * n_ops
+    return max(1, budget // (_TABLES_LIVE * n_unique + 2 * n_ops))
+
+
+def _table_rows(c: Dict[str, torch.Tensor], nv: Dict[str, int]
+                ) -> Dict[str, torch.Tensor]:
+    """Each device table's row of every config, from the per-field codes
+    `c`, in the order `_FusedTables`'s grids lay the rows out."""
+    i_xp = c["tix"] * nv["pox"] + c["pox"]
+    i_yp = c["tiy"] * nv["poy"] + c["poy"]
+    return {
+        "pb_tbl": c["pb"],
+        "ifp_tbl": c["tif"] * nv["pif"] + c["pif"],
+        "ofp_tbl": c["tof"] * nv["pof"] + c["pof"],
+        "xp_tbl": i_xp,
+        "yp_tbl": i_yp,
+        "kk_tbl": c["pkx"] * nv["pky"] + c["pky"],
+        "wt_tbl": c["tif"] * nv["tof"] + c["tof"],
+        "spatial_tbl": c["tix"] * nv["tiy"] + c["tiy"],
+        "win_x_tbl": i_xp * nv["pkx"] + c["pkx"],
+        "win_y_tbl": i_yp * nv["pky"] + c["pky"],
+        "atile_tbl": ((c["tix"] * nv["tiy"] + c["tiy"]) * nv["tif"]
+                      + c["tif"]) * nv["tof"] + c["tof"],
+    }
+
+
+def _evaluate_stream_many_tables(configs, stream: OpStream,
+                                 hw: HardwareConstants,
+                                 peak_weight_bits: int,
+                                 peak_input_bits: int, with_parts: bool,
+                                 device: torch.device):
+    """The JAX package's `_evaluate_stream_many_fast` on `device`.
+
+    The [U, O] tables over the stream's unique op columns are the fused
+    scorer's `_FusedTables` (the reference's expressions, built in numpy
+    on the host, grown from the pools' values); their device copies come
+    from `DeviceTables`.  Each config's rows are fetched with
+    `gather_rows`, one launch an index (eleven a chunk): a stacked table's
+    k tables share one.  The tail is the reference's chunk body in its
+    order and types, on the unique columns; the per-config sum runs over
+    the original columns (`expand`) in numpy's pairwise order."""
+    f64 = torch.float64
+    matrix = ConfigBatch.from_configs(configs).matrix
+    n, n_ops = matrix.shape[0], len(stream)
+    t = _fused_tables_for(stream, hw, None)
+    code = t.codes(matrix)              # may grow and rebuild the tables
+    per_device = _TABLE_PASS_UPLOADS.setdefault(t, {})
+    up = per_device.setdefault(str(device), DeviceTables(t, device))
+    dv, nv = up.get(), t.nvals
+    J = ConfigBatch._INDEX
+    code_rows = np.stack([code[f] for f in _FAST_FIELDS])
+    tail = matrix[:, [J[f] for f in _TAIL_FIELDS]]
+    expand = dv["expand"]
+    bit_width = int(hw.bit_width)
+    peak_input_scaled = (int(peak_input_bits) * t.max_batch
+                         if peak_input_bits else 0)
+    paper = int(LoopOrder.PAPER)
+    ws = int(LoopOrder.WEIGHT_STATIONARY)
+    os_ = int(LoopOrder.OUTPUT_STATIONARY)
+
+    total_cycles = np.empty(n, dtype=np.float64)
+    valid = np.empty(n, dtype=bool)
+    parts = None
+    if with_parts:
+        dtypes = (np.int64, np.float64, np.float64, np.float64, bool)
+        parts = {p: np.empty((n, n_ops), dtype=d)
+                 for p, d in zip(_PARTS, dtypes)}
+    step = _tables_chunk(len(t.ops), n_ops)
+    for lo in range(0, n, step):
+        hi = min(n, lo + step)
+        # one contiguous row of codes a field (`gather_rows` takes
+        # contiguous indices), uploaded a chunk at a time
+        codes = torch.from_numpy(np.ascontiguousarray(
+            code_rows[:, lo:hi])).to(device)
+        cols = torch.from_numpy(np.ascontiguousarray(tail[lo:hi])).to(
+            device)
+        kc = {f: cols[:, j:j + 1] for j, f in enumerate(_TAIL_FIELDS)}
+        rows = _table_rows({f: codes[j] for j, f in enumerate(_FAST_FIELDS)},
+                           nv)
+        g = {name: gather_rows(dv[name], idx) for name, idx in rows.items()}
+        batch_iters, pb = split_rows(g["pb_tbl"], 2)
+        cd_if, pif = split_rows(g["ifp_tbl"], 2)
+        cd_of, pof = split_rows(g["ofp_tbl"], 2)
+        cd_ox, pox = split_rows(g["xp_tbl"], 2)
+        cd_oy, poy = split_rows(g["yp_tbl"], 2)
+        cd_kk, p_kxky = split_rows(g["kk_tbl"], 2)
+        chan_tiles, need_w_tile, ofm_tiles = split_rows(g["wt_tbl"], 3)
+        spatial_tiles = g["spatial_tbl"]
+        in_win_x, in_win_y = g["win_x_tbl"], g["win_y_tbl"]
+        need_a_tile = g["atile_tbl"]                  # Eqs. (10), (12): bits
+
+        poxy = pox * poy
+        unroll = pif * pof * poxy * p_kxky * pb
+        total_macs = kc["pe_group"] * kc["mac_per_group"]
+        valid_macs = unroll <= total_macs                        # Eq. (9)
+
+        # the ceil(Nk/Tk) factors are exactly 1 (Tkx=Nkx, Tky=Nky) and
+        # are dropped from the Eq. (3) products, as the reference does
+        inter = chan_tiles * spatial_tiles
+        inner = cd_if * cd_kk * cd_ox * cd_oy * cd_of
+        compute_cycles = inter * inner * batch_iters * dv["repeat"]
+
+        weight_reuse = poxy * pb                                 # Eq. (1)
+        input_reuse = torch.clamp(torch.div(
+            pof * p_kxky * poxy, torch.clamp(in_win_x * in_win_y, min=1),
+            rounding_mode="floor"), min=1)                       # Eq. (2)
+
+        lo_ord = kc["loop_order"]
+        ws_input = (dv["ie_batch"] * ofm_tiles).to(f64)
+        os_weight = (dv["weight_elems"] * spatial_tiles).to(f64)
+        os_input = ws_input
+        is_weight = os_weight
+        # float64 / int64 divides in float64, as numpy does; the divisors
+        # are device tensors, never host scalars
+        num_weight_eff = torch.where(
+            lo_ord == paper,
+            dv["num_weight"] / torch.clamp(weight_reuse, min=1),
+            torch.where(lo_ord == ws, dv["ws_weight"],
+                        torch.where(lo_ord == os_, os_weight, is_weight)))
+        num_input_eff = torch.where(
+            lo_ord == paper,
+            dv["num_input"] / torch.clamp(input_reuse, min=1),
+            torch.where(lo_ord == ws, ws_input,
+                        torch.where(lo_ord == os_, os_input,
+                                    dv["is_input"])))
+
+        wbw = torch.clamp(torch.div(
+            kc["weight_banks_pg"] * kc["pe_group"] * kc["bank_width"],
+            bit_width, rounding_mode="floor"), min=1)
+        abw = torch.clamp(torch.div(
+            kc["act_banks_pg"] * kc["pe_group"] * kc["bank_width"],
+            bit_width, rounding_mode="floor"), min=1)
+        weight_cycles = torch.ceil(num_weight_eff / wbw)         # Eq. (7)
+        input_cycles = torch.ceil(num_input_eff / abw)           # Eq. (8)
+        total = torch.maximum(compute_cycles.to(f64),
+                              torch.maximum(weight_cycles, input_cycles))
+
+        wbuf = (kc["weight_banks_pg"] * kc["pe_group"] * kc["bank_height"]
+                * kc["bank_width"])
+        abuf = (kc["act_banks_pg"] * kc["pe_group"] * kc["bank_height"]
+                * kc["bank_width"])
+        valid_ops = (valid_macs & (wbuf >= need_w_tile)
+                     & (abuf >= need_a_tile))
+        if peak_weight_bits:
+            valid_ops &= wbuf >= int(peak_weight_bits)          # Eq. (11)
+        if peak_input_scaled:
+            valid_ops &= abuf >= peak_input_scaled              # Eq. (13)
+
+        # all() over repeated columns equals all() over the unique ones;
+        # the sum runs over the original columns, in numpy's order
+        valid[lo:hi] = valid_ops.all(dim=1).cpu().numpy()
+        total_cycles[lo:hi] = numpy_order_sum(
+            total.t()[expand].contiguous()).cpu().numpy()
+        if with_parts:
+            for p, v in zip(_PARTS, (compute_cycles, weight_cycles,
+                                     input_cycles, total, valid_ops)):
+                parts[p][lo:hi] = v[:, expand].cpu().numpy()
+    return total_cycles, valid, parts
+
+
 def evaluate_stream(config: AccelConfig, stream: OpStream,
                     hw: HardwareConstants = HardwareConstants(),
                     peak_weight_bits: int = 0,
                     peak_input_bits: int = 0,
                     device="cuda") -> LatencyBreakdown:
-    """Evaluate a single configuration on `device`; returns the per-op
-    breakdown."""
+    """Evaluate a single configuration on `device` (one config: the
+    broadcast pass, by `evaluate_stream_many`'s dispatch); returns the
+    per-op breakdown."""
     _, _, parts = evaluate_stream_many(
         [config], stream, hw, peak_weight_bits, peak_input_bits,
         device=device)
@@ -1187,7 +1465,7 @@ def performance_gops(configs: "Sequence[AccelConfig] | ConfigBatch",
                      hw: HardwareConstants = HardwareConstants(),
                      peak_weight_bits: int = 0,
                      peak_input_bits: int = 0,
-                     backend: str = "broadcast",
+                     backend: str = "tables",
                      device="cuda") -> np.ndarray:
     """GOPS per configuration; 0.0 where the config violates constraints
     (the paper plots constraint-violating configurations at 0 GOPS, Fig.

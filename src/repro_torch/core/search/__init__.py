@@ -21,8 +21,8 @@ and `run_search(engine, evaluator)` drives it::
         engine.observe(pool, scores)
 
 The shared `Evaluator` memoizes in a vectorized row cache on the host and
-scores cache misses on its device, through `FusedTorchScorer` or the
-broadcast `performance_gops` (its `backend`).  Pools are array-native
+scores cache misses on its device, through `FusedTorchScorer` or
+`performance_gops`' broadcast pass (its `backend`).  Pools are array-native
 `ConfigBatch` populations built from `SpaceCodec` index arrays and
 validity-repaired in bulk by `repair_for_peaks_many`.  An evaluator with a
 vector objective (`ParetoObjective`) hands back [N, M] rows; `make_engine`

@@ -16,8 +16,9 @@ backends on `device` — the GPU unless the caller asks for the CPU:
   * ``"fused"`` (the default): `FusedTorchScorer`, the table-gather
     scorer with the `gather_rows` kernel.  It refuses a stream with a
     zero-size kernel or stride;
-  * ``"broadcast"``: `performance_gops` and `area_many`, the
-    Eqs. (1)-(13) broadcast pass, which scores any stream.
+  * ``"broadcast"``: `performance_gops(backend="broadcast")` and
+    `area_many`, the Eqs. (1)-(13) broadcast pass, which scores any
+    stream.
 
 Both give the same bits; only the caller chooses, nothing falls back.
 
@@ -187,6 +188,7 @@ class Evaluator:
                 perf = performance_gops(batch, self.stream, self.hw,
                                         self.peak_weight_bits,
                                         self.peak_input_bits,
+                                        backend="broadcast",
                                         device=self.device)
                 areas = area_many(batch, self.hw, device=self.device)
         self.n_batches += 1

@@ -353,9 +353,9 @@ class CompositionEvaluator:
 
 def cross_gops(specs: Sequence[AppSpec], configs: Sequence[AccelConfig],
                hw: HardwareConstants, device="cuda") -> np.ndarray:
-    """Uncached [n_apps, n_cands] raw GOPS reference, the broadcast pass
-    on `device` (used by tests to check `CompositionEvaluator.app_matrix`
-    against the direct path)."""
+    """Uncached [n_apps, n_cands] raw GOPS reference: `performance_gops`
+    on `device`, by its default dispatch (used by tests to check
+    `CompositionEvaluator.app_matrix` against the direct path)."""
     batch = ConfigBatch.from_configs(list(configs))
     out = np.zeros((len(specs), len(batch)))
     for i, s in enumerate(specs):

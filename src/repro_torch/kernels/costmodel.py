@@ -5,7 +5,8 @@
 `(performance_gops(batch, ...), area_many(batch, ...))` returns for a
 `ConfigBatch` matrix.  The per-(stream, hw, value-set) gather tables are
 built on the host by `repro_torch.core.costmodel._fused_tables_for` and
-uploaded to the device once per table build.  Per call the host only
+uploaded to the device once per table build (`DeviceTables`, which the
+table pass of `evaluate_stream_many` uses too).  Per call the host only
 codes the pool matrix against the tables (`_FusedTables.codes`, numpy);
 the device runs the rest in int64/float64:
 
@@ -30,23 +31,16 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.costmodel import (ConfigBatch, HardwareConstants,
-                                        LoopOrder, OpStream, _FAST_FIELDS,
-                                        _area_t, _fused_tables_for,
-                                        numpy_order_sum, resolve_device)
+from repro_torch.core.costmodel import (ConfigBatch, DeviceTables,
+                                        HardwareConstants, LoopOrder,
+                                        OpStream, _FAST_FIELDS,
+                                        _TAIL_FIELDS, _area_t,
+                                        _fused_tables_for, _table_rows,
+                                        _tables_support, numpy_order_sum,
+                                        resolve_device, split_rows)
 from repro_torch.kernels.gather import gather_rows
 
 __all__ = ["FusedTorchScorer", "numpy_order_sum", "resolve_device"]
-
-_COL_FIELDS = ("loop_order", "pe_group", "mac_per_group", "bank_height",
-               "bank_width", "weight_banks_pg", "act_banks_pg")
-
-# `_FusedTables` arrays the device pass reads
-_TABLES = ("pb_tbl", "ifp_tbl", "ofp_tbl", "xp_tbl", "yp_tbl", "kk_tbl",
-           "win_x_tbl", "win_y_tbl", "wt_tbl", "spatial_tbl", "u1_tbl",
-           "u2_tbl", "u3_tbl", "atile_tbl", "num_weight", "num_input",
-           "ws_weight", "ie_batch", "is_input", "weight_elems", "repeat",
-           "expand")
 
 
 class FusedTorchScorer:
@@ -69,9 +63,7 @@ class FusedTorchScorer:
         self.peak_input_bits = int(peak_input_bits)
         self.device = resolve_device(device)
         self.t = _fused_tables_for(stream, hw, domains)
-        self._dev: Dict[str, torch.Tensor] = {}
-        self._uploaded_rebuilds = -1
-        self.n_uploads = 0
+        self._tables = DeviceTables(self.t, self.device)
         self.n_calls = 0
 
         def scalar(v: float) -> torch.Tensor:
@@ -84,25 +76,11 @@ class FusedTorchScorer:
 
     @staticmethod
     def supports(stream: OpStream) -> bool:
-        return bool(len(stream)
-                    and (stream.nkx > 0).all() and (stream.nky > 0).all()
-                    and (stream.s > 0).all())
+        return _tables_support(stream)
 
-    # ---------------------------------------------------------- device prep
-    def _ensure_uploaded(self) -> None:
-        """(Re)upload the tables after a value-set growth rebuilt them."""
-        if self._uploaded_rebuilds == self.t.n_rebuilds:
-            return
-        t = self.t
-
-        def up(a: np.ndarray) -> torch.Tensor:
-            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-
-        self._dev = {name: up(getattr(t, name)) for name in _TABLES}
-        # Eq. (10) weight tile, the screen's gather operand, on its own
-        self._dev["wt_tile"] = up(t.wt_tbl[1])
-        self._uploaded_rebuilds = t.n_rebuilds
-        self.n_uploads += 1
+    @property
+    def n_uploads(self) -> int:
+        return self._tables.n_uploads
 
     # -------------------------------------------------------------- scoring
     def metrics(self, matrix: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -114,17 +92,16 @@ class FusedTorchScorer:
             return z, z.copy()
         t, hw = self.t, self.hw
         code = t.codes(matrix)          # may grow and rebuild the tables
-        self._ensure_uploaded()
-        dv, nv = self._dev, t.nvals
+        dv, nv = self._tables.get(), t.nvals
         J = ConfigBatch._INDEX
         codes = torch.from_numpy(
             np.stack([code[f] for f in _FAST_FIELDS], axis=1)
         ).to(self.device)
         cols = torch.from_numpy(
-            np.ascontiguousarray(matrix[:, [J[f] for f in _COL_FIELDS]],
+            np.ascontiguousarray(matrix[:, [J[f] for f in _TAIL_FIELDS]],
                                  dtype=np.int64)).to(self.device)
         c = {f: codes[:, j] for j, f in enumerate(_FAST_FIELDS)}
-        k = {f: cols[:, j] for j, f in enumerate(_COL_FIELDS)}
+        k = {f: cols[:, j] for j, f in enumerate(_TAIL_FIELDS)}
         f64 = torch.float64
 
         pe_group = k["pe_group"]
@@ -141,17 +118,17 @@ class FusedTorchScorer:
         i_u2 = ((c["tix"] * nv["pox"] + c["pox"]) * nv["tiy"]
                 + c["tiy"]) * nv["poy"] + c["poy"]
         i_u3 = (c["tof"] * nv["pof"] + c["pof"]) * nv["pb"] + c["pb"]
-        i_wt = c["tif"] * nv["tof"] + c["tof"]
-        i_at = ((c["tix"] * nv["tiy"] + c["tiy"]) * nv["tif"]
-                + c["tif"]) * nv["tof"] + c["tof"]
+        ix = _table_rows(c, nv)
 
         # Eq. (9): folded unroll product (int64); Eqs. (10) + (12): tiles
         unroll = (gather_rows(dv["u1_tbl"], i_u1)
                   * gather_rows(dv["u2_tbl"], i_u2)
                   * gather_rows(dv["u3_tbl"], i_u3))
         valid_ops = unroll <= total_macs[:, None]
-        valid_ops &= wbuf[:, None] >= gather_rows(dv["wt_tile"], i_wt)
-        valid_ops &= abuf[:, None] >= gather_rows(dv["atile_tbl"], i_at)
+        valid_ops &= wbuf[:, None] >= gather_rows(dv["wt_tile"],
+                                                  ix["wt_tbl"])
+        valid_ops &= abuf[:, None] >= gather_rows(dv["atile_tbl"],
+                                                  ix["atile_tbl"])
         ok = valid_ops.all(dim=1)
         # Eqs. (11) + (13): peak-residency floors are [C]-shaped
         if self.peak_weight_bits:
@@ -162,7 +139,7 @@ class FusedTorchScorer:
         gops = torch.zeros(n, dtype=f64, device=self.device)
         rows = torch.nonzero(ok).squeeze(1)
         if rows.numel():
-            cycles = self._cycles(c, k, banks_w, banks_a, rows)
+            cycles = self._cycles(dv, ix, k, banks_w, banks_a, rows)
             seconds = cycles / self._freq
             gops[rows] = torch.where(
                 cycles > 0,
@@ -170,29 +147,23 @@ class FusedTorchScorer:
                 / self._giga, 0.0)
         return gops.cpu().numpy(), area.cpu().numpy()
 
-    def _cycles(self, c: Dict[str, torch.Tensor], k: Dict[str, torch.Tensor],
+    def _cycles(self, dv: Dict[str, torch.Tensor],
+                ix: Dict[str, torch.Tensor], k: Dict[str, torch.Tensor],
                 banks_w: torch.Tensor, banks_a: torch.Tensor,
                 rows: torch.Tensor) -> torch.Tensor:
-        """Eq. (1)-(8) latency tail on the screen-surviving `rows`."""
-        dv, nv, f64 = self._dev, self.t.nvals, torch.float64
-        c = {f: v[rows] for f, v in c.items()}
-        g = dv["pb_tbl"][:, c["pb"]]
-        batch_iters, pb = g[0], g[1]
-        g = dv["ifp_tbl"][:, c["tif"] * nv["pif"] + c["pif"]]
-        cd_if, pif = g[0], g[1]
-        g = dv["ofp_tbl"][:, c["tof"] * nv["pof"] + c["pof"]]
-        cd_of, pof = g[0], g[1]
-        i_xp = c["tix"] * nv["pox"] + c["pox"]
-        g = dv["xp_tbl"][:, i_xp]
-        cd_ox, pox = g[0], g[1]
-        i_yp = c["tiy"] * nv["poy"] + c["poy"]
-        g = dv["yp_tbl"][:, i_yp]
-        cd_oy, poy = g[0], g[1]
-        g = dv["kk_tbl"][:, c["pkx"] * nv["pky"] + c["pky"]]
-        cd_kk, p_kxky = g[0], g[1]
-        g = dv["wt_tbl"][:, c["tif"] * nv["tof"] + c["tof"]]
-        chan_tiles, ofm_tiles = g[0], g[2]
-        spatial_tiles = dv["spatial_tbl"][c["tix"] * nv["tiy"] + c["tiy"]]
+        """Eq. (1)-(8) latency tail on the screen-surviving `rows`; `ix`
+        holds every config's table rows (`_table_rows`)."""
+        f64 = torch.float64
+        g = {name: dv[name][i[rows]] for name, i in ix.items()
+             if name != "atile_tbl"}
+        batch_iters, pb = split_rows(g["pb_tbl"], 2)
+        cd_if, pif = split_rows(g["ifp_tbl"], 2)
+        cd_of, pof = split_rows(g["ofp_tbl"], 2)
+        cd_ox, pox = split_rows(g["xp_tbl"], 2)
+        cd_oy, poy = split_rows(g["yp_tbl"], 2)
+        cd_kk, p_kxky = split_rows(g["kk_tbl"], 2)
+        chan_tiles, _, ofm_tiles = split_rows(g["wt_tbl"], 3)
+        spatial_tiles = g["spatial_tbl"]
 
         # Eq. (3): Tkx=Nkx / Tky=Nky make the kernel factors exactly 1
         inter = chan_tiles * spatial_tiles
@@ -201,8 +172,7 @@ class FusedTorchScorer:
 
         poxy = pox * poy
         weight_reuse = poxy * pb                                # Eq. (1)
-        in_win = (dv["win_x_tbl"][i_xp * nv["pkx"] + c["pkx"]]
-                  * dv["win_y_tbl"][i_yp * nv["pky"] + c["pky"]])
+        in_win = g["win_x_tbl"] * g["win_y_tbl"]
         input_reuse = torch.clamp(
             (pof * p_kxky * poxy) // torch.clamp(in_win, min=1),
             min=1)                                              # Eq. (2)

@@ -4,8 +4,9 @@ The analytical model is pitched as *explainable* — for every op you can
 say which resource (MAC array, weight-buffer bandwidth, activation-buffer
 bandwidth) bounds its latency.  `explain_config` turns one
 `(config, stream)` pair into exactly that breakdown, built on the port's
-`evaluate_stream` (the Eqs. (1)-(13) broadcast pass on the evaluator's
-device), whose numbers agree bit for bit with what the Evaluator scored.
+`evaluate_stream` (one config: the Eqs. (1)-(13) broadcast pass on the
+evaluator's device), whose numbers agree bit for bit with what the
+Evaluator scored.
 
 `Evaluator.explain(config)` is the ergonomic entry point::
 

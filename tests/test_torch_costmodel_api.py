@@ -65,8 +65,8 @@ def both(batch, stream, hw, pw=0, pi=0, with_parts=True):
                                       backend="numpy-ref")
     pb = config_batch_from_matrix(batch.matrix)
     ps, ph = port_stream(stream), port_hw(hw)
-    got = evaluate_stream_many(pb, ps, ph, pw, pi, device="cpu",
-                               with_parts=with_parts)
+    got = evaluate_stream_many(pb, ps, ph, pw, pi, backend="broadcast",
+                               device="cpu", with_parts=with_parts)
     host = evaluate_stream_many(pb, ps, ph, pw, pi, backend="numpy-ref",
                                 with_parts=with_parts)
     return ref, got, host

@@ -98,6 +98,33 @@ def test_scorer_on_the_card_equals_the_cpu(gpu, app):
     np.testing.assert_array_equal(a_gpu, a_cpu)
 
 
+@pytest.mark.parametrize("app", ["inception", "nasnet"])
+def test_table_pass_on_the_card_equals_the_oracle(gpu, app):
+    """The default pass of `evaluate_stream_many` on the card: the table
+    pass, its `gather_rows` launched, bit-equal to ``numpy-ref``."""
+    from repro_torch.core import costmodel as cm
+    spec = AppSpec.from_app(app)
+    space = default_space()
+    batch = space.decode_batch(
+        space.sample_indices(np.random.default_rng(1), 1000))
+    cm.PASSES.clear()
+    before = gather_rows.launches
+    got = cm.evaluate_stream_many(batch, spec.stream, space.hw,
+                                  spec.peak_weight_bits,
+                                  spec.peak_input_bits, device=gpu)
+    assert dict(cm.PASSES) == {"tables": 1}
+    assert gather_rows.launches > before
+    want = cm.evaluate_stream_many(batch, spec.stream, space.hw,
+                                   spec.peak_weight_bits,
+                                   spec.peak_input_bits,
+                                   backend="numpy-ref")
+    for i in range(2):
+        np.testing.assert_array_equal(got[i], want[i])
+    for k, v in want[2].items():
+        assert got[2][k].dtype == v.dtype
+        np.testing.assert_array_equal(got[2][k], v)
+
+
 # flash_attention: the sweep of tests/test_kernels.py plus causal Sq != Skv,
 # qwen2-0.5b's heads and head dim 128; fp32 to 3e-4, bf16 to 2e-2 (both
 # round the output to bf16); bf16 at head dims 64, 128 and 256 runs the

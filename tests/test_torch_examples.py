@@ -1,0 +1,139 @@
+"""The port's four DSE examples (`examples/torch_*.py`) against the JAX
+package's (`examples/*.py`): each twin, run with ``--device cpu``, prints
+the reference example's stdout for the same arguments.
+
+Two parts differ by design: the quickstart's part 3 prints the port's
+tile pick for an H100 (held here to `tune_matmul_tiles`), and
+`torch_trace_model.py --list` marks the apps whose models are not ported.
+One differs by a known gap of the port's frontend: a traced graph's count
+of data vertices (`data_nodes=`), which follows aten's calls rather than
+the jaxpr's (`ROADMAP.md` §C); every other number of its summary is the
+reference's.  The runs of the module fixture go at once.
+"""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.core import apps
+from repro_torch.core.kernel_tune import H100_TC_TILES, tune_matmul_tiles
+from repro_torch.frontend.zoo import PORTED_ARCHS
+
+ROOT = Path(__file__).resolve().parents[1]
+EXAMPLES = ROOT / "examples"
+CASES = {
+    "quickstart": [],
+    "dse_accelerator": ["--engine", "greedy"],
+    "compose_serving": ["--smoke"],
+    "trace_model": [],
+}
+DATA_NODES = re.compile(r"data_nodes=(\d+)")
+
+
+def start(script, args):
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "JAX_PLATFORMS": "cpu"}
+    return subprocess.Popen([sys.executable, str(EXAMPLES / script), *args],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=env, cwd=ROOT)
+
+
+def finish(proc):
+    out, err = proc.communicate(timeout=300)
+    return proc.returncode, out, err
+
+
+@pytest.fixture(scope="module")
+def outputs():
+    procs = {n: (start(f"{n}.py", a),
+                 start(f"torch_{n}.py", [*a, "--device", "cpu"]))
+             for n, a in CASES.items()}
+    out = {}
+    for n, (ref, twin) in procs.items():
+        (rc_r, out_r, err_r), (rc_t, out_t, err_t) = finish(ref), \
+            finish(twin)
+        assert rc_r == 0, err_r
+        assert rc_t == 0, err_t
+        out[n] = (out_r, out_t, err_t)
+    return out
+
+
+@pytest.mark.parametrize("name", ["dse_accelerator", "compose_serving"])
+def test_twin_prints_the_reference_stdout(name, outputs):
+    ref, twin, err = outputs[name]
+    assert twin == ref
+    # the launches go to stderr only, none on the CPU
+    assert err.strip().splitlines()[-1] == "gather_rows launches: 0"
+
+
+def test_quickstart_parts_1_and_2_are_the_references(outputs):
+    ref, twin, _ = outputs["quickstart"]
+    r, t = ref.splitlines(), twin.splitlines()
+    assert len(r) == len(t) == 6
+    assert t[:5] == r[:5]
+    assert "v5e" in r[5] and "VMEM" in r[5]
+
+
+def test_quickstart_part_3_is_the_h100_tile_pick(outputs):
+    line = outputs["quickstart"][1].splitlines()[5]
+    best, cost, _ = tune_matmul_tiles(8192, 8192, 8192, chip=H100_TC_TILES)
+    bound = "compute" if cost["compute_s"] >= cost["memory_s"] else "memory"
+    assert line == (
+        f"H100 matmul tile DSE (8k^3 bf16): best tile "
+        f"(bm,bk,bn)=({best.bm},{best.bk},{best.bn}) -> "
+        f"{cost['latency_s'] * 1e3:.2f} ms predicted by the tile model for "
+        f"an H100, not measured ({bound}-bound, shared memory "
+        f"{cost['smem_bytes'] / 2 ** 10:.0f} KiB)")
+    assert "v5e" not in line and "VMEM" not in line and "TPU" not in line
+
+
+def test_trace_model_summary_is_the_references(outputs):
+    """Every line equal, with the data-vertex count the port's own."""
+    ref, twin, _ = outputs["trace_model"]
+    assert DATA_NODES.sub("data_nodes=N", twin) == \
+        DATA_NODES.sub("data_nodes=N", ref)
+    counts = [int(n) for n in DATA_NODES.findall(twin)]
+    assert counts == [apps.build_app(a).summary()["n_data_nodes"]
+                      for a in ("qwen2-0.5b:prefill", "qwen2-0.5b:decode")]
+
+
+def test_trace_model_list_marks_the_unported_apps():
+    (rc_r, ref, _), (rc_t, twin, _) = (
+        finish(start("trace_model.py", ["--list"])),
+        finish(start("torch_trace_model.py", ["--list"])))
+    assert rc_r == rc_t == 0
+    marker = "  not ported (ROADMAP.md A5)"
+    lines = twin.splitlines()
+    assert [ln.removesuffix(marker) for ln in lines] == ref.splitlines()
+    zoo = [ln for ln in lines if ":" in ln]
+    ported = [ln for ln in zoo if not ln.endswith(marker)]
+    assert len(ported) == 12 and len(zoo) - len(ported) == 8
+    assert {ln.partition(":")[0] for ln in ported} == set(PORTED_ARCHS)
+
+
+def test_trace_model_refuses_an_unported_app():
+    rc, out, err = finish(start("torch_trace_model.py",
+                                ["--app", "olmoe-1b-7b:decode",
+                                 "--device", "cpu"]))
+    assert rc != 0 and out == ""
+    assert "olmoe-1b-7b:decode" in err and "ROADMAP.md A5" in err
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_device_defaults_to_cuda(name):
+    """Without a GPU a twin run without ``--device`` fails; it never
+    carries on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("checks the run without a GPU")
+    if name == "trace_model":          # its default run searches nothing
+        args = ["--optimize", "--app", "ptb"]
+    else:
+        args = CASES[name]
+    rc, _, err = finish(start(f"torch_{name}.py", args))
+    assert rc != 0
+    assert "torch.cuda.is_available() is False" in err

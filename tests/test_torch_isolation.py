@@ -1,7 +1,8 @@
 """The port stands alone: no source file of `src/repro_torch/` (nor
-`chip_smoke.py`) imports jax or the JAX package, and its CPU main paths
-(the DSE study, the zoo's traced apps and the model server) run without
-either in `sys.modules`."""
+`chip_smoke.py`, nor the port's examples `examples/torch_*.py`) imports
+jax or the JAX package, and its CPU main paths (the DSE study, the zoo's
+traced apps, the analysis API's table pass and the model server) run
+without either in `sys.modules`."""
 
 import os
 import re
@@ -20,7 +21,8 @@ FORBIDDEN = re.compile(
 
 
 def sources():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "examples").glob("torch_*.py")))
 
 
 def test_scan_matches_only_whole_module_names():
@@ -122,6 +124,38 @@ def test_cpu_pareto_obs_radar_path_loads_neither_jax_nor_repro(tmp_path):
         " & {'jax', 'repro', 'jaxlib'}))\n")
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_scan_covers_the_port_examples():
+    names = {p.name for p in sources() if p.parent == ROOT / "examples"}
+    assert names == {"torch_quickstart.py", "torch_dse_accelerator.py",
+                     "torch_compose_serving.py", "torch_trace_model.py"}
+
+
+def test_cpu_table_pass_loads_neither_jax_nor_repro():
+    """The analysis API's default pass, its table route and its broadcast
+    route, and `performance_gops` over it."""
+    proc = _run(
+        "import sys\n"
+        "from repro_torch.core import costmodel as cm\n"
+        "from repro_torch.core.multiapp import AppSpec\n"
+        "from repro_torch.core.space import default_space\n"
+        "import numpy as np\n"
+        "sp = default_space()\n"
+        "spec = AppSpec.from_app('inception')\n"
+        "b = sp.decode_batch(sp.sample_indices(np.random.default_rng(0),\n"
+        "                                      300))\n"
+        "got = cm.evaluate_stream_many(b, spec.stream, sp.hw, device='cpu')\n"
+        "want = cm.evaluate_stream_many(b, spec.stream, sp.hw,\n"
+        "                               backend='numpy-ref')\n"
+        "assert all(np.array_equal(got[2][k], want[2][k]) for k in want[2])\n"
+        "cm.performance_gops(b[:10], spec.stream, sp.hw, device='cpu')\n"
+        "assert dict(cm.PASSES) == {'tables': 1, 'numpy-ref': 1,\n"
+        "                           'broadcast': 1}, cm.PASSES\n"
+        "print(sorted({m.split('.')[0] for m in sys.modules}"
+        " & {'jax', 'repro', 'jaxlib'}))\n")
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
 
 
 def test_cpu_serve_path_loads_neither_jax_nor_repro():
