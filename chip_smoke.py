@@ -22,9 +22,9 @@ printing one JSON line each:
   4. study       the main path: a seven-app `GeomeanAcrossApps` greedy
                  `Study` on the card and on the CPU must select the same
                  config, with the kernel launched and jax never imported;
-  5. study zoo   the model-zoo frontend on the main path: the twelve zoo
-                 apps of the six ported archs traced on meta tensors (each
-                 app's seconds and compute ops), a twelve-app
+  5. study zoo   the model-zoo frontend on the main path: the sixteen zoo
+                 apps of the eight ported archs traced on meta tensors (each
+                 app's seconds, compute ops and data vertices), a sixteen-app
                  `GeomeanAcrossApps` greedy `Study` on the card and on the
                  CPU selecting the same config and per-app bests (the
                  kernel launched on the card only, neither jax nor the JAX
@@ -140,16 +140,52 @@ printing one JSON line each:
                  card (fp32, `use_kernels=True`: its attention on the
                  CUDA-core flash kernel only) over each request's prompt
                  and generated tokens;
- 16. kernel matmul
+ 16. prefill olmoe-1b-7b
+                 the MoE main path, as phase 12 at the same two shapes (16
+                 layers, 64 experts top-8, 6.92e9 parameters in bf16): 16
+                 tensor-core flash launches a forward, the kernel against
+                 its plain version on the first and last layer's q, k, v.
+                 Its bf16 logits are printed against the plain path's with
+                 the share of (token, layer) top-k expert sets that agree,
+                 not gated (a near-tied router flips on a bf16-level
+                 difference); the whole forward is gated in fp32 at seq
+                 2048 x batch 4 instead (the CUDA-core flash kernel, 16
+                 launches) against the plain fp32 path, logits within
+                 `PREFILL_TOL` and the same next token.  Wall, tokens/s,
+                 device time by kind (flash, cuBLAS, the MoE dispatch) and
+                 `max_memory_allocated` at each shape;
+ 17. serve olmoe-1b-7b
+                 as phase 15 (fp32 weights): the teacher-forced forward
+                 runs drop-free (capacity factor 16, as
+                 `tests/test_decode_parity.py` holds the reference) and
+                 prints the pairs it would drop at the configuration's
+                 1.25; it takes the decode's expert choices, so the two
+                 compute one function (a near-tied router flips on the
+                 bf16 cache's rounding), and each choice that differs from
+                 the forward's own must lie within the two paths'
+                 router-logit difference; the flips are counted;
+ 18. prefill deepseek-v2-lite-16b
+                 as phase 16 at the same two shapes (27 layers: one dense,
+                 26 MoE with 64 routed experts top-6 and 2 shared; MLA;
+                 1.62e10 parameters in bf16): no kernel runs (MLA's
+                 attention is `blocked_attention`, as in the reference),
+                 0 flash launches counted; wall, tokens/s, device time by
+                 kind and `max_memory_allocated`, finite logits;
+ 19. serve deepseek-v2-lite-16b
+                 as phase 17 with bf16 weights and fp32 compute: the
+                 weight-absorbed decode over the latent cache against the
+                 drop-free expanded forward; the cache's bytes a token and
+                 layer beside GQA's;
+ 20. kernel matmul
                  `matmul` against its plain PyTorch version on every element,
                  within the fp32 summation bound (`matmul_against_plain`),
                  on the sweep of `tests/test_kernels.py` at its two tiles
                  (fp32 on the CUDA-core kernel, bf16 on the tensor-core
                  one: each case must move only its kernel's counter) and on
                  an all-positive bf16 product at K = 12288, both output
-                 dtypes (phase 17 holds the tile DSE's shapes, at every
+                 dtypes (phase 21 holds the tile DSE's shapes, at every
                  tile);
- 17. tile_dse    the fourth main path: for each of `TILE_SHAPES` (bf16),
+ 21. tile_dse    the fourth main path: for each of `TILE_SHAPES` (bf16),
                  `tune_matmul_tiles` picks a tile under the tensor-core
                  model and `matmul` runs at it and at every other tile the
                  tensor-core kernel is built for, each output held against
@@ -160,9 +196,11 @@ printing one JSON line each:
                  (M N > 2^31) runs once, at its tuned tile.  Then the fp32
                  `FP32_SHAPE` on the CUDA-core kernel at the CUDA-core
                  model's pick, beside its 67 TFLOP/s bound;
- 18. dryrun      `run_cell` for qwen2-0.5b and recurrentgemma-9b at
-                 prefill_32k and decode_32k on fake CUDA tensors (full batch),
-                 each cell's matmul and elementwise FLOPs and
+ 22. dryrun      `run_cell` for qwen2-0.5b, recurrentgemma-9b, olmoe-1b-7b
+                 and deepseek-v2-lite-16b at prefill_32k and decode_32k on
+                 fake CUDA tensors (full batch; every record OK with a
+                 finite peak and roofline), each cell's matmul and
+                 elementwise FLOPs and
                  transcendentals, one greedy `autotune_search` over
                  qwen2-0.5b's decode_32k (a cell whose points fit 80 GB;
                  every record it writes must be OK with a finite peak and
@@ -183,6 +221,7 @@ the repository's `src/` beside it, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -247,6 +286,12 @@ RGLRU_LIBRARY = ("none: no single PyTorch call computes h_t = a_t h_{t-1} "
                  "that vanish, so it is not the same function")
 ARCH = "qwen2-0.5b"
 RG_ARCH = "recurrentgemma-9b"
+MOE_ARCH = "olmoe-1b-7b"
+MLA_ARCH = "deepseek-v2-lite-16b"
+# the kernels of the MoE block's dispatch and combine (top-k, the one-hot's
+# cumsum, the index scatter, the token gathers), by name substring
+MOE_DISPATCH_KERNELS = ("gatherTopK", "sort", "Sort", "scan", "index_put",
+                        "indexing", "scatter_gather", "gather_kernel")
 # prefill logits, kernel path against the plain path, both bf16:
 # |a - b| <= PREFILL_TOL * (1 + |b|), about 4x the largest gap measured
 # (0.0054 on the H100 for qwen2-0.5b); the blocked path also rounds p to
@@ -514,10 +559,10 @@ def phase_study(names) -> int:
 
 
 def phase_study_zoo() -> dict:
-    """The main path over the traced zoo apps: the twelve apps of the six
-    ported archs, the greedy geomean study on the card and on the CPU, then
-    the genetic and anneal engines on one app on both.  Returns the
-    kernel's launches on each card run."""
+    """The main path over the traced zoo apps: the sixteen apps of the
+    eight ported archs, the greedy geomean study on the card and on the
+    CPU, then the genetic and anneal engines on one app on both.  Returns
+    the kernel's launches on each card run."""
     from repro_torch.core.apps import build_app
     from repro_torch.core.multiapp import AppSpec
     from repro_torch.core.search import optimize_for_app
@@ -530,9 +575,12 @@ def phase_study_zoo() -> dict:
     traced = {}
     for name in names:
         t0 = time.perf_counter()
-        ops = len(build_app(name).op_stream())
-        traced[name] = {"seconds": time.perf_counter() - t0,
-                        "compute_ops": ops}
+        graph = build_app(name)
+        seconds = time.perf_counter() - t0
+        ops = len(graph.op_stream())
+        traced[name] = {"seconds": seconds, "compute_ops": ops,
+                        "data_nodes": sum(n.op is None
+                                          for n in graph.nodes.values())}
         check(ops > 0, f"the zoo app {name} traced no compute op")
     runs = {}
     for dev in ("cuda", "cpu"):
@@ -587,7 +635,7 @@ def phase_study_zoo() -> dict:
             "cuda_s": res["cuda"]["seconds"], "cpu_s": res["cpu"]["seconds"],
             "gather_rows_launches": res["cuda"]["launches"]}
     check_isolated()
-    emit("study zoo", apps=traced,
+    emit("study zoo", n_apps=len(names), apps=traced,
          trace_s=sum(t["seconds"] for t in traced.values()),
          selected=gpu["result"].best.asdict(), same_selection=True,
          best_score=gpu["result"].best_score,
@@ -1333,21 +1381,26 @@ def flash_bound(b, sq, skv, h, kv, hd, causal, itemsize) -> dict:
 
 
 def flash_against_plain(q, k, v, causal: bool) -> dict:
-    """The kernel's output on every row against the plain version's, the
-    plain version run `PLAIN_ROWS` query rows at a time: the max abs
-    error and the worst |error| / (atol + rtol |plain|), which passes at
-    <= 1."""
+    """The kernel's output on every row against the plain version's,
+    evaluated in float64 on the same inputs and run `PLAIN_ROWS` query
+    rows at a time: the max abs error and the worst |error| / (atol + rtol
+    |plain|), which passes at <= 1.  In fp32 the plain version's own
+    error on outputs that cancel over 32k near-uniform keys (olmoe-1b-7b's
+    last layer) exceeds FLASH_TOL's atol: no kernel, the exact function
+    included, could be held to it there."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     from repro_torch.models.layers import full_precision_products
 
     atol, rtol = FLASH_TOL[q.dtype]
     err = ratio = 0.0
+    k64, v64 = k.double(), v.double()
     with torch.inference_mode(), full_precision_products():
-        got = flash_attention(q, k, v, causal=causal).float()
+        got = flash_attention(q, k, v, causal=causal).double()
         for i in range(0, q.shape[1], PLAIN_ROWS):
-            want = flash_attention_plain(q[:, i:i + PLAIN_ROWS], k, v,
-                                         causal=causal, q_offset=i).float()
+            want = flash_attention_plain(q[:, i:i + PLAIN_ROWS].double(),
+                                         k64, v64, causal=causal,
+                                         q_offset=i)
             diff = (got[:, i:i + PLAIN_ROWS] - want).abs()
             err = max(err, float(diff.max()))
             ratio = max(ratio, float((diff / (atol + rtol * want.abs()))
@@ -1832,26 +1885,37 @@ def kernel_counters() -> dict:
 
 def expected_launches(model, seq: int) -> dict:
     """Kernel launches of one bf16 prefill forward: one `rglru_gated_scan`
-    per RG-LRU layer and no bare scan; one `flash_attention` per attention
-    layer, and per local
-    one whose window holds the whole sequence (else local-block
-    attention), every one on the tensor cores (bf16 at head dim 64 or 256)
-    and none on the CUDA cores; no `matmul` (the models' projections are
-    not tiled products)."""
+    per RG-LRU layer and no bare scan; one `flash_attention` per GQA
+    attention layer, and per local one whose window holds the whole
+    sequence (else local-block attention), every one on the tensor cores
+    (bf16 at head dim 64-256) and none on the CUDA cores; none in an MLA
+    layer (its attention is `blocked_attention`, as in the reference); no
+    `matmul` (the models' projections are not tiled products)."""
     from repro_torch.kernels.flash_attention import CUDA_CORE, TENSOR_CORE
     kinds, window = model.kinds, model.cfg.local_window
-    flash = sum(k == "attn" or (k == "local_attn" and seq <= window)
-                for k in kinds)
+    flash = 0 if model.cfg.mla is not None else sum(
+        k in ("attn", "attn_dense") or (k == "local_attn" and seq <= window)
+        for k in kinds)
     return {"flash_attention": flash, TENSOR_CORE.name: flash,
             CUDA_CORE.name: 0, "rglru_gated_scan": kinds.count("rglru"),
-            "rglru_scan": 0, "matmul": 0, "matmul_tensor_core": 0, "matmul_cuda_core": 0}
+            "rglru_scan": 0, "matmul": 0, "matmul_tensor_core": 0,
+            "matmul_cuda_core": 0}
+
+
+def fp32_launches(model, seq: int) -> dict:
+    """`expected_launches` of an fp32 forward: its attention runs the
+    CUDA-core flash kernel only."""
+    want = expected_launches(model, seq)
+    want.update({"flash_attention_tensor_core": 0,
+                 "flash_attention_cuda_core": want["flash_attention"]})
+    return want
 
 
 def checked_layers(model, seq: int) -> tuple:
     """The first and last layer that hands each launched kernel its
     inputs, at this sequence length."""
     want = expected_launches(model, seq)
-    kind_of = {"flash_attention": ("attn", "local_attn"),
+    kind_of = {"flash_attention": ("attn", "attn_dense", "local_attn"),
                "rglru_gated_scan": ("rglru",)}
     layers = set()
     for name, n in want.items():
@@ -1860,6 +1924,66 @@ def checked_layers(model, seq: int) -> tuple:
                    if k in kind_of[name]]
             layers.update((idx[0], idx[-1]))
     return tuple(sorted(layers))
+
+
+@contextlib.contextmanager
+def routes(force=None, factor=None):
+    """Within it every MoE block's routing (`layers.moe_route`) is
+    recorded, one record a call: the experts each token chose ([T, k], in
+    `moe_route`'s order, on the host), the router's fp32 logits [T, E],
+    and with `factor` the pairs it would drop at that capacity factor.
+    With `force`, a list of records, the n-th call routes its tokens to
+    force[n]'s experts instead, its gates its own probabilities of those
+    experts: a forward then takes a decode's discrete choices, and the
+    two compute one function.  Yields the list of records."""
+    from repro_torch.models import layers as L
+
+    route, log = L.moe_route, []
+
+    def recording(p, xg, *, n_experts, top_k, cap, normalize_gates, rt):
+        G, T, _ = xg.shape
+        cd = rt.compute_dtype
+        kw = dict(n_experts=n_experts, top_k=top_k,
+                  normalize_gates=normalize_gates, rt=rt)
+        logits = torch.matmul(xg.to(cd).float(), p["router"].to(cd).float())
+        gate, e_flat, slot = route(p, xg, cap=cap, **kw)
+        rec = {"experts": e_flat.reshape(G * T, top_k).cpu(),
+               "logits": logits.reshape(G * T, n_experts).cpu()}
+        if factor is not None:
+            cap_f = L.moe_capacity(T, top_k, n_experts, factor)
+            slot_f = route(p, xg, cap=cap_f, **kw)[2]
+            rec["dropped"] = int((slot_f == n_experts * cap_f).sum())
+        if force is not None:
+            eidx = force[len(log)]["experts"].to(xg.device).reshape(
+                G, T, top_k)
+            gate = torch.softmax(logits, dim=-1).gather(-1, eidx)
+            if normalize_gates:
+                gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True),
+                                              1e-9)
+            e_flat = eidx.reshape(G, T * top_k)
+            slot = L.moe_slots(e_flat, n_experts, cap)
+        log.append(rec)
+        return gate, e_flat, slot
+
+    L.moe_route = recording
+    try:
+        yield log
+    finally:
+        L.moe_route = route
+
+
+def expert_sets(rec) -> torch.Tensor:
+    return rec["experts"].sort(-1).values
+
+
+def route_agreement(got: list, want: list) -> float:
+    """The share of (token, MoE layer) pairs whose top-k expert sets are
+    the same in two forwards' `routes`."""
+    check(len(got) == len(want) > 0, "the forwards routed different "
+                                     "numbers of MoE layers")
+    same = sum(int((expert_sets(g) == expert_sets(w)).all(-1).sum())
+               for g, w in zip(got, want))
+    return same / sum(w["experts"].shape[0] for w in want)
 
 
 def next_token_check(got, want, label: str) -> dict:
@@ -1881,12 +2005,25 @@ def next_token_check(got, want, label: str) -> dict:
 
 def phase_prefill(arch: str) -> dict:
     """`arch`'s batched prefill at full width through the kernels, against
-    the plain paths; returns each kernel's launches in the forwards."""
+    the plain paths; returns each kernel's launches in the forwards.
+
+    An MoE arch's bf16 forwards are not gated on their logits: its top-k
+    router over near-uniform probabilities flips a token's experts on a
+    bf16-level difference, so two correct bf16 paths can disagree past
+    `PREFILL_TOL`.  Their logits gap and routing agreement are printed,
+    and the whole forward is gated in fp32 at 2048 x 4 instead
+    (`fp32_gate`).  An arch whose path runs no kernel (MLA) is timed and
+    checked for finite logits: its plain path is the same code."""
+    import gc
+
     from repro_torch import configs
     from repro_torch.launch.steps import (build_model, make_prefill_step,
                                           make_runtime)
 
+    gc.collect()
+    torch.cuda.empty_cache()                  # the previous phase's weights
     cfg = configs.get_arch(arch)
+    moe = cfg.moe is not None
     shape = configs.shape_by_name("prefill_32k")
     model = build_model(cfg)
     rt = make_runtime(cfg, shape, use_kernels=True)
@@ -1907,6 +2044,7 @@ def phase_prefill(arch: str) -> dict:
                                generator=gen, device="cuda")
         inputs = all_inputs[(seq, batch)] = {"tokens": tokens}
         want_launches = expected_launches(model, seq)
+        kernels_run = any(want_launches.values())
         walls = []
         for rep in range(3):                      # warm-up + 2 timed
             torch.cuda.synchronize()
@@ -1924,41 +2062,65 @@ def phase_prefill(arch: str) -> dict:
             for n in totals:
                 totals[n] += want_launches[n]
         peak = torch.cuda.max_memory_allocated()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ref = step_plain(params, inputs)
-        torch.cuda.synchronize()
-        plain_s = time.perf_counter() - t0
         v = cfg.vocab_size
-        got, want = logits[:, :v].float(), ref[:, :v].float()
+        got = logits[:, :v].float()
         check(tuple(logits.shape) == (batch, model.v_pad),
               f"prefill logits {tuple(logits.shape)}")
         check(bool(torch.isfinite(got).all()), "prefill logits not finite")
-        diff = (got - want).abs()
-        check(bool((diff <= PREFILL_TOL * (1 + want.abs())).all()),
-              f"{arch} prefill logits through the kernels differ from the "
-              f"plain path by {float(diff.max())} at seq {seq}")
-        tokens_check = next_token_check(got, want, f"{arch} seq {seq}")
         wall = float(np.median(walls[1:]))
+        run = {"seq": seq, "batch": batch, "wall_s": wall, "walls_s": walls,
+               "tokens_per_s": seq * batch / wall,
+               "max_memory_allocated": peak,
+               "launches_per_forward": want_launches}
+        if kernels_run:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = step_plain(params, inputs)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            want = ref[:, :v].float()
+            diff = (got - want).abs()
+            run.update(plain_wall_s=plain_s,
+                       max_abs_diff_vs_plain=float(diff.max()),
+                       tolerance=PREFILL_TOL)
+            if moe:
+                # printed, not gated (see the docstring); the routes are
+                # recorded in untimed forwards of their own
+                with routes() as plain_routes:
+                    step_plain(params, inputs)
+                with routes() as kernel_routes:
+                    step(params, inputs)
+                for n in totals:
+                    totals[n] += want_launches[n]
+                run.update(
+                    gated=False,
+                    within_tolerance_share=float((
+                        diff <= PREFILL_TOL * (1 + want.abs()))
+                        .float().mean()),
+                    next_token_agreement=float((
+                        got.argmax(-1) == want.argmax(-1)).float().mean()),
+                    topk_sets_agreeing=route_agreement(kernel_routes,
+                                                       plain_routes))
+            else:
+                check(bool((diff <= PREFILL_TOL * (1 + want.abs())).all()),
+                      f"{arch} prefill logits through the kernels differ "
+                      f"from the plain path by {float(diff.max())} at seq "
+                      f"{seq}")
+                run.update(next_token_check(got, want, f"{arch} seq {seq}"))
+            del ref
         device = device_breakdown(
             {"forward": lambda: step(params, inputs)},
             {"rglru_gated_us": ("rglru_gated",),
              "rglru_scan_us": ("rglru_slab",),
              "flash_attention_us": ("flash_attention_kernel",),
-             "matmul_us": ("gemm", "nvjet", "xmma")})["forward"]
+             "matmul_us": ("gemm", "nvjet", "xmma"),
+             "moe_dispatch_us": MOE_DISPATCH_KERNELS})["forward"]
         device["idle_share"] = 1.0 - device["busy_us"] / device["wall_us"]
         for n in totals:
             totals[n] += want_launches[n]
-        runs[f"seq{seq}_batch{batch}"] = {
-            "seq": seq, "batch": batch, "wall_s": wall, "walls_s": walls,
-            "tokens_per_s": seq * batch / wall,
-            "plain_wall_s": plain_s,
-            "max_memory_allocated": peak,
-            "launches_per_forward": want_launches,
-            "max_abs_diff_vs_plain": float(diff.max()),
-            **tokens_check,
-            "tolerance": PREFILL_TOL,
-            "device_one_forward": device}
+        run["device_one_forward"] = device
+        runs[f"seq{seq}_batch{batch}"] = run
+        del logits
     launches = {n: fn.launches for n, fn in counters.items()}
     check(launches == totals,
           f"{arch} prefill launched {launches}, expected {totals}")
@@ -1983,19 +2145,82 @@ def phase_prefill(arch: str) -> dict:
             runs[name]["kernel_vs_plain"][f"layer{layer}"] = res
             if res["tol_ratio"] > 1.0:
                 failed.append(f"{name} layer {layer} {kernel}: {res}")
+    gate = None
+    if moe and any(expected_launches(model, 2048).values()):
+        del params
+        gate = fp32_gate(model, gen, counters)
+        for n in launches:
+            launches[n] += gate["launches"][n]
     check_isolated()
     emit(f"prefill {arch}", arch=arch, layers=cfg.num_layers,
          kinds={k: model.kinds.count(k) for k in sorted(set(model.kinds))},
+         parameters=cfg.param_count(),
          param_dtype="bfloat16", compute_dtype="bfloat16",
          reduced={"prefill_32k": "global_batch 32 -> 1"},
          launches=launches,
          kernel_tolerance={"flash_attention": FLASH_TOL[torch.bfloat16],
                            "rglru_gated_scan": [*GATED_TOL,
                                                 "+ one bf16 ulp"]},
-         failed=failed, runs=runs)
+         failed=failed, runs=runs, fp32_gate=gate)
     check(not failed, f"kernels != plain on the prefill's own inputs: "
                       f"{failed[:2]}")
     return launches
+
+
+def fp32_gate(model, gen, counters) -> dict:
+    """An MoE arch's whole forward in fp32 at seq 2048 x batch 4: fp32
+    weights from seed 0, through the kernels (the CUDA-core flash kernel)
+    against the plain fp32 path, within `PREFILL_TOL` and with the same
+    next token.  Returns the record, with the kernels' launches in it."""
+    import gc
+
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.layers import Runtime
+
+    gc.collect()
+    torch.cuda.empty_cache()                  # the bf16 weights
+    cfg = model.cfg
+    rt = Runtime(compute_dtype=torch.float32, param_dtype=torch.float32,
+                 use_kernels=True)
+    rt_plain = dataclasses.replace(rt, use_kernels=False)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), rt)
+    inputs = {"tokens": torch.randint(0, cfg.vocab_size, (4, 2048),
+                                      generator=gen, device="cuda")}
+    want_launches = fp32_launches(model, 2048)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = {n: fn.launches for n, fn in counters.items()}
+    t0 = time.perf_counter()
+    logits = make_prefill_step(model, rt)(params, inputs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got_launches = {n: fn.launches - before[n] for n, fn in counters.items()}
+    check(got_launches == want_launches,
+          f"the fp32 forward launched {got_launches}, expected "
+          f"{want_launches}")
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    ref = make_prefill_step(model, rt_plain)(params, inputs)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    v = cfg.vocab_size
+    got, want = logits[:, :v].float(), ref[:, :v].float()
+    check(bool(torch.isfinite(got).all()), "fp32 prefill logits not finite")
+    diff = (got - want).abs()
+    check(bool((diff <= PREFILL_TOL * (1 + want.abs())).all()),
+          f"{cfg.name} fp32 prefill logits through the kernels differ from "
+          f"the plain path by {float(diff.max())}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"seq": 2048, "batch": 4, "param_dtype": "float32",
+            "compute_dtype": "float32", "wall_s": wall,
+            "tokens_per_s": 2048 * 4 / wall, "plain_wall_s": plain_s,
+            "max_memory_allocated": peak,
+            "max_abs_diff_vs_plain": float(diff.max()),
+            "tolerance": PREFILL_TOL,
+            **next_token_check(got, want, f"{cfg.name} fp32"),
+            "launches": got_launches}
 
 
 def position(pos: int, device="cuda") -> torch.Tensor:
@@ -2082,27 +2307,105 @@ def phase_serve() -> None:
          argmax_agreement_vs_cpu=same_next, device_one_step=device)
 
 
-def phase_serve_recurrent() -> dict:
-    """recurrentgemma-9b's `serve_requests` at full width on the card,
-    fp32, held against a teacher-forced full-sequence forward on the card
-    (fp32, through the kernels) over each request's prompt and generated
-    tokens: every decode logit within `SERVE_RG_TOL` of the forward's, and
-    every served token the forward's greedy choice (a flip passes only
-    where the forward's top-1 margin is within that tolerance)."""
+@contextlib.contextmanager
+def as_cached(cfg, params):
+    """Within it a forward reads what the decode's bf16 caches hold: a
+    GQA layer's attention is the decode's arithmetic over every row at
+    once (`gqa_attention_decode`'s scores on the bf16 k after RoPE, a
+    masked softmax, its probabilities rounded to v's bf16 as `_gqa_values`
+    rounds them) in place of the flash kernel; an MLA layer rounds its
+    normed latent (where `rms_norm` applies a `kv_norm` scale) and its
+    RoPE key (the keys' last `rope_d` columns where they reach
+    `blocked_attention`).  Yields the count of each, a layer a forward."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import layers as L
+
+    def bf16(t):
+        return t.to(torch.bfloat16).to(t.dtype)
+
+    hits = {"attention": 0, "latent": 0, "rope_key": 0}
+    flash, norm, blocked = FA.flash_attention, L.rms_norm, L.blocked_attention
+    kv_norms = {id(p["attn"]["kv_norm"]) for p in params["layers"]
+                if "kv_norm" in p.get("attn", {})}
+
+    def attend_cached(q, k, v, *, causal=True):
+        hits["attention"] += 1
+        B, S, H, hd = q.shape
+        KV = k.shape[2]
+        qg = (q * (1.0 / math.sqrt(hd))).reshape(B, S, KV, H // KV, hd)
+        s = L._gqa_scores(qg, k.to(torch.bfloat16))
+        pos = torch.arange(S, device=q.device)
+        if causal:
+            s = s.masked_fill(pos[:, None] < pos[None, :], -math.inf)
+        o = L._gqa_values(torch.softmax(s, dim=-1), v.to(torch.bfloat16))
+        return o.reshape(B, S, H, hd).to(q.dtype)
+
+    def norm_cached(x, scale, eps):
+        y = norm(x, scale, eps)
+        if id(scale) in kv_norms:
+            hits["latent"] += 1
+            y = bf16(y)
+        return y
+
+    def blocked_cached(q, k, v, **kw):
+        hits["rope_key"] += 1
+        nope = k.shape[-1] - cfg.mla.qk_rope_head_dim
+        k = torch.cat([k[..., :nope], bf16(k[..., nope:])], -1)
+        return blocked(q, k, v, **kw)
+
+    FA.flash_attention, L.rms_norm = attend_cached, norm_cached
+    if cfg.mla is not None:
+        L.blocked_attention = blocked_cached
+    try:
+        yield hits
+    finally:
+        FA.flash_attention, L.rms_norm, L.blocked_attention = (
+            flash, norm, blocked)
+
+
+def phase_serve_forward(arch: str, param_dtype=torch.float32) -> dict:
+    """`arch`'s `serve_requests` at full width on the card, fp32 compute
+    (on `param_dtype` weights), held to teacher-forced full-sequence
+    forwards on the card (fp32, through the kernels, their launches
+    counted) over each request's prompt and generated tokens.  Every
+    served token must be the forward's greedy choice, and every argmax of
+    the teacher-forced decode (bf16 caches, as served) the forward's (a
+    flip passes only where the forward's top-1 margin is within
+    `SERVE_RG_TOL`).  The decode's function, with fp32 caches, is held
+    within `SERVE_RG_TOL` of the forward.  The served decode's logit gap
+    is printed twice: to the forward, and to the forward that reads what
+    the caches hold (`as_cached`).  The bf16 rounding of the caches turns
+    the two paths' fp32 ordering differences into bf16-ulp flips, which
+    at 16-27 layers move the MoE archs' logits past `SERVE_RG_TOL` even
+    against the second forward (`PERF.md` §6); the caller gates
+    recurrentgemma-9b's first gap.  An MoE arch's forwards run drop-free
+    (capacity factor 16, as `tests/test_decode_parity.py` holds the
+    reference): they route the whole sequence at once, a decode step one
+    token, which never drops; the pairs the forward would drop at the
+    configuration's own factor are printed.  Its top-k router over
+    near-uniform probabilities flips a token's experts on a rounding, so
+    each forward takes its decode's expert choices (`routes`); each
+    choice that differs from the forward's own must lie within the two
+    paths' router-logit difference."""
     import gc
 
     from repro_torch import configs
     from repro_torch.launch.serve import serve_requests
     from repro_torch.launch.steps import build_model, make_serve_step
-    from repro_torch.models.layers import Runtime, full_precision_products
+    from repro_torch.models.layers import (Runtime, full_precision_products,
+                                           map_specs)
 
     gc.collect()
     torch.cuda.empty_cache()                    # the prefill's bf16 weights
-    cfg = configs.get_arch(RG_ARCH)
+    cfg = configs.get_arch(arch)
     model = build_model(cfg)
+    fwd_model = model if cfg.moe is None else build_model(
+        dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=16.0)))
     rt = Runtime(compute_dtype=torch.float32)
     rt_fwd = Runtime(compute_dtype=torch.float32, use_kernels=True)
-    params = model.init(torch.Generator(device="cuda").manual_seed(0), rt)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        Runtime(param_dtype=param_dtype))
     rng = np.random.default_rng(0)
     prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size,
                                              size=rng.integers(4, 13))]
@@ -2126,40 +2429,108 @@ def phase_serve_recurrent() -> dict:
     atol, rtol = SERVE_RG_TOL
     step = make_serve_step(model, rt)
     v = cfg.vocab_size
+    n_attn = sum(kind != "rglru" for kind in model.kinds)
+    want_hits = ({"attention": 0, "latent": n_attn, "rope_key": n_attn}
+                 if cfg.mla is not None
+                 else {"attention": n_attn, "latent": 0, "rope_key": 0})
     worst = {"max_abs_diff": 0.0, "tol_ratio": 0.0}
+    worst32 = {"max_abs_diff": 0.0, "tol_ratio": 0.0}
+    cached = {"max_abs_diff": 0.0, "tol_ratio": 0.0}
     steps = same = excused = reproduced = greedy = served = 0
     margin_min = float("inf")
     counters = kernel_counters()
     fwd_launches = dict.fromkeys(counters, 0)
-    for r in results:
-        seq = r.prompt + r.generated
-        cache = model.init_cache(1, 256, rt, "cuda")
-        rows = []
+    would_drop = route_flips = routed = 0
+    flip_margin_max = 0.0
+
+    def teacher_forced(seq, cache_dtype):
+        """Decode steps over `seq` with the caches' bf16 leaves in
+        `cache_dtype` (bf16 as served): the logits [S, V] and the routing,
+        a record a MoE layer over the sequence."""
+        cache = map_specs(lambda sp: torch.zeros(
+            sp.shape, device="cuda", dtype=cache_dtype
+            if sp.dtype == "bf16" else torch.float32),
+            model.cache_specs(1, 256))
+        rows, step_routes = [], []
         for pos, t in enumerate(seq):
             tok = torch.full((1, 1), t, dtype=torch.int64, device="cuda")
-            logits, cache = step(params, cache, tok, position(pos))
+            with routes() as rts:
+                logits, cache = step(params, cache, tok, position(pos))
             rows.append(logits[0, 0, :v])
-        dec = torch.stack(rows)
+            step_routes.append(rts)
+        return torch.stack(rows), [
+            {key: torch.cat([x[layer][key] for x in step_routes])
+             for key in ("experts", "logits")}
+            for layer in range(len(step_routes[0]))]
+
+    def forced_forward(seq, decoded, read_cached=False):
+        """The forward over `seq`, taking the decode's expert choices (with
+        `read_cached`, reading what the caches hold); with its own
+        routing."""
+        with torch.inference_mode(), full_precision_products(), \
+                routes(force=decoded, factor=cfg.moe and
+                       cfg.moe.capacity_factor) as own, \
+                (as_cached(cfg, params) if read_cached
+                 else contextlib.nullcontext()) as hits:
+            fwd = fwd_model.forward(params, {"tokens": torch.tensor(
+                [seq], device="cuda")}, rt_fwd)[0, :, :v].float()
+        check(not read_cached or hits == want_hits,
+              f"the forward read {hits} as the caches hold them, expected "
+              f"{want_hits}")
+        return fwd, own
+
+    def gap(got, want, into):
+        check(bool(torch.isfinite(got).all() and torch.isfinite(want).all()),
+              "decode or forward logits not finite")
+        diff = (got - want).abs()
+        into["max_abs_diff"] = max(into["max_abs_diff"], float(diff.max()))
+        into["tol_ratio"] = max(into["tol_ratio"], float(
+            (diff / (atol + rtol * want.abs())).max()))
+
+    def route_flips_explained(decoded, own, request):
+        """Where a decode chose other experts than the forward would, the
+        forward's k-th and (k+1)-th router logits must lie within twice
+        the largest gap between the two paths' router logits there: a
+        flip the paths' own difference explains."""
+        nonlocal route_flips, routed, flip_margin_max
+        for d, f in zip(decoded, own):
+            k = d["experts"].shape[1]
+            other = ~(expert_sets(d) == expert_sets(f)).all(-1)
+            top = f["logits"].topk(k + 1, dim=-1).values
+            margin = top[:, k - 1] - top[:, k]
+            delta = (d["logits"] - f["logits"]).abs().amax(-1)
+            check(bool((margin[other] <= 2 * delta[other]).all()),
+                  f"request {request}: the decode routed a token to other "
+                  f"experts than the forward where the router's margin "
+                  f"exceeds the paths' own difference")
+            route_flips += int(other.sum())
+            routed += len(other)
+            if other.any():
+                flip_margin_max = max(flip_margin_max,
+                                      float(margin[other].max()))
+
+    for r in results:
+        seq = r.prompt + r.generated
+        dec, decoded = teacher_forced(seq, torch.bfloat16)
         # the forward's launches, counted from 0 just before it
         for fn in counters.values():
             fn.launches = 0
-        with torch.inference_mode(), full_precision_products():
-            fwd = model.forward(params, {"tokens": torch.tensor(
-                [seq], device="cuda")}, rt_fwd)[0, :, :v].float()
+        fwd, own = forced_forward(seq, decoded)
         got = {n: fn.launches for n, fn in counters.items()}
-        want = expected_launches(model, len(seq))
-        want.update({"flash_attention_tensor_core": 0,
-                     "flash_attention_cuda_core": want["flash_attention"]})
+        want = fp32_launches(model, len(seq))
         check(got == want, f"request {r.request_id}: the fp32 forward "
                            f"launched {got}, expected {want}")
         for n in fwd_launches:
             fwd_launches[n] += got[n]
-        check(bool(torch.isfinite(dec).all() and torch.isfinite(fwd).all()),
-              "served or forward logits not finite")
-        diff = (dec - fwd).abs()
-        worst["max_abs_diff"] = max(worst["max_abs_diff"], float(diff.max()))
-        worst["tol_ratio"] = max(worst["tol_ratio"], float(
-            (diff / (atol + rtol * fwd.abs())).max()))
+        would_drop += sum(f["dropped"] for f in own)
+        route_flips_explained(decoded, own, r.request_id)
+        gap(dec, fwd, worst)
+        gap(dec, forced_forward(seq, decoded, read_cached=True)[0], cached)
+        # the decode's function without the caches' rounding
+        dec32, decoded32 = teacher_forced(seq, torch.float32)
+        fwd32, own32 = forced_forward(seq, decoded32)
+        route_flips_explained(decoded32, own32, r.request_id)
+        gap(dec32, fwd32, worst32)
         top2 = fwd.topk(2, dim=-1).values
         margin = top2[:, 0] - top2[:, 1]
         tol_top = atol + rtol * top2[:, 0].abs()
@@ -2183,15 +2554,17 @@ def phase_serve_recurrent() -> dict:
         greedy += int((fwd_next == gen).sum())
         served += len(gen)
         margin_min = min(margin_min, float(margin.min()))
-    # the fp32 forward's attention runs the CUDA-core kernel only
+    check(worst32["tol_ratio"] <= 1.0,
+          f"decode logits (fp32 cache) differ from the forward's by "
+          f"{worst32['max_abs_diff']} (ratio {worst32['tol_ratio']})")
+    # the fp32 forward's attention runs the CUDA-core kernel only (an MLA
+    # arch's none)
     check(fwd_launches["flash_attention_cuda_core"]
-          == fwd_launches["flash_attention"] > 0
+          == fwd_launches["flash_attention"]
+          and (fwd_launches["flash_attention"] > 0) == (cfg.mla is None)
           and fwd_launches["flash_attention_tensor_core"] == 0,
           f"the fp32 forward launched {fwd_launches}: expected flash on "
           f"the CUDA cores only")
-    check(worst["tol_ratio"] <= 1.0,
-          f"decode logits differ from the forward's by "
-          f"{worst['max_abs_diff']} (ratio {worst['tol_ratio']})")
     # where one decode step's time goes (a cache holding one token)
     cache = model.init_cache(1, 256, rt, "cuda")
     tok = torch.full((1, 1), prompts[0][0], dtype=torch.int64, device="cuda")
@@ -2203,7 +2576,11 @@ def phase_serve_recurrent() -> dict:
     device["idle_share"] = 1.0 - device["busy_us"] / device["wall_us"]
     generated = sum(len(r.generated) for r in results)
     check_isolated()
-    rec = dict(arch=RG_ARCH, layers=cfg.num_layers, compute_dtype="float32",
+    attn = next(i for i, kind in enumerate(model.kinds) if kind != "rglru")
+    cache_bytes = sum(math.prod(sp.shape[2:]) * 2
+                      for sp in model.cache_specs(1, 1)[attn].values())
+    rec = dict(arch=arch, layers=cfg.num_layers, compute_dtype="float32",
+               param_dtype=str(param_dtype).split(".")[-1],
                level="smoke: toy context, no serve rate",
                requests=len(results), batch=4, max_new=16, max_len=256,
                prompt_lens=[len(p) for p in prompts], wall_s=wall,
@@ -2213,12 +2590,29 @@ def phase_serve_recurrent() -> dict:
                teacher_forced_steps=steps, tolerance=SERVE_RG_TOL,
                max_abs_diff_vs_forward=worst["max_abs_diff"],
                tol_ratio=worst["tol_ratio"],
+               fp32_cache_max_abs_diff_vs_forward=worst32["max_abs_diff"],
+               fp32_cache_tol_ratio=worst32["tol_ratio"],
+               max_abs_diff_vs_as_cached_forward=cached["max_abs_diff"],
+               tol_ratio_vs_as_cached_forward=cached["tol_ratio"],
+               as_cached_reads=want_hits,
                argmax_agreement_vs_forward=same / steps,
                flips_excused=excused, forward_top1_margin_min=margin_min,
                served_tokens_reproduced_by_decode=reproduced / served,
                served_tokens_equal_forward_greedy=greedy / served,
-               forward_launches=fwd_launches, device_one_step=device)
-    emit(f"serve {RG_ARCH}", **rec)
+               forward_launches=fwd_launches, device_one_step=device,
+               cache_bytes_per_attention_layer_and_token=cache_bytes)
+    if cfg.moe is not None:
+        rec.update(route_flips=route_flips, routed_token_layers=routed,
+                   route_agreement=1 - route_flips / routed,
+                   flip_router_margin_max=flip_margin_max,
+                   forward_capacity_factor=16.0,
+                   pairs_dropped_at_the_config_factor=would_drop,
+                   config_capacity_factor=cfg.moe.capacity_factor)
+    if cfg.mla is not None:
+        rec["gqa_cache_bytes_per_attention_layer_and_token"] = \
+            2 * cfg.num_heads * cfg.mla.v_head_dim * 2
+    emit(f"serve {arch}", **rec)
+    del params
     return rec
 
 
@@ -2470,11 +2864,12 @@ def phase_tile_dse(gen) -> dict:
 
 
 def phase_dryrun() -> dict:
-    """Dry-runs of the two served archs at their serving cells on fake
-    CUDA tensors, one greedy autotune over qwen2-0.5b's decode_32k (every
-    record it wrote must be OK, its best score above 0), and the fake
-    count of qwen2-0.5b's plain prefill at 2048 x 4 against the same step
-    run on the card."""
+    """Dry-runs of the four served archs at their serving cells on fake
+    CUDA tensors (every record OK, with a finite peak and roofline), one
+    greedy autotune over qwen2-0.5b's decode_32k (every record it wrote
+    must be OK, its best score above 0), and the fake count of
+    qwen2-0.5b's plain prefill at 2048 x 4 against the same step run on
+    the card."""
     import gc
     import tempfile
 
@@ -2490,14 +2885,17 @@ def phase_dryrun() -> dict:
                        "memory_s_hlo", "roofline_s", "bottleneck",
                        "useful_compute_ratio")
     with tempfile.TemporaryDirectory() as tmp:
-        for arch in (ARCH, RG_ARCH):
+        for arch in (ARCH, RG_ARCH, MOE_ARCH, MLA_ARCH):
             for shape in ("prefill_32k", "decode_32k"):
                 rec = run_cell(arch, shape, Path(tmp), device="cuda")
                 check(rec["status"] == "OK",
                       f"dry-run {arch} {shape}: {rec.get('error')}")
                 roof = rec["roofline"]
-                check(roof["flops_per_chip"] > 0 and roof["roofline_s"] > 0,
-                      f"dry-run {arch} {shape} counted nothing")
+                check(roof["flops_per_chip"] > 0 and roof["roofline_s"] > 0
+                      and all(math.isfinite(roof[k]) for k in
+                              ("peak_memory_per_chip", "roofline_s")),
+                      f"dry-run {arch} {shape} counted nothing, or a "
+                      f"peak or roofline that is not finite")
                 # the three counts of the same step (the record keeps the
                 # reference's keys, so they are counted again here)
                 counts, _ = trace_step(configs.get_arch(arch),
@@ -2722,14 +3120,39 @@ def main() -> int:
     paths = {ARCH: phase_prefill(ARCH)}
     phase_serve()
     paths[RG_ARCH] = phase_prefill(RG_ARCH)
-    fp32_fwd = phase_serve_recurrent()["forward_launches"]
+    served = phase_serve_forward(RG_ARCH)
+    # recurrentgemma-9b's served decode is held to the forward through the
+    # kernels too: one layer in three attends through the bf16 cache
+    check(served["tol_ratio"] <= 1.0,
+          f"{RG_ARCH}'s served decode differs from the forward through the "
+          f"kernels by {served['max_abs_diff_vs_forward']}")
+    fp32_fwd = {RG_ARCH: served["forward_launches"]}
+    paths[MOE_ARCH] = phase_prefill(MOE_ARCH)
+    fp32_fwd[MOE_ARCH] = phase_serve_forward(MOE_ARCH)["forward_launches"]
+    paths[MLA_ARCH] = phase_prefill(MLA_ARCH)
+    fp32_fwd[MLA_ARCH] = phase_serve_forward(
+        MLA_ARCH, torch.bfloat16)["forward_launches"]
     check_isolated()
     for name in ("flash_attention", "flash_attention_tensor_core",
                  "rglru_gated_scan"):
         check(paths[RG_ARCH][name] > 0,
               f"the {RG_ARCH} prefill never launched {name}")
-    check(paths[ARCH]["flash_attention_tensor_core"] > 0,
-          f"the {ARCH} prefill never launched the tensor-core flash kernel")
+    for arch in (ARCH, MOE_ARCH):
+        check(paths[arch]["flash_attention_tensor_core"] > 0,
+              f"the {arch} prefill never launched the tensor-core flash "
+              f"kernel")
+    check(paths[MOE_ARCH]["flash_attention_cuda_core"] > 0,
+          f"the {MOE_ARCH} fp32 gate never launched the CUDA-core flash "
+          f"kernel")
+    check(paths[MLA_ARCH]["flash_attention"] == 0
+          and fp32_fwd[MLA_ARCH]["flash_attention"] == 0,
+          f"the {MLA_ARCH} paths launched flash_attention: MLA's attention "
+          f"is blocked_attention")
+    cuda_core = {**{f"serve {a}, fp32 teacher-forced forward":
+                    f["flash_attention_cuda_core"]
+                    for a, f in fp32_fwd.items()},
+                 **{f"prefill {a}": p["flash_attention_cuda_core"]
+                    for a, p in paths.items()}}
     mm = phase_matmul(torch.Generator(device="cuda").manual_seed(2))
     dse = phase_tile_dse(torch.Generator(device="cuda").manual_seed(3))
     phase_dryrun()
@@ -2754,7 +3177,7 @@ def main() -> int:
             "study parallel, parent": parallel["parent"],
             "study parallel, pool workers (their own counts)":
                 parallel["workers"],
-            "study zoo, twelve traced apps": zoo["study"],
+            "study zoo, sixteen traced apps": zoo["study"],
             "study zoo, genetic on qwen2-0.5b:prefill": zoo["genetic"],
             "study zoo, anneal on qwen2-0.5b:prefill": zoo["anneal"],
             "study pareto, genetic and nsga2 on ptb + wdl":
@@ -2792,11 +3215,8 @@ def main() -> int:
         "symbol": "flash_attention_kernel",
         "shape": {k: f32[k] for k in ("B", "S", "H", "KV", "hd", "causal",
                                        "dtype")},
-        "launches": fp32_fwd["flash_attention_cuda_core"],
-        "launches_by_path": {f"serve {RG_ARCH}, fp32 teacher-forced "
-                             "forward": fp32_fwd["flash_attention_cuda_core"],
-                             **{f"prefill {a}": p["flash_attention_cuda_core"]
-                                for a, p in paths.items()}},
+        "launches": sum(cuda_core.values()),
+        "launches_by_path": cuda_core,
         "max_abs_err": flash["max_abs_err"]["float32"],
         "ms": f32["kernel_ms"], "kernel_ms": f32["kernel_ms"],
         "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
@@ -2811,7 +3231,7 @@ def main() -> int:
         "launches_by_path": {
             f"prefill {RG_ARCH}": paths[RG_ARCH]["rglru_gated_scan"],
             f"serve {RG_ARCH}, fp32 teacher-forced forward":
-                fp32_fwd["rglru_gated_scan"],
+                fp32_fwd[RG_ARCH]["rglru_gated_scan"],
             "rglru block, fused route": rglru["block_launches"]["fused"][
                 "rglru_gated_scan"]},
         "max_abs_err": rglru["gated_max_abs_err"],
@@ -2837,7 +3257,7 @@ def main() -> int:
                 rglru["block_launches"]["fused"]["rglru_scan"],
             f"prefill {RG_ARCH}": paths[RG_ARCH]["rglru_scan"],
             f"serve {RG_ARCH}, fp32 teacher-forced forward":
-                fp32_fwd["rglru_scan"]},
+                fp32_fwd[RG_ARCH]["rglru_scan"]},
         "max_abs_err": rglru["max_abs_err"],
         "ms": r["kernel_ms"], "kernel_ms": r["kernel_ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -20,10 +20,11 @@ above the card's memory.
 The points, domains and the greedy loop are the reference's
 (`repro.core.autotune`), so `ExecPoint.key()` names the same point in both
 packages.  On one GPU, serving only: sharding mode, remat, microbatches
-and the layout rules (`extra_rules`) change nothing in the step, and
-`moe_group_size` only MoE blocks, which the port does not have yet; the
-plain attention's KV tile (`attn_kv_block`) is the variable that moves the
-step (its peak memory, not its FLOPs).  Engines other than greedy run
+and the layout rules (`extra_rules`) change nothing in the step; the
+plain attention's KV tile (`attn_kv_block`) moves the step's peak memory,
+not its FLOPs, and on an MoE arch `moe_group_size` moves its MoE blocks:
+the tokens routed together, so the dispatch buffers, the capacity a group
+gives each expert and with it the expert products' rows.  Engines other than greedy run
 through a `FunctionEvaluator` and the evaluator-mode `Study` on the host:
 each point they score is one dry-run on fake tensors.
 """

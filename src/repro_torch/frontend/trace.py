@@ -29,8 +29,9 @@ does:
     parentless data vertices, as the reference's ``iota`` and broadcast
     literals do; a 0-d one (a wrapped Python scalar) is a literal;
   * *captured constants* count as weight bits, as a jaxpr's constvars do:
-    ``torch.tensor`` data (``lift_fresh``) and ``arange`` with a step
-    (``jnp.arange`` with a step is computed in numpy and captured);
+    ``torch.tensor`` data (``lift_fresh``, a literal when 0-d) and
+    ``arange`` with a step (``jnp.arange`` with a step is computed in
+    numpy and captured);
   * *unbind* (iterating over a stacked tensor) gives each piece its share
     of the unclaimed bits, as a scan over stacked weights does;
   * in a Python loop that plays a scan (`scan_repeats`), a captured
@@ -41,6 +42,18 @@ does:
   * a two-operand ``torch.einsum`` runs as ``jnp.einsum`` lowers it (one
     product, its operands in ``dot_general``'s order), so a product of two
     activations has the reference's rows;
+  * ``_softmax`` is ``jax.nn.softmax``'s four vertices: the row max,
+    ``x - max`` (its ``exp`` aliased), the row sum and the quotient;
+  * ``F.one_hot`` and ``torch.take_along_dim`` are one vertex each over
+    their arguments, as the nested ``jit`` of ``jax.nn.one_hot`` and
+    ``jnp.take_along_axis`` is in the reference's tracer;
+  * ``index_put_`` with several index tensors is jnp's ``x.at[i, j].set``:
+    the indices broadcast (a vertex where that grows one) and
+    concatenated, then the scatter over the old base, the stacked index
+    and the value;
+  * in a Python loop that plays a scan over stacked xs (`scan_slices`),
+    each step's slice of an activation is a data vertex, whatever its
+    size, as the reference's scan makes one;
   * calls with no tensor result (``prim.device`` and the like) are skipped.
 
 The traced tensors are kept alive for the whole trace: bindings are keyed
@@ -50,6 +63,7 @@ by `id`, which must not be reused.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Iterator, List, Optional, Sequence, Set, Tuple
 
 import torch
@@ -60,7 +74,7 @@ from torch.utils import _pytree as pytree
 from repro_torch.core.graph import ComputationGraph
 from repro_torch.frontend.lower import OperandInfo, lower_call
 
-__all__ = ["trace_to_graph", "scan_repeats", "GraphTracer",
+__all__ = ["trace_to_graph", "scan_repeats", "scan_slices", "GraphTracer",
            "DEFAULT_BIT_WIDTH"]
 
 # The DSE datapath is quantized (§5: 8-bit dynamic-precision); traced
@@ -140,10 +154,18 @@ def _dot_general_einsum(eq: str, a: torch.Tensor, b: torch.Tensor
     return res.permute([order.index(c) for c in out])
 
 
-class _EinsumAsDotGeneral(TorchFunctionMode):
+# torch functions whose jnp twins run as one nested `jit`, which the
+# reference's tracer makes one data vertex over the call's arguments (its
+# call primitives do not include jax 0.9's "jit")
+_ONE_CALL = {torch.take_along_dim: "takealong",
+             torch.nn.functional.one_hot: "onehot"}
+
+
+class _FunctionForms(TorchFunctionMode):
     """Run each two-operand `torch.einsum` as `_dot_general_einsum`, so a
     product of two activations reaches aten with the reference's rows
-    (see `frontend.lower`)."""
+    (see `frontend.lower`); record each `_ONE_CALL` function as one
+    vertex (`GraphTracer.one_call`)."""
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         if func is torch.einsum and len(args) == 3 and not kwargs and \
@@ -151,6 +173,9 @@ class _EinsumAsDotGeneral(TorchFunctionMode):
             out = _dot_general_einsum(*args)
             if out is not None:
                 return out
+        if func in _ONE_CALL and _ACTIVE:
+            return _ACTIVE[-1].one_call(_ONE_CALL[func], func, args,
+                                        kwargs or {})
         return func(*args, **(kwargs or {}))
 
 
@@ -169,6 +194,7 @@ class GraphTracer(TorchDispatchMode):
         self._keep: List[torch.Tensor] = []     # ids must not be reused
         self._view_nodes: Set[str] = set()      # vertices of sliced views
         self._repeat = 0                        # see `scan_repeats`
+        self._paused = False                    # see `xslice`
 
     # ----------------------------------------------------------- bookkeeping
     def _fresh(self, tag: str) -> str:
@@ -220,15 +246,17 @@ class GraphTracer(TorchDispatchMode):
         out = func(*args, **kwargs)
         outs = [t for t in pytree.tree_leaves(out)
                 if isinstance(t, torch.Tensor)]
-        if not outs:                    # queries: prim.device, item, ...
+        if not outs or self._paused:    # queries: prim.device, item, ...
             return out
         name = _packet(func)
         flat = pytree.tree_leaves((args, kwargs))
         ins = [a for a in flat if isinstance(a, torch.Tensor)]
         written = self._written(func, args, kwargs)
         if written:
-            self._eval_write(name, written, ins)
-        elif not ins:
+            self._eval_write(name, written, ins, args)
+        elif name == "_softmax" and self.read(ins[0]).node is not None:
+            self._eval_softmax(ins[0], args[1], outs[0])
+        elif not ins or name in _CONSTANT_FACTORIES:
             self._eval_factory(func, name, outs)
         else:
             if name in _MASK_FIRST:
@@ -266,22 +294,90 @@ class GraphTracer(TorchDispatchMode):
                 self.bind(t, _Binding(self._data_node(tag, t.numel(), []),
                                       False, t.numel()))
 
-    def _eval_write(self, name: str, written, ins) -> None:
+    def _eval_write(self, name: str, written, ins, args) -> None:
         """A new version of each written tensor's base: a data vertex of
-        the base's size over the old base, the value and the indices."""
+        the base's size over the old base, the value and the indices.  An
+        `index_put_` with several index tensors is the reference's
+        ``x.at[i, j].set(v)``: a scatter over the old base, the indices
+        stacked into one (`_stacked_index`) and the value."""
         for t in written:
             base = t._base if t._base is not None else t
             old, view = self.read(base), self.read(t)
             if view.node in self._view_nodes and not any(
                     view.node in n.parents for n in self.graph.nodes.values()):
                 self._drop(view.node)   # a slice made to be written through
-            others = [self.read(a) for a in reversed(ins) if a is not t]
+            if name.rstrip("_") == "index_put" and sum(
+                    isinstance(i, torch.Tensor) for i in args[1]) > 1:
+                others = [self._stacked_index(args[1]), self.read(args[2])]
+            else:
+                others = [self.read(a) for a in reversed(ins) if a is not t]
             parents = self._act_parents([old] + others)
             node = self._data_node(name.replace("_", "")[:12], base.numel(),
                                    parents, self._claim(others))
             self.bind(base, _Binding(node, False, base.numel()))
             if t is not base and t.numel() == base.numel():
                 self.bind(t, _Binding(node, False, t.numel()))
+
+    def _eval_softmax(self, x: torch.Tensor, dim: int,
+                      out: torch.Tensor) -> None:
+        """`jax.nn.softmax`'s vertices: the row max, `x - max` (its `exp`
+        aliased), the row sum and the quotient."""
+        src = self.read(x).node
+        rows = x.numel() // max(x.shape[dim] if x.dim() else 1, 1)
+        mx = self._data_node("reducemax", rows, [src])
+        sub = self._data_node("sub", x.numel(), [src, mx])
+        total = self._data_node("reducesum", rows, [sub])
+        div = self._data_node("div", x.numel(), [sub, total])
+        self.bind(out, _Binding(div, False, out.numel()))
+
+    def _stacked_index(self, indices) -> _Binding:
+        """jnp's advanced-indexing scatter index: each index array
+        broadcast to the common shape (a vertex where that grows it), the
+        arrays concatenated into one."""
+        idx = [i for i in indices if isinstance(i, torch.Tensor)]
+        n = math.prod(torch.broadcast_shapes(*(i.shape for i in idx)))
+        parts: List[str] = []
+        for i in idx:
+            b = self.read(i)
+            if i.numel() != n:
+                parts.append(self._data_node("broadcastind", n,
+                                             self._act_parents([b])))
+            elif b.node is not None:
+                parts.append(b.node)
+        node = self._data_node("concatenate", n * len(idx), parts)
+        return _Binding(node, False, n * len(idx))
+
+    def one_call(self, tag: str, func, args, kwargs) -> torch.Tensor:
+        """`func(*args, **kwargs)` recorded as one call over its tensor
+        arguments (the reference's nested `jit`), by the data rule."""
+        self._paused = True
+        try:
+            out = func(*args, **kwargs)
+        finally:
+            self._paused = False
+        ins = [a for a in pytree.tree_leaves((args, kwargs))
+               if isinstance(a, torch.Tensor)]
+        self._eval_data(tag, [self.read(a) for a in ins], [out], False)
+        return out
+
+    def xslice(self, xs: torch.Tensor, i: int) -> torch.Tensor:
+        """`xs[i]` as a scan's step sees its slice of the stacked `xs`: an
+        activation's slice is a data vertex over it, whatever its size; a
+        weight's slice takes its share of the unclaimed bits."""
+        self._paused = True
+        try:
+            piece = xs[i]
+        finally:
+            self._paused = False
+        b = self.read(xs)
+        if b.node is None:
+            share = _Binding(None, b.is_weight, piece.numel(),
+                             pending_bits=b.pending_bits // xs.shape[0])
+            self.bind(piece, share)
+        else:
+            node = self._data_node("xslice", piece.numel(), [b.node])
+            self.bind(piece, _Binding(node, False, piece.numel()))
+        return piece
 
     def _drop(self, node: str) -> None:
         del self.graph.nodes[node]
@@ -364,6 +460,21 @@ def scan_repeats(n: int) -> Iterator[int]:
             tracer._repeat = saved
 
 
+def scan_slices(*xs: torch.Tensor) -> Iterator[Tuple[torch.Tensor, ...]]:
+    """`zip(*xs)` for a Python loop that plays a scan over the leading
+    dimension of `xs` (the reference scans its stacked xs).  Under
+    `trace_to_graph` each step's slice of an activation is one data vertex
+    over the stacked tensor (`GraphTracer.xslice`), as the reference's scan
+    makes one per step and operand even where the slice is the whole;
+    elsewhere it is `zip(*xs)`."""
+    tracer = _ACTIVE[-1] if _ACTIVE else None
+    for i in range(xs[0].shape[0]):
+        if tracer is None:
+            yield tuple(x[i] for x in xs)
+        else:
+            yield tuple(tracer.xslice(x, i) for x in xs)
+
+
 def trace_to_graph(fn, *args, name: str = "traced",
                    weight_argnums: Tuple[int, ...] = (0,),
                    bit_width: int = DEFAULT_BIT_WIDTH) -> ComputationGraph:
@@ -388,7 +499,7 @@ def trace_to_graph(fn, *args, name: str = "traced",
                             else tracer.input_node(t.numel()))
     _ACTIVE.append(tracer)
     try:
-        with torch.no_grad(), _EinsumAsDotGeneral(), tracer:
+        with torch.no_grad(), _FunctionForms(), tracer:
             fn(*meta)
     finally:
         _ACTIVE.remove(tracer)

@@ -40,7 +40,9 @@
 //   both operands in shared memory, K-major; the softmax runs on the
 //   accumulator fragments in registers (a row lives in one quad of
 //   lanes), with exp(scale (s - m)) as 2^(s c - m c), c = scale log2(e):
-//   one FFMA and one MUFU.EX2 a score.  The Pallas kernel keeps p in fp32
+//   one FFMA and one MUFU.EX2 a score (m c rounded once, and the
+//   correction between tiles taken from those rounded values by the
+//   accurate exp2f).  The Pallas kernel keeps p in fp32
 //   and multiplies p @ v in fp32, which one bf16 operand cannot: p is
 //   split into three bf16 terms, hi + mid + lo, that carry all 24 bits of
 //   its significand (exactly, for every p >= 2^-110), and each term goes
@@ -392,7 +394,7 @@ struct Consumer {
   float o[kCB][32];                  // the fp32 accumulator, 64 x hd
   float sc[kRB][32];                 // scores, then p, 64 x kBKV
   uint32_t ph[kKS][4], pm[kKS][4], pl[kKS][4];   // p's bf16 terms
-  float m[2], l[2], corr[2];
+  float m[2], mc[2], l[2], corr[2];  // mc: m c, as the tile's p used it
   int row0, col0, wg_row0;
 
   // S = Q K^T over the head dim, 16 columns a step (not committed)
@@ -466,7 +468,8 @@ struct Consumer {
 
   // mask the raw scores of keys k0 .., then the online softmax: p and
   // corr in the Pallas kernel's terms, with exp(scale (x - m)) as
-  // 2^(x c - m c), c = scale log2(e): one FFMA and one MUFU a score
+  // 2^(x c - mc), c = scale log2(e), mc = m c rounded: one FFMA and one
+  // MUFU a score, and corr = 2^(mc_old - mc) (exp2f)
   __device__ __forceinline__ void softmax(int k0, int skv, int causal,
                                           float c) {
     const bool edge = k0 + kBKV > skv || (causal && k0 + kBKV - 1 > wg_row0);
@@ -484,15 +487,21 @@ struct Consumer {
         mx[r] = fmaxf(mx[r], sc[cc][i]);
       }
     bool alive[2];
-    float mc[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
       const float m_new = fmaxf(m[r], mx[r]);
       alive[r] = m_new > 0.5f * kNegInf;
-      mc[r] = m_new * c;
-      corr[r] = alive[r] ? ex2(fmaf(m[r], c, -mc[r])) : 1.f;
+      // m c rounded once (no contraction), and the correction from the
+      // two rounded values the tiles' p used, by the accurate exp2f (ex2
+      // is biased low by about 2^-24): either error is a factor on all
+      // the earlier tiles at every rise of the maximum, which over a long
+      // row whose maximum rises often (olmoe-1b-7b's 32k prefill) drifted
+      // past FLASH_TOL
+      const float mc_new = __fmul_rn(m_new, c);
+      corr[r] = alive[r] ? exp2f(mc[r] - mc_new) : 1.f;
+      mc[r] = mc_new;
       m[r] = m_new;
     }
     float sum[2] = {0.f, 0.f};
@@ -624,7 +633,7 @@ flash_attention_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
       for (int i = 0; i < 32; ++i) cs.o[cb][i] = 0.f;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      cs.m[r] = kNegInf;
+      cs.m[r] = cs.mc[r] = kNegInf;
       cs.l[r] = 0.f;
     }
 

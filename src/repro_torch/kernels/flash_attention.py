@@ -67,7 +67,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True,
                           q_offset: int = 0) -> torch.Tensor:
     """Plain PyTorch version (any device): dense masked softmax attention
-    with fp32 internals and the kernel's top-left causal mask.
+    with fp32 internals (float64 ones for float64 inputs) and the kernel's
+    top-left causal mask.
 
     Row i of `q` sits at position `q_offset + i` (0 for the kernel's
     function): with it the kernel's output on a long sequence can be
@@ -77,8 +78,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if Skv == 0:                        # no visible key: zeros
         return q.new_zeros(q.shape)
     G = H // KV
-    qg = q.float().reshape(B, Sq, KV, G, hd) * (1.0 / math.sqrt(hd))
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float())
+    ct = torch.promote_types(q.dtype, torch.float32)
+    qg = q.to(ct).reshape(B, Sq, KV, G, hd) * (1.0 / math.sqrt(hd))
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.to(ct))
     if causal:
         q_pos = q_offset + torch.arange(Sq, device=q.device)
         k_pos = torch.arange(Skv, device=q.device)
@@ -86,7 +88,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - torch.where(torch.isneginf(m), 0.0, m))
     l = torch.clamp_min(p.sum(dim=-1, keepdim=True), 1e-30)
-    o = torch.einsum("bkgqs,bskd->bqkgd", p / l, v.float())
+    o = torch.einsum("bkgqs,bskd->bqkgd", p / l, v.to(ct))
     return o.reshape(B, Sq, H, hd).to(q.dtype)
 
 

@@ -14,8 +14,8 @@ counted in seconds.  The reference (`repro.launch.dryrun`) compiles each
 cell with XLA for a 256- or 512-chip mesh; the port runs on one chip (mesh
 "1gpu"), so sharding mode, remat and layout rules change nothing here and
 are only recorded.  Train shapes and the archs whose blocks the port does
-not have yet (MLA, MoE, xLSTM, encoder-decoder) raise
-`NotImplementedError`; other failures are recorded as FAILED.  Records are
+not have yet (xLSTM, encoder-decoder) raise `NotImplementedError`; other
+failures are recorded as FAILED.  Records are
 written to `<out>/<cell>.json`.
 
 Usage:
@@ -65,8 +65,10 @@ def run_cell(arch_name: str, shape_name: str, out_dir: Path, *,
              tag: str = "") -> dict:
     """Count one cell's step and write its record to `out_dir`.
 
-    `overrides` may set `attn_kv_block` (the plain attention's KV tile);
-    `moe_group_size` touches only MoE blocks, which raise here.
+    `overrides` may set `attn_kv_block` (the plain attention's KV tile)
+    and `moe_group_size` (the tokens the MoE block routes together: its
+    dispatch buffers' size, so the step's peak, and with it the capacity
+    a group gives each expert).
     `sharding_mode`, `remat`, `microbatches` and `rule_updates` change
     nothing on one chip: they exist only to fill the `config` entry of the
     reference's record shape."""
@@ -86,8 +88,7 @@ def run_cell(arch_name: str, shape_name: str, out_dir: Path, *,
         raise not_ported("the train step (and its dry-run)")
     arch = configs.get_arch(arch_name)
     microbatches = max(microbatches, 1)
-    rt_overrides = {k: v for k, v in (overrides or {}).items()
-                    if k != "moe_group_size"}
+    rt_overrides = dict(overrides or {})
     if shape.mode == "decode" and arch_name in DEFAULT_SERVE_KV_DTYPE:
         rt_overrides.setdefault("kv_dtype", DEFAULT_SERVE_KV_DTYPE[arch_name])
     t0 = time.time()
@@ -123,6 +124,7 @@ def run_cell(arch_name: str, shape_name: str, out_dir: Path, *,
             "runtime": {"param_dtype": str(rt.param_dtype),
                         "compute_dtype": str(rt.compute_dtype),
                         "attn_kv_block": rt.attn_kv_block,
+                        "moe_group_size": rt.moe_group_size,
                         "use_kernels": rt.use_kernels},
             "flops_by_op": counts.flops_by_op,
         }

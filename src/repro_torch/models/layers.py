@@ -1,9 +1,10 @@
-"""Model-zoo layers of the port, cut to what dense GQA decoders and the
-Griffin hybrid (recurrentgemma) need: RMSNorm, RoPE, blocked
-(online-softmax) and local-block attention, GQA attention for a full
-sequence and for one decode step with a KV cache, the SwiGLU MLP and the
-RG-LRU recurrent block — plain functions on tensors over per-layer
-parameter dicts.
+"""Model-zoo layers of the port, cut to what dense GQA decoders, the
+Griffin hybrid (recurrentgemma) and the MoE decoders (olmoe, and
+deepseek-v2-lite with MLA) need: RMSNorm, RoPE, blocked (online-softmax)
+and local-block attention, GQA attention and multi-head latent attention
+(MLA) for a full sequence and for one decode step with a cache, the SwiGLU
+MLP, the token-choice MoE block and the RG-LRU recurrent block — plain
+functions on tensors over per-layer parameter dicts.
 
 Conventions (those of `repro.models.layers`)
 -------------------------------------------
@@ -20,7 +21,7 @@ Conventions (those of `repro.models.layers`)
 * Layouts are the reference's: q `[B, S, H, hd]`, k/v `[B, S, KV, hd]`,
   `wq` `[d, H*hd]`.
 
-MLA, MoE, mLSTM/sLSTM and the GELU MLP are ported in a later slice (see
+mLSTM/sLSTM and the GELU MLP are ported in a later slice (see
 ROADMAP.md).
 """
 
@@ -34,13 +35,19 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.frontend.trace import scan_slices
+
 Params = Any
 
 __all__ = ["Runtime", "Spec", "init_params", "full_precision_products",
            "rms_norm", "rope_cos_sin", "apply_rope", "blocked_attention",
            "local_block_attention", "kv_cache_write", "gqa_specs",
            "gqa_project", "gqa_out", "gqa_attention_train",
-           "gqa_attention_decode", "swiglu_specs", "swiglu", "rglru_specs",
+           "gqa_attention_decode", "mla_specs", "mla_attention_train",
+           "mla_attention_decode", "swiglu_specs", "swiglu", "moe_specs",
+           "moe_capacity", "moe_route", "moe_slots", "assert_unique_slots",
+           "moe_block",
+           "rglru_specs",
            "rglru_scan_inputs", "rglru_gated_inputs", "rglru_output",
            "rglru_block_train",
            "rglru_block_decode"]
@@ -81,7 +88,9 @@ class Runtime:
     hand-written kernel `kernels.flash_attention` instead of
     `blocked_attention`, and the RG-LRU block's gates, decay, scan and
     gating through `kernels.rg_lru.rglru_gated_scan` instead of tensor ops
-    around the scan's plain version.  The
+    around the scan's plain version.  `moe_group_size` is the number of
+    tokens the MoE block routes together (the execution DSE's
+    `moe_group_size`).  The
     reference's mesh, sharding rules and remat policy have no counterpart
     on one GPU."""
 
@@ -89,6 +98,7 @@ class Runtime:
     param_dtype: torch.dtype = torch.float32
     use_kernels: bool = False
     attn_kv_block: int = 1024
+    moe_group_size: int = 4096          # tokens routed together (GShard G)
     kv_dtype: str = "bf16"              # bf16 | f8 (f8: a later slice)
 
 
@@ -208,11 +218,15 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (top-left).  K and V are padded to a multiple of `kv_block` and the
     padded tail is masked, as in the reference: the values are those of
     the unpadded keys, the work (and the products a traced graph sees) is
-    the reference's.  Memory stays O(Sq x kv_block).  The reference's
-    window, query offset and padded-cache length come with the slices that
-    call them (local attention, the padded decode cache)."""
+    the reference's.  Memory stays O(Sq x kv_block).  The loop is the
+    reference's scan: the KV blocks are its xs (`scan_slices`), the block
+    counter a 0-d carry, and the mask is made from ones and and-ed every
+    block, so a traced graph is the reference's vertex for vertex.  The
+    reference's window, query offset and padded-cache length come with the
+    slices that call them (local attention, the padded decode cache)."""
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
+    hd_v = v.shape[-1]
     G = H // KV
     scale = 1.0 / math.sqrt(hd)
     qg = (q * scale).reshape(B, Sq, KV, G, hd)
@@ -220,22 +234,24 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     pad = nblk * kv_block - Skv
     if pad:
         k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (k, v))
+    kb = k.reshape(B, nblk, kv_block, KV, hd).transpose(0, 1)
+    vb = v.reshape(B, nblk, kv_block, KV, hd_v).transpose(0, 1)
     dev = q.device
     q_pos = torch.arange(Sq, device=dev)
 
     m = torch.full((B, KV, G, Sq), -math.inf, device=dev)
     l = torch.zeros((B, KV, G, Sq), device=dev)
-    acc = torch.zeros((B, Sq, KV, G, v.shape[-1]), device=dev)
-    for j0 in range(0, nblk * kv_block, kv_block):
-        kj, vj = k[:, j0:j0 + kv_block], v[:, j0:j0 + kv_block]
+    acc = torch.zeros((B, Sq, KV, G, hd_v), device=dev)
+    j = torch.zeros((), dtype=torch.int64, device=dev)
+    for kj, vj in scan_slices(kb, vb):
         s = _gqa_scores(qg, kj)                          # [B,KV,G,Sq,kb]
-        kv_pos = j0 + torch.arange(kv_block, device=dev)
-        drop = q_pos[:, None] < kv_pos[None, :] if causal else None
+        kv_pos = j * kv_block + torch.arange(kv_block, device=dev)
+        mask = torch.ones((Sq, kv_block), dtype=torch.bool, device=dev)
+        if causal:
+            mask = mask & (q_pos[:, None] >= kv_pos[None, :])
         if pad:
-            tail = (kv_pos >= Skv)[None, :]
-            drop = tail if drop is None else drop | tail
-        if drop is not None:
-            s = s.masked_fill(drop, -math.inf)
+            mask = mask & (kv_pos < Skv)[None, :]
+        s = torch.where(mask, s, -math.inf)
         m_new = torch.maximum(m, s.amax(dim=-1))
         # guard fully-masked rows
         m_safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
@@ -244,6 +260,7 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         l = l * corr + p.sum(dim=-1)
         acc = acc * corr.permute(0, 3, 1, 2)[..., None] + _gqa_values(p, vj)
         m = m_new
+        j = j + 1
     l_t = torch.clamp_min(l.permute(0, 3, 1, 2)[..., None], 1e-30)
     return (acc / l_t).reshape(B, Sq, H, -1).to(q.dtype)
 
@@ -403,6 +420,105 @@ def gqa_attention_decode(p: Params, x: torch.Tensor,
     return y, {"k": k, "v": v}
 
 
+# ============================================================== MLA attention
+
+def mla_specs(d: int, n_heads: int, kv_lora: int, nope: int, rope_d: int,
+              v_hd: int) -> Dict[str, Spec]:
+    return {
+        "wq": Spec((d, n_heads * (nope + rope_d)), ("embed", "qkv_fused")),
+        "wdkv": Spec((d, kv_lora + rope_d), ("embed", None)),
+        "wukv": Spec((kv_lora, n_heads * (nope + v_hd)),
+                     (None, "qkv_fused")),
+        "wo": Spec((n_heads * v_hd, d), ("qkv_fused", "embed")),
+        "kv_norm": Spec((kv_lora,), (None,), "ones"),
+    }
+
+
+def mla_attention_train(p: Params, x: torch.Tensor, *, n_heads: int,
+                        kv_lora: int, nope: int, rope_d: int, v_hd: int,
+                        rope_theta: float, eps: float, rt: Runtime
+                        ) -> torch.Tensor:
+    """Multi-head latent attention, expanded: the latent `c_kv` (normed)
+    is projected up to every head's k_nope and v, the shared RoPE key is
+    broadcast to the heads, and the causal attention over q/k of width
+    `nope + rope_d` and v of width `v_hd` is `blocked_attention` (no
+    kernel, under `use_kernels` too, as in the reference)."""
+    cd = rt.compute_dtype
+    B, S, _ = x.shape
+    q = cd_matmul(x, p["wq"], cd).to(cd)
+    q = q.reshape(B, S, n_heads, nope + rope_d)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+
+    ckv = cd_matmul(x, p["wdkv"], cd)
+    c_kv, k_rope = ckv[..., :kv_lora], ckv[..., kv_lora:]
+    c_kv = rms_norm(c_kv.to(cd), p["kv_norm"], eps)
+    kv = cd_matmul(c_kv, p["wukv"], cd).to(cd)
+    kv = kv.reshape(B, S, n_heads, nope + v_hd)
+    k_nope, v = kv[..., :nope], kv[..., nope:]
+
+    pos = torch.arange(S, device=x.device)[None, :]
+    cos, sin = rope_cos_sin(pos, rope_d, rope_theta)
+    q_rope = apply_rope(q_rope, cos, sin)
+    k_rope = apply_rope(k_rope.to(cd)[:, :, None, :], cos, sin)
+    k_rope_b = k_rope.expand(B, S, n_heads, rope_d)
+
+    qf = torch.cat([q_nope, q_rope], -1)
+    kf = torch.cat([k_nope, k_rope_b], -1)
+    # the scale is 1/sqrt(nope + rope_d), the full qk head dim
+    o = blocked_attention(qf, kf, v, causal=True, kv_block=rt.attn_kv_block)
+    y = cd_matmul(o.reshape(B, S, n_heads * v_hd), p["wo"], cd)
+    return y.to(cd)
+
+
+def mla_attention_decode(p: Params, x: torch.Tensor,
+                         cache: Dict[str, torch.Tensor], pos: torch.Tensor,
+                         *, n_heads: int, kv_lora: int, nope: int,
+                         rope_d: int, v_hd: int, rope_theta: float,
+                         eps: float, rt: Runtime
+                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Weight-absorbed MLA decode over the latent cache: cache = {"ckv":
+    [B, S_max, kv_lora], "krope": [B, S_max, rope_d]} (bf16, written in
+    place).  W_uk is absorbed into the query and W_uv applied after the
+    attention, so the cache holds `kv_lora + rope_d` numbers a token.  The
+    products take their operands in the compute dtype and accumulate in
+    fp32 (the bf16 cache widened exactly), as the reference's
+    `preferred_element_type`."""
+    cd = rt.compute_dtype
+    B = x.shape[0]
+    q = cd_matmul(x, p["wq"], cd).to(cd)
+    q = q.reshape(B, 1, n_heads, nope + rope_d)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    cos, sin = rope_cos_sin(pos.reshape(1, 1), rope_d, rope_theta)
+    q_rope = apply_rope(q_rope, cos, sin)
+
+    ckv = cd_matmul(x, p["wdkv"], cd)
+    c_new, kr_new = ckv[..., :kv_lora], ckv[..., kv_lora:]
+    c_new = rms_norm(c_new.to(cd), p["kv_norm"], eps)
+    kr_new = apply_rope(kr_new.to(cd)[:, :, None, :], cos, sin)[:, :, 0]
+
+    c_cache = kv_cache_write(cache["ckv"], c_new, pos)
+    r_cache = kv_cache_write(cache["krope"], kr_new, pos)
+
+    # absorb W_uk into q: q_lat[h] = q_nope[h] @ W_uk[h]^T (a lora-dim query)
+    wukv = p["wukv"].to(cd).reshape(kv_lora, n_heads, nope + v_hd)
+    w_uk = wukv[..., :nope]                      # [lora, H, nope]
+    w_uv = wukv[..., nope:]                      # [lora, H, v_hd]
+    q_lat = torch.einsum("bqhn,lhn->bqhl", q_nope.float(), w_uk.float())
+
+    scale = 1.0 / math.sqrt(nope + rope_d)
+    c32 = c_cache.float()
+    s = (torch.einsum("bqhl,bsl->bhqs", q_lat.to(cd).float(), c32)
+         + torch.einsum("bqhr,bsr->bhqs", q_rope.float(),
+                        r_cache.float())) * scale
+    valid = torch.arange(c_cache.shape[1], device=x.device) <= pos
+    s = s.masked_fill(~valid, -math.inf)
+    pr = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhqs,bsl->bqhl", pr.to(cd).float(), c32)
+    o = torch.einsum("bqhl,lhv->bqhv", o_lat.to(cd).float(), w_uv.float())
+    y = cd_matmul(o.to(cd).reshape(B, 1, n_heads * v_hd), p["wo"], cd)
+    return y.to(cd), {"ckv": c_cache, "krope": r_cache}
+
+
 # ===================================================================== MLPs
 
 def swiglu_specs(d: int, f: int) -> Dict[str, Spec]:
@@ -419,6 +535,130 @@ def swiglu(p: Params, x: torch.Tensor, rt: Runtime) -> torch.Tensor:
     u = cd_matmul(x, p["w3"], cd)
     h = (F.silu(g) * u).to(cd)
     return cd_matmul(h, p["w2"], cd).to(cd)
+
+
+# ====================================================================== MoE
+
+def moe_specs(d: int, n_experts: int, d_expert: int,
+              n_shared: int) -> Dict[str, Any]:
+    s: Dict[str, Any] = {
+        "router": Spec((d, n_experts), ("embed", None)),
+        "we1": Spec((n_experts, d, d_expert), ("experts", "embed", None)),
+        "we3": Spec((n_experts, d, d_expert), ("experts", "embed", None)),
+        "we2": Spec((n_experts, d_expert, d), ("experts", None, "embed")),
+    }
+    if n_shared:
+        s["shared"] = swiglu_specs(d, d_expert * n_shared)
+    return s
+
+
+def moe_capacity(group: int, top_k: int, n_experts: int,
+                 capacity_factor: float) -> int:
+    """Slots an expert has in a group: ceil(group k / E x factor), rounded
+    up to a multiple of 8, at least 8."""
+    cap = int(math.ceil(group * top_k / n_experts * capacity_factor))
+    return max(8, -(-cap // 8) * 8)
+
+
+def moe_route(p: Params, xg: torch.Tensor, *, n_experts: int, top_k: int,
+              cap: int, normalize_gates: bool, rt: Runtime
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Token-choice routing of xg [G, T, D]: (gate [G, T, k] fp32, e_flat
+    [G, T*k] the chosen experts, slot [G, T*k]).  The router's logits and
+    softmax are fp32 from compute-dtype inputs; the slots are
+    `moe_slots`'s, a dropped pair's `E * cap`, past every expert's
+    slots."""
+    cd = rt.compute_dtype
+    G, T, _ = xg.shape
+    logits = torch.matmul(xg.to(cd).float(), p["router"].to(cd).float())
+    probs = torch.softmax(logits, dim=-1)
+    gate, eidx = torch.topk(probs, top_k, dim=-1)       # [G, T, k]
+    if normalize_gates:
+        gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)
+    e_flat = eidx.reshape(G, T * top_k)
+    return gate, e_flat, moe_slots(e_flat, n_experts, cap)
+
+
+def moe_slots(e_flat: torch.Tensor, n_experts: int, cap: int
+              ) -> torch.Tensor:
+    """Each (token, choice) pair's slot [G, T*k] from its expert e_flat
+    [G, T*k]: its position within the expert is the cumsum of the one-hot
+    over the token-major order, and a pair at a position >= `cap` is
+    dropped, its slot `E * cap`."""
+    onehot = F.one_hot(e_flat, n_experts).to(torch.int32)
+    pos = torch.cumsum(onehot, dim=1, dtype=torch.int32) * onehot
+    pos = pos.sum(-1, dtype=torch.int32) - 1            # place in expert
+    return torch.where(pos < cap, e_flat * cap + pos, n_experts * cap)
+
+
+def assert_unique_slots(slot: torch.Tensor, n_slots: int) -> None:
+    """Each of the `n_slots` expert slots of a group takes at most one
+    (token, choice) pair; `slot` [G, T*k], where `n_slots` marks a dropped
+    pair.  Checked on the device without a sync (`_assert_async`)."""
+    hits = torch.zeros((slot.shape[0], n_slots + 1), dtype=slot.dtype,
+                       device=slot.device).scatter_add_(
+        1, slot, torch.ones_like(slot))
+    torch._assert_async((hits[:, :n_slots] <= 1).all())
+
+
+def moe_block(p: Params, x: torch.Tensor, *, n_experts: int, top_k: int,
+              capacity_factor: float, normalize_gates: bool, rt: Runtime
+              ) -> torch.Tensor:
+    """Token-choice top-k MoE with capacity dropping, the reference's
+    function: tokens routed in groups of `min(rt.moe_group_size, B*S)`
+    (`moe_route`), dispatched by an index scatter into `slot_to_src` and a
+    token gather, the experts' SwiGLU as three batched products, and
+    combined by a gather, a dropped pair giving zero, weighted by its gate
+    and summed over the k choices in the compute dtype.  With "shared" in
+    `p`, the shared experts' SwiGLU is added."""
+    cd = rt.compute_dtype
+    B, S, D = x.shape
+    T = B * S
+    gsz = min(rt.moe_group_size, T)
+    n_groups = -(-T // gsz)
+    assert T % gsz == 0, (T, gsz)
+    xg = x.reshape(n_groups, gsz, D)
+    cap = moe_capacity(gsz, top_k, n_experts, capacity_factor)
+    n_slots = n_experts * cap
+    gate, _, slot = moe_route(p, xg, n_experts=n_experts, top_k=top_k,
+                              cap=cap, normalize_gates=normalize_gates,
+                              rt=rt)
+
+    # dispatch: an index scatter (only the padding column, sliced off
+    # after, takes more than one write), then a token gather
+    dev = x.device
+    src_tok = torch.arange(gsz, device=dev)[None, :, None].expand(
+        n_groups, gsz, top_k).reshape(n_groups, gsz * top_k)
+    gidx = torch.arange(n_groups, device=dev)[:, None]
+    if slot.is_cuda:    # duplicate in-range writes would race on the card
+        assert_unique_slots(slot, n_slots)
+    slot_to_src = torch.full((n_groups, n_slots + 1), gsz,
+                             dtype=torch.int64, device=dev)
+    slot_to_src[gidx, slot] = src_tok
+    slot_to_src = slot_to_src[:, :-1]                     # [G, E*C]
+    x_pad = torch.cat([xg, torch.zeros((n_groups, 1, D), dtype=xg.dtype,
+                                       device=dev)], 1)
+    buf = torch.take_along_dim(x_pad, slot_to_src[..., None], dim=1)
+    buf = buf.reshape(n_groups, n_experts, cap, D).to(cd)
+
+    g1 = torch.einsum("gecd,edf->gecf", buf, p["we1"].to(cd)).float()
+    u1 = torch.einsum("gecd,edf->gecf", buf, p["we3"].to(cd)).float()
+    h = (F.silu(g1) * u1).to(cd)
+    y_e = torch.einsum("gecf,efd->gecd", h, p["we2"].to(cd)).to(cd)
+
+    # combine: each (token, choice)'s expert output gathered back
+    y_flat = y_e.reshape(n_groups, n_slots, D)
+    safe_slot = torch.clamp_max(slot, n_slots - 1)
+    y_rep = torch.take_along_dim(y_flat, safe_slot[..., None], dim=1)
+    dropped = (slot >= n_slots)[..., None]
+    y_rep = torch.where(dropped, torch.zeros((), dtype=cd, device=dev),
+                        y_rep)
+    y = (y_rep.reshape(n_groups, gsz, top_k, D)
+         * gate[..., None].to(cd)).sum(dim=2)
+    y = y.reshape(B, S, D)
+    if "shared" in p:
+        y = y + swiglu(p["shared"], x, rt)
+    return y
 
 
 # ================================================================== RG-LRU

@@ -9,13 +9,16 @@ is a Python loop over layers, each with its own parameter dict:
      "layers": [{"ln1", "attn": {wq, wk, wv, wo, (bq, bk, bv)}, "ln2",
                  "mlp": {w1, w3, w2}}, ...]}
 
-(an "rglru" layer holds "rglru" in place of "attn").
+(an "rglru" layer holds "rglru" in place of "attn"; an MoE layer holds
+"moe": {router, we1, we3, we2, ("shared": {w1, w3, w2})} in place of
+"mlp"; with MLA, "attn" is {wq, wdkv, wukv, wo, kv_norm}).
 `repro_torch.convert.decoder_params_from_numpy` carries a reference
 parameter tree into this layout.  Supported: dense GQA decoders (qwen2*,
-mistral-nemo), the VLM stub (internvl2: a patch-embedding prefix) and the
-Griffin hybrid (recurrentgemma: RG-LRU and local-attention layers).  MLA,
-MoE and xLSTM blocks, the training loss and remat are ported in a later
-slice (see ROADMAP.md).
+mistral-nemo), the VLM stub (internvl2: a patch-embedding prefix), the
+Griffin hybrid (recurrentgemma: RG-LRU and local-attention layers) and
+the MoE decoders (olmoe; deepseek-v2-lite: MLA, shared experts and a
+leading dense layer).  xLSTM blocks, the training loss and remat are
+ported in a later slice (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -73,41 +76,70 @@ def plan_groups(cfg: ArchConfig) -> List[Group]:
 
 # =========================================================== block dispatch
 
-def _check_block(cfg: ArchConfig, kind: str) -> None:
+def _check_block(kind: str) -> None:
     if kind in ("mlstm", "slstm"):
         raise L.not_ported(f"the {kind!r} block")
     if kind not in ("attn", "attn_dense", "local_attn", "rglru"):
         raise ValueError(kind)
-    if cfg.mla is not None:
-        raise L.not_ported("MLA attention")
-    if cfg.moe is not None:
-        raise L.not_ported("the MoE block")
+
+
+def _mla_kw(cfg: ArchConfig) -> Dict[str, Any]:
+    m = cfg.mla
+    return dict(n_heads=cfg.num_heads, kv_lora=m.kv_lora_rank,
+                nope=m.qk_nope_head_dim, rope_d=m.qk_rope_head_dim,
+                v_hd=m.v_head_dim, rope_theta=cfg.rope_theta,
+                eps=cfg.norm_eps)
 
 
 def block_specs(cfg: ArchConfig, kind: str) -> Dict[str, Any]:
-    _check_block(cfg, kind)
+    _check_block(kind)
     d, hd = cfg.d_model, cfg.resolved_head_dim
     if kind == "rglru":
         mixer = {"rglru": L.rglru_specs(d, cfg.lru_width or d, cfg.num_heads,
                                         cfg.conv1d_width)}
+    elif cfg.mla is not None:
+        m = cfg.mla
+        mixer = {"attn": L.mla_specs(d, cfg.num_heads, m.kv_lora_rank,
+                                     m.qk_nope_head_dim, m.qk_rope_head_dim,
+                                     m.v_head_dim)}
     else:
         mixer = {"attn": L.gqa_specs(d, cfg.num_heads, cfg.num_kv_heads, hd,
                                      cfg.qkv_bias)}
+    if kind == "attn_dense":
+        ff = {"mlp": L.swiglu_specs(
+            d, cfg.moe.dense_d_ff if cfg.moe else cfg.d_ff)}
+    elif cfg.moe is not None and kind != "rglru":
+        ff = {"moe": L.moe_specs(d, cfg.moe.num_experts, cfg.moe.d_expert,
+                                 cfg.moe.num_shared)}
+    else:
+        ff = {"mlp": L.swiglu_specs(d, cfg.d_ff)}
     return {
         "ln1": Spec((d,), ("embed",), "ones"),
         **mixer,
         "ln2": Spec((d,), ("embed",), "ones"),
-        "mlp": L.swiglu_specs(d, cfg.d_ff),
+        **ff,
     }
+
+
+def _feed_forward(cfg: ArchConfig, p: Params, h: torch.Tensor,
+                  rt: Runtime) -> torch.Tensor:
+    if "moe" in p:
+        m = cfg.moe
+        return L.moe_block(p["moe"], h, n_experts=m.num_experts,
+                           top_k=m.top_k, capacity_factor=m.capacity_factor,
+                           normalize_gates=m.norm_topk_prob, rt=rt)
+    return L.swiglu(p["mlp"], h, rt)
 
 
 def block_apply_train(cfg: ArchConfig, kind: str, p: Params,
                       x: torch.Tensor, rt: Runtime) -> torch.Tensor:
-    _check_block(cfg, kind)
+    _check_block(kind)
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind == "rglru":
         x = x + L.rglru_block_train(p["rglru"], h, n_heads=cfg.num_heads,
                                     rt=rt)
+    elif cfg.mla is not None:
+        x = x + L.mla_attention_train(p["attn"], h, rt=rt, **_mla_kw(cfg))
     else:
         x = x + L.gqa_attention_train(
             p["attn"], h, n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads,
@@ -115,20 +147,28 @@ def block_apply_train(cfg: ArchConfig, kind: str, p: Params,
             causal=True,
             window=cfg.local_window if kind == "local_attn" else 0)
     h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + L.swiglu(p["mlp"], h2, rt)
+    return x + _feed_forward(cfg, p, h2, rt)
 
 
 def block_cache_specs(cfg: ArchConfig, kind: str, batch: int,
                       max_len: int) -> Dict[str, Spec]:
     """A layer's decode state: the bf16 KV cache of an attention layer (a
-    ring of `min(local_window, max_len)` slots for local attention), or
-    the fp32 recurrent state of an RG-LRU layer."""
-    _check_block(cfg, kind)
+    ring of `min(local_window, max_len)` slots for local attention; with
+    MLA the latent `ckv` and the RoPE key `krope`), or the fp32 recurrent
+    state of an RG-LRU layer."""
+    _check_block(kind)
     if kind == "rglru":
         w = cfg.lru_width or cfg.d_model
         return {"h": Spec((batch, w), ("batch", "lru"), "zeros", "f32"),
                 "conv": Spec((batch, cfg.conv1d_width - 1, w),
                              ("batch", None, "lru"), "zeros", "f32")}
+    if cfg.mla is not None:
+        m = cfg.mla
+        axes = ("batch", "kv_seq", None)
+        return {"ckv": Spec((batch, max_len, m.kv_lora_rank), axes, "zeros",
+                            "bf16"),
+                "krope": Spec((batch, max_len, m.qk_rope_head_dim), axes,
+                              "zeros", "bf16")}
     s_len = min(cfg.local_window, max_len) if kind == "local_attn" \
         else max_len
     shape = (batch, s_len, cfg.num_kv_heads, cfg.resolved_head_dim)
@@ -141,11 +181,14 @@ def block_apply_decode(cfg: ArchConfig, kind: str, p: Params,
                        x: torch.Tensor, cache: Dict[str, torch.Tensor],
                        pos: torch.Tensor, rt: Runtime
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    _check_block(cfg, kind)
+    _check_block(kind)
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind == "rglru":
         a, cache = L.rglru_block_decode(p["rglru"], h, cache,
                                         n_heads=cfg.num_heads, rt=rt)
+    elif cfg.mla is not None:
+        a, cache = L.mla_attention_decode(p["attn"], h, cache, pos, rt=rt,
+                                          **_mla_kw(cfg))
     else:
         a, cache = L.gqa_attention_decode(
             p["attn"], h, cache, pos, n_heads=cfg.num_heads,
@@ -154,7 +197,7 @@ def block_apply_decode(cfg: ArchConfig, kind: str, p: Params,
             window=cfg.local_window if kind == "local_attn" else 0)
     x = x + a
     h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + L.swiglu(p["mlp"], h2, rt), cache
+    return x + _feed_forward(cfg, p, h2, rt), cache
 
 
 # ================================================================= the model

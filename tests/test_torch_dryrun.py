@@ -54,7 +54,8 @@ def _real_counts(arch, shape, rt):
 
 
 @pytest.mark.parametrize("shape", [PREFILL, DECODE], ids=lambda s: s.mode)
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "recurrentgemma-9b",
+                                  "olmoe-1b-7b", "deepseek-v2-lite-16b"])
 def test_fake_counts_equal_a_real_run(arch, shape):
     cfg = configs.get_smoke(arch)
     fake, rt = trace_step(cfg, shape, device="cpu")
@@ -181,16 +182,51 @@ def test_inapplicable_cell_is_skipped(tmp_path, smoke_registry):
 
 @pytest.mark.parametrize("arch,shape", [
     ("qwen2-0.5b", "train_4k"),             # the train step
-    ("olmoe-1b-7b", "prefill_32k"),         # MoE
-    ("deepseek-v2-lite-16b", "decode_32k"),  # MLA
-    ("xlstm-1.3b", "decode_32k"),           # xLSTM
+    ("xlstm-1.3b", "prefill_32k"),          # xLSTM
+    ("xlstm-1.3b", "decode_32k"),
     ("whisper-medium", "prefill_32k"),      # encoder-decoder
+    ("whisper-medium", "decode_32k"),
     ("qwen2.5-32b", "decode_32k"),          # the reference's fp8 KV cache
 ])
 def test_cuts_raise_not_implemented(tmp_path, smoke_registry, arch, shape):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         dryrun.run_cell(arch, shape, tmp_path, device="cpu")
     assert not list(tmp_path.iterdir())     # no FAILED record
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v2-lite-16b"])
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
+def test_moe_cells_are_counted(tmp_path, smoke_registry, arch, shape):
+    """The MoE archs' serving cells at their full batch and length (smoke
+    widths): OK records with a finite peak and roofline, the MoE block's
+    group size recorded."""
+    rec = dryrun.run_cell(arch, shape, tmp_path, device="cpu")
+    assert rec["status"] == "OK", rec.get("error")
+    assert 0 < rec["roofline"]["roofline_s"] < float("inf")
+    assert rec["runtime"]["moe_group_size"] == 4096
+
+
+def test_moe_group_size_moves_the_moe_step():
+    """`moe_group_size` reaches the MoE block (it was dropped before the
+    runtime): two of the sizes `exec_space(has_moe=True)` offers give two
+    different counts of olmoe's smoke prefill at 8192 tokens.  The groups
+    are routed together on one GPU and the capacity a group gives an
+    expert scales with the group, so the expert products (the matmul
+    FLOPs) stay; the dispatch's traffic and op count move."""
+    from repro_torch.core.autotune import exec_space
+
+    sizes = exec_space("prefill", has_moe=True).domains["moe_group_size"]
+    assert sizes == (2048, 4096, 8192)
+    shape = ShapeSpec("prefill_8192x1", 8192, 1, "prefill")
+    cfg = configs.get_smoke("olmoe-1b-7b")
+    counts = {}
+    for g in (sizes[0], sizes[-1]):
+        counts[g], rt = trace_step(cfg, shape, device="cpu",
+                                   overrides={"moe_group_size": g})
+        assert rt.moe_group_size == g
+    small, big = counts[sizes[0]], counts[sizes[-1]]
+    assert small.matmul_flops == big.matmul_flops
+    assert (small.bytes_accessed, small.ops) != (big.bytes_accessed, big.ops)
 
 
 def test_cli_writes_a_record_with_a_roofline(tmp_path, smoke_registry,

@@ -173,6 +173,17 @@ def test_three_bf16_terms_carry_every_fp32_p_in_0_1():
         assert bool((drop[steps == steps.floor()] == 0).all())
 
 
+def test_plain_version_keeps_float64():
+    """Float64 inputs are computed in float64 (the card's checks hold the
+    kernel against that evaluation); other dtypes in fp32, as before."""
+    q, k, v = _torch(_inputs(1, 40, 40, 4, 2, 16, seed=5), "float32")
+    got = flash_attention_plain(q.double(), k.double(), v.double())
+    assert got.dtype == torch.float64
+    torch.testing.assert_close(got.float(), flash_attention_plain(q, k, v),
+                               rtol=1e-6, atol=1e-6)
+    assert not torch.equal(got, flash_attention_plain(q, k, v).double())
+
+
 # keys per KV tile of `flash_attention_kernel_wgmma` (`Tile<HD>::kBKV`)
 _KV_TILE = {64: 128, 128: 64, 256: 64}
 
@@ -182,17 +193,18 @@ def _tensor_core_model(q, k, v, causal, terms=3):
     from exact bf16 products summed in fp32, the Pallas kernel's online
     softmax over KV tiles of the kernel's size (-1e30 masks, the alive
     rule, fp32 m, l and accumulator) with exp(scale (s - m)) taken as
-    2^(s c - m c), c = scale log2(e) in fp32, each tile's p @ v as the
-    first `terms` of p's bf16 split (summed smallest first, each product
-    exact, the sums fp32) added to acc * corr, the output rounded to bf16
-    once.
+    2^(s c - mc), c = scale log2(e) in fp32, mc = m c rounded, and the
+    correction 2^(mc_old - mc), each tile's p @ v as the first `terms` of
+    p's bf16 split (summed smallest first, each product exact, the sums
+    fp32) added to acc * corr, the output rounded to bf16 once.
 
     The model is exact where the card is not: it takes `torch.exp2` where
     the kernel takes `ex2.approx`, and it sums in fp32 where the tensor
     cores align each product to the running sum and truncate.  So it
     cannot show the card's failure modes (accumulating every tile in the
     tensor cores passes here and failed `FLASH_TOL` on the card at S
-    32768); `chip_smoke.py`'s checks on the card hold the kernel itself."""
+    32768); `chip_smoke.py`'s checks on the card hold the kernel
+    itself."""
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G, bkv, neg = H // KV, _KV_TILE[hd], -1e30
@@ -201,7 +213,7 @@ def _tensor_core_model(q, k, v, causal, terms=3):
     qf = q.float().transpose(1, 2)                           # [B, H, Sq, hd]
     kf = k.float().transpose(1, 2).repeat_interleave(G, dim=1)
     vf = v.float().transpose(1, 2).repeat_interleave(G, dim=1)
-    m = torch.full((B, H, Sq, 1), neg)
+    m = mc = torch.full((B, H, Sq, 1), neg)
     l = torch.zeros((B, H, Sq, 1))
     acc = torch.zeros((B, H, Sq, hd))
     q_pos = torch.arange(Sq)[:, None]
@@ -212,11 +224,11 @@ def _tensor_core_model(q, k, v, causal, terms=3):
             s = s.masked_fill(q_pos < k_pos, neg)
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         alive = m_new > 0.5 * neg
-        mc = m_new * c
-        p = torch.where(alive, torch.exp2(s * c - mc), 0.0)
-        corr = torch.where(alive, torch.exp2(m * c - mc), 1.0)
+        mc_new = m_new * c
+        p = torch.where(alive, torch.exp2(s * c - mc_new), 0.0)
+        corr = torch.where(alive, torch.exp2(mc - mc_new), 1.0)
         l = l * corr + p.sum(-1, keepdim=True)
-        m = m_new
+        m, mc = m_new, mc_new
         tile = torch.zeros_like(acc)
         for t in reversed(_split3(p.contiguous())[:terms]):
             tile = tile + t @ vf[:, :, k0:k0 + bkv]

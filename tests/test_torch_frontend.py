@@ -1,9 +1,9 @@
 """The port's frontend (`repro_torch.frontend`) on the CPU: twins of the
 reference's frontend tests, the aten rules where aten is not a jaxpr
 (in-place writes, constants, two-activation einsums) against the
-reference's trace of the same function, and the twelve ported zoo apps
-against the reference's graphs, op for op, with the twelve-app greedy
-study selecting the reference's config."""
+reference's trace of the same function, and the sixteen ported zoo apps
+against the reference's graphs, vertex for vertex, with the sixteen-app
+greedy study selecting the reference's config."""
 
 import functools
 
@@ -30,9 +30,9 @@ from repro_torch.dse import GeomeanAcrossApps, SearchBudget, Study
 from repro_torch.frontend import trace_to_graph
 from repro_torch.frontend import zoo
 
-ZOO12 = tuple(f"{arch}:{v}" for arch in zoo.PORTED_ARCHS
+ZOO16 = tuple(f"{arch}:{v}" for arch in zoo.PORTED_ARCHS
               for v in zoo.ZOO_VARIANTS)
-UNPORTED = tuple(n for n in zoo.ZOO_APP_NAMES if n not in ZOO12)
+UNPORTED = tuple(n for n in zoo.ZOO_APP_NAMES if n not in ZOO16)
 
 def _op_sig(op):
     return (op.kind.value, op.nif, op.nix, op.niy, op.nkx, op.nky, op.nof,
@@ -222,13 +222,90 @@ def test_constants_count_as_weights_and_iotas_as_data():
     assert _structure(got) == _structure(want)
 
 
+def test_softmax_is_the_references_four_vertices():
+    """`torch.softmax` traces as `jax.nn.softmax`'s jaxpr: the row max,
+    `x - max` (its exp aliased), the row sum and the quotient."""
+    want = ref_trace(lambda p, x: jax.nn.softmax(x * 2.0, axis=-1), {},
+                     jax.ShapeDtypeStruct((3, 5, 8), jnp.float32))
+    got = trace_to_graph(lambda p, x: torch.softmax(x * 2.0, dim=-1), {},
+                         torch.empty(3, 5, 8))
+    assert _structure(got) == _structure(want)
+    assert got.summary()["n_data_nodes"] == 5
+
+
+def test_dispatch_calls_are_the_references_vertices():
+    """`F.one_hot` and `torch.take_along_dim` are one vertex each, as the
+    nested `jit` of `jax.nn.one_hot` and `jnp.take_along_axis` is; an
+    `index_put_` with two index tensors is the reference's
+    ``x.at[i, j].set(v)``: the smaller index broadcast, the two
+    concatenated, then the scatter."""
+    def ref(p, e, x, src):
+        oh = jax.nn.one_hot(e, 8, dtype=jnp.int32)
+        pos = oh.sum(-1)
+        g = jnp.arange(2)[:, None]
+        buf = jnp.full((2, 9), 5, jnp.int32).at[g, e + pos].set(
+            src, mode="drop")
+        return jnp.take_along_axis(x, buf[:, :-1][..., None], axis=1)
+
+    def port(p, e, x, src):
+        oh = F.one_hot(e, 8).to(torch.int32)
+        pos = oh.sum(-1)
+        g = torch.arange(2, device=e.device)[:, None]
+        buf = torch.full((2, 9), 5, dtype=torch.int64, device=e.device)
+        buf[g, e + pos] = src
+        return torch.take_along_dim(x, buf[:, :-1][..., None], dim=1)
+
+    want = ref_trace(ref, {}, jax.ShapeDtypeStruct((2, 6), jnp.int32),
+                     jax.ShapeDtypeStruct((2, 7, 4), jnp.float32),
+                     jax.ShapeDtypeStruct((2, 6), jnp.int32))
+    got = trace_to_graph(port, {}, torch.empty(2, 6, dtype=torch.int64),
+                         torch.empty(2, 7, 4),
+                         torch.empty(2, 6, dtype=torch.int64))
+    assert _structure(got) == _structure(want)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("skv,kv_block", [(40, 16), (32, 16), (12, 64)])
+def test_blocked_attention_in_the_references_ops(causal, skv, kv_block):
+    """`blocked_attention` traces as the reference's (its scan over KV
+    blocks, the block counter, the mask) vertex for vertex, padded tail
+    and several blocks included, and computes its values."""
+    from repro.models import layers as JL
+    from repro_torch.models import layers as TL
+
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(2, skv, 4, 8, generator=g)
+    k, v = (torch.randn(2, skv, 2, 8, generator=g) for _ in range(2))
+    kw = dict(causal=causal, kv_block=kv_block)
+    np.testing.assert_allclose(
+        TL.blocked_attention(q, k, v, **kw).numpy(),
+        np.asarray(JL.blocked_attention(*(jnp.asarray(t.numpy())
+                                          for t in (q, k, v)), **kw)),
+        rtol=1e-5, atol=1e-5)
+    sds = [jax.ShapeDtypeStruct(tuple(t.shape), jnp.float32)
+           for t in (q, k, v)]
+    want = ref_trace(lambda p, q, k, v: JL.blocked_attention(q, k, v, **kw),
+                     {}, *sds)
+    got = trace_to_graph(
+        lambda p, q, k, v: TL.blocked_attention(q, k, v, **kw), {}, q, k, v)
+    assert _structure(got) == _structure(want)
+
+
+def test_scan_slices_outside_a_trace_is_zip():
+    from repro_torch.frontend.trace import scan_slices
+
+    a, b = torch.arange(6).reshape(3, 2), torch.arange(3)
+    assert [(x.tolist(), y.item()) for x, y in scan_slices(a, b)] == \
+        [([0, 1], 0), ([2, 3], 1), ([4, 5], 2)]
+
+
 # ------------------------------------------------------------------ zoo
 
 def test_zoo_apps_listed_and_unknown_rejected():
     names = apps.all_app_names()
     assert set(apps.APP_NAMES) <= set(names)
     assert apps.zoo_app_names() == tuple(ref_apps.zoo_app_names())
-    assert len(ZOO12) == 12 and len(UNPORTED) == 8
+    assert len(ZOO16) == 16 and len(UNPORTED) == 4
     with pytest.raises(KeyError):
         apps.build_app("definitely-not-an-app")
     with pytest.raises(KeyError):
@@ -266,11 +343,13 @@ def _reference(name):
     return ref_apps.build_app(name)
 
 
-@pytest.mark.parametrize("name", ZOO12)
+@pytest.mark.parametrize("name", ZOO16)
 def test_zoo_graph_matches_the_reference(name):
-    """Op for op: the compute stream in order (kind, every Table-1 field
-    and `repeat`), each compute node's weight bits, the totals and both
-    peaks, and the `AppSpec`'s stream arrays."""
+    """Vertex for vertex: the compute stream in order (kind, every Table-1
+    field and `repeat`), each compute node's weight bits, the totals and
+    both peaks, the `AppSpec`'s stream arrays, the count of data vertices,
+    and every vertex of the stream (op or data) with its output and
+    weight bits and its parents' stream positions."""
     want, got = _reference(name), apps.build_app(name)
     w_nodes, g_nodes = _stream_nodes(want), _stream_nodes(got)
     assert [_op_sig(n.op) for n in g_nodes] == \
@@ -281,6 +360,8 @@ def test_zoo_graph_matches_the_reference(name):
     w_prof, g_prof = want.memory_profile(), got.memory_profile()
     assert g_prof.peak_weight_bits == w_prof.peak_weight_bits
     assert g_prof.peak_activation_bits == w_prof.peak_activation_bits
+    assert got.summary()["n_data_nodes"] == want.summary()["n_data_nodes"]
+    assert _structure(got) == _structure(want)
     spec = AppSpec.from_graph(name, got, weight_peak_mode="strict")
     ref = RefAppSpec.from_graph(name, want, weight_peak_mode="strict")
     for field in spec.stream.FIELDS:
@@ -292,13 +373,13 @@ def test_zoo_graph_matches_the_reference(name):
 
 
 def test_zoo_study_selects_the_reference_config():
-    """The greedy geomean study over the twelve apps on the CPU selects the
+    """The greedy geomean study over the sixteen apps on the CPU selects the
     reference numpy `Study`'s config, with the same per-app bests."""
     kw = dict(engine="greedy", seed=0)
-    want = RefStudy(apps=list(ZOO12), objective=RefGeomean(),
+    want = RefStudy(apps=list(ZOO16), objective=RefGeomean(),
                     budget=RefBudget(k=2, restarts=2, max_rounds=6),
                     **kw).run()
-    got = Study(apps=list(ZOO12), objective=GeomeanAcrossApps(),
+    got = Study(apps=list(ZOO16), objective=GeomeanAcrossApps(),
                 budget=SearchBudget(k=2, restarts=2, max_rounds=6),
                 device="cpu", **kw).run()
     assert got.best.asdict() == want.best.asdict()
