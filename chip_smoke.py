@@ -22,9 +22,9 @@ printing one JSON line each:
   4. study       the main path: a seven-app `GeomeanAcrossApps` greedy
                  `Study` on the card and on the CPU must select the same
                  config, with the kernel launched and jax never imported;
-  5. study zoo   the model-zoo frontend on the main path: the sixteen zoo
-                 apps of the eight ported archs traced on meta tensors (each
-                 app's seconds, compute ops and data vertices), a sixteen-app
+  5. study zoo   the model-zoo frontend on the main path: the eighteen zoo
+                 apps of the nine ported archs traced on meta tensors (each
+                 app's seconds, compute ops and data vertices), an eighteen-app
                  `GeomeanAcrossApps` greedy `Study` on the card and on the
                  CPU selecting the same config and per-app bests (the
                  kernel launched on the card only, neither jax nor the JAX
@@ -163,7 +163,13 @@ printing one JSON line each:
                  compute one function (a near-tied router flips on the
                  bf16 cache's rounding), and each choice that differs from
                  the forward's own must lie within the two paths'
-                 router-logit difference; the flips are counted;
+                 router-logit difference; the flips are counted.  Its
+                 served decode (bf16 caches) is gated against a third
+                 forward that reads the decode's own caches at every
+                 attention layer (`reads_the_cache`), within
+                 `SERVE_RG_TOL`, and every cache entry the decode wrote
+                 within one bf16 rounding of that forward's own value
+                 (`cache_against_forward`);
  18. prefill deepseek-v2-lite-16b
                  as phase 16 at the same two shapes (27 layers: one dense,
                  26 MoE with 64 routed experts top-6 and 2 shared; MLA;
@@ -174,18 +180,36 @@ printing one JSON line each:
  19. serve deepseek-v2-lite-16b
                  as phase 17 with bf16 weights and fp32 compute: the
                  weight-absorbed decode over the latent cache against the
-                 drop-free expanded forward; the cache's bytes a token and
-                 layer beside GQA's;
- 20. kernel matmul
+                 drop-free expanded forward (its latent and RoPE key read
+                 from the decode's cache in the gated third forward); the
+                 cache's bytes a token and layer beside GQA's;
+ 20. xlstm blocks
+                 one full-width mLSTM and one sLSTM block of xlstm-1.3b in
+                 fp32 at B 2 x S 549 (two chunks of 256, a padded third):
+                 the chunkwise and scan forms against the step form in
+                 float64, every element within `BLOCK_TOL`;
+ 21. prefill xlstm-1.3b
+                 the xLSTM main path (48 layers: 42 mLSTM, 6 sLSTM; bf16
+                 weights): no kernel runs, every counter 0; seq 2048 x
+                 batch 4 (device time by kind, idle share) and prefill_32k
+                 with its batch cut to 1 (or 8192, see
+                 `XLSTM_LONG_BUDGET_S`); the fp32 forward's last logits at
+                 `XLSTM_GATE_SEQ` tokens gated against the fp32 decode loop,
+                 the bf16 forward's gap printed;
+ 22. serve xlstm-1.3b
+                 as phase 15 (fp32 weights): the decode's caches are all
+                 fp32 state, so its gap to the teacher-forced forward is
+                 gated directly;
+ 23. kernel matmul
                  `matmul` against its plain PyTorch version on every element,
                  within the fp32 summation bound (`matmul_against_plain`),
                  on the sweep of `tests/test_kernels.py` at its two tiles
                  (fp32 on the CUDA-core kernel, bf16 on the tensor-core
                  one: each case must move only its kernel's counter) and on
                  an all-positive bf16 product at K = 12288, both output
-                 dtypes (phase 21 holds the tile DSE's shapes, at every
+                 dtypes (phase 24 holds the tile DSE's shapes, at every
                  tile);
- 21. tile_dse    the fourth main path: for each of `TILE_SHAPES` (bf16),
+ 24. tile_dse    the fourth main path: for each of `TILE_SHAPES` (bf16),
                  `tune_matmul_tiles` picks a tile under the tensor-core
                  model and `matmul` runs at it and at every other tile the
                  tensor-core kernel is built for, each output held against
@@ -196,8 +220,9 @@ printing one JSON line each:
                  (M N > 2^31) runs once, at its tuned tile.  Then the fp32
                  `FP32_SHAPE` on the CUDA-core kernel at the CUDA-core
                  model's pick, beside its 67 TFLOP/s bound;
- 22. dryrun      `run_cell` for qwen2-0.5b, recurrentgemma-9b, olmoe-1b-7b
-                 and deepseek-v2-lite-16b at prefill_32k and decode_32k on
+ 25. dryrun      `run_cell` for qwen2-0.5b, recurrentgemma-9b, olmoe-1b-7b,
+                 deepseek-v2-lite-16b and xlstm-1.3b at prefill_32k and
+                 decode_32k, and xlstm-1.3b at long_500k, on
                  fake CUDA tensors (full batch; every record OK with a
                  finite peak and roofline), each cell's matmul and
                  elementwise FLOPs and
@@ -288,6 +313,19 @@ ARCH = "qwen2-0.5b"
 RG_ARCH = "recurrentgemma-9b"
 MOE_ARCH = "olmoe-1b-7b"
 MLA_ARCH = "deepseek-v2-lite-16b"
+XLSTM_ARCH = "xlstm-1.3b"
+# the xLSTM block check: a chunkwise / scan form against its step form,
+# (rtol, atol) of tests/test_recurrent_blocks.py; two chunks of 256 and a
+# padded third
+BLOCK_TOL = (2e-4, 2e-4)
+BLOCK_SHAPE = (2, 2 * 256 + 37)
+# the xLSTM prefill's fp32 gate: its last-position logits against the
+# fp32 decode loop over the same tokens (two chunks, the second padded)
+XLSTM_GATE_SEQ = 300
+# the longest xLSTM prefill the phase runs: its sLSTM steps are launch-
+# bound, so a forward's time grows with its length; the 32k forward runs
+# if 16 times the 2048 x 4 forward's time is within this, else 8192
+XLSTM_LONG_BUDGET_S = 120.0
 # the kernels of the MoE block's dispatch and combine (top-k, the one-hot's
 # cumsum, the index scatter, the token gathers), by name substring
 MOE_DISPATCH_KERNELS = ("gatherTopK", "sort", "Sort", "scan", "index_put",
@@ -306,6 +344,10 @@ SERVE_TOL = 2e-3
 # fp32 on the card: the decode path keeps K and V in a bf16 cache, the
 # forward does not; (atol, rtol) of tests/test_decode_parity.py
 SERVE_RG_TOL = (5e-3, 2e-2)
+# a bf16 cache entry against the fp32 value the forward computes for it:
+# one bf16 rounding, |cache - fwd| <= CACHE_RTOL |fwd| + CACHE_ATOL (the
+# bound of tests/test_torch_mla.py, the reference's cache on the CPU)
+CACHE_RTOL, CACHE_ATOL = 2 ** -8, 2 ** -8
 MATMUL_SOURCE = "src/repro_torch/kernels/csrc/matmul.cu"
 MATMUL_TPU = "src/repro/kernels/matmul.py:42"
 # the tile DSE's shapes (M, K, N), bf16: the reference quickstart's
@@ -382,8 +424,14 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+T0 = time.perf_counter()
+
+
 def emit(phase: str, **rec) -> None:
-    print(json.dumps({"phase": phase, **rec}), flush=True)
+    """One phase's record, with the seconds since the script started."""
+    print(json.dumps({"phase": phase, **rec,
+                      "smoke_elapsed_s": time.perf_counter() - T0}),
+          flush=True)
 
 
 def check_isolated() -> None:
@@ -559,8 +607,8 @@ def phase_study(names) -> int:
 
 
 def phase_study_zoo() -> dict:
-    """The main path over the traced zoo apps: the sixteen apps of the
-    eight ported archs, the greedy geomean study on the card and on the
+    """The main path over the traced zoo apps: the eighteen apps of the
+    nine ported archs, the greedy geomean study on the card and on the
     CPU, then the genetic and anneal engines on one app on both.  Returns
     the kernel's launches on each card run."""
     from repro_torch.core.apps import build_app
@@ -1283,6 +1331,40 @@ def device_breakdown(calls: dict, kinds: dict) -> dict:
         us["busy_us"] = sum(us.values())
         us["wall_us"] = spans[name].elapsed_us()
         us["kernels"] = counts[name]
+    return out
+
+
+def device_kinds(fn, kinds: dict) -> dict:
+    """`device_breakdown` of one call of `fn` that launches hundreds of
+    thousands of kernels: the profiler traces the device only (no host
+    events to post-process), every kernel belongs to the call, and
+    `wall_us` is the host's clock around it (ending in a synchronise)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out = {**{k: 0.0 for k in kinds}, "other_kernels_us": 0.0,
+           "copies_us": 0.0}
+    count = 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or "Activity Buffer" in e.name:
+            continue
+        if e.name.startswith(("Memcpy", "Memset")):
+            key = "copies_us"
+        else:
+            count += 1
+            key = next((k for k, marks in kinds.items()
+                        if any(m in e.name for m in marks)),
+                       "other_kernels_us")
+        out[key] += e.time_range.elapsed_us()
+    out["busy_us"] = sum(out.values())
+    out["wall_us"] = wall * 1e6
+    out["kernels"] = count
     return out
 
 
@@ -2363,6 +2445,127 @@ def as_cached(cfg, params):
             flash, norm, blocked)
 
 
+@contextlib.contextmanager
+def reads_the_cache(model, params, cache):
+    """Within it a forward over S tokens reads, at every attention layer,
+    what a decode over the same tokens wrote into its caches (`cache`, the
+    decode's per-layer caches after its last step) at positions 0..S-1,
+    in place of its own: a GQA layer's attention
+    is the decode's arithmetic (`gqa_attention_decode`: scores of the fp32
+    q on the bf16 k, the masked softmax, its probabilities rounded to v's
+    bf16 by `_gqa_values`) over the cache's k and v, in place of the flash
+    kernel; an MLA layer takes the cache's latent `ckv` for its normed
+    latent (where `rms_norm` applies a `kv_norm` scale) and the cache's
+    `krope` for its RoPE key (the keys' last `rope_d` columns where they
+    reach `blocked_attention`).  Both paths then read the same bf16
+    numbers.  Yields a record: "hits", the layers each substitution took
+    in call order, and "own", by layer, the forward's own operands it
+    replaced (k and v after RoPE; the latent; the RoPE key), in fp32."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import layers as L
+
+    cfg = model.cfg
+    attn = [i for i, kind in enumerate(model.kinds)
+            if kind in ("attn", "attn_dense", "local_attn")]
+    rec = {"hits": {"attention": [], "latent": [], "rope_key": []},
+           "own": {i: {} for i in attn}}
+    kv_norms = {id(p["attn"]["kv_norm"]): i
+                for i, p in enumerate(params["layers"])
+                if "kv_norm" in p.get("attn", {})}
+    flash, norm, blocked = FA.flash_attention, L.rms_norm, L.blocked_attention
+
+    def next_layer(kind):
+        layer = attn[len(rec["hits"][kind])]
+        rec["hits"][kind].append(layer)
+        return layer
+
+    def attend(q, k, v, *, causal=True):
+        layer = next_layer("attention")
+        rec["own"][layer].update(k=k, v=v)
+        B, S, H, hd = q.shape
+        kc = cache[layer]["k"][:, :S]
+        vc = cache[layer]["v"][:, :S]
+        KV = kc.shape[2]
+        qg = (q * (1.0 / math.sqrt(hd))).reshape(B, S, KV, H // KV, hd)
+        sc = L._gqa_scores(qg, kc)
+        pos = torch.arange(S, device=q.device)
+        if causal:
+            sc = sc.masked_fill(pos[:, None] < pos[None, :], -math.inf)
+        o = L._gqa_values(torch.softmax(sc, dim=-1), vc)
+        return o.reshape(B, S, H, hd).to(q.dtype)
+
+    def norm_cached(x, scale, eps):
+        y = norm(x, scale, eps)
+        if id(scale) not in kv_norms:
+            return y
+        layer = kv_norms[id(scale)]
+        rec["hits"]["latent"].append(layer)
+        rec["own"][layer]["ckv"] = y
+        return cache[layer]["ckv"][:, :y.shape[1]].to(y.dtype)
+
+    def blocked_cached(q, k, v, **kw):
+        layer = next_layer("rope_key")
+        B, S, H, _ = k.shape
+        rope_d = cfg.mla.qk_rope_head_dim
+        nope = k.shape[-1] - rope_d
+        rec["own"][layer]["krope"] = k[:, :, 0, nope:]
+        kr = cache[layer]["krope"][:, :S].to(k.dtype)
+        k = torch.cat([k[..., :nope],
+                       kr[:, :, None, :].expand(B, S, H, rope_d)], -1)
+        return blocked(q, k, v, **kw)
+
+    if cfg.mla is not None:
+        L.rms_norm, L.blocked_attention = norm_cached, blocked_cached
+    else:
+        FA.flash_attention = attend
+    try:
+        yield rec
+    finally:
+        FA.flash_attention, L.rms_norm, L.blocked_attention = (
+            flash, norm, blocked)
+
+
+@contextlib.contextmanager
+def decode_stabiliser():
+    """Within it an xLSTM forward starts its stabiliser m where the decode
+    cache starts it, at 0, not at the reference's -1e30
+    (`layers.STABILISER_START`): the forward then computes the decode's
+    function.  The mLSTM's output does not depend on the start (its num,
+    |q n| and exp(-m) all scale with exp(-m)); the sLSTM's h = o c /
+    max(n, 1) clamps n at 1 whatever m is, so where an input gate lies
+    below its forget gate at the first positions of a sequence the two
+    starts give other outputs (the reference's own forward and decode
+    differ there alike)."""
+    from repro_torch.models import layers as L
+
+    saved, L.STABILISER_START = L.STABILISER_START, 0.0
+    try:
+        yield
+    finally:
+        L.STABILISER_START = saved
+
+
+def cache_against_forward(cache, rec, seq_len: int) -> dict:
+    """Each cache entry a decode wrote (positions 0..seq_len-1) against the
+    fp32 value the cache-reading forward computed for it at the same layer
+    and position (`reads_the_cache`'s "own"): within one bf16 rounding,
+    `CACHE_RTOL` |fwd| + `CACHE_ATOL`; every slot past the sequence zero.
+    Returns the worst ratio, the entries checked and the nonzero unwritten
+    slots."""
+    worst, checked, unwritten = 0.0, 0, 0
+    for layer, own in rec["own"].items():
+        for key, fwd in own.items():
+            c = cache[layer][key]
+            got = c[:, :seq_len].float().reshape(fwd.shape)
+            fwd = fwd.float()
+            worst = max(worst, float(((got - fwd).abs() / (
+                CACHE_RTOL * fwd.abs() + CACHE_ATOL)).max()))
+            checked += got.numel()
+            unwritten += int((c[:, seq_len:] != 0).sum())
+    return {"worst_ratio": worst, "entries": checked,
+            "unwritten_nonzero": unwritten}
+
+
 def phase_serve_forward(arch: str, param_dtype=torch.float32) -> dict:
     """`arch`'s `serve_requests` at full width on the card, fp32 compute
     (on `param_dtype` weights), held to teacher-forced full-sequence
@@ -2372,13 +2575,20 @@ def phase_serve_forward(arch: str, param_dtype=torch.float32) -> dict:
     the teacher-forced decode (bf16 caches, as served) the forward's (a
     flip passes only where the forward's top-1 margin is within
     `SERVE_RG_TOL`).  The decode's function, with fp32 caches, is held
-    within `SERVE_RG_TOL` of the forward.  The served decode's logit gap
-    is printed twice: to the forward, and to the forward that reads what
-    the caches hold (`as_cached`).  The bf16 rounding of the caches turns
-    the two paths' fp32 ordering differences into bf16-ulp flips, which
-    at 16-27 layers move the MoE archs' logits past `SERVE_RG_TOL` even
-    against the second forward (`PERF.md` §6); the caller gates
-    recurrentgemma-9b's first gap.  An MoE arch's forwards run drop-free
+    within `SERVE_RG_TOL` of the forward (an arch whose caches hold no
+    bf16 leaf, xLSTM, has that decode as served).  The served decode's
+    logit gap is printed twice: to the forward, and to the forward that
+    reads its own K and V rounded to bf16 (`as_cached`); the caller gates
+    the first for recurrentgemma-9b and xlstm-1.3b.  An MoE arch's served
+    decode is gated against a third forward, which reads at every
+    attention layer what the decode wrote into its caches
+    (`reads_the_cache`): both then read the same bf16 numbers, so fp32
+    ordering is what is left, within `SERVE_RG_TOL`; and every cache
+    entry must lie within one bf16 rounding of that forward's own value
+    (`cache_against_forward`).  The first two forwards read other bf16
+    numbers than the decode: rounding turns the paths' fp32 ordering
+    differences into bf16-ulp flips, which at 16-27 layers move the MoE
+    archs' logits past `SERVE_RG_TOL` (`PERF.md` §6).  An MoE arch's forwards run drop-free
     (capacity factor 16, as `tests/test_decode_parity.py` holds the
     reference): they route the whole sequence at once, a decode step one
     token, which never drops; the pairs the forward would drop at the
@@ -2429,13 +2639,35 @@ def phase_serve_forward(arch: str, param_dtype=torch.float32) -> dict:
     atol, rtol = SERVE_RG_TOL
     step = make_serve_step(model, rt)
     v = cfg.vocab_size
-    n_attn = sum(kind != "rglru" for kind in model.kinds)
+    attn_kinds = ("attn", "attn_dense", "local_attn")
+    n_attn = sum(kind in attn_kinds for kind in model.kinds)
+    # the caches' bf16 leaves (KV caches; none in a recurrent-only arch,
+    # whose fp32 state the served decode already holds)
+    has_bf16 = any(sp.dtype == "bf16" for c in model.cache_specs(1, 1)
+                   for sp in c.values())
     want_hits = ({"attention": 0, "latent": n_attn, "rope_key": n_attn}
                  if cfg.mla is not None
                  else {"attention": n_attn, "latent": 0, "rope_key": 0})
     worst = {"max_abs_diff": 0.0, "tol_ratio": 0.0}
     worst32 = {"max_abs_diff": 0.0, "tol_ratio": 0.0}
     cached = {"max_abs_diff": 0.0, "tol_ratio": 0.0}
+    own_cache = {"max_abs_diff": 0.0, "tol_ratio": 0.0}
+    cache_check = {"worst_ratio": 0.0, "entries": 0, "unwritten_nonzero": 0}
+    # the served (bf16-cache) decode held to the forward that reads its own
+    # caches: the MoE archs (recurrentgemma-9b's served gap is gated
+    # against the forward through the kernels by the caller)
+    gate_own_cache = cfg.moe is not None
+    # an xLSTM's forwards start their stabiliser where its decode does
+    # (`decode_stabiliser`); the gap to the reference's start is printed
+    xlstm = any(kind in ("mlstm", "slstm") for kind in model.kinds)
+    ref_start = {"max_abs_diff": 0.0, "tol_ratio": 0.0}
+    ref_start_worst_pos = []
+    attn_layers = [i for i, kind in enumerate(model.kinds)
+                   if kind in attn_kinds]
+    want_reads = ({"attention": [], "latent": attn_layers,
+                   "rope_key": attn_layers} if cfg.mla is not None
+                  else {"attention": attn_layers, "latent": [],
+                        "rope_key": []})
     steps = same = excused = reproduced = greedy = served = 0
     margin_min = float("inf")
     counters = kernel_counters()
@@ -2445,8 +2677,9 @@ def phase_serve_forward(arch: str, param_dtype=torch.float32) -> dict:
 
     def teacher_forced(seq, cache_dtype):
         """Decode steps over `seq` with the caches' bf16 leaves in
-        `cache_dtype` (bf16 as served): the logits [S, V] and the routing,
-        a record a MoE layer over the sequence."""
+        `cache_dtype` (bf16 as served): the logits [S, V], the routing, a
+        record a MoE layer over the sequence, and the caches after the
+        last step."""
         cache = map_specs(lambda sp: torch.zeros(
             sp.shape, device="cuda", dtype=cache_dtype
             if sp.dtype == "bf16" else torch.float32),
@@ -2461,23 +2694,23 @@ def phase_serve_forward(arch: str, param_dtype=torch.float32) -> dict:
         return torch.stack(rows), [
             {key: torch.cat([x[layer][key] for x in step_routes])
              for key in ("experts", "logits")}
-            for layer in range(len(step_routes[0]))]
+            for layer in range(len(step_routes[0]))], cache
 
-    def forced_forward(seq, decoded, read_cached=False):
-        """The forward over `seq`, taking the decode's expert choices (with
-        `read_cached`, reading what the caches hold); with its own
-        routing."""
+    def forced_forward(seq, decoded, hook=None, reference_start=False):
+        """The forward over `seq`, taking the decode's expert choices
+        (within `hook`, a context that swaps what its attention reads), an
+        xLSTM's stabiliser from the decode's start unless
+        `reference_start`; with its own routing and what the hook
+        yields."""
+        start = (decode_stabiliser() if xlstm and not reference_start
+                 else contextlib.nullcontext())
         with torch.inference_mode(), full_precision_products(), \
                 routes(force=decoded, factor=cfg.moe and
                        cfg.moe.capacity_factor) as own, \
-                (as_cached(cfg, params) if read_cached
-                 else contextlib.nullcontext()) as hits:
+                (hook or contextlib.nullcontext()) as hits, start:
             fwd = fwd_model.forward(params, {"tokens": torch.tensor(
                 [seq], device="cuda")}, rt_fwd)[0, :, :v].float()
-        check(not read_cached or hits == want_hits,
-              f"the forward read {hits} as the caches hold them, expected "
-              f"{want_hits}")
-        return fwd, own
+        return fwd, own, hits
 
     def gap(got, want, into):
         check(bool(torch.isfinite(got).all() and torch.isfinite(want).all()),
@@ -2511,11 +2744,11 @@ def phase_serve_forward(arch: str, param_dtype=torch.float32) -> dict:
 
     for r in results:
         seq = r.prompt + r.generated
-        dec, decoded = teacher_forced(seq, torch.bfloat16)
+        dec, decoded, dec_cache = teacher_forced(seq, torch.bfloat16)
         # the forward's launches, counted from 0 just before it
         for fn in counters.values():
             fn.launches = 0
-        fwd, own = forced_forward(seq, decoded)
+        fwd, own, _ = forced_forward(seq, decoded)
         got = {n: fn.launches for n, fn in counters.items()}
         want = fp32_launches(model, len(seq))
         check(got == want, f"request {r.request_id}: the fp32 forward "
@@ -2525,12 +2758,44 @@ def phase_serve_forward(arch: str, param_dtype=torch.float32) -> dict:
         would_drop += sum(f["dropped"] for f in own)
         route_flips_explained(decoded, own, r.request_id)
         gap(dec, fwd, worst)
-        gap(dec, forced_forward(seq, decoded, read_cached=True)[0], cached)
-        # the decode's function without the caches' rounding
-        dec32, decoded32 = teacher_forced(seq, torch.float32)
-        fwd32, own32 = forced_forward(seq, decoded32)
-        route_flips_explained(decoded32, own32, r.request_id)
-        gap(dec32, fwd32, worst32)
+        if xlstm:
+            fwd_r = forced_forward(seq, decoded, reference_start=True)[0]
+            gap(dec, fwd_r, ref_start)
+            ratio = ((dec - fwd_r).abs() / (atol + rtol * fwd_r.abs()))
+            ref_start_worst_pos.append(int(ratio.amax(-1).argmax()))
+            del fwd_r
+        if has_bf16:
+            fwd_c, _, hits = forced_forward(seq, decoded,
+                                            as_cached(cfg, params))
+            check(hits == want_hits, f"the forward read {hits} as the "
+                                     f"caches hold them, expected "
+                                     f"{want_hits}")
+            gap(dec, fwd_c, cached)
+        if gate_own_cache:
+            # the forward that reads the decode's own caches: both paths
+            # read the same bf16 numbers, fp32 ordering is all that is left
+            fwd_o, _, rd = forced_forward(
+                seq, decoded, reads_the_cache(model, params, dec_cache))
+            check(rd["hits"] == want_reads, f"request {r.request_id}: the "
+                  f"forward read the decode's caches at {rd['hits']}, "
+                  f"expected {want_reads}")
+            gap(dec, fwd_o, own_cache)
+            entries = cache_against_forward(dec_cache, rd, len(seq))
+            cache_check["worst_ratio"] = max(cache_check["worst_ratio"],
+                                             entries["worst_ratio"])
+            cache_check["entries"] += entries["entries"]
+            cache_check["unwritten_nonzero"] += entries["unwritten_nonzero"]
+            del rd
+        del dec_cache
+        # the decode's function without the caches' rounding (with no
+        # bf16 leaf, the served decode itself)
+        if has_bf16:
+            dec32, decoded32, _ = teacher_forced(seq, torch.float32)
+            fwd32, own32, _ = forced_forward(seq, decoded32)
+            route_flips_explained(decoded32, own32, r.request_id)
+            gap(dec32, fwd32, worst32)
+        else:
+            gap(dec, fwd, worst32)
         top2 = fwd.topk(2, dim=-1).values
         margin = top2[:, 0] - top2[:, 1]
         tol_top = atol + rtol * top2[:, 0].abs()
@@ -2557,11 +2822,23 @@ def phase_serve_forward(arch: str, param_dtype=torch.float32) -> dict:
     check(worst32["tol_ratio"] <= 1.0,
           f"decode logits (fp32 cache) differ from the forward's by "
           f"{worst32['max_abs_diff']} (ratio {worst32['tol_ratio']})")
+    if gate_own_cache:
+        check(own_cache["tol_ratio"] <= 1.0,
+              f"{arch}'s served decode (bf16 caches) differs from the "
+              f"forward that reads its caches by "
+              f"{own_cache['max_abs_diff']} (ratio "
+              f"{own_cache['tol_ratio']})")
+        check(cache_check["worst_ratio"] <= 1.0
+              and cache_check["unwritten_nonzero"] == 0,
+              f"{arch}'s decode caches: an entry beyond one bf16 rounding "
+              f"of the forward's own value, or a written slot past the "
+              f"sequence: {cache_check}")
     # the fp32 forward's attention runs the CUDA-core kernel only (an MLA
     # arch's none)
     check(fwd_launches["flash_attention_cuda_core"]
           == fwd_launches["flash_attention"]
-          and (fwd_launches["flash_attention"] > 0) == (cfg.mla is None)
+          and (fwd_launches["flash_attention"] > 0)
+          == (cfg.mla is None and n_attn > 0)
           and fwd_launches["flash_attention_tensor_core"] == 0,
           f"the fp32 forward launched {fwd_launches}: expected flash on "
           f"the CUDA cores only")
@@ -2576,9 +2853,12 @@ def phase_serve_forward(arch: str, param_dtype=torch.float32) -> dict:
     device["idle_share"] = 1.0 - device["busy_us"] / device["wall_us"]
     generated = sum(len(r.generated) for r in results)
     check_isolated()
-    attn = next(i for i, kind in enumerate(model.kinds) if kind != "rglru")
+    specs = model.cache_specs(1, 1)
+    attn = [i for i, kind in enumerate(model.kinds) if kind in attn_kinds]
     cache_bytes = sum(math.prod(sp.shape[2:]) * 2
-                      for sp in model.cache_specs(1, 1)[attn].values())
+                      for sp in specs[attn[0]].values()) if attn else 0
+    state_bytes = sum(math.prod(sp.shape) * 4 for i, c in enumerate(specs)
+                      if i not in attn for sp in c.values())
     rec = dict(arch=arch, layers=cfg.num_layers, compute_dtype="float32",
                param_dtype=str(param_dtype).split(".")[-1],
                level="smoke: toy context, no serve rate",
@@ -2592,15 +2872,33 @@ def phase_serve_forward(arch: str, param_dtype=torch.float32) -> dict:
                tol_ratio=worst["tol_ratio"],
                fp32_cache_max_abs_diff_vs_forward=worst32["max_abs_diff"],
                fp32_cache_tol_ratio=worst32["tol_ratio"],
-               max_abs_diff_vs_as_cached_forward=cached["max_abs_diff"],
-               tol_ratio_vs_as_cached_forward=cached["tol_ratio"],
-               as_cached_reads=want_hits,
+               **({"max_abs_diff_vs_as_cached_forward":
+                   cached["max_abs_diff"],
+                   "tol_ratio_vs_as_cached_forward": cached["tol_ratio"],
+                   "as_cached_reads": want_hits} if has_bf16 else {}),
                argmax_agreement_vs_forward=same / steps,
                flips_excused=excused, forward_top1_margin_min=margin_min,
                served_tokens_reproduced_by_decode=reproduced / served,
                served_tokens_equal_forward_greedy=greedy / served,
                forward_launches=fwd_launches, device_one_step=device,
-               cache_bytes_per_attention_layer_and_token=cache_bytes)
+               cache_bytes_per_attention_layer_and_token=cache_bytes,
+               fp32_state_bytes_per_sequence=state_bytes,
+               bf16_cache=has_bf16)
+    if xlstm:
+        rec.update(
+            forward_stabiliser_start="0, the decode's",
+            max_abs_diff_vs_reference_start_forward=ref_start["max_abs_diff"],
+            tol_ratio_vs_reference_start_forward=ref_start["tol_ratio"],
+            reference_start_worst_position=ref_start_worst_pos)
+    if gate_own_cache:
+        rec.update(
+            gated_vs_cache_reading_forward=True,
+            max_abs_diff_vs_cache_reading_forward=own_cache["max_abs_diff"],
+            tol_ratio_vs_cache_reading_forward=own_cache["tol_ratio"],
+            cache_entries=cache_check["entries"],
+            cache_entry_worst_ratio=cache_check["worst_ratio"],
+            cache_entry_tolerance=[CACHE_RTOL, CACHE_ATOL],
+            cache_unwritten_nonzero=cache_check["unwritten_nonzero"])
     if cfg.moe is not None:
         rec.update(route_flips=route_flips, routed_token_layers=routed,
                    route_agreement=1 - route_flips / routed,
@@ -2614,6 +2912,231 @@ def phase_serve_forward(arch: str, param_dtype=torch.float32) -> dict:
     emit(f"serve {arch}", **rec)
     del params
     return rec
+
+
+def phase_xlstm_blocks(gen) -> dict:
+    """One full-width mLSTM block and one sLSTM block of xlstm-1.3b in
+    fp32 on the card, at B x S = `BLOCK_SHAPE` (two chunks of 256 and a
+    padded third): the chunkwise (mLSTM) and scan (sLSTM) forms against
+    the step-by-step decode form, evaluated in float64 on the same
+    weights and inputs from the chunkwise form's stabiliser (m = -1e30),
+    every element within `BLOCK_TOL`.  Prints the worst tol ratio and
+    each form's wall time."""
+    from repro_torch import configs
+    from repro_torch.models import layers as L
+
+    cfg = configs.get_arch(XLSTM_ARCH)
+    d, H = cfg.d_model, cfg.num_heads
+    rt = L.Runtime(compute_dtype=torch.float32)
+    rt64 = L.Runtime(compute_dtype=torch.float64)
+    B, S = BLOCK_SHAPE
+    rtol, atol = BLOCK_TOL
+    out = {}
+    for kind, specs, train, decode in (
+            ("mlstm", L.mlstm_specs(d, H), L.mlstm_block_train,
+             L.mlstm_block_decode),
+            ("slstm", L.slstm_specs(d, H), L.slstm_block_train,
+             L.slstm_block_decode)):
+        p = L.init_params(specs, gen, torch.float32)
+        x = torch.randn((B, S, d), generator=gen, device="cuda")
+        kw = dict(n_heads=H, eps=cfg.norm_eps)
+        with torch.inference_mode(), L.full_precision_products():
+            train(p, x, rt=rt, **kw)                        # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = train(p, x, rt=rt, **kw)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            p64 = {k: v.double() for k, v in p.items()}
+            x64 = x.double()
+            hd = (2 * d if kind == "mlstm" else d) // H
+            state = ({"C": torch.zeros((B, H, hd, hd)),
+                      "n": torch.zeros((B, H, hd)),
+                      "m": torch.full((B, H), -1e30)} if kind == "mlstm"
+                     else {"h": torch.zeros((B, d)), "c": torch.zeros((B, d)),
+                           "n": torch.zeros((B, d)),
+                           "m": torch.full((B, d), -1e30)})
+            state = {k: v.to("cuda", torch.float64) for k, v in state.items()}
+            rows = []
+            t0 = time.perf_counter()
+            for t in range(S):
+                yt, state = decode(p64, x64[:, t:t + 1], state, rt=rt64,
+                                   **kw)
+                rows.append(yt[:, 0])
+            want = torch.stack(rows, 1)
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+        check(y.dtype == torch.float32 and want.dtype == torch.float64
+              and tuple(y.shape) == (B, S, d), f"{kind} block: "
+              f"{y.dtype} {tuple(y.shape)} against {want.dtype}")
+        check(bool(torch.isfinite(y).all()), f"{kind} block not finite")
+        diff = (y.double() - want).abs()
+        ratio = float((diff / (atol + rtol * want.abs())).max())
+        out[kind] = {"shape": [B, S, d], "max_abs_diff": float(diff.max()),
+                     "tol_ratio": ratio, "train_form_s": train_s,
+                     "float64_step_form_s": step_s}
+        check(ratio <= 1.0, f"the {kind} block's {('chunkwise' if kind == 'mlstm' else 'scan')} "
+                            f"form differs from its float64 step form by "
+                            f"{float(diff.max())} (ratio {ratio})")
+        del p, p64, x, x64, y, want, rows, state
+    check_isolated()
+    emit("xlstm blocks", arch=XLSTM_ARCH, tolerance=list(BLOCK_TOL),
+         worst_tol_ratio=max(r["tol_ratio"] for r in out.values()),
+         blocks=out)
+    return out
+
+
+def widened(tree):
+    """A parameter dict's tensors as fp32 copies."""
+    if isinstance(tree, dict):
+        return {k: widened(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [widened(v) for v in tree]
+    return tree.float()
+
+
+def phase_prefill_xlstm() -> dict:
+    """xlstm-1.3b's batched prefill at full width (48 layers: 42 mLSTM, 6
+    sLSTM; bf16 weights from seed 0): no kernel runs (the reference's
+    mLSTM and sLSTM are jnp, outside Pallas), every counter at 0.  Seq
+    2048 x batch 4 (warm-up and 2 timed, one profiled forward: device
+    time by kind, idle share, kernels launched), then prefill_32k's
+    sequence with its batch cut to 1 (or 8192 if 16 times the 2048 x 4
+    forward's time exceeds `XLSTM_LONG_BUDGET_S`; the cut is listed).
+    There is no plain path to compare with: the fp32 forward's last
+    logits at `XLSTM_GATE_SEQ` tokens are gated against the fp32 decode
+    loop over the same tokens within `SERVE_RG_TOL`, and the bf16
+    forward's gap to that loop is printed."""
+    import gc
+
+    from repro_torch import configs
+    from repro_torch.launch.steps import (build_model, make_prefill_step,
+                                          make_runtime, make_serve_step)
+    from repro_torch.models.layers import Runtime
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = configs.get_arch(XLSTM_ARCH)
+    shape = configs.shape_by_name("prefill_32k")
+    model = build_model(cfg)
+    rt = make_runtime(cfg, shape, use_kernels=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = model.init(gen, rt)
+    step = make_prefill_step(model, rt)
+    counters = kernel_counters()
+    runs, reduced = {}, {"prefill_32k": "global_batch 32 -> 1"}
+
+    def forward(inputs):
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = step(params, inputs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {n: fn.launches for n, fn in counters.items()}
+        check(not any(got.values()), f"the {XLSTM_ARCH} prefill launched "
+                                     f"{got}: its path runs no kernel")
+        return logits, wall
+
+    long_seq = shape.seq_len
+    for seq, batch in ((2048, 4), (shape.seq_len, 1)):
+        if batch == 1:
+            short = runs["seq2048_batch4"]["wall_s"]
+            if 16 * short > XLSTM_LONG_BUDGET_S:
+                long_seq = seq = 8192
+                reduced["prefill_32k"] = (
+                    f"global_batch 32 -> 1, seq 32768 -> 8192: 16 x the "
+                    f"2048 x 4 forward ({short:.3f} s) exceeds "
+                    f"{XLSTM_LONG_BUDGET_S} s")
+        tokens = torch.randint(0, cfg.vocab_size, (batch, seq),
+                               generator=gen, device="cuda")
+        inputs = {"tokens": tokens}
+        reps = 3 if batch > 1 else 1          # the long one: one forward
+        walls = []
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(reps):
+            logits, wall = forward(inputs)
+            walls.append(wall)
+        peak = torch.cuda.max_memory_allocated()
+        got = logits[:, :cfg.vocab_size].float()
+        check(tuple(logits.shape) == (batch, model.v_pad),
+              f"prefill logits {tuple(logits.shape)}")
+        check(bool(torch.isfinite(got).all()), "prefill logits not finite")
+        wall = float(np.median(walls[1:] if reps > 1 else walls))
+        run = {"seq": seq, "batch": batch, "wall_s": wall, "walls_s": walls,
+               "tokens_per_s": seq * batch / wall,
+               "max_memory_allocated": peak,
+               "launches_per_forward": {n: 0 for n in counters}}
+        if batch > 1:
+            t0 = time.perf_counter()
+            device = device_kinds(lambda: step(params, inputs),
+                                  {"matmul_us": ("gemm", "nvjet", "xmma")})
+            device["idle_share"] = 1.0 - device["busy_us"] / device["wall_us"]
+            device["profile_s"] = time.perf_counter() - t0
+            run["device_one_forward"] = device
+        runs[f"seq{seq}_batch{batch}"] = run
+        del logits, inputs, tokens
+
+    # the fp32 gate: the forward's last logits against the decode loop
+    tokens = torch.randint(0, cfg.vocab_size, (1, XLSTM_GATE_SEQ),
+                           generator=gen, device="cuda")
+    bf16_last = step(params, {"tokens": tokens})[:, :cfg.vocab_size].float()
+    rt32 = Runtime(compute_dtype=torch.float32, use_kernels=True)
+    # the bf16 weights widened: the fp32 forward on the same weights
+    # parts the compute's rounding from the weights'
+    params = widened(params)
+    same_weights = make_prefill_step(model, rt32)(params, {
+        "tokens": tokens})[:, :cfg.vocab_size].float()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), rt32)
+    fwd = make_prefill_step(model, rt32)(params, {"tokens": tokens})
+    fwd = fwd[:, :cfg.vocab_size].float()
+    serve = make_serve_step(model, rt32)
+    cache = model.init_cache(1, XLSTM_GATE_SEQ, rt32, "cuda")
+    t0 = time.perf_counter()
+    for pos in range(XLSTM_GATE_SEQ):
+        dec, cache = serve(params, cache, tokens[:, pos:pos + 1],
+                           position(pos))
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    dec = dec[:, 0, :cfg.vocab_size].float()
+    atol, rtol = SERVE_RG_TOL
+    check(bool(torch.isfinite(fwd).all() and torch.isfinite(dec).all()),
+          "the fp32 forward or decode logits are not finite")
+    diff = (fwd - dec).abs()
+    ratio = float((diff / (atol + rtol * dec.abs())).max())
+    bf16_diff = (bf16_last - dec).abs()
+    compute_diff = (bf16_last - same_weights).abs()
+    weights_diff = (same_weights - fwd).abs()
+    gate = {"seq": XLSTM_GATE_SEQ, "tolerance": SERVE_RG_TOL,
+            "max_abs_diff": float(diff.max()), "tol_ratio": ratio,
+            "decode_loop_s": decode_s,
+            "same_next_token": bool(fwd.argmax(-1) == dec.argmax(-1)),
+            "bf16_forward_max_abs_diff": float(bf16_diff.max()),
+            "bf16_forward_tol_ratio": float(
+                (bf16_diff / (atol + rtol * dec.abs())).max()),
+            "bf16_forward_same_next_token":
+                bool(bf16_last.argmax(-1) == dec.argmax(-1)),
+            "bf16_forward_vs_fp32_forward_on_its_weights":
+                float(compute_diff.max()),
+            "fp32_forward_on_bf16_weights_vs_on_fp32_weights":
+                float(weights_diff.max()),
+            "fp32_logits_max_abs": float(fwd.abs().max())}
+    check(ratio <= 1.0, f"{XLSTM_ARCH}'s fp32 forward differs from its "
+                        f"decode loop by {float(diff.max())} (ratio {ratio})")
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_isolated()
+    emit(f"prefill {XLSTM_ARCH}", arch=XLSTM_ARCH, layers=cfg.num_layers,
+         kinds={k: model.kinds.count(k) for k in sorted(set(model.kinds))},
+         parameters=cfg.param_count(), param_dtype="bfloat16",
+         compute_dtype="bfloat16", reduced=reduced, long_seq=long_seq,
+         launches={n: 0 for n in counters}, runs=runs, fp32_gate=gate)
+    return {n: 0 for n in counters}
 
 
 def matmul_bound(m, k, n, itemsize) -> dict:
@@ -2864,8 +3387,9 @@ def phase_tile_dse(gen) -> dict:
 
 
 def phase_dryrun() -> dict:
-    """Dry-runs of the four served archs at their serving cells on fake
-    CUDA tensors (every record OK, with a finite peak and roofline), one
+    """Dry-runs of the five served archs at their serving cells on fake
+    CUDA tensors (xlstm-1.3b's `long_500k` too; every record OK, with a
+    finite peak and roofline), one
     greedy autotune over qwen2-0.5b's decode_32k (every record it wrote
     must be OK, its best score above 0), and the fake count of
     qwen2-0.5b's plain prefill at 2048 x 4 against the same step run on
@@ -2885,35 +3409,34 @@ def phase_dryrun() -> dict:
                        "memory_s_hlo", "roofline_s", "bottleneck",
                        "useful_compute_ratio")
     with tempfile.TemporaryDirectory() as tmp:
-        for arch in (ARCH, RG_ARCH, MOE_ARCH, MLA_ARCH):
-            for shape in ("prefill_32k", "decode_32k"):
-                rec = run_cell(arch, shape, Path(tmp), device="cuda")
-                check(rec["status"] == "OK",
-                      f"dry-run {arch} {shape}: {rec.get('error')}")
-                roof = rec["roofline"]
-                check(roof["flops_per_chip"] > 0 and roof["roofline_s"] > 0
-                      and all(math.isfinite(roof[k]) for k in
-                              ("peak_memory_per_chip", "roofline_s")),
-                      f"dry-run {arch} {shape} counted nothing, or a "
-                      f"peak or roofline that is not finite")
-                # the three counts of the same step (the record keeps the
-                # reference's keys, so they are counted again here)
-                counts, _ = trace_step(configs.get_arch(arch),
-                                       configs.shape_by_name(shape),
-                                       device="cuda")
-                check(counts.flops == roof["flops_per_chip"] ==
-                      counts.matmul_flops + counts.elementwise_flops,
-                      f"dry-run {arch} {shape}: {counts.flops} FLOPs "
-                      f"counted, {roof['flops_per_chip']} in the record")
-                cells[f"{arch} {shape}"] = {
-                    **{k: roof[k] for k in keys},
-                    "matmul_flops": counts.matmul_flops,
-                    "elementwise_flops": counts.elementwise_flops,
-                    "transcendentals": counts.transcendentals,
-                    "elementwise_share": counts.elementwise_flops
-                    / counts.flops,
-                    "fits_hbm": rec["fits_hbm"], "trace_s": rec["compile_s"],
-                    "flops_by_op": rec["flops_by_op"]}
+        for arch, shape in [(a, s) for a in (ARCH, RG_ARCH, MOE_ARCH,
+                                             MLA_ARCH)
+                            for s in ("prefill_32k", "decode_32k")] + [
+                (XLSTM_ARCH, s) for s in ("prefill_32k", "decode_32k",
+                                          "long_500k")]:
+            rec = run_cell(arch, shape, Path(tmp), device="cuda")
+            check(rec["status"] == "OK",
+                  f"dry-run {arch} {shape}: {rec.get('error')}")
+            roof = rec["roofline"]
+            check(roof["flops_per_chip"] > 0 and roof["roofline_s"] > 0
+                  and all(math.isfinite(roof[k]) for k in
+                          ("peak_memory_per_chip", "roofline_s")),
+                  f"dry-run {arch} {shape} counted nothing, or a "
+                  f"peak or roofline that is not finite")
+            # the record's three counts of the step
+            check(roof["flops_per_chip"] ==
+                  rec["matmul_flops"] + rec["elementwise_flops"],
+                  f"dry-run {arch} {shape}: {rec['matmul_flops']} + "
+                  f"{rec['elementwise_flops']} FLOPs counted, "
+                  f"{roof['flops_per_chip']} in the roofline")
+            cells[f"{arch} {shape}"] = {
+                **{k: roof[k] for k in keys},
+                **{k: rec[k] for k in ("matmul_flops", "elementwise_flops",
+                                       "transcendentals")},
+                "elementwise_share": rec["elementwise_flops"]
+                / roof["flops_per_chip"],
+                "fits_hbm": rec["fits_hbm"], "trace_s": rec["compile_s"],
+                "flops_by_op": rec["flops_by_op"]}
         # the greedy search over a cell whose points fit the card's 80 GB
         log = []
         ev = CellEvaluator(ARCH, "decode_32k", cache_dir=tmp, device="cuda")
@@ -3132,6 +3655,14 @@ def main() -> int:
     paths[MLA_ARCH] = phase_prefill(MLA_ARCH)
     fp32_fwd[MLA_ARCH] = phase_serve_forward(
         MLA_ARCH, torch.bfloat16)["forward_launches"]
+    phase_xlstm_blocks(torch.Generator(device="cuda").manual_seed(4))
+    paths[XLSTM_ARCH] = phase_prefill_xlstm()
+    served = phase_serve_forward(XLSTM_ARCH)
+    # its caches are all fp32 state: the served decode is gated directly
+    check(served["tol_ratio"] <= 1.0,
+          f"{XLSTM_ARCH}'s served decode differs from its forward by "
+          f"{served['max_abs_diff_vs_forward']}")
+    fp32_fwd[XLSTM_ARCH] = served["forward_launches"]
     check_isolated()
     for name in ("flash_attention", "flash_attention_tensor_core",
                  "rglru_gated_scan"):
@@ -3177,7 +3708,7 @@ def main() -> int:
             "study parallel, parent": parallel["parent"],
             "study parallel, pool workers (their own counts)":
                 parallel["workers"],
-            "study zoo, sixteen traced apps": zoo["study"],
+            "study zoo, eighteen traced apps": zoo["study"],
             "study zoo, genetic on qwen2-0.5b:prefill": zoo["genetic"],
             "study zoo, anneal on qwen2-0.5b:prefill": zoo["anneal"],
             "study pareto, genetic and nsga2 on ptb + wdl":

@@ -53,7 +53,11 @@ does:
     and the value;
   * in a Python loop that plays a scan over stacked xs (`scan_slices`),
     each step's slice of an activation is a data vertex, whatever its
-    size, as the reference's scan makes one;
+    size, as the reference's scan makes one; the steps' outputs stacked
+    (`scan_stack`) are one data vertex over them, even of one step;
+  * an integer index from the end (`index_from_end`) is jnp's: the index
+    normalised on literals (``lt``, ``add``, ``select_n``: three
+    one-element vertices) and a ``dynamic_slice`` over the tensor and it;
   * calls with no tensor result (``prim.device`` and the like) are skipped.
 
 The traced tensors are kept alive for the whole trace: bindings are keyed
@@ -74,8 +78,8 @@ from torch.utils import _pytree as pytree
 from repro_torch.core.graph import ComputationGraph
 from repro_torch.frontend.lower import OperandInfo, lower_call
 
-__all__ = ["trace_to_graph", "scan_repeats", "scan_slices", "GraphTracer",
-           "DEFAULT_BIT_WIDTH"]
+__all__ = ["trace_to_graph", "scan_repeats", "scan_slices", "scan_stack",
+           "index_from_end", "GraphTracer", "DEFAULT_BIT_WIDTH"]
 
 # The DSE datapath is quantized (§5: 8-bit dynamic-precision); traced
 # tensors are costed at this width regardless of their torch dtype.
@@ -379,6 +383,37 @@ class GraphTracer(TorchDispatchMode):
             self.bind(piece, _Binding(node, False, piece.numel()))
         return piece
 
+    def stacked(self, ys: Sequence[torch.Tensor], dim: int) -> torch.Tensor:
+        """`torch.stack(ys, dim)` as a scan stacks its steps' outputs: one
+        data vertex over the steps' vertices, whatever their number."""
+        self._paused = True
+        try:
+            out = torch.stack(list(ys), dim)
+        finally:
+            self._paused = False
+        parents = self._act_parents([self.read(y) for y in ys])
+        node = self._data_node("stack", out.numel(), parents)
+        self.bind(out, _Binding(node, False, out.numel()))
+        return out
+
+    def from_end(self, x: torch.Tensor, dim: int, i: int) -> torch.Tensor:
+        """`x.select(dim, i)`, i < 0, as jnp traces ``x[..., i]``: the
+        index normalised on literals (`i < 0`, `i + n`, the select: one-
+        element vertices, the third over the first two), then a
+        ``dynamic_slice`` over x and the index (its squeeze aliased)."""
+        self._paused = True
+        try:
+            piece = x.select(dim, i)
+        finally:
+            self._paused = False
+        lt = self._data_node("lt", 1, [])
+        add = self._data_node("add", 1, [])
+        sel = self._data_node("selectn", 1, [lt, add])
+        node = self._data_node("dynamicslice", piece.numel(),
+                               self._act_parents([self.read(x)]) + [sel])
+        self.bind(piece, _Binding(node, False, piece.numel()))
+        return piece
+
     def _drop(self, node: str) -> None:
         del self.graph.nodes[node]
         self.graph._order.remove(node)
@@ -473,6 +508,28 @@ def scan_slices(*xs: torch.Tensor) -> Iterator[Tuple[torch.Tensor, ...]]:
             yield tuple(x[i] for x in xs)
         else:
             yield tuple(tracer.xslice(x, i) for x in xs)
+
+
+def scan_stack(ys: Sequence[torch.Tensor], dim: int = 0) -> torch.Tensor:
+    """`torch.stack(ys, dim)` for the outputs of a Python loop that plays a
+    scan (the reference's scan stacks its ys).  Under `trace_to_graph` the
+    stack is one data vertex over the steps' vertices
+    (`GraphTracer.stacked`), as the reference's scan makes one even for a
+    single step; elsewhere it is `torch.stack`."""
+    if _ACTIVE:
+        return _ACTIVE[-1].stacked(ys, dim)
+    return torch.stack(list(ys), dim)
+
+
+def index_from_end(x: torch.Tensor, dim: int, i: int) -> torch.Tensor:
+    """`x.select(dim, i)` for an index from the end (`i < 0`), which jnp
+    traces as a `dynamic_slice` at an index normalised on literals.  Under
+    `trace_to_graph` it makes those vertices (`GraphTracer.from_end`);
+    elsewhere it is `x.select(dim, i)`."""
+    assert i < 0, i
+    if _ACTIVE:
+        return _ACTIVE[-1].from_end(x, dim, i)
+    return x.select(dim, i)
 
 
 def trace_to_graph(fn, *args, name: str = "traced",

@@ -32,8 +32,8 @@ graph is the reference's while the serving code stays as it is:
     log-step doubling (`kernels.rg_lru.rglru_scan_plain`, the kernels'
     yardstick), whose values are the same and whose ops are not.
 
-The archs whose models the port does not have yet (xLSTM, the
-encoder-decoder) raise `NotImplementedError`.  Graphs are memoized per
+The arch whose model the port does not have yet (the encoder-decoder,
+whisper-medium) raises `NotImplementedError`.  Graphs are memoized per
 process; listing `ZOO_APP_NAMES` costs nothing.
 """
 
@@ -69,7 +69,8 @@ ZOO_APP_NAMES: Tuple[str, ...] = tuple(
 # the archs whose models the port has (ROADMAP.md A5 brings the rest)
 PORTED_ARCHS: Tuple[str, ...] = (
     "internvl2-1b", "recurrentgemma-9b", "qwen2-0.5b", "qwen2.5-32b",
-    "qwen2.5-3b", "mistral-nemo-12b", "olmoe-1b-7b", "deepseek-v2-lite-16b")
+    "qwen2.5-3b", "mistral-nemo-12b", "olmoe-1b-7b", "deepseek-v2-lite-16b",
+    "xlstm-1.3b")
 
 
 def _meta(spec, dtype: torch.dtype) -> torch.Tensor:

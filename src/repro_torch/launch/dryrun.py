@@ -13,9 +13,12 @@ Nothing is allocated and no kernel runs, so a full-batch 32k prefill is
 counted in seconds.  The reference (`repro.launch.dryrun`) compiles each
 cell with XLA for a 256- or 512-chip mesh; the port runs on one chip (mesh
 "1gpu"), so sharding mode, remat and layout rules change nothing here and
-are only recorded.  Train shapes and the archs whose blocks the port does
-not have yet (xLSTM, encoder-decoder) raise `NotImplementedError`; other
-failures are recorded as FAILED.  Records are
+are only recorded.  Train shapes and the arch whose model the port does
+not have yet (the encoder-decoder) raise `NotImplementedError`; other
+failures are recorded as FAILED.  A sub-quadratic arch's `long_500k`
+(xlstm-1.3b: one token against a 524,288-token context) is counted as
+any decode cell; an xLSTM prefill's scans over time and chunks count one
+step for all (`steps.count_step`).  Records are
 written to `<out>/<cell>.json`.
 
 Usage:
@@ -127,6 +130,9 @@ def run_cell(arch_name: str, shape_name: str, out_dir: Path, *,
                         "moe_group_size": rt.moe_group_size,
                         "use_kernels": rt.use_kernels},
             "flops_by_op": counts.flops_by_op,
+            "matmul_flops": counts.matmul_flops,
+            "elementwise_flops": counts.elementwise_flops,
+            "transcendentals": counts.transcendentals,
         }
         print(f"[dryrun] {cell_id}: OK peak={counts.peak_bytes/1e9:.2f}GB "
               f"trace={t_trace:.1f}s  {rep.row()}")

@@ -18,12 +18,14 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils import _pytree as pytree
 from torch.utils._pytree import tree_leaves
 
 from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.layers import (Runtime, full_precision_products,
-                                       map_specs, not_ported)
+from repro_torch.models.layers import (STEP_COUNTERS, Runtime,
+                                       full_precision_products, map_specs,
+                                       not_ported)
 from repro_torch.models.lm import DecoderLM
 
 __all__ = ["build_model", "make_runtime", "input_specs",
@@ -134,6 +136,20 @@ _ELEMENTWISE = {
                             # select
     "addcmul": (2, 0),      # input + t1 * t2
 }
+def _cumsum_flops(n: int) -> int:
+    """Adds XLA:CPU counts for an inclusive cumulative sum of length `n`
+    (probed with jax 0.9.0 at n from 8 to 32768, fp32 and int32): a
+    window-n reduce-window up to 16; beyond, n padded to 16 k, a scan
+    within each block of 16 (15 adds an element), the block totals added
+    back (1 an element) and an exclusive scan of the k totals (k^2 - 1 up
+    to 16 blocks, else the same rule at length k)."""
+    if n <= 16:
+        return n * (n - 1)
+    k = -(-n // 16)
+    outer = k * k - 1 if k <= 16 else _cumsum_flops(k)
+    return 16 * k * 16 + outer
+
+
 # ops that move data and compute nothing (XLA's copy, concatenate,
 # broadcast, iota and gather count 0), unless they convert the dtype (XLA:
 # convert, 1 an element)
@@ -144,13 +160,19 @@ def _elementwise_cost(func, args, outs) -> Tuple[int, int]:
     """(FLOPs, transcendentals) of one aten op in XLA's convention: a
     pointwise op per output element (`_ELEMENTWISE`), a reduction n - 1
     per output (a mean one more, its division), softmax as its max, sub,
-    exp, sum and div; a matmul-family op counts 0 here (FlopCounterMode
-    counts it)."""
+    exp, sum and div, a cumulative sum by `_cumsum_flops`, a triangular
+    mask one an element; a matmul-family op counts 0 here
+    (FlopCounterMode counts it)."""
     name = func.overloadpacket.__name__.rstrip("_")
     out = outs[0].numel()
     if name in _COPIES:
         src = args[1] if name == "copy" else args[0]
         return (out if src.dtype != outs[0].dtype else 0), 0
+    if name == "cumsum":
+        n = args[0].shape[args[1]] if args[0].dim() else 1
+        return out // max(n, 1) * _cumsum_flops(n), 0
+    if name == "tril":                # jnp.tril of a constant: a compare
+        return out, 0
     if name == "_softmax":            # max, sub, exp, sum, div along a dim
         rows = out // max(1, args[0].shape[args[1]])
         return 4 * out - 2 * rows, out
@@ -190,6 +212,40 @@ class _Counter(TorchDispatchMode):
     def _free(self, key: int) -> None:
         self.live -= self.sizes.pop(key)
 
+    def repeat_scan(self, step, carry, xs, n: int):
+        """`layers.scan` of `n` steps, run once: the first step is counted
+        and its counts (ops, bytes, elementwise FLOPs, transcendentals and
+        `flop_counter`'s matmul FLOPs by op) are added `n - 1` times more.
+        The step then runs again, uncounted, as the loop's last step runs:
+        from a carry of its own, beside the first carry and one stand-in
+        allocation of the other steps' outputs (the loop's list holds
+        them until the stack), so the peak is the loop's."""
+        flops = self.flop_counter.flop_counts["Global"]
+        fields = ("ops", "bytes_accessed", "elementwise_flops",
+                  "transcendentals")
+        was, was_flops = [getattr(self, f) for f in fields], dict(flops)
+        x0 = tuple(x[0] for x in xs)
+        y = step(carry, x0)[1]
+        shape, dtype = (n - 1,) + tuple(y.shape), y.dtype
+        del y
+        counted = dict(flops)
+        self.counting = False
+        held = torch.empty(shape, dtype=dtype, device=xs[0].device)
+        # the last step's input carry, apart from the first's
+        last = pytree.tree_map_only(torch.Tensor, torch.empty_like, carry)
+        carry, y = step(last, x0)
+        del last
+        self.counting = True
+        flops.clear()
+        flops.update({op: c + (n - 1) * (c - was_flops.get(op, 0))
+                      for op, c in counted.items()})
+        for f, w in zip(fields, was):
+            setattr(self, f, getattr(self, f) + (n - 1) * (
+                getattr(self, f) - w))
+        ys = torch.stack([y] * n)
+        del held
+        return carry, ys
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
         outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
@@ -210,18 +266,26 @@ class _Counter(TorchDispatchMode):
 
 def count_step(step: Callable, *args) -> Tuple[Any, StepCounts]:
     """Run `step(*args)` once and count it (`StepCounts`); on real or fake
-    tensors alike.  Returns the step's output and the counts."""
+    tensors alike.  Returns the step's output and the counts.  A
+    `layers.scan` inside (the xLSTM blocks' loops) runs one step and
+    counts it for all (`_Counter.repeat_scan`): the counts are exact, the
+    output is not the model's where such a scan ran."""
     from torch.utils.flop_counter import FlopCounterMode
 
     counter = _Counter()
-    with counter:
-        for t in tree_leaves(args):
-            if isinstance(t, torch.Tensor):
-                counter.hold(t)
-        counter.counting = True
-        with FlopCounterMode(display=False) as flop_counter:
-            out = step(*args)
-        counter.counting = False
+    STEP_COUNTERS.append(counter)
+    try:
+        with counter:
+            for t in tree_leaves(args):
+                if isinstance(t, torch.Tensor):
+                    counter.hold(t)
+            counter.counting = True
+            with FlopCounterMode(display=False) as flop_counter:
+                counter.flop_counter = flop_counter
+                out = step(*args)
+            counter.counting = False
+    finally:
+        STEP_COUNTERS.remove(counter)
     by_op = {str(op): int(n) for op, n in
              flop_counter.get_flop_counts().get("Global", {}).items()}
     mm = int(flop_counter.get_total_flops())

@@ -1,10 +1,11 @@
 """Model-zoo layers of the port, cut to what dense GQA decoders, the
-Griffin hybrid (recurrentgemma) and the MoE decoders (olmoe, and
-deepseek-v2-lite with MLA) need: RMSNorm, RoPE, blocked (online-softmax)
-and local-block attention, GQA attention and multi-head latent attention
-(MLA) for a full sequence and for one decode step with a cache, the SwiGLU
-MLP, the token-choice MoE block and the RG-LRU recurrent block — plain
-functions on tensors over per-layer parameter dicts.
+Griffin hybrid (recurrentgemma), the MoE decoders (olmoe, and
+deepseek-v2-lite with MLA) and xLSTM need: RMSNorm, RoPE, blocked
+(online-softmax) and local-block attention, GQA attention and multi-head
+latent attention (MLA) for a full sequence and for one decode step with a
+cache, the SwiGLU MLP, the token-choice MoE block, the RG-LRU recurrent
+block and the mLSTM and sLSTM blocks — plain functions on tensors over
+per-layer parameter dicts.
 
 Conventions (those of `repro.models.layers`)
 -------------------------------------------
@@ -21,8 +22,7 @@ Conventions (those of `repro.models.layers`)
 * Layouts are the reference's: q `[B, S, H, hd]`, k/v `[B, S, KV, hd]`,
   `wq` `[d, H*hd]`.
 
-mLSTM/sLSTM and the GELU MLP are ported in a later slice (see
-ROADMAP.md).
+The GELU MLP is ported in a later slice (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.frontend.trace import scan_slices
+from repro_torch.frontend.trace import index_from_end, scan_slices, scan_stack
 
 Params = Any
 
@@ -50,7 +50,9 @@ __all__ = ["Runtime", "Spec", "init_params", "full_precision_products",
            "rglru_specs",
            "rglru_scan_inputs", "rglru_gated_inputs", "rglru_output",
            "rglru_block_train",
-           "rglru_block_decode"]
+           "rglru_block_decode", "mlstm_specs", "mlstm_block_train",
+           "mlstm_block_decode", "slstm_specs", "slstm_block_train",
+           "slstm_block_decode"]
 
 
 @contextlib.contextmanager
@@ -90,7 +92,8 @@ class Runtime:
     gating through `kernels.rg_lru.rglru_gated_scan` instead of tensor ops
     around the scan's plain version.  `moe_group_size` is the number of
     tokens the MoE block routes together (the execution DSE's
-    `moe_group_size`).  The
+    `moe_group_size`).  `mlstm_chunk` is the chunk length of the mLSTM's
+    chunkwise form.  The
     reference's mesh, sharding rules and remat policy have no counterpart
     on one GPU."""
 
@@ -99,6 +102,7 @@ class Runtime:
     use_kernels: bool = False
     attn_kv_block: int = 1024
     moe_group_size: int = 4096          # tokens routed together (GShard G)
+    mlstm_chunk: int = 256
     kv_dtype: str = "bf16"              # bf16 | f8 (f8: a later slice)
 
 
@@ -167,13 +171,29 @@ def cd_matmul(x: torch.Tensor, w: torch.Tensor, cd: torch.dtype, *,
     return torch.matmul(x.to(cd), w.to(cd)).to(out_dtype)
 
 
+def f32_matmul(x: torch.Tensor, w: torch.Tensor, cd: torch.dtype
+               ) -> torch.Tensor:
+    """`x @ w` with both operands rounded to the compute dtype and the
+    product in fp32 (exact products, fp32 sums): the reference's
+    `preferred_element_type=f32` where it keeps the result in fp32 (in
+    float64 at a float64 compute dtype)."""
+    acc = acc_dtype(cd)
+    return torch.matmul(x.to(cd).to(acc), w.to(cd).to(acc))
+
+
 # ================================================================= norms/rope
+
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype a layer's fp32 math runs in: fp32, or float64 for float64
+    inputs (a yardstick evaluated in float64)."""
+    return torch.promote_types(dtype, torch.float32)
+
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float
              ) -> torch.Tensor:
-    x32 = x.float()
+    x32 = x.to(acc_dtype(x.dtype))
     var = x32.square().mean(dim=-1, keepdim=True)
-    y = x32 * torch.rsqrt(var + eps) * scale.float()
+    y = x32 * torch.rsqrt(var + eps) * scale.to(x32.dtype)
     return y.to(x.dtype)
 
 
@@ -813,3 +833,293 @@ def rglru_block_decode(p: Params, x: torch.Tensor,
     h = a[:, 0] * state["h"] + (beta * (i * xc))[:, 0]
     y = rglru_output(p, h[:, None, :], gate, rt)
     return y, {"h": h, "conv": conv_hist[:, 1:]}
+
+
+# =================================================================== xLSTM
+
+# the stabiliser m the full-sequence forms start from, as the reference's
+# do; the decode cache's m starts at 0 (`lm.block_cache_specs`)
+STABILISER_START = -1e30
+
+# the counters of `launch.steps.count_step` running, innermost last: while
+# one is, `scan` runs one step and the counter counts it for all
+STEP_COUNTERS: list = []
+
+
+def scan(step, carry, xs: Tuple[torch.Tensor, ...]):
+    """`jax.lax.scan(step, carry, xs)`: `step(carry, x) -> (carry, y)` over
+    the leading dimension of the tensors `xs` (x a tuple of their
+    slices), returning the last carry and the ys stacked.  To the frontend
+    the loop is the reference's scan (`scan_slices`, `scan_stack`).
+    Under `launch.steps.count_step` every step does the same work on
+    tensors of the same shapes, so one step runs and its counts are
+    repeated for the others (`STEP_COUNTERS`); the output then holds that
+    step's values only, which on fake tensors are none."""
+    n = xs[0].shape[0]
+    if STEP_COUNTERS and n > 1:
+        return STEP_COUNTERS[-1].repeat_scan(step, carry, xs, n)
+    ys = []
+    for x in scan_slices(*xs):
+        carry, y = step(carry, x)
+        ys.append(y)
+    return carry, scan_stack(ys)
+
+
+def _log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.log_sigmoid`: -softplus(-x), softplus the reference's
+    logaddexp(x, 0) (not `F.logsigmoid`)."""
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    return -torch.logaddexp(-x, zero)
+
+
+def mlstm_specs(d: int, n_heads: int) -> Dict[str, Spec]:
+    u = 2 * d                                    # proj_factor = 2
+    hd = u // n_heads
+    return {
+        "w_up": Spec((d, u), ("embed", "ff")),
+        "w_gate": Spec((d, u), ("embed", "ff")),
+        "wq": Spec((n_heads, hd, hd), (None, None, None), "small"),
+        "wk": Spec((n_heads, hd, hd), (None, None, None), "small"),
+        "wv": Spec((n_heads, hd, hd), (None, None, None), "small"),
+        "w_if": Spec((u, 2 * n_heads), ("ff", None), "small"),
+        "b_if": Spec((2 * n_heads,), (None,), "zeros"),
+        "w_down": Spec((u, d), ("ff", "embed")),
+        "ln_inner": Spec((u,), ("ff",), "ones"),
+    }
+
+
+def _mlstm_chunkwise(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     log_i: torch.Tensor, log_f: torch.Tensor, chunk: int,
+                     state: Optional[Tuple] = None
+                     ) -> Tuple[torch.Tensor, Tuple]:
+    """Chunkwise-parallel mLSTM (matrix-memory linear attention with scalar
+    per-head exponential input and sigmoid forget gates), the reference's
+    function and its ops in order.
+
+    q, k, v [B, S, H, hd]; log_i, log_f [B, S, H].  S is padded to a
+    multiple of `chunk` (log_i with -1e9, the rest with 0).  Returns y
+    [B, S, H, hd] fp32 and the final (C [B, H, hd, hd], n [B, H, hd],
+    m [B, H]); with no `state` the stabiliser starts at -1e30
+    (`STABILISER_START`).  The loop
+    over chunks is the reference's scan (`scan`).  fp32 gate math
+    throughout."""
+    B, S, H, hd = q.shape
+    nc = -(-S // chunk)
+    pad = nc * chunk - S
+    if pad:
+        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+        log_i = F.pad(log_i, (0, 0, 0, pad), value=-1e9)
+        log_f = F.pad(log_f, (0, 0, 0, pad))
+    L = chunk
+
+    def resh(x):
+        return x.reshape(B, nc, L, *x.shape[2:]).transpose(0, 1)
+
+    qc, kc, vc = resh(q), resh(k), resh(v)
+    lic, lfc = resh(log_i), resh(log_f)
+    scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+    if state is None:
+        C0 = torch.zeros((B, H, hd, hd), device=dev)
+        n0 = torch.zeros((B, H, hd), device=dev)
+        m0 = torch.full((B, H), STABILISER_START, device=dev)
+    else:
+        C0, n0, m0 = state
+
+    def step(carry, blk):
+        C, n, m = carry
+        qb, kb, vb, li, lf = blk                   # [B, L, H, *]
+        csum = torch.cumsum(lf, dim=1)             # inclusive cum log f
+        total = index_from_end(csum, 1, -1)        # [B, H]
+        # decay from j to i (i >= j): csum_i - csum_j + li_j
+        dec = (csum[:, :, None, :] - csum[:, None, :, :]
+               + li[:, None, :, :])                # [B, Li, Lj, H]
+        causal = torch.tril(torch.ones((L, L), dtype=torch.bool, device=dev))
+        dec = torch.where(causal[None, :, :, None], dec, -math.inf)
+        m_intra = dec.amax(dim=2)                  # [B, Li, H]
+        m_inter = csum + m[:, None, :]
+        m_new_t = torch.maximum(m_intra, m_inter)  # running per-step max
+        d_intra = torch.exp(dec - m_new_t[:, :, None, :])
+        d_inter = torch.exp(m_inter - m_new_t)
+        q32, k32, v32 = qb.float(), kb.float(), vb.float()
+
+        s = torch.einsum("blhd,bmhd->blmh", q32 * scale, k32)
+        sd = s * d_intra
+        y_intra = torch.einsum("blmh,bmhd->blhd", sd, v32)
+        y_inter = torch.einsum("blhd,bhde->blhe",
+                               q32 * scale * d_inter[..., None], C)
+        # normalizer: n_l = sum_j D_lj k_j (q enters once, below)
+        n_intra = torch.einsum("blmh,bmhd->blhd", d_intra, k32)
+        n_inter = n[:, None] * d_inter[..., None]
+        num = y_intra + y_inter
+        den = torch.abs(torch.einsum("blhd,blhd->blh", q32 * scale,
+                                     n_intra + n_inter))
+        y = num / torch.maximum(den, torch.exp(-m_new_t))[..., None]
+
+        # carry update (each key's contribution decayed to the chunk end);
+        # the reference's three-operand einsum contracts w_key with k
+        # first, then with v over the chunk
+        m_end = torch.maximum(total + m,
+                              (total[:, None] - csum + li).amax(dim=1))
+        w_key = torch.exp(total[:, None] - csum + li - m_end[:, None])
+        C_new = C * torch.exp(total + m - m_end)[..., None, None] + \
+            torch.einsum("blhd,blhe->bhde",
+                         torch.einsum("blh,blhd->blhd", w_key, k32), v32)
+        n_new = n * torch.exp(total + m - m_end)[..., None] + \
+            torch.einsum("blh,blhd->bhd", w_key, k32)
+        return (C_new, n_new, m_end), y
+
+    (C, n, m), ys = scan(step, (C0, n0, m0), (qc, kc, vc, lic, lfc))
+    y = ys.transpose(0, 1).reshape(B, nc * L, H, hd)[:, :S]
+    return y, (C, n, m)
+
+
+def _head_proj(xh: torch.Tensor, w: torch.Tensor, cd: torch.dtype
+               ) -> torch.Tensor:
+    """The block-diagonal per-head projection `bshi,hij->bshj` in the
+    compute dtype."""
+    return torch.einsum("bshi,hij->bshj", xh, w.to(cd))
+
+
+def mlstm_block_train(p: Params, x: torch.Tensor, *, n_heads: int,
+                      eps: float, rt: Runtime) -> torch.Tensor:
+    """The mLSTM block over a full sequence: up-projection, per-head q, k,
+    v (rounded to the compute dtype), the exponential input and sigmoid
+    forget gates (fp32), the chunkwise form, the inner norm, the SiLU
+    gate (z in fp32 up to its cast) and the down-projection."""
+    cd = rt.compute_dtype
+    B, S, _ = x.shape
+    u = p["w_up"].shape[1]
+    hd = u // n_heads
+    xb = cd_matmul(x, p["w_up"], cd, out_dtype=cd)
+    z = f32_matmul(x, p["w_gate"], cd)
+    xh = xb.reshape(B, S, n_heads, hd)
+    q = _head_proj(xh, p["wq"], cd).to(cd)
+    k = _head_proj(xh, p["wk"], cd).to(cd)
+    v = _head_proj(xh, p["wv"], cd).to(cd)
+    gates = f32_matmul(xb, p["w_if"], cd) + p["b_if"].float()
+    log_i, f_pre = gates[..., :n_heads], gates[..., n_heads:]
+    log_f = _log_sigmoid(f_pre)
+    y, _ = _mlstm_chunkwise(q, k, v, log_i, log_f, rt.mlstm_chunk)
+    y = rms_norm(y.reshape(B, S, u).to(cd), p["ln_inner"], eps)
+    y = y * F.silu(z).to(cd)
+    return cd_matmul(y, p["w_down"], cd, out_dtype=cd)
+
+
+def mlstm_block_decode(p: Params, x: torch.Tensor,
+                       state: Dict[str, torch.Tensor], *, n_heads: int,
+                       eps: float, rt: Runtime
+                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One step of the recurrent form; state = {"C": [B, H, hd, hd],
+    "n": [B, H, hd], "m": [B, H]} fp32 (a fresh cache's m is 0, not the
+    chunkwise form's -1e30, as in the reference).  q, k, v are products in
+    the compute dtype, widened to fp32.  Returns the output and a new
+    state (the old one is not written).  At a float64 compute dtype (and
+    a float64 state) every step is float64."""
+    cd = rt.compute_dtype
+    B = x.shape[0]
+    u = p["w_up"].shape[1]
+    hd = u // n_heads
+    acc = acc_dtype(cd)
+    xb = cd_matmul(x, p["w_up"], cd, out_dtype=cd)
+    z = f32_matmul(x, p["w_gate"], cd)
+    xh = xb.reshape(B, n_heads, hd)
+    q = torch.einsum("bhi,hij->bhj", xh, p["wq"].to(cd)).to(acc)
+    k = torch.einsum("bhi,hij->bhj", xh, p["wk"].to(cd)).to(acc)
+    v = torch.einsum("bhi,hij->bhj", xh, p["wv"].to(cd)).to(acc)
+    gates = f32_matmul(xb[:, 0], p["w_if"], cd) + p["b_if"].to(acc)
+    log_i, f_pre = gates[..., :n_heads], gates[..., n_heads:]
+    log_f = _log_sigmoid(f_pre)
+
+    C, n, m = state["C"], state["n"], state["m"]
+    m_new = torch.maximum(log_f + m, log_i)
+    w_f = torch.exp(log_f + m - m_new)
+    w_i = torch.exp(log_i - m_new)
+    C_new = C * w_f[..., None, None] + \
+        w_i[..., None, None] * k[..., :, None] * v[..., None, :]
+    n_new = n * w_f[..., None] + w_i[..., None] * k
+    scale = 1.0 / math.sqrt(hd)
+    num = torch.einsum("bhd,bhde->bhe", q * scale, C_new)
+    den = torch.abs(torch.einsum("bhd,bhd->bh", q * scale, n_new))
+    y = num / torch.maximum(den, torch.exp(-m_new))[..., None]
+    y = rms_norm(y.reshape(B, 1, u).to(cd), p["ln_inner"], eps)
+    y = y * F.silu(z).to(cd)
+    out = cd_matmul(y, p["w_down"], cd, out_dtype=cd)
+    return out, {"C": C_new, "n": n_new, "m": m_new}
+
+
+def slstm_specs(d: int, n_heads: int) -> Dict[str, Spec]:
+    hd = d // n_heads
+    return {
+        "w_in": Spec((d, 4 * d), ("embed", "ff")),       # z,i,f,o pre-acts
+        "b_in": Spec((4 * d,), ("ff",), "zeros"),
+        "r": Spec((4, n_heads, hd, hd), (None, None, None, None), "small"),
+        "ln_inner": Spec((d,), ("embed",), "ones"),
+    }
+
+
+def _slstm_cell(wx: torch.Tensor, h_prev: torch.Tensor, state: Tuple,
+                r: torch.Tensor, n_heads: int
+                ) -> Tuple[torch.Tensor, Tuple]:
+    """One sLSTM step.  wx [B, 4D] input pre-activations (fp32), gate-major
+    (z, i, f, o); state = (c, n, m), each [B, D].  The recurrence `r`
+    [4, H, hd, hd] is block-diagonal per head, its output [B, 4, H, hd]
+    gate-major like wx.  h = o c / max(n, 1)."""
+    c, n, m = state
+    B, D4 = wx.shape
+    D = D4 // 4
+    hd = D // n_heads
+    hh = h_prev.reshape(B, n_heads, hd)
+    rec = torch.einsum("bhi,ghij->bghj", hh, r.to(wx.dtype))
+    rec = rec.reshape(B, 4 * D)
+    pre = wx + rec
+    z_pre, i_pre, f_pre, o_pre = torch.split(pre, D, dim=-1)
+    z = torch.tanh(z_pre)
+    o = torch.sigmoid(o_pre)
+    log_i = i_pre                                   # exponential input gate
+    log_f = _log_sigmoid(f_pre)
+    m_new = torch.maximum(log_f + m, log_i)
+    w_f = torch.exp(log_f + m - m_new)
+    w_i = torch.exp(log_i - m_new)
+    c_new = w_f * c + w_i * z
+    n_new = w_f * n + w_i
+    h = o * c_new / torch.clamp_min(n_new, 1.0)
+    return h, (c_new, n_new, m_new)
+
+
+def slstm_block_train(p: Params, x: torch.Tensor, *, n_heads: int,
+                      eps: float, rt: Runtime) -> torch.Tensor:
+    """The sLSTM block over a full sequence: the input pre-activations in
+    fp32 at once, then the cell step by step from zeros (m from -1e30),
+    as the reference's scan over time (`scan`)."""
+    cd = rt.compute_dtype
+    B, S, D = x.shape
+    wx = f32_matmul(x, p["w_in"], cd) + p["b_in"].float()
+    dev = x.device
+
+    def step(carry, xs):
+        h_prev, st = carry
+        h, st = _slstm_cell(xs[0], h_prev, st, p["r"], n_heads)
+        return (h, st), h
+
+    init = (torch.zeros((B, D), device=dev),
+            (torch.zeros((B, D), device=dev), torch.zeros((B, D), device=dev),
+             torch.full((B, D), STABILISER_START, device=dev)))
+    _, hs = scan(step, init, (wx.transpose(0, 1),))
+    y = hs.transpose(0, 1)                               # [B, S, D]
+    return rms_norm(y.to(cd), p["ln_inner"], eps)
+
+
+def slstm_block_decode(p: Params, x: torch.Tensor,
+                       state: Dict[str, torch.Tensor], *, n_heads: int,
+                       eps: float, rt: Runtime
+                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One step; state = {"h", "c", "n", "m"}, each [B, D] fp32 (a fresh
+    cache's m is 0).  Returns the output and a new state."""
+    cd = rt.compute_dtype
+    wx = f32_matmul(x, p["w_in"], cd)[:, 0] + p["b_in"].to(acc_dtype(cd))
+    h, (c, n, m) = _slstm_cell(wx, state["h"],
+                               (state["c"], state["n"], state["m"]),
+                               p["r"], n_heads)
+    y = rms_norm(h[:, None].to(cd), p["ln_inner"], eps)
+    return y, {"h": h, "c": c, "n": n, "m": m}

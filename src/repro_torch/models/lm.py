@@ -11,14 +11,16 @@ is a Python loop over layers, each with its own parameter dict:
 
 (an "rglru" layer holds "rglru" in place of "attn"; an MoE layer holds
 "moe": {router, we1, we3, we2, ("shared": {w1, w3, w2})} in place of
-"mlp"; with MLA, "attn" is {wq, wdkv, wukv, wo, kv_norm}).
+"mlp"; with MLA, "attn" is {wq, wdkv, wukv, wo, kv_norm}; an "mlstm"
+layer is {"ln1", "mlstm"}, with no "ln2" or MLP; an "slstm" layer holds
+"slstm" in place of "attn" and a SwiGLU of `_slstm_ff_dim(d)`).
 `repro_torch.convert.decoder_params_from_numpy` carries a reference
 parameter tree into this layout.  Supported: dense GQA decoders (qwen2*,
 mistral-nemo), the VLM stub (internvl2: a patch-embedding prefix), the
 Griffin hybrid (recurrentgemma: RG-LRU and local-attention layers) and
 the MoE decoders (olmoe; deepseek-v2-lite: MLA, shared experts and a
-leading dense layer).  xLSTM blocks, the training loss and remat are
-ported in a later slice (see ROADMAP.md).
+leading dense layer) and xLSTM (mLSTM and sLSTM blocks).  The training
+loss and remat are ported in a later slice (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -77,10 +79,15 @@ def plan_groups(cfg: ArchConfig) -> List[Group]:
 # =========================================================== block dispatch
 
 def _check_block(kind: str) -> None:
-    if kind in ("mlstm", "slstm"):
-        raise L.not_ported(f"the {kind!r} block")
-    if kind not in ("attn", "attn_dense", "local_attn", "rglru"):
+    if kind not in ("attn", "attn_dense", "local_attn", "rglru", "mlstm",
+                    "slstm"):
         raise ValueError(kind)
+
+
+def _slstm_ff_dim(d: int) -> int:
+    """The SwiGLU width after an sLSTM block: 4 d / 3 rounded up to a
+    multiple of 128."""
+    return -(-int(4 * d / 3) // 128) * 128
 
 
 def _mla_kw(cfg: ArchConfig) -> Dict[str, Any]:
@@ -94,6 +101,14 @@ def _mla_kw(cfg: ArchConfig) -> Dict[str, Any]:
 def block_specs(cfg: ArchConfig, kind: str) -> Dict[str, Any]:
     _check_block(kind)
     d, hd = cfg.d_model, cfg.resolved_head_dim
+    if kind == "mlstm":
+        return {"ln1": Spec((d,), ("embed",), "ones"),
+                "mlstm": L.mlstm_specs(d, cfg.num_heads)}
+    if kind == "slstm":
+        return {"ln1": Spec((d,), ("embed",), "ones"),
+                "slstm": L.slstm_specs(d, cfg.num_heads),
+                "ln2": Spec((d,), ("embed",), "ones"),
+                "mlp": L.swiglu_specs(d, _slstm_ff_dim(d))}
     if kind == "rglru":
         mixer = {"rglru": L.rglru_specs(d, cfg.lru_width or d, cfg.num_heads,
                                         cfg.conv1d_width)}
@@ -135,7 +150,12 @@ def block_apply_train(cfg: ArchConfig, kind: str, p: Params,
                       x: torch.Tensor, rt: Runtime) -> torch.Tensor:
     _check_block(kind)
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    if kind == "rglru":
+    xkw = dict(n_heads=cfg.num_heads, eps=cfg.norm_eps, rt=rt)
+    if kind == "mlstm":
+        return x + L.mlstm_block_train(p["mlstm"], h, **xkw)
+    if kind == "slstm":
+        x = x + L.slstm_block_train(p["slstm"], h, **xkw)
+    elif kind == "rglru":
         x = x + L.rglru_block_train(p["rglru"], h, n_heads=cfg.num_heads,
                                     rt=rt)
     elif cfg.mla is not None:
@@ -155,8 +175,21 @@ def block_cache_specs(cfg: ArchConfig, kind: str, batch: int,
     """A layer's decode state: the bf16 KV cache of an attention layer (a
     ring of `min(local_window, max_len)` slots for local attention; with
     MLA the latent `ckv` and the RoPE key `krope`), or the fp32 recurrent
-    state of an RG-LRU layer."""
+    state of an RG-LRU, mLSTM (the matrix memory C, its normaliser n and
+    stabiliser m) or sLSTM (h, c, n, m) layer."""
     _check_block(kind)
+    if kind == "mlstm":
+        uhd = 2 * cfg.d_model // cfg.num_heads
+        return {"C": Spec((batch, cfg.num_heads, uhd, uhd),
+                          ("batch", None, None, "mlstm_state"), "zeros",
+                          "f32"),
+                "n": Spec((batch, cfg.num_heads, uhd),
+                          ("batch", None, "mlstm_state"), "zeros", "f32"),
+                "m": Spec((batch, cfg.num_heads), ("batch", None), "zeros",
+                          "f32")}
+    if kind == "slstm":
+        return {k: Spec((batch, cfg.d_model), ("batch", None), "zeros",
+                        "f32") for k in ("h", "c", "n", "m")}
     if kind == "rglru":
         w = cfg.lru_width or cfg.d_model
         return {"h": Spec((batch, w), ("batch", "lru"), "zeros", "f32"),
@@ -183,7 +216,13 @@ def block_apply_decode(cfg: ArchConfig, kind: str, p: Params,
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     _check_block(kind)
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    if kind == "rglru":
+    xkw = dict(n_heads=cfg.num_heads, eps=cfg.norm_eps, rt=rt)
+    if kind == "mlstm":
+        a, cache = L.mlstm_block_decode(p["mlstm"], h, cache, **xkw)
+        return x + a, cache
+    if kind == "slstm":
+        a, cache = L.slstm_block_decode(p["slstm"], h, cache, **xkw)
+    elif kind == "rglru":
         a, cache = L.rglru_block_decode(p["rglru"], h, cache,
                                         n_heads=cfg.num_heads, rt=rt)
     elif cfg.mla is not None:

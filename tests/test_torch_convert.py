@@ -63,6 +63,6 @@ def test_space_and_batch_round_trip():
 def test_zoo_apps_are_a_later_slice():
     """The zoo apps of the archs whose models are not ported yet."""
     with pytest.raises(NotImplementedError, match="later slice"):
-        apps.build_app("xlstm-1.3b:prefill")
+        apps.build_app("whisper-medium:prefill")
     with pytest.raises(KeyError):
         AppSpec.from_app("no-such-app")

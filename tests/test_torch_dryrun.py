@@ -55,7 +55,8 @@ def _real_counts(arch, shape, rt):
 
 @pytest.mark.parametrize("shape", [PREFILL, DECODE], ids=lambda s: s.mode)
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "recurrentgemma-9b",
-                                  "olmoe-1b-7b", "deepseek-v2-lite-16b"])
+                                  "olmoe-1b-7b", "deepseek-v2-lite-16b",
+                                  "xlstm-1.3b"])
 def test_fake_counts_equal_a_real_run(arch, shape):
     cfg = configs.get_smoke(arch)
     fake, rt = trace_step(cfg, shape, device="cpu")
@@ -158,6 +159,10 @@ def test_run_cell_record_carries_the_reference_keys(tmp_path,
     assert rec["roofline"] == want.to_json()
     assert rec["fits_hbm"] == (counts.peak_bytes <= 80e9)
     assert rec["flops_by_op"] == counts.flops_by_op
+    assert (rec["matmul_flops"], rec["elementwise_flops"],
+            rec["transcendentals"]) == (counts.matmul_flops,
+                                        counts.elementwise_flops,
+                                        counts.transcendentals)
 
 
 def test_run_cell_records_the_execution_point(tmp_path, smoke_registry):
@@ -182,8 +187,7 @@ def test_inapplicable_cell_is_skipped(tmp_path, smoke_registry):
 
 @pytest.mark.parametrize("arch,shape", [
     ("qwen2-0.5b", "train_4k"),             # the train step
-    ("xlstm-1.3b", "prefill_32k"),          # xLSTM
-    ("xlstm-1.3b", "decode_32k"),
+    ("xlstm-1.3b", "train_4k"),
     ("whisper-medium", "prefill_32k"),      # encoder-decoder
     ("whisper-medium", "decode_32k"),
     ("qwen2.5-32b", "decode_32k"),          # the reference's fp8 KV cache
@@ -246,3 +250,31 @@ def test_cli_defaults_to_cuda_and_refuses_without_a_gpu(tmp_path,
     with pytest.raises(RuntimeError, match="needs a GPU"):
         dryrun.main(["--arch", "qwen2-0.5b", "--shape", "decode_32k",
                      "--out", str(tmp_path)])
+
+
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k", "long_500k"])
+def test_xlstm_cells_are_counted(tmp_path, smoke_registry, shape):
+    """xlstm-1.3b's three serving cells at their full batch and length
+    (smoke widths), `long_500k` included (a sub-quadratic arch's: one token
+    against a 524,288-token context, which the recurrent state does not
+    grow with): OK records with a finite peak and roofline."""
+    rec = dryrun.run_cell("xlstm-1.3b", shape, tmp_path, device="cpu")
+    assert rec["status"] == "OK", rec.get("error")
+    assert 0 < rec["roofline"]["roofline_s"] < float("inf")
+    assert rec["runtime"]["param_dtype"] == "torch.bfloat16"
+
+
+def test_a_scan_is_counted_once_for_all_its_steps(monkeypatch):
+    """`layers.scan` under `count_step` runs one step and repeats its
+    counts: xlstm-1.3b's smoke prefill at S 600 (the mLSTM's three chunks,
+    the last padded; the sLSTM's 600 steps) counts what the whole loop
+    counts, every field, the peak included."""
+    from repro_torch.models import layers
+
+    cfg = configs.get_smoke("xlstm-1.3b")
+    shape = ShapeSpec("prefill_600x2", 600, 2, "prefill")
+    once, _ = trace_step(cfg, shape, device="cpu")
+    monkeypatch.setattr(layers, "STEP_COUNTERS", [])    # the whole loop
+    whole, _ = trace_step(cfg, shape, device="cpu")
+    assert once == whole
+    assert once.ops > 600 * 6 * 2 and once.flops > 0

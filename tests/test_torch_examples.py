@@ -111,16 +111,16 @@ def test_trace_model_list_marks_the_unported_apps():
     assert [ln.removesuffix(marker) for ln in lines] == ref.splitlines()
     zoo = [ln for ln in lines if ":" in ln]
     ported = [ln for ln in zoo if not ln.endswith(marker)]
-    assert len(ported) == 16 and len(zoo) - len(ported) == 4
+    assert len(ported) == 18 and len(zoo) - len(ported) == 2
     assert {ln.partition(":")[0] for ln in ported} == set(PORTED_ARCHS)
 
 
 def test_trace_model_refuses_an_unported_app():
     rc, out, err = finish(start("torch_trace_model.py",
-                                ["--app", "xlstm-1.3b:decode",
+                                ["--app", "whisper-medium:decode",
                                  "--device", "cpu"]))
     assert rc != 0 and out == ""
-    assert "xlstm-1.3b:decode" in err and "ROADMAP.md A5" in err
+    assert "whisper-medium:decode" in err and "ROADMAP.md A5" in err
 
 
 @pytest.mark.parametrize("name", sorted(CASES))

@@ -78,7 +78,28 @@ OPS = {
                 lambda a, b: a.to(torch.bfloat16)),
     "concat_copy": (lambda a, b: jnp.concatenate([a, b.T.T], -1),
                     lambda a, b: torch.cat([a, b.clone()], -1)),
+    "cumsum": (lambda a, b: jnp.cumsum(a, axis=1) + jnp.cumsum(b, axis=0),
+               lambda a, b: torch.cumsum(a, 1) + torch.cumsum(b, 0)),
+    "tril_mask": (lambda a, b: jnp.where(jnp.tril(jnp.ones((8, 64), bool)),
+                                         a, b),
+                  lambda a, b: torch.where(torch.tril(torch.ones(
+                      (8, 64), dtype=torch.bool)), a, b)),
+    "abs_maximum": (lambda a, b: jnp.maximum(jnp.abs(a), b),
+                    lambda a, b: torch.maximum(torch.abs(a), b)),
+    "tanh": (lambda a, b: jnp.tanh(a), lambda a, b: torch.tanh(a)),
 }
+
+
+@pytest.mark.parametrize("n", [8, 16, 17, 40, 256, 257, 4097, 32768])
+def test_cumsum_counts_as_xla_does(n):
+    """XLA:CPU's cumulative sum is a reduce-window rewritten in blocks of
+    16; `steps._cumsum_flops` follows it at every length probed, 16
+    blocks and more included (the MoE dispatch's cumsum runs over
+    group x top-k pairs, 32,768 for olmoe)."""
+    x = np.zeros((2, n), np.float32)
+    want = _xla(lambda a: jnp.cumsum(a, axis=1), jnp.asarray(x))
+    got = _port(lambda a: torch.cumsum(a, 1), torch.from_numpy(x))
+    assert got == want
 
 
 @pytest.mark.parametrize("op", sorted(OPS))
@@ -169,9 +190,40 @@ def test_rglru_gates_count_as_xla_does():
 # XLA:CPU fuses the block's elementwise producers into several consumers,
 # counting them once per fusion (the jitted block counts 8 % more than its
 # three parts jitted apart).
+# xlstm-1.3b (four layers: three mLSTM, one sLSTM; S 32, one chunk of
+# 256) within 1 % (measured 0.60 % FLOPs, the port lower, 0.0015 %
+# transcendentals) once two differences of form are taken out of the
+# port's count (`_xlstm_uncounted`): XLA counts the sLSTM's scan over time
+# once, a loop's body, where the port counts its 32 steps; and XLA drops
+# the mLSTM chunk scan's final carry (C, n, m), which the forward never
+# reads, where the port computes it.
 STEPS = [("qwen2-0.5b", 1, "float32", (0.005, 0.02)),
          ("qwen2-0.5b", 1, "bfloat16", (0.02, 0.02)),
-         ("recurrentgemma-9b", 3, "float32", (0.05, 0.05))]
+         ("recurrentgemma-9b", 3, "float32", (0.05, 0.05)),
+         ("xlstm-1.3b", 4, "float32", (0.01, 0.01))]
+
+
+def _xlstm_uncounted(cfg, tp, B, S):
+    """(FLOPs, transcendentals) that XLA does not count in the smoke
+    xLSTM prefill and the port does: S - 1 of each sLSTM layer's cell
+    steps (the port's count of one cell step, alone), and each mLSTM
+    layer's final carry update (XLA's count of `_mlstm_chunkwise` with
+    its state returned, less without)."""
+    H, D = cfg.num_heads, cfg.d_model
+    hd = 2 * D // H
+    kinds = tsteps.build_model(cfg).kinds
+    r = tp["layers"][kinds.index("slstm")]["slstm"]["r"]
+    cell = count_step(lambda wx, h, c, n, m: PL._slstm_cell(
+        wx, h, (c, n, m), r, H), torch.zeros(B, 4 * D),
+        *[torch.zeros(B, D)] * 4)[1]
+    xs = [jnp.asarray(_rand(*shape, seed=i)) for i, shape in
+          enumerate([(B, S, H, hd)] * 3 + [(B, S, H)] * 2)]
+    with_state = _xla(lambda *a: RL._mlstm_chunkwise(*a, 256), *xs)
+    y_only = _xla(lambda *a: RL._mlstm_chunkwise(*a, 256)[0], *xs)
+    steps, carries = (S - 1) * kinds.count("slstm"), kinds.count("mlstm")
+    return (steps * cell.flops + carries * (with_state[0] - y_only[0]),
+            steps * cell.transcendentals
+            + carries * (with_state[1] - y_only[1]))
 
 
 @pytest.mark.parametrize("arch,layers,dtype,tol", STEPS)
@@ -191,5 +243,10 @@ def test_prefill_step_counts_near_xla(arch, layers, dtype, tol):
                      tp, {"tokens": torch.from_numpy(tok)})[1]
     assert got.flops == got.matmul_flops + got.elementwise_flops
     assert got.elementwise_flops > 0 and got.transcendentals > 0
-    assert abs(got.flops / want_f - 1) <= tol[0]
-    assert abs(got.transcendentals / want_t - 1) <= tol[1]
+    flops, trans = got.flops, got.transcendentals
+    if arch == "xlstm-1.3b":
+        extra = _xlstm_uncounted(tcfg, tp, *tok.shape)
+        assert 0 < extra[0] < flops and 0 < extra[1] < trans
+        flops, trans = flops - extra[0], trans - extra[1]
+    assert abs(flops / want_f - 1) <= tol[0]
+    assert abs(trans / want_t - 1) <= tol[1]

@@ -1,8 +1,8 @@
 """The port's frontend (`repro_torch.frontend`) on the CPU: twins of the
 reference's frontend tests, the aten rules where aten is not a jaxpr
 (in-place writes, constants, two-activation einsums) against the
-reference's trace of the same function, and the sixteen ported zoo apps
-against the reference's graphs, vertex for vertex, with the sixteen-app
+reference's trace of the same function, and the eighteen ported zoo apps
+against the reference's graphs, vertex for vertex, with the eighteen-app
 greedy study selecting the reference's config."""
 
 import functools
@@ -30,9 +30,9 @@ from repro_torch.dse import GeomeanAcrossApps, SearchBudget, Study
 from repro_torch.frontend import trace_to_graph
 from repro_torch.frontend import zoo
 
-ZOO16 = tuple(f"{arch}:{v}" for arch in zoo.PORTED_ARCHS
+ZOO18 = tuple(f"{arch}:{v}" for arch in zoo.PORTED_ARCHS
               for v in zoo.ZOO_VARIANTS)
-UNPORTED = tuple(n for n in zoo.ZOO_APP_NAMES if n not in ZOO16)
+UNPORTED = tuple(n for n in zoo.ZOO_APP_NAMES if n not in ZOO18)
 
 def _op_sig(op):
     return (op.kind.value, op.nif, op.nix, op.niy, op.nkx, op.nky, op.nof,
@@ -291,6 +291,45 @@ def test_blocked_attention_in_the_references_ops(causal, skv, kv_block):
     assert _structure(got) == _structure(want)
 
 
+@pytest.mark.parametrize("steps", [1, 3])
+def test_scan_and_index_from_end_are_the_references_vertices(steps):
+    """`layers.scan` traces as `jax.lax.scan` (a slice vertex per step and
+    operand, the ys stacked into one vertex, even over one step), and
+    `index_from_end` as jnp's ``x[:, -1]`` (the index normalised on
+    literals, then a dynamic slice); `cumsum` is aliased, as the
+    reference's nested `jit` of it is."""
+    from repro_torch.frontend.trace import index_from_end
+    from repro_torch.models.layers import scan
+
+    def ref(p, x):
+        t = jnp.cumsum(x, axis=1)[:, -1]
+
+        def step(carry, xs):
+            y = carry * xs
+            return y, y + carry
+        _, ys = lax.scan(step, t, x.swapaxes(0, 1)[:steps])
+        return ys
+
+    def port(p, x):
+        t = index_from_end(torch.cumsum(x, 1), 1, -1)
+
+        def step(carry, xs):
+            y = carry * xs[0]
+            return y, y + carry
+        _, ys = scan(step, t, (x.transpose(0, 1)[:steps],))
+        return ys
+
+    want = ref_trace(ref, {}, jax.ShapeDtypeStruct((2, 5, 3), jnp.float32))
+    got = trace_to_graph(port, {}, torch.empty(2, 5, 3))
+    assert _structure(got) == _structure(want)
+    assert got.summary()["n_data_nodes"] == \
+        want.summary()["n_data_nodes"] == 7 + 3 * steps
+    x = torch.randn(2, 5, 3, generator=torch.Generator().manual_seed(0))
+    np.testing.assert_allclose(port({}, x).numpy(),
+                               np.asarray(ref({}, jnp.asarray(x.numpy()))),
+                               rtol=1e-6, atol=1e-6)
+
+
 def test_scan_slices_outside_a_trace_is_zip():
     from repro_torch.frontend.trace import scan_slices
 
@@ -305,7 +344,7 @@ def test_zoo_apps_listed_and_unknown_rejected():
     names = apps.all_app_names()
     assert set(apps.APP_NAMES) <= set(names)
     assert apps.zoo_app_names() == tuple(ref_apps.zoo_app_names())
-    assert len(ZOO16) == 16 and len(UNPORTED) == 4
+    assert len(ZOO18) == 18 and len(UNPORTED) == 2
     with pytest.raises(KeyError):
         apps.build_app("definitely-not-an-app")
     with pytest.raises(KeyError):
@@ -343,7 +382,7 @@ def _reference(name):
     return ref_apps.build_app(name)
 
 
-@pytest.mark.parametrize("name", ZOO16)
+@pytest.mark.parametrize("name", ZOO18)
 def test_zoo_graph_matches_the_reference(name):
     """Vertex for vertex: the compute stream in order (kind, every Table-1
     field and `repeat`), each compute node's weight bits, the totals and
@@ -373,13 +412,13 @@ def test_zoo_graph_matches_the_reference(name):
 
 
 def test_zoo_study_selects_the_reference_config():
-    """The greedy geomean study over the sixteen apps on the CPU selects the
+    """The greedy geomean study over the eighteen apps on the CPU selects the
     reference numpy `Study`'s config, with the same per-app bests."""
     kw = dict(engine="greedy", seed=0)
-    want = RefStudy(apps=list(ZOO16), objective=RefGeomean(),
+    want = RefStudy(apps=list(ZOO18), objective=RefGeomean(),
                     budget=RefBudget(k=2, restarts=2, max_rounds=6),
                     **kw).run()
-    got = Study(apps=list(ZOO16), objective=GeomeanAcrossApps(),
+    got = Study(apps=list(ZOO18), objective=GeomeanAcrossApps(),
                 budget=SearchBudget(k=2, restarts=2, max_rounds=6),
                 device="cpu", **kw).run()
     assert got.best.asdict() == want.best.asdict()

@@ -249,3 +249,63 @@ def test_serve_requests_generate_the_references_tokens():
                                 max_len=32, device="cpu", params=tp)
     assert [r.generated for r in got] == [r.generated for r in want]
     assert all(len(r.generated) == 5 for r in got)
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name", MOE_ARCHS)
+def test_forward_reading_the_decodes_caches_holds_the_served_decode(name):
+    """The check the card runs on the served decode, with its own hook
+    (`chip_smoke.reads_the_cache`), at smoke size: the teacher-forced
+    decode over 12 tokens with bf16 caches, as served, against the fp32
+    forward through the kernels' wrappers (their plain versions here)
+    whose every attention layer reads what the decode wrote into its
+    caches (GQA: k and v; MLA: the latent and the RoPE key), taking the
+    decode's expert choices (`chip_smoke.routes`), drop-free.  The logits
+    within `chip_smoke.SERVE_RG_TOL`; each cache entry within one bf16
+    rounding of the forward's own value (`CACHE_RTOL`, `CACHE_ATOL`), the
+    unwritten slots zero; each attention layer read once, in order."""
+    smoke = _chip_smoke()
+    _, _, _, tcfg, tm, tp = _pair(name, drop_free=True)
+    trt = TL.Runtime(compute_dtype=torch.float32)
+    seq = [int(t) for t in _tokens(tcfg, 1, 12, seed=3)[0]]
+    cache = tm.init_cache(1, 16, trt)
+    rows, step_routes = [], []
+    for pos, t in enumerate(seq):
+        with smoke.routes() as rts:
+            lg, cache = tm.decode_step(tp, cache, torch.tensor([[t]]),
+                                       torch.tensor(pos), trt)
+        rows.append(lg[0, 0, :tcfg.vocab_size])
+        step_routes.append(rts)
+    decoded = [{key: torch.cat([x[layer][key] for x in step_routes])
+                for key in ("experts", "logits")}
+               for layer in range(len(step_routes[0]))]
+    assert all(c["k" if tcfg.mla is None else "ckv"].dtype == torch.bfloat16
+               for c in cache)
+    with smoke.routes(force=decoded), \
+            smoke.reads_the_cache(tm, tp, cache) as rd:
+        fwd = tm.forward(tp, {"tokens": torch.tensor([seq])},
+                         dataclasses.replace(trt, use_kernels=True))
+    layers = list(range(tcfg.num_layers))
+    want = ({"attention": [], "latent": layers, "rope_key": layers}
+            if tcfg.mla is not None
+            else {"attention": layers, "latent": [], "rope_key": []})
+    assert rd["hits"] == want
+    atol, rtol = smoke.SERVE_RG_TOL
+    np.testing.assert_allclose(torch.stack(rows).numpy(),
+                               fwd[0, :, :tcfg.vocab_size].numpy(),
+                               rtol=rtol, atol=atol)
+    res = smoke.cache_against_forward(cache, rd, len(seq))
+    assert res["worst_ratio"] <= 1.0 and res["unwritten_nonzero"] == 0
+    per_layer = (2 * tcfg.num_kv_heads * tcfg.resolved_head_dim
+                 if tcfg.mla is None else
+                 tcfg.mla.kv_lora_rank + tcfg.mla.qk_rope_head_dim)
+    assert res["entries"] == tcfg.num_layers * len(seq) * per_layer
