@@ -22,9 +22,9 @@ printing one JSON line each:
   4. study       the main path: a seven-app `GeomeanAcrossApps` greedy
                  `Study` on the card and on the CPU must select the same
                  config, with the kernel launched and jax never imported;
-  5. study zoo   the model-zoo frontend on the main path: the eighteen zoo
-                 apps of the nine ported archs traced on meta tensors (each
-                 app's seconds, compute ops and data vertices), an eighteen-app
+  5. study zoo   the model-zoo frontend on the main path: the twenty zoo
+                 apps of the ten archs traced on meta tensors (each
+                 app's seconds, compute ops and data vertices), a twenty-app
                  `GeomeanAcrossApps` greedy `Study` on the card and on the
                  CPU selecting the same config and per-app bests (the
                  kernel launched on the card only, neither jax nor the JAX
@@ -200,16 +200,35 @@ printing one JSON line each:
                  as phase 15 (fp32 weights): the decode's caches are all
                  fp32 state, so its gap to the teacher-forced forward is
                  gated directly;
- 23. kernel matmul
+ 23. prefill whisper-medium
+                 the encoder-decoder's main path at full width (24 + 24
+                 layers, d 1024, 16 heads of 64; bf16 weights, random
+                 frames [B, 1500, 1024]): seq 2048 x batch 4 and 32,768 x 1
+                 (prefill_32k's batch cut to 1), no kernel runs (its
+                 attention is `blocked_attention`, as in the reference),
+                 every counter 0; wall, tokens/s, device time by kind, idle
+                 share, `max_memory_allocated`; the fp32 forward's last
+                 logits at `WHISPER_GATE_SEQ` tokens gated against the
+                 fp32 decode loop, its cross caches filled from the same
+                 encoder output (`fill_cross`);
+ 24. serve whisper-medium
+                 `serve_requests` at full width, fp32, 8 requests, batch
+                 4, 16 new tokens, caches of 256, the reference's zeroed
+                 cross caches: the served decode gated against a forward
+                 that reads its own caches (`encdec_reads_the_cache`),
+                 every cache entry within one bf16 rounding; and the
+                 decode over cross caches filled from random frames gated
+                 against the forward over the same frames;
+ 25. kernel matmul
                  `matmul` against its plain PyTorch version on every element,
                  within the fp32 summation bound (`matmul_against_plain`),
                  on the sweep of `tests/test_kernels.py` at its two tiles
                  (fp32 on the CUDA-core kernel, bf16 on the tensor-core
                  one: each case must move only its kernel's counter) and on
                  an all-positive bf16 product at K = 12288, both output
-                 dtypes (phase 24 holds the tile DSE's shapes, at every
+                 dtypes (phase 26 holds the tile DSE's shapes, at every
                  tile);
- 24. tile_dse    the fourth main path: for each of `TILE_SHAPES` (bf16),
+ 26. tile_dse    the fourth main path: for each of `TILE_SHAPES` (bf16),
                  `tune_matmul_tiles` picks a tile under the tensor-core
                  model and `matmul` runs at it and at every other tile the
                  tensor-core kernel is built for, each output held against
@@ -220,9 +239,11 @@ printing one JSON line each:
                  (M N > 2^31) runs once, at its tuned tile.  Then the fp32
                  `FP32_SHAPE` on the CUDA-core kernel at the CUDA-core
                  model's pick, beside its 67 TFLOP/s bound;
- 25. dryrun      `run_cell` for qwen2-0.5b, recurrentgemma-9b, olmoe-1b-7b,
-                 deepseek-v2-lite-16b and xlstm-1.3b at prefill_32k and
-                 decode_32k, and xlstm-1.3b at long_500k, on
+ 27. dryrun      `run_cell` for qwen2-0.5b, recurrentgemma-9b, olmoe-1b-7b,
+                 deepseek-v2-lite-16b, whisper-medium and xlstm-1.3b at
+                 prefill_32k and decode_32k, xlstm-1.3b at long_500k and
+                 qwen2.5-32b at decode_32k over the f8 KV cache (its
+                 analytic bytes and peak at one byte an element), on
                  fake CUDA tensors (full batch; every record OK with a
                  finite peak and roofline), each cell's matmul and
                  elementwise FLOPs and
@@ -314,6 +335,9 @@ RG_ARCH = "recurrentgemma-9b"
 MOE_ARCH = "olmoe-1b-7b"
 MLA_ARCH = "deepseek-v2-lite-16b"
 XLSTM_ARCH = "xlstm-1.3b"
+WHISPER_ARCH = "whisper-medium"
+# the arch whose decode_32k the reference's dry-run gives an f8 KV cache
+F8_ARCH = "qwen2.5-32b"
 # the xLSTM block check: a chunkwise / scan form against its step form,
 # (rtol, atol) of tests/test_recurrent_blocks.py; two chunks of 256 and a
 # padded third
@@ -326,6 +350,12 @@ XLSTM_GATE_SEQ = 300
 # bound, so a forward's time grows with its length; the 32k forward runs
 # if 16 times the 2048 x 4 forward's time is within this, else 8192
 XLSTM_LONG_BUDGET_S = 120.0
+# whisper's fp32 prefill gate: its last-position logits against the fp32
+# decode loop over the same tokens, cross caches from the same frames
+WHISPER_GATE_SEQ = 256
+# the served requests whose sequences whisper's serve phase also decodes
+# over cross caches filled from frames (the first ones)
+FILLED_REQUESTS = 4
 # the kernels of the MoE block's dispatch and combine (top-k, the one-hot's
 # cumsum, the index scatter, the token gathers), by name substring
 MOE_DISPATCH_KERNELS = ("gatherTopK", "sort", "Sort", "scan", "index_put",
@@ -607,8 +637,8 @@ def phase_study(names) -> int:
 
 
 def phase_study_zoo() -> dict:
-    """The main path over the traced zoo apps: the eighteen apps of the
-    nine ported archs, the greedy geomean study on the card and on the
+    """The main path over the traced zoo apps: the twenty apps of the ten
+    archs, the greedy geomean study on the card and on the
     CPU, then the genetic and anneal engines on one app on both.  Returns
     the kernel's launches on each card run."""
     from repro_torch.core.apps import build_app
@@ -3139,6 +3169,416 @@ def phase_prefill_xlstm() -> dict:
     return {n: 0 for n in counters}
 
 
+def fill_cross(model, params, frames, cache, rt):
+    """The decode's cross caches from the encoder's output over `frames`:
+    each decoder layer's `xattn` k and v (`layers.gqa_project` through its
+    wk/bk and wv/bv) of `encode(frames)`, in the caches' dtype, written in
+    place.  A yardstick's helper, not a feature: the reference's server
+    never runs the encoder, and its cross caches stay zero."""
+    from repro_torch.models.layers import full_precision_products, \
+        gqa_project
+
+    cfg = model.cfg
+    xattn = params["decoder"]["xattn"]
+    with torch.inference_mode(), full_precision_products():
+        enc = model.encode(params, frames, rt)
+        for i in range(cfg.num_layers):
+            _, k, v = gqa_project({n: w[i] for n, w in xattn.items()}, enc,
+                                  cfg.num_heads, cfg.num_kv_heads,
+                                  cfg.resolved_head_dim, rt)
+            cache["xk"][i].copy_(k)
+            cache["xv"][i].copy_(v)
+    return cache
+
+
+@contextlib.contextmanager
+def encdec_reads_the_cache(cache, cross_own: bool):
+    """Within it an `EncDecLM` forward over S tokens reads, in each decoder
+    layer, what a decode over the same tokens left in its caches (`cache`,
+    stacked on the layers, after the decode's last step): self-attention
+    the cache's k and v at positions 0..S-1 in place of its own
+    projections, cross-attention the cache's xk and xv (zero, as the
+    reference's server leaves them, or filled from the frames,
+    `fill_cross`) in place of the encoder output's.  Both paths then read
+    the same numbers.  The encoder runs as it is.  Yields a record: the
+    decoder layers each read ("self", "cross"), and the forward's own
+    values it replaced, in fp32, by layer: k and v ("own"), and with
+    `cross_own` the cross k and v of its encoder output ("own_cross")."""
+    from repro_torch.models import encdec as E
+    from repro_torch.models import layers as L
+
+    mha = E._mha
+    rec = {"self": [], "cross": [], "own": {}, "own_cross": {}}
+
+    def read_cached(p, xq, xkv, cfg, rt, causal):
+        if xq is xkv and not causal:                    # the encoder
+            return mha(p, xq, xkv, cfg, rt, causal)
+        H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        cd = rt.compute_dtype
+        if causal:
+            layer = len(rec["self"])
+            rec["self"].append(layer)
+            q, k, v = L.gqa_project(p, xq, H, KV, hd, rt)
+            rec["own"][layer] = {"k": k, "v": v}
+            S = q.shape[1]
+            k, v = (cache[key][layer][:, :S].to(cd) for key in ("k", "v"))
+        else:
+            layer = len(rec["cross"])
+            rec["cross"].append(layer)
+            q = E._proj(xq, p["wq"], p.get("bq"), H, hd, rt)
+            if cross_own:
+                rec["own_cross"][layer] = {
+                    "xk": E._proj(xkv, p["wk"], p.get("bk"), KV, hd, rt),
+                    "xv": E._proj(xkv, p["wv"], p.get("bv"), KV, hd, rt)}
+            k, v = (cache[key][layer].to(cd) for key in ("xk", "xv"))
+        o = L.blocked_attention(q, k, v, causal=causal,
+                                kv_block=rt.attn_kv_block)
+        return L.gqa_out(p, o, rt)
+
+    E._mha = read_cached
+    try:
+        yield rec
+    finally:
+        E._mha = mha
+
+
+def by_layer(cache, keys) -> list:
+    """Stacked caches as the per-layer dicts `cache_against_forward`
+    reads."""
+    n = cache[keys[0]].shape[0]
+    return [{k: cache[k][i] for k in keys} for i in range(n)]
+
+
+def phase_prefill_whisper() -> dict:
+    """whisper-medium's batched prefill at full width (24 encoder and 24
+    decoder layers, d 1024, 16 heads of 64, d_ff 4096, vocab 51,865
+    padded to 51,968; bf16 weights and random frames [B, 1500, 1024] from
+    seed 0) through `make_prefill_step` with `use_kernels=True`: no kernel
+    runs (the reference's `_mha` always calls `blocked_attention`), every
+    counter 0 a forward.  Seq 2048 x batch 4 and 32,768 x 1 (prefill_32k
+    with its batch cut from 32, listed in `reduced`): the wall (median of
+    2 after a warm-up), tokens/s, one profiled forward (device time by
+    kind, idle share, kernels) and `max_memory_allocated` at each.  Gate,
+    in fp32: the forward's last logits at `WHISPER_GATE_SEQ` tokens
+    against the fp32 decode loop over the same tokens (fp32 caches, the
+    cross caches filled from the same encoder output by `fill_cross`),
+    within `SERVE_RG_TOL`."""
+    import gc
+
+    from repro_torch import configs
+    from repro_torch.launch.steps import (build_model, input_specs,
+                                          make_prefill_step, make_runtime,
+                                          make_serve_step)
+    from repro_torch.models.layers import Runtime, map_specs
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = configs.get_arch(WHISPER_ARCH)
+    shape = configs.shape_by_name("prefill_32k")
+    model = build_model(cfg)
+    rt = make_runtime(cfg, shape, use_kernels=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = model.init(gen, rt)
+    step = make_prefill_step(model, rt)
+    counters = kernel_counters()
+    frames_shape, frames_dtype = input_specs(cfg, shape)["frames"]
+    check(frames_shape[1:] == (cfg.encoder_seq, cfg.d_model)
+          and frames_dtype == torch.bfloat16,
+          f"whisper's prefill frames are {frames_shape} {frames_dtype}")
+    runs = {}
+
+    def forward(inputs):
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = step(params, inputs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {n: fn.launches for n, fn in counters.items()}
+        check(not any(got.values()), f"the {WHISPER_ARCH} prefill launched "
+                                     f"{got}: its path runs no kernel")
+        return logits, wall
+
+    for seq, batch in ((2048, 4), (shape.seq_len, 1)):
+        inputs = {"frames": torch.randn(
+                      (batch,) + frames_shape[1:], generator=gen,
+                      device="cuda").to(frames_dtype),
+                  "tokens": torch.randint(0, cfg.vocab_size, (batch, seq),
+                                          generator=gen, device="cuda")}
+        walls = []
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(3):
+            logits, wall = forward(inputs)
+            walls.append(wall)
+        peak = torch.cuda.max_memory_allocated()
+        got = logits[:, :cfg.vocab_size].float()
+        check(tuple(logits.shape) == (batch, model.v_pad),
+              f"prefill logits {tuple(logits.shape)}")
+        check(bool(torch.isfinite(got).all()), "prefill logits not finite")
+        wall = float(np.median(walls[1:]))
+        t0 = time.perf_counter()
+        device = device_kinds(lambda: step(params, inputs),
+                              {"matmul_us": ("gemm", "nvjet", "xmma")})
+        device["idle_share"] = 1.0 - device["busy_us"] / device["wall_us"]
+        device["profile_s"] = time.perf_counter() - t0
+        runs[f"seq{seq}_batch{batch}"] = {
+            "seq": seq, "batch": batch, "encoder_frames": frames_shape[1],
+            "wall_s": wall, "walls_s": walls,
+            "tokens_per_s": seq * batch / wall,
+            "max_memory_allocated": peak,
+            "launches_per_forward": {n: 0 for n in counters},
+            "device_one_forward": device}
+        del logits, inputs
+
+    # the fp32 gate: the forward's last logits against the decode loop
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    rt32 = Runtime(compute_dtype=torch.float32, use_kernels=True)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), rt32)
+    frames = torch.randn((1,) + frames_shape[1:], generator=gen,
+                         device="cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (1, WHISPER_GATE_SEQ),
+                           generator=gen, device="cuda")
+    fwd = make_prefill_step(model, rt32)(params, {
+        "frames": frames, "tokens": tokens})[:, :cfg.vocab_size].float()
+    serve = make_serve_step(model, rt32)
+    cache = map_specs(lambda sp: torch.zeros(sp.shape, device="cuda"),
+                      model.cache_specs(1, WHISPER_GATE_SEQ))
+    fill_cross(model, params, frames, cache, rt32)
+    t0 = time.perf_counter()
+    for pos in range(WHISPER_GATE_SEQ):
+        dec, cache = serve(params, cache, tokens[:, pos:pos + 1],
+                           position(pos))
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    dec = dec[:, 0, :cfg.vocab_size].float()
+    atol, rtol = SERVE_RG_TOL
+    check(bool(torch.isfinite(fwd).all() and torch.isfinite(dec).all()),
+          "the fp32 forward or decode logits are not finite")
+    diff = (fwd - dec).abs()
+    ratio = float((diff / (atol + rtol * dec.abs())).max())
+    gate = {"seq": WHISPER_GATE_SEQ, "tolerance": SERVE_RG_TOL,
+            "cache_dtype": "float32", "cross_caches": "fill_cross(frames)",
+            "max_abs_diff": float(diff.max()), "tol_ratio": ratio,
+            "decode_loop_s": decode_s,
+            "same_next_token": bool(fwd.argmax(-1) == dec.argmax(-1)),
+            "fp32_logits_max_abs": float(fwd.abs().max())}
+    check(ratio <= 1.0, f"{WHISPER_ARCH}'s fp32 forward differs from its "
+                        f"decode loop by {float(diff.max())} (ratio {ratio})")
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_isolated()
+    emit(f"prefill {WHISPER_ARCH}", arch=WHISPER_ARCH,
+         encoder_layers=cfg.encoder_layers, decoder_layers=cfg.num_layers,
+         parameters=cfg.param_count(), param_dtype="bfloat16",
+         compute_dtype="bfloat16",
+         reduced={"prefill_32k": "global_batch 32 -> 1"},
+         launches={n: 0 for n in counters}, runs=runs, fp32_gate=gate)
+    return {n: 0 for n in counters}
+
+
+def phase_serve_whisper() -> dict:
+    """whisper-medium's `serve_requests` at full width on the card, fp32
+    weights and compute: 8 requests of 4-12 prompt tokens, batch 4, 16 new
+    tokens, caches of 256, the reference's zeroed cross caches (its
+    server never runs the encoder, so the decode's cross-attention gives
+    exactly 0).  Each request's prompt and served tokens are replayed
+    through the decode step as served (bf16 caches; the served tokens must
+    come back) and held to a forward that reads the decode's own caches
+    (`encdec_reads_the_cache`: its self-attention the bf16 k and v, its
+    cross-attention the zero xk and xv) within `SERVE_RG_TOL`, every k and
+    v entry within one bf16 rounding of the forward's own value
+    (`cache_against_forward`).  Second gate, the one in which the decode's
+    cross-attention sees values that are not zero: the first
+    `FILLED_REQUESTS` sequences decoded over cross caches filled from
+    random frames (`fill_cross`),
+    against the forward over the same frames reading the decode's caches,
+    within `SERVE_RG_TOL`, every k, v, xk and xv entry within one bf16
+    rounding of the forward's own; that decode's gap to the plain forward
+    over the frames is printed.  The forwards run with `use_kernels=True`
+    and launch nothing, counted."""
+    import gc
+
+    from repro_torch import configs
+    from repro_torch.launch.serve import serve_requests
+    from repro_torch.launch.steps import build_model, make_serve_step
+    from repro_torch.models.layers import Runtime, full_precision_products
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = configs.get_arch(WHISPER_ARCH)
+    model = build_model(cfg)
+    rt = Runtime(compute_dtype=torch.float32)
+    rt_fwd = Runtime(compute_dtype=torch.float32, use_kernels=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = model.init(gen, rt)
+    rng = np.random.default_rng(0)
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size,
+                                             size=rng.integers(4, 13))]
+               for _ in range(8)]
+    serve_requests(cfg, prompts[:1], batch=1, max_new=2, max_len=256,
+                   device="cuda", params=params)               # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results = serve_requests(cfg, prompts, batch=4, max_new=16, max_len=256,
+                             device="cuda", params=params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(len(results) == 8 and all(len(r.generated) == 16
+                                    for r in results),
+          "serve did not answer every request with 16 tokens")
+    check(all(0 <= t < cfg.vocab_size for r in results for t in r.generated),
+          "serve generated a token outside the vocabulary")
+
+    atol, rtol = SERVE_RG_TOL
+    v = cfg.vocab_size
+    step = make_serve_step(model, rt)
+    counters = kernel_counters()
+    fwd_launches = dict.fromkeys(counters, 0)
+    layers = list(range(cfg.num_layers))
+    gaps = {key: {"max_abs_diff": 0.0, "tol_ratio": 0.0}
+            for key in ("served", "filled", "filled_vs_plain_forward")}
+    entries = {key: {"worst_ratio": 0.0, "entries": 0,
+                     "unwritten_nonzero": 0}
+               for key in ("served", "filled")}
+    cross_abs = {"served": 0.0, "filled": 0.0}
+    frames = torch.randn((1, cfg.encoder_seq, cfg.d_model), generator=gen,
+                         device="cuda")
+    zero_frames = torch.zeros_like(frames)
+
+    def decode(seq, cache):
+        rows = []
+        for pos, t in enumerate(seq):
+            tok = torch.full((1, 1), t, dtype=torch.int64, device="cuda")
+            logits, cache = step(params, cache, tok, position(pos))
+            rows.append(logits[0, 0, :v])
+        return torch.stack(rows), cache
+
+    def forward(seq, frm, hook):
+        for fn in counters.values():
+            fn.launches = 0
+        with torch.inference_mode(), full_precision_products(), \
+                (hook or contextlib.nullcontext()) as rec:
+            out = model.forward(params, {"tokens": torch.tensor(
+                [seq], device="cuda"), "frames": frm}, rt_fwd)[0, :, :v]
+        for n, fn in counters.items():
+            fwd_launches[n] += fn.launches
+        return out.float(), rec
+
+    def gap(got, want, into):
+        check(bool(torch.isfinite(got).all() and torch.isfinite(want).all()),
+              "decode or forward logits not finite")
+        diff = (got - want).abs()
+        into["max_abs_diff"] = max(into["max_abs_diff"], float(diff.max()))
+        into["tol_ratio"] = max(into["tol_ratio"], float(
+            (diff / (atol + rtol * want.abs())).max()))
+
+    def add(into, got):
+        into["worst_ratio"] = max(into["worst_ratio"], got["worst_ratio"])
+        into["entries"] += got["entries"]
+        into["unwritten_nonzero"] += got["unwritten_nonzero"]
+
+    reproduced = served = 0
+    for r in results:
+        seq = r.prompt + r.generated
+        p0 = len(r.prompt) - 1
+        gen_t = torch.tensor(r.generated, device="cuda")
+        keys = ("served", "filled") if r.request_id < FILLED_REQUESTS \
+            else ("served",)
+        for key in keys:
+            cache = model.init_cache(1, 256, rt, "cuda")
+            if key == "filled":
+                fill_cross(model, params, frames, cache, rt)
+            dec, cache = decode(seq, cache)
+            cross_abs[key] = max(cross_abs[key],
+                                 float(cache["xk"].float().abs().max()))
+            if key == "served":
+                got = dec[p0:p0 + len(gen_t)].argmax(-1)
+                reproduced += int((got == gen_t).sum())
+                served += len(gen_t)
+            fwd, rec = forward(seq, frames if key == "filled"
+                               else zero_frames,
+                               encdec_reads_the_cache(cache,
+                                                      key == "filled"))
+            check(rec["self"] == layers and rec["cross"] == layers,
+                  f"the forward read the decode's caches at {rec['self']} "
+                  f"/ {rec['cross']}, expected every decoder layer")
+            gap(dec, fwd, gaps[key])
+            add(entries[key], cache_against_forward(
+                by_layer(cache, ("k", "v")), rec, len(seq)))
+            if key == "filled":
+                add(entries[key], cache_against_forward(
+                    by_layer(cache, ("xk", "xv")),
+                    {"own": rec["own_cross"]}, cfg.encoder_seq))
+                plain, _ = forward(seq, frames, None)
+                gap(dec, plain, gaps["filled_vs_plain_forward"])
+            del cache, rec
+    check(reproduced == served,
+          f"the decode replayed {reproduced} of the {served} served tokens")
+    check(cross_abs["served"] == 0.0 and cross_abs["filled"] > 0.0,
+          f"the cross caches' largest |x|: {cross_abs}, expected 0 as "
+          f"served and > 0 filled")
+    for key in ("served", "filled"):
+        check(gaps[key]["tol_ratio"] <= 1.0,
+              f"{WHISPER_ARCH}'s decode ({key} cross caches) differs from "
+              f"the forward that reads its caches by "
+              f"{gaps[key]['max_abs_diff']} (ratio "
+              f"{gaps[key]['tol_ratio']})")
+        check(entries[key]["worst_ratio"] <= 1.0
+              and entries[key]["unwritten_nonzero"] == 0,
+              f"{WHISPER_ARCH}'s decode caches ({key}): an entry beyond one "
+              f"bf16 rounding of the forward's own value, or a written slot "
+              f"past the sequence: {entries[key]}")
+    check(not any(fwd_launches.values()),
+          f"the {WHISPER_ARCH} forwards launched {fwd_launches}: its path "
+          f"runs no kernel")
+    # where one decode step's time goes (a cache holding one token)
+    cache = model.init_cache(1, 256, rt, "cuda")
+    tok = torch.full((1, 1), prompts[0][0], dtype=torch.int64, device="cuda")
+    _, cache = step(params, cache, tok, position(0))
+    pos1 = position(1)
+    device = device_breakdown(
+        {"decode_step": lambda: step(params, cache, tok, pos1)},
+        {"matmul_us": ("gemm", "gemv", "nvjet", "xmma")})["decode_step"]
+    device["idle_share"] = 1.0 - device["busy_us"] / device["wall_us"]
+    generated = sum(len(r.generated) for r in results)
+    check_isolated()
+    rec = dict(arch=WHISPER_ARCH, decoder_layers=cfg.num_layers,
+               compute_dtype="float32", param_dtype="float32",
+               level="smoke: toy context, no serve rate",
+               requests=len(results), batch=4, max_new=16, max_len=256,
+               prompt_lens=[len(p) for p in prompts], wall_s=wall,
+               generated_tokens=generated, tokens_per_s=generated / wall,
+               latency_s=[r.latency_s for r in results],
+               max_memory_allocated=peak, tolerance=SERVE_RG_TOL,
+               served_tokens_reproduced_by_decode=reproduced / served,
+               served_cross_caches="zero (the reference's server)",
+               max_abs_diff_vs_cache_reading_forward=gaps["served"][
+                   "max_abs_diff"],
+               tol_ratio_vs_cache_reading_forward=gaps["served"][
+                   "tol_ratio"],
+               filled_max_abs_diff_vs_cache_reading_forward=gaps["filled"][
+                   "max_abs_diff"],
+               filled_tol_ratio_vs_cache_reading_forward=gaps["filled"][
+                   "tol_ratio"],
+               filled_max_abs_diff_vs_plain_forward=gaps[
+                   "filled_vs_plain_forward"]["max_abs_diff"],
+               filled_tol_ratio_vs_plain_forward=gaps[
+                   "filled_vs_plain_forward"]["tol_ratio"],
+               filled_cross_cache_max_abs=cross_abs["filled"],
+               cache_entries=entries, cache_entry_tolerance=[CACHE_RTOL,
+                                                             CACHE_ATOL],
+               forward_launches=fwd_launches, device_one_step=device)
+    emit(f"serve {WHISPER_ARCH}", **rec)
+    del params
+    return rec
+
+
 def matmul_bound(m, k, n, itemsize) -> dict:
     """Least time for one product: the larger of its 2 M K N FLOP at the
     bf16 tensor-core peak and its bytes (x and y read once, the output
@@ -3387,9 +3827,11 @@ def phase_tile_dse(gen) -> dict:
 
 
 def phase_dryrun() -> dict:
-    """Dry-runs of the five served archs at their serving cells on fake
-    CUDA tensors (xlstm-1.3b's `long_500k` too; every record OK, with a
-    finite peak and roofline), one
+    """Dry-runs of the six served archs at their serving cells on fake
+    CUDA tensors (xlstm-1.3b's `long_500k` too, and qwen2.5-32b's
+    decode_32k over the f8 cache, its analytic bytes and peak at one byte
+    a cache element; every record OK, with a finite peak and roofline),
+    one
     greedy autotune over qwen2-0.5b's decode_32k (every record it wrote
     must be OK, its best score above 0), and the fake count of
     qwen2-0.5b's plain prefill at 2048 x 4 against the same step run on
@@ -3400,6 +3842,7 @@ def phase_dryrun() -> dict:
     from repro_torch import configs
     from repro_torch.configs.shapes import ShapeSpec
     from repro_torch.core.autotune import CellEvaluator, autotune_search
+    from repro_torch.core.roofline import analytic_hbm_bytes
     from repro_torch.launch.dryrun import run_cell
     from repro_torch.launch.steps import (build_model, count_step,
                                           make_prefill_step, trace_step)
@@ -3410,10 +3853,11 @@ def phase_dryrun() -> dict:
                        "useful_compute_ratio")
     with tempfile.TemporaryDirectory() as tmp:
         for arch, shape in [(a, s) for a in (ARCH, RG_ARCH, MOE_ARCH,
-                                             MLA_ARCH)
+                                             MLA_ARCH, WHISPER_ARCH)
                             for s in ("prefill_32k", "decode_32k")] + [
                 (XLSTM_ARCH, s) for s in ("prefill_32k", "decode_32k",
-                                          "long_500k")]:
+                                          "long_500k")] + [
+                (F8_ARCH, "decode_32k")]:
             rec = run_cell(arch, shape, Path(tmp), device="cuda")
             check(rec["status"] == "OK",
                   f"dry-run {arch} {shape}: {rec.get('error')}")
@@ -3436,7 +3880,32 @@ def phase_dryrun() -> dict:
                 "elementwise_share": rec["elementwise_flops"]
                 / roof["flops_per_chip"],
                 "fits_hbm": rec["fits_hbm"], "trace_s": rec["compile_s"],
+                "kv_dtype": rec["runtime"]["kv_dtype"],
+                "analytic_bytes": rec["analytic_bytes"],
                 "flops_by_op": rec["flops_by_op"]}
+        # the f8 cell: its analytic traffic takes the cache at one byte an
+        # element, as the reference's, and so does its peak: the same step
+        # over a bf16 cache holds one byte an element more
+        f8 = cells[f"{F8_ARCH} decode_32k"]
+        cfg = configs.get_arch(F8_ARCH)
+        shape = configs.shape_by_name("decode_32k")
+        check(f8["kv_dtype"] == "f8" and f8["analytic_bytes"] ==
+              analytic_hbm_bytes(cfg, shape, 1, tp=1, kv_bytes=1),
+              f"dry-run {F8_ARCH} decode_32k: kv {f8['kv_dtype']}, analytic "
+              f"bytes {f8['analytic_bytes']}")
+        bf16 = run_cell(F8_ARCH, "decode_32k", Path(tmp), device="cuda",
+                        overrides={"kv_dtype": "bf16"}, tag="_bf16")
+        cache = sum(math.prod(sp.shape) for layer in build_model(
+            cfg).cache_specs(shape.global_batch, shape.seq_len)
+            for sp in layer.values())
+        f8["peak_over_bf16_cache"] = (
+            bf16["roofline"]["peak_memory_per_chip"]
+            - f8["peak_memory_per_chip"])
+        f8["cache_bytes"] = cache
+        check(f8["peak_over_bf16_cache"] == cache,
+              f"dry-run {F8_ARCH} decode_32k: the f8 peak is "
+              f"{f8['peak_over_bf16_cache']} bytes under the bf16 one, the "
+              f"cache holds {cache} elements")
         # the greedy search over a cell whose points fit the card's 80 GB
         log = []
         ev = CellEvaluator(ARCH, "decode_32k", cache_dir=tmp, device="cuda")
@@ -3663,6 +4132,12 @@ def main() -> int:
           f"{XLSTM_ARCH}'s served decode differs from its forward by "
           f"{served['max_abs_diff_vs_forward']}")
     fp32_fwd[XLSTM_ARCH] = served["forward_launches"]
+    paths[WHISPER_ARCH] = phase_prefill_whisper()
+    fp32_fwd[WHISPER_ARCH] = phase_serve_whisper()["forward_launches"]
+    check(not any(paths[WHISPER_ARCH].values())
+          and not any(fp32_fwd[WHISPER_ARCH].values()),
+          f"the {WHISPER_ARCH} paths launched {paths[WHISPER_ARCH]} / "
+          f"{fp32_fwd[WHISPER_ARCH]}: its attention is blocked_attention")
     check_isolated()
     for name in ("flash_attention", "flash_attention_tensor_core",
                  "rglru_gated_scan"):
@@ -3708,7 +4183,7 @@ def main() -> int:
             "study parallel, parent": parallel["parent"],
             "study parallel, pool workers (their own counts)":
                 parallel["workers"],
-            "study zoo, eighteen traced apps": zoo["study"],
+            "study zoo, twenty traced apps": zoo["study"],
             "study zoo, genetic on qwen2-0.5b:prefill": zoo["genetic"],
             "study zoo, anneal on qwen2-0.5b:prefill": zoo["anneal"],
             "study pareto, genetic and nsga2 on ptb + wdl":

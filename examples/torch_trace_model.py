@@ -13,9 +13,8 @@ workload, its cost model on `--device` (the GPU by default):
       --app qwen2-0.5b:prefill --app recurrentgemma-9b:decode --optimize
   PYTHONPATH=src python examples/torch_trace_model.py --list
 
-`--list` marks the workloads whose models are not ported yet; tracing one
-of those exits non-zero.  The `gather_rows` kernel's launches go to
-stderr.
+`--list` lists every workload (the port traces all twenty zoo apps).  The
+`gather_rows` kernel's launches go to stderr.
 """
 
 import argparse
@@ -25,7 +24,6 @@ from repro_torch.core import apps
 from repro_torch.core.multiapp import AppSpec
 from repro_torch.core.search import ENGINES, optimize_for_app
 from repro_torch.core.space import default_space
-from repro_torch.frontend.zoo import PORTED_ARCHS
 from repro_torch.kernels.gather import gather_rows
 
 ap = argparse.ArgumentParser(description=__doc__)
@@ -43,19 +41,14 @@ args = ap.parse_args()
 
 if args.list:
     for name in apps.all_app_names():
-        arch = name.partition(":")[0]
-        ported = ":" not in name or arch in PORTED_ARCHS
-        print(name if ported else f"{name}  not ported (ROADMAP.md A5)")
+        print(name)
     sys.exit(0)
 
 names = args.app or ["qwen2-0.5b:prefill", "qwen2-0.5b:decode"]
 space = default_space()
 failures = []
 for name in names:
-    try:
-        graph = apps.build_app(name)
-    except NotImplementedError as e:
-        sys.exit(f"{name}: {e}")
+    graph = apps.build_app(name)
     s = graph.summary()
     print(f"{name}:")
     print(f"  ops={s['op_counts']}  data_nodes={s['n_data_nodes']}")

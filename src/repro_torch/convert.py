@@ -21,7 +21,8 @@ from repro_torch.models.config import ArchConfig
 from repro_torch.models.lm import plan_groups
 
 __all__ = ["ops_from_records", "space_from_domains",
-           "config_batch_from_matrix", "decoder_params_from_numpy"]
+           "config_batch_from_matrix", "decoder_params_from_numpy",
+           "encdec_params_from_numpy", "tree_from_numpy"]
 
 
 def ops_from_records(records: Iterable[Mapping]) -> OpStream:
@@ -56,6 +57,9 @@ def _tensor(a, device) -> torch.Tensor:
     if a.dtype.name == "bfloat16":          # ml_dtypes: no torch twin
         return torch.from_numpy(a.astype(np.float32)).to(
             device=device, dtype=torch.bfloat16)
+    if a.dtype.name == "float8_e4m3fn":     # the same bits, reinterpreted
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.uint8)).view(
+            torch.float8_e4m3fn).to(device)
     return torch.from_numpy(np.array(a)).to(device)
 
 
@@ -85,3 +89,27 @@ def decoder_params_from_numpy(cfg: ArchConfig, tree: Mapping[str, Any],
                     unit))
     out["layers"] = layers
     return out
+
+
+def tree_from_numpy(tree: Mapping[str, Any], device="cpu") -> Dict[str, Any]:
+    """A nested dict of numpy leaves (bf16 and f8 e4m3 included) as the
+    same dict of tensors, every leaf in its layout and dtype: a reference
+    `EncDecLM` cache (`k`, `v`, `xk`, `xv` stacked on the layers), or a
+    layer's cache of any model."""
+    return _map_leaves(lambda a: _tensor(a, device), tree)
+
+
+def encdec_params_from_numpy(cfg: ArchConfig, tree: Mapping[str, Any],
+                             device="cpu") -> Dict[str, Any]:
+    """The port's `EncDecLM` parameters from a reference `EncDecLM`
+    parameter tree with numpy leaves: the same layout (``embed``,
+    ``enc_pos``, ``dec_pos``, the ``encoder`` and ``decoder`` stacks with
+    their leaves stacked on the layers, the four norm leaves), every leaf
+    in its dtype."""
+    for stack, n in (("encoder", cfg.encoder_layers),
+                     ("decoder", cfg.num_layers)):
+        depth = np.shape(tree[stack]["ln1_s"])[0]
+        if depth != n:
+            raise ValueError(f"{stack}: {depth} stacked layers, the "
+                             f"config has {n}")
+    return tree_from_numpy(tree, device)

@@ -46,7 +46,8 @@ does:
     ``x - max`` (its ``exp`` aliased), the row sum and the quotient;
   * ``F.one_hot`` and ``torch.take_along_dim`` are one vertex each over
     their arguments, as the nested ``jit`` of ``jax.nn.one_hot`` and
-    ``jnp.take_along_axis`` is in the reference's tracer;
+    ``jnp.take_along_axis`` is in the reference's tracer, and so is a
+    function passed to `nested_jit` (``jnp.var``'s twin);
   * ``index_put_`` with several index tensors is jnp's ``x.at[i, j].set``:
     the indices broadcast (a vertex where that grows one) and
     concatenated, then the scatter over the old base, the stacked index
@@ -58,6 +59,10 @@ does:
   * an integer index from the end (`index_from_end`) is jnp's: the index
     normalised on literals (``lt``, ``add``, ``select_n``: three
     one-element vertices) and a ``dynamic_slice`` over the tensor and it;
+  * a slice at a traced position (`dynamic_slice_in_dim`) is one
+    ``dynamic_slice`` vertex over the tensor and the position;
+  * a scan step's slice of its xs is a copy: a write into it (a stacked
+    KV cache's layer) is a new version of the slice, not of the stack;
   * calls with no tensor result (``prim.device`` and the like) are skipped.
 
 The traced tensors are kept alive for the whole trace: bindings are keyed
@@ -79,7 +84,8 @@ from repro_torch.core.graph import ComputationGraph
 from repro_torch.frontend.lower import OperandInfo, lower_call
 
 __all__ = ["trace_to_graph", "scan_repeats", "scan_slices", "scan_stack",
-           "index_from_end", "GraphTracer", "DEFAULT_BIT_WIDTH"]
+           "index_from_end", "dynamic_slice_in_dim", "nested_jit", "node_of",
+           "tracing", "GraphTracer", "DEFAULT_BIT_WIDTH"]
 
 # The DSE datapath is quantized (§5: 8-bit dynamic-precision); traced
 # tensors are costed at this width regardless of their torch dtype.
@@ -370,7 +376,9 @@ class GraphTracer(TorchDispatchMode):
         weight's slice takes its share of the unclaimed bits."""
         self._paused = True
         try:
-            piece = xs[i]
+            # a copy, not a view: a write into it is a new version of the
+            # slice, as the reference's step writes its own slice
+            piece = xs[i].clone()
         finally:
             self._paused = False
         b = self.read(xs)
@@ -411,6 +419,24 @@ class GraphTracer(TorchDispatchMode):
         sel = self._data_node("selectn", 1, [lt, add])
         node = self._data_node("dynamicslice", piece.numel(),
                                self._act_parents([self.read(x)]) + [sel])
+        self.bind(piece, _Binding(node, False, piece.numel()))
+        return piece
+
+    def dynamic_slice(self, x: torch.Tensor, start: torch.Tensor,
+                      size: int, dim: int) -> torch.Tensor:
+        """`size` rows of x along `dim` from the 0-d tensor `start`, as
+        jax traces ``lax.dynamic_slice_in_dim``: its index normalisation
+        on `start` alone aliases onto it, so one ``dynamic_slice`` vertex
+        over x (or x's bits, a weight's) and `start`."""
+        self._paused = True
+        try:
+            piece = x.narrow(dim, 0, size).clone()
+        finally:
+            self._paused = False
+        bx = self.read(x)
+        node = self._data_node("dynamicslice", piece.numel(),
+                               self._act_parents([bx, self.read(start)]),
+                               self._claim([bx]))
         self.bind(piece, _Binding(node, False, piece.numel()))
         return piece
 
@@ -530,6 +556,42 @@ def index_from_end(x: torch.Tensor, dim: int, i: int) -> torch.Tensor:
     if _ACTIVE:
         return _ACTIVE[-1].from_end(x, dim, i)
     return x.select(dim, i)
+
+
+def dynamic_slice_in_dim(x: torch.Tensor, start: torch.Tensor, size: int,
+                         dim: int = 0) -> torch.Tensor:
+    """`jax.lax.dynamic_slice_in_dim(x, start, size, dim)` at a 0-d device
+    tensor `start`, with no host sync (`narrow` at a tensor reads it on
+    the host, which a meta or fake tensor cannot): the rows from `start`
+    clamped to [0, n - size], as lax clamps it.  Under `trace_to_graph`
+    one ``dynamic_slice`` vertex (`GraphTracer.dynamic_slice`)."""
+    if _ACTIVE:
+        return _ACTIVE[-1].dynamic_slice(x, start, size, dim)
+    idx = start.clamp(0, x.shape[dim] - size).reshape(1)
+    if size > 1:
+        idx = idx + torch.arange(size, device=x.device)
+    return x.index_select(dim, idx)
+
+
+def nested_jit(tag: str, fn, *args):
+    """`fn(*args)` for a function the reference runs as a nested `jit`
+    (`jnp.var`): under `trace_to_graph` one data vertex over the
+    arguments (`GraphTracer.one_call`), as the reference's tracer makes
+    one; elsewhere the call."""
+    if _ACTIVE:
+        return _ACTIVE[-1].one_call(tag, fn, args, {})
+    return fn(*args)
+
+
+def node_of(t: torch.Tensor) -> Optional[str]:
+    """The graph vertex the running trace binds `t` to (None outside a
+    trace, and for a weight)."""
+    return _ACTIVE[-1].read(t).node if _ACTIVE else None
+
+
+def tracing() -> bool:
+    """Whether a `trace_to_graph` call is running."""
+    return bool(_ACTIVE)
 
 
 def trace_to_graph(fn, *args, name: str = "traced",

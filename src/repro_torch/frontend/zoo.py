@@ -2,24 +2,28 @@
 `ComputationGraph` apps.
 
 The twin of `repro.frontend.zoo`.  For each architecture it traces the
-port's model code (`repro_torch.models.lm`) with
+port's model code (`repro_torch.models.lm`, and `repro_torch.models.encdec`
+for whisper-medium) with
 `frontend.trace.trace_to_graph` on fake tensors at full width, and
 exposes the graph under the reference's `<arch>:<variant>` names, which
 `repro_torch.core.apps.build_app` resolves:
 
-    variant "prefill" — `DecoderLM.forward` at `PREFILL_SEQ` tokens with
-                        `last_only` logits (serving prefill);
-    variant "decode"  — `DecoderLM.decode_step` against a `DECODE_CACHE`-
-                        slot cache, returning the caches, so the liveness
-                        profile sees KV-cache residency and the single-row
-                        products lower to `Op.matvec`.
+    variant "prefill" — `forward` at `PREFILL_SEQ` tokens with
+                        `last_only` logits (serving prefill; whisper's
+                        over `min(encoder_seq, ENCODER_SEQ)` fp32 frames);
+    variant "decode"  — `decode_step` against a `DECODE_CACHE`-slot cache,
+                        returning the caches, so the liveness profile sees
+                        KV-cache residency and the single-row products
+                        lower to `Op.matvec` (whisper's encoder_seq cut to
+                        `DECODE_CACHE`, its cross caches with it).
 
 Both run with the reference's `Runtime()` defaults and `use_kernels=False`
 (a ctypes kernel launch is invisible to a dispatch mode).  The decode
 step takes the reference's parameter layout — each group's leaves stacked
 on its repeats — and slices one layer out at a time, as the reference's
 `decode_step` does; the prefill takes one parameter per layer, as the
-reference's scan hands each step its slice.
+reference's scan hands each step its slice.  `EncDecLM` takes the
+reference's stacked layout itself and scans its layers (`layers.scan`).
 
 Two parts of the prefill are traced in the reference's form, so that the
 graph is the reference's while the serving code stays as it is:
@@ -32,14 +36,13 @@ graph is the reference's while the serving code stays as it is:
     log-step doubling (`kernels.rg_lru.rglru_scan_plain`, the kernels'
     yardstick), whose values are the same and whose ops are not.
 
-The arch whose model the port does not have yet (the encoder-decoder,
-whisper-medium) raises `NotImplementedError`.  Graphs are memoized per
-process; listing `ZOO_APP_NAMES` costs nothing.
+Graphs are memoized per process; listing `ZOO_APP_NAMES` costs nothing.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 from typing import Callable, Dict, Iterator, Tuple
 
@@ -50,7 +53,8 @@ from repro_torch.configs import ARCH_NAMES, get_arch
 from repro_torch.core.graph import ComputationGraph
 from repro_torch.frontend.trace import scan_repeats, trace_to_graph
 from repro_torch.kernels import rg_lru
-from repro_torch.models.layers import Runtime, map_specs, not_ported
+from repro_torch.models.encdec import EncDecLM
+from repro_torch.models.layers import Runtime, map_specs
 from repro_torch.models.lm import DecoderLM, block_apply_train, plan_groups
 
 __all__ = ["ZOO_APP_NAMES", "ZOO_VARIANTS", "PORTED_ARCHS", "build_zoo_app",
@@ -66,11 +70,8 @@ ZOO_VARIANTS: Tuple[str, ...] = ("prefill", "decode")
 ZOO_APP_NAMES: Tuple[str, ...] = tuple(
     f"{arch}:{variant}" for arch in ARCH_NAMES for variant in ZOO_VARIANTS)
 
-# the archs whose models the port has (ROADMAP.md A5 brings the rest)
-PORTED_ARCHS: Tuple[str, ...] = (
-    "internvl2-1b", "recurrentgemma-9b", "qwen2-0.5b", "qwen2.5-32b",
-    "qwen2.5-3b", "mistral-nemo-12b", "olmoe-1b-7b", "deepseek-v2-lite-16b",
-    "xlstm-1.3b")
+# the archs whose models the port has: every one
+PORTED_ARCHS: Tuple[str, ...] = ARCH_NAMES
 
 
 def _meta(spec, dtype: torch.dtype) -> torch.Tensor:
@@ -147,14 +148,28 @@ def prefill_fn(model: DecoderLM, rt: Runtime) -> Callable:
 
 
 def _prefill_graph(arch_name: str) -> ComputationGraph:
-    model = DecoderLM(get_arch(arch_name))
+    arch = get_arch(arch_name)
     rt = Runtime()
+    name = f"{arch_name}:prefill"
+    tokens = torch.empty((1, PREFILL_SEQ), dtype=torch.int64, device="meta")
+    if arch.is_encdec:
+        model = EncDecLM(arch)
+        frames = torch.empty((1, min(arch.encoder_seq, ENCODER_SEQ),
+                              arch.d_model), device="meta")
+
+        def fn(params, toks, frm):
+            return model.forward(params, {"tokens": toks, "frames": frm},
+                                 rt, last_only=True)
+
+        params = map_specs(lambda s: _meta(s, rt.param_dtype),
+                           model.param_specs())
+        return trace_to_graph(fn, params, tokens, frames, name=name)
+    model = DecoderLM(arch)
     params = map_specs(lambda s: _meta(s, rt.param_dtype),
                        model.param_specs())
-    tokens = torch.empty((1, PREFILL_SEQ), dtype=torch.int64, device="meta")
     with _scan_as_the_reference():
         return trace_to_graph(prefill_fn(model, rt), params, tokens,
-                              name=f"{arch_name}:prefill")
+                              name=name)
 
 
 def _stacked_params(model: DecoderLM, dtype: torch.dtype):
@@ -196,17 +211,31 @@ def _slice(tree, r: int, repeats: int):
 
 
 def _decode_graph(arch_name: str) -> ComputationGraph:
-    model = DecoderLM(get_arch(arch_name))
+    arch = get_arch(arch_name)
     rt = Runtime()
-    params = _stacked_params(model, rt.param_dtype)
-    cache = map_specs(lambda s: _meta(s, torch.bfloat16),
-                      model.cache_specs(1, DECODE_CACHE))
     token = torch.empty((1, 1), dtype=torch.int64, device="meta")
     pos = torch.empty((), dtype=torch.int64, device="meta")
+    if arch.is_encdec:
+        # the reference's cut of the decode-time encoder context: the
+        # cross caches are sized from encoder_seq, and 1500 frames push
+        # the Eq. 13 activation floor past the default area budget
+        model = EncDecLM(dataclasses.replace(
+            arch, encoder_seq=min(arch.encoder_seq, DECODE_CACHE)))
+        params = map_specs(lambda s: _meta(s, rt.param_dtype),
+                           model.param_specs())
+
+        def unstack(p):                 # its own layout is the stacked one
+            return p
+    else:
+        model = DecoderLM(arch)
+        params = _stacked_params(model, rt.param_dtype)
+        unstack = functools.partial(_unstack, model)
+    cache = map_specs(lambda s: _meta(s, torch.bfloat16),
+                      model.cache_specs(1, DECODE_CACHE))
 
     def fn(params, c, t, p):
         # return the new caches too: their liveness is the decode story
-        return model.decode_step(_unstack(model, params), c, t, p, rt)
+        return model.decode_step(unstack(params), c, t, p, rt)
 
     return trace_to_graph(fn, params, cache, token, pos,
                           name=f"{arch_name}:decode")
@@ -232,6 +261,4 @@ def build_zoo_app(name: str) -> ComputationGraph:
     if builder is None:
         raise KeyError(f"unknown variant {variant!r}; "
                        f"available: {sorted(_VARIANT_BUILDERS)}")
-    if arch_name not in PORTED_ARCHS:
-        raise not_ported(f"the zoo app {name!r} (its model, ROADMAP.md A5)")
     return builder(arch_name)

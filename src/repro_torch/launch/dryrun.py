@@ -13,9 +13,13 @@ Nothing is allocated and no kernel runs, so a full-batch 32k prefill is
 counted in seconds.  The reference (`repro.launch.dryrun`) compiles each
 cell with XLA for a 256- or 512-chip mesh; the port runs on one chip (mesh
 "1gpu"), so sharding mode, remat and layout rules change nothing here and
-are only recorded.  Train shapes and the arch whose model the port does
-not have yet (the encoder-decoder) raise `NotImplementedError`; other
-failures are recorded as FAILED.  A sub-quadratic arch's `long_500k`
+are only recorded.  Every serving cell of every arch is counted, the
+encoder-decoder's (whisper-medium: the encoder at its 1500 frames and the
+decoder at the cell's tokens) and qwen2.5-32b's decode_32k over the
+reference's f8 KV cache (`DEFAULT_SERVE_KV_DTYPE`: the cache at one byte
+an element in the peak and in the analytic traffic) included; train
+shapes raise `NotImplementedError`; other failures are recorded as
+FAILED.  A sub-quadratic arch's `long_500k`
 (xlstm-1.3b: one token against a 524,288-token context) is counted as
 any decode cell; an xLSTM prefill's scans over time and chunks count one
 step for all (`steps.count_step`).  Records are
@@ -55,8 +59,7 @@ __all__ = ["MESH", "OUT_DIR", "run_cell", "main"]
 OUT_DIR = Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
 MESH = "1gpu"                          # one card, no mesh
 # the reference's fp8 KV cache for archs whose bf16 cache and weights
-# exceed its chips' memory at decode_32k (the port's f8 cache raises:
-# ported in a later slice)
+# exceed its chips' memory at decode_32k
 DEFAULT_SERVE_KV_DTYPE = {"qwen2.5-32b": "f8"}
 
 
@@ -94,18 +97,20 @@ def run_cell(arch_name: str, shape_name: str, out_dir: Path, *,
     rt_overrides = dict(overrides or {})
     if shape.mode == "decode" and arch_name in DEFAULT_SERVE_KV_DTYPE:
         rt_overrides.setdefault("kv_dtype", DEFAULT_SERVE_KV_DTYPE[arch_name])
+    kv_bytes = 1 if rt_overrides.get("kv_dtype") == "f8" else 2
     t0 = time.time()
     try:
         counts, rt = trace_step(arch, shape, device=device,
                                 overrides=rt_overrides)
         t_trace = time.time() - t0
         hw = HW()
+        analytic = analytic_hbm_bytes(arch, shape, 1, tp=1,
+                                      kv_bytes=kv_bytes)
         rep = roofline_from_totals(
             arch=arch_name, shape=shape_name, mesh_name=MESH, chips=1,
             flops=counts.flops, hbm_bytes=counts.bytes_accessed,
             coll=CollectiveStats(), peak_bytes=counts.peak_bytes,
-            analytic_bytes=analytic_hbm_bytes(arch, shape, 1, tp=1,
-                                              kv_bytes=2),
+            analytic_bytes=analytic,
             model_flops_total=model_flops(arch, shape), hw=hw)
         rec = {
             "cell": cell_id, "status": "OK",
@@ -116,7 +121,7 @@ def run_cell(arch_name: str, shape_name: str, out_dir: Path, *,
                                 f"bytes (params, inputs and caches "
                                 f"included) on fake {device} tensors"),
             "fits_hbm": bool(counts.peak_bytes <= hw.hbm_bytes),
-            "roofline": rep.to_json(),
+            "roofline": rep.to_json(), "analytic_bytes": analytic,
             "probes": [],
             "config": {"sharding_mode": sharding_mode, "remat": remat,
                        "microbatches": microbatches,
@@ -128,6 +133,7 @@ def run_cell(arch_name: str, shape_name: str, out_dir: Path, *,
                         "compute_dtype": str(rt.compute_dtype),
                         "attn_kv_block": rt.attn_kv_block,
                         "moe_group_size": rt.moe_group_size,
+                        "kv_dtype": rt.kv_dtype, "kv_bytes": kv_bytes,
                         "use_kernels": rt.use_kernels},
             "flops_by_op": counts.flops_by_op,
             "matmul_flops": counts.matmul_flops,

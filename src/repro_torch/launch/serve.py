@@ -10,6 +10,10 @@ queue at once.
         --device cuda
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
         --smoke --device cpu --requests 12 --batch 4 --max-new 16
+
+Every arch serves, the encoder-decoder (`--arch whisper-medium`) through
+`EncDecLM` as the reference's server runs it: its cross caches are zeroed
+by `init_cache` and the encoder never runs.
 """
 
 from __future__ import annotations

@@ -5,7 +5,8 @@ dry-run (`launch.dryrun`).
 
 The reference builds jit-able steps over a device mesh; on one GPU a step
 is a plain function that runs eagerly under `torch.inference_mode` and
-`layers.full_precision_products`.  The
+`layers.full_precision_products`, over a `DecoderLM` or, for the
+encoder-decoder (whisper-medium), an `EncDecLM`.  The
 training step, the mesh and the sharding rules are ported in a later
 slice (see ROADMAP.md).
 """
@@ -14,7 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import weakref
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -25,17 +26,20 @@ from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (STEP_COUNTERS, Runtime,
                                        full_precision_products, map_specs,
-                                       not_ported)
+                                       not_ported, slice_of)
+from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.lm import DecoderLM
+
+Model = Union[DecoderLM, EncDecLM]
 
 __all__ = ["build_model", "make_runtime", "input_specs",
            "make_prefill_step", "make_serve_step", "StepCounts",
            "count_step", "trace_step"]
 
 
-def build_model(arch: ArchConfig) -> DecoderLM:
+def build_model(arch: ArchConfig) -> Model:
     if arch.is_encdec:
-        raise not_ported("EncDecLM")
+        return EncDecLM(arch)
     return DecoderLM(arch)
 
 
@@ -57,9 +61,11 @@ def input_specs(arch: ArchConfig, shape: ShapeSpec
                 ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
     """(shape, dtype) of every model input of this cell."""
     B, S = shape.global_batch, shape.seq_len
-    if arch.is_encdec:
-        raise not_ported("EncDecLM")
     if shape.mode in ("train", "prefill"):
+        if arch.is_encdec:
+            return {"frames": ((B, arch.encoder_seq, arch.d_model),
+                               torch.bfloat16),
+                    "tokens": ((B, S), torch.int64)}
         batch: Dict[str, Tuple[Tuple[int, ...], torch.dtype]] = {}
         s_text = S
         if arch.frontend == "vit_stub":
@@ -72,7 +78,7 @@ def input_specs(arch: ArchConfig, shape: ShapeSpec
     return {"token": ((B, 1), torch.int64), "pos": ((), torch.int64)}
 
 
-def make_prefill_step(model: DecoderLM, rt: Runtime) -> Callable:
+def make_prefill_step(model: Model, rt: Runtime) -> Callable:
     def prefill_step(params, batch):
         # the sampler needs only the last position's logits
         with torch.inference_mode(), full_precision_products():
@@ -81,7 +87,7 @@ def make_prefill_step(model: DecoderLM, rt: Runtime) -> Callable:
     return prefill_step
 
 
-def make_serve_step(model: DecoderLM, rt: Runtime) -> Callable:
+def make_serve_step(model: Model, rt: Runtime) -> Callable:
     def serve_step(params, cache, token, pos):
         with torch.inference_mode(), full_precision_products():
             return model.decode_step(params, cache, token, pos, rt)
@@ -219,18 +225,28 @@ class _Counter(TorchDispatchMode):
         The step then runs again, uncounted, as the loop's last step runs:
         from a carry of its own, beside the first carry and one stand-in
         allocation of the other steps' outputs (the loop's list holds
-        them until the stack), so the peak is the loop's."""
+        them until the stack; an output written in place into its slice
+        of the xs, a KV cache layer, holds nothing), so the peak is the
+        loop's."""
         flops = self.flop_counter.flop_counts["Global"]
         fields = ("ops", "bytes_accessed", "elementwise_flops",
                   "transcendentals")
         was, was_flops = [getattr(self, f) for f in fields], dict(flops)
-        x0 = tuple(x[0] for x in xs)
+        leaves, spec = pytree.tree_flatten(xs)
+        x0 = pytree.tree_unflatten([x[0] for x in leaves], spec)
         y = step(carry, x0)[1]
-        shape, dtype = (n - 1,) + tuple(y.shape), y.dtype
+        def written_in_place(t):
+            return next((x for x in leaves if slice_of(t, x, 0)), None)
+
+        held_shapes = [((n - 1,) + tuple(t.shape), t.dtype)
+                       for t in pytree.tree_leaves(y)
+                       if isinstance(t, torch.Tensor)
+                       and written_in_place(t) is None]
         del y
         counted = dict(flops)
         self.counting = False
-        held = torch.empty(shape, dtype=dtype, device=xs[0].device)
+        held = [torch.empty(shape, dtype=dtype, device=leaves[0].device)
+                for shape, dtype in held_shapes]
         # the last step's input carry, apart from the first's
         last = pytree.tree_map_only(torch.Tensor, torch.empty_like, carry)
         carry, y = step(last, x0)
@@ -242,7 +258,12 @@ class _Counter(TorchDispatchMode):
         for f, w in zip(fields, was):
             setattr(self, f, getattr(self, f) + (n - 1) * (
                 getattr(self, f) - w))
-        ys = torch.stack([y] * n)
+        def stacked(t):
+            src = written_in_place(t)
+            return src if src is not None else torch.stack([t] * n)
+
+        ys = None if y is None else pytree.tree_map_only(
+            torch.Tensor, stacked, y)
         del held
         return carry, ys
 
@@ -308,9 +329,11 @@ def trace_step(arch: ArchConfig, shape: ShapeSpec, *, device: str = "cuda",
     (`use_kernels=False`, as the reference's dry-run traces without
     Pallas; the ctypes kernels are invisible to dispatch modes anyway), on
     parameters in the serving dtype.  A decode step writes one token at
-    position `seq_len - 1` against a `seq_len`-deep cache.  The port
-    unrolls its layers, so the whole step is counted once (the reference's
-    scan probes have no counterpart)."""
+    position `seq_len - 1` against a `seq_len`-deep cache, made by
+    `init_cache` under the cell's runtime (an f8 KV cache under
+    `kv_dtype="f8"`).  The whole step is counted once, a `layers.scan`
+    over layers one step for all (the reference's scan probes have no
+    counterpart)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     if shape.mode == "train":

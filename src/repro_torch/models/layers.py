@@ -1,11 +1,12 @@
-"""Model-zoo layers of the port, cut to what dense GQA decoders, the
-Griffin hybrid (recurrentgemma), the MoE decoders (olmoe, and
-deepseek-v2-lite with MLA) and xLSTM need: RMSNorm, RoPE, blocked
-(online-softmax) and local-block attention, GQA attention and multi-head
-latent attention (MLA) for a full sequence and for one decode step with a
-cache, the SwiGLU MLP, the token-choice MoE block, the RG-LRU recurrent
-block and the mLSTM and sLSTM blocks — plain functions on tensors over
-per-layer parameter dicts.
+"""Model-zoo layers of the port, what every arch of the zoo needs: RMSNorm
+and LayerNorm, RoPE, blocked (online-softmax: causal, window, query
+offset, padded-cache length) and local-block attention, GQA attention and
+multi-head latent attention (MLA) for a full sequence and for one decode
+step with a KV cache (bf16, or f8 under `Runtime(kv_dtype="f8")`), the
+SwiGLU and GELU MLPs, the token-choice MoE block, the RG-LRU recurrent
+block and the mLSTM and sLSTM blocks, and `scan`, the reference's
+`lax.scan` over stacked layers — plain functions on tensors over
+parameter dicts.
 
 Conventions (those of `repro.models.layers`)
 -------------------------------------------
@@ -22,7 +23,6 @@ Conventions (those of `repro.models.layers`)
 * Layouts are the reference's: q `[B, S, H, hd]`, k/v `[B, S, KV, hd]`,
   `wq` `[d, H*hd]`.
 
-The GELU MLP is ported in a later slice (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -34,14 +34,18 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils import _pytree as pytree
 
-from repro_torch.frontend.trace import index_from_end, scan_slices, scan_stack
+from repro_torch.frontend.trace import (index_from_end, nested_jit, node_of,
+                                        scan_slices, scan_stack, tracing)
 
 Params = Any
 
 __all__ = ["Runtime", "Spec", "init_params", "full_precision_products",
-           "rms_norm", "rope_cos_sin", "apply_rope", "blocked_attention",
-           "local_block_attention", "kv_cache_write", "gqa_specs",
+           "stack_specs", "zeros_cache", "KV_DTYPES", "scan",
+           "rms_norm", "layer_norm", "rope_cos_sin", "apply_rope",
+           "blocked_attention", "local_block_attention", "f8_bits",
+           "kv_cache_write", "gelu_mlp_specs", "gelu_mlp", "gqa_specs",
            "gqa_project", "gqa_out", "gqa_attention_train",
            "gqa_attention_decode", "mla_specs", "mla_attention_train",
            "mla_attention_decode", "swiglu_specs", "swiglu", "moe_specs",
@@ -103,7 +107,7 @@ class Runtime:
     attn_kv_block: int = 1024
     moe_group_size: int = 4096          # tokens routed together (GShard G)
     mlstm_chunk: int = 256
-    kv_dtype: str = "bf16"              # bf16 | f8 (f8: a later slice)
+    kv_dtype: str = "bf16"              # bf16 | f8 (`KV_DTYPES`)
 
 
 # ================================================================ param specs
@@ -134,6 +138,32 @@ def map_specs(fn, tree):
     if isinstance(tree, dict):
         return {k: map_specs(fn, v) for k, v in tree.items()}
     return [map_specs(fn, t) for t in tree]
+
+
+def stack_specs(specs, n: int, axis_name: Optional[str] = "layers"):
+    """Prepend a stacking dimension of `n` to every `Spec` (the
+    reference's scan-over-layers parameters and caches)."""
+    return map_specs(lambda s: Spec((n,) + s.shape, (axis_name,) + s.axes,
+                                    s.init, s.dtype), specs)
+
+
+# the KV cache's dtype by `Runtime.kv_dtype` (the reference's dry-run gives
+# an f8 cache the e4m3 format: `launch/steps.py` of the JAX package)
+KV_DTYPES = {"bf16": torch.bfloat16, "f8": torch.float8_e4m3fn}
+
+
+def zeros_cache(specs, rt: "Runtime", device) -> Any:
+    """Zeroed decode caches from their specs: every leaf whose spec says
+    bf16 (a KV cache) in `rt.kv_dtype`'s dtype, every other leaf (fp32
+    recurrent state) in its own."""
+    if rt.kv_dtype not in KV_DTYPES:
+        raise ValueError(f"kv_dtype {rt.kv_dtype!r}: not one of "
+                         f"{sorted(KV_DTYPES)}")
+    kv = KV_DTYPES[rt.kv_dtype]
+    return map_specs(
+        lambda s: torch.zeros(s.shape, device=device, dtype=kv if s.dtype ==
+                              "bf16" else s.resolved_dtype(torch.bfloat16)),
+        specs)
 
 
 def init_params(specs, generator: torch.Generator,
@@ -197,6 +227,25 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float
     return y.to(x.dtype)
 
 
+def _var(x: torch.Tensor) -> torch.Tensor:
+    """`jnp.var(x, axis=-1, keepdims=True)`'s decomposition: the mean, the
+    centred squares summed, over N."""
+    centred = x - x.mean(dim=-1, keepdim=True)
+    return centred.square().sum(dim=-1, keepdim=True) / x.shape[-1]
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """LayerNorm in fp32 as the reference writes it: the mean, `jnp.var`
+    (`_var`, a nested `jit` to the frontend), rsqrt, scale and bias."""
+    x32 = x.to(acc_dtype(x.dtype))
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = nested_jit("var", _var, x32)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    y = y * scale.to(x32.dtype) + bias.to(x32.dtype)
+    return y.to(x.dtype)
+
+
 def rope_cos_sin(positions: torch.Tensor, dim: int, theta: float
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """positions [..., S] -> cos/sin [..., S, dim//2] (fp32)."""
@@ -230,20 +279,24 @@ def _gqa_values(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      *, causal: bool, kv_block: int = 1024) -> torch.Tensor:
+                      *, causal: bool, window: int = 0, q_offset: int = 0,
+                      kv_block: int = 1024,
+                      kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Online-softmax attention over KV blocks (the plain version of the
     flash kernel's algorithm, written with tensor ops).
 
-    q [B, Sq, H, hd]; k, v [B, Skv, KV, hd].  The causal mask is `i >= j`
-    (top-left).  K and V are padded to a multiple of `kv_block` and the
-    padded tail is masked, as in the reference: the values are those of
-    the unpadded keys, the work (and the products a traced graph sees) is
-    the reference's.  Memory stays O(Sq x kv_block).  The loop is the
+    q [B, Sq, H, hd]; k, v [B, Skv, KV, hd].  `q_offset` is the absolute
+    position of q[0]; the causal mask is `q_offset + i >= j`.  `window >
+    0` limits attention to the last `window` positions; `kv_len` (a 0-d
+    tensor on the device) masks the tail of a statically padded KV cache.
+    K and V are padded to a multiple of `kv_block` and the padded tail is
+    masked, as in the reference: the values are those of the unpadded
+    keys, the work (and the products a traced graph sees) is the
+    reference's.  Memory stays O(Sq x kv_block).  The loop is the
     reference's scan: the KV blocks are its xs (`scan_slices`), the block
     counter a 0-d carry, and the mask is made from ones and and-ed every
-    block, so a traced graph is the reference's vertex for vertex.  The
-    reference's window, query offset and padded-cache length come with the
-    slices that call them (local attention, the padded decode cache)."""
+    block in the reference's order (causal, window, `kv_len`, pad), so a
+    traced graph is the reference's vertex for vertex."""
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     hd_v = v.shape[-1]
@@ -258,6 +311,8 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     vb = v.reshape(B, nblk, kv_block, KV, hd_v).transpose(0, 1)
     dev = q.device
     q_pos = torch.arange(Sq, device=dev)
+    if q_offset:
+        q_pos = q_offset + q_pos
 
     m = torch.full((B, KV, G, Sq), -math.inf, device=dev)
     l = torch.zeros((B, KV, G, Sq), device=dev)
@@ -269,6 +324,10 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask = torch.ones((Sq, kv_block), dtype=torch.bool, device=dev)
         if causal:
             mask = mask & (q_pos[:, None] >= kv_pos[None, :])
+        if window:
+            mask = mask & (q_pos[:, None] - kv_pos[None, :] < window)
+        if kv_len is not None:
+            mask = mask & (kv_pos < kv_len)[None, :]
         if pad:
             mask = mask & (kv_pos < Skv)[None, :]
         s = torch.where(mask, s, -math.inf)
@@ -326,12 +385,26 @@ def local_block_attention(q: torch.Tensor, k: torch.Tensor,
     return o[:, :S]
 
 
+def f8_bits(x: torch.Tensor) -> torch.Tensor:
+    """`x.astype(float8_e4m3fn)` as XLA casts it, as `uint8` bits: round
+    to nearest even, and NaN past 464 in magnitude (infinities included),
+    where torch's cast saturates at +-448."""
+    bits = x.to(torch.float8_e4m3fn).view(torch.uint8)
+    return torch.where(x.abs() > 464, bits | 0x7F, bits)
+
+
 def kv_cache_write(cache: torch.Tensor, new: torch.Tensor,
                    pos: torch.Tensor) -> torch.Tensor:
     """Write `new` [B, 1, ...] into `cache` [B, S, ...] at seq position
     `pos` (a 0-d int64 tensor on the cache's device), in place (the
     reference returns a new buffer; writing in place saves a copy of the
-    whole cache per layer and step)."""
+    whole cache per layer and step).  An f8 cache is written through a
+    `uint8` view, with `f8_bits(new)` (`index_copy_` has no f8 kernel):
+    bit for bit the reference's `new.astype(cache.dtype)`."""
+    if cache.dtype == torch.float8_e4m3fn:
+        cache.view(torch.uint8).index_copy_(1, pos.reshape(1),
+                                            f8_bits(new))
+        return cache
     return cache.index_copy_(1, pos.reshape(1), new.to(cache.dtype))
 
 
@@ -555,6 +628,25 @@ def swiglu(p: Params, x: torch.Tensor, rt: Runtime) -> torch.Tensor:
     u = cd_matmul(x, p["w3"], cd)
     h = (F.silu(g) * u).to(cd)
     return cd_matmul(h, p["w2"], cd).to(cd)
+
+
+def gelu_mlp_specs(d: int, f: int) -> Dict[str, Spec]:
+    return {
+        "w1": Spec((d, f), ("embed", "ff")),
+        "b1": Spec((f,), ("ff",), "zeros"),
+        "w2": Spec((f, d), ("ff", "embed")),
+        "b2": Spec((d,), ("embed",), "zeros"),
+    }
+
+
+def gelu_mlp(p: Params, x: torch.Tensor, rt: Runtime) -> torch.Tensor:
+    """Two projections with fp32 biases after each and the tanh GeLU
+    (`jax.nn.gelu`) between them."""
+    cd = rt.compute_dtype
+    h = cd_matmul(x, p["w1"], cd) + p["b1"].float()
+    h = F.gelu(h, approximate="tanh").to(cd)
+    y = cd_matmul(h, p["w2"], cd) + p["b2"].float()
+    return y.to(cd)
 
 
 # ====================================================================== MoE
@@ -846,23 +938,65 @@ STABILISER_START = -1e30
 STEP_COUNTERS: list = []
 
 
-def scan(step, carry, xs: Tuple[torch.Tensor, ...]):
+def slice_of(t: torch.Tensor, xs: torch.Tensor, i: int) -> bool:
+    """Whether `t` is the view `xs[i]` (a scan step's slice of its xs,
+    written in place)."""
+    base = xs if xs._base is None else xs._base
+    return (t._base is base and tuple(t.shape) == tuple(xs.shape[1:])
+            and t.stride() == xs.stride()[1:]
+            and t.storage_offset() == xs.storage_offset() + i * xs.stride(0))
+
+
+def stack_ys(ys, xs_leaves, slices, nodes):
+    """The scan's ys stacked (`scan_stack`), leaf by leaf of the steps'
+    outputs (`slices`: each step's xs slices, flat; `nodes`: their graph
+    vertices when they were sliced, under `trace_to_graph`).  Outside a
+    trace, a leaf that every step passed on as its own slice of an xs
+    leaf, or wrote in place into it (a KV cache layer), is that xs leaf,
+    not a copy.  Under `trace_to_graph` a leaf passed on unwritten is
+    the xs leaf, as jax's scan forwards it (no stack), and a written one
+    is stacked, as the reference's scan stacks the written slices."""
+    if ys[0] is None:
+        return None
+    flat = [pytree.tree_flatten(y)[0] for y in ys]
+    spec = pytree.tree_flatten(ys[0])[1]
+    out = []
+    for j in range(len(flat[0])):
+        steps = [f[j] for f in flat]
+        if tracing():
+            same = next((x for k, x in enumerate(xs_leaves) if all(
+                t is sl[k] and node_of(t) == nd[k]
+                for t, sl, nd in zip(steps, slices, nodes))), None)
+        else:
+            same = next((x for x in xs_leaves if all(
+                slice_of(t, x, i) for i, t in enumerate(steps))), None)
+        out.append(same if same is not None else scan_stack(steps))
+    return pytree.tree_unflatten(out, spec)
+
+
+def scan(step, carry, xs):
     """`jax.lax.scan(step, carry, xs)`: `step(carry, x) -> (carry, y)` over
-    the leading dimension of the tensors `xs` (x a tuple of their
-    slices), returning the last carry and the ys stacked.  To the frontend
-    the loop is the reference's scan (`scan_slices`, `scan_stack`).
-    Under `launch.steps.count_step` every step does the same work on
-    tensors of the same shapes, so one step runs and its counts are
-    repeated for the others (`STEP_COUNTERS`); the output then holds that
-    step's values only, which on fake tensors are none."""
-    n = xs[0].shape[0]
+    the leading dimension of the tensors of the pytree `xs` (x the same
+    pytree of their slices), returning the last carry and the ys stacked
+    (`stack_ys`: None if the steps return None; a slice passed on, or
+    written in place, is returned as its xs leaf).  To the frontend the
+    loop is the reference's scan (`scan_slices`, `scan_stack`).  Under
+    `launch.steps.count_step` every step does the same work on tensors of
+    the same shapes, so one step runs and its counts are repeated for the
+    others (`STEP_COUNTERS`); the output then holds that step's values
+    only, which on fake tensors are none."""
+    leaves, spec = pytree.tree_flatten(xs)
+    n = leaves[0].shape[0]
     if STEP_COUNTERS and n > 1:
         return STEP_COUNTERS[-1].repeat_scan(step, carry, xs, n)
-    ys = []
-    for x in scan_slices(*xs):
-        carry, y = step(carry, x)
+    ys, slices, nodes = [], [], []
+    for x in scan_slices(*leaves):
+        if tracing():
+            nodes.append([node_of(t) for t in x])
+        carry, y = step(carry, pytree.tree_unflatten(list(x), spec))
         ys.append(y)
-    return carry, scan_stack(ys)
+        slices.append(x)
+    return carry, stack_ys(ys, leaves, slices, nodes)
 
 
 def _log_sigmoid(x: torch.Tensor) -> torch.Tensor:

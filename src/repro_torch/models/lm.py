@@ -19,8 +19,9 @@ parameter tree into this layout.  Supported: dense GQA decoders (qwen2*,
 mistral-nemo), the VLM stub (internvl2: a patch-embedding prefix), the
 Griffin hybrid (recurrentgemma: RG-LRU and local-attention layers) and
 the MoE decoders (olmoe; deepseek-v2-lite: MLA, shared experts and a
-leading dense layer) and xLSTM (mLSTM and sLSTM blocks).  The training
-loss and remat are ported in a later slice (see ROADMAP.md).
+leading dense layer) and xLSTM (mLSTM and sLSTM blocks); the
+encoder-decoder (whisper) is `repro_torch.models.encdec.EncDecLM`.  The
+training loss and remat are ported in a later slice (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -336,15 +337,11 @@ class DecoderLM(nn.Module):
     def init_cache(self, batch: int, max_len: int, rt: Runtime,
                    device: torch.device | str = "cpu"
                    ) -> List[Dict[str, torch.Tensor]]:
-        """Zeroed per-layer decode states, as in the reference: bf16 KV
-        caches, which the decode step writes in place, and fp32 recurrent
-        states, which it replaces."""
-        if rt.kv_dtype != "bf16":
-            raise L.not_ported(f"the {rt.kv_dtype!r} KV cache")
-        return L.map_specs(
-            lambda s: torch.zeros(s.shape, device=device,
-                                  dtype=s.resolved_dtype(torch.bfloat16)),
-            self.cache_specs(batch, max_len))
+        """Zeroed per-layer decode states, as in the reference: KV caches
+        in bf16 (or f8 under `Runtime(kv_dtype="f8")`, the reference's
+        dry-run cache), which the decode step writes in place, and fp32
+        recurrent states, which it replaces."""
+        return L.zeros_cache(self.cache_specs(batch, max_len), rt, device)
 
     def decode_step(self, params: Params,
                     cache: List[Dict[str, torch.Tensor]],

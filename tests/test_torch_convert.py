@@ -60,9 +60,11 @@ def test_space_and_batch_round_trip():
             == [c.asdict() for c in RefConfigBatch(matrix).to_configs()])
 
 
-def test_zoo_apps_are_a_later_slice():
-    """The zoo apps of the archs whose models are not ported yet."""
-    with pytest.raises(NotImplementedError, match="later slice"):
-        apps.build_app("whisper-medium:prefill")
+def test_whisper_zoo_apps_build_and_unknown_apps_raise():
+    """The encoder-decoder's zoo apps build (every arch's do); an unknown
+    app raises `KeyError`."""
+    for name in ("whisper-medium:prefill", "whisper-medium:decode"):
+        spec = AppSpec.from_app(name)
+        assert len(spec.stream.ops) > 0 and spec.peak_input_bits > 0
     with pytest.raises(KeyError):
         AppSpec.from_app("no-such-app")

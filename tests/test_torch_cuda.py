@@ -582,6 +582,49 @@ def test_dry_run_counts_fake_cuda_tensors_as_fake_cpu(gpu):
         assert on_cuda.bytes_accessed == on_cpu.bytes_accessed
 
 
+@pytest.mark.parametrize("arch,kv", [("whisper-medium", "bf16"),
+                                     ("qwen2.5-32b", "f8")])
+def test_dry_run_counts_encdec_and_f8_on_fake_cuda_as_fake_cpu(gpu, arch,
+                                                                kv):
+    """whisper's scanned encoder-decoder (its full-size cells, on fake
+    tensors) and qwen2.5-32b's decode over the f8 cache count on fake CUDA
+    tensors what they count on fake CPU tensors."""
+    from repro_torch import configs
+    from repro_torch.launch.steps import trace_step
+
+    cfg = configs.get_arch(arch)
+    shapes = ("prefill_32k", "decode_32k") if kv == "bf16" \
+        else ("decode_32k",)
+    for name in shapes:
+        shape = configs.shape_by_name(name)
+        over = {"kv_dtype": kv}
+        on_cuda, _ = trace_step(cfg, shape, device="cuda", overrides=over)
+        on_cpu, _ = trace_step(cfg, shape, device="cpu", overrides=over)
+        assert on_cuda.flops == on_cpu.flops > 0
+        assert on_cuda.matmul_flops == on_cpu.matmul_flops > 0
+        assert on_cuda.elementwise_flops == on_cpu.elementwise_flops > 0
+        assert on_cuda.transcendentals == on_cpu.transcendentals > 0
+        assert on_cuda.peak_bytes == on_cpu.peak_bytes > 0
+        assert on_cuda.bytes_accessed == on_cpu.bytes_accessed
+
+
+def test_f8_cache_write_on_the_card_equals_the_cpu(gpu):
+    """The f8 cache write through `uint8` views on the card puts the
+    CPU's bits in the slot (XLA's cast: NaN past 464)."""
+    g = torch.Generator().manual_seed(0)
+    new = torch.cat([torch.randn(2, 1, 4, 60, generator=g) * 100,
+                     torch.tensor([465.0, -500.0, 448.0, 1e-3]).expand(
+                         2, 1, 4, 4)], -1)
+    for dtype in (torch.float32, torch.bfloat16):
+        caches = [torch.zeros((2, 8, 4, 64), dtype=torch.float8_e4m3fn,
+                              device=d) for d in ("cpu", "cuda")]
+        for c in caches:
+            TL.kv_cache_write(c, new.to(dtype).to(c.device),
+                              torch.tensor(5, device=c.device))
+        assert torch.equal(caches[1].view(torch.uint8).cpu(),
+                           caches[0].view(torch.uint8))
+
+
 def test_parallel_study_on_the_card_equals_serial(gpu):
     """workers=2 on the card (spawned workers, each with its own CUDA
     context) gives the workers=1 bytes, and every pool task launched

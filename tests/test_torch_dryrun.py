@@ -7,9 +7,11 @@ cuts raise `NotImplementedError`.  Counts are integers and compared
 exactly."""
 
 import json
+import math
 
 import pytest
 import torch
+from torch.utils import _pytree as pytree
 
 from repro_torch import configs
 from repro_torch.configs.shapes import ShapeSpec
@@ -46,6 +48,10 @@ def _real_counts(arch, shape, rt):
         batch = {"tokens": torch.randint(0, arch.vocab_size, (B, S),
                                          generator=torch.Generator()
                                          .manual_seed(1))}
+        if arch.is_encdec:
+            batch["frames"] = torch.randn(
+                (B, arch.encoder_seq, arch.d_model),
+                generator=torch.Generator().manual_seed(2)).bfloat16()
         return count_step(make_prefill_step(model, rt), params, batch)[1]
     cache = model.init_cache(B, S, rt, "cpu")
     return count_step(make_serve_step(model, rt), params, cache,
@@ -56,10 +62,16 @@ def _real_counts(arch, shape, rt):
 @pytest.mark.parametrize("shape", [PREFILL, DECODE], ids=lambda s: s.mode)
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "recurrentgemma-9b",
                                   "olmoe-1b-7b", "deepseek-v2-lite-16b",
-                                  "xlstm-1.3b"])
+                                  "xlstm-1.3b", "whisper-medium",
+                                  "qwen2.5-32b-f8"])
 def test_fake_counts_equal_a_real_run(arch, shape):
+    """Counted on fake tensors = counted on a real run; whisper's scans
+    over layers count one step for all (its decode's caches written in
+    place, no stack), qwen2.5-32b's decode over the f8 cache."""
+    arch, f8, _ = arch.partition("-f8")
     cfg = configs.get_smoke(arch)
-    fake, rt = trace_step(cfg, shape, device="cpu")
+    fake, rt = trace_step(cfg, shape, device="cpu",
+                          overrides={"kv_dtype": "f8"} if f8 else None)
     real = _real_counts(cfg, shape, rt)
     assert rt.param_dtype == torch.bfloat16 and not rt.use_kernels
     assert fake.flops == real.flops > 0
@@ -188,14 +200,47 @@ def test_inapplicable_cell_is_skipped(tmp_path, smoke_registry):
 @pytest.mark.parametrize("arch,shape", [
     ("qwen2-0.5b", "train_4k"),             # the train step
     ("xlstm-1.3b", "train_4k"),
-    ("whisper-medium", "prefill_32k"),      # encoder-decoder
-    ("whisper-medium", "decode_32k"),
-    ("qwen2.5-32b", "decode_32k"),          # the reference's fp8 KV cache
 ])
 def test_cuts_raise_not_implemented(tmp_path, smoke_registry, arch, shape):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         dryrun.run_cell(arch, shape, tmp_path, device="cpu")
     assert not list(tmp_path.iterdir())     # no FAILED record
+
+
+@pytest.mark.parametrize("arch,shape,kv", [
+    ("whisper-medium", "prefill_32k", "bf16"),      # encoder-decoder
+    ("whisper-medium", "decode_32k", "bf16"),
+    ("qwen2.5-32b", "decode_32k", "f8"),    # the reference's fp8 KV cache
+])
+def test_whisper_and_f8_cells_are_counted(tmp_path, smoke_registry, arch,
+                                          shape, kv):
+    """The cells that raised before: OK records with a finite peak and
+    roofline; the f8 cell's analytic traffic counts its cache at one byte
+    an element, as the reference's `analytic_hbm_bytes(...,
+    kv_bytes=1)`, and its peak holds the cache at one byte."""
+    from repro import configs as ref_configs
+    from repro.core.roofline import analytic_hbm_bytes as ref_analytic
+
+    rec = dryrun.run_cell(arch, shape, tmp_path, device="cpu")
+    assert rec["status"] == "OK", rec.get("error")
+    assert 0 < rec["roofline"]["roofline_s"] < float("inf")
+    assert rec["runtime"]["kv_dtype"] == kv
+    kv_bytes = 1 if kv == "f8" else 2
+    assert rec["runtime"]["kv_bytes"] == kv_bytes
+    want = ref_analytic(ref_configs.get_smoke(arch),
+                        ref_configs.shape_by_name(shape), 1, tp=1,
+                        kv_bytes=kv_bytes)
+    assert rec["analytic_bytes"] == want > 0
+    if kv == "f8":
+        sh = configs.shape_by_name(shape)
+        cache = sum(math.prod(s.shape) for s in pytree.tree_leaves(
+            build_model(configs.get_smoke(arch)).cache_specs(
+                sh.global_batch, sh.seq_len)))
+        bf16 = dryrun.run_cell(arch, shape, tmp_path, device="cpu",
+                               overrides={"kv_dtype": "bf16"}, tag="_bf16")
+        # the same step over a bf16 cache holds one byte an element more
+        assert bf16["roofline"]["peak_memory_per_chip"] - \
+            rec["roofline"]["peak_memory_per_chip"] == cache
 
 
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "deepseek-v2-lite-16b"])

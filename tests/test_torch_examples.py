@@ -2,9 +2,8 @@
 package's (`examples/*.py`): each twin, run with ``--device cpu``, prints
 the reference example's stdout for the same arguments.
 
-Two parts differ by design: the quickstart's part 3 prints the port's
-tile pick for an H100 (held here to `tune_matmul_tiles`), and
-`torch_trace_model.py --list` marks the apps whose models are not ported.
+One part differs by design: the quickstart's part 3 prints the port's
+tile pick for an H100 (held here to `tune_matmul_tiles`).
 `torch_trace_model.py` prints the reference's summary line for line, its
 count of data vertices (`data_nodes=`) included.  The runs of the module
 fixture go at once.
@@ -101,26 +100,30 @@ def test_trace_model_summary_is_the_references(outputs):
     assert counts == [1327, 895]
 
 
-def test_trace_model_list_marks_the_unported_apps():
+def test_trace_model_lists_every_app():
+    """The port's `--list` is the reference's, line for line: all twenty
+    zoo apps of the ten archs, none marked."""
     (rc_r, ref, _), (rc_t, twin, _) = (
         finish(start("trace_model.py", ["--list"])),
         finish(start("torch_trace_model.py", ["--list"])))
     assert rc_r == rc_t == 0
-    marker = "  not ported (ROADMAP.md A5)"
-    lines = twin.splitlines()
-    assert [ln.removesuffix(marker) for ln in lines] == ref.splitlines()
-    zoo = [ln for ln in lines if ":" in ln]
-    ported = [ln for ln in zoo if not ln.endswith(marker)]
-    assert len(ported) == 18 and len(zoo) - len(ported) == 2
-    assert {ln.partition(":")[0] for ln in ported} == set(PORTED_ARCHS)
+    assert twin == ref
+    zoo = [ln for ln in twin.splitlines() if ":" in ln]
+    assert len(zoo) == 20 and "not ported" not in twin
+    assert {ln.partition(":")[0] for ln in zoo} == set(PORTED_ARCHS)
 
 
-def test_trace_model_refuses_an_unported_app():
-    rc, out, err = finish(start("torch_trace_model.py",
-                                ["--app", "whisper-medium:decode",
-                                 "--device", "cpu"]))
-    assert rc != 0 and out == ""
-    assert "whisper-medium:decode" in err and "ROADMAP.md A5" in err
+def test_trace_model_traces_whisper_decode():
+    """The encoder-decoder's decode app prints the reference's summary,
+    its data vertices included."""
+    args = ["--app", "whisper-medium:decode"]
+    (rc_r, ref, _), (rc_t, twin, err) = (
+        finish(start("trace_model.py", args)),
+        finish(start("torch_trace_model.py", [*args, "--device", "cpu"])))
+    assert rc_r == rc_t == 0, err
+    assert twin == ref and "whisper-medium:decode:" in twin
+    assert [int(n) for n in DATA_NODES.findall(twin)] == [
+        apps.build_app("whisper-medium:decode").summary()["n_data_nodes"]]
 
 
 @pytest.mark.parametrize("name", sorted(CASES))

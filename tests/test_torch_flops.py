@@ -161,6 +161,44 @@ def test_swiglu_counts_as_xla_does(dtype):
     assert (got[0] - extra, got[1]) == want
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layer_norm_counts_as_xla_does(dtype):
+    """The port computes the mean of x twice, as the reference's jaxpr
+    does (its own and `jnp.var`'s); XLA's CSE merges the two sums into
+    one, 63 adds a row fewer.  bf16: XLA:CPU fuses the convert of x into
+    both means and the centring and counts it in each fusion, one FLOP
+    an element of x twice more than the port's single convert."""
+    jd, td = DT[dtype]
+    x, sc, b = _rand(B, S, D), _rand(D, seed=1), _rand(D, seed=2)
+    want = _xla(lambda a, s, c: RL.layer_norm(a, s, c, 1e-5),
+                jnp.asarray(x, jd), jnp.asarray(sc, jd), jnp.asarray(b, jd))
+    got = _port(lambda a, s, c: PL.layer_norm(a, s, c, 1e-5),
+                torch.from_numpy(x).to(td), torch.from_numpy(sc).to(td),
+                torch.from_numpy(b).to(td))
+    cse = B * S * (D - 1)
+    extra = 2 * x.size if dtype == "bfloat16" else 0
+    assert (got[0] - cse + extra, got[1]) == want
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gelu_mlp_counts_as_xla_does(dtype):
+    """fp32: equal.  bf16: as `test_swiglu_counts_as_xla_does`, one
+    convert FLOP an element of each of the two products more."""
+    jd, td = DT[dtype]
+    f = 128
+    p = {"w1": _rand(D, f, seed=3) * 0.1, "b1": _rand(f, seed=4),
+         "w2": _rand(f, D, seed=5) * 0.1, "b2": _rand(D, seed=6)}
+    x = _rand(B, S, D, seed=7)
+    want = _xla(lambda q, a: RL.gelu_mlp(q, a, JRuntime(compute_dtype=jd)),
+                {k: jnp.asarray(v) for k, v in p.items()},
+                jnp.asarray(x, jd))
+    got = _port(lambda q, a: PL.gelu_mlp(q, a, TRuntime(compute_dtype=td)),
+                {k: torch.from_numpy(v) for k, v in p.items()},
+                torch.from_numpy(x).to(td))
+    extra = (B * S * f + B * S * D) if dtype == "bfloat16" else 0
+    assert (got[0] - extra, got[1]) == want
+
+
 def test_rglru_gates_count_as_xla_does():
     W, nh = 64, 4
     hd = W // nh

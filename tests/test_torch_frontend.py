@@ -1,9 +1,9 @@
 """The port's frontend (`repro_torch.frontend`) on the CPU: twins of the
 reference's frontend tests, the aten rules where aten is not a jaxpr
 (in-place writes, constants, two-activation einsums) against the
-reference's trace of the same function, and the eighteen ported zoo apps
-against the reference's graphs, vertex for vertex, with the eighteen-app
-greedy study selecting the reference's config."""
+reference's trace of the same function, and the twenty zoo apps of the
+ten archs against the reference's graphs, vertex for vertex, with the
+twenty-app greedy study selecting the reference's config."""
 
 import functools
 
@@ -30,9 +30,8 @@ from repro_torch.dse import GeomeanAcrossApps, SearchBudget, Study
 from repro_torch.frontend import trace_to_graph
 from repro_torch.frontend import zoo
 
-ZOO18 = tuple(f"{arch}:{v}" for arch in zoo.PORTED_ARCHS
+ZOO20 = tuple(f"{arch}:{v}" for arch in zoo.PORTED_ARCHS
               for v in zoo.ZOO_VARIANTS)
-UNPORTED = tuple(n for n in zoo.ZOO_APP_NAMES if n not in ZOO18)
 
 def _op_sig(op):
     return (op.kind.value, op.nif, op.nix, op.niy, op.nkx, op.nky, op.nof,
@@ -344,14 +343,13 @@ def test_zoo_apps_listed_and_unknown_rejected():
     names = apps.all_app_names()
     assert set(apps.APP_NAMES) <= set(names)
     assert apps.zoo_app_names() == tuple(ref_apps.zoo_app_names())
-    assert len(ZOO18) == 18 and len(UNPORTED) == 2
+    assert len(ZOO20) == 20 and set(ZOO20) == set(zoo.ZOO_APP_NAMES)
     with pytest.raises(KeyError):
         apps.build_app("definitely-not-an-app")
     with pytest.raises(KeyError):
         apps.build_app("qwen2-0.5b:bogus-variant")
-    for name in UNPORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            apps.build_app(name)
+    with pytest.raises(KeyError):
+        apps.build_app("no-such-arch:prefill")
 
 
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "recurrentgemma-9b"])
@@ -382,7 +380,7 @@ def _reference(name):
     return ref_apps.build_app(name)
 
 
-@pytest.mark.parametrize("name", ZOO18)
+@pytest.mark.parametrize("name", ZOO20)
 def test_zoo_graph_matches_the_reference(name):
     """Vertex for vertex: the compute stream in order (kind, every Table-1
     field and `repeat`), each compute node's weight bits, the totals and
@@ -412,13 +410,13 @@ def test_zoo_graph_matches_the_reference(name):
 
 
 def test_zoo_study_selects_the_reference_config():
-    """The greedy geomean study over the eighteen apps on the CPU selects the
+    """The greedy geomean study over the twenty apps on the CPU selects the
     reference numpy `Study`'s config, with the same per-app bests."""
     kw = dict(engine="greedy", seed=0)
-    want = RefStudy(apps=list(ZOO18), objective=RefGeomean(),
+    want = RefStudy(apps=list(ZOO20), objective=RefGeomean(),
                     budget=RefBudget(k=2, restarts=2, max_rounds=6),
                     **kw).run()
-    got = Study(apps=list(ZOO18), objective=GeomeanAcrossApps(),
+    got = Study(apps=list(ZOO20), objective=GeomeanAcrossApps(),
                 budget=SearchBudget(k=2, restarts=2, max_rounds=6),
                 device="cpu", **kw).run()
     assert got.best.asdict() == want.best.asdict()

@@ -1,7 +1,8 @@
 """The port stands alone: no source file of `src/repro_torch/` (nor
 `chip_smoke.py`, nor the port's examples `examples/torch_*.py`) imports
 jax or the JAX package, and its CPU main paths (the DSE study, the zoo's
-traced apps, the analysis API's table pass and the model server) run
+traced apps, the analysis API's table pass and the model servers, the
+encoder-decoder's included) run
 without either in `sys.modules`."""
 
 import os
@@ -181,6 +182,26 @@ def test_cpu_recurrent_serve_path_loads_neither_jax_nor_repro():
         "                   [[1, 2, 3]], batch=1, max_new=3, max_len=16,\n"
         "                   device='cpu')\n"
         "assert len(r[0].generated) == 3\n"
+        "print(sorted({m.split('.')[0] for m in sys.modules}"
+        " & {'jax', 'repro', 'jaxlib'}))\n")
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
+
+
+def test_cpu_encdec_paths_load_neither_jax_nor_repro():
+    """whisper's `EncDecLM` (the scanned modules: `models/encdec.py` is in
+    the source scan) served, and its two zoo apps traced."""
+    assert PORT / "models" / "encdec.py" in sources()
+    proc = _run(
+        "import sys\n"
+        "from repro_torch import configs\n"
+        "from repro_torch.core.apps import build_app\n"
+        "from repro_torch.launch.serve import serve_requests\n"
+        "r = serve_requests(configs.get_smoke('whisper-medium'), [[1, 2]],\n"
+        "                   batch=1, max_new=3, max_len=16, device='cpu')\n"
+        "assert len(r[0].generated) == 3\n"
+        "for v in ('prefill', 'decode'):\n"
+        "    assert build_app(f'whisper-medium:{v}').summary()['n_ops']\n"
         "print(sorted({m.split('.')[0] for m in sys.modules}"
         " & {'jax', 'repro', 'jaxlib'}))\n")
     assert proc.returncode == 0, proc.stderr

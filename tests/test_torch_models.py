@@ -217,11 +217,18 @@ def test_dense_decoders_forward_match_the_reference(name):
     _close(got, want, rtol=2e-4, atol=2e-4)
 
 
-def test_cut_blocks_raise_not_implemented():
-    """What is still cut: whisper's `EncDecLM` (xLSTM's blocks are
-    ported, `tests/test_torch_xlstm.py`)."""
+def test_build_model_builds_every_arch():
+    """`build_model` gives the encoder-decoder an `EncDecLM`
+    (`tests/test_torch_encdec.py`) and every other arch a `DecoderLM`
+    (xLSTM's blocks included, `tests/test_torch_xlstm.py`); the
+    encoder-decoder's training loss is still cut."""
     from repro_torch.launch.steps import build_model
+    from repro_torch.models.encdec import EncDecLM
     assert "mlstm" in tlm.DecoderLM(
         tconfigs.get_smoke("xlstm-1.3b")).param_specs()["layers"][0]
+    model = build_model(tconfigs.get_smoke("whisper-medium"))
+    assert isinstance(model, EncDecLM)
+    assert isinstance(build_model(tconfigs.get_smoke("qwen2-0.5b")),
+                      tlm.DecoderLM)
     with pytest.raises(NotImplementedError, match="later slice"):
-        build_model(tconfigs.get_smoke("whisper-medium"))
+        model.loss({}, {}, TRT)

@@ -136,8 +136,19 @@ def test_input_specs_and_runtime_of_the_serving_cells():
     assert rt.param_dtype == torch.bfloat16 and rt.use_kernels
     train = tsteps.make_runtime(cfg, tconfigs.shape_by_name("train_4k"))
     assert train.param_dtype == torch.float32 and not train.use_kernels
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tsteps.build_model(tconfigs.get_smoke("whisper-medium"))
+    wcfg = tconfigs.get_arch("whisper-medium")
+    assert tsteps.input_specs(wcfg, pre) == {
+        "frames": ((32, 1500, 1024), torch.bfloat16),
+        "tokens": ((32, 32768), torch.int64)}
+
+
+def test_serve_cli_serves_whisper_on_the_cpu(capsys):
+    """The CLI serves the encoder-decoder's smoke model through
+    `EncDecLM`."""
+    tserve.main(["--arch", "whisper-medium", "--smoke", "--device", "cpu",
+                 "--requests", "3", "--batch", "2", "--max-new", "4"])
+    out = capsys.readouterr().out
+    assert "[serve] 3 requests, 12 tokens" in out
 
 
 def test_serve_refuses_a_missing_gpu():
