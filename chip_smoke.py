@@ -192,7 +192,9 @@ printing one JSON line each:
                  the xLSTM main path (48 layers: 42 mLSTM, 6 sLSTM; bf16
                  weights): no kernel runs, every counter 0; seq 2048 x
                  batch 4 (device time by kind, idle share) and prefill_32k
-                 with its batch cut to 1 (or 8192, see
+                 with its batch cut to 1 and its depth to 8 layers (one
+                 whole unit, `XLSTM_LONG_LAYERS`, as its profiled 2048 x 4
+                 forward; or 8192, see
                  `XLSTM_LONG_BUDGET_S`); the fp32 forward's last logits at
                  `XLSTM_GATE_SEQ` tokens gated against the fp32 decode loop,
                  the bf16 forward's gap printed;
@@ -219,16 +221,36 @@ printing one JSON line each:
                  every cache entry within one bf16 rounding; and the
                  decode over cross caches filled from random frames gated
                  against the forward over the same frames;
- 25. kernel matmul
+ 25. train qwen2-0.5b
+                 the training path (no kernel on it, as in the reference:
+                 every counter 0 over the phase): the train step on the
+                 card against the CPU from the same params (smoke config,
+                 fp32, 4 x 32, 5 steps, 1 and 2 microbatches), losses,
+                 grad norms and params within `TRAIN_TOL`; `train_loop` at
+                 full width (24 layers, 4.94e8 parameters, fp32, 8 x 512,
+                 lr 3e-4, 12 steps, checkpoints every 6, each save's
+                 seconds and bytes): a run resumed from step 6 gives the
+                 last six losses, and the same train step learns one
+                 batch of the stream (`TRAIN_LEARNS_BY`; the stream itself
+                 is near uniform at full vocab, its fall printed); at
+                 full width the gradients under remat none / full / dots
+                 and of 2 microbatches against 1 agree; the train cell's
+                 runtime (bf16 compute, remat "full") at 4096 x 4 in 2
+                 microbatches (train_4k's batch cut from 256): step time,
+                 tokens/s, counted FLOPs and their share of 989 TFLOP/s,
+                 `max_memory_allocated` within `DRYRUN_PEAK_BAND` of the
+                 same step counted on fake CUDA tensors, one profiled
+                 step;
+ 26. kernel matmul
                  `matmul` against its plain PyTorch version on every element,
                  within the fp32 summation bound (`matmul_against_plain`),
                  on the sweep of `tests/test_kernels.py` at its two tiles
                  (fp32 on the CUDA-core kernel, bf16 on the tensor-core
                  one: each case must move only its kernel's counter) and on
                  an all-positive bf16 product at K = 12288, both output
-                 dtypes (phase 26 holds the tile DSE's shapes, at every
+                 dtypes (phase 27 holds the tile DSE's shapes, at every
                  tile);
- 26. tile_dse    the fourth main path: for each of `TILE_SHAPES` (bf16),
+ 27. tile_dse    the fourth main path: for each of `TILE_SHAPES` (bf16),
                  `tune_matmul_tiles` picks a tile under the tensor-core
                  model and `matmul` runs at it and at every other tile the
                  tensor-core kernel is built for, each output held against
@@ -239,15 +261,19 @@ printing one JSON line each:
                  (M N > 2^31) runs once, at its tuned tile.  Then the fp32
                  `FP32_SHAPE` on the CUDA-core kernel at the CUDA-core
                  model's pick, beside its 67 TFLOP/s bound;
- 27. dryrun      `run_cell` for qwen2-0.5b, recurrentgemma-9b, olmoe-1b-7b,
+ 28. dryrun      `run_cell` for qwen2-0.5b, recurrentgemma-9b, olmoe-1b-7b,
                  deepseek-v2-lite-16b, whisper-medium and xlstm-1.3b at
                  prefill_32k and decode_32k, xlstm-1.3b at long_500k and
                  qwen2.5-32b at decode_32k over the f8 KV cache (its
-                 analytic bytes and peak at one byte an element), on
-                 fake CUDA tensors (full batch; every record OK with a
-                 finite peak and roofline), each cell's matmul and
-                 elementwise FLOPs and
-                 transcendentals, one greedy `autotune_search` over
+                 analytic bytes and peak at one byte an element), and
+                 qwen2-0.5b at train_4k (batch 256, 2 microbatches, remat
+                 "full") on fake CUDA tensors (full batch; every record
+                 OK with a finite peak and roofline), each cell's matmul
+                 and elementwise FLOPs and transcendentals, a random
+                 `autotune_search` of 2 points (cut from 4 for the time)
+                 over the train cell's remat and microbatches (each
+                 point's peak and score),
+                 one greedy `autotune_search` over
                  qwen2-0.5b's decode_32k (a cell whose points fit 80 GB;
                  every record it writes must be OK with a finite peak and
                  roofline, and its best score above 0; whether its pick
@@ -350,6 +376,53 @@ XLSTM_GATE_SEQ = 300
 # bound, so a forward's time grows with its length; the 32k forward runs
 # if 16 times the 2048 x 4 forward's time is within this, else 8192
 XLSTM_LONG_BUDGET_S = 120.0
+# the training phase (qwen2-0.5b): part 1, the train step on the card
+# against the CPU on the smoke config (fp32, batch x seq, steps; both
+# microbatch counts); losses and grad norms within TRAIN_TOL relative,
+# every param leaf within TRAIN_TOL of its largest magnitude
+TRAIN_PARITY = {"batch": 4, "seq": 32, "steps": 5, "microbatches": (1, 2)}
+TRAIN_TOL = 1e-5
+# an element whose gradients on the card and the CPU differ by more than
+# this fraction of it: Adam's m / (sqrt(v) + eps) passes the fraction on
+# to its update whatever the gradient's size (a zero-initialised bias
+# whose gradient nearly cancels moves by lr a step with its rounding in
+# it), so it is held to the lr's bound, the leaf's gradients themselves
+# within TRAIN_TOL of its scale
+TRAIN_ILL_REL = TRAIN_TOL
+# part 2, `train_loop` at full width, fp32, the reference CLI's lr and
+# warmup (steps // 10): the uninterrupted run saves every `save_every`
+# steps; the resumed run restarts from the middle checkpoint.  Fixed
+# before the first run on the card
+TRAIN_LOOP = {"steps": 12, "global_batch": 8, "seq_len": 512, "lr": 3e-4,
+              "save_every": 6}
+# the learning criterion of tests/test_system.py: the mean of the last
+# five losses below the first five's by at least this.  At full width
+# the synthetic stream is near uniform over 151,936 tokens (a unigram
+# model fitted on 200 of its batches scores above ln V), so no short run
+# of `train_loop` falls (PERF.md, PR 25); the criterion holds the same
+# train step (its lr schedule, `TRAIN_LOOP`'s steps) fitting one batch of
+# the stream, and `train_loop`'s own fall is printed
+TRAIN_LEARNS_BY = 0.05
+# part 3, gradients at full width (fp32, batch x seq): remat none / full /
+# dots and microbatches 2 against 1; the loss of two microbatches within
+# TRAIN_MB_LOSS_TOL relative of one
+TRAIN_GRAD_SHAPE = (4, 512)
+TRAIN_MB_LOSS_TOL = 1e-6
+# part 4, the train cell's runtime (bf16 compute, fp32 params, remat
+# "full") at train_4k's sequence, its batch cut from 256
+TRAIN_CELL = {"batch": 4, "seq": 4096, "microbatches": 2, "steps": 5}
+# the dry-run's train autotune: a random search over these variables of
+# the train_4k cell (the rest at `ExecPoint`'s defaults)
+# rounds of 2 points: one (cut from 2, the third cut for the time)
+TRAIN_AUTOTUNE_ROUNDS = 1
+TRAIN_AUTOTUNE_DOMAINS = {"remat": ("full", "dots", "none"),
+                          "microbatches": (1, 2, 4, 8, 16),
+                          "sharding_mode": ("fsdp",),
+                          "attn_kv_block": (1024,), "extra_rules": ((),)}
+# the longest xLSTM prefill, and the profiled 2048 x 4 forward, run at
+# this depth: one whole 7:1 unit of xlstm-1.3b's six (the depth cuts for
+# the training phase's time)
+XLSTM_LONG_LAYERS = 8
 # whisper's fp32 prefill gate: its last-position logits against the fp32
 # decode loop over the same tokens, cross caches from the same frames
 WHISPER_GATE_SEQ = 256
@@ -2180,7 +2253,9 @@ def phase_prefill(arch: str) -> dict:
               f"prefill logits {tuple(logits.shape)}")
         check(bool(torch.isfinite(got).all()), "prefill logits not finite")
         wall = float(np.median(walls[1:]))
-        run = {"seq": seq, "batch": batch, "wall_s": wall, "walls_s": walls,
+        run = {"seq": seq, "batch": batch, "layers": XLSTM_LONG_LAYERS
+               if batch == 1 else cfg.num_layers,
+               "wall_s": wall, "walls_s": walls,
                "tokens_per_s": seq * batch / wall,
                "max_memory_allocated": peak,
                "launches_per_forward": want_launches}
@@ -3029,10 +3104,12 @@ def phase_prefill_xlstm() -> dict:
     """xlstm-1.3b's batched prefill at full width (48 layers: 42 mLSTM, 6
     sLSTM; bf16 weights from seed 0): no kernel runs (the reference's
     mLSTM and sLSTM are jnp, outside Pallas), every counter at 0.  Seq
-    2048 x batch 4 (warm-up and 2 timed, one profiled forward: device
-    time by kind, idle share, kernels launched), then prefill_32k's
-    sequence with its batch cut to 1 (or 8192 if 16 times the 2048 x 4
-    forward's time exceeds `XLSTM_LONG_BUDGET_S`; the cut is listed).
+    2048 x batch 4 (warm-up and 2 timed, one profiled forward at
+    `XLSTM_LONG_LAYERS` layers: device time by kind, idle share, kernels
+    launched), then prefill_32k's sequence with its batch cut to 1 and
+    its depth to `XLSTM_LONG_LAYERS` (one whole 7:1 unit; or 8192 if 16
+    times the 2048 x 4 forward's time at that depth exceeds
+    `XLSTM_LONG_BUDGET_S`; the cuts are listed).
     There is no plain path to compare with: the fp32 forward's last
     logits at `XLSTM_GATE_SEQ` tokens are gated against the fp32 decode
     loop over the same tokens within `SERVE_RG_TOL`, and the bf16
@@ -3056,12 +3133,13 @@ def phase_prefill_xlstm() -> dict:
     counters = kernel_counters()
     runs, reduced = {}, {"prefill_32k": "global_batch 32 -> 1"}
 
-    def forward(inputs):
+    def forward(inputs, long=False):
         for fn in counters.values():
             fn.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits = step(params, inputs)
+        logits = (cut_step(cut_params, inputs) if long
+                  else step(params, inputs))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         got = {n: fn.launches for n, fn in counters.items()}
@@ -3070,14 +3148,26 @@ def phase_prefill_xlstm() -> dict:
         return logits, wall
 
     long_seq = shape.seq_len
+    depth = XLSTM_LONG_LAYERS / cfg.num_layers
+    # the long forward and the profiled one at `XLSTM_LONG_LAYERS` layers
+    cut_model = build_model(dataclasses.replace(
+        cfg, num_layers=XLSTM_LONG_LAYERS))
+    cut_params = cut_model.init(gen, rt)
+    cut_step = make_prefill_step(cut_model, rt)
+    reduced["seq2048_batch4_profiled"] = (
+        f"layers {cfg.num_layers} -> {XLSTM_LONG_LAYERS} (one whole 7:1 "
+        f"unit)")
     for seq, batch in ((2048, 4), (shape.seq_len, 1)):
         if batch == 1:
+            reduced["prefill_32k"] = (
+                f"global_batch 32 -> 1, layers {cfg.num_layers} -> "
+                f"{XLSTM_LONG_LAYERS} (one whole 7:1 unit)")
             short = runs["seq2048_batch4"]["wall_s"]
-            if 16 * short > XLSTM_LONG_BUDGET_S:
+            if 16 * short * depth > XLSTM_LONG_BUDGET_S:
                 long_seq = seq = 8192
-                reduced["prefill_32k"] = (
-                    f"global_batch 32 -> 1, seq 32768 -> 8192: 16 x the "
-                    f"2048 x 4 forward ({short:.3f} s) exceeds "
+                reduced["prefill_32k"] += (
+                    f", seq 32768 -> 8192: 16 x the 2048 x 4 forward "
+                    f"({short:.3f} s) at that depth exceeds "
                     f"{XLSTM_LONG_BUDGET_S} s")
         tokens = torch.randint(0, cfg.vocab_size, (batch, seq),
                                generator=gen, device="cuda")
@@ -3086,7 +3176,7 @@ def phase_prefill_xlstm() -> dict:
         walls = []
         torch.cuda.reset_peak_memory_stats()
         for _ in range(reps):
-            logits, wall = forward(inputs)
+            logits, wall = forward(inputs, long=batch == 1)
             walls.append(wall)
         peak = torch.cuda.max_memory_allocated()
         got = logits[:, :cfg.vocab_size].float()
@@ -3094,19 +3184,23 @@ def phase_prefill_xlstm() -> dict:
               f"prefill logits {tuple(logits.shape)}")
         check(bool(torch.isfinite(got).all()), "prefill logits not finite")
         wall = float(np.median(walls[1:] if reps > 1 else walls))
-        run = {"seq": seq, "batch": batch, "wall_s": wall, "walls_s": walls,
+        run = {"seq": seq, "batch": batch, "layers": XLSTM_LONG_LAYERS
+               if batch == 1 else cfg.num_layers,
+               "wall_s": wall, "walls_s": walls,
                "tokens_per_s": seq * batch / wall,
                "max_memory_allocated": peak,
                "launches_per_forward": {n: 0 for n in counters}}
         if batch > 1:
             t0 = time.perf_counter()
-            device = device_kinds(lambda: step(params, inputs),
+            device = device_kinds(lambda: cut_step(cut_params, inputs),
                                   {"matmul_us": ("gemm", "nvjet", "xmma")})
             device["idle_share"] = 1.0 - device["busy_us"] / device["wall_us"]
             device["profile_s"] = time.perf_counter() - t0
+            device["layers"] = XLSTM_LONG_LAYERS
             run["device_one_forward"] = device
         runs[f"seq{seq}_batch{batch}"] = run
         del logits, inputs, tokens
+    del cut_model, cut_params, cut_step
 
     # the fp32 gate: the forward's last logits against the decode loop
     tokens = torch.randint(0, cfg.vocab_size, (1, XLSTM_GATE_SEQ),
@@ -3287,12 +3381,13 @@ def phase_prefill_whisper() -> dict:
           f"whisper's prefill frames are {frames_shape} {frames_dtype}")
     runs = {}
 
-    def forward(inputs):
+    def forward(inputs, long=False):
         for fn in counters.values():
             fn.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits = step(params, inputs)
+        logits = (cut_step(cut_params, inputs) if long
+                  else step(params, inputs))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         got = {n: fn.launches for n, fn in counters.items()}
@@ -3579,6 +3674,371 @@ def phase_serve_whisper() -> dict:
     return rec
 
 
+def leaf_gap(got, want) -> float:
+    """The largest gap of two tensor trees, leaf by leaf, each over its
+    leaf's largest magnitude in `want`."""
+    from torch.utils import _pytree as pytree
+    worst = 0.0
+    for g, w in zip(pytree.tree_leaves(got), pytree.tree_leaves(want)):
+        w = w.float().cpu()
+        gap = float((g.float().cpu() - w).abs().max())
+        worst = max(worst, gap / max(float(w.abs().max()), 1e-30))
+    return worst
+
+
+def grads_gap(got: list, want: list) -> float:
+    return max(float((g - w).abs().max()) / max(float(w.abs().max()),
+                                                1e-30)
+               for g, w in zip(got, want))
+
+
+def phase_train() -> dict:
+    """qwen2-0.5b's training path (the reference's: no kernel on it,
+    `use_pallas=False`).  1: the train step on the card against the CPU
+    from the same params and batches (smoke config, fp32, both microbatch
+    counts).  2: `train_loop` at full width in fp32 (`TRAIN_LOOP`): the
+    uninterrupted run checkpoints, a run resumed from its middle
+    checkpoint gives its last losses, and the same step learns one batch
+    of the stream (`TRAIN_LEARNS_BY`).  3: at full
+    width, the gradients under remat none / full / dots, and of two
+    microbatches against one, agree.  4: the train cell's runtime (bf16
+    compute, remat "full", `TRAIN_CELL`): step time, tokens/s, counted
+    FLOPs and their share of the peak, `max_memory_allocated` against the
+    same step counted on fake CUDA tensors, one profiled step.  5: every
+    kernel counter at 0 over the phase."""
+    import gc
+    import tempfile
+
+    from torch.utils import _pytree as pytree
+
+    import repro_torch.launch.train as train_mod
+    from repro_torch import configs
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.core.roofline import model_flops
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch.steps import (build_model, loss_and_grads,
+                                          make_runtime, make_train_step,
+                                          trace_step)
+    from repro_torch.launch.train import to_device, train_loop
+    from repro_torch.models.layers import Runtime, full_precision_products
+    from repro_torch.optim import adamw_init
+
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    rec = {"arch": ARCH}
+
+    # 1. the card against the CPU, smoke config
+    cfg = configs.get_smoke(ARCH)
+    model = build_model(cfg)
+    rt = Runtime(compute_dtype=torch.float32)
+    base = model.init(torch.Generator().manual_seed(0), rt)
+    ds = SyntheticLMDataset(vocab_size=cfg.vocab_size,
+                            seq_len=TRAIN_PARITY["seq"],
+                            global_batch=TRAIN_PARITY["batch"], seed=0)
+    parity = {}
+    for mb in TRAIN_PARITY["microbatches"]:
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            params = pytree.tree_map(lambda t: t.to(dev, copy=True), base)
+            state = adamw_init(params)
+            step = make_train_step(model, rt, microbatches=mb)
+            mets = []
+            for i in range(TRAIN_PARITY["steps"]):
+                params, state, m = step(params, state, to_device(
+                    ds.global_batch_at(i), dev))
+                mets.append({k: float(v) for k, v in m.items()})
+            runs[dev] = (params, state, mets)
+        metric_gap = max(abs(a[k] - b[k]) / abs(a[k])
+                         for a, b in zip(runs["cpu"][2], runs["cuda"][2])
+                         for k in ("loss", "grad_norm"))
+        # the gradients of each step on both devices from the CPU run's
+        # params, each leaf within TRAIN_TOL of its largest magnitude;
+        # where an element's two gradients differ by more than
+        # TRAIN_ILL_REL of it (a near-cancelling sum, such as a key
+        # bias's), Adam's m / sqrt(v) passes that fraction of the lr on
+        # to its update: those elements are held to the lr's bound, the
+        # rest of each leaf within TRAIN_TOL of its largest magnitude
+        params = pytree.tree_map(lambda t: t.clone(), base)
+        state = adamw_init(params)
+        step = make_train_step(model, rt, microbatches=mb)
+        ill = [torch.zeros(p.shape, dtype=torch.bool)
+               for p in pytree.tree_leaves(base)]
+        grad_gap, lr_sum = 0.0, 0.0
+        for i in range(TRAIN_PARITY["steps"]):
+            batch = ds.global_batch_at(i)
+            with full_precision_products():
+                _, g_cpu = loss_and_grads(model, rt, params,
+                                          to_device(batch, "cpu"), mb)
+                _, g_card = loss_and_grads(
+                    model, rt, pytree.tree_map(lambda t: t.cuda(), params),
+                    to_device(batch, "cuda"), mb)
+            for m_, g, w in zip(ill, g_card, g_cpu):
+                err = (g.cpu() - w).abs()
+                grad_gap = max(grad_gap, float(err.max()) / max(
+                    float(w.abs().max()), 1e-30))
+                m_ |= err > TRAIN_ILL_REL * w.abs()
+            params, state, m = step(params, state, to_device(batch, "cpu"))
+            lr_sum += float(m["lr"])
+        bound = lr_sum * (1 + 0.1) + TRAIN_TOL
+        worst, worst_leaf, n_ill = 0.0, None, 0
+        for (path, w), g, m_ in zip(
+                pytree.tree_flatten_with_path(runs["cpu"][0])[0],
+                pytree.tree_leaves(runs["cuda"][0]), ill):
+            name = pytree.keystr(path)
+            err = (g.cpu() - w).abs()
+            scale = max(float(w.abs().max()), 1e-30)
+            n_ill += int(m_.sum())
+            if bool((~m_).any()) and float(err[~m_].max()) / scale > worst:
+                worst, worst_leaf = float(err[~m_].max()) / scale, name
+            bad = (err > TRAIN_TOL * scale) & ~(m_ & (err <= bound))
+            check(not bool(bad.any()),
+                  f"the train step on the card differs from the CPU's at "
+                  f"microbatches={mb} on {name}: {float(err.max())} "
+                  f"(leaf scale {scale})")
+        parity[f"microbatches_{mb}"] = {
+            "losses_cuda": [m["loss"] for m in runs["cuda"][2]],
+            "metric_gap": metric_gap, "grad_gap": grad_gap,
+            "param_gap": worst, "param_gap_leaf": worst_leaf,
+            "ill_conditioned_elements": n_ill,
+            "elements": sum(p.numel() for p in pytree.tree_leaves(base)),
+            "moment_gap": leaf_gap(runs["cuda"][1].nu, runs["cpu"][1].nu)}
+        check(metric_gap <= TRAIN_TOL and grad_gap <= TRAIN_TOL,
+              f"the train step on the card differs from the CPU's at "
+              f"microbatches={mb}: losses / grad norms by {metric_gap}, "
+              f"gradients by {grad_gap} of a leaf's scale")
+    rec["card_against_cpu"] = parity
+    del base, runs, params, state
+
+    # 2. train_loop at full width, fp32; checkpoints timed
+    saves = []
+
+    class TimedManager(CheckpointManager):
+        def save(self, step, tree, blocking=True):
+            t0 = time.perf_counter()
+            super().save(step, tree, blocking)
+            saves.append({"step": step, "blocking": blocking,
+                          "call_s": time.perf_counter() - t0,
+                          "bytes": sum(t.numel() * t.element_size()
+                                       for t in pytree.tree_leaves(tree))})
+
+        def wait(self):
+            t0 = time.perf_counter()
+            joined = self._thread is not None
+            super().wait()
+            if joined and saves:
+                saves[-1]["write_wait_s"] = time.perf_counter() - t0
+
+    full = configs.get_arch(ARCH)
+    loop = {}
+    train_mod.CheckpointManager = TimedManager
+    tmp = tempfile.mkdtemp(prefix="train_ckpt_")
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        kw = dict(global_batch=TRAIN_LOOP["global_batch"],
+                  seq_len=TRAIN_LOOP["seq_len"], lr=TRAIN_LOOP["lr"],
+                  ckpt_dir=tmp, log_every=1, device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        whole = train_loop(full, steps=TRAIN_LOOP["steps"],
+                           save_every=TRAIN_LOOP["save_every"], **kw)
+        torch.cuda.synchronize()
+        loop["uninterrupted_s"] = time.perf_counter() - t0
+        loop["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        losses = whole["losses"]
+        n_params = whole["n_params"]
+        del whole
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(Path(tmp) / f"step_{TRAIN_LOOP['steps']}")
+        t0 = time.perf_counter()
+        resumed = train_loop(full, steps=TRAIN_LOOP["steps"], resume=True,
+                             **kw)
+        torch.cuda.synchronize()
+        loop["resumed_s"] = time.perf_counter() - t0
+        again = resumed["losses"]
+        del resumed
+    finally:
+        train_mod.CheckpointManager = CheckpointManager
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    half = TRAIN_LOOP["save_every"]
+    resume_gap = max(abs(a - b) / abs(b)
+                     for a, b in zip(again, losses[half:]))
+    loop.update(config=TRAIN_LOOP, n_params=n_params, losses=losses,
+                resumed_losses=again,
+                first5_mean=float(np.mean(losses[:5])),
+                last5_mean=float(np.mean(losses[-5:])),
+                learned_by=float(np.mean(losses[:5]) - np.mean(losses[-5:])),
+                resume_gap=resume_gap,
+                step_s_mean=loop["uninterrupted_s"] / TRAIN_LOOP["steps"],
+                saves=saves)
+    check(all(math.isfinite(x) for x in losses + again),
+          "train_loop's losses are not finite")
+    check(len(again) == TRAIN_LOOP["steps"] - half
+          and resume_gap <= TRAIN_TOL,
+          f"the resumed run's losses {again} differ from the uninterrupted "
+          f"run's {losses[half:]} by {resume_gap}")
+    # how learnable the stream is at this vocabulary: a unigram model fit
+    # on 200 of its batches (counts smoothed by 0.01), scored on 60 others
+    ds = SyntheticLMDataset(vocab_size=full.vocab_size,
+                            seq_len=TRAIN_LOOP["seq_len"],
+                            global_batch=TRAIN_LOOP["global_batch"], seed=0)
+    counts = np.zeros(full.vocab_size)
+    for i in range(200):
+        np.add.at(counts, ds.global_batch_at(i)["tokens"][:, 1:].ravel(), 1)
+    prob = (counts + 0.01) / (counts + 0.01).sum()
+    held = [ds.global_batch_at(i)["tokens"][:, 1:] for i in range(200, 260)]
+    loop["stream"] = {
+        "unigram_cross_entropy": float(np.mean([-np.log(prob[t]).mean()
+                                                for t in held])),
+        "ln_vocab": math.log(full.vocab_size),
+        "targets_below_id_1000": float(np.mean([(t < 1000).mean()
+                                                for t in held]))}
+    # the learning criterion: train_loop's step (its lr schedule and
+    # steps) on one batch of the stream, from the same seed-0 params
+    model = build_model(full)
+    rt32 = Runtime(compute_dtype=torch.float32)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), rt32)
+    state = adamw_init(params)
+    batch = to_device(SyntheticLMDataset(
+        vocab_size=full.vocab_size, seq_len=TRAIN_LOOP["seq_len"],
+        global_batch=TRAIN_LOOP["global_batch"], seed=0).global_batch_at(0),
+        "cuda")
+    step = make_train_step(model, rt32, base_lr=TRAIN_LOOP["lr"],
+                           warmup_steps=max(TRAIN_LOOP["steps"] // 10, 1),
+                           total_steps=TRAIN_LOOP["steps"])
+    fit = []
+    for _ in range(TRAIN_LOOP["steps"]):
+        params, state, m = step(params, state, batch)
+        fit.append(float(m["loss"]))
+    first, last = float(np.mean(fit[:5])), float(np.mean(fit[-5:]))
+    loop["one_batch"] = {"losses": fit, "first5_mean": first,
+                         "last5_mean": last, "learned_by": first - last}
+    rec["train_loop"] = loop
+    del params, state, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(all(math.isfinite(x) for x in fit) and first - last
+          >= TRAIN_LEARNS_BY,
+          f"the train step does not learn one batch: the last five losses "
+          f"average {last}, the first five {first}")
+
+    # 3. gradients at full width: remat and microbatches
+    model = build_model(full)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        Runtime(compute_dtype=torch.float32))
+    B, S = TRAIN_GRAD_SHAPE
+    batch = to_device(SyntheticLMDataset(
+        vocab_size=full.vocab_size, seq_len=S, global_batch=B,
+        seed=0).global_batch_at(0), "cuda")
+    grads = {}
+    with full_precision_products():
+        loss0, g0 = loss_and_grads(
+            model, Runtime(compute_dtype=torch.float32), params, batch)
+        for remat in ("full", "dots"):
+            loss_r, g = loss_and_grads(
+                model, Runtime(compute_dtype=torch.float32, remat=remat),
+                params, batch)
+            grads[f"remat_{remat}"] = {
+                "loss_gap": abs(float(loss_r) / float(loss0) - 1),
+                "grad_gap": grads_gap(g, g0)}
+            del g
+        loss_m, g = loss_and_grads(
+            model, Runtime(compute_dtype=torch.float32), params, batch, 2)
+        grads["microbatches_2"] = {
+            "loss_gap": abs(float(loss_m) / float(loss0) - 1),
+            "grad_gap": grads_gap(g, g0)}
+        del g, g0
+    rec["gradients"] = {"shape": TRAIN_GRAD_SHAPE, "loss": float(loss0),
+                        **grads}
+    for k, v in grads.items():
+        check(v["grad_gap"] <= TRAIN_TOL,
+              f"full-width gradients under {k} differ by {v['grad_gap']} "
+              f"of a leaf's scale")
+    check(grads["remat_full"]["loss_gap"] <= TRAIN_MB_LOSS_TOL
+          and grads["remat_dots"]["loss_gap"] <= TRAIN_MB_LOSS_TOL
+          and grads["microbatches_2"]["loss_gap"] <= TRAIN_MB_LOSS_TOL,
+          f"full-width losses differ: {grads}")
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4. the train cell's runtime at 4096 x 4
+    shape = configs.shape_by_name("train_4k")
+    rt = make_runtime(full, shape)
+    cut = ShapeSpec("train_4k", TRAIN_CELL["seq"], TRAIN_CELL["batch"],
+                    "train")
+    mb = TRAIN_CELL["microbatches"]
+    t0 = time.perf_counter()
+    fake, _ = trace_step(full, cut, device="cuda", microbatches=mb)
+    trace_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    base_bytes = torch.cuda.memory_allocated()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), rt)
+    state = adamw_init(params)
+    batch = to_device(SyntheticLMDataset(
+        vocab_size=full.vocab_size, seq_len=cut.seq_len,
+        global_batch=cut.global_batch, seed=0).global_batch_at(0), "cuda")
+    step = make_train_step(model, rt, microbatches=mb)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls, mets = [], []
+    for _ in range(TRAIN_CELL["steps"]):
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        mets.append({k: float(v) for k, v in m.items()})
+    real_peak = torch.cuda.max_memory_allocated() - base_bytes
+    wall = float(np.median(walls[1:]))
+    tokens = cut.seq_len * cut.global_batch
+    device = device_kinds(lambda: step(params, state, batch),
+                          {"matmul_us": ("gemm", "nvjet", "xmma",
+                                         "cutlass")})
+    device["idle_share"] = 1.0 - device["busy_us"] / device["wall_us"]
+    ratio = real_peak / fake.peak_bytes
+    rec["train_cell"] = {
+        "shape": {"seq": cut.seq_len, "batch": cut.global_batch,
+                  "microbatches": mb},
+        "reduced": {"train_4k": "global_batch 256 -> 4"},
+        "runtime": {"param_dtype": str(rt.param_dtype),
+                    "compute_dtype": str(rt.compute_dtype),
+                    "remat": rt.remat},
+        "walls_s": walls, "step_s": wall, "tokens_per_s": tokens / wall,
+        "metrics": mets,
+        "counted_flops": fake.flops, "counted_matmul_flops":
+            fake.matmul_flops,
+        "counted_flop_share_of_989": fake.flops / wall / BF16_FLOP_PER_S,
+        "model_flops_6nd": model_flops(full, cut),
+        "model_flop_share_of_989": model_flops(full, cut) / wall
+        / BF16_FLOP_PER_S,
+        "fake_peak_bytes": fake.peak_bytes, "trace_s": trace_s,
+        "max_memory_allocated": real_peak,
+        "real_over_fake_peak": ratio, "band": DRYRUN_PEAK_BAND,
+        "device_one_step": device}
+    check(all(math.isfinite(v) for m in mets for v in m.values()),
+          f"the train cell's losses or grad norms are not finite: {mets}")
+    check(DRYRUN_PEAK_BAND[0] <= ratio <= DRYRUN_PEAK_BAND[1],
+          f"the train step's max_memory_allocated / fake peak = {ratio}, "
+          f"outside {DRYRUN_PEAK_BAND}")
+    del params, state, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 5. no kernel on the training path, counted
+    got = {n: fn.launches for n, fn in counters.items()}
+    rec["launches"] = got
+    check(not any(got.values()),
+          f"the training phase launched {got}: it runs no kernel")
+    check_isolated()
+    emit(f"train {ARCH}", **rec)
+    return got
+
+
 def matmul_bound(m, k, n, itemsize) -> dict:
     """Least time for one product: the larger of its 2 M K N FLOP at the
     bf16 tensor-core peak and its bytes (x and y read once, the output
@@ -3831,7 +4291,11 @@ def phase_dryrun() -> dict:
     CUDA tensors (xlstm-1.3b's `long_500k` too, and qwen2.5-32b's
     decode_32k over the f8 cache, its analytic bytes and peak at one byte
     a cache element; every record OK, with a finite peak and roofline),
-    one
+    qwen2-0.5b's train_4k cell (batch 256, the reference's 2 microbatches
+    and remat "full", both in its record) and a random autotune of
+    `TRAIN_AUTOTUNE_ROUNDS` rounds of 2 points over its remat and
+    microbatches (`TRAIN_AUTOTUNE_DOMAINS`: each point's peak and score,
+    whether one fits 80 GB), one
     greedy autotune over qwen2-0.5b's decode_32k (every record it wrote
     must be OK, its best score above 0), and the fake count of
     qwen2-0.5b's plain prefill at 2048 x 4 against the same step run on
@@ -3841,9 +4305,10 @@ def phase_dryrun() -> dict:
 
     from repro_torch import configs
     from repro_torch.configs.shapes import ShapeSpec
-    from repro_torch.core.autotune import CellEvaluator, autotune_search
+    from repro_torch.core.autotune import (CellEvaluator, ExecPoint,
+                                           autotune_search)
     from repro_torch.core.roofline import analytic_hbm_bytes
-    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.dryrun import DEFAULT_MICROBATCHES, run_cell
     from repro_torch.launch.steps import (build_model, count_step,
                                           make_prefill_step, trace_step)
 
@@ -3906,6 +4371,66 @@ def phase_dryrun() -> dict:
               f"dry-run {F8_ARCH} decode_32k: the f8 peak is "
               f"{f8['peak_over_bf16_cache']} bytes under the bf16 one, the "
               f"cache holds {cache} elements")
+        # the train cell: qwen2-0.5b's train_4k at its full batch (256),
+        # the reference's microbatches (2) and remat ("full")
+        t0 = time.perf_counter()
+        rec = run_cell(ARCH, "train_4k", Path(tmp), device="cuda")
+        check(rec["status"] == "OK",
+              f"dry-run {ARCH} train_4k: {rec.get('error')}")
+        roof = rec["roofline"]
+        check(roof["flops_per_chip"] > 0 and all(
+            math.isfinite(roof[k]) and roof[k] > 0
+            for k in ("peak_memory_per_chip", "roofline_s"))
+              and roof["flops_per_chip"] == rec["matmul_flops"]
+              + rec["elementwise_flops"] and rec["transcendentals"] > 0,
+              f"dry-run {ARCH} train_4k: {roof}")
+        check(rec["config"]["remat"] == "full"
+              and rec["config"]["microbatches"]
+              == DEFAULT_MICROBATCHES[ARCH],
+              f"dry-run {ARCH} train_4k config {rec['config']}")
+        cells[f"{ARCH} train_4k"] = {
+            **{k: roof[k] for k in keys},
+            **{k: rec[k] for k in ("matmul_flops", "elementwise_flops",
+                                   "transcendentals", "config")},
+            "fits_hbm": rec["fits_hbm"], "trace_s": rec["compile_s"],
+            "wall_s": time.perf_counter() - t0,
+            "analytic_bytes": rec["analytic_bytes"],
+            "flops_by_op": rec["flops_by_op"]}
+        # a random search over its remat and microbatches
+        tev = CellEvaluator(ARCH, "train_4k", cache_dir=Path(tmp) / "train",
+                            device="cuda")
+        tlog = []
+        t0 = time.perf_counter()
+        tbest, tscore = autotune_search(
+            tev, engine="random", shape_mode="train", seed=0,
+            max_rounds=TRAIN_AUTOTUNE_ROUNDS, batch=2,
+            domains=TRAIN_AUTOTUNE_DOMAINS, log=tlog)
+        search = next(r for r in tlog if r["event"] == "search")
+        points = []
+        for pt, score in zip(search["evaluated"], search["scores"]):
+            prec = tev.evaluate(ExecPoint(**{
+                k: tuple(tuple(r) for r in v) if k == "extra_rules" else v
+                for k, v in pt.items()}))
+            check(prec["status"] == "OK",
+                  f"train autotune point {pt}: {prec.get('error')}")
+            points.append({"remat": pt["remat"],
+                           "microbatches": pt["microbatches"],
+                           "score": score, "peak_memory_per_chip":
+                               prec["roofline"]["peak_memory_per_chip"],
+                           "roofline_s": prec["roofline"]["roofline_s"]})
+        train_autotune = {
+            "cell": tev.cell, "engine": "random",
+            "rounds": TRAIN_AUTOTUNE_ROUNDS, "batch": 2,
+            "reduced": "points 4 -> 2 (rounds 2 -> 1), for the smoke's time",
+            "domains": {k: list(v) for k, v in
+                        TRAIN_AUTOTUNE_DOMAINS.items()},
+            "points": points, "dry_runs": tev.n_compiles,
+            "best": json.loads(json.dumps(dataclasses.asdict(tbest))),
+            "score": tscore,
+            "any_point_fits_80gb": any(p["score"] > 0 for p in points),
+            "seconds": time.perf_counter() - t0}
+        check(points and tev.n_compiles > 0,
+              f"the train autotune evaluated {points}")
         # the greedy search over a cell whose points fit the card's 80 GB
         log = []
         ev = CellEvaluator(ARCH, "decode_32k", cache_dir=tmp, device="cuda")
@@ -3992,6 +4517,7 @@ def phase_dryrun() -> dict:
     check_isolated()
     three = ("flops", "matmul_flops", "elementwise_flops", "transcendentals")
     rec = {"cells": cells, "autotune": autotune,
+           "train_autotune": train_autotune,
            "prefill_2048x4": {
                **{f"fake_{k}": getattr(fake, k) for k in three},
                **{f"real_{k}": getattr(real, k) for k in three},
@@ -4138,6 +4664,8 @@ def main() -> int:
           and not any(fp32_fwd[WHISPER_ARCH].values()),
           f"the {WHISPER_ARCH} paths launched {paths[WHISPER_ARCH]} / "
           f"{fp32_fwd[WHISPER_ARCH]}: its attention is blocked_attention")
+    # the training path, counted from 0 over the whole phase: no kernel
+    trained = phase_train()
     check_isolated()
     for name in ("flash_attention", "flash_attention_tensor_core",
                  "rglru_gated_scan"):
@@ -4203,8 +4731,10 @@ def main() -> int:
                                      "dtype")},
         "launches": sum(p["flash_attention_tensor_core"]
                         for p in paths.values()),
-        "launches_by_path": {f"prefill {a}": p["flash_attention_tensor_core"]
-                             for a, p in paths.items()},
+        "launches_by_path": {
+            **{f"prefill {a}": p["flash_attention_tensor_core"]
+               for a, p in paths.items()},
+            f"train {ARCH}": trained["flash_attention_tensor_core"]},
         "max_abs_err": flash["max_abs_err"]["bfloat16"],
         "ms": f["kernel_ms"], "kernel_ms": f["kernel_ms"],
         "plain_ms": flash["timings"]["4096"]["plain_ms"],
@@ -4222,7 +4752,8 @@ def main() -> int:
         "shape": {k: f32[k] for k in ("B", "S", "H", "KV", "hd", "causal",
                                        "dtype")},
         "launches": sum(cuda_core.values()),
-        "launches_by_path": cuda_core,
+        "launches_by_path": {**cuda_core, f"train {ARCH}":
+                             trained["flash_attention_cuda_core"]},
         "max_abs_err": flash["max_abs_err"]["float32"],
         "ms": f32["kernel_ms"], "kernel_ms": f32["kernel_ms"],
         "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
@@ -4239,7 +4770,8 @@ def main() -> int:
             f"serve {RG_ARCH}, fp32 teacher-forced forward":
                 fp32_fwd[RG_ARCH]["rglru_gated_scan"],
             "rglru block, fused route": rglru["block_launches"]["fused"][
-                "rglru_gated_scan"]},
+                "rglru_gated_scan"],
+            f"train {ARCH}": trained["rglru_gated_scan"]},
         "max_abs_err": rglru["gated_max_abs_err"],
         "ms": rg["kernel_ms"], "kernel_ms": rg["kernel_ms"],
         "plain_ms": rg["plain_ms"], "bound_ms": rg["bound_ms"],
@@ -4263,7 +4795,8 @@ def main() -> int:
                 rglru["block_launches"]["fused"]["rglru_scan"],
             f"prefill {RG_ARCH}": paths[RG_ARCH]["rglru_scan"],
             f"serve {RG_ARCH}, fp32 teacher-forced forward":
-                fp32_fwd[RG_ARCH]["rglru_scan"]},
+                fp32_fwd[RG_ARCH]["rglru_scan"],
+            f"train {ARCH}": trained["rglru_scan"]},
         "max_abs_err": rglru["max_abs_err"],
         "ms": r["kernel_ms"], "kernel_ms": r["kernel_ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -4281,7 +4814,8 @@ def main() -> int:
         "launches_by_path": {
             "tile_dse": dse["launches"]["matmul_tensor_core"],
             **{f"prefill {a}": p["matmul_tensor_core"]
-               for a, p in paths.items()}},
+               for a, p in paths.items()},
+            f"train {ARCH}": trained["matmul_tensor_core"]},
         "max_abs_err": max([mm["max_abs_err"]]
                            + [r["max_abs_err"]
                               for r in dse["shapes"].values()]),
@@ -4304,7 +4838,8 @@ def main() -> int:
         "launches_by_path": {
             "tile_dse": dse["launches"]["matmul_cuda_core"],
             **{f"prefill {a}": p["matmul_cuda_core"]
-               for a, p in paths.items()}},
+               for a, p in paths.items()},
+            f"train {ARCH}": trained["matmul_cuda_core"]},
         "max_abs_err": f32mm["max_abs_err"],
         "ms": f32mm["kernel_ms"], "kernel_ms": f32mm["kernel_ms"],
         "plain_ms": f32mm["plain_ms"], "bound_ms": f32mm["bound_ms"],

@@ -11,11 +11,12 @@ bookkeeping (row cache, table coding, engines, space repair) is numpy; the
 scoring pass is torch on an explicit device, with the validity screen's
 table gathers in a hand-written CUDA kernel (`kernels.gather`).
 
-The package also serves two of the model zoo's decoders (`models`,
-`launch.serve`) and runs the execution-space DSE: the Hopper tile model
+The package also serves and trains every arch of the model zoo
+(`models`, `launch.serve`, `launch.train` with `optim`, `data` and
+`checkpoint`) and runs the execution-space DSE: the Hopper tile model
 (`core.kernel_tune`) picks the tiles of the hand-written matmul kernels
-(`kernels.matmul`), and a dry-run of a serving step on fake tensors
-(`launch.dryrun`) feeds the roofline (`core.roofline`) that the
+(`kernels.matmul`), and a dry-run of a training or serving step on fake
+tensors (`launch.dryrun`) feeds the roofline (`core.roofline`) that the
 execution-point search (`core.autotune`) scores.
 
 The package imports neither jax nor the JAX package `repro`; it keeps its

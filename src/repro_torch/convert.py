@@ -22,7 +22,8 @@ from repro_torch.models.lm import plan_groups
 
 __all__ = ["ops_from_records", "space_from_domains",
            "config_batch_from_matrix", "decoder_params_from_numpy",
-           "encdec_params_from_numpy", "tree_from_numpy"]
+           "encdec_params_from_numpy", "tree_from_numpy",
+           "params_from_numpy", "adamw_state_from_numpy"]
 
 
 def ops_from_records(records: Iterable[Mapping]) -> OpStream:
@@ -113,3 +114,26 @@ def encdec_params_from_numpy(cfg: ArchConfig, tree: Mapping[str, Any],
             raise ValueError(f"{stack}: {depth} stacked layers, the "
                              f"config has {n}")
     return tree_from_numpy(tree, device)
+
+
+def params_from_numpy(cfg: ArchConfig, tree: Mapping[str, Any],
+                      device="cpu") -> Dict[str, Any]:
+    """A reference parameter tree (or any tree of its layout: gradients,
+    AdamW moments) with numpy leaves in the port's layout for `cfg`'s
+    model: `encdec_params_from_numpy` for the encoder-decoder, else
+    `decoder_params_from_numpy`."""
+    if cfg.is_encdec:
+        return encdec_params_from_numpy(cfg, tree, device)
+    return decoder_params_from_numpy(cfg, tree, device)
+
+
+def adamw_state_from_numpy(cfg: ArchConfig, state: Any, device="cpu"):
+    """The port's `AdamWState` from the reference's (its `step`, `mu` and
+    `nu` with numpy leaves): the step a 0-d int32 tensor, each moment in
+    the port's layout (`params_from_numpy`)."""
+    from repro_torch.optim import AdamWState
+    return AdamWState(
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                          device=device),
+        mu=params_from_numpy(cfg, state.mu, device),
+        nu=params_from_numpy(cfg, state.nu, device))

@@ -19,8 +19,12 @@ above the card's memory.
 
 The points, domains and the greedy loop are the reference's
 (`repro.core.autotune`), so `ExecPoint.key()` names the same point in both
-packages.  On one GPU, serving only: sharding mode, remat, microbatches
-and the layout rules (`extra_rules`) change nothing in the step; the
+packages.  On one GPU sharding mode and the layout rules (`extra_rules`)
+change nothing in the step, nor do remat and microbatches in a serving
+cell; in a train cell (`train_4k`) remat moves what the backward keeps
+and recomputes (the step's peak and its FLOPs) and microbatches the
+activations a pass holds, as the reference's loop tiling T* and banked
+buffers do.  The
 plain attention's KV tile (`attn_kv_block`) moves the step's peak memory,
 not its FLOPs, and on an MoE arch `moe_group_size` moves its MoE blocks:
 the tokens routed together, so the dispatch buffers, the capacity a group
@@ -88,8 +92,8 @@ class CellEvaluator:
 
     `hbm_limit` defaults to the H100's 80 GB (`HW().hbm_bytes`); the dry-run
     counts on fake tensors of `device`.  Points with the same `overrides()`
-    run one step on one GPU and share one dry-run; `n_compiles` counts the
-    dry-runs."""
+    (and in a train cell the same remat and microbatches) run one step on
+    one GPU and share one dry-run; `n_compiles` counts the dry-runs."""
 
     def __init__(self, arch_name: str, shape_name: str,
                  cache_dir: str | Path = CACHE_DIR,
@@ -111,11 +115,16 @@ class CellEvaluator:
             return json.loads(cache.read_text())
         from repro_torch.launch.dryrun import run_cell
 
-        # on one GPU only the overrides change the step: points that differ
-        # elsewhere share the dry-run of the first of them, which run_cell
-        # writes to `<cell><tag>.json`
+        # on one GPU only the overrides (and a train step's remat and
+        # microbatches) change the step: points that differ elsewhere share
+        # the dry-run of the first of them, which run_cell writes to
+        # `<cell><tag>.json`
+        from repro_torch.configs.shapes import shape_by_name
+        step_key = pt.overrides()
+        if shape_by_name(self.shape_name).mode == "train":
+            step_key.update(remat=pt.remat, microbatches=pt.microbatches)
         tag = "_step" + hashlib.sha1(json.dumps(
-            pt.overrides(), sort_keys=True).encode()).hexdigest()[:12]
+            step_key, sort_keys=True).encode()).hexdigest()[:12]
         step = self.dir / f"{self.cell}{tag}.json"
         if step.exists():
             rec = json.loads(step.read_text())
@@ -143,7 +152,12 @@ class CellEvaluator:
         return 1.0 / max(roof["roofline_s"], 1e-12)
 
 
-def _domains_for(shape_mode: str, has_moe: bool) -> Dict[str, Tuple]:
+def _domains_for(shape_mode: str, has_moe: bool,
+                 domains: Optional[Dict[str, Tuple]] = None
+                 ) -> Dict[str, Tuple]:
+    """The cell's execution space: `EXEC_DOMAINS` cut to the shape's mode
+    and the arch's layers, then any variable `domains` names set to its
+    values there (a search over a few variables, the rest fixed)."""
     d = dict(EXEC_DOMAINS)
     if shape_mode != "train":
         d["microbatches"] = (1,)
@@ -151,13 +165,14 @@ def _domains_for(shape_mode: str, has_moe: bool) -> Dict[str, Tuple]:
         d["sharding_mode"] = ("tp",)
     if not has_moe:
         d["moe_group_size"] = (4096,)
+    d.update(domains or {})
     return d
 
 
-def exec_space(shape_mode: str = "train", has_moe: bool = False
-               ) -> DiscreteSpace:
+def exec_space(shape_mode: str = "train", has_moe: bool = False,
+               domains: Optional[Dict[str, Tuple]] = None) -> DiscreteSpace:
     """The execution design space as a generic `DiscreteSpace`."""
-    return DiscreteSpace(domains=_domains_for(shape_mode, has_moe),
+    return DiscreteSpace(domains=_domains_for(shape_mode, has_moe, domains),
                          make_config=lambda **kw: ExecPoint(**kw))
 
 
@@ -166,6 +181,7 @@ def autotune_search(evaluator: CellEvaluator, *, engine: EngineSpec = "greedy",
                     seed: int = 0, max_rounds: int = 6,
                     init: Optional[ExecPoint] = None,
                     log: Optional[list] = None,
+                    domains: Optional[Dict[str, Tuple]] = None,
                     **engine_kwargs) -> Tuple[ExecPoint, float]:
     """Engine-pluggable autotuning of one cell.
 
@@ -180,11 +196,12 @@ def autotune_search(evaluator: CellEvaluator, *, engine: EngineSpec = "greedy",
         return greedy_autotune(evaluator, shape_mode=shape_mode,
                                has_moe=has_moe, seed=seed,
                                max_rounds=max_rounds, init=init, log=log,
+                               domains=domains,
                                **filter_kwargs(greedy_autotune,
                                                engine_kwargs))
     from repro_torch.dse import SearchBudget, Study
 
-    space = exec_space(shape_mode, has_moe)
+    space = exec_space(shape_mode, has_moe, domains)
     # each pool's cache misses go to score_batch in one call where the
     # evaluator has one; score-only evaluators take the scalar path
     fev = FunctionEvaluator(evaluator.score,
@@ -230,10 +247,13 @@ def greedy_autotune(evaluator: CellEvaluator, *, shape_mode: str = "train",
                     has_moe: bool = False, seed: int = 0,
                     max_rounds: int = 6, init: Optional[ExecPoint] = None,
                     delta_threshold: float = 0.02,
-                    log: Optional[list] = None) -> Tuple[ExecPoint, float]:
-    """Algorithm 1 with k=1 over the execution space (memoized evals)."""
+                    log: Optional[list] = None,
+                    domains: Optional[Dict[str, Tuple]] = None
+                    ) -> Tuple[ExecPoint, float]:
+    """Algorithm 1 with k=1 over the execution space (memoized evals);
+    `domains` as in `_domains_for`."""
     rng = np.random.default_rng(seed)
-    domains = _domains_for(shape_mode, has_moe)
+    domains = _domains_for(shape_mode, has_moe, domains)
     s0 = init or ExecPoint()
     p0 = evaluator.score(s0)
     if log is not None:

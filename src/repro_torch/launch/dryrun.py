@@ -1,7 +1,8 @@
-"""Dry-run of one serving step on one GPU, counted on fake tensors.
+"""Dry-run of one training or serving step on one GPU, counted on fake
+tensors.
 
-For every (architecture x serving shape) cell, run the cell's step once on
-fake tensors (`launch.steps.trace_step`) and record:
+For every (architecture x shape) cell, run the cell's step once on fake
+tensors (`launch.steps.trace_step`) and record:
 
   * the FLOPs of the matmul family (`FlopCounterMode`) and the operand and
     result bytes of every aten op (an upper bound on traffic);
@@ -12,13 +13,18 @@ fake tensors (`launch.steps.trace_step`) and record:
 Nothing is allocated and no kernel runs, so a full-batch 32k prefill is
 counted in seconds.  The reference (`repro.launch.dryrun`) compiles each
 cell with XLA for a 256- or 512-chip mesh; the port runs on one chip (mesh
-"1gpu"), so sharding mode, remat and layout rules change nothing here and
-are only recorded.  Every serving cell of every arch is counted, the
+"1gpu"), so sharding mode and layout rules change nothing here and are
+only recorded.  A train cell (`train_4k`) counts forward, backward and the
+AdamW update under `remat` (the reference's default "full") over
+`microbatches` (the reference's `DEFAULT_MICROBATCHES`) at the full batch;
+both are recorded in `config`.  Every serving cell of every arch is
+counted, the
 encoder-decoder's (whisper-medium: the encoder at its 1500 frames and the
 decoder at the cell's tokens) and qwen2.5-32b's decode_32k over the
 reference's f8 KV cache (`DEFAULT_SERVE_KV_DTYPE`: the cache at one byte
-an element in the peak and in the analytic traffic) included; train
-shapes raise `NotImplementedError`; other failures are recorded as
+an element in the peak and in the analytic traffic) included, and every
+train cell but xlstm-1.3b's, which raises `NotImplementedError`
+(`UNCOUNTED_TRAIN` says why); other failures are recorded as
 FAILED.  A sub-quadratic arch's `long_500k`
 (xlstm-1.3b: one token against a 524,288-token context) is counted as
 any decode cell; an xLSTM prefill's scans over time and chunks count one
@@ -54,13 +60,29 @@ from repro_torch.core.roofline import (HW, CollectiveStats,
 from repro_torch.launch.steps import trace_step
 from repro_torch.models.layers import not_ported
 
-__all__ = ["MESH", "OUT_DIR", "run_cell", "main"]
+__all__ = ["MESH", "OUT_DIR", "DEFAULT_MICROBATCHES", "UNCOUNTED_TRAIN",
+           "run_cell", "main"]
 
 OUT_DIR = Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
 MESH = "1gpu"                          # one card, no mesh
 # the reference's fp8 KV cache for archs whose bf16 cache and weights
 # exceed its chips' memory at decode_32k
 DEFAULT_SERVE_KV_DTYPE = {"qwen2.5-32b": "f8"}
+# the reference's gradient-accumulation factors of its train_4k cells
+DEFAULT_MICROBATCHES = {
+    "qwen2.5-32b": 16, "mistral-nemo-12b": 8, "recurrentgemma-9b": 8,
+    "qwen2.5-3b": 4, "deepseek-v2-lite-16b": 2, "olmoe-1b-7b": 2,
+    "xlstm-1.3b": 4, "qwen2-0.5b": 2, "internvl2-1b": 2,
+    "whisper-medium": 2,
+}
+# train cells the dry-run does not count, and why
+UNCOUNTED_TRAIN = {
+    "xlstm-1.3b": "its train step (the sLSTM scan over 4096 time steps "
+                  "in 6 layers runs step by step under grad, forward, "
+                  "recompute and backward: about 1.8M ops on fake "
+                  "tensors; the one-step replay of a scan carries no "
+                  "backward)",
+}
 
 
 def run_cell(arch_name: str, shape_name: str, out_dir: Path, *,
@@ -75,9 +97,11 @@ def run_cell(arch_name: str, shape_name: str, out_dir: Path, *,
     and `moe_group_size` (the tokens the MoE block routes together: its
     dispatch buffers' size, so the step's peak, and with it the capacity
     a group gives each expert).
-    `sharding_mode`, `remat`, `microbatches` and `rule_updates` change
-    nothing on one chip: they exist only to fill the `config` entry of the
-    reference's record shape."""
+    A train cell runs under `remat` over `microbatches` (0: the
+    reference's `DEFAULT_MICROBATCHES`, at most the batch).
+    `sharding_mode` and `rule_updates` change nothing on one chip, nor do
+    `remat` and `microbatches` in a serving cell: they exist only to fill
+    the `config` entry of the reference's record shape."""
     cell_id = f"{arch_name}_{shape_name}_{MESH}{tag}"
     out_path = Path(out_dir) / f"{cell_id}.json"
 
@@ -90,10 +114,15 @@ def run_cell(arch_name: str, shape_name: str, out_dir: Path, *,
         print(f"[dryrun] {cell_id}: SKIPPED ({why.split(':')[0]})")
         return rec
 
-    if shape.mode == "train":
-        raise not_ported("the train step (and its dry-run)")
+    if shape.mode == "train" and arch_name in UNCOUNTED_TRAIN:
+        raise not_ported(UNCOUNTED_TRAIN[arch_name])
     arch = configs.get_arch(arch_name)
-    microbatches = max(microbatches, 1)
+    if microbatches <= 0:
+        microbatches = DEFAULT_MICROBATCHES.get(arch_name, 1) \
+            if shape.mode == "train" else 1
+    if shape.mode == "train":
+        # each microbatch holds one row at least
+        microbatches = max(1, min(microbatches, shape.global_batch))
     rt_overrides = dict(overrides or {})
     if shape.mode == "decode" and arch_name in DEFAULT_SERVE_KV_DTYPE:
         rt_overrides.setdefault("kv_dtype", DEFAULT_SERVE_KV_DTYPE[arch_name])
@@ -101,10 +130,12 @@ def run_cell(arch_name: str, shape_name: str, out_dir: Path, *,
     t0 = time.time()
     try:
         counts, rt = trace_step(arch, shape, device=device,
-                                overrides=rt_overrides)
+                                overrides=rt_overrides, remat=remat,
+                                microbatches=microbatches)
         t_trace = time.time() - t0
         hw = HW()
         analytic = analytic_hbm_bytes(arch, shape, 1, tp=1,
+                                      microbatches=microbatches,
                                       kv_bytes=kv_bytes)
         rep = roofline_from_totals(
             arch=arch_name, shape=shape_name, mesh_name=MESH, chips=1,
@@ -134,7 +165,7 @@ def run_cell(arch_name: str, shape_name: str, out_dir: Path, *,
                         "attn_kv_block": rt.attn_kv_block,
                         "moe_group_size": rt.moe_group_size,
                         "kv_dtype": rt.kv_dtype, "kv_bytes": kv_bytes,
-                        "use_kernels": rt.use_kernels},
+                        "remat": rt.remat, "use_kernels": rt.use_kernels},
             "flops_by_op": counts.flops_by_op,
             "matmul_flops": counts.matmul_flops,
             "elementwise_flops": counts.elementwise_flops,
@@ -164,6 +195,8 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="device of the fake tensors: cuda (default; fails "
                          "without a GPU) or cpu")
+    ap.add_argument("--remat", default="full",
+                    choices=["none", "full", "dots"])
     ap.add_argument("--out", default=str(OUT_DIR))
     args = ap.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -184,7 +217,7 @@ def main(argv=None) -> int:
     for arch_name, shape_name in cells:
         try:
             rec = run_cell(arch_name, shape_name, out_dir,
-                           device=args.device)
+                           device=args.device, remat=args.remat)
         except NotImplementedError as e:
             n_cut += 1
             print(f"[dryrun] {arch_name}_{shape_name}_{MESH}: "

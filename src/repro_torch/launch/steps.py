@@ -1,14 +1,18 @@
 """Step builders of the port: `build_model`, `make_runtime`,
-`input_specs`, the serving steps `make_prefill_step` / `make_serve_step`,
-and `trace_step`, which counts one serving step on fake tensors for the
-dry-run (`launch.dryrun`).
+`input_specs`, the training step `make_train_step`, the serving steps
+`make_prefill_step` / `make_serve_step`, and `trace_step`, which counts
+one step of any of them on fake tensors for the dry-run
+(`launch.dryrun`).
 
 The reference builds jit-able steps over a device mesh; on one GPU a step
-is a plain function that runs eagerly under `torch.inference_mode` and
-`layers.full_precision_products`, over a `DecoderLM` or, for the
-encoder-decoder (whisper-medium), an `EncDecLM`.  The
-training step, the mesh and the sharding rules are ported in a later
-slice (see ROADMAP.md).
+is a plain function that runs eagerly under
+`layers.full_precision_products` (the serving steps under
+`torch.inference_mode` as well), over a `DecoderLM` or, for the
+encoder-decoder (whisper-medium), an `EncDecLM`.  The training step takes
+its gradients with `torch.autograd.grad`, backward and remat recompute
+inside the same precision scope, and updates the parameters and moments
+in place (the reference donates them).  The mesh and the sharding rules
+are ported in a later slice (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -26,13 +30,16 @@ from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (STEP_COUNTERS, Runtime,
                                        full_precision_products, map_specs,
-                                       not_ported, slice_of)
+                                       slice_of)
 from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.lm import DecoderLM
+from repro_torch.optim import (AdamWState, adamw_update,
+                               linear_warmup_cosine)
 
 Model = Union[DecoderLM, EncDecLM]
 
-__all__ = ["build_model", "make_runtime", "input_specs",
+__all__ = ["build_model", "make_runtime", "input_specs", "loss_and_grads",
+           "make_train_step",
            "make_prefill_step", "make_serve_step", "StepCounts",
            "count_step", "trace_step"]
 
@@ -44,12 +51,15 @@ def build_model(arch: ArchConfig) -> Model:
 
 
 def make_runtime(arch: ArchConfig, shape: ShapeSpec, *,
-                 use_kernels: bool = False,
+                 remat: str = "full", use_kernels: bool = False,
                  overrides: Optional[Dict[str, Any]] = None) -> Runtime:
-    """Execution point for one (arch, shape) cell.  Serving shapes run
-    bf16 weights, as in the reference (half the memory and the bytes of
-    every weight read)."""
-    kw: Dict[str, Any] = {"use_kernels": use_kernels}
+    """Execution point for one (arch, shape) cell, as the reference's:
+    training runs fp32 params, bf16 compute and `remat` (serving shapes
+    no remat); serving shapes run bf16 weights (half the memory and the
+    bytes of every weight read)."""
+    kw: Dict[str, Any] = {"use_kernels": use_kernels,
+                          "remat": remat if shape.mode == "train"
+                          else "none"}
     if shape.mode != "train":
         kw["param_dtype"] = torch.bfloat16
     if overrides:
@@ -76,6 +86,87 @@ def input_specs(arch: ArchConfig, shape: ShapeSpec
         return batch
     # decode: one new token against a seq_len-deep cache
     return {"token": ((B, 1), torch.int64), "pos": ((), torch.int64)}
+
+
+def _value_and_grad(model: Model, rt: Runtime, params, batch):
+    """`jax.value_and_grad` of `model.loss` in the parameters: the loss
+    (detached) and the gradients as a flat list in `tree_leaves` order."""
+    leaves, spec = pytree.tree_flatten(params)
+    wrt = [p.detach().requires_grad_() for p in leaves]
+    loss = model.loss(pytree.tree_unflatten(wrt, spec), batch, rt)
+    return loss.detach(), list(torch.autograd.grad(loss, wrt))
+
+
+def loss_and_grads(model: Model, rt: Runtime, params, batch,
+                   microbatches: int = 1):
+    """The train step's loss (fp32, 0-d) and gradients (a flat list in
+    `tree_leaves(params)` order), as the reference's step takes them:
+    with `microbatches > 1` the batch is split along its first axis, the
+    fp32 gradients summed over the microbatches and loss and gradients
+    scaled by 1/n.  Call it under `full_precision_products` on the card
+    (the train step does).  Under `count_step` the first microbatch is
+    counted for all (`_Counter.repeat`): the same peak, since the
+    accumulators exist from the start, and its values only."""
+    if microbatches <= 1:
+        return _value_and_grad(model, rt, params, batch)
+    n = microbatches
+    micro = {k: v.reshape((n, v.shape[0] // n) + v.shape[1:])
+             for k, v in batch.items()}
+    leaves = pytree.tree_leaves(params)
+    loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+             for p in leaves]
+
+    def accumulate(i, loss):
+        mb_loss, mb_grads = _value_and_grad(
+            model, rt, params, {k: v[i] for k, v in micro.items()})
+        for acc, g in zip(grads, mb_grads):
+            acc.add_(g.float())
+        del mb_grads
+        return loss + mb_loss
+
+    if STEP_COUNTERS:
+        # counted: the microbatches do the same work on tensors of the
+        # same shapes, so the first runs for all (the reference's
+        # microbatch probe); the loss and gradients then hold its share
+        # only, which on fake tensors are none
+        loss = STEP_COUNTERS[-1].repeat(lambda: accumulate(0, loss), n)
+    else:
+        for i in range(n):
+            loss = accumulate(i, loss)
+    inv = 1.0 / microbatches
+    for g in grads:
+        g.mul_(inv)
+    return loss * inv, grads
+
+
+def make_train_step(model: Model, rt: Runtime, *, base_lr: float = 3e-4,
+                    warmup_steps: int = 100, total_steps: int = 10000,
+                    microbatches: int = 1) -> Callable:
+    """The training step `(params, opt_state, batch) -> (params,
+    opt_state, {"loss", "grad_norm", "lr"})`, the reference's: the loss
+    and gradients of `loss_and_grads` (gradient accumulation over
+    `microbatches`), the lr `linear_warmup_cosine(step + 1)`, and
+    `adamw_update`, which writes params and moments in place with the
+    reference's decay mask (`model.decay_mask()`).  The metrics are 0-d
+    device tensors: nothing in the step waits for the device."""
+    decay = model.decay_mask()
+
+    def train_step(params, opt_state: AdamWState, batch):
+        with full_precision_products():
+            loss, grads = loss_and_grads(model, rt, params, batch,
+                                         microbatches)
+            # step + 1: the schedule is evaluated for the step being taken
+            lr = linear_warmup_cosine(opt_state.step + 1, base_lr=base_lr,
+                                      warmup_steps=warmup_steps,
+                                      total_steps=total_steps)
+            grads = pytree.tree_unflatten(
+                grads, pytree.tree_structure(params))
+            params, opt_state, gnorm = adamw_update(
+                grads, opt_state, params, lr, decay=decay)
+        return params, opt_state, {"loss": loss, "grad_norm": gnorm,
+                                   "lr": lr}
+    return train_step
 
 
 def make_prefill_step(model: Model, rt: Runtime) -> Callable:
@@ -186,8 +277,13 @@ def _elementwise_cost(func, args, outs) -> Tuple[int, int]:
         return args[0].numel() - out + (out if name == "mean" else 0), 0
     if torch.Tag.pointwise not in func.tags:
         return 0, 0
-    if name == "pow" and isinstance(args[1], (int, float)) and args[1] == 2:
-        return out, 0                 # x * x
+    if name == "pow" and isinstance(args[1], (int, float)) and \
+            float(args[1]).is_integer() and 0 <= args[1] <= 64:
+        # an integer power is multiplies (XLA's `integer_pow`: square and
+        # multiply): x ** 2 one, x ** 3 two (rsqrt's backward), x ** 1 none
+        # (the backward of x ** 2 takes it)
+        k = int(args[1])
+        return out * max(k.bit_length() + bin(k).count("1") - 2, 0), 0
     f, tr = _ELEMENTWISE.get(name, (1, 0))
     return f * out, tr * out
 
@@ -218,23 +314,37 @@ class _Counter(TorchDispatchMode):
     def _free(self, key: int) -> None:
         self.live -= self.sizes.pop(key)
 
-    def repeat_scan(self, step, carry, xs, n: int):
-        """`layers.scan` of `n` steps, run once: the first step is counted
-        and its counts (ops, bytes, elementwise FLOPs, transcendentals and
+    def repeat(self, fn, n: int):
+        """`fn()` counted `n` times over: it runs once, and its counts
+        (ops, bytes, elementwise FLOPs, transcendentals and
         `flop_counter`'s matmul FLOPs by op) are added `n - 1` times more.
-        The step then runs again, uncounted, as the loop's last step runs:
-        from a carry of its own, beside the first carry and one stand-in
-        allocation of the other steps' outputs (the loop's list holds
-        them until the stack; an output written in place into its slice
-        of the xs, a KV cache layer, holds nothing), so the peak is the
-        loop's."""
+        Returns what `fn` returns."""
         flops = self.flop_counter.flop_counts["Global"]
         fields = ("ops", "bytes_accessed", "elementwise_flops",
                   "transcendentals")
         was, was_flops = [getattr(self, f) for f in fields], dict(flops)
+        out = fn()
+        counted = dict(flops)
+        flops.clear()
+        flops.update({op: c + (n - 1) * (c - was_flops.get(op, 0))
+                      for op, c in counted.items()})
+        for f, w in zip(fields, was):
+            setattr(self, f, getattr(self, f) + (n - 1) * (
+                getattr(self, f) - w))
+        return out
+
+    def repeat_scan(self, step, carry, xs, n: int):
+        """`layers.scan` of `n` steps, run once: the first step is counted
+        `n` times over (`repeat`).  The step then runs again, uncounted,
+        as the loop's last step runs: from a carry of its own, beside the
+        first carry and one stand-in allocation of the other steps'
+        outputs (the loop's list holds them until the stack; an output
+        written in place into its slice of the xs, a KV cache layer,
+        holds nothing), so the peak is the loop's."""
         leaves, spec = pytree.tree_flatten(xs)
         x0 = pytree.tree_unflatten([x[0] for x in leaves], spec)
-        y = step(carry, x0)[1]
+        y = self.repeat(lambda: step(carry, x0)[1], n)
+
         def written_in_place(t):
             return next((x for x in leaves if slice_of(t, x, 0)), None)
 
@@ -243,7 +353,9 @@ class _Counter(TorchDispatchMode):
                        if isinstance(t, torch.Tensor)
                        and written_in_place(t) is None]
         del y
-        counted = dict(flops)
+        # uncounted: neither by this mode nor by `flop_counter`
+        flops = self.flop_counter.flop_counts["Global"]
+        kept = dict(flops)
         self.counting = False
         held = [torch.empty(shape, dtype=dtype, device=leaves[0].device)
                 for shape, dtype in held_shapes]
@@ -253,11 +365,8 @@ class _Counter(TorchDispatchMode):
         del last
         self.counting = True
         flops.clear()
-        flops.update({op: c + (n - 1) * (c - was_flops.get(op, 0))
-                      for op, c in counted.items()})
-        for f, w in zip(fields, was):
-            setattr(self, f, getattr(self, f) + (n - 1) * (
-                getattr(self, f) - w))
+        flops.update(kept)
+
         def stacked(t):
             src = written_in_place(t)
             return src if src is not None else torch.stack([t] * n)
@@ -288,9 +397,13 @@ class _Counter(TorchDispatchMode):
 def count_step(step: Callable, *args) -> Tuple[Any, StepCounts]:
     """Run `step(*args)` once and count it (`StepCounts`); on real or fake
     tensors alike.  Returns the step's output and the counts.  A
-    `layers.scan` inside (the xLSTM blocks' loops) runs one step and
-    counts it for all (`_Counter.repeat_scan`): the counts are exact, the
-    output is not the model's where such a scan ran."""
+    `layers.scan` inside (the xLSTM blocks' loops, the encoder-decoder's
+    layers) runs one step and counts it for all
+    (`_Counter.repeat_scan`) where grad is off, and a train step's
+    microbatches one for all (`loss_and_grads`): the counts are exact,
+    the output is not the model's where such a repeat ran.  Where grad is
+    on (a train step) every step of a scan runs: the backward of a
+    replayed step would be counted once."""
     from torch.utils.flop_counter import FlopCounterMode
 
     counter = _Counter()
@@ -320,35 +433,46 @@ def count_step(step: Callable, *args) -> Tuple[Any, StepCounts]:
 
 
 def trace_step(arch: ArchConfig, shape: ShapeSpec, *, device: str = "cuda",
-               overrides: Optional[Dict[str, Any]] = None
+               overrides: Optional[Dict[str, Any]] = None,
+               remat: str = "full", microbatches: int = 1
                ) -> Tuple[StepCounts, Runtime]:
-    """Count one serving step of `arch` at `shape` on fake tensors of
-    `device` (`torch._subclasses.fake_tensor.FakeTensorMode`): no memory is
+    """Count one step of `arch` at `shape` on fake tensors of `device`
+    (`torch._subclasses.fake_tensor.FakeTensorMode`): no memory is
     allocated and no kernel runs, whatever the shape.  The step is the one
-    `make_prefill_step` / `make_serve_step` build, through the plain paths
-    (`use_kernels=False`, as the reference's dry-run traces without
-    Pallas; the ctypes kernels are invisible to dispatch modes anyway), on
-    parameters in the serving dtype.  A decode step writes one token at
-    position `seq_len - 1` against a `seq_len`-deep cache, made by
-    `init_cache` under the cell's runtime (an f8 KV cache under
-    `kv_dtype="f8"`).  The whole step is counted once, a `layers.scan`
-    over layers one step for all (the reference's scan probes have no
-    counterpart)."""
+    `make_train_step` / `make_prefill_step` / `make_serve_step` build,
+    through the plain paths (`use_kernels=False`, as the reference's
+    dry-run traces without Pallas; the ctypes kernels are invisible to
+    dispatch modes anyway), on parameters in the cell's dtype.  A train
+    step is forward, backward (with `remat`'s recompute) and the AdamW
+    update over `microbatches` microbatches, from fp32 params and
+    moments.  A decode step writes one token at position `seq_len - 1`
+    against a `seq_len`-deep cache, made by `init_cache` under the cell's
+    runtime (an f8 KV cache under `kv_dtype="f8"`).  The whole step is
+    counted once; in a serving step a `layers.scan` runs one step for all
+    (the reference's scan probes have no counterpart), in a train step
+    every step of it runs."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
-    if shape.mode == "train":
-        raise not_ported("the train step")
     model = build_model(arch)
-    rt = make_runtime(arch, shape, overrides=overrides)
+    rt = make_runtime(arch, shape, remat=remat, overrides=overrides)
     with FakeTensorMode():
         params = map_specs(
             lambda s: torch.empty(s.shape, device=device,
                                   dtype=s.resolved_dtype(rt.param_dtype)),
             model.param_specs())
         specs = input_specs(arch, shape)
-        if shape.mode == "prefill":
+        if shape.mode in ("train", "prefill"):
             batch = {name: torch.zeros(shp, dtype=dt, device=device)
                      for name, (shp, dt) in specs.items()}
+        if shape.mode == "train":
+            state = AdamWState(
+                step=torch.zeros((), dtype=torch.int32, device=device),
+                mu=pytree.tree_map(torch.zeros_like, params),
+                nu=pytree.tree_map(torch.zeros_like, params))
+            _, counts = count_step(
+                make_train_step(model, rt, microbatches=microbatches),
+                params, state, batch)
+        elif shape.mode == "prefill":
             _, counts = count_step(make_prefill_step(model, rt), params,
                                    batch)
         else:

@@ -24,8 +24,11 @@ in bf16; the decode writes `k` and `v` in place and passes the cross
 caches on unchanged.  Nothing in the reference fills the cross caches:
 its `init_cache` zeroes them and its server never runs the encoder.
 `repro_torch.convert.encdec_params_from_numpy` carries a reference
-parameter tree into this layout.  The training loss is ported in a later
-slice (see ROADMAP.md).
+parameter tree into this layout.  Training: `EncDecLM.loss` is the
+reference's plain mean of the next-token cross-entropy, and under
+`Runtime(remat="full")` each layer of both scans is recomputed in the
+backward, as the reference checkpoints its scan bodies; "dots" recomputes
+nothing here, as in the reference.
 """
 
 from __future__ import annotations
@@ -39,7 +42,8 @@ from repro_torch.frontend.trace import dynamic_slice_in_dim
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import Runtime, Spec
-from repro_torch.models.lm import DecoderLM, padded_vocab
+from repro_torch.models.lm import (DecoderLM, cross_entropy, padded_vocab,
+                                   remat_unit)
 
 Params = Any
 
@@ -87,6 +91,15 @@ def _mha(p: Params, xq: torch.Tensor, xkv: torch.Tensor, cfg: ArchConfig,
         v = _proj(xkv, p["wv"], p.get("bv"), cfg.num_kv_heads, hd, rt)
     o = L.blocked_attention(q, k, v, causal=causal, kv_block=rt.attn_kv_block)
     return L.gqa_out(p, o, rt)
+
+
+def _remat_body(body, rt: Runtime):
+    """A scan body under `rt.remat`: only "full" recomputes it, as the
+    reference checkpoints its encoder and decoder bodies under "full"
+    alone."""
+    if rt.remat != "full":
+        return body
+    return lambda x, p: remat_unit(body, "full", x, p)
 
 
 class EncDecLM(nn.Module):
@@ -142,7 +155,7 @@ class EncDecLM(nn.Module):
             x = x + L.gelu_mlp(p["mlp"], h, rt)
             return x, None
 
-        x, _ = L.scan(body, x, params["encoder"])
+        x, _ = L.scan(_remat_body(body, rt), x, params["encoder"])
         return L.layer_norm(x, params["enc_norm_s"], params["enc_norm_b"],
                             eps)
 
@@ -168,7 +181,7 @@ class EncDecLM(nn.Module):
             x = x + L.gelu_mlp(p["mlp"], h, rt)
             return x, None
 
-        x, _ = L.scan(body, x, params["decoder"])
+        x, _ = L.scan(_remat_body(body, rt), x, params["decoder"])
         if last_only:
             x = x[:, -1:]
         x = L.layer_norm(x, params["dec_norm_s"], params["dec_norm_b"], eps)
@@ -177,7 +190,15 @@ class EncDecLM(nn.Module):
 
     def loss(self, params: Params, batch: Dict[str, torch.Tensor],
              rt: Runtime) -> torch.Tensor:
-        raise L.not_ported("the training loss (EncDecLM.loss)")
+        """Next-token cross-entropy (fp32, 0-d), a plain mean over every
+        position, as in the reference (no mask)."""
+        logits = self.forward(params, batch, rt)
+        return cross_entropy(logits[:, :-1], batch["tokens"][:, 1:]).mean()
+
+    def decay_mask(self) -> Dict[str, Any]:
+        """Whether AdamW decays each leaf: the reference's rule, two
+        dimensions or more (the layout is the reference's)."""
+        return L.map_specs(lambda s: len(s.shape) >= 2, self.param_specs())
 
     # ---------------------------------------------------------------- decode
     def cache_specs(self, batch: int, max_len: int) -> Dict[str, Spec]:

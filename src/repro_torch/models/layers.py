@@ -41,22 +41,20 @@ from repro_torch.frontend.trace import (index_from_end, nested_jit, node_of,
 
 Params = Any
 
-__all__ = ["Runtime", "Spec", "init_params", "full_precision_products",
-           "stack_specs", "zeros_cache", "KV_DTYPES", "scan",
-           "rms_norm", "layer_norm", "rope_cos_sin", "apply_rope",
-           "blocked_attention", "local_block_attention", "f8_bits",
-           "kv_cache_write", "gelu_mlp_specs", "gelu_mlp", "gqa_specs",
-           "gqa_project", "gqa_out", "gqa_attention_train",
+__all__ = ["Runtime", "no_kernel_backward", "Spec", "init_params",
+           "full_precision_products", "stack_specs", "zeros_cache",
+           "KV_DTYPES", "scan", "rms_norm", "layer_norm", "rope_cos_sin",
+           "apply_rope", "blocked_attention", "local_block_attention",
+           "f8_bits", "kv_cache_write", "gelu_mlp_specs", "gelu_mlp",
+           "gqa_specs", "gqa_project", "gqa_out", "gqa_attention_train",
            "gqa_attention_decode", "mla_specs", "mla_attention_train",
            "mla_attention_decode", "swiglu_specs", "swiglu", "moe_specs",
-           "moe_capacity", "moe_route", "moe_slots", "assert_unique_slots",
-           "moe_block",
-           "rglru_specs",
+           "moe_capacity", "moe_route", "one_hot", "moe_slots",
+           "assert_unique_slots", "moe_block", "rglru_specs",
            "rglru_scan_inputs", "rglru_gated_inputs", "rglru_output",
-           "rglru_block_train",
-           "rglru_block_decode", "mlstm_specs", "mlstm_block_train",
-           "mlstm_block_decode", "slstm_specs", "slstm_block_train",
-           "slstm_block_decode"]
+           "rglru_block_train", "rglru_block_decode", "mlstm_specs",
+           "mlstm_block_train", "mlstm_block_decode", "slstm_specs",
+           "slstm_block_train", "slstm_block_decode"]
 
 
 @contextlib.contextmanager
@@ -97,9 +95,15 @@ class Runtime:
     around the scan's plain version.  `moe_group_size` is the number of
     tokens the MoE block routes together (the execution DSE's
     `moe_group_size`).  `mlstm_chunk` is the chunk length of the mLSTM's
-    chunkwise form.  The
-    reference's mesh, sharding rules and remat policy have no counterpart
-    on one GPU."""
+    chunkwise form.  `remat` is the activation-recompute policy of a
+    training forward (`none | full | dots`, the reference's): "full"
+    checkpoints each of the reference's scan units
+    (`torch.utils.checkpoint`), "dots" saves only the products without
+    batch dimensions (`mm`, `addmm`) and recomputes the rest.  The
+    reference's mesh and sharding rules have no counterpart on one GPU.
+    The kernels have no backward: under `use_kernels` a forward that
+    needs gradients raises (the reference trains with `use_pallas=False`
+    as well)."""
 
     compute_dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
@@ -108,6 +112,19 @@ class Runtime:
     moe_group_size: int = 4096          # tokens routed together (GShard G)
     mlstm_chunk: int = 256
     kv_dtype: str = "bf16"              # bf16 | f8 (`KV_DTYPES`)
+    remat: str = "none"                 # none | full | dots
+
+
+def no_kernel_backward(what: str, *tensors: torch.Tensor) -> None:
+    """Raise if autograd would need the backward of the kernel `what`:
+    grad is enabled and an input requires grad.  The kernels are called
+    through ctypes, so their outputs carry no `grad_fn`, and the inputs
+    would silently get no gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what} has no backward: under Runtime(use_kernels=True) its "
+            "inputs would get no gradient.  Train with use_kernels=False, "
+            "as the reference trains without Pallas (use_pallas=False).")
 
 
 # ================================================================ param specs
@@ -463,6 +480,7 @@ def gqa_attention_train(p: Params, x: torch.Tensor, *, n_heads: int,
         o = local_block_attention(q, k, v, window)
     elif rt.use_kernels:
         from repro_torch.kernels.flash_attention import flash_attention
+        no_kernel_backward("flash_attention", q, k, v)
         o = flash_attention(q, k, v, causal=causal)
     else:
         o = blocked_attention(q, k, v, causal=causal,
@@ -691,13 +709,27 @@ def moe_route(p: Params, xg: torch.Tensor, *, n_experts: int, top_k: int,
     return gate, e_flat, moe_slots(e_flat, n_experts, cap)
 
 
+def _one_hot(x: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
+    return (x[..., None] == torch.arange(n, device=x.device)).to(dtype)
+
+
+def one_hot(x: torch.Tensor, n: int,
+            dtype: torch.dtype = torch.int64) -> torch.Tensor:
+    """`F.one_hot(x, n)` in `dtype` (int64, as `F.one_hot`), in
+    `jax.nn.one_hot`'s form, a compare with an `arange`: the same ops on
+    real and fake tensors (`F.one_hot` checks the indices' range on the
+    host and scatters on real ones), and to the frontend one vertex, as
+    the reference's nested `jit`."""
+    return nested_jit("onehot", _one_hot, x, n, dtype)
+
+
 def moe_slots(e_flat: torch.Tensor, n_experts: int, cap: int
               ) -> torch.Tensor:
     """Each (token, choice) pair's slot [G, T*k] from its expert e_flat
     [G, T*k]: its position within the expert is the cumsum of the one-hot
     over the token-major order, and a pair at a position >= `cap` is
     dropped, its slot `E * cap`."""
-    onehot = F.one_hot(e_flat, n_experts).to(torch.int32)
+    onehot = one_hot(e_flat, n_experts).to(torch.int32)
     pos = torch.cumsum(onehot, dim=1, dtype=torch.int32) * onehot
     pos = pos.sum(-1, dtype=torch.int32) - 1            # place in expert
     return torch.where(pos < cap, e_flat * cap + pos, n_experts * cap)
@@ -904,6 +936,8 @@ def rglru_block_train(p: Params, x: torch.Tensor, *, n_heads: int,
         return rglru_output(p, rg_lru.rglru_scan_plain(a, b), gate, rt)
     cd = rt.compute_dtype
     xc, ra, ri, gate = rglru_gated_inputs(p, x, n_heads=n_heads, rt=rt)
+    no_kernel_backward("rglru_gated_scan", xc, ra, ri, gate, p["ba"],
+                       p["bi"], p["a_param"])
     y = rg_lru.rglru_gated_scan(xc, ra, ri, gate, p["ba"], p["bi"],
                                 p["a_param"], cd)
     return cd_matmul(y, p["wout"], cd).to(cd)
@@ -982,12 +1016,14 @@ def scan(step, carry, xs):
     written in place, is returned as its xs leaf).  To the frontend the
     loop is the reference's scan (`scan_slices`, `scan_stack`).  Under
     `launch.steps.count_step` every step does the same work on tensors of
-    the same shapes, so one step runs and its counts are repeated for the
-    others (`STEP_COUNTERS`); the output then holds that step's values
-    only, which on fake tensors are none."""
+    the same shapes, so where grad is off one step runs and its counts
+    are repeated for the others (`STEP_COUNTERS`); the output then holds
+    that step's values only, which on fake tensors are none.  Where grad
+    is on (a train step) every step runs, so the backward is counted
+    step by step too."""
     leaves, spec = pytree.tree_flatten(xs)
     n = leaves[0].shape[0]
-    if STEP_COUNTERS and n > 1:
+    if STEP_COUNTERS and n > 1 and not torch.is_grad_enabled():
         return STEP_COUNTERS[-1].repeat_scan(step, carry, xs, n)
     ys, slices, nodes = [], [], []
     for x in scan_slices(*leaves):

@@ -20,18 +20,26 @@ mistral-nemo), the VLM stub (internvl2: a patch-embedding prefix), the
 Griffin hybrid (recurrentgemma: RG-LRU and local-attention layers) and
 the MoE decoders (olmoe; deepseek-v2-lite: MLA, shared experts and a
 leading dense layer) and xLSTM (mLSTM and sLSTM blocks); the
-encoder-decoder (whisper) is `repro_torch.models.encdec.EncDecLM`.  The
-training loss and remat are ported in a later slice (see ROADMAP.md).
+encoder-decoder (whisper) is `repro_torch.models.encdec.EncDecLM`.
+
+Training: `DecoderLM.loss` is the reference's next-token cross-entropy,
+and `Runtime.remat` recomputes activations per reference *unit* (one
+repeat of a group's pattern, or a group of one repeat as a whole:
+`units`), as the reference checkpoints its scan bodies.  The optimizer
+decays a leaf by its rank in the reference's layout, where a group of
+several repeats stacks its leaves (`DecoderLM.decay_mask`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, List, Tuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
@@ -40,7 +48,7 @@ from repro_torch.models.layers import Runtime, Spec
 Params = Any
 
 __all__ = ["DecoderLM", "Group", "plan_groups", "padded_vocab",
-           "cross_entropy"]
+           "cross_entropy", "remat_unit", "DOTS_SAVED"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,12 +62,19 @@ class Group:
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor
                   ) -> torch.Tensor:
-    """Per-token cross-entropy [B, S] in fp32 (logsumexp minus the label's
-    logit)."""
-    x = logits.float()
-    m = x.amax(dim=-1, keepdim=True)
-    lse = torch.log(torch.exp(x - m).sum(dim=-1)) + m[..., 0]
-    return lse - x.gather(-1, targets[..., None])[..., 0]
+    """Per-token cross-entropy [B, S] in fp32, the reference's expressions:
+    the max detached (`stop_gradient`), the exp-sum in fp32, and the
+    label's logit contracted out of the logits by a one-hot in their dtype
+    (the reference's largest training tensor, `[B, S, V]`, and its
+    2 B S V FLOPs).  The one-hot is `jax.nn.one_hot`'s form
+    (`layers.one_hot`).  The contraction's one product a row is exact, so
+    its result in the logits' dtype is the reference's fp32 one."""
+    m = logits.detach().amax(dim=-1, keepdim=True).float()
+    ex_sum = torch.exp(logits.float() - m).sum(dim=-1)
+    lse = torch.log(ex_sum) + m[..., 0]
+    oh = L.one_hot(targets, logits.shape[-1], logits.dtype)
+    ll = torch.einsum("bsv,bsv->bs", logits, oh).float()
+    return lse - ll
 
 
 def plan_groups(cfg: ArchConfig) -> List[Group]:
@@ -75,6 +90,41 @@ def plan_groups(cfg: ArchConfig) -> List[Group]:
     if rem:
         groups.append(Group(unit[:rem], 1))
     return groups
+
+
+# ==================================================================== remat
+
+# the products `Runtime(remat="dots")` saves: those without batch
+# dimensions, the counterpart of the reference's
+# `dots_with_no_batch_dims_saveable` (a projection `[B, S, d] @ [d, f]`
+# reaches aten as `mm`, a biased one as `addmm`); `bmm` (attention scores
+# and values, the MoE experts' and the RG-LRU gates' einsums) and every
+# other op are recomputed in the backward
+DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in DOTS_SAVED:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_unit(fn, remat: str, *args):
+    """`fn(*args)` under the activation-recompute policy `remat`: "none"
+    runs it, "full" saves only its inputs and recomputes it in the
+    backward (`jax.checkpoint`), "dots" saves the products of
+    `DOTS_SAVED` and recomputes the rest.  Outside a forward that needs
+    gradients every policy is the call itself."""
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    if remat == "full":
+        return ckpt.checkpoint(fn, *args, use_reentrant=False)
+    if remat == "dots":
+        return ckpt.checkpoint(
+            fn, *args, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _dots_policy))
+    raise ValueError(f"remat {remat!r}: not one of none, full, dots")
 
 
 # =========================================================== block dispatch
@@ -264,6 +314,17 @@ class DecoderLM(nn.Module):
                       for kind in g.unit]
         self.v_pad = padded_vocab(cfg.vocab_size)
 
+    def units(self) -> List[Tuple[int, int]]:
+        """The reference's scan units as `(first layer, layer count)`: one
+        repeat of a group's pattern, in order (a group of one repeat is
+        one unit as a whole, as the reference runs it)."""
+        out, i = [], 0
+        for g in self.groups:
+            for _ in range(g.repeats):
+                out.append((i, len(g.unit)))
+                i += len(g.unit)
+        return out
+
     # ----------------------------------------------------------- param specs
     def param_specs(self) -> Dict[str, Any]:
         cfg = self.cfg
@@ -276,6 +337,25 @@ class DecoderLM(nn.Module):
             specs["lm_head"] = Spec((cfg.d_model, self.v_pad),
                                     ("embed", "vocab"))
         return specs
+
+    def decay_mask(self) -> Dict[str, Any]:
+        """The parameter tree's layout with a bool a leaf: whether the
+        reference's AdamW decays it, i.e. whether it has two dimensions or
+        more in the reference's layout, where a group of several repeats
+        stacks its leaves on a leading axis (a norm scale of such a group
+        is 2-D there and decayed; one of a group of one repeat is not)."""
+        specs = self.param_specs()
+        mask = L.map_specs(lambda s: len(s.shape) >= 2, specs)
+        layers = []
+        for g in self.groups:
+            stacked = int(g.repeats > 1)
+            for _ in range(g.repeats):
+                for _kind in g.unit:
+                    layers.append(L.map_specs(
+                        lambda s, k=stacked: len(s.shape) + k >= 2,
+                        specs["layers"][len(layers)]))
+        mask["layers"] = layers
+        return mask
 
     def init(self, generator: torch.Generator, rt: Runtime) -> Params:
         """Random parameters on the generator's device."""
@@ -316,11 +396,35 @@ class DecoderLM(nn.Module):
         needs only the sampler's input, and the full logits of a 32k
         sequence take GBs)."""
         x = self._embed_inputs(params, batch, rt)
-        for kind, p in zip(self.kinds, params["layers"]):
-            x = block_apply_train(self.cfg, kind, p, x, rt)
+        for first, n in self.units():
+            x = remat_unit(self._unit, rt.remat, x,
+                           params["layers"][first:first + n],
+                           self.kinds[first:first + n], rt)
         if last_only:
             x = x[:, -1:]
         return self._logits(params, x, rt).to(rt.compute_dtype)
+
+    def _unit(self, x: torch.Tensor, layers: List[Params], kinds: List[str],
+              rt: Runtime) -> torch.Tensor:
+        for kind, p in zip(kinds, layers):
+            x = block_apply_train(self.cfg, kind, p, x, rt)
+        return x
+
+    def loss(self, params: Params, batch: Dict[str, torch.Tensor],
+             rt: Runtime) -> torch.Tensor:
+        """Next-token cross-entropy (fp32, 0-d): the VLM prefix sliced
+        away, the mean over `loss_mask` (its first column dropped with the
+        shift) where the batch has one, else over every position."""
+        logits = self.forward(params, batch, rt)
+        tok = batch["tokens"]
+        prefix = logits.shape[1] - tok.shape[1]         # vlm patch positions
+        logits = logits[:, prefix:]
+        nll = cross_entropy(logits[:, :-1], tok[:, 1:])
+        mask = batch.get("loss_mask")
+        if mask is not None:
+            m = mask[:, 1:].float()
+            return (nll * m).sum() / torch.clamp_min(m.sum(), 1.0)
+        return nll.mean()
 
     def _mask_pad(self, logits: torch.Tensor) -> torch.Tensor:
         if self.v_pad == self.cfg.vocab_size:

@@ -608,6 +608,79 @@ def test_dry_run_counts_encdec_and_f8_on_fake_cuda_as_fake_cpu(gpu, arch,
         assert on_cuda.bytes_accessed == on_cpu.bytes_accessed
 
 
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "recurrentgemma-9b",
+                                  "whisper-medium"])
+@pytest.mark.parametrize("remat,microbatches", [("full", 2), ("dots", 1)])
+def test_dry_run_counts_a_train_step_on_fake_cuda_as_fake_cpu(
+        gpu, arch, remat, microbatches):
+    """A train step (forward, backward, remat recompute, AdamW) counted
+    on fake CUDA tensors counts what it counts on fake CPU tensors: the
+    autograd engine runs a CUDA backward on a thread of its own, and the
+    counting modes see its ops there too.  (An MoE arch's step is not
+    the same work on the two devices: on CUDA tensors `moe_block` checks
+    its scatter's slots on the device, `layers.assert_unique_slots`.)"""
+    from repro_torch import configs
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch.steps import trace_step
+
+    cfg = configs.get_smoke(arch)
+    shape = ShapeSpec("t", 64, 4, "train")
+    kw = dict(remat=remat, microbatches=microbatches)
+    on_cuda, _ = trace_step(cfg, shape, device="cuda", **kw)
+    on_cpu, _ = trace_step(cfg, shape, device="cpu", **kw)
+    assert on_cuda.flops_by_op == on_cpu.flops_by_op
+    assert on_cuda.matmul_flops == on_cpu.matmul_flops > 0
+    assert on_cuda.elementwise_flops == on_cpu.elementwise_flops > 0
+    assert on_cuda.transcendentals == on_cpu.transcendentals > 0
+    assert on_cuda.peak_bytes == on_cpu.peak_bytes > 0
+    assert on_cuda.bytes_accessed == on_cpu.bytes_accessed
+    assert on_cuda.ops == on_cpu.ops
+
+
+def test_train_step_on_the_card_equals_the_cpu(gpu):
+    """Two fp32 train steps of the smoke qwen2-0.5b from the same params
+    on the card and on the CPU at 2 microbatches: the first step's
+    gradients within 1e-5 of each leaf's largest magnitude, losses and
+    grad norms within 1e-5 relative, the params after the steps within
+    1e-5 (as `tests/test_torch_train.py` holds the port to the
+    reference)."""
+    from torch.utils import _pytree as pytree
+    from repro_torch import configs
+    from repro_torch.launch.steps import (build_model, loss_and_grads,
+                                          make_train_step)
+    from repro_torch.optim import adamw_init
+
+    cfg = configs.get_smoke("qwen2-0.5b")
+    model = build_model(cfg)
+    rt = TL.Runtime(compute_dtype=torch.float32)
+    base = model.init(torch.Generator().manual_seed(0), rt)
+    toks = [torch.randint(0, cfg.vocab_size, (4, 32),
+                          generator=torch.Generator().manual_seed(i))
+            for i in range(2)]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        params = pytree.tree_map(lambda t: t.to(dev, copy=True), base)
+        with full_precision_products():
+            _, grads = loss_and_grads(model, rt, params,
+                                      {"tokens": toks[0].to(dev)}, 2)
+        state = adamw_init(params)
+        step = make_train_step(model, rt, microbatches=2)
+        mets = []
+        for tok in toks:
+            params, state, m = step(params, state, {"tokens": tok.to(dev)})
+            mets.append({k: float(v) for k, v in m.items()})
+        runs[dev] = (params, mets, grads)
+    for g, w in zip(runs["cuda"][2], runs["cpu"][2]):
+        assert float((g.cpu() - w).abs().max()) <= 1e-5 * float(
+            w.abs().max())
+    for a, b in zip(runs["cpu"][1], runs["cuda"][1]):
+        for k in a:
+            assert abs(a[k] - b[k]) <= 1e-5 * abs(a[k]), k
+    for a, b in zip(pytree.tree_leaves(runs["cpu"][0]),
+                    pytree.tree_leaves(runs["cuda"][0])):
+        torch.testing.assert_close(b.cpu(), a, rtol=1e-5, atol=1e-5)
+
+
 def test_f8_cache_write_on_the_card_equals_the_cpu(gpu):
     """The f8 cache write through `uint8` views on the card puts the
     CPU's bits in the slot (XLA's cast: NaN past 464)."""

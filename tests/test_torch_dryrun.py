@@ -1,9 +1,10 @@
 """`repro_torch.launch.dryrun` and `launch.steps.trace_step` on the CPU, at
 smoke size: the FLOPs (matmul and elementwise), transcendentals, bytes and
-peak counted on fake tensors equal those of the same step run for real,
-and a closed-form matmul FLOP count and a hand count; the records
-carry the reference record's keys; inapplicable cells are SKIPPED and the
-cuts raise `NotImplementedError`.  Counts are integers and compared
+peak counted on fake tensors equal those of the same step run for real
+(a train step's too), and a closed-form matmul FLOP count and a hand
+count; the records carry the reference record's keys (a train cell's its
+remat and microbatches); inapplicable cells are SKIPPED and the cuts
+raise `NotImplementedError`.  Counts are integers and compared
 exactly."""
 
 import json
@@ -20,7 +21,8 @@ from repro_torch.core.roofline import (CollectiveStats, analytic_hbm_bytes,
 from repro_torch.launch import dryrun
 from repro_torch.launch.steps import (build_model, count_step,
                                       make_prefill_step, make_serve_step,
-                                      trace_step)
+                                      make_train_step, trace_step)
+from repro_torch.optim import adamw_init
 from repro_torch.models.lm import padded_vocab
 
 # the keys of an OK record of the reference's run_cell
@@ -40,10 +42,21 @@ def smoke_registry(monkeypatch):
     monkeypatch.setattr(dryrun.configs, "get_arch", configs.get_smoke)
 
 
-def _real_counts(arch, shape, rt):
+def _real_counts(arch, shape, rt, microbatches=1):
     model = build_model(arch)
     params = model.init(torch.Generator().manual_seed(0), rt)
     B, S = shape.global_batch, shape.seq_len
+    if shape.mode == "train":
+        batch = {"tokens": torch.randint(0, arch.vocab_size, (B, S),
+                                         generator=torch.Generator()
+                                         .manual_seed(1))}
+        if arch.is_encdec:
+            batch["frames"] = torch.randn(
+                (B, arch.encoder_seq, arch.d_model),
+                generator=torch.Generator().manual_seed(2)).bfloat16()
+        return count_step(make_train_step(model, rt,
+                                          microbatches=microbatches),
+                          params, adamw_init(params), batch)[1]
     if shape.mode == "prefill":
         batch = {"tokens": torch.randint(0, arch.vocab_size, (B, S),
                                          generator=torch.Generator()
@@ -79,6 +92,33 @@ def test_fake_counts_equal_a_real_run(arch, shape):
     assert fake.elementwise_flops == real.elementwise_flops > 0
     assert fake.transcendentals == real.transcendentals > 0
     assert fake.flops == fake.matmul_flops + fake.elementwise_flops
+    assert fake.flops_by_op == real.flops_by_op
+    assert fake.bytes_accessed == real.bytes_accessed > 0
+    assert fake.peak_bytes == real.peak_bytes > 0
+    assert fake.ops == real.ops
+
+
+TRAIN = ShapeSpec("train_32x4", 32, 4, "train")
+
+
+@pytest.mark.parametrize("remat,microbatches", [("full", 2), ("none", 1),
+                                                ("dots", 1)])
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "recurrentgemma-9b",
+                                  "olmoe-1b-7b", "deepseek-v2-lite-16b",
+                                  "xlstm-1.3b", "whisper-medium"])
+def test_fake_train_counts_equal_a_real_run(arch, remat, microbatches):
+    """A train step (forward, backward with its remat recompute, AdamW)
+    counted on fake tensors = counted on a real run, the backward's ops
+    and a scan's every step included."""
+    cfg = configs.get_smoke(arch)
+    fake, rt = trace_step(cfg, TRAIN, device="cpu", remat=remat,
+                          microbatches=microbatches)
+    real = _real_counts(cfg, TRAIN, rt, microbatches)
+    assert rt.param_dtype == torch.float32 and rt.remat == remat
+    assert fake.flops == real.flops > 0
+    assert fake.matmul_flops == real.matmul_flops > 0
+    assert fake.elementwise_flops == real.elementwise_flops > 0
+    assert fake.transcendentals == real.transcendentals > 0
     assert fake.flops_by_op == real.flops_by_op
     assert fake.bytes_accessed == real.bytes_accessed > 0
     assert fake.peak_bytes == real.peak_bytes > 0
@@ -198,13 +238,66 @@ def test_inapplicable_cell_is_skipped(tmp_path, smoke_registry):
 
 
 @pytest.mark.parametrize("arch,shape", [
-    ("qwen2-0.5b", "train_4k"),             # the train step
-    ("xlstm-1.3b", "train_4k"),
+    ("xlstm-1.3b", "train_4k"),             # its sLSTM time loop
 ])
 def test_cuts_raise_not_implemented(tmp_path, smoke_registry, arch, shape):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         dryrun.run_cell(arch, shape, tmp_path, device="cpu")
     assert not list(tmp_path.iterdir())     # no FAILED record
+
+
+TRAIN_SMALL = ShapeSpec("train_4k", 32, 8, "train")
+
+
+@pytest.fixture
+def small_train(monkeypatch, smoke_registry):
+    """`run_cell`'s train_4k at batch 8 x seq 32 (smoke widths), so a
+    cell counts in seconds."""
+    monkeypatch.setattr(dryrun, "shape_by_name", lambda name: TRAIN_SMALL)
+
+
+@pytest.mark.parametrize("arch,microbatches", [
+    ("qwen2-0.5b", 2), ("recurrentgemma-9b", 8), ("olmoe-1b-7b", 2),
+    ("deepseek-v2-lite-16b", 2), ("whisper-medium", 2)])
+def test_train_cells_are_counted(tmp_path, small_train, arch, microbatches):
+    """A train cell: an OK record with a finite peak and roofline, its
+    three FLOP counts, and `remat` and `microbatches` in its config (the
+    reference's `DEFAULT_MICROBATCHES`); its runtime is the reference's
+    train runtime (fp32 params, bf16 compute, remat "full")."""
+    rec = dryrun.run_cell(arch, "train_4k", tmp_path, device="cpu")
+    assert rec["status"] == "OK", rec.get("error")
+    assert REF_OK_KEYS <= rec.keys()
+    assert rec["config"]["remat"] == "full"
+    assert rec["config"]["microbatches"] == microbatches \
+        == dryrun.DEFAULT_MICROBATCHES[arch]
+    assert rec["runtime"]["param_dtype"] == "torch.float32"
+    assert rec["runtime"]["compute_dtype"] == "torch.bfloat16"
+    assert rec["runtime"]["remat"] == "full"
+    assert 0 < rec["roofline"]["roofline_s"] < float("inf")
+    assert rec["matmul_flops"] > 0 and rec["elementwise_flops"] > 0
+    assert rec["transcendentals"] > 0
+    assert rec["analytic_bytes"] == analytic_hbm_bytes(
+        configs.get_smoke(arch), TRAIN_SMALL, 1, tp=1,
+        microbatches=microbatches)
+
+
+def test_train_cell_remat_and_microbatches_move_the_step(tmp_path,
+                                                        small_train):
+    """On one GPU remat and microbatches change a train step (they change
+    nothing in a serving step): "full" recomputes the forward in the
+    backward (more FLOPs, a lower peak than "none"), "dots" recomputes
+    the batched products only, and more microbatches hold fewer
+    activations at once."""
+    rec = {(r, m): dryrun.run_cell("qwen2-0.5b", "train_4k", tmp_path,
+                                   device="cpu", remat=r, microbatches=m,
+                                   tag=f"_{r}{m}")
+           for r in ("none", "full", "dots") for m in (1, 4)}
+    peak = {k: v["roofline"]["peak_memory_per_chip"] for k, v in rec.items()}
+    mm = {k: v["matmul_flops"] for k, v in rec.items()}
+    assert mm[("none", 1)] < mm[("dots", 1)] < mm[("full", 1)]
+    assert peak[("full", 1)] < peak[("none", 1)]
+    assert peak[("none", 4)] < peak[("none", 1)]
+    assert mm[("none", 4)] == mm[("none", 1)]
 
 
 @pytest.mark.parametrize("arch,shape,kv", [
@@ -323,3 +416,21 @@ def test_a_scan_is_counted_once_for_all_its_steps(monkeypatch):
     whole, _ = trace_step(cfg, shape, device="cpu")
     assert once == whole
     assert once.ops > 600 * 6 * 2 and once.flops > 0
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "whisper-medium"])
+def test_microbatches_count_one_for_all_exactly(arch, monkeypatch):
+    """Counted, a train step runs its first microbatch for all
+    (`_Counter.repeat`): the counts and the peak equal those of the step
+    that runs every microbatch."""
+    from repro_torch.launch import steps
+    cfg = configs.get_smoke(arch)
+    one_for_all, _ = trace_step(cfg, TRAIN, device="cpu", microbatches=4)
+
+    def every(self, fn, n):           # each microbatch run and counted
+        for _ in range(n - 1):
+            fn()
+        return fn()
+    monkeypatch.setattr(steps._Counter, "repeat", every)
+    each, _ = trace_step(cfg, TRAIN, device="cpu", microbatches=4)
+    assert one_for_all == each

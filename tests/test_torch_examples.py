@@ -1,6 +1,7 @@
-"""The port's four DSE examples (`examples/torch_*.py`) against the JAX
-package's (`examples/*.py`): each twin, run with ``--device cpu``, prints
-the reference example's stdout for the same arguments.
+"""The port's examples (`examples/torch_*.py`) against the JAX package's
+(`examples/*.py`): each DSE twin, run with ``--device cpu``, prints the
+reference example's stdout for the same arguments; the training twin its
+lines with the losses of its own random model.
 
 One part differs by design: the quickstart's part 3 prints the port's
 tile pick for an H100 (held here to `tune_matmul_tiles`).
@@ -137,5 +138,48 @@ def test_device_defaults_to_cuda(name):
     else:
         args = CASES[name]
     rc, _, err = finish(start(f"torch_{name}.py", args))
+    assert rc != 0
+    assert "torch.cuda.is_available() is False" in err
+
+
+NUMBER = re.compile(r"-?\d+\.\d+(?:e[+-]\d+)?")
+TIMING = re.compile(r"\(\d+\.\ds\)")
+
+
+def test_train_lm_twin_prints_the_reference_lines(tmp_path):
+    """`torch_train_lm.py --device cpu` prints the reference example's
+    lines (timings masked): the same steps logged, the same parameter
+    count and step count in the summary.  The parameters come from a
+    `torch.Generator`, so the losses are not the reference's: each logged
+    loss is held within 0.05 of the reference's (both start at ln V of a
+    random model and learn the same Markov stream), and the run learns."""
+    args = ["--steps", "8", "--batch", "4", "--seq", "32", "--lr", "3e-3"]
+    (rc_r, ref, err_r), (rc_t, twin, err_t) = (
+        finish(start("train_lm.py", [*args, "--ckpt-dir",
+                                     str(tmp_path / "r")])),
+        finish(start("torch_train_lm.py", [*args, "--ckpt-dir",
+                                           str(tmp_path / "t"),
+                                           "--device", "cpu"])))
+    assert rc_r == 0, err_r
+    assert rc_t == 0, err_t
+    r = TIMING.sub("(t)", ref.replace(str(tmp_path / "r"), "DIR"))
+    t = TIMING.sub("(t)", twin.replace(str(tmp_path / "t"), "DIR"))
+    assert NUMBER.sub("x", t) == NUMBER.sub("x", r)
+    assert t.splitlines()[-1].split(" | ")[0] == \
+        r.splitlines()[-1].split(" | ")[0]            # the params
+    assert " over 8 steps | checkpoints in DIR" in t
+    loss = re.compile(r"loss=\s*([\d.]+)")
+    got = [float(x) for x in loss.findall(t)]
+    want = [float(x) for x in loss.findall(r)]
+    assert len(got) == len(want) == 2
+    assert all(abs(g - w) <= 0.05 for g, w in zip(got, want))
+    assert (tmp_path / "t" / "step_8" / "manifest.json").exists()
+
+
+def test_train_lm_twin_defaults_to_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("checks the run without a GPU")
+    rc, _, err = finish(start("torch_train_lm.py", [
+        "--steps", "1", "--ckpt-dir", str(tmp_path)]))
     assert rc != 0
     assert "torch.cuda.is_available() is False" in err

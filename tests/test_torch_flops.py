@@ -288,3 +288,61 @@ def test_prefill_step_counts_near_xla(arch, layers, dtype, tol):
         flops, trans = flops - extra[0], trans - extra[1]
     assert abs(flops / want_f - 1) <= tol[0]
     assert abs(trans / want_t - 1) <= tol[1]
+
+
+# arch, compute dtype, tolerances on |port / XLA - 1| of a whole train
+# step's FLOPs and transcendentals (forward, backward, AdamW; one layer,
+# no scan, remat "none"), both packages from the same params and tokens.
+# The loss's forward alone agrees within 0.1 % in fp32 (measured 0.01 %
+# on qwen2-0.5b, 0.10 % on olmoe-1b-7b); the differences are the
+# backward's: torch's autograd formulas against XLA's transposes of the
+# reference's forward (XLA CSEs the backward against the forward's
+# residuals, e.g. the logistic of a SiLU and the online softmax's
+# rescales, which torch's `silu_backward` and the port's loop recompute),
+# the port lower by 1.0-1.5 % FLOPs and 4-8 % transcendentals in its
+# value-and-grad (measured qwen2-0.5b fp32 -1.0 / -4.3 %, olmoe-1b-7b fp32
+# -1.5 / -7.9 %).  In the AdamW update XLA counts one FLOP an element
+# more (19 an element against the port's 18 for the same HLO ops,
+# measured on a 64 x 64 leaf: 79,054 against 74,888), and the same
+# transcendentals (its sqrt; the bias corrections' powers once).  bf16:
+# XLA:CPU computes bf16 arithmetic in fp32 and counts the converts, as
+# in the prefill (measured -6.2 % FLOPs).
+TRAIN_STEPS = [("qwen2-0.5b", "float32", (0.02, 0.03)),
+               ("olmoe-1b-7b", "float32", (0.025, 0.035)),
+               ("qwen2-0.5b", "bfloat16", (0.07, 0.02))]
+
+
+@pytest.mark.parametrize("arch,dtype,tol", TRAIN_STEPS)
+def test_train_step_counts_near_xla(arch, dtype, tol):
+    from repro.optim import adamw_init as jinit
+    from repro_torch.optim import adamw_init
+    jd, td = DT[dtype]
+    jcfg = dataclasses.replace(jconfigs.get_smoke(arch), num_layers=1)
+    tcfg = dataclasses.replace(tconfigs.get_smoke(arch), num_layers=1)
+    jrt = JRuntime(compute_dtype=jd, attn_kv_block=32)
+    trt = TRuntime(compute_dtype=td, attn_kv_block=32)
+    jm = jsteps.build_model(jcfg)
+    jp = jm.init(jax.random.PRNGKey(0), jrt)
+    tp = decoder_params_from_numpy(tcfg, jax.tree.map(np.asarray, jp))
+    tok = np.random.default_rng(0).integers(0, jcfg.vocab_size, (2, 32))
+    want_f, want_t = _xla(jsteps.make_train_step(jm, jrt), jp, jinit(jp),
+                          {"tokens": jnp.asarray(tok)})
+    got = count_step(tsteps.make_train_step(tsteps.build_model(tcfg), trt),
+                     tp, adamw_init(tp), {"tokens": torch.from_numpy(tok)})[1]
+    assert got.flops == got.matmul_flops + got.elementwise_flops
+    assert abs(got.flops / want_f - 1) <= tol[0]
+    assert abs(got.transcendentals / want_t - 1) <= tol[1]
+    assert got.flops < want_f           # the port's backward counts less
+
+
+def test_integer_powers_count_as_multiplies():
+    """x ** 3 (rsqrt's backward) is two multiplies, x ** 1 (the backward
+    of x ** 2) none, as XLA's `integer_pow`; a fractional power is a
+    transcendental."""
+    x = _rand(8, 64) ** 2 + 0.5
+    for k, want in ((1, (0, 0)), (2, (512, 0)), (3, (1024, 0)),
+                    (5, (1536, 0))):
+        assert _port(lambda a, k=k: torch.pow(a, k),
+                     torch.from_numpy(x)) == want
+        assert _xla(lambda a, k=k: a ** k, jnp.asarray(x)) == want
+    assert _port(lambda a: torch.pow(a, 1.5), torch.from_numpy(x)) == (0, 512)

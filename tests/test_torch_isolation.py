@@ -1,8 +1,9 @@
 """The port stands alone: no source file of `src/repro_torch/` (nor
 `chip_smoke.py`, nor the port's examples `examples/torch_*.py`) imports
 jax or the JAX package, and its CPU main paths (the DSE study, the zoo's
-traced apps, the analysis API's table pass and the model servers, the
-encoder-decoder's included) run
+traced apps, the analysis API's table pass, the model servers, the
+encoder-decoder's included, and training: the train loop with its data,
+optimizer and checkpoints, and a train cell's dry-run) run
 without either in `sys.modules`."""
 
 import os
@@ -130,7 +131,8 @@ def test_cpu_pareto_obs_radar_path_loads_neither_jax_nor_repro(tmp_path):
 def test_scan_covers_the_port_examples():
     names = {p.name for p in sources() if p.parent == ROOT / "examples"}
     assert names == {"torch_quickstart.py", "torch_dse_accelerator.py",
-                     "torch_compose_serving.py", "torch_trace_model.py"}
+                     "torch_compose_serving.py", "torch_trace_model.py",
+                     "torch_train_lm.py"}
 
 
 def test_cpu_table_pass_loads_neither_jax_nor_repro():
@@ -237,4 +239,42 @@ def test_cpu_dry_run_loads_neither_jax_nor_repro(tmp_path):
         " & {'jax', 'repro', 'jaxlib'}))\n")
     assert proc.returncode == 0, proc.stderr
     # run_cell prints one summary line first
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_scan_covers_the_training_modules():
+    names = {p.relative_to(PORT).as_posix() for p in sources()
+             if PORT in p.parents}
+    assert {"optim/__init__.py", "optim/adamw.py", "optim/schedule.py",
+            "data/__init__.py", "data/pipeline.py",
+            "checkpoint/__init__.py", "checkpoint/manager.py",
+            "launch/train.py", "launch/steps.py",
+            "launch/dryrun.py"} <= names
+
+
+def test_cpu_train_path_loads_neither_jax_nor_repro(tmp_path):
+    """The train loop (data pipeline, train step under remat and
+    microbatches, AdamW, checkpoints and a resume), an encoder-decoder's
+    train step, and the dry-run of a train cell."""
+    proc = _run(
+        "import sys\n"
+        "from repro_torch import configs\n"
+        "from repro_torch.launch import dryrun\n"
+        "from repro_torch.launch.train import train_loop\n"
+        "arch = configs.get_smoke('qwen2-0.5b')\n"
+        f"kw = dict(global_batch=4, seq_len=16, ckpt_dir=r'{tmp_path}/ck',\n"
+        "          log_every=100, device='cpu', microbatches=2)\n"
+        "train_loop(arch, steps=4, save_every=2, **kw)\n"
+        "r = train_loop(arch, steps=6, resume=True, **kw)\n"
+        "assert len(r['losses']) == 2\n"
+        "w = train_loop(configs.get_smoke('whisper-medium'), steps=1,\n"
+        "               global_batch=2, seq_len=8, device='cpu')\n"
+        "assert len(w['losses']) == 1\n"
+        "dryrun.configs.get_arch = configs.get_smoke\n"
+        f"rec = dryrun.run_cell('qwen2-0.5b', 'train_4k', r'{tmp_path}',\n"
+        "                       device='cpu')\n"
+        "assert rec['status'] == 'OK', rec\n"
+        "print(sorted({m.split('.')[0] for m in sys.modules}"
+        " & {'jax', 'repro', 'jaxlib'}))\n")
+    assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == "[]"

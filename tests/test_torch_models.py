@@ -221,14 +221,28 @@ def test_build_model_builds_every_arch():
     """`build_model` gives the encoder-decoder an `EncDecLM`
     (`tests/test_torch_encdec.py`) and every other arch a `DecoderLM`
     (xLSTM's blocks included, `tests/test_torch_xlstm.py`); the
-    encoder-decoder's training loss is still cut."""
+    encoder-decoder's training loss is the reference's
+    (`tests/test_torch_train.py` holds its gradients too)."""
+    from repro.launch.steps import build_model as jbuild
+    from repro_torch.convert import encdec_params_from_numpy
     from repro_torch.launch.steps import build_model
     from repro_torch.models.encdec import EncDecLM
     assert "mlstm" in tlm.DecoderLM(
         tconfigs.get_smoke("xlstm-1.3b")).param_specs()["layers"][0]
-    model = build_model(tconfigs.get_smoke("whisper-medium"))
+    tcfg = tconfigs.get_smoke("whisper-medium")
+    model = build_model(tcfg)
     assert isinstance(model, EncDecLM)
     assert isinstance(build_model(tconfigs.get_smoke("qwen2-0.5b")),
                       tlm.DecoderLM)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        model.loss({}, {}, TRT)
+    jm = jbuild(jconfigs.get_smoke("whisper-medium"))
+    jp = jm.init(jax.random.PRNGKey(0), JRT)
+    r = _rng(12)
+    batch = {"tokens": r.integers(0, tcfg.vocab_size, (2, 9)),
+             "frames": r.standard_normal(
+                 (2, tcfg.encoder_seq, tcfg.d_model)).astype(np.float32)}
+    want = jm.loss(jp, {k: jnp.asarray(v) for k, v in batch.items()}, JRT)
+    got = model.loss(encdec_params_from_numpy(tcfg, jax.tree.map(
+        np.asarray, jp)), {k: torch.from_numpy(v) for k, v in
+                           batch.items()}, TRT)
+    assert got.dim() == 0 and got.dtype == torch.float32
+    assert abs(float(got) / float(want) - 1) <= 1e-5
