@@ -152,12 +152,7 @@ class CellEvaluator:
         return 1.0 / max(roof["roofline_s"], 1e-12)
 
 
-def _domains_for(shape_mode: str, has_moe: bool,
-                 domains: Optional[Dict[str, Tuple]] = None
-                 ) -> Dict[str, Tuple]:
-    """The cell's execution space: `EXEC_DOMAINS` cut to the shape's mode
-    and the arch's layers, then any variable `domains` names set to its
-    values there (a search over a few variables, the rest fixed)."""
+def _domains_for(shape_mode: str, has_moe: bool) -> Dict[str, Tuple]:
     d = dict(EXEC_DOMAINS)
     if shape_mode != "train":
         d["microbatches"] = (1,)
@@ -165,14 +160,13 @@ def _domains_for(shape_mode: str, has_moe: bool,
         d["sharding_mode"] = ("tp",)
     if not has_moe:
         d["moe_group_size"] = (4096,)
-    d.update(domains or {})
     return d
 
 
-def exec_space(shape_mode: str = "train", has_moe: bool = False,
-               domains: Optional[Dict[str, Tuple]] = None) -> DiscreteSpace:
+def exec_space(shape_mode: str = "train", has_moe: bool = False
+               ) -> DiscreteSpace:
     """The execution design space as a generic `DiscreteSpace`."""
-    return DiscreteSpace(domains=_domains_for(shape_mode, has_moe, domains),
+    return DiscreteSpace(domains=_domains_for(shape_mode, has_moe),
                          make_config=lambda **kw: ExecPoint(**kw))
 
 
@@ -181,7 +175,6 @@ def autotune_search(evaluator: CellEvaluator, *, engine: EngineSpec = "greedy",
                     seed: int = 0, max_rounds: int = 6,
                     init: Optional[ExecPoint] = None,
                     log: Optional[list] = None,
-                    domains: Optional[Dict[str, Tuple]] = None,
                     **engine_kwargs) -> Tuple[ExecPoint, float]:
     """Engine-pluggable autotuning of one cell.
 
@@ -196,12 +189,11 @@ def autotune_search(evaluator: CellEvaluator, *, engine: EngineSpec = "greedy",
         return greedy_autotune(evaluator, shape_mode=shape_mode,
                                has_moe=has_moe, seed=seed,
                                max_rounds=max_rounds, init=init, log=log,
-                               domains=domains,
                                **filter_kwargs(greedy_autotune,
                                                engine_kwargs))
     from repro_torch.dse import SearchBudget, Study
 
-    space = exec_space(shape_mode, has_moe, domains)
+    space = exec_space(shape_mode, has_moe)
     # each pool's cache misses go to score_batch in one call where the
     # evaluator has one; score-only evaluators take the scalar path
     fev = FunctionEvaluator(evaluator.score,
@@ -247,13 +239,10 @@ def greedy_autotune(evaluator: CellEvaluator, *, shape_mode: str = "train",
                     has_moe: bool = False, seed: int = 0,
                     max_rounds: int = 6, init: Optional[ExecPoint] = None,
                     delta_threshold: float = 0.02,
-                    log: Optional[list] = None,
-                    domains: Optional[Dict[str, Tuple]] = None
-                    ) -> Tuple[ExecPoint, float]:
-    """Algorithm 1 with k=1 over the execution space (memoized evals);
-    `domains` as in `_domains_for`."""
+                    log: Optional[list] = None) -> Tuple[ExecPoint, float]:
+    """Algorithm 1 with k=1 over the execution space (memoized evals)."""
     rng = np.random.default_rng(seed)
-    domains = _domains_for(shape_mode, has_moe, domains)
+    domains = _domains_for(shape_mode, has_moe)
     s0 = init or ExecPoint()
     p0 = evaluator.score(s0)
     if log is not None:

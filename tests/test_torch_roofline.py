@@ -123,10 +123,6 @@ def test_domains_equal_the_reference(mode, has_moe):
                                                                  has_moe)
     assert at.exec_space(mode, has_moe).domains == \
         at._domains_for(mode, has_moe)
-    # `domains` sets the named variables and leaves the rest the mode's
-    few = {"remat": ("full", "dots"), "microbatches": (2, 4)}
-    got = at.exec_space(mode, has_moe, few).domains
-    assert got == {**at._domains_for(mode, has_moe), **few}
 
 
 @pytest.mark.parametrize("records", [
