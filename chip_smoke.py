@@ -73,11 +73,15 @@ printing one JSON line each:
                  launches are printed;
   8. examples    the port's four DSE examples (`examples/torch_*.py`:
                  quickstart, dse_accelerator with greedy, compose_serving
-                 with --smoke, trace_model) as subprocesses on the card
-                 and with --device cpu, all at once: exit code 0, the same
-                 stdout, wall seconds, and the `gather_rows` launches each
-                 prints on stderr (> 0 on the card for the three that
-                 search);
+                 with --smoke, trace_model) and the serving example
+                 (`torch_serve_lm`) as subprocesses on the card and with
+                 --device cpu, all at once: exit code 0, wall seconds; the
+                 DSE examples' stdout equal and the `gather_rows` launches
+                 each prints on stderr (> 0 on the card for the three that
+                 search); the serving example's request lines equal, and
+                 its card tokens teacher-forced through the decode step
+                 on both devices (gated within `SERVE_TOL` where a token
+                 differs; the smallest top-two gap printed);
   9. throughput  the random engine at 262144-config pools on inception and
                  nasnet, on the card, with where the time goes: the scorer's
                  device time by kind (`torch.profiler`) and the search's
@@ -241,16 +245,27 @@ printing one JSON line each:
                  `max_memory_allocated` within `DRYRUN_PEAK_BAND` of the
                  same step counted on fake CUDA tensors, one profiled
                  step;
- 26. kernel matmul
+ 26. mesh qwen2-0.5b
+                 the sharding layer: a one-rank NCCL process group made in
+                 this process, a (1, 1) mesh on ("data", "model"), the
+                 full-width bf16 serving params placed by `step_placements`
+                 + `place_params` (seconds of the group's init and of the
+                 placement, each leaf's local and global bytes); the
+                 prefill at 2048 x 4 through the kernels on the placed
+                 leaves' local tensors bit-equal to the unplaced step (24
+                 tensor-core flash launches, counted from 0), and one
+                 decode step on placed caches bit-equal too; the group is
+                 destroyed before the phase returns;
+ 27. kernel matmul
                  `matmul` against its plain PyTorch version on every element,
                  within the fp32 summation bound (`matmul_against_plain`),
                  on the sweep of `tests/test_kernels.py` at its two tiles
                  (fp32 on the CUDA-core kernel, bf16 on the tensor-core
                  one: each case must move only its kernel's counter) and on
                  an all-positive bf16 product at K = 12288, both output
-                 dtypes (phase 27 holds the tile DSE's shapes, at every
+                 dtypes (phase 28 holds the tile DSE's shapes, at every
                  tile);
- 27. tile_dse    the fourth main path: for each of `TILE_SHAPES` (bf16),
+ 28. tile_dse    the fourth main path: for each of `TILE_SHAPES` (bf16),
                  `tune_matmul_tiles` picks a tile under the tensor-core
                  model and `matmul` runs at it and at every other tile the
                  tensor-core kernel is built for, each output held against
@@ -261,7 +276,7 @@ printing one JSON line each:
                  (M N > 2^31) runs once, at its tuned tile.  Then the fp32
                  `FP32_SHAPE` on the CUDA-core kernel at the CUDA-core
                  model's pick, beside its 67 TFLOP/s bound;
- 28. dryrun      `run_cell` for qwen2-0.5b, recurrentgemma-9b, olmoe-1b-7b,
+ 29. dryrun      `run_cell` for qwen2-0.5b, recurrentgemma-9b, olmoe-1b-7b,
                  deepseek-v2-lite-16b, whisper-medium and xlstm-1.3b at
                  prefill_32k and decode_32k, xlstm-1.3b at long_500k and
                  qwen2.5-32b at decode_32k over the f8 KV cache (its
@@ -499,6 +514,10 @@ PROFILE_KINDS = {"gather_rows_us": ("gather_rows_kernel",),
 ORACLE_WORKERS = 7
 ORACLE_CHUNK = 16384
 PARETO_BUDGETS = (30000.0, 60000.0, 90000.0)
+# phase mesh: qwen2-0.5b's prefill (batch, seq) on a one-rank mesh, and
+# the decode caches' length
+MESH_PREFILL = (4, 2048)
+MESH_CACHE = 256
 # phase study parallel: benchmarks/composition_sweep.py's apps and budget
 # the port's examples (examples/<name>.py) and their arguments, run with
 # --device cuda and --device cpu
@@ -509,6 +528,9 @@ EXAMPLES = {"torch_quickstart": [],
 EXAMPLES_THAT_SEARCH = ("torch_quickstart", "torch_dse_accelerator",
                         "torch_compose_serving")
 EXAMPLES_TIMEOUT = 300
+# the serving example's twin (examples/torch_serve_lm.py) at the reference
+# example's flags, run beside the DSE examples on both devices
+SERVE_EXAMPLE = "torch_serve_lm"
 COMP_APPS = ("qwen2-0.5b:prefill", "qwen2-0.5b:decode")
 COMP_AREA = 90000.0
 
@@ -1336,39 +1358,43 @@ def phase_study_parallel() -> dict:
 
 
 def phase_examples() -> dict:
-    """The port's four DSE examples on the card, as subprocesses, each
-    against the same command with ``--device cpu``, all eight at once:
-    exit code 0, the same stdout, wall seconds, and the `gather_rows`
-    launches each prints on stderr (> 0 on the card for the three that
-    search)."""
+    """The port's four DSE examples and the serving example on the card,
+    as subprocesses, each against the same command with ``--device cpu``,
+    all ten at once: exit code 0, wall seconds; for the DSE examples the
+    same stdout and the `gather_rows` launches each prints on stderr (> 0
+    on the card for the three that search); for the serving example
+    (`serve_example`) its request lines."""
     import os
     from concurrent.futures import ThreadPoolExecutor
 
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    args = {**EXAMPLES, SERVE_EXAMPLE: []}
 
     def run(key):
         name, device = key
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, str(ROOT / "examples" / f"{name}.py"),
-             *EXAMPLES[name], "--device", device], capture_output=True,
+             *args[name], "--device", device], capture_output=True,
             text=True, env=env, cwd=ROOT, timeout=EXAMPLES_TIMEOUT)
         return proc, time.perf_counter() - t0
 
-    keys = [(n, d) for n in EXAMPLES for d in ("cuda", "cpu")]
+    keys = [(n, d) for n in args for d in ("cuda", "cpu")]
     with ThreadPoolExecutor(len(keys)) as pool:
         runs = dict(zip(keys, pool.map(run, keys)))
-    out = {}
-    for (name, device), (proc, wall) in runs.items():
-        stdout, stderr = proc.stdout, proc.stderr
+    for (name, device), (proc, _) in runs.items():
         check(proc.returncode == 0,
               f"{name} --device {device} exited {proc.returncode}: "
-              f"{stderr[-2000:]}")
-        last = stderr.strip().splitlines()[-1]
+              f"{proc.stderr[-2000:]}")
+    out = {}
+    for (name, device), (proc, wall) in runs.items():
+        if name == SERVE_EXAMPLE:
+            continue
+        last = proc.stderr.strip().splitlines()[-1]
         check(last.startswith("gather_rows launches: "),
               f"{name} --device {device}: no launch count on stderr")
         rec = out.setdefault(name, {"args": EXAMPLES[name]})
-        rec[device] = {"wall_s": wall, "stdout": stdout,
+        rec[device] = {"wall_s": wall, "stdout": proc.stdout,
                        "gather_rows_launches": int(last.split()[-1])}
     for name, rec in out.items():
         check(rec["cuda"]["stdout"] == rec["cpu"]["stdout"],
@@ -1381,8 +1407,79 @@ def phase_examples() -> dict:
         rec["stdout_lines"] = rec["cuda"]["stdout"].count("\n")
         for device in ("cuda", "cpu"):
             del rec[device]["stdout"]
+    out[SERVE_EXAMPLE] = serve_example(
+        {d: runs[(SERVE_EXAMPLE, d)] for d in ("cuda", "cpu")})
     emit("examples", examples=out)
-    return {n: r["cuda"]["gather_rows_launches"] for n, r in out.items()}
+    return {n: r["cuda"]["gather_rows_launches"] for n, r in out.items()
+            if n != SERVE_EXAMPLE}
+
+
+def serve_example(runs: dict) -> dict:
+    """`examples/torch_serve_lm.py` on the card against ``--device cpu``:
+    the request lines must be equal.  The two runs draw their weights
+    from one seed on two devices' generators, so their weights differ;
+    the smoke model greedily repeats each prompt's last token on any
+    random weights, and the lines agree.  Beside that check, the card
+    run's weights are rebuilt here and each request's prompt and card
+    tokens are teacher-forced through the decode step on the card and on
+    the CPU: where a card token differs from the CPU run's, these logits
+    must agree within `SERVE_TOL` instead, and the smallest top-two gap
+    of the decode's logits is printed."""
+    import ast
+
+    from repro_torch import configs
+    from repro_torch.launch.steps import build_model, make_serve_step
+    from repro_torch.models.layers import Runtime
+
+    lines = {d: proc.stdout.splitlines() for d, (proc, _) in runs.items()}
+    pattern = re.compile(r"^  req(\d+) prompt\[ *(\d+)\] -> (\[.*\])$")
+    served = {}
+    for device, ls in lines.items():
+        check(len(ls) == 11 and ls[0].startswith("10 requests, 120 tokens"),
+              f"{SERVE_EXAMPLE} --device {device} printed {ls[:2]}")
+        served[device] = [ast.literal_eval(pattern.match(ln).group(3))
+                          for ln in ls[1:]]
+    same_lines = lines["cuda"][1:] == lines["cpu"][1:]
+
+    # the example's prompts and the card run's weights (seed 0)
+    cfg = configs.get_smoke("qwen2-0.5b")
+    rng = np.random.default_rng(0)
+    prompts = [list(map(int, rng.integers(1, cfg.vocab_size,
+                                          size=int(rng.integers(4, 16)))))
+               for _ in range(10)]
+    model = build_model(cfg)
+    rt = Runtime(compute_dtype=torch.float32)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), rt)
+    params_cpu = torch.utils._pytree.tree_map(lambda t: t.cpu(), params)
+    gap, top2, within = 0.0, float("inf"), True
+    for prompt, gen in zip(prompts, served["cuda"]):
+        seq = prompt + gen[:-1]
+        rows = {}
+        for dev, p in (("cuda", params), ("cpu", params_cpu)):
+            step = make_serve_step(model, rt)
+            cache = model.init_cache(1, 256, rt, dev)
+            out = []
+            for i, t in enumerate(seq):
+                tok = torch.full((1, 1), t, dtype=torch.int64, device=dev)
+                logits, cache = step(p, cache, tok, position(i, dev))
+                out.append(logits[0, 0, :cfg.vocab_size].cpu())
+            rows[dev] = torch.stack(out[len(prompt) - 1:])
+        check(rows["cuda"].argmax(-1).tolist() == gen,
+              f"{SERVE_EXAMPLE}: the rebuilt weights do not give the card "
+              f"run's tokens")
+        diff = (rows["cuda"] - rows["cpu"]).abs()
+        gap = max(gap, float(diff.max()))
+        within &= bool((diff <= SERVE_TOL * (1 + rows["cpu"].abs())).all())
+        top = rows["cuda"].topk(2, dim=-1).values
+        top2 = min(top2, float((top[:, 0] - top[:, 1]).min()))
+    check(same_lines or within,
+          f"{SERVE_EXAMPLE}: the card's tokens differ from the cpu's and "
+          f"the teacher-forced logits differ by {gap}")
+    return {"args": [], "request_lines_equal": same_lines,
+            "teacher_forced_max_abs_diff": gap, "tolerance": SERVE_TOL,
+            "min_top2_gap": top2,
+            **{d: {"wall_s": wall, "summary": lines[d][0]}
+               for d, (_, wall) in runs.items()}}
 
 
 def device_breakdown(calls: dict, kinds: dict) -> dict:
@@ -4052,6 +4149,154 @@ def phase_train() -> dict:
     return got
 
 
+def leaf_bytes(tree) -> dict:
+    """Each DTensor leaf's local and global bytes, by its path."""
+    from torch.utils import _pytree as pytree
+
+    return {pytree.keystr(path): [
+        d.to_local().numel() * d.element_size(),
+        math.prod(d.shape) * d.element_size()]
+        for path, d in pytree.tree_flatten_with_path(tree)[0]}
+
+
+def phase_mesh(smi: str) -> dict:
+    """The sharding layer on the card: a one-rank NCCL process group made
+    in this process (a `HashStore`: no environment, no network), a
+    (1, 1) mesh on ("data", "model"), and qwen2-0.5b's full-width bf16
+    serving params placed on it by `step_placements` + `place_params`.
+    The prefill step under `Runtime(use_kernels=True, mesh=..., rules=...)`
+    at `MESH_PREFILL` on the placed leaves' local tensors must give the
+    logits of the same step on the unplaced params bit for bit, through
+    the tensor-core flash kernel (its launches counted from 0 over the
+    placed run); one decode step on placed caches (random bf16 contents,
+    a position inside them) likewise, its logits and written caches.  The
+    group is destroyed before the phase returns.  On one rank this shows
+    that the placements, DTensor and NCCL run on the card under the main
+    path, not any multi-chip speed.  Returns the placed prefill's
+    launches."""
+    import dataclasses
+    import gc
+
+    import torch.distributed as dist
+    from torch.utils import _pytree as pytree
+
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import (build_model, make_prefill_step,
+                                          make_runtime, make_serve_step,
+                                          place_params, step_placements)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(not dist.is_initialized(), "a process group is already initialised")
+    cfg = configs.get_arch(ARCH)
+    batch, seq = MESH_PREFILL
+    prefill = dataclasses.replace(configs.shape_by_name("prefill_32k"),
+                                  global_batch=batch, seq_len=seq)
+    decode = dataclasses.replace(configs.shape_by_name("decode_32k"),
+                                 global_batch=batch, seq_len=MESH_CACHE)
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.set_device(0)       # the mesh's NCCL communicators' card
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        init_s = time.perf_counter() - t0
+        rt = make_runtime(cfg, prefill, use_kernels=True, mesh=mesh)
+        rt_plain = make_runtime(cfg, prefill, use_kernels=True)
+        check(rt.rules is not None and rt.mesh is mesh,
+              "make_runtime(mesh=...) gave no rules")
+        params = model.init(gen, rt)
+        sp = step_placements(cfg, prefill, mesh)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        placed = place_params(params, mesh, sp.inputs[0])
+        torch.cuda.synchronize()
+        place_s = time.perf_counter() - t1
+        local = pytree.tree_map(lambda d: d.to_local(), placed)
+        by_leaf = leaf_bytes(placed)
+        check(all(lo == gl for lo, gl in by_leaf.values()),
+              "a leaf's local bytes differ from its global bytes on one "
+              "rank")
+
+        tokens = torch.randint(0, cfg.vocab_size, (batch, seq),
+                               generator=gen, device="cuda")
+        counters = kernel_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        got = make_prefill_step(model, rt)(local, {"tokens": tokens})
+        torch.cuda.synchronize()
+        launches = {n: fn.launches for n, fn in counters.items()}
+        want = make_prefill_step(model, rt_plain)(params,
+                                                  {"tokens": tokens})
+        check(launches == expected_launches(model, seq),
+              f"the placed prefill launched {launches}")
+        check(bool(torch.isfinite(got).all()), "placed logits not finite")
+        check(torch.equal(got, want),
+              f"the placed prefill's logits differ from the unplaced "
+              f"step's by {float((got - want).abs().max())}")
+        del got, want, placed, local
+
+        # one decode step on placed caches, under decode's rules (tp)
+        rt_dec = make_runtime(cfg, decode, use_kernels=True, mesh=mesh)
+        sp_dec = step_placements(cfg, decode, mesh)
+        cache = pytree.tree_map(
+            lambda c: torch.randn(c.shape, generator=gen, device="cuda",
+                                  dtype=torch.float32).to(c.dtype),
+            model.init_cache(batch, MESH_CACHE, rt_dec, "cuda"))
+        cache_plain = pytree.tree_map(torch.clone, cache)
+        t2 = time.perf_counter()
+        placed_params = place_params(params, mesh, sp_dec.inputs[0])
+        placed_cache = place_params(cache, mesh, sp_dec.inputs[1])
+        torch.cuda.synchronize()
+        place_decode_s = time.perf_counter() - t2
+        cache_bytes = leaf_bytes(placed_cache)
+        check(all(lo == gl for lo, gl in cache_bytes.values()),
+              "a cache leaf's local bytes differ from its global bytes")
+        token = torch.randint(0, cfg.vocab_size, (batch, 1), generator=gen,
+                              device="cuda")
+        pos = position(MESH_CACHE // 2)
+        for fn in counters.values():
+            fn.launches = 0
+        logits, new_cache = make_serve_step(model, rt_dec)(
+            pytree.tree_map(lambda d: d.to_local(), placed_params),
+            pytree.tree_map(lambda d: d.to_local(), placed_cache),
+            token, pos)
+        torch.cuda.synchronize()
+        decode_launches = {n: fn.launches for n, fn in counters.items()}
+        logits_plain, cache_plain = make_serve_step(model, rt_dec)(
+            params, cache_plain, token, pos)
+        check(torch.equal(logits, logits_plain),
+              f"the placed decode's logits differ from the unplaced "
+              f"step's by {float((logits - logits_plain).abs().max())}")
+        check(all(torch.equal(a, b) for a, b in zip(
+            pytree.tree_leaves(new_cache), pytree.tree_leaves(cache_plain))),
+            "the placed decode wrote other cache values")
+    finally:
+        dist.destroy_process_group()
+    check(not dist.is_initialized(), "the process group outlived the phase")
+    check_isolated()
+    emit(f"mesh {ARCH}", arch=ARCH, nvidia_smi=smi, backend="nccl",
+         world_size=1, mesh={"shape": [1, 1], "axes": ["data", "model"]},
+         rules=rt.rules.asdict(),
+         decode_rules=rt_dec.rules.asdict(),
+         group_init_s=init_s, place_params_s=place_s,
+         place_decode_s=place_decode_s,
+         prefill={"batch": batch, "seq": seq, "dtype": "bfloat16",
+                  "logits_bit_equal": True, "launches": launches},
+         decode={"batch": batch, "cache_len": MESH_CACHE,
+                 "pos": MESH_CACHE // 2, "logits_bit_equal": True,
+                 "cache_bit_equal": True, "launches": decode_launches},
+         param_leaves=len(by_leaf),
+         param_bytes={"local": sum(v[0] for v in by_leaf.values()),
+                      "global": sum(v[1] for v in by_leaf.values())},
+         cache_leaves=len(cache_bytes),
+         leaf_bytes_local_global={"params": by_leaf, "cache": cache_bytes})
+    return launches
+
+
 def matmul_bound(m, k, n, itemsize) -> dict:
     """Least time for one product: the larger of its 2 M K N FLOP at the
     bf16 tensor-core peak and its bytes (x and y read once, the output
@@ -4677,6 +4922,8 @@ def main() -> int:
           f"{fp32_fwd[WHISPER_ARCH]}: its attention is blocked_attention")
     # the training path, counted from 0 over the whole phase: no kernel
     trained = phase_train()
+    # the sharding layer: a one-rank NCCL mesh, counted from 0
+    meshed = phase_mesh(smi)
     check_isolated()
     for name in ("flash_attention", "flash_attention_tensor_core",
                  "rglru_gated_scan"):
@@ -4741,11 +4988,14 @@ def main() -> int:
         "shape": {k: f[k] for k in ("B", "S", "H", "KV", "hd", "causal",
                                      "dtype")},
         "launches": sum(p["flash_attention_tensor_core"]
-                        for p in paths.values()),
+                        for p in paths.values())
+        + meshed["flash_attention_tensor_core"],
         "launches_by_path": {
             **{f"prefill {a}": p["flash_attention_tensor_core"]
                for a, p in paths.items()},
-            f"train {ARCH}": trained["flash_attention_tensor_core"]},
+            f"train {ARCH}": trained["flash_attention_tensor_core"],
+            f"mesh {ARCH}, placed prefill":
+                meshed["flash_attention_tensor_core"]},
         "max_abs_err": flash["max_abs_err"]["bfloat16"],
         "ms": f["kernel_ms"], "kernel_ms": f["kernel_ms"],
         "plain_ms": flash["timings"]["4096"]["plain_ms"],
@@ -4764,7 +5014,9 @@ def main() -> int:
                                        "dtype")},
         "launches": sum(cuda_core.values()),
         "launches_by_path": {**cuda_core, f"train {ARCH}":
-                             trained["flash_attention_cuda_core"]},
+                             trained["flash_attention_cuda_core"],
+                             f"mesh {ARCH}, placed prefill":
+                             meshed["flash_attention_cuda_core"]},
         "max_abs_err": flash["max_abs_err"]["float32"],
         "ms": f32["kernel_ms"], "kernel_ms": f32["kernel_ms"],
         "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
@@ -4782,7 +5034,8 @@ def main() -> int:
                 fp32_fwd[RG_ARCH]["rglru_gated_scan"],
             "rglru block, fused route": rglru["block_launches"]["fused"][
                 "rglru_gated_scan"],
-            f"train {ARCH}": trained["rglru_gated_scan"]},
+            f"train {ARCH}": trained["rglru_gated_scan"],
+            f"mesh {ARCH}, placed prefill": meshed["rglru_gated_scan"]},
         "max_abs_err": rglru["gated_max_abs_err"],
         "ms": rg["kernel_ms"], "kernel_ms": rg["kernel_ms"],
         "plain_ms": rg["plain_ms"], "bound_ms": rg["bound_ms"],
@@ -4807,7 +5060,8 @@ def main() -> int:
             f"prefill {RG_ARCH}": paths[RG_ARCH]["rglru_scan"],
             f"serve {RG_ARCH}, fp32 teacher-forced forward":
                 fp32_fwd[RG_ARCH]["rglru_scan"],
-            f"train {ARCH}": trained["rglru_scan"]},
+            f"train {ARCH}": trained["rglru_scan"],
+            f"mesh {ARCH}, placed prefill": meshed["rglru_scan"]},
         "max_abs_err": rglru["max_abs_err"],
         "ms": r["kernel_ms"], "kernel_ms": r["kernel_ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -4826,7 +5080,8 @@ def main() -> int:
             "tile_dse": dse["launches"]["matmul_tensor_core"],
             **{f"prefill {a}": p["matmul_tensor_core"]
                for a, p in paths.items()},
-            f"train {ARCH}": trained["matmul_tensor_core"]},
+            f"train {ARCH}": trained["matmul_tensor_core"],
+            f"mesh {ARCH}, placed prefill": meshed["matmul_tensor_core"]},
         "max_abs_err": max([mm["max_abs_err"]]
                            + [r["max_abs_err"]
                               for r in dse["shapes"].values()]),
@@ -4850,7 +5105,8 @@ def main() -> int:
             "tile_dse": dse["launches"]["matmul_cuda_core"],
             **{f"prefill {a}": p["matmul_cuda_core"]
                for a, p in paths.items()},
-            f"train {ARCH}": trained["matmul_cuda_core"]},
+            f"train {ARCH}": trained["matmul_cuda_core"],
+            f"mesh {ARCH}, placed prefill": meshed["matmul_cuda_core"]},
         "max_abs_err": f32mm["max_abs_err"],
         "ms": f32mm["kernel_ms"], "kernel_ms": f32mm["kernel_ms"],
         "plain_ms": f32mm["plain_ms"], "bound_ms": f32mm["bound_ms"],

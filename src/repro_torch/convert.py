@@ -9,7 +9,7 @@ importing the other package.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable, Mapping, Sequence
+from typing import Any, Callable, Dict, Iterable, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -22,7 +22,7 @@ from repro_torch.models.lm import plan_groups
 
 __all__ = ["ops_from_records", "space_from_domains",
            "config_batch_from_matrix", "decoder_params_from_numpy",
-           "encdec_params_from_numpy", "tree_from_numpy",
+           "encdec_params_from_numpy", "tree_from_numpy", "to_port_layout",
            "params_from_numpy", "adamw_state_from_numpy"]
 
 
@@ -67,29 +67,43 @@ def _tensor(a, device) -> torch.Tensor:
 def _map_leaves(fn, tree):
     if isinstance(tree, Mapping):
         return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_leaves(fn, v) for v in tree]
     return fn(tree)
+
+
+def to_port_layout(cfg: ArchConfig, tree: Mapping[str, Any],
+                   take: Callable[[Any, int], Any]) -> Dict[str, Any]:
+    """A tree in the reference's parameter layout for `cfg`'s model, with
+    leaves of any kind, in the port's layout.  The encoder-decoder's
+    layout is the reference's.  A `DecoderLM` tree, ``{"embed",
+    "final_norm", ("lm_head",) "groups": [[unit dicts]]}``, becomes
+    ``{"embed", "final_norm", ("lm_head",) "layers": [layer dicts]}``:
+    `take(leaf, r)` gives repeat `r` of a leaf stacked on its group's
+    repeats (a group of one repeat stacks nothing), every other leaf is
+    kept as it is."""
+    if cfg.is_encdec:
+        return dict(tree)
+    out: Dict[str, Any] = {
+        k: tree[k] for k in ("embed", "final_norm", "lm_head") if k in tree}
+    layers = []
+    for g, gparams in zip(plan_groups(cfg), tree["groups"]):
+        for r in range(g.repeats):
+            for unit in gparams:
+                layers.append(unit if g.repeats == 1 else _map_leaves(
+                    lambda a, r=r: take(a, r), unit))
+    out["layers"] = layers
+    return out
 
 
 def decoder_params_from_numpy(cfg: ArchConfig, tree: Mapping[str, Any],
                               device="cpu") -> Dict[str, Any]:
     """The port's `DecoderLM` parameters from a reference `DecoderLM`
-    parameter tree with numpy leaves: ``{"embed", "final_norm",
-    ("lm_head",) "groups": [[unit dicts, leaves stacked on the group's
-    repeats]]}``.  Stacked leaves are sliced into one dict per layer;
-    every leaf keeps its layout (`wq` is `[d, H*hd]`) and dtype."""
-    out: Dict[str, Any] = {
-        k: _tensor(tree[k], device)
-        for k in ("embed", "final_norm", "lm_head") if k in tree}
-    layers = []
-    for g, gparams in zip(plan_groups(cfg), tree["groups"]):
-        for r in range(g.repeats):
-            for unit in gparams:
-                layers.append(_map_leaves(
-                    lambda a, r=r: _tensor(
-                        np.asarray(a)[r] if g.repeats > 1 else a, device),
-                    unit))
-    out["layers"] = layers
-    return out
+    parameter tree with numpy leaves (`to_port_layout`): stacked leaves
+    are sliced into one dict per layer; every leaf keeps its layout (`wq`
+    is `[d, H*hd]`) and dtype."""
+    return _map_leaves(lambda a: _tensor(a, device), to_port_layout(
+        cfg, tree, lambda a, r: np.asarray(a)[r]))
 
 
 def tree_from_numpy(tree: Mapping[str, Any], device="cpu") -> Dict[str, Any]:

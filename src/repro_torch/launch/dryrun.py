@@ -12,9 +12,12 @@ tensors (`launch.steps.trace_step`) and record:
 
 Nothing is allocated and no kernel runs, so a full-batch 32k prefill is
 counted in seconds.  The reference (`repro.launch.dryrun`) compiles each
-cell with XLA for a 256- or 512-chip mesh; the port runs on one chip (mesh
-"1gpu"), so sharding mode and layout rules change nothing here and are
-only recorded.  A train cell (`train_4k`) counts forward, backward and the
+cell with XLA for a 256- or 512-chip mesh; the port's dry-run still counts
+one chip (mesh "1gpu"), so sharding mode and layout rules change nothing
+here and are only recorded.  The meshes and the reference's placements
+are ported (`launch.mesh`, `distributed`, `launch.steps.step_placements`);
+counting a step per rank over a mesh, with its collectives, comes later
+(see ROADMAP.md).  A train cell (`train_4k`) counts forward, backward and the
 AdamW update under `remat` (the reference's default "full") over
 `microbatches` (the reference's `DEFAULT_MICROBATCHES`) at the full batch;
 both are recorded in `config`.  Every serving cell of every arch is
@@ -99,9 +102,11 @@ def run_cell(arch_name: str, shape_name: str, out_dir: Path, *,
     a group gives each expert).
     A train cell runs under `remat` over `microbatches` (0: the
     reference's `DEFAULT_MICROBATCHES`, at most the batch).
-    `sharding_mode` and `rule_updates` change nothing on one chip, nor do
-    `remat` and `microbatches` in a serving cell: they exist only to fill
-    the `config` entry of the reference's record shape."""
+    `sharding_mode` and `rule_updates` change nothing in a count on one
+    chip (mesh "1gpu"; the per-rank count over a mesh comes later, see
+    ROADMAP.md), nor do `remat` and `microbatches` in a serving cell: they
+    exist only to fill the `config` entry of the reference's record
+    shape."""
     cell_id = f"{arch_name}_{shape_name}_{MESH}{tag}"
     out_path = Path(out_dir) / f"{cell_id}.json"
 

@@ -11,8 +11,15 @@ is a plain function that runs eagerly under
 encoder-decoder (whisper-medium), an `EncDecLM`.  The training step takes
 its gradients with `torch.autograd.grad`, backward and remat recompute
 inside the same precision scope, and updates the parameters and moments
-in place (the reference donates them).  The mesh and the sharding rules
-are ported in a later slice (see ROADMAP.md).
+in place (the reference donates them).
+
+Over a device mesh (`launch.mesh`), `make_runtime(mesh=...)` derives the
+reference's sharding rules for the cell, `step_placements` gives the
+DTensor placements of every argument and result of the cell's step (the
+reference's `in_shardings` / `out_shardings`), and `place_params` puts a
+parameter tree on the mesh.  The steps themselves run on plain tensors
+(a rank's local shards); the models' sharding constraints come with the
+dry-run over a mesh (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -27,6 +34,10 @@ from torch.utils import _pytree as pytree
 from torch.utils._pytree import tree_leaves
 
 from repro_torch.configs.shapes import ShapeSpec
+from repro_torch.distributed.sharding import (AxisRules, Layout, fsdp_rules,
+                                              placements_of, shard_shape,
+                                              tp_rules)
+from repro_torch.launch.mesh import batch_axes_for
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (STEP_COUNTERS, Runtime,
                                        full_precision_products, map_specs,
@@ -38,8 +49,9 @@ from repro_torch.optim import (AdamWState, adamw_update,
 
 Model = Union[DecoderLM, EncDecLM]
 
-__all__ = ["build_model", "make_runtime", "input_specs", "loss_and_grads",
-           "make_train_step",
+__all__ = ["build_model", "make_runtime", "rules_for", "input_specs",
+           "StepPlacements", "step_placements", "place_params",
+           "loss_and_grads", "make_train_step",
            "make_prefill_step", "make_serve_step", "StepCounts",
            "count_step", "trace_step"]
 
@@ -50,16 +62,40 @@ def build_model(arch: ArchConfig) -> Model:
     return DecoderLM(arch)
 
 
+def rules_for(mesh, shape: ShapeSpec, *, sharding_mode: str = "fsdp",
+              rule_updates: Optional[Dict[str, Any]] = None) -> AxisRules:
+    """The reference's sharding rules of a cell on `mesh`: batch on the
+    mesh axes that divide the global batch (`batch_axes_for`), `fsdp` or
+    `tp` rules, then `rule_updates`.  Decode always takes `tp`: its
+    parameters stay resident on the model axis (a per-layer FSDP gather
+    would put the whole weight read on the interconnect each token)."""
+    batch_axes = batch_axes_for(mesh, shape.global_batch)
+    if sharding_mode == "fsdp" and shape.mode != "decode":
+        rules = fsdp_rules(batch_axes)
+    else:
+        rules = tp_rules(batch_axes)
+    if rule_updates:
+        rules = rules.replace(**rule_updates)
+    return rules
+
+
 def make_runtime(arch: ArchConfig, shape: ShapeSpec, *,
                  remat: str = "full", use_kernels: bool = False,
-                 overrides: Optional[Dict[str, Any]] = None) -> Runtime:
+                 overrides: Optional[Dict[str, Any]] = None, mesh=None,
+                 sharding_mode: str = "fsdp",
+                 rule_updates: Optional[Dict[str, Any]] = None) -> Runtime:
     """Execution point for one (arch, shape) cell, as the reference's:
     training runs fp32 params, bf16 compute and `remat` (serving shapes
     no remat); serving shapes run bf16 weights (half the memory and the
-    bytes of every weight read)."""
+    bytes of every weight read).  With a `mesh` (a `DeviceMesh`), the
+    runtime carries it and the cell's rules (`rules_for`)."""
     kw: Dict[str, Any] = {"use_kernels": use_kernels,
                           "remat": remat if shape.mode == "train"
                           else "none"}
+    if mesh is not None:
+        kw["mesh"] = mesh
+        kw["rules"] = rules_for(mesh, shape, sharding_mode=sharding_mode,
+                                rule_updates=rule_updates)
     if shape.mode != "train":
         kw["param_dtype"] = torch.bfloat16
     if overrides:
@@ -86,6 +122,97 @@ def input_specs(arch: ArchConfig, shape: ShapeSpec
         return batch
     # decode: one new token against a seq_len-deep cache
     return {"token": ((B, 1), torch.int64), "pos": ((), torch.int64)}
+
+
+@dataclasses.dataclass(frozen=True)
+class StepPlacements:
+    """Where a cell's step finds its arguments and leaves its results on a
+    mesh: the counterpart of the reference's `StepBundle.in_shardings` and
+    `out_shardings`.  `inputs` has one tree a step argument and `outputs`
+    the step's result, in the layout of the port's trees, with a `Layout`
+    at every tensor: train `(params, opt_state, batch)` ->
+    `(params, opt_state, metrics)`; prefill `(params, batch)` -> the last
+    position's logits; decode `(params, cache, token, pos)` ->
+    `(logits, cache)`."""
+
+    rules: AxisRules
+    inputs: Tuple[Any, ...]
+    outputs: Any
+
+
+def step_placements(arch: ArchConfig, shape: ShapeSpec, mesh, *,
+                    sharding_mode: str = "fsdp",
+                    rule_updates: Optional[Dict[str, Any]] = None
+                    ) -> StepPlacements:
+    """The placements of the cell's step on `mesh` under `rules_for`'s
+    rules: parameters by their specs' logical axes, AdamW's `step`
+    replicated and its moments placed as the parameters, every batch
+    input `batch` on its first dimension and `pos` replicated, the decode
+    caches by their specs, the prefill logits `["batch", "vocab"]`, the
+    decode logits `["batch", None, "vocab"]` and the train metrics
+    replicated."""
+    rules = rules_for(mesh, shape, sharding_mode=sharding_mode,
+                      rule_updates=rule_updates)
+    model = build_model(arch)
+
+    def layout(shp, axes) -> Layout:
+        spec = rules.spec(axes)
+        return Layout(tuple(shp), spec, placements_of(mesh, spec))
+
+    def of_specs(tree):
+        return map_specs(lambda s: layout(s.shape, s.axes), tree)
+
+    B = shape.global_batch
+    vocab = model.v_pad
+    params = of_specs(model.param_specs())
+    if shape.mode == "decode":
+        specs = input_specs(arch, shape)
+        cache = of_specs(model.cache_specs(B, shape.seq_len))
+        inputs = (params, cache,
+                  layout(specs["token"][0], ["batch", None]),
+                  layout((), ()))
+        return StepPlacements(rules, inputs, (
+            layout((B, 1, vocab), ["batch", None, "vocab"]), cache))
+    batch = {name: layout(shp, ["batch"] + [None] * (len(shp) - 1))
+             for name, (shp, _) in input_specs(arch, shape).items()}
+    if shape.mode == "prefill":
+        return StepPlacements(rules, (params, batch),
+                              layout((B, vocab), ["batch", "vocab"]))
+    opt = AdamWState(step=layout((), ()), mu=params, nu=params)
+    metrics = {k: layout((), ()) for k in ("loss", "grad_norm", "lr")}
+    return StepPlacements(rules, (params, opt, batch),
+                          (params, opt, metrics))
+
+
+def place_params(params, mesh, layouts):
+    """`params` (nested dicts and lists of tensors: parameters or decode
+    caches) on `mesh` as DTensors, leaf by leaf
+    with `distribute_tensor` at the `Layout` of the same place in
+    `layouts` (e.g. `step_placements(...).inputs[0]`).  Every leaf must
+    have its layout's shape, divisible by its mesh axes."""
+    from torch.distributed.tensor import distribute_tensor
+
+    def place(x, lay: Layout):
+        if tuple(x.shape) != lay.shape:
+            raise ValueError(f"a leaf of shape {tuple(x.shape)} where the "
+                             f"layout has {lay.shape}")
+        shard_shape(lay.shape, mesh, lay.placements)
+        return distribute_tensor(x, mesh, lay.placements)
+
+    def walk(x, lay):
+        if isinstance(x, dict):
+            if x.keys() != lay.keys():
+                raise ValueError(f"keys {sorted(x)} against the layout's "
+                                 f"{sorted(lay)}")
+            return {k: walk(v, lay[k]) for k, v in x.items()}
+        if isinstance(x, list):
+            if len(x) != len(lay):
+                raise ValueError(f"{len(x)} entries against the layout's "
+                                 f"{len(lay)}")
+            return [walk(v, w) for v, w in zip(x, lay)]
+        return place(x, lay)
+
+    return walk(params, layouts)
 
 
 def _value_and_grad(model: Model, rt: Runtime, params, batch):

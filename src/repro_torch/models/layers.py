@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils import _pytree as pytree
 
+from repro_torch.distributed.sharding import AxisRules, shard_constraint
 from repro_torch.frontend.trace import (index_from_end, nested_jit, node_of,
                                         scan_slices, scan_stack, tracing)
 
@@ -99,11 +100,14 @@ class Runtime:
     training forward (`none | full | dots`, the reference's): "full"
     checkpoints each of the reference's scan units
     (`torch.utils.checkpoint`), "dots" saves only the products without
-    batch dimensions (`mm`, `addmm`) and recomputes the rest.  The
-    reference's mesh and sharding rules have no counterpart on one GPU.
-    The kernels have no backward: under `use_kernels` a forward that
-    needs gradients raises (the reference trains with `use_pallas=False`
-    as well)."""
+    batch dimensions (`mm`, `addmm`) and recomputes the rest.  `mesh` (a
+    `DeviceMesh`) and `rules` (`distributed.AxisRules`) are the
+    reference's: `shard` redistributes a DTensor to the rules' placements
+    and leaves a plain tensor as it is; the models do not call it yet
+    (the reference's call sites come with the dry-run over a mesh, see
+    ROADMAP.md).  The kernels have no backward: under `use_kernels` a
+    forward that needs gradients raises (the reference trains with
+    `use_pallas=False` as well)."""
 
     compute_dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
@@ -113,6 +117,15 @@ class Runtime:
     mlstm_chunk: int = 256
     kv_dtype: str = "bf16"              # bf16 | f8 (`KV_DTYPES`)
     remat: str = "none"                 # none | full | dots
+    mesh: Any = None                    # torch.distributed DeviceMesh
+    rules: Optional[AxisRules] = None
+
+    def shard(self, x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:
+        if self.mesh is None or self.rules is None:
+            return x
+        return shard_constraint(
+            x, self.rules, *axes, *[None] * (x.ndim - len(axes)),
+            mesh=self.mesh)
 
 
 def no_kernel_backward(what: str, *tensors: torch.Tensor) -> None:

@@ -183,3 +183,65 @@ def test_train_lm_twin_defaults_to_cuda(tmp_path):
         "--steps", "1", "--ckpt-dir", str(tmp_path)]))
     assert rc != 0
     assert "torch.cuda.is_available() is False" in err
+
+
+def test_serve_lm_twin_prints_the_reference_request_lines():
+    """`torch_serve_lm.py --device cpu` at the reference example's flags:
+    the summary line (timings masked) and every request line equal.  The
+    twin's weights come from a `torch.Generator`, the reference's from
+    `PRNGKey(seed)`; a random smoke model with tied embeddings still
+    greedily repeats each prompt's last token, so the lines agree on
+    different weights (the next test holds the tokens on the same
+    weights)."""
+    (rc_r, ref, err_r), (rc_t, twin, err_t) = (
+        finish(start("serve_lm.py", [])),
+        finish(start("torch_serve_lm.py", ["--device", "cpu"])))
+    assert rc_r == 0, err_r
+    assert rc_t == 0, err_t
+    r, t = ref.splitlines(), twin.splitlines()
+    assert len(t) == len(r) == 11
+    assert NUMBER.sub("x", t[0]) == NUMBER.sub("x", r[0])
+    assert t[0].startswith("10 requests, 120 tokens, ")
+    assert t[1:] == r[1:]
+
+
+def test_serve_lm_tokens_are_the_references_on_its_weights():
+    """The twin's prompts and loop (`serve_requests` at the example's
+    defaults: 10 requests, pool 4, 12 new tokens, seed 0) handed the
+    reference's `model.init(PRNGKey(0))` weights (`params_from_numpy`)
+    generate the reference's `serve_requests` tokens."""
+    import jax
+    import numpy as np
+
+    from repro import configs as jconfigs
+    from repro.launch import serve as jserve
+    from repro.launch.steps import build_model as jbuild
+    from repro.models.layers import Runtime as JRuntime
+    from repro_torch import configs as tconfigs
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.launch import serve as tserve
+
+    jcfg, tcfg = (jconfigs.get_smoke("qwen2-0.5b"),
+                  tconfigs.get_smoke("qwen2-0.5b"))
+    rng = np.random.default_rng(0)
+    prompts = [list(map(int, rng.integers(1, tcfg.vocab_size,
+                                          size=int(rng.integers(4, 16)))))
+               for _ in range(10)]
+    want = jserve.serve_requests(jcfg, prompts, batch=4, max_new=12,
+                                 seed=0)
+    jp = jbuild(jcfg).init(jax.random.PRNGKey(0),
+                           JRuntime(compute_dtype=np.float32))
+    got = tserve.serve_requests(
+        tcfg, prompts, batch=4, max_new=12, device="cpu",
+        params=params_from_numpy(tcfg, jax.tree.map(np.asarray, jp)))
+    assert [r.request_id for r in got] == list(range(10))
+    assert [r.generated for r in got] == [r.generated for r in want]
+    assert all(len(r.generated) == 12 for r in got)
+
+
+def test_serve_lm_twin_defaults_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks the run without a GPU")
+    rc, _, err = finish(start("torch_serve_lm.py", ["--requests", "1"]))
+    assert rc != 0
+    assert "torch.cuda.is_available() is False" in err

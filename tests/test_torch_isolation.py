@@ -1,10 +1,11 @@
 """The port stands alone: no source file of `src/repro_torch/` (nor
 `chip_smoke.py`, nor the port's examples `examples/torch_*.py`) imports
-jax or the JAX package, and its CPU main paths (the DSE study, the zoo's
-traced apps, the analysis API's table pass, the model servers, the
-encoder-decoder's included, and training: the train loop with its data,
-optimizer and checkpoints, and a train cell's dry-run) run
-without either in `sys.modules`."""
+jax or the JAX package, or PyTorch's test internals
+(`torch.testing._internal`), and its CPU main paths (the DSE study, the
+zoo's traced apps, the analysis API's table pass, the model servers, the
+encoder-decoder's included, training: the train loop with its data,
+optimizer and checkpoints, and a train cell's dry-run; and the meshes and
+placements) run without either in `sys.modules`."""
 
 import os
 import re
@@ -132,7 +133,7 @@ def test_scan_covers_the_port_examples():
     names = {p.name for p in sources() if p.parent == ROOT / "examples"}
     assert names == {"torch_quickstart.py", "torch_dse_accelerator.py",
                      "torch_compose_serving.py", "torch_trace_model.py",
-                     "torch_train_lm.py"}
+                     "torch_train_lm.py", "torch_serve_lm.py"}
 
 
 def test_cpu_table_pass_loads_neither_jax_nor_repro():
@@ -278,3 +279,62 @@ def test_cpu_train_path_loads_neither_jax_nor_repro(tmp_path):
         " & {'jax', 'repro', 'jaxlib'}))\n")
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == "[]"
+
+
+# `import torch.testing._internal...` or `from torch.testing._internal...`
+TEST_INTERNALS = re.compile(
+    r"^\s*(?:import|from)\s+torch\.testing\._internal\b", re.MULTILINE)
+
+
+def test_no_source_imports_torch_test_internals():
+    assert TEST_INTERNALS.search(
+        "from torch.testing._internal.distributed.fake_pg import FakeStore")
+    assert not TEST_INTERNALS.search("import torch.testing\n")
+    hits = [p.relative_to(ROOT).as_posix() for p in sources()
+            if TEST_INTERNALS.search(p.read_text())]
+    assert not hits, hits
+
+
+def test_scan_covers_the_mesh_modules():
+    names = {p.relative_to(PORT).as_posix() for p in sources()
+             if PORT in p.parents}
+    assert {"distributed/__init__.py", "distributed/sharding.py",
+            "launch/mesh.py", "launch/elastic.py"} <= names
+
+
+def test_cpu_mesh_and_placements_load_neither_jax_nor_repro():
+    """A fake 16x16 mesh, qwen2-0.5b's step placements on it, smoke
+    params placed on a 2x4 mesh, and the elastic coordinator."""
+    proc = _run(
+        "import sys\n"
+        "import torch\n"
+        "import torch.distributed as dist\n"
+        "from torch.testing._internal.distributed.fake_pg import FakeStore\n"
+        "from repro_torch import configs\n"
+        "from repro_torch.launch import elastic\n"
+        "from repro_torch.launch.mesh import make_mesh, make_production_mesh\n"
+        "from repro_torch.launch.steps import (build_model, make_runtime,\n"
+        "                                      place_params, step_placements)\n"
+        "from repro_torch.models.layers import Runtime\n"
+        "dist.init_process_group('fake', store=FakeStore(), rank=0,\n"
+        "                        world_size=256)\n"
+        "mesh = make_production_mesh(device_type='cpu')\n"
+        "for s in configs.SHAPES:\n"
+        "    step_placements(configs.get_arch('qwen2-0.5b'), s, mesh)\n"
+        "    assert make_runtime(configs.get_arch('qwen2-0.5b'), s,\n"
+        "                        mesh=mesh).rules is not None\n"
+        "small = make_mesh((2, 4), ('data', 'model'), 'cpu')\n"
+        "cfg = configs.get_smoke('qwen2-0.5b')\n"
+        "sp = step_placements(cfg, configs.shape_by_name('prefill_32k'),\n"
+        "                     small)\n"
+        "p = build_model(cfg).init(torch.Generator().manual_seed(0),\n"
+        "                          Runtime())\n"
+        "placed = place_params(p, small, sp.inputs[0])\n"
+        "assert placed['embed'].to_local().shape[0] * 4 == \\\n"
+        "    p['embed'].shape[0]\n"
+        "dist.destroy_process_group()\n"
+        "assert elastic.valid_data_parallel(240, 16, 256) == 8\n"
+        "print(sorted({m.split('.')[0] for m in sys.modules}"
+        " & {'jax', 'repro', 'jaxlib'}))\n")
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"

@@ -1,0 +1,167 @@
+"""qwen2-0.5b's `train_loop` settings (fp32, 8 x 512, lr 3e-4, warmup
+steps // 10, 12 steps) run by both packages on the CPU, from the same
+initial parameters and the same data, to tell a fault of the port from
+the reference's own behaviour at full vocabulary.
+
+The model is qwen2-0.5b at its published width and vocabulary (d 896,
+14 / 2 heads of 64, d_ff 4864, 151,936 tokens, tied) cut to `--layers`
+layers (default 2; the full 24 need some tens of GB on the CPU).  Each
+package runs in a process of its own, so neither imports the other:
+
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tools/train_parity_cpu.py \\
+        --package jax --out DIR      # the reference's train_loop; saves
+                                     # its initial params and losses
+    PYTHONPATH=src python tools/train_parity_cpu.py --package torch \\
+        --out DIR                    # the port's train step from those
+                                     # params, over the same batches
+    python tools/train_parity_cpu.py --compare --out DIR
+
+`--compare` prints one JSON line: both loss trajectories, their largest
+step-for-step gap, and each run's mean of the first and last five losses
+with the learning criterion of
+`tests/test_system.py::test_train_loop_reduces_loss` (a fall of 0.05).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+
+ARCH = "qwen2-0.5b"
+RUN = {"steps": 12, "global_batch": 8, "seq_len": 512, "lr": 3e-4,
+       "seed": 0}
+LEARNS_BY = 0.05
+
+
+def run_jax(layers: int, out: Path) -> dict:
+    import jax
+
+    from repro import configs
+    from repro.launch.steps import build_model
+    from repro.launch.train import train_loop
+    from repro.models.layers import Runtime
+
+    arch = dataclasses.replace(configs.get_arch(ARCH), num_layers=layers)
+    # train_loop's own initial parameters: PRNGKey(seed), fp32
+    init = build_model(arch).init(jax.random.PRNGKey(RUN["seed"]),
+                                  Runtime(compute_dtype=np.float32))
+    leaves, treedef = jax.tree_util.tree_flatten_with_path(init)
+    np.savez(out / "init.npz", **{jax.tree_util.keystr(k): np.asarray(v)
+                                  for k, v in leaves})
+    del init, leaves
+    t0 = time.time()
+    res = train_loop(arch, steps=RUN["steps"],
+                     global_batch=RUN["global_batch"],
+                     seq_len=RUN["seq_len"], lr=RUN["lr"], seed=RUN["seed"],
+                     log_every=1)
+    return {"losses": [float(x) for x in res["losses"]],
+            "seconds": time.time() - t0, "n_params": res["n_params"]}
+
+
+def _nest(flat: dict) -> dict:
+    """The reference's parameter tree from `keystr` names such as
+    ``['groups'][0][0]['attn']['wq']``."""
+    import re
+
+    tree: dict = {}
+    for name, arr in flat.items():
+        keys = [int(k) if k.isdigit() else k.strip("'")
+                for k in re.findall(r"\[([^\]]+)\]", name)]
+        node = tree
+        for k, nxt in zip(keys[:-1], keys[1:]):
+            node = node.setdefault(k, {})
+        node[keys[-1]] = arr
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(isinstance(k, int) for k in node):
+            return [lists(node[i]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+
+    return lists(tree)
+
+
+def run_torch(layers: int, out: Path) -> dict:
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from repro_torch import configs
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.data import SyntheticLMDataset, make_batch_iterator
+    from repro_torch.launch.steps import build_model, make_train_step
+    from repro_torch.launch.train import to_device
+    from repro_torch.models.layers import Runtime
+    from repro_torch.optim import adamw_init
+
+    arch = dataclasses.replace(configs.get_arch(ARCH), num_layers=layers)
+    with np.load(out / "init.npz") as z:
+        params = params_from_numpy(arch, _nest(dict(z)))
+    model = build_model(arch)
+    rt = Runtime(compute_dtype=torch.float32)
+    steps = RUN["steps"]
+    # as train_loop: warmup steps // 10, total steps
+    step_fn = make_train_step(model, rt, base_lr=RUN["lr"],
+                              warmup_steps=max(steps // 10, 1),
+                              total_steps=steps)
+    opt_state = adamw_init(params)
+    ds = SyntheticLMDataset(vocab_size=arch.vocab_size,
+                            seq_len=RUN["seq_len"],
+                            global_batch=RUN["global_batch"],
+                            seed=RUN["seed"])
+    it = make_batch_iterator(ds, start_step=0)
+    losses = []
+    t0 = time.time()
+    for step in range(steps):
+        params, opt_state, metrics = step_fn(params, opt_state,
+                                             to_device(next(it), "cpu"))
+        losses.append(float(metrics["loss"]))
+        print(f"[torch] step={step:3d} loss={losses[-1]:.6f} "
+              f"({time.time() - t0:.1f}s)", flush=True)
+    return {"losses": losses, "seconds": time.time() - t0,
+            "n_params": sum(p.numel() for p in pytree.tree_leaves(params))}
+
+
+def summary(losses) -> dict:
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    return {"first5": first, "last5": last, "fall": first - last,
+            "learns": bool(last < first - LEARNS_BY)}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
+    ap.add_argument("--package", choices=("jax", "torch"))
+    ap.add_argument("--compare", action="store_true")
+    ap.add_argument("--layers", type=int, default=2)
+    ap.add_argument("--out", required=True)
+    args = ap.parse_args(argv)
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    if args.compare:
+        runs = {p: json.loads((out / f"{p}.json").read_text())
+                for p in ("jax", "torch")}
+        gap = max(abs(a - b) for a, b in zip(runs["jax"]["losses"],
+                                             runs["torch"]["losses"]))
+        print(json.dumps({
+            "arch": ARCH, **RUN, "layers": runs["jax"]["layers"],
+            "max_abs_loss_gap": gap,
+            **{p: {**r, **summary(r["losses"])} for p, r in runs.items()}}))
+        return 0
+    run = run_jax if args.package == "jax" else run_torch
+    res = {"layers": args.layers, **run(args.layers, out)}
+    (out / f"{args.package}.json").write_text(json.dumps(res))
+    print(json.dumps(res))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
