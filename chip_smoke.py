@@ -254,8 +254,14 @@ printing one JSON line each:
                  prefill at 2048 x 4 through the kernels on the placed
                  leaves' local tensors bit-equal to the unplaced step (24
                  tensor-core flash launches, counted from 0), and one
-                 decode step on placed caches bit-equal too; the group is
-                 destroyed before the phase returns;
+                 decode step on placed caches bit-equal too; then the
+                 plain prefill and a decode step on the DTensors
+                 themselves (the models' sharding sites in play) bit-equal
+                 to the step bodies on the unplaced params, no kernel
+                 launched, the flash branch refusing DTensors, and the
+                 placed prefill's fake count (`MESH_COUNT_LAYERS` layers)
+                 equal to the unplaced one with no collective; the group
+                 is destroyed before the phase returns;
  27. kernel matmul
                  `matmul` against its plain PyTorch version on every element,
                  within the fp32 summation bound (`matmul_against_plain`),
@@ -285,9 +291,13 @@ printing one JSON line each:
                  "full") on fake CUDA tensors (full batch; every record
                  OK with a finite peak and roofline), each cell's matmul
                  and elementwise FLOPs and transcendentals, a random
-                 `autotune_search` of 2 points (cut from 4 for the time)
-                 over the train cell's remat and microbatches (each
-                 point's peak and score),
+                 `autotune_search` of 1 point (cut from 4 for the time)
+                 over the train cell's execution space (its peak and
+                 score), `MESH_DRYRUN_CELLS` counted per rank on 16x16
+                 and 2x16x16 in a spawned process beside the rest (each
+                 OK with its chips, each rank's params its leaves' shard
+                 shapes, a finite roofline, its collectives by kind and
+                 trace seconds printed),
                  one greedy `autotune_search` over
                  qwen2-0.5b's decode_32k (a cell whose points fit 80 GB;
                  every record it writes must be OK with a finite peak and
@@ -426,9 +436,10 @@ TRAIN_MB_LOSS_TOL = 1e-6
 TRAIN_CELL = {"batch": 4, "seq": 4096, "microbatches": 2, "steps": 5}
 # the dry-run's train autotune: a random search over the train_4k cell's
 # execution space (remat and microbatches move its step, and on one GPU
-# the attention's KV tile), rounds of 2 points: one (cut from 2, the third
-# cut for the time)
+# the attention's KV tile): one round (cut from 2) of one point (cut from
+# 2 when the mesh cells came in), each cut for the time
 TRAIN_AUTOTUNE_ROUNDS = 1
+TRAIN_AUTOTUNE_POINTS = 1
 # the longest xLSTM prefill, and the profiled 2048 x 4 forward, run at
 # this depth: one whole 7:1 unit of xlstm-1.3b's six (the depth cuts for
 # the training phase's time)
@@ -518,6 +529,13 @@ PARETO_BUDGETS = (30000.0, 60000.0, 90000.0)
 # the decode caches' length
 MESH_PREFILL = (4, 2048)
 MESH_CACHE = 256
+# the placed prefill's fake count on the one-rank mesh: full width, its
+# depth cut to this many layers (a count's cost grows with the layers)
+MESH_COUNT_LAYERS = 2
+# the dry-run cells counted per rank on the reference's meshes: (arch,
+# shape, multi_pod) — 16x16 (256 ranks) and 2x16x16 (512 ranks)
+MESH_DRYRUN_CELLS = (("qwen2-0.5b", "train_4k", False),
+                     ("olmoe-1b-7b", "decode_32k", True))
 # phase study parallel: benchmarks/composition_sweep.py's apps and budget
 # the port's examples (examples/<name>.py) and their arguments, run with
 # --device cuda and --device cpu
@@ -4169,11 +4187,19 @@ def phase_mesh(smi: str) -> dict:
     logits of the same step on the unplaced params bit for bit, through
     the tensor-core flash kernel (its launches counted from 0 over the
     placed run); one decode step on placed caches (random bf16 contents,
-    a position inside them) likewise, its logits and written caches.  The
-    group is destroyed before the phase returns.  On one rank this shows
-    that the placements, DTensor and NCCL run on the card under the main
-    path, not any multi-chip speed.  Returns the placed prefill's
-    launches."""
+    a position inside them) likewise, its logits and written caches.
+    Then the same steps on the DTensors themselves, through the plain
+    paths (the models' sharding sites redistributing on the mesh), must
+    give the step bodies' results on the unplaced params bit for bit
+    (both under `no_grad`: a step on DTensors cannot run under
+    `inference_mode`, and ATen decomposes some products otherwise there),
+    with no kernel launched; under `use_kernels=True` the flash branch
+    must refuse the DTensors; and the placed prefill counted on fake
+    tensors (`trace_step(mesh=...)`, `MESH_COUNT_LAYERS` layers) must
+    count what the unplaced one counts, with no collective.  The group is
+    destroyed before the phase returns.  On one rank this shows that the
+    placements, DTensor and NCCL run on the card under the main path, not
+    any multi-chip speed.  Returns the placed prefill's launches."""
     import dataclasses
     import gc
 
@@ -4184,7 +4210,8 @@ def phase_mesh(smi: str) -> dict:
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.steps import (build_model, make_prefill_step,
                                           make_runtime, make_serve_step,
-                                          place_params, step_placements)
+                                          place_params, step_placements,
+                                          trace_step)
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -4274,6 +4301,25 @@ def phase_mesh(smi: str) -> dict:
         check(all(torch.equal(a, b) for a, b in zip(
             pytree.tree_leaves(new_cache), pytree.tree_leaves(cache_plain))),
             "the placed decode wrote other cache values")
+        del logits, logits_plain, new_cache, cache_plain, placed_cache
+        on_dtensors = dtensor_steps(model, cfg, mesh, params, tokens,
+                                    prefill, decode, counters, gen)
+
+        # the placed prefill counted on fake tensors over this mesh
+        short = dataclasses.replace(cfg, num_layers=MESH_COUNT_LAYERS)
+        t3 = time.perf_counter()
+        placed_count, _ = trace_step(short, prefill, device="cuda",
+                                     mesh=mesh)
+        count_s = time.perf_counter() - t3
+        plain_count, _ = trace_step(short, prefill, device="cuda")
+        fields = ("flops", "matmul_flops", "elementwise_flops",
+                  "transcendentals", "bytes_accessed", "peak_bytes", "ops")
+        count = {k: [getattr(placed_count, k), getattr(plain_count, k)]
+                 for k in fields}
+        check(all(a == b for a, b in count.values()),
+              f"the placed prefill counts {count} (placed, unplaced)")
+        check(placed_count.collectives.count == 0,
+              f"collectives on one rank: {placed_count.collectives}")
     finally:
         dist.destroy_process_group()
     check(not dist.is_initialized(), "the process group outlived the phase")
@@ -4293,8 +4339,96 @@ def phase_mesh(smi: str) -> dict:
          param_bytes={"local": sum(v[0] for v in by_leaf.values()),
                       "global": sum(v[1] for v in by_leaf.values())},
          cache_leaves=len(cache_bytes),
-         leaf_bytes_local_global={"params": by_leaf, "cache": cache_bytes})
+         leaf_bytes_local_global={"params": by_leaf, "cache": cache_bytes},
+         on_dtensors=on_dtensors,
+         placed_count={"layers": MESH_COUNT_LAYERS, "seconds": count_s,
+                       "placed_and_unplaced": count,
+                       "collectives": placed_count.collectives.count})
     return launches
+
+
+def dtensor_steps(model, cfg, mesh, params, tokens, prefill, decode,
+                  counters, gen) -> dict:
+    """`phase_mesh`'s steps on the DTensors themselves: the plain prefill
+    and one decode step over the placed params (and placed batch, caches,
+    token and position) against the step bodies on the unplaced ones, bit
+    for bit, no kernel launched; and the kernel branch's refusal."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch.launch.steps import (make_prefill_step, make_runtime,
+                                          make_serve_step, place_params,
+                                          step_placements)
+    from repro_torch.models.layers import full_precision_products
+
+    batch, seq = tokens.shape
+    rt = make_runtime(cfg, prefill, mesh=mesh)
+    rt_plain = make_runtime(cfg, prefill)
+    sp = step_placements(cfg, prefill, mesh)
+    placed = place_params(params, mesh, sp.inputs[0])
+    placed_batch = place_params({"tokens": tokens}, mesh, sp.inputs[1])
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    got = make_prefill_step(model, rt)(placed, placed_batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in counters.items()}
+    check(not any(launches.values()),
+          f"the plain prefill on DTensors launched {launches}")
+    with torch.no_grad(), full_precision_products():
+        want = model.forward(params, {"tokens": tokens}, rt_plain,
+                             last_only=True)[:, -1, :]
+    got = got.full_tensor()
+    check(bool(torch.isfinite(got).all()), "DTensor logits not finite")
+    check(torch.equal(got, want),
+          f"the prefill on DTensors differs from the unplaced step by "
+          f"{float((got - want).abs().max())}")
+    # the kernels read memory: a DTensor is refused, not cut to its shard
+    rt_k = make_runtime(cfg, prefill, use_kernels=True, mesh=mesh)
+    refused = ""
+    try:
+        make_prefill_step(model, rt_k)(placed, placed_batch)
+    except TypeError as e:
+        refused = str(e)
+    check("DTensor" in refused,
+          f"the flash branch took a DTensor: {refused!r}")
+    del got, want, placed
+
+    rt_dec = make_runtime(cfg, decode, mesh=mesh)
+    rt_dec_plain = make_runtime(cfg, decode)
+    sp_dec = step_placements(cfg, decode, mesh)
+    cache = pytree.tree_map(
+        lambda c: torch.randn(c.shape, generator=gen, device="cuda",
+                              dtype=torch.float32).to(c.dtype),
+        model.init_cache(batch, MESH_CACHE, rt_dec, "cuda"))
+    cache_plain = pytree.tree_map(torch.clone, cache)
+    token = torch.randint(0, cfg.vocab_size, (batch, 1), generator=gen,
+                          device="cuda")
+    pos = position(MESH_CACHE // 2)
+    args = [place_params(t, mesh, lay) for t, lay in
+            zip((params, cache, token, pos), sp_dec.inputs)]
+    t0 = time.perf_counter()
+    logits, new_cache = make_serve_step(model, rt_dec)(*args)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches_dec = {n: fn.launches for n, fn in counters.items()}
+    check(not any(launches_dec.values()),
+          f"the plain decode on DTensors launched {launches_dec}")
+    with torch.no_grad(), full_precision_products():
+        want, want_cache = model.decode_step(params, cache_plain, token,
+                                             pos, rt_dec_plain)
+    check(torch.equal(logits.full_tensor(), want),
+          "the decode on DTensors differs from the unplaced step by "
+          f"{float((logits.full_tensor() - want).abs().max())}")
+    check(all(torch.equal(a.full_tensor(), b) for a, b in zip(
+        pytree.tree_leaves(new_cache), pytree.tree_leaves(want_cache))),
+        "the decode on DTensors wrote other cache values")
+    return {"prefill": {"batch": batch, "seq": seq, "use_kernels": False,
+                        "logits_bit_equal": True, "seconds": prefill_s,
+                        "launches": launches},
+            "decode": {"logits_bit_equal": True, "cache_bit_equal": True,
+                       "seconds": decode_s, "launches": launches_dec},
+            "kernel_branch_refused": refused}
 
 
 def matmul_bound(m, k, n, itemsize) -> dict:
@@ -4551,7 +4685,8 @@ def phase_dryrun() -> dict:
     a cache element; every record OK, with a finite peak and roofline),
     qwen2-0.5b's train_4k cell (batch 256, the reference's 2 microbatches
     and remat "full", both in its record) and a random autotune of
-    `TRAIN_AUTOTUNE_ROUNDS` rounds of 2 points over its execution space
+    `TRAIN_AUTOTUNE_ROUNDS` rounds of `TRAIN_AUTOTUNE_POINTS` points over
+    its execution space
     (each point's remat, microbatches and KV tile, its peak and score,
     whether one fits 80 GB), one
     greedy autotune over qwen2-0.5b's decode_32k (every record it wrote
@@ -4559,7 +4694,9 @@ def phase_dryrun() -> dict:
     qwen2-0.5b's plain prefill at 2048 x 4 against the same step run on
     the card."""
     import gc
+    import multiprocessing
     import tempfile
+    from concurrent.futures import ProcessPoolExecutor
 
     from repro_torch import configs
     from repro_torch.configs.shapes import ShapeSpec
@@ -4574,177 +4711,193 @@ def phase_dryrun() -> dict:
                        "peak_memory_per_chip", "compute_s", "memory_s",
                        "memory_s_hlo", "roofline_s", "bottleneck",
                        "useful_compute_ratio")
-    with tempfile.TemporaryDirectory() as tmp:
-        for arch, shape in [(a, s) for a in (ARCH, RG_ARCH, MOE_ARCH,
-                                             MLA_ARCH, WHISPER_ARCH)
-                            for s in ("prefill_32k", "decode_32k")] + [
-                (XLSTM_ARCH, s) for s in ("prefill_32k", "decode_32k",
-                                          "long_500k")] + [
-                (F8_ARCH, "decode_32k")]:
-            rec = run_cell(arch, shape, Path(tmp), device="cuda")
+    # the mesh cells are host work of their own: one spawned process
+    # counts them beside the rest of the phase
+    mesh_pool = ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            mesh_run = mesh_pool.submit(dryrun_mesh_cells, Path(tmp) / "mesh")
+            for arch, shape in [(a, s) for a in (ARCH, RG_ARCH, MOE_ARCH,
+                                                 MLA_ARCH, WHISPER_ARCH)
+                                for s in ("prefill_32k", "decode_32k")] + [
+                    (XLSTM_ARCH, s) for s in ("prefill_32k", "decode_32k",
+                                              "long_500k")] + [
+                    (F8_ARCH, "decode_32k")]:
+                rec = run_cell(arch, shape, Path(tmp), device="cuda")
+                check(rec["status"] == "OK",
+                      f"dry-run {arch} {shape}: {rec.get('error')}")
+                roof = rec["roofline"]
+                check(roof["flops_per_chip"] > 0 and roof["roofline_s"] > 0
+                      and all(math.isfinite(roof[k]) for k in
+                              ("peak_memory_per_chip", "roofline_s")),
+                      f"dry-run {arch} {shape} counted nothing, or a "
+                      f"peak or roofline that is not finite")
+                # the record's three counts of the step
+                check(roof["flops_per_chip"] ==
+                      rec["matmul_flops"] + rec["elementwise_flops"],
+                      f"dry-run {arch} {shape}: {rec['matmul_flops']} + "
+                      f"{rec['elementwise_flops']} FLOPs counted, "
+                      f"{roof['flops_per_chip']} in the roofline")
+                cells[f"{arch} {shape}"] = {
+                    **{k: roof[k] for k in keys},
+                    **{k: rec[k] for k in ("matmul_flops", "elementwise_flops",
+                                           "transcendentals")},
+                    "elementwise_share": rec["elementwise_flops"]
+                    / roof["flops_per_chip"],
+                    "fits_hbm": rec["fits_hbm"], "trace_s": rec["compile_s"],
+                    "kv_dtype": rec["runtime"]["kv_dtype"],
+                    "analytic_bytes": rec["analytic_bytes"],
+                    "flops_by_op": rec["flops_by_op"]}
+            # the f8 cell: its analytic traffic takes the cache at one byte an
+            # element, as the reference's, and so does its peak: the same step
+            # over a bf16 cache holds one byte an element more
+            f8 = cells[f"{F8_ARCH} decode_32k"]
+            cfg = configs.get_arch(F8_ARCH)
+            shape = configs.shape_by_name("decode_32k")
+            check(f8["kv_dtype"] == "f8" and f8["analytic_bytes"] ==
+                  analytic_hbm_bytes(cfg, shape, 1, tp=1, kv_bytes=1),
+                  f"dry-run {F8_ARCH} decode_32k: kv {f8['kv_dtype']}, "
+                  f"analytic "
+                  f"bytes {f8['analytic_bytes']}")
+            bf16 = run_cell(F8_ARCH, "decode_32k", Path(tmp), device="cuda",
+                            overrides={"kv_dtype": "bf16"}, tag="_bf16")
+            cache = sum(math.prod(sp.shape) for layer in build_model(
+                cfg).cache_specs(shape.global_batch, shape.seq_len)
+                for sp in layer.values())
+            f8["peak_over_bf16_cache"] = (
+                bf16["roofline"]["peak_memory_per_chip"]
+                - f8["peak_memory_per_chip"])
+            f8["cache_bytes"] = cache
+            check(f8["peak_over_bf16_cache"] == cache,
+                  f"dry-run {F8_ARCH} decode_32k: the f8 peak is "
+                  f"{f8['peak_over_bf16_cache']} bytes under the bf16 one, "
+                  f"the "
+                  f"cache holds {cache} elements")
+            # the train cell: qwen2-0.5b's train_4k at its full batch (256),
+            # the reference's microbatches (2) and remat ("full")
+            t0 = time.perf_counter()
+            rec = run_cell(ARCH, "train_4k", Path(tmp), device="cuda")
             check(rec["status"] == "OK",
-                  f"dry-run {arch} {shape}: {rec.get('error')}")
+                  f"dry-run {ARCH} train_4k: {rec.get('error')}")
             roof = rec["roofline"]
-            check(roof["flops_per_chip"] > 0 and roof["roofline_s"] > 0
-                  and all(math.isfinite(roof[k]) for k in
-                          ("peak_memory_per_chip", "roofline_s")),
-                  f"dry-run {arch} {shape} counted nothing, or a "
-                  f"peak or roofline that is not finite")
-            # the record's three counts of the step
-            check(roof["flops_per_chip"] ==
-                  rec["matmul_flops"] + rec["elementwise_flops"],
-                  f"dry-run {arch} {shape}: {rec['matmul_flops']} + "
-                  f"{rec['elementwise_flops']} FLOPs counted, "
-                  f"{roof['flops_per_chip']} in the roofline")
-            cells[f"{arch} {shape}"] = {
+            check(roof["flops_per_chip"] > 0 and all(
+                math.isfinite(roof[k]) and roof[k] > 0
+                for k in ("peak_memory_per_chip", "roofline_s"))
+                  and roof["flops_per_chip"] == rec["matmul_flops"]
+                  + rec["elementwise_flops"] and rec["transcendentals"] > 0,
+                  f"dry-run {ARCH} train_4k: {roof}")
+            check(rec["config"]["remat"] == "full"
+                  and rec["config"]["microbatches"]
+                  == DEFAULT_MICROBATCHES[ARCH],
+                  f"dry-run {ARCH} train_4k config {rec['config']}")
+            cells[f"{ARCH} train_4k"] = {
                 **{k: roof[k] for k in keys},
                 **{k: rec[k] for k in ("matmul_flops", "elementwise_flops",
-                                       "transcendentals")},
-                "elementwise_share": rec["elementwise_flops"]
-                / roof["flops_per_chip"],
+                                       "transcendentals", "config")},
                 "fits_hbm": rec["fits_hbm"], "trace_s": rec["compile_s"],
-                "kv_dtype": rec["runtime"]["kv_dtype"],
+                "wall_s": time.perf_counter() - t0,
                 "analytic_bytes": rec["analytic_bytes"],
                 "flops_by_op": rec["flops_by_op"]}
-        # the f8 cell: its analytic traffic takes the cache at one byte an
-        # element, as the reference's, and so does its peak: the same step
-        # over a bf16 cache holds one byte an element more
-        f8 = cells[f"{F8_ARCH} decode_32k"]
-        cfg = configs.get_arch(F8_ARCH)
-        shape = configs.shape_by_name("decode_32k")
-        check(f8["kv_dtype"] == "f8" and f8["analytic_bytes"] ==
-              analytic_hbm_bytes(cfg, shape, 1, tp=1, kv_bytes=1),
-              f"dry-run {F8_ARCH} decode_32k: kv {f8['kv_dtype']}, analytic "
-              f"bytes {f8['analytic_bytes']}")
-        bf16 = run_cell(F8_ARCH, "decode_32k", Path(tmp), device="cuda",
-                        overrides={"kv_dtype": "bf16"}, tag="_bf16")
-        cache = sum(math.prod(sp.shape) for layer in build_model(
-            cfg).cache_specs(shape.global_batch, shape.seq_len)
-            for sp in layer.values())
-        f8["peak_over_bf16_cache"] = (
-            bf16["roofline"]["peak_memory_per_chip"]
-            - f8["peak_memory_per_chip"])
-        f8["cache_bytes"] = cache
-        check(f8["peak_over_bf16_cache"] == cache,
-              f"dry-run {F8_ARCH} decode_32k: the f8 peak is "
-              f"{f8['peak_over_bf16_cache']} bytes under the bf16 one, the "
-              f"cache holds {cache} elements")
-        # the train cell: qwen2-0.5b's train_4k at its full batch (256),
-        # the reference's microbatches (2) and remat ("full")
-        t0 = time.perf_counter()
-        rec = run_cell(ARCH, "train_4k", Path(tmp), device="cuda")
-        check(rec["status"] == "OK",
-              f"dry-run {ARCH} train_4k: {rec.get('error')}")
-        roof = rec["roofline"]
-        check(roof["flops_per_chip"] > 0 and all(
-            math.isfinite(roof[k]) and roof[k] > 0
-            for k in ("peak_memory_per_chip", "roofline_s"))
-              and roof["flops_per_chip"] == rec["matmul_flops"]
-              + rec["elementwise_flops"] and rec["transcendentals"] > 0,
-              f"dry-run {ARCH} train_4k: {roof}")
-        check(rec["config"]["remat"] == "full"
-              and rec["config"]["microbatches"]
-              == DEFAULT_MICROBATCHES[ARCH],
-              f"dry-run {ARCH} train_4k config {rec['config']}")
-        cells[f"{ARCH} train_4k"] = {
-            **{k: roof[k] for k in keys},
-            **{k: rec[k] for k in ("matmul_flops", "elementwise_flops",
-                                   "transcendentals", "config")},
-            "fits_hbm": rec["fits_hbm"], "trace_s": rec["compile_s"],
-            "wall_s": time.perf_counter() - t0,
-            "analytic_bytes": rec["analytic_bytes"],
-            "flops_by_op": rec["flops_by_op"]}
-        # a random search over its execution space
-        tev = CellEvaluator(ARCH, "train_4k", cache_dir=Path(tmp) / "train",
-                            device="cuda")
-        tlog = []
-        t0 = time.perf_counter()
-        tbest, tscore = autotune_search(
-            tev, engine="random", shape_mode="train", seed=0,
-            max_rounds=TRAIN_AUTOTUNE_ROUNDS, batch=2, log=tlog)
-        search = next(r for r in tlog if r["event"] == "search")
-        points = []
-        for pt, score in zip(search["evaluated"], search["scores"]):
-            prec = tev.evaluate(ExecPoint(**{
-                k: tuple(tuple(r) for r in v) if k == "extra_rules" else v
-                for k, v in pt.items()}))
-            check(prec["status"] == "OK",
-                  f"train autotune point {pt}: {prec.get('error')}")
-            points.append({"remat": pt["remat"],
-                           "microbatches": pt["microbatches"],
-                           "attn_kv_block": pt["attn_kv_block"],
-                           "score": score, "peak_memory_per_chip":
-                               prec["roofline"]["peak_memory_per_chip"],
-                           "roofline_s": prec["roofline"]["roofline_s"]})
-        train_autotune = {
-            "cell": tev.cell, "engine": "random",
-            "rounds": TRAIN_AUTOTUNE_ROUNDS, "batch": 2,
-            "reduced": "points 4 -> 2 (rounds 2 -> 1), for the smoke's time",
-            "points": points, "dry_runs": tev.n_compiles,
-            "best": json.loads(json.dumps(dataclasses.asdict(tbest))),
-            "score": tscore,
-            "any_point_fits_80gb": any(p["score"] > 0 for p in points),
-            "seconds": time.perf_counter() - t0}
-        check(points and tev.n_compiles > 0,
-              f"the train autotune evaluated {points}")
-        # the greedy search over a cell whose points fit the card's 80 GB
-        log = []
-        ev = CellEvaluator(ARCH, "decode_32k", cache_dir=tmp, device="cuda")
-        t0 = time.perf_counter()
-        best, score = autotune_search(ev, shape_mode="decode", seed=0,
-                                      log=log)
-        seconds = time.perf_counter() - t0
-        greedy_runs = ev.n_compiles
-        # another engine through FunctionEvaluator and the evaluator-mode
-        # Study, over the same cell with its own memo (so it dry-runs its
-        # points itself; its records are checked below too)
-        rev = CellEvaluator(ARCH, "decode_32k",
-                            cache_dir=Path(tmp) / "evaluator_mode",
-                            device="cuda")
-        t0 = time.perf_counter()
-        rbest, rscore = autotune_search(rev, engine="random",
-                                        shape_mode="decode", seed=0,
-                                        max_rounds=2, batch=2)
-        evaluator_mode = {
-            "engine": "random", "rounds": 2, "batch": 2,
-            "best": json.loads(json.dumps(dataclasses.asdict(rbest))),
-            "score": rscore, "dry_runs": rev.n_compiles,
-            "seconds": time.perf_counter() - t0}
-        check(rscore > 0 and rev.n_compiles > 0,
-              f"the random autotune scored {rev.cell} {rscore} after "
-              f"{rev.n_compiles} dry-runs")
-        records = {}
-        for f in sorted(ev.dir.glob("*.json")) + sorted(
-                rev.dir.glob("*.json")):
-            rec = json.loads(f.read_text())
-            check(rec.get("status") == "OK",
-                  f"autotune record {f.name}: {rec.get('status')} "
-                  f"{rec.get('error')}")
-            roof = rec["roofline"]
-            check(all(math.isfinite(roof[k]) and roof[k] > 0 for k in
-                      ("peak_memory_per_chip", "roofline_s")),
-                  f"autotune record {f.name}: peak "
-                  f"{roof['peak_memory_per_chip']}, roofline "
-                  f"{roof['roofline_s']}")
-            records[str(f.relative_to(tmp))] = {
-                "point": rec.get("point"),
-                "peak_memory_per_chip": roof["peak_memory_per_chip"],
-                "roofline_s": roof["roofline_s"]}
-        scores = [x for r in log for x in
-                  ([r["score"]] if r["event"] == "init" else r["scores"])]
-        picked = json.loads(json.dumps(dataclasses.asdict(best)))
-        autotune = {"cell": ev.cell, "best": picked,
-                    "matmul_only_pick": MATMUL_ONLY_PICK,
-                    "pick_moved": picked != MATMUL_ONLY_PICK,
-                    "score": score, "dry_runs": greedy_runs,
-                    "seconds": seconds, "records": records,
-                    "rounds": [{"var": r["var"], "scores": r["scores"]}
-                               for r in log if r["event"] == "round"],
-                    "evaluator_mode": evaluator_mode}
-        check(score > 0 and max(scores) > 0,
-              f"the autotune scored {ev.cell} 0 at every point: {scores}")
-        check(score == max(scores),
-              f"the autotune kept {score}, below its best {max(scores)}")
+            # a random search over its execution space
+            tev = CellEvaluator(ARCH, "train_4k",
+                                cache_dir=Path(tmp) / "train",
+                                device="cuda")
+            tlog = []
+            t0 = time.perf_counter()
+            tbest, tscore = autotune_search(
+                tev, engine="random", shape_mode="train", seed=0,
+                max_rounds=TRAIN_AUTOTUNE_ROUNDS, batch=TRAIN_AUTOTUNE_POINTS,
+                log=tlog)
+            search = next(r for r in tlog if r["event"] == "search")
+            points = []
+            for pt, score in zip(search["evaluated"], search["scores"]):
+                prec = tev.evaluate(ExecPoint(**{
+                    k: tuple(tuple(r) for r in v) if k == "extra_rules" else v
+                    for k, v in pt.items()}))
+                check(prec["status"] == "OK",
+                      f"train autotune point {pt}: {prec.get('error')}")
+                points.append({"remat": pt["remat"],
+                               "microbatches": pt["microbatches"],
+                               "attn_kv_block": pt["attn_kv_block"],
+                               "score": score, "peak_memory_per_chip":
+                                   prec["roofline"]["peak_memory_per_chip"],
+                               "roofline_s": prec["roofline"]["roofline_s"]})
+            train_autotune = {
+                "cell": tev.cell, "engine": "random",
+                "rounds": TRAIN_AUTOTUNE_ROUNDS,
+                "batch": TRAIN_AUTOTUNE_POINTS,
+                "reduced": "points 4 -> 1 (rounds 2 -> 1, points a round "
+                           "2 -> 1), for the smoke's time",
+                "points": points, "dry_runs": tev.n_compiles,
+                "best": json.loads(json.dumps(dataclasses.asdict(tbest))),
+                "score": tscore,
+                "any_point_fits_80gb": any(p["score"] > 0 for p in points),
+                "seconds": time.perf_counter() - t0}
+            check(points and tev.n_compiles > 0,
+                  f"the train autotune evaluated {points}")
+            # the greedy search over a cell whose points fit the card's 80 GB
+            log = []
+            ev = CellEvaluator(ARCH, "decode_32k", cache_dir=tmp,
+                               device="cuda")
+            t0 = time.perf_counter()
+            best, score = autotune_search(ev, shape_mode="decode", seed=0,
+                                          log=log)
+            seconds = time.perf_counter() - t0
+            greedy_runs = ev.n_compiles
+            # another engine through FunctionEvaluator and the evaluator-mode
+            # Study, over the same cell with its own memo (so it dry-runs its
+            # points itself; its records are checked below too)
+            rev = CellEvaluator(ARCH, "decode_32k",
+                                cache_dir=Path(tmp) / "evaluator_mode",
+                                device="cuda")
+            t0 = time.perf_counter()
+            rbest, rscore = autotune_search(rev, engine="random",
+                                            shape_mode="decode", seed=0,
+                                            max_rounds=2, batch=2)
+            evaluator_mode = {
+                "engine": "random", "rounds": 2, "batch": 2,
+                "best": json.loads(json.dumps(dataclasses.asdict(rbest))),
+                "score": rscore, "dry_runs": rev.n_compiles,
+                "seconds": time.perf_counter() - t0}
+            check(rscore > 0 and rev.n_compiles > 0,
+                  f"the random autotune scored {rev.cell} {rscore} after "
+                  f"{rev.n_compiles} dry-runs")
+            records = {}
+            for f in sorted(ev.dir.glob("*.json")) + sorted(
+                    rev.dir.glob("*.json")):
+                rec = json.loads(f.read_text())
+                check(rec.get("status") == "OK",
+                      f"autotune record {f.name}: {rec.get('status')} "
+                      f"{rec.get('error')}")
+                roof = rec["roofline"]
+                check(all(math.isfinite(roof[k]) and roof[k] > 0 for k in
+                          ("peak_memory_per_chip", "roofline_s")),
+                      f"autotune record {f.name}: peak "
+                      f"{roof['peak_memory_per_chip']}, roofline "
+                      f"{roof['roofline_s']}")
+                records[str(f.relative_to(tmp))] = {
+                    "point": rec.get("point"),
+                    "peak_memory_per_chip": roof["peak_memory_per_chip"],
+                    "roofline_s": roof["roofline_s"]}
+            scores = [x for r in log for x in
+                      ([r["score"]] if r["event"] == "init" else r["scores"])]
+            picked = json.loads(json.dumps(dataclasses.asdict(best)))
+            autotune = {"cell": ev.cell, "best": picked,
+                        "matmul_only_pick": MATMUL_ONLY_PICK,
+                        "pick_moved": picked != MATMUL_ONLY_PICK,
+                        "score": score, "dry_runs": greedy_runs,
+                        "seconds": seconds, "records": records,
+                        "rounds": [{"var": r["var"], "scores": r["scores"]}
+                                   for r in log if r["event"] == "round"],
+                        "evaluator_mode": evaluator_mode}
+            check(score > 0 and max(scores) > 0,
+                  f"the autotune scored {ev.cell} 0 at every point: {scores}")
+            check(score == max(scores),
+                  f"the autotune kept {score}, below its best {max(scores)}")
+            mesh_cells = mesh_run.result()
+    finally:
+        mesh_pool.shutdown(cancel_futures=True)
 
     # the plain prefill at 2048 x 4: counted on fake tensors, then run
     cfg = configs.get_arch(ARCH)
@@ -4773,7 +4926,7 @@ def phase_dryrun() -> dict:
     check_isolated()
     three = ("flops", "matmul_flops", "elementwise_flops", "transcendentals")
     rec = {"cells": cells, "autotune": autotune,
-           "train_autotune": train_autotune,
+           "train_autotune": train_autotune, "mesh_cells": mesh_cells,
            "prefill_2048x4": {
                **{f"fake_{k}": getattr(fake, k) for k in three},
                **{f"real_{k}": getattr(real, k) for k in three},
@@ -4793,6 +4946,64 @@ def phase_dryrun() -> dict:
           f"max_memory_allocated / dry-run peak = {ratio}, outside "
           f"{DRYRUN_PEAK_BAND}")
     return rec
+
+
+def dryrun_mesh_cells(out: Path) -> dict:
+    """`MESH_DRYRUN_CELLS` counted per rank on the reference's meshes
+    (`run_cell(multi_pod=...)`: a fake process group of 256 / 512 ranks,
+    fake CUDA tensors): each OK with its mesh's chips, each rank's params
+    the sum of their leaves' shard shapes, a finite roofline and collective
+    bytes; their collectives by kind and trace seconds."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch import configs
+    from repro_torch.distributed import shard_shape
+    from repro_torch.launch.dryrun import fake_mesh, run_cell
+    from repro_torch.launch.steps import build_model, step_placements
+
+    cells = {}
+    for arch, shape_name, multi_pod in MESH_DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        rec = run_cell(arch, shape_name, out, multi_pod=multi_pod,
+                       device="cuda")
+        wall = time.perf_counter() - t0
+        check(rec["status"] == "OK",
+              f"dry-run {arch} {shape_name} {multi_pod}: {rec.get('error')}")
+        roof = rec["roofline"]
+        chips = 512 if multi_pod else 256
+        check(rec["chips"] == roof["chips"] == chips,
+              f"dry-run {rec['cell']}: {rec['chips']} chips")
+        check(all(math.isfinite(roof[k]) and roof[k] > 0 for k in
+                  ("peak_memory_per_chip", "roofline_s",
+                   "collective_bytes_per_chip")),
+              f"dry-run {rec['cell']}: roofline {roof}")
+        cfg, shape = configs.get_arch(arch), configs.shape_by_name(shape_name)
+        dt = torch.float32 if shape.mode == "train" else torch.bfloat16
+        with fake_mesh(multi_pod, "cuda") as mesh:
+            lay = step_placements(cfg, shape, mesh).inputs[0]
+            want = sum(
+                math.prod(shard_shape(lo.shape, mesh, lo.placements))
+                * torch.empty((), dtype=s.resolved_dtype(dt)).element_size()
+                for lo, s in zip(pytree.tree_leaves(lay), pytree.tree_leaves(
+                    build_model(cfg).param_specs())))
+        got = rec["arg_bytes_per_chip"]["params"]
+        check(got == want, f"dry-run {rec['cell']}: {got} bytes of params "
+              f"a rank, its leaves' shard shapes hold {want}")
+        cells[rec["cell"]] = {
+            "chips": chips, "params_bytes_per_chip": got,
+            "arg_bytes_per_chip": rec["arg_bytes_per_chip"],
+            "collectives": rec["collectives"],
+            "config": rec["config"], "fits_hbm": rec["fits_hbm"],
+            "trace_s": rec["compile_s"], "wall_s": wall,
+            **{k: roof[k] for k in (
+                "flops_per_chip", "peak_memory_per_chip",
+                "collective_bytes_per_chip", "compute_s", "memory_s",
+                "collective_s", "roofline_s", "bottleneck")}}
+        print(f"[smoke] dry-run {rec['cell']}: collectives "
+              f"{rec['collectives']['by_kind']} in "
+              f"{rec['collectives']['count']}, trace {rec['compile_s']} s",
+              flush=True)
+    return cells
 
 
 def kernel_label(mangled: str) -> str:

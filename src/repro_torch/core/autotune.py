@@ -1,5 +1,5 @@
-"""Software-defined DSE for the execution space of one GPU (beyond-paper
-layer).
+"""Software-defined DSE for the execution space of a model step on one
+GPU or a mesh of them (beyond-paper layer).
 
 The paper's framework = {application graph} x {analytical cost model} x
 {multi-step greedy optimizer}.  Here the *same* optimizer drives the
@@ -19,18 +19,23 @@ above the card's memory.
 
 The points, domains and the greedy loop are the reference's
 (`repro.core.autotune`), so `ExecPoint.key()` names the same point in both
-packages.  On one GPU sharding mode and the layout rules (`extra_rules`)
-change nothing in the step, nor do remat and microbatches in a serving
-cell; in a train cell (`train_4k`) remat moves what the backward keeps
-and recomputes (the step's peak and its FLOPs) and microbatches the
-activations a pass holds, as the reference's loop tiling T* and banked
-buffers do.  The
-plain attention's KV tile (`attn_kv_block`) moves the step's peak memory,
-not its FLOPs, and on an MoE arch `moe_group_size` moves its MoE blocks:
-the tokens routed together, so the dispatch buffers, the capacity a group
-gives each expert and with it the expert products' rows.  Engines other than greedy run
+packages.  A cell is counted on one GPU (`multi_pod=None`, mesh "1gpu")
+or per rank on the reference's 16x16 / 2x16x16 meshes (`multi_pod`
+False / True, `launch.dryrun.run_cell`).  Over a mesh every variable
+moves the step: sharding mode and the layout rules (`extra_rules`) place
+the params, caches and activations, so each rank's memory, FLOPs and
+collectives.  On one GPU those two change nothing, nor do remat and
+microbatches in a serving cell; in a train cell (`train_4k`) remat moves
+what the backward keeps and recomputes (the step's peak and its FLOPs)
+and microbatches the activations a pass holds, as the reference's loop
+tiling T* and banked buffers do.  The plain attention's KV tile
+(`attn_kv_block`) moves the step's peak memory, not its FLOPs, and on an
+MoE arch `moe_group_size` moves its MoE blocks: the tokens routed
+together, so the dispatch buffers, the capacity a group gives each expert
+and with it the expert products' rows.  Engines other than greedy run
 through a `FunctionEvaluator` and the evaluator-mode `Study` on the host:
-each point they score is one dry-run on fake tensors.
+each point they score is one dry-run on fake tensors, and a pool's points
+go to `CellEvaluator.score_batch`, which runs them in spawned processes.
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ import dataclasses
 import hashlib
 import json
 from pathlib import Path
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -87,27 +92,50 @@ EXEC_DOMAINS: Dict[str, Tuple] = {
 
 
 class CellEvaluator:
-    """Dry-run and score one (arch x shape) cell on one GPU at an
-    ExecPoint, with on-disk memoization by `ExecPoint.key()`.
+    """Dry-run and score one (arch x shape x mesh) cell at an ExecPoint,
+    with on-disk memoization by `ExecPoint.key()`.
 
-    `hbm_limit` defaults to the H100's 80 GB (`HW().hbm_bytes`); the dry-run
-    counts on fake tensors of `device`.  Points with the same `overrides()`
-    (and in a train cell the same remat and microbatches) run one step on
-    one GPU and share one dry-run; `n_compiles` counts the dry-runs."""
+    `multi_pod` is `run_cell`'s: None counts one GPU, False / True rank 0
+    of 16x16 / 2x16x16; the cell is named by its mesh.  `hbm_limit`
+    defaults to the H100's 80 GB (`HW().hbm_bytes`), per card; the dry-run
+    counts on fake tensors of `device`.  Points that run the same step
+    share one dry-run: on one GPU those with the same `overrides()` (and
+    in a train cell the same remat and microbatches), over a mesh also
+    the same `sharding_mode` and `extra_rules`.  `n_compiles` counts the
+    dry-runs.  `score_batch` scores a pool in `compile_workers` spawned
+    processes (the dry-run is Python: threads would take turns at the
+    GIL, and a mesh cell's process group is one a process)."""
 
     def __init__(self, arch_name: str, shape_name: str,
                  cache_dir: str | Path = CACHE_DIR,
-                 hbm_limit: Optional[float] = None, device: str = "cuda"):
-        from repro_torch.launch.dryrun import MESH
+                 hbm_limit: Optional[float] = None, device: str = "cuda",
+                 *, multi_pod: Optional[bool] = None,
+                 compile_workers: int = 1):
+        from repro_torch.launch.dryrun import mesh_name
 
         self.arch_name = arch_name
         self.shape_name = shape_name
-        self.cell = f"{arch_name}_{shape_name}_{MESH}"
-        self.dir = Path(cache_dir) / self.cell
+        self.multi_pod = multi_pod
+        self.cell = f"{arch_name}_{shape_name}_{mesh_name(multi_pod)}"
+        self.cache_dir = Path(cache_dir)
+        self.dir = self.cache_dir / self.cell
         self.dir.mkdir(parents=True, exist_ok=True)
         self.hbm_limit = HW().hbm_bytes if hbm_limit is None else hbm_limit
         self.device = device
+        self.compile_workers = max(1, int(compile_workers))
         self.n_compiles = 0
+
+    def _step_key(self, pt: ExecPoint) -> Dict[str, Any]:
+        """What of `pt` changes the step counted: the overrides, in a
+        train cell remat and microbatches, over a mesh the rules."""
+        from repro_torch.configs.shapes import shape_by_name
+        key: Dict[str, Any] = pt.overrides()
+        if shape_by_name(self.shape_name).mode == "train":
+            key.update(remat=pt.remat, microbatches=pt.microbatches)
+        if self.multi_pod is not None:
+            key.update(sharding_mode=pt.sharding_mode,
+                       extra_rules=[list(r) for r in pt.extra_rules])
+        return key
 
     def evaluate(self, pt: ExecPoint) -> Dict[str, Any]:
         cache = self.dir / f"{pt.key()}.json"
@@ -115,22 +143,17 @@ class CellEvaluator:
             return json.loads(cache.read_text())
         from repro_torch.launch.dryrun import run_cell
 
-        # on one GPU only the overrides (and a train step's remat and
-        # microbatches) change the step: points that differ elsewhere share
-        # the dry-run of the first of them, which run_cell writes to
+        # points that differ only where the step does not share the
+        # dry-run of the first of them, which run_cell writes to
         # `<cell><tag>.json`
-        from repro_torch.configs.shapes import shape_by_name
-        step_key = pt.overrides()
-        if shape_by_name(self.shape_name).mode == "train":
-            step_key.update(remat=pt.remat, microbatches=pt.microbatches)
         tag = "_step" + hashlib.sha1(json.dumps(
-            step_key, sort_keys=True).encode()).hexdigest()[:12]
+            self._step_key(pt), sort_keys=True).encode()).hexdigest()[:12]
         step = self.dir / f"{self.cell}{tag}.json"
         if step.exists():
             rec = json.loads(step.read_text())
         else:
             rec = run_cell(self.arch_name, self.shape_name, self.dir,
-                           device=self.device,
+                           multi_pod=self.multi_pod, device=self.device,
                            sharding_mode=pt.sharding_mode, remat=pt.remat,
                            microbatches=pt.microbatches,
                            overrides=pt.overrides(),
@@ -150,6 +173,49 @@ class CellEvaluator:
         if roof["peak_memory_per_chip"] > self.hbm_limit:
             return 0.0
         return 1.0 / max(roof["roofline_s"], 1e-12)
+
+    def score_batch(self, pts: Sequence[ExecPoint]) -> List[float]:
+        """Score a pool, its points' dry-runs on `compile_workers` spawned
+        processes at once (each making its own fake process group for a
+        mesh cell); the scores come back in pool order, equal to the
+        serial scores (each point's record is a pure function of the
+        point, and its cache file its own)."""
+        pts = list(pts)
+        if self.compile_workers <= 1 or len(pts) <= 1:
+            return [self.score(p) for p in pts]
+        todo = [i for i, p in enumerate(pts)
+                if not (self.dir / f"{p.key()}.json").exists()]
+        # one point a step key: two points of one step would run it twice
+        firsts: Dict[str, int] = {}
+        for i in todo:
+            firsts.setdefault(json.dumps(self._step_key(pts[i]),
+                                         sort_keys=True), i)
+        payloads = [{"evaluator": self._recipe(), "point":
+                     dataclasses.asdict(pts[i])} for i in firsts.values()]
+        if payloads:
+            from repro_torch.dse.parallel import ParallelExecutor
+            done = ParallelExecutor(workers=min(self.compile_workers,
+                                                len(payloads))).map(
+                _score_point_task, payloads)
+            self.n_compiles += sum(n for _, n in done)
+        return [self.score(p) for p in pts]
+
+    def _recipe(self) -> Dict[str, Any]:
+        return {"arch_name": self.arch_name, "shape_name": self.shape_name,
+                "cache_dir": str(self.cache_dir),
+                "hbm_limit": self.hbm_limit, "device": self.device,
+                "multi_pod": self.multi_pod}
+
+
+def _score_point_task(payload: Dict[str, Any]) -> Tuple[float, int]:
+    """A pool worker: one point's score through a `CellEvaluator` of its
+    own (its dry-run written to the shared cache), and the dry-runs it
+    ran."""
+    pt = dict(payload["point"])
+    pt["extra_rules"] = tuple(tuple(r) for r in pt["extra_rules"])
+    ev = CellEvaluator(**payload["evaluator"])
+    score = ev.score(ExecPoint(**pt))
+    return score, ev.n_compiles
 
 
 def _domains_for(shape_mode: str, has_moe: bool) -> Dict[str, Tuple]:

@@ -1,26 +1,36 @@
-"""Roofline of one step on one H100, from counts taken on fake tensors.
+"""Roofline of one step per H100, from counts taken on fake tensors.
 
-Three terms per (arch x shape) cell, in seconds:
+Three terms per (arch x shape x mesh) cell, in seconds, per card:
 
   compute term    = FLOPs            / peak FLOP/s  (bf16 tensor cores)
   memory term     = bytes            / HBM bytes/s
-  collective term = collective bytes / link bytes/s (0 on one chip)
+  collective term = collective bytes / link bytes/s (0 on one card)
 
 The reference (`repro.core.roofline`) reads FLOPs and bytes from XLA's
-`cost_analysis()` of a compiled program; the port counts them while the
-step runs on fake tensors (`launch.steps.trace_step`).  The report, the
-totals-to-roofline arithmetic and the analytic models (`analytic_hbm_bytes`,
-`model_flops`) are the reference's, copied as they are.
+`cost_analysis()` of a compiled program, per partition, and the collective
+bytes from its post-SPMD HLO (`parse_collective_bytes`); the port counts
+all three while the step runs on fake tensors (`launch.steps.trace_step`),
+over a mesh on rank 0's DTensor shards, its collectives by kind and result
+bytes.  The report, the totals-to-roofline arithmetic and the analytic
+models (`analytic_hbm_bytes`, `model_flops`) are the reference's, copied
+as they are, and so is `parse_collective_bytes`, a function of HLO text.
+
+`HW.ici_bw` is one H100's NVLink rate (450 GB/s each way), the link
+between the 8 cards of a node.  The collective term divides every rank's
+collective bytes by it, as if every mesh axis ran over NVLink: on a 16x16
+or 2x16x16 mesh of 8-card nodes most axes cross nodes over the network,
+which is slower, so the term is a lower bound there.
 
 This module is also the cost model of the execution-space DSE
-(`core.autotune`).  Reading XLA's HLO and compiled objects
-(`parse_collective_bytes`, `measure_compiled`, `analyze_compiled`) is
-ported with the distributed slice, see ROADMAP.md.
+(`core.autotune`).  `measure_compiled` and `analyze_compiled` read an XLA
+executable, which the port never has: its counterpart is
+`launch.steps.count_step` (and `launch.dryrun.run_cell` for a cell).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Dict
 
 __all__ = ["HW", "CollectiveStats", "parse_collective_bytes",
@@ -40,6 +50,33 @@ class HW:
     fp32_flops: float = 67e12          # fp32 FMA on the CUDA cores
 
 
+_DTYPE_BYTES = {
+    "f64": 8, "f32": 4, "f16": 2, "bf16": 2, "f8e4m3fn": 1, "f8e5m2": 1,
+    "s64": 8, "u64": 8, "s32": 4, "u32": 4, "s16": 2, "u16": 2,
+    "s8": 1, "u8": 1, "pred": 1, "c64": 8, "c128": 16,
+}
+
+_SHAPE_RE = re.compile(r"(f64|f32|f16|bf16|f8e4m3fn|f8e5m2|s64|u64|s32|u32|"
+                       r"s16|u16|s8|u8|pred|c64|c128)\[([0-9,]*)\]")
+_INSTR_RE = re.compile(
+    r"^\s*(?:ROOT\s+)?%?[\w.\-]+\s*=\s*(\(?[^=]*?\)?)\s+"
+    r"(all-reduce|all-gather|reduce-scatter|all-to-all|collective-permute)"
+    r"(-start|-done)?\(", re.M)
+
+
+def _shape_bytes(shape_text: str) -> int:
+    total = 0
+    for m in _SHAPE_RE.finditer(shape_text):
+        dt, dims = m.group(1), m.group(2)
+        n = 1
+        if dims:
+            for d in dims.split(","):
+                if d:
+                    n *= int(d)
+        total += n * _DTYPE_BYTES[dt]
+    return total
+
+
 @dataclasses.dataclass
 class CollectiveStats:
     total_bytes: int = 0
@@ -52,21 +89,31 @@ class CollectiveStats:
         self.count += 1
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is ported in a later slice (the "
-                               "distributed one), see ROADMAP.md")
-
-
 def parse_collective_bytes(hlo_text: str) -> CollectiveStats:
-    raise _not_ported("parse_collective_bytes (reads XLA HLO)")
+    """Sum result-shape bytes of every collective in a post-SPMD HLO."""
+    stats = CollectiveStats()
+    for m in _INSTR_RE.finditer(hlo_text):
+        shape_text, kind, phase = m.group(1), m.group(2), m.group(3)
+        if phase == "-done":       # avoid double-counting async pairs
+            continue
+        stats.add(kind, _shape_bytes(shape_text))
+    return stats
+
+
+def _no_executable(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} reads an XLA executable, which the port never has: a "
+        "step's counts per rank, its collectives included, come from "
+        "launch.steps.count_step, a cell's record from "
+        "launch.dryrun.run_cell")
 
 
 def measure_compiled(compiled):
-    raise _not_ported("measure_compiled (reads an XLA executable)")
+    raise _no_executable("measure_compiled")
 
 
 def analyze_compiled(compiled, **kwargs):
-    raise _not_ported("analyze_compiled (reads an XLA executable)")
+    raise _no_executable("analyze_compiled")
 
 
 @dataclasses.dataclass

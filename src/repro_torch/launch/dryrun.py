@@ -1,51 +1,64 @@
-"""Dry-run of one training or serving step on one GPU, counted on fake
-tensors.
+"""Dry-run of one training or serving step, counted on fake tensors: on
+one GPU, or per rank over the reference's production meshes.
 
 For every (architecture x shape) cell, run the cell's step once on fake
 tensors (`launch.steps.trace_step`) and record:
 
-  * the FLOPs of the matmul family (`FlopCounterMode`) and the operand and
-    result bytes of every aten op (an upper bound on traffic);
+  * the FLOPs of the matmul family (`FlopCounterMode`'s formulas) and the
+    operand and result bytes of every aten op (an upper bound on traffic);
   * the peak bytes of live storage (proves the step fits the card, or not);
-  * the roofline on one H100 (`core.roofline`), with the analytic traffic
-    model as its memory term, as in the reference.
+  * over a mesh, the collectives rank 0 takes part in, by kind and result
+    bytes;
+  * the roofline per card (`core.roofline`), with the analytic traffic
+    model as its memory term and the collective bytes over NVLink as its
+    collective term, as in the reference.
 
 Nothing is allocated and no kernel runs, so a full-batch 32k prefill is
 counted in seconds.  The reference (`repro.launch.dryrun`) compiles each
-cell with XLA for a 256- or 512-chip mesh; the port's dry-run still counts
-one chip (mesh "1gpu"), so sharding mode and layout rules change nothing
-here and are only recorded.  The meshes and the reference's placements
-are ported (`launch.mesh`, `distributed`, `launch.steps.step_placements`);
-counting a step per rank over a mesh, with its collectives, comes later
-(see ROADMAP.md).  A train cell (`train_4k`) counts forward, backward and the
-AdamW update under `remat` (the reference's default "full") over
-`microbatches` (the reference's `DEFAULT_MICROBATCHES`) at the full batch;
-both are recorded in `config`.  Every serving cell of every arch is
-counted, the
+cell with XLA for a 256- or 512-chip mesh and reads the per-partition
+program.  Here `multi_pod=None` counts one card (mesh "1gpu"); `False` /
+`True` count rank 0 of the 16x16 (256 ranks) / 2x16x16 (512 ranks) mesh:
+`run_cell` makes this process rank 0 of a fake process group of that size
+(the "fake" backend: its collectives move nothing), places every argument
+of the step as the reference's `in_shardings` (`launch.steps.
+step_placements`, under `sharding_mode` and `rule_updates`) and runs the
+port's own model code on the DTensors, which lays out its activations at
+the reference's `rt.shard` sites.  Each rank's counts are those of its
+local shards; per-rank `fits_hbm` is checked against the H100's 80 GB.
+
+A train cell (`train_4k`) counts forward, backward and the AdamW update
+under `remat` (the reference's default "full") over `microbatches` (the
+reference's `DEFAULT_MICROBATCHES`, cut so that each microbatch still
+tiles the batch's shards, as the reference cuts it) at the full batch.
+Every serving cell of every arch is counted on one card, the
 encoder-decoder's (whisper-medium: the encoder at its 1500 frames and the
 decoder at the cell's tokens) and qwen2.5-32b's decode_32k over the
 reference's f8 KV cache (`DEFAULT_SERVE_KV_DTYPE`: the cache at one byte
 an element in the peak and in the analytic traffic) included, and every
 train cell but xlstm-1.3b's, which raises `NotImplementedError`
-(`UNCOUNTED_TRAIN` says why); other failures are recorded as
-FAILED.  A sub-quadratic arch's `long_500k`
-(xlstm-1.3b: one token against a 524,288-token context) is counted as
-any decode cell; an xLSTM prefill's scans over time and chunks count one
-step for all (`steps.count_step`).  Records are
-written to `<out>/<cell>.json`.
+(`UNCOUNTED_TRAIN` says why); a cell the mesh count has not reached
+raises it too, naming the op and the placement (ROADMAP.md lists them);
+other failures are recorded as FAILED.  A sub-quadratic arch's
+`long_500k` (xlstm-1.3b: one token against a 524,288-token context) is
+counted as any decode cell; an xLSTM prefill's scans over time and
+chunks count one step for all (`steps.count_step`).  Records are written
+to `<out>/<cell>.json`.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-0.5b \\
-      --shape prefill_32k [--device cuda|cpu] [--out DIR]
+      --shape prefill_32k [--mesh 1gpu|single|multi|both] \\
+      [--sharding-mode fsdp|tp] [--device cuda|cpu] [--out DIR]
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --device cpu
 
-`--device` names the fake tensors' device: `cuda` (the default) needs a
-CUDA build of PyTorch and a GPU, as every entry point of the port does.
+`--device` names the fake tensors' device (and the mesh's): `cuda` (the
+default) needs a CUDA build of PyTorch and a GPU, as every entry point of
+the port does.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 import time
@@ -57,14 +70,13 @@ import torch
 
 from repro_torch import configs
 from repro_torch.configs.shapes import SHAPES, shape_by_name
-from repro_torch.core.roofline import (HW, CollectiveStats,
-                                       analytic_hbm_bytes, model_flops,
-                                       roofline_from_totals)
+from repro_torch.core.roofline import (HW, analytic_hbm_bytes,
+                                       model_flops, roofline_from_totals)
 from repro_torch.launch.steps import trace_step
 from repro_torch.models.layers import not_ported
 
 __all__ = ["MESH", "OUT_DIR", "DEFAULT_MICROBATCHES", "UNCOUNTED_TRAIN",
-           "run_cell", "main"]
+           "mesh_name", "fake_mesh", "cut_microbatches", "run_cell", "main"]
 
 OUT_DIR = Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
 MESH = "1gpu"                          # one card, no mesh
@@ -88,26 +100,95 @@ UNCOUNTED_TRAIN = {
 }
 
 
+def mesh_name(multi_pod: Optional[bool]) -> str:
+    """"1gpu", or the reference's "16x16" / "2x16x16"."""
+    if multi_pod is None:
+        return MESH
+    return "2x16x16" if multi_pod else "16x16"
+
+
+def _register_fake_backend() -> None:
+    """Register torch's `FakeProcessGroup` as the "fake" backend, where
+    nothing registered it yet (PyTorch ships the class, and registers it
+    only from its test helpers)."""
+    import torch.distributed as dist
+    from torch._C._distributed_c10d import FakeProcessGroup
+
+    if "FAKE" in dist.Backend._plugins:
+        return
+
+    def make(common_opts, backend_opts):
+        create = getattr(FakeProcessGroup, "_create_internal", None)
+        if create is not None:
+            return create(common_opts.group_rank, common_opts.group_size,
+                          backend_opts)
+        return FakeProcessGroup(common_opts.group_rank,
+                                common_opts.group_size)
+
+    dist.Backend.register_backend("fake", make, extended_api=True,
+                                  devices=["cpu", "cuda"])
+
+
+@contextlib.contextmanager
+def fake_mesh(multi_pod: bool, device: str = "cuda"):
+    """The reference's production mesh (`launch.mesh.
+    make_production_mesh`) over a fake process group of 256 or 512 ranks
+    made in this process, which is rank 0 (the "fake" backend: no
+    collective moves a byte).  Refuses if a process group is initialised
+    already, and destroys its own on exit."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_production_mesh
+
+    if dist.is_initialized():
+        raise RuntimeError(
+            "a process group is initialised already: the mesh dry-run makes "
+            "its own fake group of 256 / 512 ranks and cannot share one")
+    _register_fake_backend()
+    dist.init_process_group("fake", store=dist.HashStore(), rank=0,
+                            world_size=512 if multi_pod else 256)
+    try:
+        yield make_production_mesh(multi_pod=multi_pod, device_type=device)
+    finally:
+        dist.destroy_process_group()
+
+
+def cut_microbatches(mesh, shape, microbatches: int) -> int:
+    """A train cell's microbatches, cut as the reference cuts them: each
+    microbatch still tiles the batch's shards (`microbatches` at most the
+    global batch over the product of the batch axes' sizes), one row a
+    microbatch at least on one card."""
+    n_shards = 1
+    if mesh is not None:
+        from repro_torch.launch.mesh import batch_axes_for
+
+        names = tuple(mesh.mesh_dim_names)
+        for a in batch_axes_for(mesh, shape.global_batch):
+            n_shards *= mesh.size(names.index(a))
+    return max(1, min(microbatches, shape.global_batch // n_shards))
+
+
 def run_cell(arch_name: str, shape_name: str, out_dir: Path, *,
-             device: str = "cuda", sharding_mode: str = "fsdp",
-             remat: str = "full", microbatches: int = 0,
+             multi_pod: Optional[bool] = None, device: str = "cuda",
+             sharding_mode: str = "fsdp", remat: str = "full",
+             microbatches: int = 0,
              overrides: Optional[Dict[str, Any]] = None,
              rule_updates: Optional[Dict[str, Any]] = None,
              tag: str = "") -> dict:
     """Count one cell's step and write its record to `out_dir`.
 
-    `overrides` may set `attn_kv_block` (the plain attention's KV tile)
-    and `moe_group_size` (the tokens the MoE block routes together: its
-    dispatch buffers' size, so the step's peak, and with it the capacity
-    a group gives each expert).
-    A train cell runs under `remat` over `microbatches` (0: the
-    reference's `DEFAULT_MICROBATCHES`, at most the batch).
-    `sharding_mode` and `rule_updates` change nothing in a count on one
-    chip (mesh "1gpu"; the per-rank count over a mesh comes later, see
-    ROADMAP.md), nor do `remat` and `microbatches` in a serving cell: they
-    exist only to fill the `config` entry of the reference's record
-    shape."""
-    cell_id = f"{arch_name}_{shape_name}_{MESH}{tag}"
+    `multi_pod=None` counts one card (mesh "1gpu"); `False` / `True` count
+    rank 0 of 16x16 / 2x16x16 inside `fake_mesh`, with `sharding_mode` and
+    `rule_updates` choosing the rules (on one card they change nothing and
+    are only recorded).  `overrides` may set `attn_kv_block` (the plain
+    attention's KV tile) and `moe_group_size` (the tokens the MoE block
+    routes together: its dispatch buffers' size, so the step's peak, and
+    with it the capacity a group gives each expert).  A train cell runs
+    under `remat` over `microbatches` (0: the reference's
+    `DEFAULT_MICROBATCHES`, cut by `cut_microbatches`); neither changes a
+    serving cell."""
+    mesh_id = mesh_name(multi_pod)
+    cell_id = f"{arch_name}_{shape_name}_{mesh_id}{tag}"
     out_path = Path(out_dir) / f"{cell_id}.json"
 
     shape = shape_by_name(shape_name)
@@ -125,69 +206,92 @@ def run_cell(arch_name: str, shape_name: str, out_dir: Path, *,
     if microbatches <= 0:
         microbatches = DEFAULT_MICROBATCHES.get(arch_name, 1) \
             if shape.mode == "train" else 1
-    if shape.mode == "train":
-        # each microbatch holds one row at least
-        microbatches = max(1, min(microbatches, shape.global_batch))
     rt_overrides = dict(overrides or {})
     if shape.mode == "decode" and arch_name in DEFAULT_SERVE_KV_DTYPE:
         rt_overrides.setdefault("kv_dtype", DEFAULT_SERVE_KV_DTYPE[arch_name])
     kv_bytes = 1 if rt_overrides.get("kv_dtype") == "f8" else 2
-    t0 = time.time()
-    try:
-        counts, rt = trace_step(arch, shape, device=device,
-                                overrides=rt_overrides, remat=remat,
-                                microbatches=microbatches)
-        t_trace = time.time() - t0
-        hw = HW()
-        analytic = analytic_hbm_bytes(arch, shape, 1, tp=1,
-                                      microbatches=microbatches,
-                                      kv_bytes=kv_bytes)
-        rep = roofline_from_totals(
-            arch=arch_name, shape=shape_name, mesh_name=MESH, chips=1,
-            flops=counts.flops, hbm_bytes=counts.bytes_accessed,
-            coll=CollectiveStats(), peak_bytes=counts.peak_bytes,
-            analytic_bytes=analytic,
-            model_flops_total=model_flops(arch, shape), hw=hw)
-        rec = {
-            "cell": cell_id, "status": "OK",
-            # nothing is lowered or compiled: the trace is the whole cost
-            "lower_s": 0.0, "compile_s": round(t_trace, 2),
-            "total_s": round(time.time() - t0, 2),
-            "memory_analysis": (f"peak live storage {counts.peak_bytes} "
-                                f"bytes (params, inputs and caches "
-                                f"included) on fake {device} tensors"),
-            "fits_hbm": bool(counts.peak_bytes <= hw.hbm_bytes),
-            "roofline": rep.to_json(), "analytic_bytes": analytic,
-            "probes": [],
-            "config": {"sharding_mode": sharding_mode, "remat": remat,
-                       "microbatches": microbatches,
-                       "overrides": overrides or {},
-                       "rule_updates": {k: str(v) for k, v in
-                                        (rule_updates or {}).items()}},
-            "device": device,
-            "runtime": {"param_dtype": str(rt.param_dtype),
-                        "compute_dtype": str(rt.compute_dtype),
-                        "attn_kv_block": rt.attn_kv_block,
-                        "moe_group_size": rt.moe_group_size,
-                        "kv_dtype": rt.kv_dtype, "kv_bytes": kv_bytes,
-                        "remat": rt.remat, "use_kernels": rt.use_kernels},
-            "flops_by_op": counts.flops_by_op,
-            "matmul_flops": counts.matmul_flops,
-            "elementwise_flops": counts.elementwise_flops,
-            "transcendentals": counts.transcendentals,
-        }
-        print(f"[dryrun] {cell_id}: OK peak={counts.peak_bytes/1e9:.2f}GB "
-              f"trace={t_trace:.1f}s  {rep.row()}")
-    except NotImplementedError:
-        raise
-    except Exception as e:   # noqa: BLE001 — record the failure, keep going
-        rec = {"cell": cell_id, "status": "FAILED",
-               "error": f"{type(e).__name__}: {e}",
-               "traceback": traceback.format_exc()[-4000:]}
-        print(f"[dryrun] {cell_id}: FAILED {type(e).__name__}: {e}")
+    with (fake_mesh(multi_pod, device) if multi_pod is not None
+          else contextlib.nullcontext()) as mesh:
+        chips = 1 if mesh is None else mesh.size()
+        if shape.mode == "train":
+            microbatches = cut_microbatches(mesh, shape, microbatches)
+        t0 = time.time()
+        try:
+            counts, rt = trace_step(arch, shape, device=device,
+                                    overrides=rt_overrides, remat=remat,
+                                    microbatches=microbatches, mesh=mesh,
+                                    sharding_mode=sharding_mode,
+                                    rule_updates=rule_updates)
+            t_trace = time.time() - t0
+            hw = HW()
+            # the reference's tensor-parallel width on its meshes (its
+            # default `tp`), none on one card
+            analytic = analytic_hbm_bytes(
+                arch, shape, chips, microbatches=microbatches,
+                kv_bytes=kv_bytes, **({"tp": 1} if mesh is None else {}))
+            rep = roofline_from_totals(
+                arch=arch_name, shape=shape_name, mesh_name=mesh_id,
+                chips=chips, flops=counts.flops,
+                hbm_bytes=counts.bytes_accessed, coll=counts.collectives,
+                peak_bytes=counts.peak_bytes, analytic_bytes=analytic,
+                model_flops_total=model_flops(arch, shape), hw=hw)
+            where = "rank 0's local shards" if mesh is not None else \
+                "one card"
+            rec = {
+                "cell": cell_id, "status": "OK",
+                # nothing is lowered or compiled: the trace is the whole
+                # cost
+                "lower_s": 0.0, "compile_s": round(t_trace, 2),
+                "total_s": round(time.time() - t0, 2),
+                "memory_analysis": (
+                    f"peak live storage {counts.peak_bytes} bytes (params, "
+                    f"inputs and caches included) on {where}, fake "
+                    f"{device} tensors"),
+                "fits_hbm": bool(counts.peak_bytes <= hw.hbm_bytes),
+                "roofline": rep.to_json(), "analytic_bytes": analytic,
+                "probes": [],
+                "config": {"sharding_mode": sharding_mode, "remat": remat,
+                           "microbatches": microbatches,
+                           "overrides": overrides or {},
+                           "rule_updates": {k: str(v) for k, v in
+                                            (rule_updates or {}).items()}},
+                "device": device,
+                "runtime": {"param_dtype": str(rt.param_dtype),
+                            "compute_dtype": str(rt.compute_dtype),
+                            "attn_kv_block": rt.attn_kv_block,
+                            "moe_group_size": rt.moe_group_size,
+                            "kv_dtype": rt.kv_dtype, "kv_bytes": kv_bytes,
+                            "remat": rt.remat,
+                            "use_kernels": rt.use_kernels},
+                "flops_by_op": counts.flops_by_op,
+                "matmul_flops": counts.matmul_flops,
+                "elementwise_flops": counts.elementwise_flops,
+                "transcendentals": counts.transcendentals,
+            }
+            if mesh is not None:
+                rec.update({
+                    "mesh": mesh_id, "chips": chips,
+                    "arg_bytes_per_chip": counts.arg_bytes,
+                    "collectives": {
+                        "by_kind": dict(counts.collectives.by_kind),
+                        "count": counts.collectives.count}})
+            print(f"[dryrun] {cell_id}: OK "
+                  f"peak={counts.peak_bytes/1e9:.2f}GB "
+                  f"trace={t_trace:.1f}s  {rep.row()}")
+        except NotImplementedError:
+            raise
+        except Exception as e:   # noqa: BLE001 — record it, keep going
+            rec = {"cell": cell_id, "status": "FAILED",
+                   "error": f"{type(e).__name__}: {e}",
+                   "traceback": traceback.format_exc()[-4000:]}
+            print(f"[dryrun] {cell_id}: FAILED {type(e).__name__}: {e}")
     out_path.parent.mkdir(parents=True, exist_ok=True)
     out_path.write_text(json.dumps(rec, indent=2))
     return rec
+
+
+MESH_CHOICES = {"1gpu": [None], "single": [False], "multi": [True],
+                "both": [False, True]}
 
 
 def main(argv=None) -> int:
@@ -197,6 +301,11 @@ def main(argv=None) -> int:
     ap.add_argument("--shape", choices=[s.name for s in SHAPES])
     ap.add_argument("--all", action="store_true",
                     help="sweep every (arch x shape) cell")
+    ap.add_argument("--mesh", choices=list(MESH_CHOICES), default="1gpu",
+                    help="1gpu (default): one card; single / multi / both: "
+                         "rank 0 of 16x16, of 2x16x16, or of each")
+    ap.add_argument("--sharding-mode", default="fsdp",
+                    choices=["fsdp", "tp"])
     ap.add_argument("--device", default="cuda",
                     help="device of the fake tensors: cuda (default; fails "
                          "without a GPU) or cpu")
@@ -220,15 +329,18 @@ def main(argv=None) -> int:
 
     n_fail = n_cut = 0
     for arch_name, shape_name in cells:
-        try:
-            rec = run_cell(arch_name, shape_name, out_dir,
-                           device=args.device, remat=args.remat)
-        except NotImplementedError as e:
-            n_cut += 1
-            print(f"[dryrun] {arch_name}_{shape_name}_{MESH}: "
-                  f"NOT PORTED ({e})")
-            continue
-        n_fail += rec["status"] == "FAILED"
+        for multi_pod in MESH_CHOICES[args.mesh]:
+            try:
+                rec = run_cell(arch_name, shape_name, out_dir,
+                               multi_pod=multi_pod, device=args.device,
+                               sharding_mode=args.sharding_mode,
+                               remat=args.remat)
+            except NotImplementedError as e:
+                n_cut += 1
+                print(f"[dryrun] {arch_name}_{shape_name}_"
+                      f"{mesh_name(multi_pod)}: NOT PORTED ({e})")
+                continue
+            n_fail += rec["status"] == "FAILED"
     print(f"[dryrun] done; {n_fail} failures, {n_cut} cells not ported")
     return 1 if n_fail or (n_cut and not args.all) else 0
 

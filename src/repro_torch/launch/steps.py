@@ -17,14 +17,21 @@ Over a device mesh (`launch.mesh`), `make_runtime(mesh=...)` derives the
 reference's sharding rules for the cell, `step_placements` gives the
 DTensor placements of every argument and result of the cell's step (the
 reference's `in_shardings` / `out_shardings`), and `place_params` puts a
-parameter tree on the mesh.  The steps themselves run on plain tensors
-(a rank's local shards); the models' sharding constraints come with the
-dry-run over a mesh (see ROADMAP.md).
+parameter tree on the mesh.  A step runs on a rank's local shards as
+plain tensors, or on the DTensors themselves: then the models' sharding
+sites (`Runtime.shard`) lay its activations out as the reference's
+constraints do, the tensors it makes for itself join as replicated ones,
+and a serving step runs under `no_grad`.  `trace_step(mesh=...)` counts
+such a step per rank, its collectives included (the dry-run over a mesh,
+`launch.dryrun`).
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
+import functools
 import weakref
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
@@ -34,6 +41,7 @@ from torch.utils import _pytree as pytree
 from torch.utils._pytree import tree_leaves
 
 from repro_torch.configs.shapes import ShapeSpec
+from repro_torch.core.roofline import CollectiveStats
 from repro_torch.distributed.sharding import (AxisRules, Layout, fsdp_rules,
                                               placements_of, shard_shape,
                                               tp_rules)
@@ -184,12 +192,15 @@ def step_placements(arch: ArchConfig, shape: ShapeSpec, mesh, *,
                           (params, opt, metrics))
 
 
-def place_params(params, mesh, layouts):
+def place_params(params, mesh, layouts, src_data_rank: Optional[int] = 0):
     """`params` (nested dicts and lists of tensors: parameters or decode
     caches) on `mesh` as DTensors, leaf by leaf
     with `distribute_tensor` at the `Layout` of the same place in
     `layouts` (e.g. `step_placements(...).inputs[0]`).  Every leaf must
-    have its layout's shape, divisible by its mesh axes."""
+    have its layout's shape, divisible by its mesh axes.  `src_data_rank`
+    is `distribute_tensor`'s: the rank whose data every rank takes (by a
+    scatter or a broadcast), or None for each rank to cut its own shard
+    from the tensor it holds, with no communication."""
     from torch.distributed.tensor import distribute_tensor
 
     def place(x, lay: Layout):
@@ -197,7 +208,8 @@ def place_params(params, mesh, layouts):
             raise ValueError(f"a leaf of shape {tuple(x.shape)} where the "
                              f"layout has {lay.shape}")
         shard_shape(lay.shape, mesh, lay.placements)
-        return distribute_tensor(x, mesh, lay.placements)
+        return distribute_tensor(x, mesh, lay.placements,
+                                 src_data_rank=src_data_rank)
 
     def walk(x, lay):
         if isinstance(x, dict):
@@ -213,6 +225,41 @@ def place_params(params, mesh, layouts):
         return place(x, lay)
 
     return walk(params, layouts)
+
+
+def _split_rows(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x [B, ...] as n microbatches [n, B / n, ...].  Over a mesh each rank
+    splits its own rows, so every microbatch holds rows of every batch
+    shard and tiles the shards, where the reference constrains the split
+    batch to (None, "batch") (DTensor cannot reshape a sharded dimension
+    in place; which rows go to which microbatch changes no sum)."""
+    from torch.distributed.tensor import DTensor, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    def split(t):
+        return t.reshape((n, t.shape[0] // n) + t.shape[1:])
+
+    if not isinstance(x, DTensor):
+        return split(x)
+    out = tuple(Shard(p.dim + 1) if p.is_shard() else p
+                for p in x.placements)
+    return local_map(split, out_placements=(out,),
+                     in_placements=(tuple(x.placements),),
+                     device_mesh=x.device_mesh)(x)
+
+
+def _zeros_f32(p: torch.Tensor) -> torch.Tensor:
+    """fp32 zeros of `p`'s shape on its device; over a mesh laid out as
+    `p` (each rank's zeros of its shard's shape)."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(p, DTensor):
+        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    local = p.to_local()
+    return DTensor.from_local(
+        torch.zeros(local.shape, dtype=torch.float32, device=local.device),
+        p.device_mesh, p.placements, run_check=False, shape=p.shape,
+        stride=p.stride())
 
 
 def _value_and_grad(model: Model, rt: Runtime, params, batch):
@@ -237,12 +284,11 @@ def loss_and_grads(model: Model, rt: Runtime, params, batch,
     if microbatches <= 1:
         return _value_and_grad(model, rt, params, batch)
     n = microbatches
-    micro = {k: v.reshape((n, v.shape[0] // n) + v.shape[1:])
+    micro = {k: rt.shard(_split_rows(v, n), None, "batch")
              for k, v in batch.items()}
     leaves = pytree.tree_leaves(params)
     loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-    grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-             for p in leaves]
+    grads = [_zeros_f32(p) for p in leaves]
 
     def accumulate(i, loss):
         mb_loss, mb_grads = _value_and_grad(
@@ -280,7 +326,7 @@ def make_train_step(model: Model, rt: Runtime, *, base_lr: float = 3e-4,
     decay = model.decay_mask()
 
     def train_step(params, opt_state: AdamWState, batch):
-        with full_precision_products():
+        with _over_mesh(params), full_precision_products():
             loss, grads = loss_and_grads(model, rt, params, batch,
                                          microbatches)
             # step + 1: the schedule is evaluated for the step being taken
@@ -296,10 +342,34 @@ def make_train_step(model: Model, rt: Runtime, *, base_lr: float = 3e-4,
     return train_step
 
 
+def _on_mesh(params) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(next(iter(tree_leaves(params)), None), DTensor)
+
+
+def _over_mesh(params):
+    """A step on DTensors meets the tensors it makes for itself
+    (positions, masks, constants) as replicated DTensors
+    (`implicit_replication`), as every rank makes them whole."""
+    if not _on_mesh(params):
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()
+
+
+def _no_autograd(params):
+    """The serving steps' autograd context: `inference_mode`, or `no_grad`
+    for a step on DTensors (a view of a DTensor made outside
+    `inference_mode` cannot be taken inside it)."""
+    return torch.no_grad() if _on_mesh(params) else torch.inference_mode()
+
+
 def make_prefill_step(model: Model, rt: Runtime) -> Callable:
     def prefill_step(params, batch):
         # the sampler needs only the last position's logits
-        with torch.inference_mode(), full_precision_products():
+        with _no_autograd(params), _over_mesh(params), \
+                full_precision_products():
             logits = model.forward(params, batch, rt, last_only=True)
         return logits[:, -1, :]
     return prefill_step
@@ -307,7 +377,8 @@ def make_prefill_step(model: Model, rt: Runtime) -> Callable:
 
 def make_serve_step(model: Model, rt: Runtime) -> Callable:
     def serve_step(params, cache, token, pos):
-        with torch.inference_mode(), full_precision_products():
+        with _no_autograd(params), _over_mesh(params), \
+                full_precision_products():
             return model.decode_step(params, cache, token, pos, rt)
     return serve_step
 
@@ -329,7 +400,13 @@ class StepCounts:
     "bytes accessed", an upper bound on device-memory traffic.
     `peak_bytes`: the most bytes of storage alive at once, the step's
     arguments included (params, inputs, caches), in use by tensors; no
-    allocator rounding, no library workspace."""
+    allocator rounding, no library workspace.
+
+    Over a mesh (a step on DTensors) every count is rank 0's: the ops on
+    its local shards, and `collectives` the result bytes of each
+    collective it takes part in, by the reference's kind names (the sum
+    `core.roofline.parse_collective_bytes` takes over an HLO's result
+    shapes); on one device `collectives` is empty."""
 
     flops: int
     flops_by_op: Dict[str, int]
@@ -339,6 +416,11 @@ class StepCounts:
     matmul_flops: int = 0
     elementwise_flops: int = 0
     transcendentals: int = 0
+    collectives: CollectiveStats = dataclasses.field(
+        default_factory=CollectiveStats)
+    # bytes of each argument of the step (its local shards over a mesh),
+    # by name, where `trace_step` made them
+    arg_bytes: Dict[str, int] = dataclasses.field(default_factory=dict)
 
 
 # (FLOPs, transcendentals) per output element of a pointwise aten op, as
@@ -415,18 +497,146 @@ def _elementwise_cost(func, args, outs) -> Tuple[int, int]:
     return f * out, tr * out
 
 
+# the collectives of `torch.distributed._functional_collectives` (and
+# DTensor's all-to-all) by the reference's HLO kind names; `wait_tensor`
+# only waits on the result of one of them
+_COLLECTIVES = {
+    **{f"_c10d_functional.{op}": kind for kind, ops in (
+        ("all-gather", ("all_gather_into_tensor",
+                        "all_gather_into_tensor_coalesced")),
+        ("reduce-scatter", ("reduce_scatter_tensor",
+                            "reduce_scatter_tensor_coalesced")),
+        ("all-reduce", ("all_reduce", "all_reduce_", "all_reduce_coalesced",
+                        "all_reduce_coalesced_")),
+        ("all-to-all", ("all_to_all_single",)),
+        ("collective-permute", ("broadcast", "broadcast_")),
+    ) for op in ops},
+    "_dtensor.shard_dim_alltoall": "all-to-all",
+}
+_WAIT = "_c10d_functional.wait_tensor"
+
+
+class _LocalFlops:
+    """`FlopCounterMode`'s count of the matmul family kept by `_Counter`
+    itself, on the local tensors of a step over a mesh (`FlopCounterMode`
+    would count a DTensor op at its global shapes): the same formulas
+    (`torch.utils.flop_counter`'s registry) and the same
+    `flop_counts["Global"]` record."""
+
+    def __init__(self):
+        from torch.utils.flop_counter import FlopCounterMode
+        self.registry = FlopCounterMode(display=False).flop_registry
+        self.flop_counts = {"Global": collections.defaultdict(int)}
+
+    def count(self, func, out, args, kwargs) -> None:
+        packet = func._overloadpacket
+        if packet in self.registry:
+            self.flop_counts["Global"][packet] += self.registry[packet](
+                *args, **(kwargs or {}), out_val=out)
+
+    def get_flop_counts(self):
+        return self.flop_counts
+
+    def get_total_flops(self) -> int:
+        return sum(self.flop_counts["Global"].values())
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (the tensor itself if it is none)."""
+    from torch.distributed.tensor import DTensor
+
+    return t._local_tensor if isinstance(t, DTensor) else t
+
+
+def _slice_of(t: torch.Tensor, xs: torch.Tensor) -> bool:
+    """`layers.slice_of(t, xs, 0)`; for DTensors on their local shards,
+    by storage (DTensor takes its local views below autograd, where a view
+    records no `_base`)."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(t, DTensor):
+        return slice_of(t, xs, 0)
+    lt, lx = _local(t), _local(xs)
+    return (lt.untyped_storage()._cdata == lx.untyped_storage()._cdata
+            and tuple(lt.shape) == tuple(lx.shape[1:])
+            and lt.stride() == lx.stride()[1:]
+            and lt.storage_offset() == lx.storage_offset())
+
+
+@contextlib.contextmanager
+def _propagation_muted(counter: "_Counter"):
+    """DTensor plans each op on the host before it runs it on the local
+    shards: its sharding propagation (`ShardingPropagator`, cached per op
+    and placements) runs the op on fake tensors of the global shapes, or
+    its decomposition on meta tensors over a one-rank mesh, and a strided
+    shard's local sizes come from splitting an `arange`
+    (`_StridedShard.local_shard_size_and_offset`, also when a tensor is
+    redistributed).  Those ops are no rank's work: the counter lets them
+    through uncounted and unheld, and they run outside the ambient fake
+    mode (with it their host arithmetic, `tolist` and `nonzero` on index
+    tensors, would have no values; the propagation makes its own fake
+    tensors)."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.placement_types import _StridedShard
+
+    def muted(orig):
+        @functools.wraps(orig)
+        def run(*args, **kwargs):
+            counter.muted += 1
+            try:
+                with unset_fake_temporarily():
+                    return orig(*args, **kwargs)
+            finally:
+                counter.muted -= 1
+        return run
+
+    # on the instance: the dispatcher calls them there, and the cached
+    # one is an attribute of the instance
+    prop = DTensor._op_dispatcher.sharding_propagator
+    names = [n for n in ("propagate_op_sharding",
+                         "propagate_op_sharding_non_cached")
+             if hasattr(prop, n)]
+    own = {n: prop.__dict__[n] for n in names if n in prop.__dict__}
+    for n in names:
+        setattr(prop, n, muted(getattr(prop, n)))
+    strided = _StridedShard.__dict__.get("local_shard_size_and_offset")
+    if strided is not None:
+        _StridedShard.local_shard_size_and_offset = muted(strided)
+    try:
+        yield
+    finally:
+        for n in names:
+            if n in own:
+                setattr(prop, n, own[n])
+            else:
+                delattr(prop, n)
+        if strided is not None:
+            _StridedShard.local_shard_size_and_offset = strided
+
+
 class _Counter(TorchDispatchMode):
     """Live storage bytes (with their peak) for every op, and operand and
     result bytes, elementwise FLOPs and transcendentals while `counting` is
-    set."""
+    set.
 
-    def __init__(self):
+    With `per_rank` (a step on DTensors) the counter passes every op on a
+    DTensor on to DTensor (`NotImplemented`) and counts the ops DTensor
+    runs on rank 0's local shards, its collectives among them
+    (`collectives`), and the matmul family itself (`_LocalFlops`)."""
+
+    def __init__(self, per_rank: bool = False):
         super().__init__()
         self.sizes: Dict[int, int] = {}
         self.live = self.peak = 0
         self.bytes_accessed = self.ops = 0
         self.elementwise_flops = self.transcendentals = 0
         self.counting = False
+        self.per_rank = per_rank
+        self.muted = 0
+        self.collectives = CollectiveStats()
+        if per_rank:
+            self.flop_counter = _LocalFlops()
 
     def hold(self, t: torch.Tensor) -> None:
         st = t.untyped_storage()
@@ -450,6 +660,8 @@ class _Counter(TorchDispatchMode):
         fields = ("ops", "bytes_accessed", "elementwise_flops",
                   "transcendentals")
         was, was_flops = [getattr(self, f) for f in fields], dict(flops)
+        coll = self.collectives
+        was_coll, was_n = dict(coll.by_kind), coll.count
         out = fn()
         counted = dict(flops)
         flops.clear()
@@ -458,6 +670,11 @@ class _Counter(TorchDispatchMode):
         for f, w in zip(fields, was):
             setattr(self, f, getattr(self, f) + (n - 1) * (
                 getattr(self, f) - w))
+        for kind, b in dict(coll.by_kind).items():
+            extra = (n - 1) * (b - was_coll.get(kind, 0))
+            coll.by_kind[kind] += extra
+            coll.total_bytes += extra
+        coll.count += (n - 1) * (coll.count - was_n)
         return out
 
     def repeat_scan(self, step, carry, xs, n: int):
@@ -473,9 +690,9 @@ class _Counter(TorchDispatchMode):
         y = self.repeat(lambda: step(carry, x0)[1], n)
 
         def written_in_place(t):
-            return next((x for x in leaves if slice_of(t, x, 0)), None)
+            return next((x for x in leaves if _slice_of(t, x)), None)
 
-        held_shapes = [((n - 1,) + tuple(t.shape), t.dtype)
+        held_shapes = [((n - 1,) + tuple(_local(t).shape), t.dtype)
                        for t in pytree.tree_leaves(y)
                        if isinstance(t, torch.Tensor)
                        and written_in_place(t) is None]
@@ -484,7 +701,8 @@ class _Counter(TorchDispatchMode):
         flops = self.flop_counter.flop_counts["Global"]
         kept = dict(flops)
         self.counting = False
-        held = [torch.empty(shape, dtype=dtype, device=leaves[0].device)
+        held = [torch.empty(shape, dtype=dtype,
+                            device=_local(leaves[0]).device)
                 for shape, dtype in held_shapes]
         # the last step's input carry, apart from the first's
         last = pytree.tree_map_only(torch.Tensor, torch.empty_like, carry)
@@ -504,12 +722,44 @@ class _Counter(TorchDispatchMode):
         return carry, ys
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if self.muted:
+            return func(*args, **(kwargs or {}))
+        if self.per_rank:
+            from torch.distributed.tensor import DTensor
+            if any(isinstance(t, DTensor)
+                   for t in tree_leaves((args, kwargs))):
+                return NotImplemented       # DTensor runs the local ops
+            if func._overloadpacket not in self.flop_counter.registry \
+                    and func is not torch.ops.prim.device.default:
+                # `FlopCounterMode`'s own rule, which stands above this
+                # mode on one device: an op it has no formula for runs
+                # as its decomposition, where it has one
+                with self:
+                    r = func.decompose(*args, **(kwargs or {}))
+                if r is not NotImplemented:
+                    return r
         out = func(*args, **(kwargs or {}))
         outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
+        if self.per_rank and any(t.device.type == "meta" for t in outs):
+            # DTensor's planning through an op's decomposition runs on
+            # meta tensors: no rank's work
+            return out
         for t in outs:
             self.hold(t)
+        if not (self.counting and outs):
+            return out
+        name = f"{func.namespace}.{func._opname}"
+        if name in _COLLECTIVES:
+            for t in outs:
+                self.collectives.add(_COLLECTIVES[name],
+                                     t.numel() * t.element_size())
+            return out
+        if name == _WAIT:
+            return out
+        if self.per_rank:
+            self.flop_counter.count(func, out, args, kwargs)
         # ops with no tensor result (device or size queries) move nothing
-        if self.counting and outs and not func.is_view:
+        if not func.is_view:
             self.ops += 1
             self.bytes_accessed += sum(
                 t.numel() * t.element_size()
@@ -530,20 +780,31 @@ def count_step(step: Callable, *args) -> Tuple[Any, StepCounts]:
     microbatches one for all (`loss_and_grads`): the counts are exact,
     the output is not the model's where such a repeat ran.  Where grad is
     on (a train step) every step of a scan runs: the backward of a
-    replayed step would be counted once."""
+    replayed step would be counted once.
+
+    When an argument is a DTensor, the step runs over its mesh and is
+    counted per rank (`_Counter(per_rank=True)`)."""
+    from torch.distributed.tensor import DTensor
     from torch.utils.flop_counter import FlopCounterMode
 
-    counter = _Counter()
+    leaves = [t for t in tree_leaves(args) if isinstance(t, torch.Tensor)]
+    per_rank = any(isinstance(t, DTensor) for t in leaves)
+    counter = _Counter(per_rank)
     STEP_COUNTERS.append(counter)
     try:
-        with counter:
-            for t in tree_leaves(args):
-                if isinstance(t, torch.Tensor):
-                    counter.hold(t)
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(counter)
+            for t in leaves:
+                counter.hold(_local(t))
             counter.counting = True
-            with FlopCounterMode(display=False) as flop_counter:
+            if per_rank:
+                stack.enter_context(_propagation_muted(counter))
+                flop_counter = counter.flop_counter
+            else:
+                flop_counter = stack.enter_context(
+                    FlopCounterMode(display=False))
                 counter.flop_counter = flop_counter
-                out = step(*args)
+            out = step(*args)
             counter.counting = False
     finally:
         STEP_COUNTERS.remove(counter)
@@ -556,12 +817,15 @@ def count_step(step: Callable, *args) -> Tuple[Any, StepCounts]:
                            peak_bytes=counter.peak, ops=counter.ops,
                            matmul_flops=mm,
                            elementwise_flops=counter.elementwise_flops,
-                           transcendentals=counter.transcendentals)
+                           transcendentals=counter.transcendentals,
+                           collectives=counter.collectives)
 
 
 def trace_step(arch: ArchConfig, shape: ShapeSpec, *, device: str = "cuda",
                overrides: Optional[Dict[str, Any]] = None,
-               remat: str = "full", microbatches: int = 1
+               remat: str = "full", microbatches: int = 1, mesh=None,
+               sharding_mode: str = "fsdp",
+               rule_updates: Optional[Dict[str, Any]] = None
                ) -> Tuple[StepCounts, Runtime]:
     """Count one step of `arch` at `shape` on fake tensors of `device`
     (`torch._subclasses.fake_tensor.FakeTensorMode`): no memory is
@@ -577,38 +841,68 @@ def trace_step(arch: ArchConfig, shape: ShapeSpec, *, device: str = "cuda",
     runtime (an f8 KV cache under `kv_dtype="f8"`).  The whole step is
     counted once; in a serving step a `layers.scan` runs one step for all
     (the reference's scan probes have no counterpart), in a train step
-    every step of it runs."""
+    every step of it runs.
+
+    With a `mesh` (a `DeviceMesh` on `device` over an initialised group,
+    fake or real) this is the counterpart of the reference's
+    `build_step_bundle` on a mesh: the runtime carries the mesh and the
+    cell's rules (`sharding_mode`, `rule_updates`), every argument (the
+    params, AdamW's state, the batch, the caches, the token and its
+    position) is placed at `step_placements(...).inputs` as a DTensor,
+    and the same step runs on them, counted per rank (`count_step`)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     model = build_model(arch)
-    rt = make_runtime(arch, shape, remat=remat, overrides=overrides)
+    rt = make_runtime(arch, shape, remat=remat, overrides=overrides,
+                      mesh=mesh, sharding_mode=sharding_mode,
+                      rule_updates=rule_updates)
+    lay = (step_placements(arch, shape, mesh, sharding_mode=sharding_mode,
+                           rule_updates=rule_updates).inputs
+           if mesh is not None else None)
+
+    def placed(tree, i):
+        # fake tensors hold no data to send: each rank cuts its own shard
+        return tree if lay is None else place_params(tree, mesh, lay[i],
+                                                     src_data_rank=None)
+
     with FakeTensorMode():
-        params = map_specs(
+        params = placed(map_specs(
             lambda s: torch.empty(s.shape, device=device,
                                   dtype=s.resolved_dtype(rt.param_dtype)),
-            model.param_specs())
+            model.param_specs()), 0)
         specs = input_specs(arch, shape)
         if shape.mode in ("train", "prefill"):
-            batch = {name: torch.zeros(shp, dtype=dt, device=device)
-                     for name, (shp, dt) in specs.items()}
+            batch = placed({name: torch.zeros(shp, dtype=dt, device=device)
+                            for name, (shp, dt) in specs.items()},
+                           2 if shape.mode == "train" else 1)
         if shape.mode == "train":
+            step = torch.zeros((), dtype=torch.int32, device=device)
+            if lay is not None:
+                step = place_params(step, mesh, lay[1].step,
+                                    src_data_rank=None)
+            # the moments take the params' placements, as their layouts do
             state = AdamWState(
-                step=torch.zeros((), dtype=torch.int32, device=device),
-                mu=pytree.tree_map(torch.zeros_like, params),
+                step=step, mu=pytree.tree_map(torch.zeros_like, params),
                 nu=pytree.tree_map(torch.zeros_like, params))
-            _, counts = count_step(
-                make_train_step(model, rt, microbatches=microbatches),
-                params, state, batch)
+            args = {"params": params, "opt_state": state, "batch": batch}
+            fn = make_train_step(model, rt, microbatches=microbatches)
         elif shape.mode == "prefill":
-            _, counts = count_step(make_prefill_step(model, rt), params,
-                                   batch)
+            args = {"params": params, "batch": batch}
+            fn = make_prefill_step(model, rt)
         else:
-            cache = model.init_cache(shape.global_batch, shape.seq_len, rt,
-                                     device)
-            token = torch.zeros(specs["token"][0], dtype=torch.int64,
-                                device=device)
-            pos = torch.full((), shape.seq_len - 1, dtype=torch.int64,
-                             device=device)
-            _, counts = count_step(make_serve_step(model, rt), params,
-                                   cache, token, pos)
+            args = {"params": params,
+                    "cache": placed(model.init_cache(
+                        shape.global_batch, shape.seq_len, rt, device), 1),
+                    "token": placed(torch.zeros(
+                        specs["token"][0], dtype=torch.int64,
+                        device=device), 2),
+                    "pos": placed(torch.full(
+                        (), shape.seq_len - 1, dtype=torch.int64,
+                        device=device), 3)}
+            fn = make_serve_step(model, rt)
+        arg_bytes = {name: sum(_local(t).numel() * _local(t).element_size()
+                               for t in tree_leaves(tree))
+                     for name, tree in args.items()}
+        _, counts = count_step(fn, *args.values())
+    counts.arg_bytes = arg_bytes
     return counts, rt

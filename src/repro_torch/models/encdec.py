@@ -69,12 +69,17 @@ def _attn_block_specs(cfg: ArchConfig, cross: bool) -> Dict[str, Any]:
 
 
 def _proj(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
-          n: int, hd: int, rt: Runtime) -> torch.Tensor:
+          n: int, hd: int, rt: Runtime,
+          axes: Tuple[Optional[str], ...] = ("batch",)) -> torch.Tensor:
+    """One projection split into heads; `axes` the placement it takes
+    first over a mesh whose `qkv_fused` split cuts a head
+    (`layers.split_heads`)."""
     cd = rt.compute_dtype
     y = L.cd_matmul(x, w, cd)
     if b is not None:
         y = y + b.float()
-    return y.to(cd).reshape(x.shape[0], x.shape[1], n, hd)
+    y = rt.shard(y.to(cd), "batch", None, "qkv_fused")
+    return L.split_heads(y, n, hd, rt, *axes)
 
 
 def _mha(p: Params, xq: torch.Tensor, xkv: torch.Tensor, cfg: ArchConfig,
@@ -86,10 +91,13 @@ def _mha(p: Params, xq: torch.Tensor, xkv: torch.Tensor, cfg: ArchConfig,
         q, k, v = L.gqa_project(p, xq, cfg.num_heads, cfg.num_kv_heads, hd,
                                 rt)
     else:
-        q = _proj(xq, p["wq"], p.get("bq"), cfg.num_heads, hd, rt)
+        q = _proj(xq, p["wq"], p.get("bq"), cfg.num_heads, hd, rt,
+                  ("batch", "attn_seq"))
         k = _proj(xkv, p["wk"], p.get("bk"), cfg.num_kv_heads, hd, rt)
         v = _proj(xkv, p["wv"], p.get("bv"), cfg.num_kv_heads, hd, rt)
+    q = rt.shard(q, "batch", "attn_seq")
     o = L.blocked_attention(q, k, v, causal=causal, kv_block=rt.attn_kv_block)
+    o = rt.shard(o, "batch", "attn_seq")
     return L.gqa_out(p, o, rt)
 
 
@@ -146,7 +154,8 @@ class EncDecLM(nn.Module):
         cfg, cd = self.cfg, rt.compute_dtype
         eps = cfg.norm_eps
         S = frames.shape[1]
-        x = frames.to(cd) + params["enc_pos"][:S].to(cd)
+        x = rt.shard(frames.to(cd) + params["enc_pos"][:S].to(cd),
+                     "batch", None, None)
 
         def body(x, p):
             h = L.layer_norm(x, p["ln1_s"], p["ln1_b"], eps)
@@ -169,8 +178,8 @@ class EncDecLM(nn.Module):
         enc_out = self.encode(params, batch["frames"], rt)
         tok = batch["tokens"]
         S = tok.shape[1]
-        x = params["embed"][tok].to(cd)
-        x = x + params["dec_pos"][:S].to(cd)
+        x = L.embed_rows(params["embed"], tok).to(cd)
+        x = rt.shard(x + params["dec_pos"][:S].to(cd), "batch", None, None)
 
         def body(x, p):
             h = L.layer_norm(x, p["ln1_s"], p["ln1_b"], eps)
@@ -186,14 +195,16 @@ class EncDecLM(nn.Module):
             x = x[:, -1:]
         x = L.layer_norm(x, params["dec_norm_s"], params["dec_norm_b"], eps)
         logits = L.cd_matmul(x, params["embed"].t(), cd)
-        return self._mask_pad(logits.to(cd))
+        return rt.shard(self._mask_pad(logits.to(cd)), "batch", None,
+                        "vocab")
 
     def loss(self, params: Params, batch: Dict[str, torch.Tensor],
              rt: Runtime) -> torch.Tensor:
         """Next-token cross-entropy (fp32, 0-d), a plain mean over every
         position, as in the reference (no mask)."""
         logits = self.forward(params, batch, rt)
-        return cross_entropy(logits[:, :-1], batch["tokens"][:, 1:]).mean()
+        return cross_entropy(logits[:, :-1], batch["tokens"][:, 1:],
+                             rt).mean()
 
     def decay_mask(self) -> Dict[str, Any]:
         """Whether AdamW decays each leaf: the reference's rule, two
@@ -234,15 +245,19 @@ class EncDecLM(nn.Module):
         cfg, cd = self.cfg, rt.compute_dtype
         eps = cfg.norm_eps
         H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-        x = params["embed"][token].to(cd)
+        x = L.embed_rows(params["embed"], token).to(cd)
         x = x + dynamic_slice_in_dim(params["dec_pos"], pos, 1, 0).to(cd)
+        x = rt.shard(x, "batch", None, None)
 
         def body(x, pc):
             p, c = pc
             h = L.layer_norm(x, p["ln1_s"], p["ln1_b"], eps)
-            q, k_new, v_new = L.gqa_project(p["attn"], h, H, KV, hd, rt)
+            q, k_new, v_new = L.gqa_project(p["attn"], h, H, KV, hd, rt,
+                                            q_axes=("batch",))
             k = L.kv_cache_write(c["k"], k_new, pos)
             v = L.kv_cache_write(c["v"], v_new, pos)
+            k = rt.shard(k, "batch", "kv_seq")
+            v = rt.shard(v, "batch", "kv_seq")
             o = L.blocked_attention(q, k.to(cd), v.to(cd), causal=False,
                                     kv_block=rt.attn_kv_block,
                                     kv_len=pos + 1)
@@ -250,7 +265,8 @@ class EncDecLM(nn.Module):
             h = L.layer_norm(x, p["lnx_s"], p["lnx_b"], eps)
             # the cross k and v projections are made and dropped, as in
             # the reference (its cross caches are inputs)
-            qx, _, _ = L.gqa_project(p["xattn"], h, H, KV, hd, rt)
+            qx, _, _ = L.gqa_project(p["xattn"], h, H, KV, hd, rt,
+                                     q_axes=("batch",))
             ox = L.blocked_attention(qx, c["xk"].to(cd), c["xv"].to(cd),
                                      causal=False, kv_block=rt.attn_kv_block)
             x = x + L.gqa_out(p["xattn"], ox, rt)
@@ -261,4 +277,5 @@ class EncDecLM(nn.Module):
         x, new_cache = L.scan(body, x, (params["decoder"], cache))
         x = L.layer_norm(x, params["dec_norm_s"], params["dec_norm_b"], eps)
         logits = L.cd_matmul(x, params["embed"].t(), cd)
-        return self._mask_pad(logits), new_cache
+        return (rt.shard(self._mask_pad(logits), "batch", None, "vocab"),
+                new_cache)

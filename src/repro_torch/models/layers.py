@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Iterator, Optional, Tuple
 
@@ -103,11 +104,13 @@ class Runtime:
     batch dimensions (`mm`, `addmm`) and recomputes the rest.  `mesh` (a
     `DeviceMesh`) and `rules` (`distributed.AxisRules`) are the
     reference's: `shard` redistributes a DTensor to the rules' placements
-    and leaves a plain tensor as it is; the models do not call it yet
-    (the reference's call sites come with the dry-run over a mesh, see
-    ROADMAP.md).  The kernels have no backward: under `use_kernels` a
-    forward that needs gradients raises (the reference trains with
-    `use_pallas=False` as well)."""
+    and leaves a plain tensor as it is.  The models call it at the
+    counterparts of the reference's `rt.shard` sites, so a step on
+    DTensors over a mesh (`launch.steps.trace_step(mesh=...)`) is laid
+    out as the reference's, and every step on plain tensors is unchanged.
+    The kernels have no backward: under `use_kernels` a forward that
+    needs gradients raises (the reference trains with `use_pallas=False`
+    as well), and they take no DTensor (`no_kernel_on_dtensor`)."""
 
     compute_dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
@@ -119,6 +122,18 @@ class Runtime:
     remat: str = "none"                 # none | full | dots
     mesh: Any = None                    # torch.distributed DeviceMesh
     rules: Optional[AxisRules] = None
+
+    def axis_size(self, name: str) -> int:
+        """How many parts the rules split the logical axis `name` into on
+        the mesh (1 without a mesh)."""
+        if self.mesh is None or self.rules is None:
+            return 1
+        axes = self.rules.get(name)
+        if axes is None:
+            return 1
+        names = tuple(self.mesh.mesh_dim_names)
+        axes = (axes,) if isinstance(axes, str) else axes
+        return math.prod(self.mesh.size(names.index(a)) for a in axes)
 
     def shard(self, x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:
         if self.mesh is None or self.rules is None:
@@ -138,6 +153,47 @@ def no_kernel_backward(what: str, *tensors: torch.Tensor) -> None:
             f"{what} has no backward: under Runtime(use_kernels=True) its "
             "inputs would get no gradient.  Train with use_kernels=False, "
             "as the reference trains without Pallas (use_pallas=False).")
+
+
+def no_kernel_on_dtensor(what: str, *tensors: torch.Tensor) -> None:
+    """Raise if a kernel `what` would get a DTensor: a kernel reads the
+    memory of the tensor it is given, and a DTensor's is one rank's shard
+    (the reference's Pallas calls are not partitioned either).  Run a
+    placed step with `use_kernels=False`, or on the placed leaves'
+    `to_local()` tensors."""
+    from torch.distributed.tensor import DTensor
+
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(
+            f"{what} got a DTensor: the kernel would read one rank's shard "
+            "as the whole tensor.  Over a mesh run the plain path "
+            "(Runtime(use_kernels=False)) or the placed leaves' "
+            "to_local() tensors.")
+
+
+def shard_count(x: torch.Tensor, dim: int) -> int:
+    """The number of parts a DTensor's placements split dimension `dim`
+    into (1 for a plain tensor)."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return 1
+    dim %= x.ndim
+    return math.prod(x.device_mesh.size(i)
+                     for i, p in enumerate(x.placements)
+                     if p.is_shard() and p.dim == dim)
+
+
+def split_heads(y: torch.Tensor, n: int, hd: int, rt: "Runtime",
+                *axes: Optional[str]) -> torch.Tensor:
+    """y [B, S, n * hd] -> [B, S, n, hd].  Over a mesh whose placement of
+    the fused dimension cuts a head in two (n not a multiple of its
+    shards), y first takes the placement `axes` of the reference's next
+    constraint on this tensor: GSPMD reshards there silently, DTensor
+    refuses to unflatten an uneven split."""
+    if n % shard_count(y, -1):
+        y = rt.shard(y, *axes)
+    return y.reshape(y.shape[0], y.shape[1], n, hd)
 
 
 # ================================================================ param specs
@@ -326,7 +382,18 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     reference's scan: the KV blocks are its xs (`scan_slices`), the block
     counter a 0-d carry, and the mask is made from ones and and-ed every
     block in the reference's order (causal, window, `kv_len`, pad), so a
-    traced graph is the reference's vertex for vertex."""
+    traced graph is the reference's vertex for vertex.
+
+    On DTensors (a step over a mesh) the attention runs on each rank's
+    rows of q (`_attention_on_local_rows`)."""
+    if _is_dtensor(q):
+        if _is_dtensor(kv_len):             # a replicated position
+            kv_len = kv_len.full_tensor()
+        return _attention_on_local_rows(
+            functools.partial(blocked_attention, causal=causal,
+                              window=window, kv_block=kv_block,
+                              kv_len=kv_len),
+            q, k, v, q_offset)
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     hd_v = v.shape[-1]
@@ -374,8 +441,136 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (acc / l_t).reshape(B, Sq, H, -1).to(q.dtype)
 
 
+def softmax_last(s: torch.Tensor) -> torch.Tensor:
+    """`torch.softmax(s, dim=-1)`.  On a DTensor whose last dimension is
+    split (a decode step's scores over a sequence-split cache), written
+    out: its max, exp and sum, each rank over its own part and the
+    reductions across ranks (the partitioned softmax GSPMD runs; the same
+    FLOPs and transcendentals as the fused op).  DTensor's rule for the
+    fused op gathers the whole dimension."""
+    if shard_count(s, -1) == 1:
+        return torch.softmax(s, dim=-1)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def _first_row(x: torch.Tensor, dim: int) -> Optional[int]:
+    """Rank 0's (and every rank's) first index along `dim` of a DTensor
+    whose placements split it (its coordinates on the splitting mesh
+    dimensions, major to minor, times its rows), or None where the mesh
+    does not split `dim`."""
+    if shard_count(x, dim) == 1:
+        return None
+    mesh, row = x.device_mesh, 0
+    for i, p in enumerate(x.placements):
+        if p.is_shard() and p.dim == dim:
+            row = row * mesh.size(i) + mesh.get_local_rank(i)
+    return row * x.to_local().shape[dim]
+
+
+def _on_local_rows(fn, x: torch.Tensor, out_pl: tuple, *others
+                   ) -> torch.Tensor:
+    """`fn(x, *others)` on DTensors, rank by rank: each `(tensor,
+    placements)` of `others` taken at its placements, `fn` run on the
+    local shards, its result [B, S, ...] lying at `out_pl` as x's rows do
+    (the global rows x's, even where the mesh splits them unevenly, which
+    `local_map` cannot say)."""
+    from torch.distributed.tensor import DTensor
+
+    mesh = x.device_mesh
+    local = [t.redistribute(mesh, pl).to_local() for t, pl in others]
+    out = fn(x.redistribute(mesh, out_pl).to_local(), *local)
+    shape = torch.Size(tuple(x.shape[:2]) + tuple(out.shape[2:]))
+    return DTensor.from_local(out, mesh, out_pl, run_check=False,
+                              shape=shape,
+                              stride=torch.empty(shape, device="meta")
+                              .stride())
+
+
+def _attention_on_local_rows(attend, q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, q_offset: int
+                             ) -> torch.Tensor:
+    """`attend(q, k, v, q_offset=...)` on DTensors, rank by rank
+    (`_on_local_rows`): each rank attends its rows of q (q as it lies: batch
+    and, after the reference's `attn_seq` constraint, its sequence
+    sharded) to the whole sequence of k and v within its batch shard (the
+    reference keeps k and v replicated there), its first row's absolute
+    position its offset.  The output lies as q.  DTensor has no sharding
+    rule for the products of the attention on a sequence-sharded q (its
+    einsums flatten the sharded sequence with the heads into a strided
+    shard); GSPMD partitions the same region this way.  A k or v whose
+    sequence is sharded (a decode cache under `kv_seq`) would need a
+    cross-rank softmax, which this region does not do: it raises."""
+    from torch.distributed.tensor import Replicate
+
+    for t in (k, v):
+        if shard_count(t, 1) > 1:
+            raise not_ported(
+                "attention over a sequence-sharded k / v "
+                f"(placements {tuple(t.placements)}; a cross-rank softmax)")
+    q_pl = tuple(p if p.is_shard() and p.dim in (0, 1) else Replicate()
+                 for p in q.placements)
+    kv_pl = tuple(p if p.is_shard() and p.dim == 0 else Replicate()
+                  for p in q_pl)
+    first = _first_row(q, 1) or 0
+    return _on_local_rows(
+        lambda ql, kl, vl: attend(ql, kl, vl, q_offset=q_offset + first),
+        q, q_pl, (k, kv_pl), (v, kv_pl))
+
+
+def embed_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """`table[tokens]`.  On a DTensor table, rank by rank: each rank looks
+    its tokens up in its own rows of the table (its vocabulary shard,
+    the columns gathered), a token outside them giving zeros, and the
+    ranks' rows are summed where the vocabulary is split (a
+    vocabulary-parallel lookup; the gradient is each rank's rows, summed
+    over the batch's shards).  DTensor's own rules for an index into a
+    sharded table and its backward's accumulate differ between versions
+    (and fail in some)."""
+    if not _is_dtensor(table):
+        return table[tokens]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = table.device_mesh
+    rows = [p.is_shard() and p.dim == 0 for p in table.placements]
+    batch = [_is_dtensor(tokens) and p.is_shard() and p.dim == 0
+             for p in (tokens.placements if _is_dtensor(tokens)
+                       else table.placements)]
+    split = [i for i, r in enumerate(rows) if r and mesh.size(i) > 1]
+    t_pl = tuple(Shard(0) if r else Replicate() for r in rows)
+    k_pl = tuple(tokens.placements) if _is_dtensor(tokens) else None
+    out_pl = tuple(Shard(0) if b else Partial() if i in split
+                   else Replicate() for i, b in enumerate(batch))
+    grad_pl = tuple(Shard(0) if r else Partial() if b else Replicate()
+                    for r, b in zip(rows, batch))
+    first = 0
+    for i in split:
+        first = first * mesh.size(i) + mesh.get_local_rank(i)
+
+    def look_up(t, k):
+        if not split:
+            return t[k]
+        idx = k - first * t.shape[0]
+        inside = (idx >= 0) & (idx < t.shape[0])
+        return torch.where(inside[..., None], t[torch.where(inside, idx, 0)],
+                           0)
+
+    return local_map(look_up, out_placements=(out_pl,),
+                     in_placements=(t_pl, k_pl),
+                     in_grad_placements=(grad_pl, k_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(table, tokens)
+
+
 def local_block_attention(q: torch.Tensor, k: torch.Tensor,
-                          v: torch.Tensor, window: int) -> torch.Tensor:
+                          v: torch.Tensor, window: int,
+                          rt: Optional["Runtime"] = None) -> torch.Tensor:
     """Sliding-window causal attention, block-banded: query block n (of
     `w = min(window, S)` rows) attends to key blocks n - 1 and n, masked
     to `0 <= i - j < window`; block 0's previous block is zeros, masked
@@ -393,9 +588,16 @@ def local_block_attention(q: torch.Tensor, k: torch.Tensor,
         q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
     KV = k.shape[2]
     G = H // KV
+    if rt is not None and nblk % shard_count(q, 1):
+        # a sequence split that cuts a block: the batch alone first, as k
+        # and v (the site below splits each block's rows)
+        q = rt.shard(q, "batch")
     qb = (q * (1.0 / math.sqrt(hd))).reshape(B, nblk, w, KV, G, hd)
     kb = k.reshape(B, nblk, w, KV, hd)
     vb = v.reshape(B, nblk, w, KV, hd)
+    if rt is not None:
+        # the within-block query dim, whatever the block count
+        qb = rt.shard(qb, "batch", None, "attn_seq")
     dev = q.device
     qpos = torch.arange(w, device=dev)[:, None]
     kpos = torch.arange(2 * w, device=dev)[None, :] - w
@@ -423,6 +625,15 @@ def f8_bits(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() > 464, bits | 0x7F, bits)
 
 
+def _write_position(cache: torch.Tensor, new: torch.Tensor,
+                    pos: torch.Tensor) -> torch.Tensor:
+    if cache.dtype == torch.float8_e4m3fn:
+        cache.view(torch.uint8).index_copy_(1, pos.reshape(1),
+                                            f8_bits(new))
+        return cache
+    return cache.index_copy_(1, pos.reshape(1), new.to(cache.dtype))
+
+
 def kv_cache_write(cache: torch.Tensor, new: torch.Tensor,
                    pos: torch.Tensor) -> torch.Tensor:
     """Write `new` [B, 1, ...] into `cache` [B, S, ...] at seq position
@@ -430,12 +641,37 @@ def kv_cache_write(cache: torch.Tensor, new: torch.Tensor,
     reference returns a new buffer; writing in place saves a copy of the
     whole cache per layer and step).  An f8 cache is written through a
     `uint8` view, with `f8_bits(new)` (`index_copy_` has no f8 kernel):
-    bit for bit the reference's `new.astype(cache.dtype)`."""
-    if cache.dtype == torch.float8_e4m3fn:
-        cache.view(torch.uint8).index_copy_(1, pos.reshape(1),
-                                            f8_bits(new))
-        return cache
-    return cache.index_copy_(1, pos.reshape(1), new.to(cache.dtype))
+    bit for bit the reference's `new.astype(cache.dtype)`.
+
+    A DTensor cache is written rank by rank, each its own shard; one whose
+    sequence is split (the rules' `kv_seq`) as the reference writes it
+    there, a masked select into a new buffer over the rank's positions: a
+    write at a runtime index has no partitioned form."""
+    if not _is_dtensor(cache):
+        return _write_position(cache, new, pos)
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    pl = tuple(cache.placements)
+    first = _first_row(cache, 1)
+
+    def write(c, n, p):
+        if first is None:
+            return _write_position(c, n, p)
+        iota = torch.arange(c.shape[1], device=c.device) + first
+        mask = (iota == p).reshape((1, -1) + (1,) * (c.ndim - 2))
+        if c.dtype == torch.float8_e4m3fn:
+            return torch.where(mask, f8_bits(n),
+                               c.view(torch.uint8)).view(c.dtype)
+        return torch.where(mask, n.to(c.dtype), c)
+
+    new_pl = tuple(Replicate() if q.is_shard() and q.dim == 1 else q
+                   for q in pl)
+    return local_map(write, out_placements=(pl,),
+                     in_placements=(pl, new_pl, (Replicate(),) * len(pl)
+                                    if _is_dtensor(pos) else None),
+                     device_mesh=cache.device_mesh,
+                     redistribute_inputs=True)(cache, new, pos)
 
 
 # ========================================================== GQA attention
@@ -456,27 +692,51 @@ def gqa_specs(d: int, n_heads: int, n_kv: int, hd: int,
 
 
 def gqa_project(p: Params, x: torch.Tensor, n_heads: int, n_kv: int,
-                hd: int, rt: Runtime
+                hd: int, rt: Runtime, q_axes: Tuple[Optional[str], ...] = (
+                    "batch", "attn_seq")
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q, k, v [B, S, heads, hd] in the compute dtype.  Over a mesh whose
+    `qkv_fused` split cuts a head, q first takes `q_axes` (the
+    reference's next constraint on q: context parallelism in the
+    full-sequence forms, the batch alone in a decode step) and k and v
+    the batch alone (the reference keeps them replicated within a batch
+    shard)."""
     cd = rt.compute_dtype
-    B, S, _ = x.shape
 
-    def proj(w, b, n):
+    def proj(w, b, n, axes):
         y = cd_matmul(x, w, cd)
         if b is not None:
             y = y + b.float()
-        return y.to(cd).reshape(B, S, n, hd)
+        y = rt.shard(y.to(cd), "batch", None, "qkv_fused")
+        return split_heads(y, n, hd, rt, *axes)
 
-    q = proj(p["wq"], p.get("bq"), n_heads)
-    k = proj(p["wk"], p.get("bk"), n_kv)
-    v = proj(p["wv"], p.get("bv"), n_kv)
+    q = proj(p["wq"], p.get("bq"), n_heads, q_axes)
+    k = proj(p["wk"], p.get("bk"), n_kv, ("batch",))
+    v = proj(p["wv"], p.get("bv"), n_kv, ("batch",))
     return q, k, v
+
+
+def project_rows(x: torch.Tensor, w: torch.Tensor,
+                 cd: torch.dtype) -> torch.Tensor:
+    """`cd_matmul(x, w, cd)` for x [B, S, f].  On a DTensor x whose
+    sequence is split (an attention's output at the reference's
+    `attn_seq` constraint), rank by rank, each its rows against the whole
+    of w: DTensor cannot flatten a split sequence with the batch into a
+    product's rows in every version."""
+    if not (_is_dtensor(x) and any(p.is_shard() and p.dim == 1
+                                   for p in x.placements)):
+        return cd_matmul(x, w, cd)
+    from torch.distributed.tensor import Replicate
+    x_pl = tuple(p if p.is_shard() and p.dim in (0, 1) else Replicate()
+                 for p in x.placements)
+    return _on_local_rows(lambda xl, wl: cd_matmul(xl, wl, cd), x, x_pl,
+                          (w, (Replicate(),) * len(x_pl)))
 
 
 def gqa_out(p: Params, attn: torch.Tensor, rt: Runtime) -> torch.Tensor:
     B, S, H, hd = attn.shape
-    y = cd_matmul(attn.reshape(B, S, H * hd), p["wo"], rt.compute_dtype)
-    return y.to(rt.compute_dtype)
+    y = project_rows(attn.reshape(B, S, H * hd), p["wo"], rt.compute_dtype)
+    return rt.shard(y.to(rt.compute_dtype), "batch", None, "act_embed")
 
 
 def gqa_attention_train(p: Params, x: torch.Tensor, *, n_heads: int,
@@ -489,15 +749,20 @@ def gqa_attention_train(p: Params, x: torch.Tensor, *, n_heads: int,
     cos, sin = rope_cos_sin(pos, hd, rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
+    # context parallelism: the q sequence on the model axis (any head
+    # count); k and v stay replicated within the batch shard
+    q = rt.shard(q, "batch", "attn_seq")
     if window and window < S:
-        o = local_block_attention(q, k, v, window)
+        o = local_block_attention(q, k, v, window, rt=rt)
     elif rt.use_kernels:
         from repro_torch.kernels.flash_attention import flash_attention
         no_kernel_backward("flash_attention", q, k, v)
+        no_kernel_on_dtensor("flash_attention", q, k, v)
         o = flash_attention(q, k, v, causal=causal)
     else:
         o = blocked_attention(q, k, v, causal=causal,
                               kv_block=rt.attn_kv_block)
+    o = rt.shard(o, "batch", "attn_seq")
     return gqa_out(p, o, rt)
 
 
@@ -514,7 +779,8 @@ def gqa_attention_decode(p: Params, x: torch.Tensor,
     is the position of the new token.  For window attention the cache is
     a ring buffer of `window` slots."""
     B = x.shape[0]
-    q, k_new, v_new = gqa_project(p, x, n_heads, n_kv, hd, rt)
+    q, k_new, v_new = gqa_project(p, x, n_heads, n_kv, hd, rt,
+                                  q_axes=("batch",))
     cos, sin = rope_cos_sin(pos.reshape(1, 1), hd, rope_theta)
     q = apply_rope(q, cos, sin)
     k_new = apply_rope(k_new, cos, sin)
@@ -522,9 +788,15 @@ def gqa_attention_decode(p: Params, x: torch.Tensor,
     slot = pos % S_max if window else pos
     k = kv_cache_write(cache["k"], k_new, slot)
     v = kv_cache_write(cache["v"], v_new, slot)
+    k = rt.shard(k, "batch", "kv_seq")
+    v = rt.shard(v, "batch", "kv_seq")
 
     G = n_heads // n_kv
-    qg = (q * (1.0 / math.sqrt(hd))).reshape(B, 1, n_kv, G, hd)
+    # the token's q whole on each batch shard, as k and v: the scores
+    # contract it with every rank's part of a sequence-split cache, and
+    # its heads, grouped by KV head below, need not split evenly
+    qs = rt.shard(q * (1.0 / math.sqrt(hd)), "batch")
+    qg = qs.reshape(B, 1, n_kv, G, hd)
     s = _gqa_scores(qg, k)                                # [B,KV,G,1,S]
     kv_pos = torch.arange(S_max, device=x.device)
     if window:
@@ -538,7 +810,7 @@ def gqa_attention_decode(p: Params, x: torch.Tensor,
     else:
         valid = kv_pos <= pos
     s = s.masked_fill(~valid, -math.inf)
-    p_attn = torch.softmax(s, dim=-1)
+    p_attn = softmax_last(s)
     o = _gqa_values(p_attn, v).reshape(B, 1, n_heads, hd)
     y = gqa_out(p, o.to(rt.compute_dtype), rt)
     return y, {"k": k, "v": v}
@@ -570,14 +842,16 @@ def mla_attention_train(p: Params, x: torch.Tensor, *, n_heads: int,
     cd = rt.compute_dtype
     B, S, _ = x.shape
     q = cd_matmul(x, p["wq"], cd).to(cd)
-    q = q.reshape(B, S, n_heads, nope + rope_d)
+    q = rt.shard(q, "batch", None, "qkv_fused")
+    q = split_heads(q, n_heads, nope + rope_d, rt, "batch", "attn_seq")
     q_nope, q_rope = q[..., :nope], q[..., nope:]
 
     ckv = cd_matmul(x, p["wdkv"], cd)
     c_kv, k_rope = ckv[..., :kv_lora], ckv[..., kv_lora:]
     c_kv = rms_norm(c_kv.to(cd), p["kv_norm"], eps)
     kv = cd_matmul(c_kv, p["wukv"], cd).to(cd)
-    kv = kv.reshape(B, S, n_heads, nope + v_hd)
+    kv = rt.shard(kv, "batch", None, "qkv_fused")
+    kv = split_heads(kv, n_heads, nope + v_hd, rt, "batch")
     k_nope, v = kv[..., :nope], kv[..., nope:]
 
     pos = torch.arange(S, device=x.device)[None, :]
@@ -588,10 +862,12 @@ def mla_attention_train(p: Params, x: torch.Tensor, *, n_heads: int,
 
     qf = torch.cat([q_nope, q_rope], -1)
     kf = torch.cat([k_nope, k_rope_b], -1)
+    qf = rt.shard(qf, "batch", "attn_seq")
     # the scale is 1/sqrt(nope + rope_d), the full qk head dim
     o = blocked_attention(qf, kf, v, causal=True, kv_block=rt.attn_kv_block)
-    y = cd_matmul(o.reshape(B, S, n_heads * v_hd), p["wo"], cd)
-    return y.to(cd)
+    o = rt.shard(o, "batch", "attn_seq")
+    y = project_rows(o.reshape(B, S, n_heads * v_hd), p["wo"], cd)
+    return rt.shard(y.to(cd), "batch", None, "act_embed")
 
 
 def mla_attention_decode(p: Params, x: torch.Tensor,
@@ -622,6 +898,8 @@ def mla_attention_decode(p: Params, x: torch.Tensor,
 
     c_cache = kv_cache_write(cache["ckv"], c_new, pos)
     r_cache = kv_cache_write(cache["krope"], kr_new, pos)
+    c_cache = rt.shard(c_cache, "batch", "kv_seq")
+    r_cache = rt.shard(r_cache, "batch", "kv_seq")
 
     # absorb W_uk into q: q_lat[h] = q_nope[h] @ W_uk[h]^T (a lora-dim query)
     wukv = p["wukv"].to(cd).reshape(kv_lora, n_heads, nope + v_hd)
@@ -636,11 +914,12 @@ def mla_attention_decode(p: Params, x: torch.Tensor,
                         r_cache.float())) * scale
     valid = torch.arange(c_cache.shape[1], device=x.device) <= pos
     s = s.masked_fill(~valid, -math.inf)
-    pr = torch.softmax(s, dim=-1)
+    pr = softmax_last(s)
     o_lat = torch.einsum("bhqs,bsl->bqhl", pr.to(cd).float(), c32)
     o = torch.einsum("bqhl,lhv->bqhv", o_lat.to(cd).float(), w_uv.float())
     y = cd_matmul(o.to(cd).reshape(B, 1, n_heads * v_hd), p["wo"], cd)
-    return y.to(cd), {"ckv": c_cache, "krope": r_cache}
+    return (rt.shard(y.to(cd), "batch", None, "act_embed"),
+            {"ckv": c_cache, "krope": r_cache})
 
 
 # ===================================================================== MLPs
@@ -658,7 +937,9 @@ def swiglu(p: Params, x: torch.Tensor, rt: Runtime) -> torch.Tensor:
     g = cd_matmul(x, p["w1"], cd)
     u = cd_matmul(x, p["w3"], cd)
     h = (F.silu(g) * u).to(cd)
-    return cd_matmul(h, p["w2"], cd).to(cd)
+    h = rt.shard(h, "batch", None, "ff")
+    return rt.shard(cd_matmul(h, p["w2"], cd).to(cd),
+                    "batch", None, "act_embed")
 
 
 def gelu_mlp_specs(d: int, f: int) -> Dict[str, Spec]:
@@ -676,8 +957,9 @@ def gelu_mlp(p: Params, x: torch.Tensor, rt: Runtime) -> torch.Tensor:
     cd = rt.compute_dtype
     h = cd_matmul(x, p["w1"], cd) + p["b1"].float()
     h = F.gelu(h, approximate="tanh").to(cd)
+    h = rt.shard(h, "batch", None, "ff")
     y = cd_matmul(h, p["w2"], cd) + p["b2"].float()
-    return y.to(cd)
+    return rt.shard(y.to(cd), "batch", None, "act_embed")
 
 
 # ====================================================================== MoE
@@ -758,64 +1040,156 @@ def assert_unique_slots(slot: torch.Tensor, n_slots: int) -> None:
     torch._assert_async((hits[:, :n_slots] <= 1).all())
 
 
+def _per_group(fn, n_out: int, *args, whole=()):
+    """`fn(*args)`, or on DTensors rank by rank (`local_map`): each rank
+    runs `fn` on its own groups (the leading dimension of every argument,
+    lying as the first argument's), with the arguments at the positions
+    in `whole` gathered whole.  The MoE block's routing, dispatch and
+    combine are per group; DTensor has no rule for their index scatter in
+    every version, and this is how GSPMD partitions them."""
+    if not _is_dtensor(args[0]):
+        return fn(*args)
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    groups = tuple(p if p.is_shard() and p.dim == 0 else Replicate()
+                   for p in args[0].placements)
+    rep = (Replicate(),) * len(groups)
+    return local_map(fn, out_placements=(groups,) * n_out,
+                     in_placements=tuple(rep if i in whole else groups
+                                         for i in range(len(args))),
+                     device_mesh=args[0].device_mesh,
+                     redistribute_inputs=True)(*args)
+
+
+def _moe_dispatch(xg: torch.Tensor, router: torch.Tensor, *,
+                  n_experts: int, top_k: int, cap: int,
+                  normalize_gates: bool, rt: Runtime
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Route groups xg [G, T, D] (`moe_route`) and gather each expert's
+    slots: (gate [G, T, k], slot [G, T*k], buf [G, E, C, D] in the
+    compute dtype), by an index scatter into `slot_to_src` (only the
+    padding column, sliced off after, takes more than one write), then a
+    token gather."""
+    G, gsz, D = xg.shape
+    n_slots = n_experts * cap
+    gate, _, slot = moe_route({"router": router}, xg, n_experts=n_experts,
+                              top_k=top_k, cap=cap,
+                              normalize_gates=normalize_gates, rt=rt)
+    dev = xg.device
+    src_tok = torch.arange(gsz, device=dev)[None, :, None].expand(
+        G, gsz, top_k).reshape(G, gsz * top_k)
+    gidx = torch.arange(G, device=dev)[:, None]
+    if slot.is_cuda:    # duplicate in-range writes would race on the card
+        assert_unique_slots(slot, n_slots)
+    slot_to_src = torch.full((G, n_slots + 1), gsz, dtype=torch.int64,
+                             device=dev)
+    slot_to_src[gidx, slot] = src_tok
+    # the reference's constraint: the slots lie as their groups (a
+    # plain tensor, a rank's own groups, passes through)
+    slot_to_src = rt.shard(slot_to_src[:, :-1], "batch")  # [G, E*C]
+    x_pad = torch.cat([xg, torch.zeros((G, 1, D), dtype=xg.dtype,
+                                       device=dev)], 1)
+    buf = torch.take_along_dim(x_pad, slot_to_src[..., None], dim=1)
+    return gate, slot, buf.reshape(G, n_experts, cap, D).to(rt.compute_dtype)
+
+
+def _moe_combine(y_e: torch.Tensor, slot: torch.Tensor, gate: torch.Tensor,
+                 cd: torch.dtype, first: Optional[int] = None
+                 ) -> torch.Tensor:
+    """Each (token, choice)'s expert output gathered back from y_e
+    [G, E, C, D], a dropped pair giving zero, weighted by its gate and
+    summed over the k choices: [G, T, D].  With `first`, y_e holds the
+    experts from slot `first` on only (a rank's expert shard), and a pair
+    routed elsewhere gives zero too."""
+    G, E, C, D = y_e.shape
+    n_slots = E * C
+    top_k = gate.shape[-1]
+    y_flat = y_e.reshape(G, n_slots, D)
+    if first is None:
+        safe_slot = torch.clamp_max(slot, n_slots - 1)
+        dropped = (slot >= n_slots)[..., None]
+    else:
+        slot = slot - first
+        safe_slot = torch.clamp(slot, 0, n_slots - 1)
+        dropped = ((slot < 0) | (slot >= n_slots))[..., None]
+    y_rep = torch.take_along_dim(y_flat, safe_slot[..., None], dim=1)
+    y_rep = torch.where(dropped, torch.zeros((), dtype=cd,
+                                             device=y_e.device), y_rep)
+    return (y_rep.reshape(G, slot.shape[1] // top_k, top_k, D)
+            * gate[..., None].to(cd)).sum(dim=2)
+
+
+def _combine_by_experts(y_e: torch.Tensor, slot: torch.Tensor,
+                        gate: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
+    """`_moe_combine`; on DTensors rank by rank: each rank combines its
+    groups' pairs routed to its own experts, and the ranks' partial sums
+    over the expert shards are added (expert parallelism: the output
+    reduced, not the experts' outputs gathered)."""
+    if not _is_dtensor(y_e):
+        return _moe_combine(y_e, slot, gate, cd)
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    groups = tuple(p if p.is_shard() and p.dim == 0 else Replicate()
+                   for p in slot.placements)
+    first = _first_row(y_e, 1)
+    y_pl = tuple(p if p.is_shard() and p.dim in (0, 1) else Replicate()
+                 for p in y_e.placements)
+    out = tuple(Partial() if p.is_shard() and p.dim == 1 else g
+                for p, g in zip(y_pl, groups))
+    cap = y_e.shape[2]
+    return local_map(
+        functools.partial(_moe_combine, cd=cd,
+                          first=None if first is None else first * cap),
+        out_placements=(out,), in_placements=(y_pl, groups, groups),
+        device_mesh=y_e.device_mesh, redistribute_inputs=True)(
+        y_e, slot, gate)
+
+
 def moe_block(p: Params, x: torch.Tensor, *, n_experts: int, top_k: int,
               capacity_factor: float, normalize_gates: bool, rt: Runtime
               ) -> torch.Tensor:
     """Token-choice top-k MoE with capacity dropping, the reference's
     function: tokens routed in groups of `min(rt.moe_group_size, B*S)`
-    (`moe_route`), dispatched by an index scatter into `slot_to_src` and a
-    token gather, the experts' SwiGLU as three batched products, and
-    combined by a gather, a dropped pair giving zero, weighted by its gate
-    and summed over the k choices in the compute dtype.  With "shared" in
-    `p`, the shared experts' SwiGLU is added."""
+    and dispatched (`_moe_dispatch`), the experts' SwiGLU as three
+    batched products, and combined (`_moe_combine`) in the compute dtype.
+    With "shared" in `p`, the shared experts' SwiGLU is added.
+
+    Over a mesh the groups lie on the batch axes, as the reference's
+    constraints put them, and each rank routes, dispatches and combines
+    its own groups (`_per_group`); the experts' products run on the
+    experts' shards.  Where there are fewer groups than batch shards (a
+    decode step's few tokens), GSPMD pads the group dimension and each
+    device routes one group, real or padding: here every rank routes the
+    groups whole (the group dimension replicated, as is a single group),
+    the same work a rank."""
     cd = rt.compute_dtype
     B, S, D = x.shape
     T = B * S
     gsz = min(rt.moe_group_size, T)
     n_groups = -(-T // gsz)
     assert T % gsz == 0, (T, gsz)
-    xg = x.reshape(n_groups, gsz, D)
+    g_axis = "batch" if n_groups > 1 and \
+        n_groups % rt.axis_size("batch") == 0 else None
+    xg = rt.shard(x.reshape(n_groups, gsz, D), g_axis, None, None)
     cap = moe_capacity(gsz, top_k, n_experts, capacity_factor)
-    n_slots = n_experts * cap
-    gate, _, slot = moe_route(p, xg, n_experts=n_experts, top_k=top_k,
-                              cap=cap, normalize_gates=normalize_gates,
-                              rt=rt)
-
-    # dispatch: an index scatter (only the padding column, sliced off
-    # after, takes more than one write), then a token gather
-    dev = x.device
-    src_tok = torch.arange(gsz, device=dev)[None, :, None].expand(
-        n_groups, gsz, top_k).reshape(n_groups, gsz * top_k)
-    gidx = torch.arange(n_groups, device=dev)[:, None]
-    if slot.is_cuda:    # duplicate in-range writes would race on the card
-        assert_unique_slots(slot, n_slots)
-    slot_to_src = torch.full((n_groups, n_slots + 1), gsz,
-                             dtype=torch.int64, device=dev)
-    slot_to_src[gidx, slot] = src_tok
-    slot_to_src = slot_to_src[:, :-1]                     # [G, E*C]
-    x_pad = torch.cat([xg, torch.zeros((n_groups, 1, D), dtype=xg.dtype,
-                                       device=dev)], 1)
-    buf = torch.take_along_dim(x_pad, slot_to_src[..., None], dim=1)
-    buf = buf.reshape(n_groups, n_experts, cap, D).to(cd)
+    gate, slot, buf = _per_group(
+        functools.partial(_moe_dispatch, n_experts=n_experts, top_k=top_k,
+                          cap=cap, normalize_gates=normalize_gates, rt=rt),
+        3, xg, p["router"], whole=(1,))
+    buf = rt.shard(buf, g_axis, "experts")
 
     g1 = torch.einsum("gecd,edf->gecf", buf, p["we1"].to(cd)).float()
     u1 = torch.einsum("gecd,edf->gecf", buf, p["we3"].to(cd)).float()
-    h = (F.silu(g1) * u1).to(cd)
+    h = rt.shard((F.silu(g1) * u1).to(cd), g_axis, "experts")
     y_e = torch.einsum("gecf,efd->gecd", h, p["we2"].to(cd)).to(cd)
+    y_e = rt.shard(y_e, g_axis, "experts")
 
-    # combine: each (token, choice)'s expert output gathered back
-    y_flat = y_e.reshape(n_groups, n_slots, D)
-    safe_slot = torch.clamp_max(slot, n_slots - 1)
-    y_rep = torch.take_along_dim(y_flat, safe_slot[..., None], dim=1)
-    dropped = (slot >= n_slots)[..., None]
-    y_rep = torch.where(dropped, torch.zeros((), dtype=cd, device=dev),
-                        y_rep)
-    y = (y_rep.reshape(n_groups, gsz, top_k, D)
-         * gate[..., None].to(cd)).sum(dim=2)
-    y = y.reshape(B, S, D)
+    y = _combine_by_experts(y_e, slot, gate, cd).reshape(B, S, D)
     if "shared" in p:
         y = y + swiglu(p["shared"], x, rt)
-    return y
+    return rt.shard(y, "batch", None, "act_embed")
 
 
 # ================================================================== RG-LRU
@@ -921,6 +1295,7 @@ def rglru_gated_inputs(p: Params, x: torch.Tensor, *, n_heads: int,
     cd = rt.compute_dtype
     xb = cd_matmul(x, p["wx"], cd)
     gate = cd_matmul(x, p["wy"], cd, out_dtype=cd)
+    xb = rt.shard(xb, "batch", None, "lru")
     xc = _causal_conv1d(xb, p["conv_w"], p["conv_b"])
     ra, ri = _rglru_gate_logits(p, xc, n_heads)
     return xc, ra, ri, gate
@@ -932,7 +1307,8 @@ def rglru_output(p: Params, h: torch.Tensor, gate: torch.Tensor,
     `jax.nn.gelu`, the tanh approximation), projected out."""
     cd = rt.compute_dtype
     y = h * F.gelu(gate, approximate="tanh")
-    return cd_matmul(y, p["wout"], cd).to(cd)
+    return rt.shard(cd_matmul(y, p["wout"], cd).to(cd),
+                    "batch", None, "act_embed")
 
 
 def rglru_block_train(p: Params, x: torch.Tensor, *, n_heads: int,
@@ -951,9 +1327,11 @@ def rglru_block_train(p: Params, x: torch.Tensor, *, n_heads: int,
     xc, ra, ri, gate = rglru_gated_inputs(p, x, n_heads=n_heads, rt=rt)
     no_kernel_backward("rglru_gated_scan", xc, ra, ri, gate, p["ba"],
                        p["bi"], p["a_param"])
+    no_kernel_on_dtensor("rglru_gated_scan", xc, ra, ri, gate)
     y = rg_lru.rglru_gated_scan(xc, ra, ri, gate, p["ba"], p["bi"],
                                 p["a_param"], cd)
-    return cd_matmul(y, p["wout"], cd).to(cd)
+    return rt.shard(cd_matmul(y, p["wout"], cd).to(cd),
+                    "batch", None, "act_embed")
 
 
 def rglru_block_decode(p: Params, x: torch.Tensor,
@@ -1176,7 +1554,8 @@ def mlstm_block_train(p: Params, x: torch.Tensor, *, n_heads: int,
     hd = u // n_heads
     xb = cd_matmul(x, p["w_up"], cd, out_dtype=cd)
     z = f32_matmul(x, p["w_gate"], cd)
-    xh = xb.reshape(B, S, n_heads, hd)
+    xb = rt.shard(xb, "batch", None, "ff")
+    xh = split_heads(xb, n_heads, hd, rt, "batch")
     q = _head_proj(xh, p["wq"], cd).to(cd)
     k = _head_proj(xh, p["wk"], cd).to(cd)
     v = _head_proj(xh, p["wv"], cd).to(cd)
@@ -1186,7 +1565,8 @@ def mlstm_block_train(p: Params, x: torch.Tensor, *, n_heads: int,
     y, _ = _mlstm_chunkwise(q, k, v, log_i, log_f, rt.mlstm_chunk)
     y = rms_norm(y.reshape(B, S, u).to(cd), p["ln_inner"], eps)
     y = y * F.silu(z).to(cd)
-    return cd_matmul(y, p["w_down"], cd, out_dtype=cd)
+    return rt.shard(cd_matmul(y, p["w_down"], cd, out_dtype=cd),
+                    "batch", None, "act_embed")
 
 
 def mlstm_block_decode(p: Params, x: torch.Tensor,
@@ -1206,6 +1586,8 @@ def mlstm_block_decode(p: Params, x: torch.Tensor,
     acc = acc_dtype(cd)
     xb = cd_matmul(x, p["w_up"], cd, out_dtype=cd)
     z = f32_matmul(x, p["w_gate"], cd)
+    if n_heads % shard_count(xb, -1):       # a head cut in two
+        xb = rt.shard(xb, "batch")
     xh = xb.reshape(B, n_heads, hd)
     q = torch.einsum("bhi,hij->bhj", xh, p["wq"].to(cd)).to(acc)
     k = torch.einsum("bhi,hij->bhj", xh, p["wk"].to(cd)).to(acc)
@@ -1228,7 +1610,8 @@ def mlstm_block_decode(p: Params, x: torch.Tensor,
     y = rms_norm(y.reshape(B, 1, u).to(cd), p["ln_inner"], eps)
     y = y * F.silu(z).to(cd)
     out = cd_matmul(y, p["w_down"], cd, out_dtype=cd)
-    return out, {"C": C_new, "n": n_new, "m": m_new}
+    return (rt.shard(out, "batch", None, "act_embed"),
+            {"C": C_new, "n": n_new, "m": m_new})
 
 
 def slstm_specs(d: int, n_heads: int) -> Dict[str, Spec]:
@@ -1290,7 +1673,8 @@ def slstm_block_train(p: Params, x: torch.Tensor, *, n_heads: int,
              torch.full((B, D), STABILISER_START, device=dev)))
     _, hs = scan(step, init, (wx.transpose(0, 1),))
     y = hs.transpose(0, 1)                               # [B, S, D]
-    return rms_norm(y.to(cd), p["ln_inner"], eps)
+    return rt.shard(rms_norm(y.to(cd), p["ln_inner"], eps),
+                    "batch", None, "act_embed")
 
 
 def slstm_block_decode(p: Params, x: torch.Tensor,
@@ -1305,4 +1689,5 @@ def slstm_block_decode(p: Params, x: torch.Tensor,
                                (state["c"], state["n"], state["m"]),
                                p["r"], n_heads)
     y = rms_norm(h[:, None].to(cd), p["ln_inner"], eps)
-    return y, {"h": h, "c": c, "n": n, "m": m}
+    return (rt.shard(y, "batch", None, "act_embed"),
+            {"h": h, "c": c, "n": n, "m": m})

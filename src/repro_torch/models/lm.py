@@ -60,19 +60,21 @@ class Group:
     repeats: int
 
 
-def cross_entropy(logits: torch.Tensor, targets: torch.Tensor
-                  ) -> torch.Tensor:
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  rt: Runtime = Runtime()) -> torch.Tensor:
     """Per-token cross-entropy [B, S] in fp32, the reference's expressions:
     the max detached (`stop_gradient`), the exp-sum in fp32, and the
     label's logit contracted out of the logits by a one-hot in their dtype
     (the reference's largest training tensor, `[B, S, V]`, and its
     2 B S V FLOPs).  The one-hot is `jax.nn.one_hot`'s form
-    (`layers.one_hot`).  The contraction's one product a row is exact, so
-    its result in the logits' dtype is the reference's fp32 one."""
+    (`layers.one_hot`), on the logits' vocab shards over a mesh.  The
+    contraction's one product a row is exact, so its result in the
+    logits' dtype is the reference's fp32 one."""
     m = logits.detach().amax(dim=-1, keepdim=True).float()
     ex_sum = torch.exp(logits.float() - m).sum(dim=-1)
     lse = torch.log(ex_sum) + m[..., 0]
     oh = L.one_hot(targets, logits.shape[-1], logits.dtype)
+    oh = rt.shard(oh, "batch", None, "vocab")
     ll = torch.einsum("bsv,bsv->bs", logits, oh).float()
     return lse - ll
 
@@ -367,7 +369,7 @@ class DecoderLM(nn.Module):
         """Embedding rows in the compute dtype; the hybrid family
         (recurrentgemma) scales them by sqrt(d_model) rounded to that
         dtype, as the reference does."""
-        x = params["embed"][tokens].to(rt.compute_dtype)
+        x = L.embed_rows(params["embed"], tokens).to(rt.compute_dtype)
         if self.cfg.family == "hybrid":
             x = x * float(torch.tensor(math.sqrt(self.cfg.d_model),
                                        dtype=rt.compute_dtype))
@@ -379,7 +381,7 @@ class DecoderLM(nn.Module):
         if self.cfg.frontend == "vit_stub" and "patch_embeds" in batch:
             x = torch.cat([batch["patch_embeds"].to(rt.compute_dtype), x],
                           dim=1)
-        return x
+        return rt.shard(x, "batch", None, None)
 
     def _logits(self, params: Params, x: torch.Tensor, rt: Runtime
                 ) -> torch.Tensor:
@@ -402,7 +404,8 @@ class DecoderLM(nn.Module):
                            self.kinds[first:first + n], rt)
         if last_only:
             x = x[:, -1:]
-        return self._logits(params, x, rt).to(rt.compute_dtype)
+        return rt.shard(self._logits(params, x, rt).to(rt.compute_dtype),
+                        "batch", None, "vocab")
 
     def _unit(self, x: torch.Tensor, layers: List[Params], kinds: List[str],
               rt: Runtime) -> torch.Tensor:
@@ -419,7 +422,7 @@ class DecoderLM(nn.Module):
         tok = batch["tokens"]
         prefix = logits.shape[1] - tok.shape[1]         # vlm patch positions
         logits = logits[:, prefix:]
-        nll = cross_entropy(logits[:, :-1], tok[:, 1:])
+        nll = cross_entropy(logits[:, :-1], tok[:, 1:], rt)
         mask = batch.get("loss_mask")
         if mask is not None:
             m = mask[:, 1:].float()
@@ -454,9 +457,10 @@ class DecoderLM(nn.Module):
         """One decode step: token [B, 1] int64, `pos` its position (a 0-d
         int64 tensor on the device).  Returns fp32 logits [B, 1, V_pad]
         and the caches."""
-        x = self._embed(params, token, rt)
+        x = rt.shard(self._embed(params, token, rt), "batch", None, None)
         new_caches = []
         for kind, p, c in zip(self.kinds, params["layers"], cache):
             x, c = block_apply_decode(self.cfg, kind, p, x, c, pos, rt)
             new_caches.append(c)
-        return self._logits(params, x, rt), new_caches
+        return (rt.shard(self._logits(params, x, rt), "batch", None,
+                         "vocab"), new_caches)

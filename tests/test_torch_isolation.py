@@ -338,3 +338,26 @@ def test_cpu_mesh_and_placements_load_neither_jax_nor_repro():
         " & {'jax', 'repro', 'jaxlib'}))\n")
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[]"
+
+
+def test_cpu_mesh_dry_run_loads_neither_jax_nor_repro(tmp_path):
+    """A mesh cell's dry-run (its own fake group of 256 ranks, the step on
+    DTensors, counted per rank) and the mesh-aware autotune's score."""
+    proc = _run(
+        "import sys\n"
+        "from repro_torch import configs\n"
+        "from repro_torch.core.autotune import CellEvaluator, ExecPoint\n"
+        "from repro_torch.launch import dryrun\n"
+        "dryrun.configs.get_arch = configs.get_smoke\n"
+        f"rec = dryrun.run_cell('qwen2-0.5b', 'prefill_32k', r'{tmp_path}',\n"
+        "                      multi_pod=False, device='cpu')\n"
+        "assert rec['status'] == 'OK' and rec['chips'] == 256\n"
+        "assert rec['roofline']['collective_bytes_per_chip'] > 0\n"
+        f"ev = CellEvaluator('qwen2-0.5b', 'decode_32k', r'{tmp_path}',\n"
+        "                   device='cpu', multi_pod=True)\n"
+        "assert ev.score(ExecPoint(sharding_mode='tp', remat='none')) > 0\n"
+        "print(sorted({m.split('.')[0] for m in sys.modules}"
+        " & {'jax', 'repro', 'jaxlib'}))\n")
+    assert proc.returncode == 0, proc.stderr
+    # run_cell prints its summary lines first
+    assert proc.stdout.strip().splitlines()[-1] == "[]"

@@ -93,10 +93,14 @@ def test_h100_constants_are_the_datasheet_values():
 
 
 def test_xla_readers_are_not_ported():
-    for fn in (lambda: rf.parse_collective_bytes(""),
-               lambda: rf.measure_compiled(None),
+    # the readers of an XLA executable have no counterpart in the port:
+    # each names the port's own reader (the HLO parser is ported and held
+    # in tests/test_torch_dryrun_mesh.py)
+    for fn in (lambda: rf.measure_compiled(None),
                lambda: rf.analyze_compiled(None)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        with pytest.raises(NotImplementedError,
+                           match="launch.steps.count_step.*"
+                                 "launch.dryrun.run_cell"):
             fn()
 
 
