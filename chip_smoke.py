@@ -297,7 +297,10 @@ printing one JSON line each:
                  and 2x16x16 in a spawned process beside the rest (each
                  OK with its chips, each rank's params its leaves' shard
                  shapes, a finite roofline, its collectives by kind and
-                 trace seconds printed),
+                 trace seconds printed; whisper-medium's decode_32k with
+                 the all-to-all of its self-attention's reshard) and
+                 xlstm-1.3b at train_4k (batch 256, 4 microbatches,
+                 remat "full"; its scans replayed) in a second one,
                  one greedy `autotune_search` over
                  qwen2-0.5b's decode_32k (a cell whose points fit 80 GB;
                  every record it writes must be OK with a finite peak and
@@ -535,7 +538,8 @@ MESH_COUNT_LAYERS = 2
 # the dry-run cells counted per rank on the reference's meshes: (arch,
 # shape, multi_pod) — 16x16 (256 ranks) and 2x16x16 (512 ranks)
 MESH_DRYRUN_CELLS = (("qwen2-0.5b", "train_4k", False),
-                     ("olmoe-1b-7b", "decode_32k", True))
+                     ("olmoe-1b-7b", "decode_32k", True),
+                     ("whisper-medium", "decode_32k", False))
 # phase study parallel: benchmarks/composition_sweep.py's apps and budget
 # the port's examples (examples/<name>.py) and their arguments, run with
 # --device cuda and --device cpu
@@ -4684,7 +4688,9 @@ def phase_dryrun() -> dict:
     decode_32k over the f8 cache, its analytic bytes and peak at one byte
     a cache element; every record OK, with a finite peak and roofline),
     qwen2-0.5b's train_4k cell (batch 256, the reference's 2 microbatches
-    and remat "full", both in its record) and a random autotune of
+    and remat "full", both in its record), xlstm-1.3b's
+    (`dryrun_xlstm_train`) and `MESH_DRYRUN_CELLS` (`dryrun_mesh_cells`),
+    each in a spawned process beside the rest, and a random autotune of
     `TRAIN_AUTOTUNE_ROUNDS` rounds of `TRAIN_AUTOTUNE_POINTS` points over
     its execution space
     (each point's remat, microbatches and KV tile, its peak and score,
@@ -4711,13 +4717,15 @@ def phase_dryrun() -> dict:
                        "peak_memory_per_chip", "compute_s", "memory_s",
                        "memory_s_hlo", "roofline_s", "bottleneck",
                        "useful_compute_ratio")
-    # the mesh cells are host work of their own: one spawned process
-    # counts them beside the rest of the phase
+    # the mesh cells and xlstm-1.3b's train cell are host work of their
+    # own: two spawned processes count them beside the rest of the phase
     mesh_pool = ProcessPoolExecutor(
-        1, mp_context=multiprocessing.get_context("spawn"))
+        2, mp_context=multiprocessing.get_context("spawn"))
     try:
         with tempfile.TemporaryDirectory() as tmp:
             mesh_run = mesh_pool.submit(dryrun_mesh_cells, Path(tmp) / "mesh")
+            xlstm_run = mesh_pool.submit(dryrun_xlstm_train,
+                                         Path(tmp) / "xlstm")
             for arch, shape in [(a, s) for a in (ARCH, RG_ARCH, MOE_ARCH,
                                                  MLA_ARCH, WHISPER_ARCH)
                                 for s in ("prefill_32k", "decode_32k")] + [
@@ -4896,6 +4904,7 @@ def phase_dryrun() -> dict:
             check(score == max(scores),
                   f"the autotune kept {score}, below its best {max(scores)}")
             mesh_cells = mesh_run.result()
+            cells[f"{XLSTM_ARCH} train_4k"] = xlstm_run.result()
     finally:
         mesh_pool.shutdown(cancel_futures=True)
 
@@ -4989,6 +4998,12 @@ def dryrun_mesh_cells(out: Path) -> dict:
         got = rec["arg_bytes_per_chip"]["params"]
         check(got == want, f"dry-run {rec['cell']}: {got} bytes of params "
               f"a rank, its leaves' shard shapes hold {want}")
+        if arch == WHISPER_ARCH and shape.mode == "decode":
+            # the self-attention's cache, split on its sequence, reshards
+            # to the KV heads by an all-to-all, as XLA's step does
+            check(rec["collectives"]["by_kind"].get("all-to-all", 0) > 0,
+                  f"dry-run {rec['cell']}: no all-to-all in "
+                  f"{rec['collectives']['by_kind']}")
         cells[rec["cell"]] = {
             "chips": chips, "params_bytes_per_chip": got,
             "arg_bytes_per_chip": rec["arg_bytes_per_chip"],
@@ -5004,6 +5019,42 @@ def dryrun_mesh_cells(out: Path) -> dict:
               f"{rec['collectives']['count']}, trace {rec['compile_s']} s",
               flush=True)
     return cells
+
+
+def dryrun_xlstm_train(out: Path) -> dict:
+    """xlstm-1.3b's train_4k on one card (batch 256, the reference's 4
+    microbatches and remat "full"), its scans replayed under grad
+    (`launch.steps._Counter.replay_scan`): OK, a finite peak and roofline,
+    its three FLOP counts, its config and trace seconds."""
+    from repro_torch.launch.dryrun import DEFAULT_MICROBATCHES, run_cell
+
+    t0 = time.perf_counter()
+    rec = run_cell(XLSTM_ARCH, "train_4k", out, device="cuda")
+    wall = time.perf_counter() - t0
+    check(rec["status"] == "OK",
+          f"dry-run {XLSTM_ARCH} train_4k: {rec.get('error')}")
+    roof = rec["roofline"]
+    check(all(math.isfinite(roof[k]) and roof[k] > 0
+              for k in ("peak_memory_per_chip", "roofline_s"))
+          and roof["flops_per_chip"] == rec["matmul_flops"]
+          + rec["elementwise_flops"] and rec["transcendentals"] > 0,
+          f"dry-run {XLSTM_ARCH} train_4k: {roof}")
+    check(rec["config"]["remat"] == "full"
+          and rec["config"]["microbatches"]
+          == DEFAULT_MICROBATCHES[XLSTM_ARCH],
+          f"dry-run {XLSTM_ARCH} train_4k config {rec['config']}")
+    print(f"[smoke] dry-run {rec['cell']}: peak "
+          f"{roof['peak_memory_per_chip']} B, trace {rec['compile_s']} s",
+          flush=True)
+    return {**{k: roof[k] for k in (
+                "flops_per_chip", "hbm_bytes_per_chip",
+                "peak_memory_per_chip", "compute_s", "memory_s",
+                "roofline_s", "bottleneck", "model_flops_total",
+                "useful_compute_ratio")},
+            **{k: rec[k] for k in ("matmul_flops", "elementwise_flops",
+                                   "transcendentals", "config",
+                                   "fits_hbm", "flops_by_op")},
+            "trace_s": rec["compile_s"], "wall_s": wall}
 
 
 def kernel_label(mangled: str) -> str:

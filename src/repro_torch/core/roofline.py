@@ -83,10 +83,11 @@ class CollectiveStats:
     by_kind: Dict[str, int] = dataclasses.field(default_factory=dict)
     count: int = 0
 
-    def add(self, kind: str, nbytes: int) -> None:
+    def add(self, kind: str, nbytes: int, count: int = 1) -> None:
+        """`count` collectives of `kind` moving `nbytes` in all."""
         self.total_bytes += nbytes
         self.by_kind[kind] = self.by_kind.get(kind, 0) + nbytes
-        self.count += 1
+        self.count += count
 
 
 def parse_collective_bytes(hlo_text: str) -> CollectiveStats:

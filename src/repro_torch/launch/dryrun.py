@@ -30,19 +30,18 @@ A train cell (`train_4k`) counts forward, backward and the AdamW update
 under `remat` (the reference's default "full") over `microbatches` (the
 reference's `DEFAULT_MICROBATCHES`, cut so that each microbatch still
 tiles the batch's shards, as the reference cuts it) at the full batch.
-Every serving cell of every arch is counted on one card, the
-encoder-decoder's (whisper-medium: the encoder at its 1500 frames and the
-decoder at the cell's tokens) and qwen2.5-32b's decode_32k over the
+Every cell of every arch is counted, on one card and on both meshes:
+the encoder-decoder's (whisper-medium: the encoder at its 1500 frames and
+the decoder at the cell's tokens), qwen2.5-32b's decode_32k over the
 reference's f8 KV cache (`DEFAULT_SERVE_KV_DTYPE`: the cache at one byte
-an element in the peak and in the analytic traffic) included, and every
-train cell but xlstm-1.3b's, which raises `NotImplementedError`
-(`UNCOUNTED_TRAIN` says why); a cell the mesh count has not reached
-raises it too, naming the op and the placement (ROADMAP.md lists them);
-other failures are recorded as FAILED.  A sub-quadratic arch's
-`long_500k` (xlstm-1.3b: one token against a 524,288-token context) is
-counted as any decode cell; an xLSTM prefill's scans over time and
-chunks count one step for all (`steps.count_step`).  Records are written
-to `<out>/<cell>.json`.
+an element in the peak and in the analytic traffic) and xlstm-1.3b's
+train_4k included; failures are recorded as FAILED.  A sub-quadratic
+arch's `long_500k` (xlstm-1.3b: one token against a 524,288-token
+context) is counted as any decode cell.  A scan over time, chunks or
+layers (the xLSTM blocks, the encoder-decoder's layers) runs a few of its
+steps and counts one of them for the others (`steps.count_step`), its
+backward too in a train step.  Records are written to
+`<out>/<cell>.json`.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-0.5b \\
@@ -73,10 +72,8 @@ from repro_torch.configs.shapes import SHAPES, shape_by_name
 from repro_torch.core.roofline import (HW, analytic_hbm_bytes,
                                        model_flops, roofline_from_totals)
 from repro_torch.launch.steps import trace_step
-from repro_torch.models.layers import not_ported
 
-__all__ = ["MESH", "OUT_DIR", "DEFAULT_MICROBATCHES", "UNCOUNTED_TRAIN",
-           "mesh_name", "fake_mesh", "cut_microbatches", "run_cell", "main"]
+__all__ = ["MESH", "OUT_DIR", "DEFAULT_MICROBATCHES", "mesh_name", "fake_mesh", "cut_microbatches", "run_cell", "main"]
 
 OUT_DIR = Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
 MESH = "1gpu"                          # one card, no mesh
@@ -89,14 +86,6 @@ DEFAULT_MICROBATCHES = {
     "qwen2.5-3b": 4, "deepseek-v2-lite-16b": 2, "olmoe-1b-7b": 2,
     "xlstm-1.3b": 4, "qwen2-0.5b": 2, "internvl2-1b": 2,
     "whisper-medium": 2,
-}
-# train cells the dry-run does not count, and why
-UNCOUNTED_TRAIN = {
-    "xlstm-1.3b": "its train step (the sLSTM scan over 4096 time steps "
-                  "in 6 layers runs step by step under grad, forward, "
-                  "recompute and backward: about 1.8M ops on fake "
-                  "tensors; the one-step replay of a scan carries no "
-                  "backward)",
 }
 
 
@@ -200,8 +189,6 @@ def run_cell(arch_name: str, shape_name: str, out_dir: Path, *,
         print(f"[dryrun] {cell_id}: SKIPPED ({why.split(':')[0]})")
         return rec
 
-    if shape.mode == "train" and arch_name in UNCOUNTED_TRAIN:
-        raise not_ported(UNCOUNTED_TRAIN[arch_name])
     arch = configs.get_arch(arch_name)
     if microbatches <= 0:
         microbatches = DEFAULT_MICROBATCHES.get(arch_name, 1) \
@@ -278,8 +265,6 @@ def run_cell(arch_name: str, shape_name: str, out_dir: Path, *,
             print(f"[dryrun] {cell_id}: OK "
                   f"peak={counts.peak_bytes/1e9:.2f}GB "
                   f"trace={t_trace:.1f}s  {rep.row()}")
-        except NotImplementedError:
-            raise
         except Exception as e:   # noqa: BLE001 — record it, keep going
             rec = {"cell": cell_id, "status": "FAILED",
                    "error": f"{type(e).__name__}: {e}",
@@ -327,22 +312,16 @@ def main(argv=None) -> int:
             ap.error("--arch and --shape required unless --all")
         cells = [(args.arch, args.shape)]
 
-    n_fail = n_cut = 0
+    n_fail = 0
     for arch_name, shape_name in cells:
         for multi_pod in MESH_CHOICES[args.mesh]:
-            try:
-                rec = run_cell(arch_name, shape_name, out_dir,
-                               multi_pod=multi_pod, device=args.device,
-                               sharding_mode=args.sharding_mode,
-                               remat=args.remat)
-            except NotImplementedError as e:
-                n_cut += 1
-                print(f"[dryrun] {arch_name}_{shape_name}_"
-                      f"{mesh_name(multi_pod)}: NOT PORTED ({e})")
-                continue
+            rec = run_cell(arch_name, shape_name, out_dir,
+                           multi_pod=multi_pod, device=args.device,
+                           sharding_mode=args.sharding_mode,
+                           remat=args.remat)
             n_fail += rec["status"] == "FAILED"
-    print(f"[dryrun] done; {n_fail} failures, {n_cut} cells not ported")
-    return 1 if n_fail or (n_cut and not args.all) else 0
+    print(f"[dryrun] done; {n_fail} failures")
+    return 1 if n_fail else 0
 
 
 if __name__ == "__main__":

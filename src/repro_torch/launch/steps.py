@@ -32,6 +32,8 @@ import collections
 import contextlib
 import dataclasses
 import functools
+import itertools
+import math
 import weakref
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
@@ -516,6 +518,16 @@ _COLLECTIVES = {
 _WAIT = "_c10d_functional.wait_tensor"
 
 
+def _add_flops(registry, flop_counts, func, out, args, kwargs,
+               times: int) -> None:
+    """Add `times` of the op's matmul-family FLOPs, by
+    `FlopCounterMode`'s formula, to its `flop_counts["Global"]`."""
+    packet = func._overloadpacket
+    if packet in registry:
+        flop_counts["Global"][packet] += times * registry[packet](
+            *args, **(kwargs or {}), out_val=out)
+
+
 class _LocalFlops:
     """`FlopCounterMode`'s count of the matmul family kept by `_Counter`
     itself, on the local tensors of a step over a mesh (`FlopCounterMode`
@@ -528,11 +540,9 @@ class _LocalFlops:
         self.registry = FlopCounterMode(display=False).flop_registry
         self.flop_counts = {"Global": collections.defaultdict(int)}
 
-    def count(self, func, out, args, kwargs) -> None:
-        packet = func._overloadpacket
-        if packet in self.registry:
-            self.flop_counts["Global"][packet] += self.registry[packet](
-                *args, **(kwargs or {}), out_val=out)
+    def count(self, func, out, args, kwargs, times: int = 1) -> None:
+        _add_flops(self.registry, self.flop_counts, func, out, args, kwargs,
+                   times)
 
     def get_flop_counts(self):
         return self.flop_counts
@@ -546,21 +556,6 @@ def _local(t: torch.Tensor) -> torch.Tensor:
     from torch.distributed.tensor import DTensor
 
     return t._local_tensor if isinstance(t, DTensor) else t
-
-
-def _slice_of(t: torch.Tensor, xs: torch.Tensor) -> bool:
-    """`layers.slice_of(t, xs, 0)`; for DTensors on their local shards,
-    by storage (DTensor takes its local views below autograd, where a view
-    records no `_base`)."""
-    from torch.distributed.tensor import DTensor
-
-    if not isinstance(t, DTensor):
-        return slice_of(t, xs, 0)
-    lt, lx = _local(t), _local(xs)
-    return (lt.untyped_storage()._cdata == lx.untyped_storage()._cdata
-            and tuple(lt.shape) == tuple(lx.shape[1:])
-            and lt.stride() == lx.stride()[1:]
-            and lt.storage_offset() == lx.storage_offset())
 
 
 @contextlib.contextmanager
@@ -623,11 +618,17 @@ class _Counter(TorchDispatchMode):
     With `per_rank` (a step on DTensors) the counter passes every op on a
     DTensor on to DTensor (`NotImplemented`) and counts the ops DTensor
     runs on rank 0's local shards, its collectives among them
-    (`collectives`), and the matmul family itself (`_LocalFlops`)."""
+    (`collectives`), and the matmul family itself (`_LocalFlops`).
+
+    An op of the backward of a replayed scan step (`replay_scan`) counts
+    as many times as the step stands for (`times`)."""
 
     def __init__(self, per_rank: bool = False):
         super().__init__()
         self.sizes: Dict[int, int] = {}
+        # each held storage's place in the order of holding
+        self.born: Dict[int, int] = {}
+        self._serial = itertools.count()
         self.live = self.peak = 0
         self.bytes_accessed = self.ops = 0
         self.elementwise_flops = self.transcendentals = 0
@@ -637,6 +638,12 @@ class _Counter(TorchDispatchMode):
         self.collectives = CollectiveStats()
         if per_rank:
             self.flop_counter = _LocalFlops()
+        # replayed scan steps: (first, end) autograd sequence numbers of
+        # the nodes a step made, and the steps it stands for
+        self.replayed: list = []
+        self._times: Dict[int, int] = {}
+        # storage -> the stand-ins that go when their last storage goes
+        self.waiting: Dict[int, list] = {}
 
     def hold(self, t: torch.Tensor) -> None:
         st = t.untyped_storage()
@@ -644,12 +651,36 @@ class _Counter(TorchDispatchMode):
         if key in self.sizes:
             return
         self.sizes[key] = st.nbytes()
+        self.born[key] = next(self._serial)
         self.live += st.nbytes()
         self.peak = max(self.peak, self.live)
         weakref.finalize(st, self._free, key)
 
     def _free(self, key: int) -> None:
         self.live -= self.sizes.pop(key)
+        del self.born[key]
+        for group in self.waiting.pop(key, ()):
+            group[0] -= 1
+            if not group[0]:
+                group[1] = None         # the stand-in goes with the last
+
+    def times(self) -> int:
+        """How many times the op running now counts: the steps a replayed
+        scan step stands for (their product, where replays nest) while the
+        autograd node running is one that step made, else 1.  In the
+        backward that is the node's own work, the gradients it adds into
+        its inputs' buffers, and a remat recompute it sets off."""
+        if not self.replayed:
+            return 1
+        node = torch._C._current_autograd_node()
+        if node is None:
+            return 1
+        seq = node._sequence_nr()
+        n = self._times.get(seq)
+        if n is None:
+            n = self._times[seq] = math.prod(
+                k for a, b, k in self.replayed if a <= seq < b)
+        return n
 
     def repeat(self, fn, n: int):
         """`fn()` counted `n` times over: it runs once, and its counts
@@ -677,48 +708,98 @@ class _Counter(TorchDispatchMode):
         coll.count += (n - 1) * (coll.count - was_n)
         return out
 
-    def repeat_scan(self, step, carry, xs, n: int):
-        """`layers.scan` of `n` steps, run once: the first step is counted
-        `n` times over (`repeat`).  The step then runs again, uncounted,
-        as the loop's last step runs: from a carry of its own, beside the
-        first carry and one stand-in allocation of the other steps'
-        outputs (the loop's list holds them until the stack; an output
-        written in place into its slice of the xs, a KV cache layer,
-        holds nothing), so the peak is the loop's."""
+    def _stand_in(self, nbytes: int, device) -> torch.Tensor:
+        """An uncounted allocation of `nbytes`, held as any storage."""
+        was, self.counting = self.counting, False
+        try:
+            return torch.empty((nbytes,), dtype=torch.uint8, device=device)
+        finally:
+            self.counting = was
+
+    def replay_scan(self, step, carry, xs, n: int):
+        """`layers.scan` of `n > 4` steps, run as four chained steps: the
+        first, a middle step standing for `n - 3` middle ones, the last
+        middle one and the last.  Where grad is on (a train step's
+        forward, or a remat recompute in its backward) the first and the
+        last differ from the others in the backward (the first's carry may
+        need no gradient, the last's gets none from a next step); every
+        middle step does what the others do, on tensors of the same
+        shapes.  So:
+
+        * the standing step's forward counts `n - 3` times (`repeat`),
+          and so does every op that runs while an autograd node it made
+          runs (`times`, keyed by the nodes' sequence numbers): its
+          backward, the gradients it adds into the first step's buffers,
+          a recompute it sets off;
+        * the ys are stacked from the four steps' ys and `n - 4` detached
+          aliases of the standing one's: the stack's operands and result
+          are the loop's, and its backward hands the four steps their
+          gradients and no other (the loop's hands one to each step and
+          adds none up); a ys leaf that each step passed on as its own
+          slice of an xs leaf, or wrote in place into it (a KV cache
+          layer), is that xs leaf, as `layers.stack_ys` returns it;
+        * the peak: what the standing step made and still holds once the
+          next step has run (its saved activations, its y, a carry the
+          next step saved) stands in `n - 4` times from then until the
+          stack, and what of it outlives the stack until the last of the
+          standing step's own storages goes (in the backward, where the
+          middle steps' go).  The next middle step and the last run beside
+          it, as the loop's last two do.
+
+        The output holds the four steps' values only, which on fake
+        tensors are none."""
         leaves, spec = pytree.tree_flatten(xs)
-        x0 = pytree.tree_unflatten([x[0] for x in leaves], spec)
-        y = self.repeat(lambda: step(carry, x0)[1], n)
 
-        def written_in_place(t):
-            return next((x for x in leaves if _slice_of(t, x)), None)
+        def run(c, i):
+            return step(c, pytree.tree_unflatten([x[i] for x in leaves],
+                                                 spec))
 
-        held_shapes = [((n - 1,) + tuple(_local(t).shape), t.dtype)
-                       for t in pytree.tree_leaves(y)
-                       if isinstance(t, torch.Tensor)
-                       and written_in_place(t) is None]
-        del y
-        # uncounted: neither by this mode nor by `flop_counter`
-        flops = self.flop_counter.flop_counts["Global"]
-        kept = dict(flops)
-        self.counting = False
-        held = [torch.empty(shape, dtype=dtype,
-                            device=_local(leaves[0]).device)
-                for shape, dtype in held_shapes]
-        # the last step's input carry, apart from the first's
-        last = pytree.tree_map_only(torch.Tensor, torch.empty_like, carry)
-        carry, y = step(last, x0)
-        del last
-        self.counting = True
-        flops.clear()
-        flops.update(kept)
+        carry, y0 = run(carry, 0)
+        mark = next(self._serial)
+        first = torch.autograd._get_sequence_nr()
+        carry, y1 = self.repeat(functools.partial(run, carry, 1), n - 3)
+        if torch.is_grad_enabled() and \
+                torch._C._current_autograd_node() is None:
+            # a forward's nodes; a recompute's never run backward
+            self.replayed.append(
+                (first, torch.autograd._get_sequence_nr(), n - 3))
+        made = {k: b for k, b in self.born.items() if b > mark}
+        carry, y2 = run(carry, 2)
+        device = _local(leaves[0]).device
 
-        def stacked(t):
-            src = written_in_place(t)
-            return src if src is not None else torch.stack([t] * n)
+        def alive():
+            # a storage freed may leave its key to a new one
+            return [k for k, b in made.items() if self.born.get(k) == b]
 
-        ys = None if y is None else pytree.tree_map_only(
-            torch.Tensor, stacked, y)
-        del held
+        def stand_in(keys):
+            return self._stand_in(
+                (n - 4) * sum(self.sizes[k] for k in keys), device)
+
+        held = stand_in(alive())
+        carry, y3 = run(carry, n - 1)
+
+        def stacked(a, b, c, d):
+            same = next((x for x in leaves if all(
+                slice_of(t, x, i)
+                for t, i in ((a, 0), (b, 1), (c, 2), (d, n - 1)))), None)
+            if same is not None:
+                return same
+            return torch.stack([a, b] + [b.detach()] * (n - 4) + [c, d])
+
+        ys = None
+        if y0 is not None:
+            flat, yspec = pytree.tree_flatten(y0)
+            ys = pytree.tree_unflatten(
+                [stacked(*ts) if isinstance(ts[0], torch.Tensor) else ts[0]
+                 for ts in zip(flat, *(pytree.tree_leaves(y)
+                                       for y in (y1, y2, y3)))], yspec)
+        del y0, y1, y2, y3, held
+        kept = alive()
+        # made even where nothing is kept: a recompute under selective
+        # checkpointing must meet the forward's allocations one for one
+        group = [len(kept), stand_in(kept)]
+        for k in kept:
+            self.waiting.setdefault(k, []).append(group)
         return carry, ys
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -749,25 +830,32 @@ class _Counter(TorchDispatchMode):
         if not (self.counting and outs):
             return out
         name = f"{func.namespace}.{func._opname}"
+        if name == _WAIT:
+            return out
+        times = self.times()
         if name in _COLLECTIVES:
             for t in outs:
                 self.collectives.add(_COLLECTIVES[name],
-                                     t.numel() * t.element_size())
-            return out
-        if name == _WAIT:
+                                     times * t.numel() * t.element_size(),
+                                     times)
             return out
         if self.per_rank:
-            self.flop_counter.count(func, out, args, kwargs)
+            self.flop_counter.count(func, out, args, kwargs, times)
+        elif times > 1:
+            # `FlopCounterMode`, above this mode, counted it once
+            _add_flops(self.flop_counter.flop_registry,
+                       self.flop_counter.flop_counts, func, out, args,
+                       kwargs, times - 1)
         # ops with no tensor result (device or size queries) move nothing
         if not func.is_view:
-            self.ops += 1
-            self.bytes_accessed += sum(
+            self.ops += times
+            self.bytes_accessed += times * sum(
                 t.numel() * t.element_size()
                 for t in tree_leaves((args, kwargs)) + outs
                 if isinstance(t, torch.Tensor))
             flops, trans = _elementwise_cost(func, args, outs)
-            self.elementwise_flops += flops
-            self.transcendentals += trans
+            self.elementwise_flops += times * flops
+            self.transcendentals += times * trans
         return out
 
 
@@ -775,12 +863,11 @@ def count_step(step: Callable, *args) -> Tuple[Any, StepCounts]:
     """Run `step(*args)` once and count it (`StepCounts`); on real or fake
     tensors alike.  Returns the step's output and the counts.  A
     `layers.scan` inside (the xLSTM blocks' loops, the encoder-decoder's
-    layers) runs one step and counts it for all
-    (`_Counter.repeat_scan`) where grad is off, and a train step's
-    microbatches one for all (`loss_and_grads`): the counts are exact,
-    the output is not the model's where such a repeat ran.  Where grad is
-    on (a train step) every step of a scan runs: the backward of a
-    replayed step would be counted once.
+    layers) runs four steps, one counted for the middle ones, its
+    backward too where grad is on (`_Counter.replay_scan`); a train
+    step's microbatches count one for all (`loss_and_grads`).  The
+    counts are exact, the output is not the model's where such a repeat
+    ran.
 
     When an argument is a DTensor, the step runs over its mesh and is
     counted per rank (`_Counter(per_rank=True)`)."""
@@ -839,9 +926,8 @@ def trace_step(arch: ArchConfig, shape: ShapeSpec, *, device: str = "cuda",
     moments.  A decode step writes one token at position `seq_len - 1`
     against a `seq_len`-deep cache, made by `init_cache` under the cell's
     runtime (an f8 KV cache under `kv_dtype="f8"`).  The whole step is
-    counted once; in a serving step a `layers.scan` runs one step for all
-    (the reference's scan probes have no counterpart), in a train step
-    every step of it runs.
+    counted once; a `layers.scan` counts one step for the others
+    (`count_step`; the reference's scan probes have no counterpart).
 
     With a `mesh` (a `DeviceMesh` on `device` over an initialised group,
     fake or real) this is the counterpart of the reference's

@@ -78,11 +78,6 @@ def full_precision_products() -> Iterator[None]:
         mm.allow_tf32, mm.allow_bf16_reduced_precision_reduction = saved
 
 
-def not_ported(what: str):
-    return NotImplementedError(f"{what} is ported in a later slice, see "
-                               "ROADMAP.md")
-
-
 # ============================================================ runtime/context
 
 @dataclasses.dataclass(frozen=True)
@@ -480,13 +475,18 @@ def _on_local_rows(fn, x: torch.Tensor, out_pl: tuple, *others
     placements)` of `others` taken at its placements, `fn` run on the
     local shards, its result [B, S, ...] lying at `out_pl` as x's rows do
     (the global rows x's, even where the mesh splits them unevenly, which
-    `local_map` cannot say)."""
+    `local_map` cannot say; a later dimension that `out_pl` splits is
+    the local one times its shards)."""
     from torch.distributed.tensor import DTensor
 
     mesh = x.device_mesh
     local = [t.redistribute(mesh, pl).to_local() for t, pl in others]
     out = fn(x.redistribute(mesh, out_pl).to_local(), *local)
-    shape = torch.Size(tuple(x.shape[:2]) + tuple(out.shape[2:]))
+    shape = list(x.shape[:2]) + list(out.shape[2:])
+    for i, p in enumerate(out_pl):
+        if p.is_shard() and p.dim >= 2:
+            shape[p.dim] *= mesh.size(i)
+    shape = torch.Size(shape)
     return DTensor.from_local(out, mesh, out_pl, run_check=False,
                               shape=shape,
                               stride=torch.empty(shape, device="meta")
@@ -504,21 +504,37 @@ def _attention_on_local_rows(attend, q: torch.Tensor, k: torch.Tensor,
     position its offset.  The output lies as q.  DTensor has no sharding
     rule for the products of the attention on a sequence-sharded q (its
     einsums flatten the sharded sequence with the heads into a strided
-    shard); GSPMD partitions the same region this way.  A k or v whose
-    sequence is sharded (a decode cache under `kv_seq`) would need a
-    cross-rank softmax, which this region does not do: it raises."""
-    from torch.distributed.tensor import Replicate
+    shard); GSPMD partitions the same region this way.
 
-    for t in (k, v):
-        if shard_count(t, 1) > 1:
-            raise not_ported(
-                "attention over a sequence-sharded k / v "
-                f"(placements {tuple(t.placements)}; a cross-rank softmax)")
-    q_pl = tuple(p if p.is_shard() and p.dim in (0, 1) else Replicate()
-                 for p in q.placements)
-    kv_pl = tuple(p if p.is_shard() and p.dim == 0 else Replicate()
-                  for p in q_pl)
-    first = _first_row(q, 1) or 0
+    A k or v whose sequence is sharded (a decode cache under `kv_seq`) is
+    resharded as GSPMD does it: an all-to-all moves its split from the
+    sequence to the KV heads on the same mesh dimensions, q's heads take
+    those dimensions too, and each rank attends its heads over the whole
+    sequence; the output lies on its heads."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    seq_dims = {i for t in (k, v) for i, p in enumerate(t.placements)
+                if p.is_shard() and p.dim == 1}
+    if seq_dims:
+        kv_heads = k.shape[2]
+        parts = math.prod(k.device_mesh.size(i) for i in seq_dims)
+        if kv_heads % parts:
+            raise ValueError(
+                f"attention over a sequence-sharded k / v (placements "
+                f"{tuple(k.placements)}, {tuple(v.placements)}): its "
+                f"{kv_heads} KV heads do not split over the {parts} ranks "
+                f"of mesh dimensions {sorted(seq_dims)}")
+        q_pl = tuple(Shard(2) if i in seq_dims
+                     else p if p.is_shard() and p.dim == 0 else Replicate()
+                     for i, p in enumerate(q.placements))
+        kv_pl = q_pl
+    else:
+        q_pl = tuple(p if p.is_shard() and p.dim in (0, 1) else Replicate()
+                     for p in q.placements)
+        kv_pl = tuple(p if p.is_shard() and p.dim == 0 else Replicate()
+                      for p in q_pl)
+    # q's rows are whole on each rank where its heads split
+    first = 0 if seq_dims else _first_row(q, 1) or 0
     return _on_local_rows(
         lambda ql, kl, vl: attend(ql, kl, vl, q_offset=q_offset + first),
         q, q_pl, (k, kv_pl), (v, kv_pl))
@@ -1359,15 +1375,24 @@ def rglru_block_decode(p: Params, x: torch.Tensor,
 STABILISER_START = -1e30
 
 # the counters of `launch.steps.count_step` running, innermost last: while
-# one is, `scan` runs one step and the counter counts it for all
+# one is, `scan` runs four steps and the counter counts one for the middle
+# ones
 STEP_COUNTERS: list = []
 
 
 def slice_of(t: torch.Tensor, xs: torch.Tensor, i: int) -> bool:
     """Whether `t` is the view `xs[i]` (a scan step's slice of its xs,
-    written in place)."""
-    base = xs if xs._base is None else xs._base
-    return (t._base is base and tuple(t.shape) == tuple(xs.shape[1:])
+    written in place).  DTensors are compared on their local shards, by
+    storage (DTensor takes its local views below autograd, where a view
+    records no `_base`)."""
+    if _is_dtensor(t) != _is_dtensor(xs):
+        return False
+    if _is_dtensor(t):
+        t, xs = t._local_tensor, xs._local_tensor
+        same = t.untyped_storage()._cdata == xs.untyped_storage()._cdata
+    else:
+        same = t._base is (xs if xs._base is None else xs._base)
+    return (same and tuple(t.shape) == tuple(xs.shape[1:])
             and t.stride() == xs.stride()[1:]
             and t.storage_offset() == xs.storage_offset() + i * xs.stride(0))
 
@@ -1406,16 +1431,15 @@ def scan(step, carry, xs):
     (`stack_ys`: None if the steps return None; a slice passed on, or
     written in place, is returned as its xs leaf).  To the frontend the
     loop is the reference's scan (`scan_slices`, `scan_stack`).  Under
-    `launch.steps.count_step` every step does the same work on tensors of
-    the same shapes, so where grad is off one step runs and its counts
-    are repeated for the others (`STEP_COUNTERS`); the output then holds
-    that step's values only, which on fake tensors are none.  Where grad
-    is on (a train step) every step runs, so the backward is counted
-    step by step too."""
+    `launch.steps.count_step` every middle step does the same work on
+    tensors of the same shapes, so four steps run and one of them is
+    counted for the middle ones, backward included (`STEP_COUNTERS`,
+    `_Counter.replay_scan`); the output then holds those steps' values
+    only, which on fake tensors are none."""
     leaves, spec = pytree.tree_flatten(xs)
     n = leaves[0].shape[0]
-    if STEP_COUNTERS and n > 1 and not torch.is_grad_enabled():
-        return STEP_COUNTERS[-1].repeat_scan(step, carry, xs, n)
+    if STEP_COUNTERS and n > 4:
+        return STEP_COUNTERS[-1].replay_scan(step, carry, xs, n)
     ys, slices, nodes = [], [], []
     for x in scan_slices(*leaves):
         if tracing():
@@ -1556,14 +1580,23 @@ def mlstm_block_train(p: Params, x: torch.Tensor, *, n_heads: int,
     z = f32_matmul(x, p["w_gate"], cd)
     xb = rt.shard(xb, "batch", None, "ff")
     xh = split_heads(xb, n_heads, hd, rt, "batch")
-    q = _head_proj(xh, p["wq"], cd).to(cd)
-    k = _head_proj(xh, p["wk"], cd).to(cd)
-    v = _head_proj(xh, p["wv"], cd).to(cd)
+    # forward a constraint q, k and v meet; backward, their gradients
+    # come out of the chunks with the sequence split, which the
+    # projection's rows (batch and sequence flattened) cannot take: they
+    # are gathered first (GSPMD reshards there silently, DTensor refuses)
+    q, k, v = (rt.shard(_head_proj(xh, p[w], cd).to(cd), "batch")
+               for w in ("wq", "wk", "wv"))
     gates = f32_matmul(xb, p["w_if"], cd) + p["b_if"].float()
     log_i, f_pre = gates[..., :n_heads], gates[..., n_heads:]
     log_f = _log_sigmoid(f_pre)
     y, _ = _mlstm_chunkwise(q, k, v, log_i, log_f, rt.mlstm_chunk)
-    y = rms_norm(y.reshape(B, S, u).to(cd), p["ln_inner"], eps)
+    y = y.reshape(B, S, u)
+    if n_heads % rt.axis_size("ff"):
+        # the gradient comes back split on "ff", which would cut a head:
+        # it is gathered before it is unflattened (GSPMD reshards there
+        # silently, DTensor refuses); forward, a constraint y meets
+        y = rt.shard(y, "batch")
+    y = rms_norm(y.to(cd), p["ln_inner"], eps)
     y = y * F.silu(z).to(cd)
     return rt.shard(cd_matmul(y, p["w_down"], cd, out_dtype=cd),
                     "batch", None, "act_embed")

@@ -3,10 +3,11 @@ smoke size: the FLOPs (matmul and elementwise), transcendentals, bytes and
 peak counted on fake tensors equal those of the same step run for real
 (a train step's too), and a closed-form matmul FLOP count and a hand
 count; the records carry the reference record's keys (a train cell's its
-remat and microbatches); inapplicable cells are SKIPPED and the cuts
-raise `NotImplementedError`.  Counts are integers and compared
-exactly."""
+remat and microbatches); inapplicable cells are SKIPPED; a scan counts
+a few of its steps for all, its backward too, as the whole loop counts.
+Counts are integers and compared exactly."""
 
+import dataclasses
 import json
 import math
 
@@ -237,15 +238,6 @@ def test_inapplicable_cell_is_skipped(tmp_path, smoke_registry):
     assert rec["status"] == "SKIPPED" and "500k" in rec["reason"]
 
 
-@pytest.mark.parametrize("arch,shape", [
-    ("xlstm-1.3b", "train_4k"),             # its sLSTM time loop
-])
-def test_cuts_raise_not_implemented(tmp_path, smoke_registry, arch, shape):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        dryrun.run_cell(arch, shape, tmp_path, device="cpu")
-    assert not list(tmp_path.iterdir())     # no FAILED record
-
-
 TRAIN_SMALL = ShapeSpec("train_4k", 32, 8, "train")
 
 
@@ -258,7 +250,7 @@ def small_train(monkeypatch, smoke_registry):
 
 @pytest.mark.parametrize("arch,microbatches", [
     ("qwen2-0.5b", 2), ("recurrentgemma-9b", 8), ("olmoe-1b-7b", 2),
-    ("deepseek-v2-lite-16b", 2), ("whisper-medium", 2)])
+    ("deepseek-v2-lite-16b", 2), ("whisper-medium", 2), ("xlstm-1.3b", 4)])
 def test_train_cells_are_counted(tmp_path, small_train, arch, microbatches):
     """A train cell: an OK record with a finite peak and roofline, its
     three FLOP counts, and `remat` and `microbatches` in its config (the
@@ -402,20 +394,30 @@ def test_xlstm_cells_are_counted(tmp_path, smoke_registry, shape):
     assert rec["runtime"]["param_dtype"] == "torch.bfloat16"
 
 
-def test_a_scan_is_counted_once_for_all_its_steps(monkeypatch):
-    """`layers.scan` under `count_step` runs one step and repeats its
-    counts: xlstm-1.3b's smoke prefill at S 600 (the mLSTM's three chunks,
-    the last padded; the sLSTM's 600 steps) counts what the whole loop
-    counts, every field, the peak included."""
+@pytest.mark.parametrize("arch,shape", [
+    ("xlstm-1.3b", ShapeSpec("prefill_600x2", 600, 2, "prefill")),
+    ("whisper-medium", DECODE)],
+    ids=["xlstm-prefill", "whisper-decode"])
+def test_a_scan_is_counted_once_for_all_its_steps(arch, shape, monkeypatch):
+    """`layers.scan` under `count_step` runs four steps and counts one for
+    the middle ones: xlstm-1.3b's smoke prefill at S 600 (an mLSTM chunk
+    of 96: seven chunks, the last padded; the sLSTM's 600 steps) and
+    whisper-medium's smoke decode at six layers (its caches written in
+    place, each layer's slice) count what the whole loop counts, every
+    field, the peak included."""
     from repro_torch.models import layers
 
-    cfg = configs.get_smoke("xlstm-1.3b")
-    shape = ShapeSpec("prefill_600x2", 600, 2, "prefill")
-    once, _ = trace_step(cfg, shape, device="cpu")
+    cfg = configs.get_smoke(arch)
+    if arch == "whisper-medium":
+        cfg = dataclasses.replace(cfg, num_layers=6, encoder_layers=6)
+    ov = {"mlstm_chunk": 96}
+    once, _ = trace_step(cfg, shape, device="cpu", overrides=ov)
     monkeypatch.setattr(layers, "STEP_COUNTERS", [])    # the whole loop
-    whole, _ = trace_step(cfg, shape, device="cpu")
+    whole, _ = trace_step(cfg, shape, device="cpu", overrides=ov)
     assert once == whole
-    assert once.ops > 600 * 6 * 2 and once.flops > 0
+    # the sLSTM's some 25 ops a step on 2 layers; the decode's a layer
+    assert once.ops > {"xlstm-1.3b": 600 * 6 * 2,
+                       "whisper-medium": 6 * 20}[arch] and once.flops > 0
 
 
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "whisper-medium"])
@@ -434,3 +436,72 @@ def test_microbatches_count_one_for_all_exactly(arch, monkeypatch):
     monkeypatch.setattr(steps._Counter, "repeat", every)
     each, _ = trace_step(cfg, TRAIN, device="cpu", microbatches=4)
     assert one_for_all == each
+
+
+def _every_scan_step(monkeypatch):
+    """Count as the step that runs every scan step: `layers.scan` runs
+    its loop (microbatches still count one for all, exactly:
+    `test_microbatches_count_one_for_all_exactly`)."""
+    from repro_torch.models import layers
+
+    monkeypatch.setattr(layers, "STEP_COUNTERS", [])
+
+
+# xlstm-1.3b's smoke widths at one mLSTM and one sLSTM block, an mLSTM
+# chunk of 24: five chunks, the last padded, and the sLSTM's 110 steps
+REPLAY = ShapeSpec("train_110x2", 110, 2, "train")
+
+
+@pytest.mark.parametrize("microbatches", [1, 2])
+@pytest.mark.parametrize("remat", ["none", "full", "dots"])
+def test_a_train_steps_scans_count_a_step_for_the_middle_ones(
+        remat, microbatches, monkeypatch):
+    """Under grad `layers.scan` runs its first, second, third and last
+    steps and counts the second for the middle ones, forward, backward
+    and recompute (`_Counter.replay_scan`), inside the microbatches'
+    repeat: xlstm-1.3b's train step counts what the step that runs every
+    scan step counts, in every field, the peak included."""
+    cfg = dataclasses.replace(configs.get_smoke("xlstm-1.3b"), num_layers=2,
+                              block_pattern=("mlstm", "slstm"))
+    kw = dict(device="cpu", remat=remat, microbatches=microbatches,
+              overrides={"mlstm_chunk": 24})
+    replayed, rt = trace_step(cfg, REPLAY, **kw)
+    assert rt.mlstm_chunk == 24 and REPLAY.seq_len % 24 \
+        and -(-REPLAY.seq_len // 24) == 5
+    _every_scan_step(monkeypatch)
+    whole, _ = trace_step(cfg, REPLAY, **kw)
+    assert replayed == whole
+    assert replayed.ops > 110 * 3 and replayed.peak_bytes > 0
+
+
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_an_encoder_decoders_layer_scans_count_a_step_for_the_middle_ones(
+        remat, monkeypatch):
+    """whisper-medium's layers are scans too, under "full" each step's
+    body checkpointed (its recompute runs inside the step's backward): at
+    six encoder and six decoder layers the train step counts what the
+    whole loop counts, every field."""
+    cfg = dataclasses.replace(configs.get_smoke("whisper-medium"),
+                              num_layers=6, encoder_layers=6)
+    replayed, _ = trace_step(cfg, TRAIN, device="cpu", remat=remat,
+                             microbatches=2)
+    _every_scan_step(monkeypatch)
+    whole, _ = trace_step(cfg, TRAIN, device="cpu", remat=remat,
+                          microbatches=2)
+    assert replayed == whole
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "recurrentgemma-9b"])
+def test_train_steps_with_no_scan_replay_none(arch, monkeypatch):
+    """The decoders whose train steps run no `layers.scan` replay nothing:
+    their counts are those of the step with every scan step run."""
+    from repro_torch.launch import steps
+
+    def refuse(*args):
+        raise AssertionError("a scan was replayed")
+    monkeypatch.setattr(steps._Counter, "replay_scan", refuse)
+    cfg = configs.get_smoke(arch)
+    counted, _ = trace_step(cfg, TRAIN, device="cpu", microbatches=2)
+    _every_scan_step(monkeypatch)
+    whole, _ = trace_step(cfg, TRAIN, device="cpu", microbatches=2)
+    assert counted == whole

@@ -29,7 +29,9 @@ What is held, and the differences that are counted, not waved through:
   reference's `tokens`, `token` and `pos` are int32, the port's int64 (4
   bytes more a local element).  xlstm-1.3b's decode has no use for `pos`
   (its state has no positions), and XLA drops the unused parameter: 4
-  bytes more.
+  bytes more.  whisper-medium's decode reads neither the encoder's
+  parameters nor its cross-attention's k and v projections (made and
+  dropped, as in the reference), and XLA drops those too.
 * The per-rank FLOPs of a prefill lie between the unplaced step's share
   (its count over the 8 ranks) and XLA's per-partition count: every rank
   computes what is replicated (RoPE's tables, masks, norms' statistics),
@@ -46,6 +48,13 @@ What is held, and the differences that are counted, not waved through:
   all-to-alls and collective-permutes; the port only gathers (k and v
   within the batch shard, the output projection's weight, the output's
   rows), far fewer bytes.
+* A decode's attention over a cache split on its sequence (whisper-
+  medium's self-attention under `kv_seq`): XLA all-to-alls each rank's k
+  and v to a split of the KV heads and attends its heads over the whole
+  sequence, and so does the port, at half XLA:CPU's fp32 bytes; on the
+  CPU's fake group DTensor runs the all-to-all as an all-gather and a
+  chunk (`_dtensor.shard_dim_alltoall`'s CPU fallback), so the gather
+  moves the split's size times the bytes.
 """
 
 import concurrent.futures
@@ -57,6 +66,7 @@ import sys
 import textwrap
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 from jax.sharding import AbstractMesh
@@ -76,13 +86,6 @@ from repro_torch.models import layers as L
 SRC = str(Path(__file__).resolve().parents[1] / "src")
 ARCHS = list(tconfigs.ARCH_NAMES)
 MODES = ("train", "prefill", "decode")
-# the cells the mesh count does not reach (ROADMAP.md A), and why
-NOT_REACHED = {
-    ("whisper-medium", "decode"): "its self-attention cache is sharded on "
-                                  "its sequence (kv_seq on model)",
-    ("xlstm-1.3b", "train"): "not counted on one card either "
-                             "(dryrun.UNCOUNTED_TRAIN)",
-}
 
 
 def smoke_shape(mode):
@@ -93,9 +96,8 @@ def micro(mode):
     return 2 if mode == "train" else 1
 
 
-def cells(reached_on=None):
-    return [(a, m) for a in ARCHS for m in MODES
-            if reached_on is None or (a, m) not in NOT_REACHED]
+def cells():
+    return [(a, m) for a in ARCHS for m in MODES]
 
 
 @pytest.fixture
@@ -119,7 +121,7 @@ def _same(a: steps.StepCounts, b: steps.StepCounts):
 
 # ------------------------------------------------------- (a) a (1, 1) mesh
 
-ONE_RANK = [c for c in cells() if c != ("xlstm-1.3b", "train")]
+ONE_RANK = cells()
 
 
 @pytest.mark.parametrize("arch,mode", ONE_RANK,
@@ -183,6 +185,8 @@ REF_SCRIPT = textwrap.dedent("""
                    "trans": ca.get("transcendentals")}
             if job.get("hlo"):
                 rec["hlo"] = c.as_text()
+            if job.get("coll"):
+                rec["coll"] = parse_collective_bytes(c.as_text()).by_kind
         else:
             rt = make_runtime(mesh, arch, shape, sharding_mode=job["sm"])
             d, hd = arch.d_model, arch.resolved_head_dim
@@ -220,12 +224,14 @@ FLOP_CELLS = [("qwen2-0.5b", 1, "bfloat16"), ("qwen2-0.5b", 1, "float32"),
 
 def _jobs():
     jobs = []
-    for arch, mode in cells(reached_on="2x4"):
+    for arch, mode in cells():
         for sm in (("fsdp", "tp") if mode != "decode" else ("tp",)):
             jobs.append({"kind": "cell", "key": f"{arch}/{mode}/{sm}",
                          "arch": arch, "mode": mode, "sm": sm, "seq": 64,
                          "batch": 8, "micro": micro(mode),
-                         "hlo": arch == "qwen2-0.5b"})
+                         "hlo": arch == "qwen2-0.5b",
+                         "coll": (arch, mode) == ("whisper-medium",
+                                                  "decode")})
     for arch, layers, dt in FLOP_CELLS:
         for sm in ("fsdp", "tp"):
             jobs.append({"kind": "cell", "key": f"flops/{arch}/{dt}/{sm}",
@@ -289,6 +295,8 @@ def test_per_rank_argument_bytes_equal_the_references(key, ref, mesh2x4):
     want = ref[key]["args"] + _int_width(arch, mode)
     if (arch, mode) == ("xlstm-1.3b", "decode"):
         want += 4                      # XLA drops the unused int32 `pos`
+    if (arch, mode) == ("whisper-medium", "decode"):
+        want += _unread_by_the_decode(mesh2x4)
     assert mine == want
     # each rank's params are the sum of their leaves' shard shapes
     lay = steps.step_placements(tconfigs.get_smoke(arch), smoke_shape(mode),
@@ -301,6 +309,27 @@ def test_per_rank_argument_bytes_equal_the_references(key, ref, mesh2x4):
         for lo, s in zip(_leaves(lay), _leaves(model.param_specs())))
     assert counts.arg_bytes["params"] == want_params
     assert counts.collectives.total_bytes > 0
+
+
+def _unread_by_the_decode(mesh) -> int:
+    """Per-rank bytes of whisper-medium's parameters its decode step never
+    reads, which XLA drops from the compiled step's arguments (`jax.jit`
+    keeps no unused argument): the encoder's, and each decoder layer's
+    cross-attention k and v projections, made and dropped as in the
+    reference (its cross caches are inputs)."""
+    from torch.utils import _pytree as pytree
+
+    cfg = tconfigs.get_smoke("whisper-medium")
+    lay = steps.step_placements(cfg, smoke_shape("decode"), mesh).inputs[0]
+    unread = 0
+    for path, lo in pytree.tree_flatten_with_path(
+            lay, is_leaf=lambda x: hasattr(x, "placements"))[0]:
+        name = pytree.keystr(path)
+        if name.startswith("['enc") or "['xattn']" in name and \
+                name.endswith(("['wk']", "['wv']", "['bk']", "['bv']")):
+            unread += torch.Size(shard_shape(lo.shape, mesh, lo.placements)
+                                 ).numel() * 2
+    return unread
 
 
 def _leaves(tree):
@@ -558,12 +587,94 @@ def test_mesh_run_cell_record_carries_the_references_keys(tmp_path,
                             multi_pod=False, device="cpu")
 
 
-def test_unreached_mesh_cells_raise_naming_the_op(tmp_path, monkeypatch):
-    monkeypatch.setattr(tconfigs, "get_arch", tconfigs.get_smoke)
-    with pytest.raises(NotImplementedError,
-                       match="sequence-sharded k / v"):
-        dryrun.run_cell("whisper-medium", "decode_32k", tmp_path,
-                        multi_pod=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="sLSTM"):
-        dryrun.run_cell("xlstm-1.3b", "train_4k", tmp_path,
-                        multi_pod=False, device="cpu")
+# ------------------------------------ (i) attention over a split sequence
+
+def test_a_sequence_split_caches_attention_reshards_as_xlas(ref, mesh2x4,
+                                                           monkeypatch):
+    """whisper-medium's smoke decode at 8 x 64 on the (2, 4) mesh: each
+    decoder layer's self-attention reshards its rank's k and v (batch 4,
+    sequence 16 of 64, 4 KV heads of 16, bf16) from the sequence to the
+    KV heads, the all-to-all XLA runs in the layer body (32,768 bytes of
+    fp32 operands there, measured), at half its bytes; on this CPU group
+    as the all-gather of the 4 "model" shards it falls back to."""
+    cfg, shape = tconfigs.get_smoke("whisper-medium"), smoke_shape("decode")
+    xla = ref["whisper-medium/decode/tp"]["coll"]
+    assert xla["all-to-all"] == 32768           # one layer body
+    # the caches stack the layers: a layer's local k and v, bf16
+    lay = steps.step_placements(cfg, shape, mesh2x4).inputs[1]
+    local_kv = sum(torch.Size(shard_shape(lay[t].shape, mesh2x4,
+                                          lay[t].placements)).numel() * 2
+                   for t in ("k", "v")) // cfg.num_layers
+    assert local_kv == xla["all-to-all"] // 2 == 16384
+    reshards, attend = [], L._attention_on_local_rows
+
+    def seen(fn, q, k, v, q_offset):
+        coll = L.STEP_COUNTERS[-1].collectives
+        was = dict(coll.by_kind)
+        out = attend(fn, q, k, v, q_offset)
+        if L.shard_count(k, 1) > 1:
+            reshards.append({kind: b - was.get(kind, 0)
+                             for kind, b in coll.by_kind.items()
+                             if b != was.get(kind, 0)})
+        return out
+    monkeypatch.setattr(L, "_attention_on_local_rows", seen)
+    steps.trace_step(cfg, shape, device="cpu", mesh=mesh2x4,
+                     sharding_mode="tp")
+    assert len(reshards) == cfg.num_layers
+    for moved in reshards:
+        assert moved in ({"all-to-all": local_kv},
+                         {"all-gather": 4 * local_kv})
+
+
+def test_a_layer_scan_on_the_mesh_counts_as_the_whole_loop(mesh2x4,
+                                                          monkeypatch):
+    """whisper-medium's smoke decode at six layers on the (2, 4) mesh: its
+    scan over the layers runs four steps and counts one for the middle
+    ones, the caches' slices written in place and returned whole
+    (`layers.slice_of` on the local shards), and every per-rank count
+    and collective equals the whole loop's."""
+    cfg = dataclasses.replace(tconfigs.get_smoke("whisper-medium"),
+                              num_layers=6, encoder_layers=6)
+    kw = dict(device="cpu", mesh=mesh2x4, sharding_mode="tp")
+    replayed, _ = steps.trace_step(cfg, smoke_shape("decode"), **kw)
+    monkeypatch.setattr(L, "STEP_COUNTERS", [])
+    whole, _ = steps.trace_step(cfg, smoke_shape("decode"), **kw)
+    _same(replayed, whole)
+    assert replayed.collectives == whole.collectives
+    assert replayed.collectives.total_bytes > 0
+
+
+def test_head_split_attention_equals_the_unsplit_attention():
+    """The decode's attention on 4 ranks' head shards (q's heads and k's
+    and v's KV heads split alike, each rank over the whole sequence, its
+    padded tail masked by `kv_len`), rank by rank on real tensors and put
+    together on the heads, equals `blocked_attention` unsplit, within
+    `tests/test_kernels.py`'s fp32 tolerance."""
+    rng = np.random.default_rng(0)
+    B, S, H, KV, hd, ranks = 2, 200, 8, 4, 16, 4
+    q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+               for s in ((B, 1, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+    kw = dict(causal=False, kv_block=64, kv_len=torch.tensor(150))
+    whole = L.blocked_attention(q, k, v, **kw)
+    parts = [L.blocked_attention(qr, kr, vr, **kw) for qr, kr, vr in zip(
+        q.chunk(ranks, 2), k.chunk(ranks, 2), v.chunk(ranks, 2))]
+    np.testing.assert_allclose(torch.cat(parts, 2).numpy(), whole.numpy(),
+                               rtol=2e-4, atol=2e-4)
+
+
+def test_a_kv_head_count_the_split_does_not_divide_raises(mesh2x4):
+    """2 KV heads do not split over the 4 ranks of a cache's sequence
+    split: the attention raises, naming the placements."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    def place(shape, *pl):
+        return distribute_tensor(torch.empty(shape), mesh2x4, pl,
+                                 src_data_rank=None)
+
+    with FakeTensorMode():
+        q = place((8, 1, 4, 16), Shard(0), Replicate())
+        k = place((8, 64, 2, 16), Shard(0), Shard(1))
+        with pytest.raises(ValueError, match=r"Shard\(dim=1\).*: its 2 KV "
+                           r"heads do not split over the 4 ranks"):
+            L.blocked_attention(q, k, k, causal=False, kv_block=16)

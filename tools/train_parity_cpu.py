@@ -16,10 +16,16 @@ package runs in a process of its own, so neither imports the other:
                                      # params, over the same batches
     python tools/train_parity_cpu.py --compare --out DIR
 
-`--compare` prints one JSON line: both loss trajectories, their largest
-step-for-step gap, and each run's mean of the first and last five losses
-with the learning criterion of
-`tests/test_system.py::test_train_loop_reduces_loss` (a fall of 0.05).
+Each package also saves its gradients at the initial parameters on the
+first batch (`grads_<package>.npz`) and its parameters after the last
+step (`final_<package>.npz`).  `--compare` prints one JSON line: both
+loss trajectories, their largest step-for-step gap, each run's mean of
+the first and last five losses with the learning criterion of
+`tests/test_system.py::test_train_loop_reduces_loss` (a fall of 0.05),
+and, leaf by leaf in the port's layout, the largest element gap of the
+two packages' gradients and of their final parameters over the leaf's
+largest magnitude in the reference, with the count of elements past
+`LEAF_TOL` of it.
 """
 
 from __future__ import annotations
@@ -39,31 +45,52 @@ ARCH = "qwen2-0.5b"
 RUN = {"steps": 12, "global_batch": 8, "seq_len": 512, "lr": 3e-4,
        "seed": 0}
 LEARNS_BY = 0.05
+# the bar of chip_smoke's train phase: an element's gap over its leaf's
+# largest magnitude
+LEAF_TOL = 1e-5
 
 
 def run_jax(layers: int, out: Path) -> dict:
     import jax
 
     from repro import configs
+    from repro.data import SyntheticLMDataset
     from repro.launch.steps import build_model
     from repro.launch.train import train_loop
     from repro.models.layers import Runtime
 
+    def save(name, tree):
+        leaves, _ = jax.tree_util.tree_flatten_with_path(tree)
+        np.savez(out / name, **{jax.tree_util.keystr(k): np.asarray(v)
+                                for k, v in leaves})
+
     arch = dataclasses.replace(configs.get_arch(ARCH), num_layers=layers)
+    model = build_model(arch)
+    rt = Runtime(compute_dtype=np.float32)
     # train_loop's own initial parameters: PRNGKey(seed), fp32
-    init = build_model(arch).init(jax.random.PRNGKey(RUN["seed"]),
-                                  Runtime(compute_dtype=np.float32))
-    leaves, treedef = jax.tree_util.tree_flatten_with_path(init)
-    np.savez(out / "init.npz", **{jax.tree_util.keystr(k): np.asarray(v)
-                                  for k, v in leaves})
-    del init, leaves
+    init = model.init(jax.random.PRNGKey(RUN["seed"]), rt)
+    save("init.npz", init)
+    # the train step's gradients at them, on the first batch
+    batch = _dataset(SyntheticLMDataset, arch).global_batch_at(0)
+    _, grads = jax.jit(jax.value_and_grad(
+        lambda p, b: model.loss(p, b, rt)))(
+            init, {k: jax.numpy.asarray(v) for k, v in batch.items()})
+    save("grads_jax.npz", grads)
+    del init, grads
     t0 = time.time()
     res = train_loop(arch, steps=RUN["steps"],
                      global_batch=RUN["global_batch"],
                      seq_len=RUN["seq_len"], lr=RUN["lr"], seed=RUN["seed"],
                      log_every=1)
+    seconds = time.time() - t0
+    save("final_jax.npz", res["params"])
     return {"losses": [float(x) for x in res["losses"]],
-            "seconds": time.time() - t0, "n_params": res["n_params"]}
+            "seconds": seconds, "n_params": res["n_params"]}
+
+
+def _dataset(cls, arch):
+    return cls(vocab_size=arch.vocab_size, seq_len=RUN["seq_len"],
+               global_batch=RUN["global_batch"], seed=RUN["seed"])
 
 
 def _nest(flat: dict) -> dict:
@@ -97,7 +124,8 @@ def run_torch(layers: int, out: Path) -> dict:
     from repro_torch import configs
     from repro_torch.convert import params_from_numpy
     from repro_torch.data import SyntheticLMDataset, make_batch_iterator
-    from repro_torch.launch.steps import build_model, make_train_step
+    from repro_torch.launch.steps import (build_model, loss_and_grads,
+                                          make_train_step)
     from repro_torch.launch.train import to_device
     from repro_torch.models.layers import Runtime
     from repro_torch.optim import adamw_init
@@ -113,11 +141,19 @@ def run_torch(layers: int, out: Path) -> dict:
                               warmup_steps=max(steps // 10, 1),
                               total_steps=steps)
     opt_state = adamw_init(params)
-    ds = SyntheticLMDataset(vocab_size=arch.vocab_size,
-                            seq_len=RUN["seq_len"],
-                            global_batch=RUN["global_batch"],
-                            seed=RUN["seed"])
-    it = make_batch_iterator(ds, start_step=0)
+
+    def save(name, tree):
+        leaves, _ = pytree.tree_flatten_with_path(tree)
+        np.savez(out / name, **{pytree.keystr(k): v.detach().numpy()
+                                for k, v in leaves})
+
+    it = make_batch_iterator(_dataset(SyntheticLMDataset, arch),
+                             start_step=0)
+    _, grads = loss_and_grads(model, rt, params, to_device(
+        _dataset(SyntheticLMDataset, arch).global_batch_at(0), "cpu"))
+    save("grads_torch.npz", pytree.tree_unflatten(
+        grads, pytree.tree_structure(params)))
+    del grads
     losses = []
     t0 = time.time()
     for step in range(steps):
@@ -126,8 +162,35 @@ def run_torch(layers: int, out: Path) -> dict:
         losses.append(float(metrics["loss"]))
         print(f"[torch] step={step:3d} loss={losses[-1]:.6f} "
               f"({time.time() - t0:.1f}s)", flush=True)
-    return {"losses": losses, "seconds": time.time() - t0,
+    seconds = time.time() - t0
+    save("final_torch.npz", params)
+    return {"losses": losses, "seconds": seconds,
             "n_params": sum(p.numel() for p in pytree.tree_leaves(params))}
+
+
+def leaf_gaps(layers: int, out: Path, what: str) -> dict:
+    """For `what` ("grads" or "final"), by leaf of the port's layout: the
+    largest gap of the two packages' elements over the reference leaf's
+    largest magnitude, and the elements past `LEAF_TOL` of it."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch import configs
+    from repro_torch.convert import params_from_numpy
+
+    arch = dataclasses.replace(configs.get_arch(ARCH), num_layers=layers)
+    with np.load(out / f"{what}_jax.npz") as z:
+        ref = params_from_numpy(arch, _nest(dict(z)))
+    with np.load(out / f"{what}_torch.npz") as z:
+        port = dict(z)
+    gaps = {}
+    for path, r in pytree.tree_flatten_with_path(ref)[0]:
+        r = r.double().numpy()
+        err = np.abs(port[pytree.keystr(path)].astype(np.float64) - r)
+        scale = max(float(np.abs(r).max()), 1e-30)
+        gaps[pytree.keystr(path)] = {
+            "gap": float(err.max()) / scale,
+            "past": int((err > LEAF_TOL * scale).sum()), "size": r.size}
+    return gaps
 
 
 def summary(losses) -> dict:
@@ -151,10 +214,13 @@ def main(argv=None) -> int:
                 for p in ("jax", "torch")}
         gap = max(abs(a - b) for a, b in zip(runs["jax"]["losses"],
                                              runs["torch"]["losses"]))
+        layers = runs["jax"]["layers"]
         print(json.dumps({
-            "arch": ARCH, **RUN, "layers": runs["jax"]["layers"],
+            "arch": ARCH, **RUN, "layers": layers,
             "max_abs_loss_gap": gap,
-            **{p: {**r, **summary(r["losses"])} for p, r in runs.items()}}))
+            **{p: {**r, **summary(r["losses"])} for p, r in runs.items()},
+            **{what: leaf_gaps(layers, out, what)
+               for what in ("grads", "final")}}))
         return 0
     run = run_jax if args.package == "jax" else run_torch
     res = {"layers": args.layers, **run(args.layers, out)}
