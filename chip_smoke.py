@@ -8,9 +8,10 @@ nvcc per source, all started together), then runs these phases in order,
 printing one JSON line each:
 
   1. device      the card, its power limit, the nvcc build time, each
-                 kernel's registers, spills and ptxas warnings, and the
-                 HGMMA instructions of each flash and matmul kernel
-                 (`cuobjdump`);
+                 kernel's registers, spills and ptxas warnings, the HGMMA
+                 instructions of each flash and matmul kernel, and the
+                 FFMA, HMMA and HGMMA of the fp32 CUDA-core ones, which
+                 must hold no tensor-core instruction (`cuobjdump`);
   2. kernel gather_rows
                  `gather_rows` against its plain PyTorch version on the
                  card (the five screen tables of all seven paper apps and a
@@ -94,11 +95,13 @@ printing one JSON line each:
                  and on mistral-nemo-12b's (32 heads on 8 KV heads of 128)
                  (causal Sq != Skv included, the prefills' shapes on random
                  inputs): bf16 at head dims 64-256 runs the tensor-core
-                 kernel, fp32 and bf16 at 16-32 the CUDA-core one.  Then
-                 CUDA-event times of the kernel, of
-                 `scaled_dot_product_attention` and of the plain version,
-                 each row with the kernel that ran, its TFLOP/s and its
-                 share of the bound;
+                 kernel, fp32 and bf16 at 16-32 the CUDA-core one (fp32
+                 at olmoe-1b-7b's [4, 2048, 16/16, 128] and recurrentgemma-
+                 9b's [4, 2048, 16/1, 256] too).  Then CUDA-event times of
+                 the kernel, of `scaled_dot_product_attention` and of the
+                 plain version, each row with the kernel that ran, its
+                 TFLOP/s and its share of the bound, the CUDA-core kernel's
+                 at hd 64, 128 and 256;
  11. kernel rglru_scan
                  the bare scan (the channel-slab walk) against its plain
                  PyTorch version, every element, on the sweep of
@@ -139,7 +142,8 @@ printing one JSON line each:
                  layer of its kind hand it;
  15. serve recurrentgemma-9b
                  `serve_requests` at full width, fp32 compute: 8 requests of
-                 4-12 prompt tokens, batch 4, 16 new tokens, caches of 256,
+                 4-12 prompt tokens, batch 4, `SERVE_NEW` new tokens,
+                 caches of 256,
                  held against a teacher-forced full-sequence forward on the
                  card (fp32, `use_kernels=True`: its attention on the
                  CUDA-core flash kernel only) over each request's prompt
@@ -219,7 +223,8 @@ printing one JSON line each:
                  encoder output (`fill_cross`);
  24. serve whisper-medium
                  `serve_requests` at full width, fp32, 8 requests, batch
-                 4, 16 new tokens, caches of 256, the reference's zeroed
+                 4, `SERVE_NEW` new tokens, caches of 256, the
+                 reference's zeroed
                  cross caches: the served decode gated against a forward
                  that reads its own caches (`encdec_reads_the_cache`),
                  every cache entry within one bf16 rounding; and the
@@ -280,13 +285,16 @@ printing one JSON line each:
                  the fastest, its share of the bound, and CUDA-event times
                  of the plain version and `torch.matmul`; the LM-head shape
                  (M N > 2^31) runs once, at its tuned tile.  Then the fp32
-                 `FP32_SHAPE` on the CUDA-core kernel at the CUDA-core
-                 model's pick, beside its 67 TFLOP/s bound;
+                 `FP32_SHAPE` on the CUDA-core kernel at every tile it is
+                 built for, each output held against the plain version,
+                 with the CUDA-core model's pick, its regret and rank
+                 correlation as for bf16, beside its 67 TFLOP/s bound;
  29. dryrun      `run_cell` for qwen2-0.5b, recurrentgemma-9b, olmoe-1b-7b,
                  deepseek-v2-lite-16b, whisper-medium and xlstm-1.3b at
                  prefill_32k and decode_32k, xlstm-1.3b at long_500k and
                  qwen2.5-32b at decode_32k over the f8 KV cache (its
-                 analytic bytes and peak at one byte an element), and
+                 analytic bytes and peak at one byte an element), these
+                 in a spawned process beside the rest, and
                  qwen2-0.5b at train_4k (batch 256, 2 microbatches, remat
                  "full") on fake CUDA tensors (full batch; every record
                  OK with a finite peak and roofline), each cell's matmul
@@ -294,13 +302,13 @@ printing one JSON line each:
                  `autotune_search` of 1 point (cut from 4 for the time)
                  over the train cell's execution space (its peak and
                  score), `MESH_DRYRUN_CELLS` counted per rank on 16x16
-                 and 2x16x16 in a spawned process beside the rest (each
+                 and 2x16x16 in a second spawned process (each
                  OK with its chips, each rank's params its leaves' shard
                  shapes, a finite roofline, its collectives by kind and
                  trace seconds printed; whisper-medium's decode_32k with
                  the all-to-all of its self-attention's reshard) and
                  xlstm-1.3b at train_4k (batch 256, 4 microbatches,
-                 remat "full"; its scans replayed) in a second one,
+                 remat "full"; its scans replayed) in a third one,
                  one greedy `autotune_search` over
                  qwen2-0.5b's decode_32k (a cell whose points fit 80 GB;
                  every record it writes must be OK with a finite peak and
@@ -463,6 +471,16 @@ MOE_DISPATCH_KERNELS = ("gatherTopK", "sort", "Sort", "scan", "index_put",
 # bf16.  A next token may differ only where the plain path's top-1 margin
 # is within that tolerance: then either token is the model's.
 PREFILL_TOL = 0.02
+# new tokens a request in the fp32 serve phases of recurrentgemma-9b,
+# olmoe-1b-7b, deepseek-v2-lite-16b, xlstm-1.3b and whisper-medium: the
+# smoke's time (their checks decode each request token by token; the one
+# forward a request launches the same kernels at any length)
+SERVE_NEW = 8
+# a prefill forward longer than this runs once, its own warm-up, where
+# shorter ones run a warm-up and 2 timed (deepseek-v2-lite-16b's and
+# whisper-medium's at 32k, 16 and 11 s, whose three runs agreed within
+# 0.1 %, and xlstm-1.3b's at 2048 x 4 on a slow host): the smoke's time
+LONG_FORWARD_S = 8.0
 # served logits, card against CPU, fp32 with TF32 off: the only gap is the
 # summation order, plus the odd K/V entry that rounds to the other bf16
 # neighbour in the cache; |a - b| <= SERVE_TOL * (1 + |b|)
@@ -493,6 +511,19 @@ ONCE = "qwen2-0.5b lm head, 32k"
 POSITIVE_SHAPE = (1024, 12288, 1024)
 # the fp32 product the tile DSE tunes for the CUDA-core kernel
 FP32_SHAPE = (8192, 8192, 8192)
+# the roofline figures the dry-run phase keeps of each cell
+ROOFLINE_KEYS = ("flops_per_chip", "hbm_bytes_per_chip",
+                 "peak_memory_per_chip", "compute_s", "memory_s",
+                 "memory_s_hlo", "roofline_s", "bottleneck",
+                 "useful_compute_ratio")
+# the dry-run phase's serving cells: every served arch's prefill_32k and
+# decode_32k, xlstm-1.3b's long_500k, qwen2.5-32b's decode_32k over the f8
+# cache
+DRYRUN_SERVING_CELLS = tuple(
+    [(a, s) for a in (ARCH, RG_ARCH, MOE_ARCH, MLA_ARCH, WHISPER_ARCH)
+     for s in ("prefill_32k", "decode_32k")]
+    + [(XLSTM_ARCH, s) for s in ("prefill_32k", "decode_32k", "long_500k")]
+    + [(F8_ARCH, "decode_32k")])
 # the greedy autotune's pick of qwen2-0.5b's decode_32k when the dry-run
 # counted the matmul family's FLOPs only: the dry-run phase records whether
 # counting the elementwise FLOPs moved it
@@ -1605,7 +1636,7 @@ def phase_throughput(specs, space, rng) -> None:
     from repro_torch.core.search import optimize_for_app
     from repro_torch.kernels.gather import gather_rows
 
-    batch, rounds = 262144, 4
+    batch, rounds = 262144, 1           # one: the smoke's time
     per_app, calls = {}, {}
     for spec in specs:
         def search(max_rounds):
@@ -1740,14 +1771,19 @@ def phase_flash(gen) -> dict:
     cases += [(1, 1000, 2048, 16, 1, 256, True, torch.bfloat16),
               (1, 2048, 1000, 16, 1, 256, True, torch.float32)]
     # head dim 128 (mistral-nemo-12b's 32 heads on 8 KV heads), Sq != Skv
-    cases += [(2, sq, skv, 32, 8, 128, causal, torch.bfloat16)
+    cases += [(2, sq, skv, 32, 8, 128, causal, dtype)
               for sq, skv in ((1000, 1536), (1536, 1000))
-              for causal in (True, False)]
+              for causal in (True, False)
+              for dtype in (torch.float32, torch.bfloat16)]
     # the prefills' shapes, all rows (their own inputs: prefill phases)
     cases += [(4, 2048, 2048, 14, 2, 64, True, torch.bfloat16),
               (1, 32768, 32768, 14, 2, 64, True, torch.bfloat16),
               (4, 2048, 2048, 16, 1, 256, True, torch.bfloat16),
               (1, 8192, 8192, 32, 8, 128, True, torch.bfloat16)]
+    # the fp32 forwards' shapes on the CUDA-core kernel: olmoe-1b-7b's gate
+    # (16 heads of 128 on 16) and recurrentgemma-9b's (16 on one of 256)
+    cases += [(4, 2048, 2048, 16, 16, 128, True, torch.float32),
+              (4, 2048, 2048, 16, 1, 256, True, torch.float32)]
     worst = {"float32": {"max_abs_err": 0.0, "tol_ratio": 0.0},
              "bfloat16": {"max_abs_err": 0.0, "tol_ratio": 0.0}}
     failed = []
@@ -1764,14 +1800,17 @@ def phase_flash(gen) -> dict:
     # qwen2-0.5b's prefill at S 32768 (the plain version's fp32 scores
     # would need 60 GB there) and 4096; recurrentgemma-9b's at 4 x 2048;
     # head dim 128 at 8192 (mistral-nemo-12b's heads); and the CUDA-core
-    # kernel's fp32 at qwen2-0.5b's S 4096
+    # kernel's fp32 at qwen2-0.5b's S 4096 and at the fp32 forwards'
+    # shapes of olmoe-1b-7b (hd 128) and recurrentgemma-9b (hd 256)
     timings = {}
     for key, (b, s_len, h, kv, hd, dtype, with_plain) in {
             "32768": (1, 32768, 14, 2, 64, torch.bfloat16, False),
             "4096": (1, 4096, 14, 2, 64, torch.bfloat16, True),
             "hd256": (4, 2048, 16, 1, 256, torch.bfloat16, True),
             "hd128": (1, 8192, 32, 8, 128, torch.bfloat16, True),
-            "fp32_4096": (1, 4096, 14, 2, 64, torch.float32, True)}.items():
+            "fp32_4096": (1, 4096, 14, 2, 64, torch.float32, True),
+            "fp32_hd128": (4, 2048, 16, 16, 128, torch.float32, True),
+            "fp32_hd256": (4, 2048, 16, 1, 256, torch.float32, True)}.items():
         q, k, v = inputs(b, s_len, s_len, h, kv, hd, dtype)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         reps = dict(reps=3, inner=2) if s_len > 4096 else {}
@@ -2360,13 +2399,15 @@ def phase_prefill(arch: str) -> dict:
                   f"a forward, expected {want_launches}")
             for n in totals:
                 totals[n] += want_launches[n]
+            if walls[0] > LONG_FORWARD_S:
+                break                             # one run, timed
         peak = torch.cuda.max_memory_allocated()
         v = cfg.vocab_size
         got = logits[:, :v].float()
         check(tuple(logits.shape) == (batch, model.v_pad),
               f"prefill logits {tuple(logits.shape)}")
         check(bool(torch.isfinite(got).all()), "prefill logits not finite")
-        wall = float(np.median(walls[1:]))
+        wall = float(np.median(walls[1:] or walls))
         run = {"seq": seq, "batch": batch, "wall_s": wall, "walls_s": walls,
                "tokens_per_s": seq * batch / wall,
                "max_memory_allocated": peak,
@@ -2842,14 +2883,15 @@ def phase_serve_forward(arch: str, param_dtype=torch.float32) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    results = serve_requests(cfg, prompts, batch=4, max_new=16, max_len=256,
+    results = serve_requests(cfg, prompts, batch=4, max_new=SERVE_NEW,
+                             max_len=256,
                              device="cuda", params=params)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    check(len(results) == 8 and all(len(r.generated) == 16
+    check(len(results) == 8 and all(len(r.generated) == SERVE_NEW
                                     for r in results),
-          "serve did not answer every request with 16 tokens")
+          f"serve did not answer every request with {SERVE_NEW} tokens")
     check(all(0 <= t < cfg.vocab_size for r in results for t in r.generated),
           "serve generated a token outside the vocabulary")
 
@@ -3079,7 +3121,8 @@ def phase_serve_forward(arch: str, param_dtype=torch.float32) -> dict:
     rec = dict(arch=arch, layers=cfg.num_layers, compute_dtype="float32",
                param_dtype=str(param_dtype).split(".")[-1],
                level="smoke: toy context, no serve rate",
-               requests=len(results), batch=4, max_new=16, max_len=256,
+               requests=len(results), batch=4, max_new=SERVE_NEW,
+               max_len=256,
                prompt_lens=[len(p) for p in prompts], wall_s=wall,
                generated_tokens=generated, tokens_per_s=generated / wall,
                latency_s=[r.latency_s for r in results],
@@ -3290,12 +3333,14 @@ def phase_prefill_xlstm() -> dict:
         for _ in range(reps):
             logits, wall = forward(inputs, long=batch == 1)
             walls.append(wall)
+            if walls[0] > LONG_FORWARD_S:
+                break                             # one run, timed
         peak = torch.cuda.max_memory_allocated()
         got = logits[:, :cfg.vocab_size].float()
         check(tuple(logits.shape) == (batch, model.v_pad),
               f"prefill logits {tuple(logits.shape)}")
         check(bool(torch.isfinite(got).all()), "prefill logits not finite")
-        wall = float(np.median(walls[1:] if reps > 1 else walls))
+        wall = float(np.median(walls[1:] or walls))
         run = {"seq": seq, "batch": batch, "layers": XLSTM_LONG_LAYERS
                if batch == 1 else cfg.num_layers,
                "wall_s": wall, "walls_s": walls,
@@ -3463,7 +3508,8 @@ def phase_prefill_whisper() -> dict:
     runs (the reference's `_mha` always calls `blocked_attention`), every
     counter 0 a forward.  Seq 2048 x batch 4 and 32,768 x 1 (prefill_32k
     with its batch cut from 32, listed in `reduced`): the wall (median of
-    2 after a warm-up), tokens/s, one profiled forward (device time by
+    2 after a warm-up; one run at 32k, `LONG_FORWARD_S`), tokens/s, one
+    profiled forward (device time by
     kind, idle share, kernels) and `max_memory_allocated` at each.  Gate,
     in fp32: the forward's last logits at `WHISPER_GATE_SEQ` tokens
     against the fp32 decode loop over the same tokens (fp32 caches, the
@@ -3517,12 +3563,14 @@ def phase_prefill_whisper() -> dict:
         for _ in range(3):
             logits, wall = forward(inputs)
             walls.append(wall)
+            if walls[0] > LONG_FORWARD_S:
+                break                             # one run, timed
         peak = torch.cuda.max_memory_allocated()
         got = logits[:, :cfg.vocab_size].float()
         check(tuple(logits.shape) == (batch, model.v_pad),
               f"prefill logits {tuple(logits.shape)}")
         check(bool(torch.isfinite(got).all()), "prefill logits not finite")
-        wall = float(np.median(walls[1:]))
+        wall = float(np.median(walls[1:] or walls))
         t0 = time.perf_counter()
         device = device_kinds(lambda: step(params, inputs),
                               {"matmul_us": ("gemm", "nvjet", "xmma")})
@@ -3588,8 +3636,9 @@ def phase_prefill_whisper() -> dict:
 
 def phase_serve_whisper() -> dict:
     """whisper-medium's `serve_requests` at full width on the card, fp32
-    weights and compute: 8 requests of 4-12 prompt tokens, batch 4, 16 new
-    tokens, caches of 256, the reference's zeroed cross caches (its
+    weights and compute: 8 requests of 4-12 prompt tokens, batch 4,
+    `SERVE_NEW` new tokens, caches of 256, the reference's zeroed cross
+    caches (its
     server never runs the encoder, so the decode's cross-attention gives
     exactly 0).  Each request's prompt and served tokens are replayed
     through the decode step as served (bf16 caches; the served tokens must
@@ -3630,14 +3679,15 @@ def phase_serve_whisper() -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    results = serve_requests(cfg, prompts, batch=4, max_new=16, max_len=256,
+    results = serve_requests(cfg, prompts, batch=4, max_new=SERVE_NEW,
+                             max_len=256,
                              device="cuda", params=params)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    check(len(results) == 8 and all(len(r.generated) == 16
+    check(len(results) == 8 and all(len(r.generated) == SERVE_NEW
                                     for r in results),
-          "serve did not answer every request with 16 tokens")
+          f"serve did not answer every request with {SERVE_NEW} tokens")
     check(all(0 <= t < cfg.vocab_size for r in results for t in r.generated),
           "serve generated a token outside the vocabulary")
 
@@ -3757,7 +3807,8 @@ def phase_serve_whisper() -> dict:
     rec = dict(arch=WHISPER_ARCH, decoder_layers=cfg.num_layers,
                compute_dtype="float32", param_dtype="float32",
                level="smoke: toy context, no serve rate",
-               requests=len(results), batch=4, max_new=16, max_len=256,
+               requests=len(results), batch=4, max_new=SERVE_NEW,
+               max_len=256,
                prompt_lens=[len(p) for p in prompts], wall_s=wall,
                generated_tokens=generated, tokens_per_s=generated / wall,
                latency_s=[r.latency_s for r in results],
@@ -4572,10 +4623,10 @@ def spearman(a, b):
 def phase_tile_dse(gen) -> dict:
     """The tile DSE on the card: for each of `TILE_SHAPES` (bf16), tune
     under the tensor-core tile model, then run every tile the tensor-core
-    kernel is built for, each output against the plain version; then tune
-    the fp32 `FP32_SHAPE` under the CUDA-core model and time the CUDA-core
-    kernel at its pick.  Returns the launches of each kernel in this phase
-    and the per-shape records."""
+    kernel is built for, each output against the plain version; then the
+    same for the fp32 `FP32_SHAPE` under the CUDA-core model and every
+    tile of the CUDA-core kernel.  Returns the launches of each kernel in
+    this phase and the per-shape records."""
     from repro_torch.core.kernel_tune import tune_matmul_tiles
     from repro_torch.kernels import matmul as mm
     from repro_torch.models.layers import full_precision_products
@@ -4637,34 +4688,54 @@ def phase_tile_dse(gen) -> dict:
             "tol_ratio": max(r["tol_ratio"] for r in checks.values()),
             "plain_ms": plain_ms, "library_ms": library_ms, **bound}
         del x, y
-    # the fp32 product on the CUDA cores, at the CUDA-core model's pick
+    # the fp32 product on the CUDA cores, at every tile the CUDA-core
+    # kernel is built for, each output against the plain version
     m, k, n = FP32_SHAPE
     x = torch.randn((m, k), generator=gen, device="cuda")
     y = torch.randn((k, n), generator=gen, device="cuda")
-    best, cost, _ = tune_matmul_tiles(m, k, n, dtype_bytes=4)
+    best, cost, ranking = tune_matmul_tiles(m, k, n, dtype_bytes=4)
     tuned = (best.bm, best.bk, best.bn)
-    out = mm.matmul(x, y, bm=tuned[0], bk=tuned[1], bn=tuned[2])
-    kernel_ms = device_ms(
-        lambda: mm.matmul(x, y, bm=tuned[0], bk=tuned[1], bn=tuned[2]),
-        reps=2, inner=1)
-    res = matmul_against_plain(x, y, {"out": out}, tuned[1])["out"]
-    del out
-    if res["tol_ratio"] > 1.0 or not res["finite"]:
-        failed.append(f"fp32 {FP32_SHAPE} tile {tuned}: {res}")
+    predicted = {(t.bm, t.bk, t.bn): lat * 1e3 for t, lat in ranking}
+    tiles = list(predicted)
+    outs, measured = {}, {}
+    for t in tiles:
+        outs[t] = mm.matmul(x, y, bm=t[0], bk=t[1], bn=t[2])
+        measured[t] = device_ms(
+            lambda: mm.matmul(x, y, bm=t[0], bk=t[1], bn=t[2]), reps=2,
+            inner=1)
+    torch.cuda.synchronize()
+    checks = matmul_against_plain(x, y, {str(t): o for t, o in outs.items()},
+                                  tuned[1])
+    del outs
+    for t, res in checks.items():
+        if res["tol_ratio"] > 1.0 or not res["finite"]:
+            failed.append(f"fp32 {FP32_SHAPE} tile {t}: {res}")
     with full_precision_products():
         library_ms = device_ms(lambda: torch.matmul(x, y), reps=2, inner=1)
         plain_ms = device_ms(lambda: mm.matmul_plain(x, y, bk=tuned[1]),
                              reps=1, inner=1)
+    fastest = min(measured, key=measured.get)
+    kernel_ms = measured[tuned]
     flop = 2 * m * k * n
     fp32 = {"M": m, "K": k, "N": n, "dtype": "float32",
             "kernel": mm.CUDA_CORE.name, "tuned": list(tuned),
-            "predicted_ms": cost["latency_s"] * 1e3, "kernel_ms": kernel_ms,
+            "predicted_ms": predicted[tuned], "tuned_cost": cost,
+            "fastest": list(fastest), "kernel_ms": kernel_ms,
+            "regret": kernel_ms / measured[fastest] - 1.0,
+            "rank_correlation": spearman([predicted[t] for t in tiles],
+                                         [measured[t] for t in tiles]),
+            "tiles": [{"tile": list(t), "predicted_ms": predicted[t],
+                       "measured_ms": measured[t],
+                       "tol_ratio": checks[str(t)]["tol_ratio"]}
+                      for t in tiles],
             "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_share": library_ms / kernel_ms,
             "flop": flop, "bytes": 4 * (m * k + k * n + m * n),
             "bound_ms": flop / FP32_FLOP_PER_S * 1e3,
             "bound_by": "operations (67 TFLOP/s fp32 FMA)",
             "bound_share": flop / FP32_FLOP_PER_S * 1e3 / kernel_ms,
-            "max_abs_err": res["max_abs_err"], "tol_ratio": res["tol_ratio"]}
+            "max_abs_err": max(r["max_abs_err"] for r in checks.values()),
+            "tol_ratio": max(r["tol_ratio"] for r in checks.values())}
     del x, y
     launches = {fn.name: fn.launches for fn in (mm.TENSOR_CORE,
                                                 mm.CUDA_CORE)}
@@ -4684,10 +4755,11 @@ def phase_tile_dse(gen) -> dict:
 
 def phase_dryrun() -> dict:
     """Dry-runs of the six served archs at their serving cells on fake
-    CUDA tensors (xlstm-1.3b's `long_500k` too, and qwen2.5-32b's
-    decode_32k over the f8 cache, its analytic bytes and peak at one byte
-    a cache element; every record OK, with a finite peak and roofline),
-    qwen2-0.5b's train_4k cell (batch 256, the reference's 2 microbatches
+    CUDA tensors (`dryrun_serving_cells`, in a spawned process beside the
+    rest: xlstm-1.3b's `long_500k` too, and qwen2.5-32b's decode_32k over
+    the f8 cache, its analytic bytes and peak at one byte a cache element;
+    every record OK, with a finite peak and roofline), qwen2-0.5b's
+    train_4k cell (batch 256, the reference's 2 microbatches
     and remat "full", both in its record), xlstm-1.3b's
     (`dryrun_xlstm_train`) and `MESH_DRYRUN_CELLS` (`dryrun_mesh_cells`),
     each in a spawned process beside the rest, and a random autotune of
@@ -4708,80 +4780,23 @@ def phase_dryrun() -> dict:
     from repro_torch.configs.shapes import ShapeSpec
     from repro_torch.core.autotune import (CellEvaluator, ExecPoint,
                                            autotune_search)
-    from repro_torch.core.roofline import analytic_hbm_bytes
     from repro_torch.launch.dryrun import DEFAULT_MICROBATCHES, run_cell
     from repro_torch.launch.steps import (build_model, count_step,
                                           make_prefill_step, trace_step)
 
-    cells, keys = {}, ("flops_per_chip", "hbm_bytes_per_chip",
-                       "peak_memory_per_chip", "compute_s", "memory_s",
-                       "memory_s_hlo", "roofline_s", "bottleneck",
-                       "useful_compute_ratio")
-    # the mesh cells and xlstm-1.3b's train cell are host work of their
-    # own: two spawned processes count them beside the rest of the phase
+    cells = {}
+    # the serving cells, the mesh cells and xlstm-1.3b's train cell are
+    # host work of their own: three spawned processes count them beside
+    # the rest of the phase
     mesh_pool = ProcessPoolExecutor(
-        2, mp_context=multiprocessing.get_context("spawn"))
+        3, mp_context=multiprocessing.get_context("spawn"))
     try:
         with tempfile.TemporaryDirectory() as tmp:
+            serving_run = mesh_pool.submit(dryrun_serving_cells,
+                                           Path(tmp) / "serving")
             mesh_run = mesh_pool.submit(dryrun_mesh_cells, Path(tmp) / "mesh")
             xlstm_run = mesh_pool.submit(dryrun_xlstm_train,
                                          Path(tmp) / "xlstm")
-            for arch, shape in [(a, s) for a in (ARCH, RG_ARCH, MOE_ARCH,
-                                                 MLA_ARCH, WHISPER_ARCH)
-                                for s in ("prefill_32k", "decode_32k")] + [
-                    (XLSTM_ARCH, s) for s in ("prefill_32k", "decode_32k",
-                                              "long_500k")] + [
-                    (F8_ARCH, "decode_32k")]:
-                rec = run_cell(arch, shape, Path(tmp), device="cuda")
-                check(rec["status"] == "OK",
-                      f"dry-run {arch} {shape}: {rec.get('error')}")
-                roof = rec["roofline"]
-                check(roof["flops_per_chip"] > 0 and roof["roofline_s"] > 0
-                      and all(math.isfinite(roof[k]) for k in
-                              ("peak_memory_per_chip", "roofline_s")),
-                      f"dry-run {arch} {shape} counted nothing, or a "
-                      f"peak or roofline that is not finite")
-                # the record's three counts of the step
-                check(roof["flops_per_chip"] ==
-                      rec["matmul_flops"] + rec["elementwise_flops"],
-                      f"dry-run {arch} {shape}: {rec['matmul_flops']} + "
-                      f"{rec['elementwise_flops']} FLOPs counted, "
-                      f"{roof['flops_per_chip']} in the roofline")
-                cells[f"{arch} {shape}"] = {
-                    **{k: roof[k] for k in keys},
-                    **{k: rec[k] for k in ("matmul_flops", "elementwise_flops",
-                                           "transcendentals")},
-                    "elementwise_share": rec["elementwise_flops"]
-                    / roof["flops_per_chip"],
-                    "fits_hbm": rec["fits_hbm"], "trace_s": rec["compile_s"],
-                    "kv_dtype": rec["runtime"]["kv_dtype"],
-                    "analytic_bytes": rec["analytic_bytes"],
-                    "flops_by_op": rec["flops_by_op"]}
-            # the f8 cell: its analytic traffic takes the cache at one byte an
-            # element, as the reference's, and so does its peak: the same step
-            # over a bf16 cache holds one byte an element more
-            f8 = cells[f"{F8_ARCH} decode_32k"]
-            cfg = configs.get_arch(F8_ARCH)
-            shape = configs.shape_by_name("decode_32k")
-            check(f8["kv_dtype"] == "f8" and f8["analytic_bytes"] ==
-                  analytic_hbm_bytes(cfg, shape, 1, tp=1, kv_bytes=1),
-                  f"dry-run {F8_ARCH} decode_32k: kv {f8['kv_dtype']}, "
-                  f"analytic "
-                  f"bytes {f8['analytic_bytes']}")
-            bf16 = run_cell(F8_ARCH, "decode_32k", Path(tmp), device="cuda",
-                            overrides={"kv_dtype": "bf16"}, tag="_bf16")
-            cache = sum(math.prod(sp.shape) for layer in build_model(
-                cfg).cache_specs(shape.global_batch, shape.seq_len)
-                for sp in layer.values())
-            f8["peak_over_bf16_cache"] = (
-                bf16["roofline"]["peak_memory_per_chip"]
-                - f8["peak_memory_per_chip"])
-            f8["cache_bytes"] = cache
-            check(f8["peak_over_bf16_cache"] == cache,
-                  f"dry-run {F8_ARCH} decode_32k: the f8 peak is "
-                  f"{f8['peak_over_bf16_cache']} bytes under the bf16 one, "
-                  f"the "
-                  f"cache holds {cache} elements")
             # the train cell: qwen2-0.5b's train_4k at its full batch (256),
             # the reference's microbatches (2) and remat ("full")
             t0 = time.perf_counter()
@@ -4800,7 +4815,7 @@ def phase_dryrun() -> dict:
                   == DEFAULT_MICROBATCHES[ARCH],
                   f"dry-run {ARCH} train_4k config {rec['config']}")
             cells[f"{ARCH} train_4k"] = {
-                **{k: roof[k] for k in keys},
+                **{k: roof[k] for k in ROOFLINE_KEYS},
                 **{k: rec[k] for k in ("matmul_flops", "elementwise_flops",
                                        "transcendentals", "config")},
                 "fits_hbm": rec["fits_hbm"], "trace_s": rec["compile_s"],
@@ -4903,6 +4918,7 @@ def phase_dryrun() -> dict:
                   f"the autotune scored {ev.cell} 0 at every point: {scores}")
             check(score == max(scores),
                   f"the autotune kept {score}, below its best {max(scores)}")
+            cells.update(serving_run.result())
             mesh_cells = mesh_run.result()
             cells[f"{XLSTM_ARCH} train_4k"] = xlstm_run.result()
     finally:
@@ -4955,6 +4971,71 @@ def phase_dryrun() -> dict:
           f"max_memory_allocated / dry-run peak = {ratio}, outside "
           f"{DRYRUN_PEAK_BAND}")
     return rec
+
+
+def dryrun_serving_cells(out: Path, device: str = "cuda") -> dict:
+    """The dry-run phase's serving cells (`DRYRUN_SERVING_CELLS`), each OK
+    with a finite peak and roofline and its three counts, and the f8
+    cell's analytic bytes and peak against the same step over a bf16
+    cache; their records, by cell."""
+    from repro_torch import configs
+    from repro_torch.core.roofline import analytic_hbm_bytes
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.steps import build_model
+
+    cells = {}
+    for arch, shape in DRYRUN_SERVING_CELLS:
+        rec = run_cell(arch, shape, out, device=device)
+        check(rec["status"] == "OK",
+              f"dry-run {arch} {shape}: {rec.get('error')}")
+        roof = rec["roofline"]
+        check(roof["flops_per_chip"] > 0 and roof["roofline_s"] > 0
+              and all(math.isfinite(roof[k]) for k in
+                      ("peak_memory_per_chip", "roofline_s")),
+              f"dry-run {arch} {shape} counted nothing, or a "
+              f"peak or roofline that is not finite")
+        # the record's three counts of the step
+        check(roof["flops_per_chip"] ==
+              rec["matmul_flops"] + rec["elementwise_flops"],
+              f"dry-run {arch} {shape}: {rec['matmul_flops']} + "
+              f"{rec['elementwise_flops']} FLOPs counted, "
+              f"{roof['flops_per_chip']} in the roofline")
+        cells[f"{arch} {shape}"] = {
+            **{k: roof[k] for k in ROOFLINE_KEYS},
+            **{k: rec[k] for k in ("matmul_flops", "elementwise_flops",
+                                   "transcendentals")},
+            "elementwise_share": rec["elementwise_flops"]
+            / roof["flops_per_chip"],
+            "fits_hbm": rec["fits_hbm"], "trace_s": rec["compile_s"],
+            "kv_dtype": rec["runtime"]["kv_dtype"],
+            "analytic_bytes": rec["analytic_bytes"],
+            "flops_by_op": rec["flops_by_op"]}
+    # the f8 cell: its analytic traffic takes the cache at one byte an
+    # element, as the reference's, and so does its peak: the same step
+    # over a bf16 cache holds one byte an element more
+    f8 = cells[f"{F8_ARCH} decode_32k"]
+    cfg = configs.get_arch(F8_ARCH)
+    shape = configs.shape_by_name("decode_32k")
+    check(f8["kv_dtype"] == "f8" and f8["analytic_bytes"] ==
+          analytic_hbm_bytes(cfg, shape, 1, tp=1, kv_bytes=1),
+          f"dry-run {F8_ARCH} decode_32k: kv {f8['kv_dtype']}, "
+          f"analytic "
+          f"bytes {f8['analytic_bytes']}")
+    bf16 = run_cell(F8_ARCH, "decode_32k", out, device=device,
+                    overrides={"kv_dtype": "bf16"}, tag="_bf16")
+    cache = sum(math.prod(sp.shape) for layer in build_model(
+        cfg).cache_specs(shape.global_batch, shape.seq_len)
+        for sp in layer.values())
+    f8["peak_over_bf16_cache"] = (
+        bf16["roofline"]["peak_memory_per_chip"]
+        - f8["peak_memory_per_chip"])
+    f8["cache_bytes"] = cache
+    check(f8["peak_over_bf16_cache"] == cache,
+          f"dry-run {F8_ARCH} decode_32k: the f8 peak is "
+          f"{f8['peak_over_bf16_cache']} bytes under the bf16 one, "
+          f"the "
+          f"cache holds {cache} elements")
+    return cells
 
 
 def dryrun_mesh_cells(out: Path) -> dict:
@@ -5088,22 +5169,26 @@ def ptxas_report(log: str) -> list:
     return rows
 
 
-def sass_counts(lib: Path, opcode: str) -> dict:
-    """Instructions of `opcode` in each kernel of a built library, from
-    `cuobjdump -sass`, where the toolkit has it; else {}."""
+def sass_counts(lib: Path, opcodes) -> dict:
+    """Instructions of each of `opcodes` in each kernel of a built library
+    (opcode -> kernel -> count), from one `cuobjdump -sass`, where the
+    toolkit has it; else {}."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).is_file():
         return {}
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
-    counts, name = {}, None
+    counts, name = {op: {} for op in opcodes}, None
     for ln in sass.splitlines():
         m = re.search(r"Function : (\S+)", ln)
         if m:
             name = kernel_label(m.group(1))
-            counts[name] = 0
-        elif name and re.search(rf"\b{opcode}\b", ln):
-            counts[name] += 1
+            for op in opcodes:
+                counts[op][name] = 0
+        elif name:
+            for op in opcodes:
+                if re.search(rf"\b{op}\b", ln):
+                    counts[op][name] += 1
     return counts
 
 
@@ -5130,12 +5215,25 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = build.build()
     build_s = time.perf_counter() - t0
+    # the fp32 CUDA-core kernels multiply with FFMA alone: no HMMA (TF32 or
+    # bf16 mma.sync) and no HGMMA in their SASS
+    sass = {name: sass_counts(build.library_path(name),
+                              ("HGMMA", "HMMA", "FFMA"))
+            for name in ("flash_attention", "matmul")}
+    cuda_core = {kernel: {op: counts[op][kernel] for op in counts}
+                 for counts in sass.values() if counts
+                 for kernel in counts["FFMA"]
+                 if kernel.startswith(("matmul_kernel<",
+                                       "flash_attention_kernel<"))}
     emit("device", name=torch.cuda.get_device_name(0), nvidia_smi=smi,
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, nvcc_build_s=build_s,
          ptxas={k: ptxas_report(v) for k, v in logs.items()},
-         hgmma={name: sass_counts(build.library_path(name), "HGMMA")
-                for name in ("flash_attention", "matmul")})
+         hgmma={name: s.get("HGMMA", {}) for name, s in sass.items()},
+         cuda_core_sass=cuda_core)
+    check(all(c["HGMMA"] == c["HMMA"] == 0 < c["FFMA"]
+              for c in cuda_core.values()),
+          f"a CUDA-core kernel holds tensor-core instructions: {cuda_core}")
 
     rng = np.random.default_rng(0)
     space = default_space()
@@ -5283,7 +5381,10 @@ def main() -> int:
         "ms": f32["kernel_ms"], "kernel_ms": f32["kernel_ms"],
         "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
         "bound_by": f32["bound_by"], "library_ms": f32["library_ms"],
-        "tflops": f32["tflops"], "bound_share": f32["bound_share"]}, {
+        "tflops": f32["tflops"], "bound_share": f32["bound_share"],
+        **{f"at_{key}": {k: flash["timings"][key][k]
+                         for k in ("B", "S", "H", "KV", "hd") + flash_keys}
+           for key in ("fp32_hd128", "fp32_hd256")}}, {
         "name": "rglru_gated_scan", "route": "cuda", "source": RGLRU_SOURCE,
         "replaces": RGLRU_TPU,
         "tpu": "src/repro/kernels/rg_lru.py:_scan_kernel",
@@ -5374,7 +5475,11 @@ def main() -> int:
         "plain_ms": f32mm["plain_ms"], "bound_ms": f32mm["bound_ms"],
         "bound_by": "operations", "library_ms": f32mm["library_ms"],
         "library": "torch.matmul (fp32, TF32 off)",
-        "bound_share": f32mm["bound_share"]}]}), flush=True)
+        "bound_share": f32mm["bound_share"],
+        **{k: f32mm[k] for k in ("predicted_ms", "fastest", "regret",
+                                 "rank_correlation", "tol_ratio")},
+        "tiles_ms": {str(tuple(r["tile"])): r["measured_ms"]
+                     for r in f32mm["tiles"]}}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -50,20 +50,48 @@ model exactly:
 The H100's tensor-core chip (`H100_TC_TILES`) takes all four, fitted to
 the kernel's structure (`csrc/matmul.cu`): stages fill the shared memory
 (`tc_stages`, the kernel's formula), so one block runs on an SM.  The
-CUDA-core chip (`H100_TILES`) takes the wave term only; its other terms
-stay the TPU model's.
+CUDA-core chip (`H100_TILES`) follows `matmul_kernel`'s structure:
+
+  threads (`thread_tile`)  a thread holds 8 x 8 outputs, so a block has
+                 bm bn / 64 threads (64 to 256 over the kernel's tiles).
+  stages         the cp.async ring holds three stages where three
+                 fit in a block's shared memory, else as many as fit
+                 (`cc_stages`, the kernel's formula: two for the bk = 128
+                 tiles of bm + bn = 192).
+  registers      a thread's 64 accumulators plus `reg_overhead` (its x and
+                 y fragments, 32 + 8, addresses and loop state: ptxas
+                 gives 168 a thread at bk <= 32), within `reg_budget`
+                 (255: the kernel caps none); a block needs its threads'
+                 registers on one SM.
+  waves          blocks an SM = the fewest that its shared memory, its
+                 registers and its 2048 threads admit, and the wave term.
+  occupancy (`occupancy`, `peak_share`)  an SM's FMAs issue from its 4
+                 schedulers; one with n resident warps issues 1 -
+                 exp(-n / occupancy) of the time, one with none never, and
+                 a full SM reaches `peak_share` of the peak (`issue_share`).
+                 Each of a block's K tiles also costs it `k_tile_s` (its
+                 barrier and the wait for its stage), which sets the
+                 depths apart: bk = 16 ran some 12 % slower than bk = 64
+                 at 128 x 128.  Fitted on the card's sweeps of the 15
+                 tiles at 8192^3 (`chip_smoke.py`'s tile DSE): 4 warps an
+                 SM ran 0.81x as fast as 8 (occupancy 0.69), 8 warps
+                 reached 62 % of the peak (0.656), and 0.2 us a K tile
+                 ranks the sweep best (rank correlation 0.88 over two
+                 sweeps) and picks their fastest tile, 128 x 64 x 128.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Iterable, List, Optional, Tuple
 
 from repro_torch.core.roofline import HW
 from repro_torch.kernels.matmul import CUDA_CORE, TENSOR_CORE
 
 __all__ = ["TileChip", "H100_TILES", "H100_TC_TILES", "SMEM_PER_SM",
-           "REGS_PER_SM", "TileConfig", "tc_stages", "tc_consumers",
+           "REGS_PER_SM", "THREADS_PER_SM", "TileConfig", "tc_stages",
+           "tc_consumers", "cc_stages", "block_threads", "issue_share",
            "tile_cost", "tune_matmul_tiles"]
 
 
@@ -77,9 +105,8 @@ class TileChip:
     stages: int                # buffers of each input tile
     acc_in_smem: bool          # fp32 accumulator in that memory (TPU VMEM)
     align: Tuple[int, int, int]   # bm, bk, bn must be multiples of these
-    threads: int = 0           # threads a block; 0: no register budget
     reg_budget: int = 0        # 32-bit registers a thread may spend on
-                               # the accumulator and the staged tiles
+                               # its accumulator and the rest; 0: none
     # --- GPU terms, each off at its default (module docstring) ---
     tensor_core: bool = False  # the wgmma kernel: stages fill the shared
                                # memory (`tc_stages`), its consumer split,
@@ -91,12 +118,24 @@ class TileChip:
                                # operand term
     load_latency_s: float = 0.0   # > 0: the latency term
     group_m: int = 0           # > 0: the launch-order memory term
+    thread_tile: int = 0       # > 0: the CUDA-core kernel, each thread
+                               # holding this many outputs: bm bn /
+                               # thread_tile threads a block, thread_tile
+                               # + `reg_overhead` registers each, and
+                               # min(`stages`, what fits) stages
+                               # (`cc_stages`)
+    occupancy: float = 0.0     # > 0: the occupancy term (module docstring)
+    peak_share: float = 1.0    # of the peak, an SM full of warps
+    k_tile_s: float = 0.0      # a block's fixed time a K tile (its barrier
+                               # and the wait for its stage), added to the
+                               # occupancy term's
 
 
 # what an H100 SM shares among its blocks: 228 KB of shared memory (1 KB
-# of it reserved per block) and 65,536 registers
+# of it reserved per block), 65,536 registers and 2048 threads
 SMEM_PER_SM = 233472
 REGS_PER_SM = 65536
+THREADS_PER_SM = 2048
 
 
 def tc_stages(bm: int, bk: int, bn: int, *, dtype_bytes: int = 2,
@@ -105,6 +144,31 @@ def tc_stages(bm: int, bk: int, bn: int, *, dtype_bytes: int = 2,
     the shared memory a block may use, less the reserve for alignment and
     mbarriers (`tc::stages` in `csrc/matmul.cu`, the same formula)."""
     return (smem_bytes - reserve) // ((bm + bn) * bk * dtype_bytes)
+
+
+def cc_stages(bm: int, bk: int, bn: int, *, dtype_bytes: int = 4,
+              smem_bytes: int = 232448, max_stages: int = 3) -> int:
+    """Stages of the CUDA-core kernel's (x, y) cp.async ring: `max_stages`
+    where they fit in the shared memory a block may use, else as many as
+    fit (`cc_stages` in `csrc/matmul.cu`, the same formula)."""
+    return min(max_stages, smem_bytes // ((bm + bn) * bk * dtype_bytes))
+
+
+def block_threads(t: "TileConfig", chip: "TileChip") -> int:
+    """Threads of one block of the CUDA-core kernel at tile t: bm bn over
+    the outputs a thread holds."""
+    return t.bm * t.bn // chip.thread_tile
+
+
+def issue_share(warps: int, chip: "TileChip") -> float:
+    """The occupancy term: the share of its FMA peak an SM reaches with
+    `warps` resident warps, spread over its 4 schedulers.  A scheduler
+    with n warps issues 1 - exp(-n / occupancy) of the time (its warps
+    wait on loads, barriers and dependent FMAs), one with none never, and a
+    full SM `peak_share` of the peak."""
+    active = min(4, warps)
+    return (chip.peak_share * active / 4
+            * (1.0 - math.exp(-warps / active / chip.occupancy)))
 
 
 def tc_consumers(bm: int, bn: int) -> Tuple[int, int, int]:
@@ -120,15 +184,16 @@ def tc_consumers(bm: int, bn: int) -> Tuple[int, int, int]:
 _H100 = HW()
 #: the H100 and `matmul_kernel` in `csrc/matmul.cu` (fp32 inputs): fp32
 #: FMAs on the CUDA cores, at most 232,448 bytes of shared memory a block
-#: (opt-in above 48 KB), two stages of input tiles, 256 threads, and half
-#: of the 255 registers a thread may hold for its accumulator and its
-#: staged share of the next tiles (the other half holds fragments,
-#: addresses and loop state: `reg_overhead` of them outside any tile, as
-#: ptxas reports within 20 % over the 15 tiles); waves over 132 SMs
+#: (opt-in above 48 KB), a cp.async ring of three stages where they fit
+#: (`cc_stages`), 8 x 8 outputs a thread (bm bn / 64 threads a block), 64
+#: accumulators and 104 more registers a thread (168, as ptxas reports at
+#: bk <= 32; the kernel caps none), waves over 132 SMs, and the occupancy
+#: term and the cost of a K tile fitted on the card (module docstring)
 H100_TILES = TileChip(peak_flops=_H100.fp32_flops, hbm_bw=_H100.hbm_bw,
-                      smem_bytes=232448, stages=2, acc_in_smem=False,
-                      align=(64, 16, 64), threads=256, reg_budget=128,
-                      sms=132, reg_overhead=56)
+                      smem_bytes=232448, stages=3, acc_in_smem=False,
+                      align=(64, 16, 64), reg_budget=255, sms=132,
+                      reg_overhead=104, thread_tile=64, occupancy=0.69,
+                      peak_share=0.656, k_tile_s=0.2e-6)
 #: the H100 and `tc::matmul_kernel_wgmma` (bf16 inputs): the tensor-core
 #: peak, tiles in whole 64 x 64 x 64 wgmma and swizzle units, the ring
 #: filling the shared memory, an accumulator of at most 128 registers a
@@ -155,19 +220,18 @@ class TileConfig:
 
 
 def _blocks_per_sm(t: TileConfig, smem: int, chip: TileChip) -> int:
-    """Blocks an SM runs at once: the fewer that its shared memory and its
-    registers admit (at least one)."""
+    """Blocks an SM runs at once: the fewest that its shared memory, its
+    registers and its threads admit (at least one)."""
     if chip.tensor_core:
         cons, wm, wn = tc_consumers(t.bm, t.bn)
         threads = 128 * (cons + 1)
         regs = wm * wn // 128 + chip.reg_overhead
     else:
-        threads = chip.threads
-        regs = (t.bm * t.bn + t.bm * t.bk + t.bk * t.bn) // threads \
-            + chip.reg_overhead
+        threads = block_threads(t, chip)
+        regs = chip.thread_tile + chip.reg_overhead
     by_smem = SMEM_PER_SM // (smem + 1024)
     by_regs = REGS_PER_SM // (threads * min(regs, 255))
-    return max(1, min(by_smem, by_regs))
+    return max(1, min(by_smem, by_regs, THREADS_PER_SM // threads))
 
 
 def _k_tile_s(t: TileConfig, stages: int, dtype_bytes: int,
@@ -199,6 +263,11 @@ def tile_cost(M: int, K: int, N: int, t: TileConfig, *,
     if chip.tensor_core:
         stages = tc_stages(t.bm, t.bk, t.bn, dtype_bytes=dtype_bytes,
                            smem_bytes=chip.smem_bytes)
+    elif chip.thread_tile:
+        # a ring of at least two: where two do not fit, the tile is over
+        stages = max(2, cc_stages(t.bm, t.bk, t.bn, dtype_bytes=dtype_bytes,
+                                  smem_bytes=chip.smem_bytes,
+                                  max_stages=chip.stages))
     smem = stages * (t.bm * t.bk + t.bk * t.bn) * dtype_bytes
     if chip.acc_in_smem:
         smem += t.bm * t.bn * 4
@@ -210,10 +279,12 @@ def tile_cost(M: int, K: int, N: int, t: TileConfig, *,
         # fp32 accumulator
         _, wm, wn = tc_consumers(t.bm, t.bn)
         valid = valid and stages >= 2 and wm * wn / 128 <= chip.reg_budget
-    elif chip.threads:
-        # registers: the fp32 accumulator and the staged next input tiles
-        regs = (t.bm * t.bn + t.bm * t.bk + t.bk * t.bn) / chip.threads
-        valid = valid and regs <= chip.reg_budget
+    elif chip.thread_tile:
+        # registers: a thread's accumulators and the rest, within the
+        # budget, and the block's on one SM
+        regs = chip.thread_tile + chip.reg_overhead
+        valid = valid and regs <= chip.reg_budget and \
+            block_threads(t, chip) * regs <= REGS_PER_SM
 
     # compute: every tile triple runs bm*bk*bn MACs
     flops = 2.0 * gm * gn * gk * t.bm * t.bk * t.bn
@@ -224,6 +295,10 @@ def tile_cost(M: int, K: int, N: int, t: TileConfig, *,
         waves = -(-(gm * gn) // (chip.sms * per_sm))
         compute_s = waves * per_sm * gk * _k_tile_s(t, max(stages, 2),
                                                     dtype_bytes, chip)
+        if chip.occupancy:
+            compute_s /= issue_share(per_sm * block_threads(t, chip) // 32,
+                                     chip)
+            compute_s += waves * per_sm * gk * chip.k_tile_s
 
     # memory: with K innermost and output-stationary accumulation,
     # x tiles stream once per (i, j) pass -> refetched gn times total;

@@ -64,11 +64,34 @@
 //   heaviest first (causal work grows with the tile index).  The producer
 //   gives its registers to the consumers (`setmaxnreg`): at hd 256 the
 //   64 x 256 fp32 accumulator alone is 128 registers a thread.
-// * `flash_attention_kernel` (fp32 at every head dim, bf16 at 16 and 32):
-//   fp32 FMAs on the CUDA cores (67 TFLOP/s peak), from fp32 tiles in
-//   shared memory: each thread owns a 4 x 4 tile of the 64 x 64 score tile
-//   and a 4 x hd/16 tile of the output, and reads q^T, k^T and p^T as
-//   float4s.  fp32 inputs stay in fp32 throughout (no TF32).
+// * `flash_attention_kernel` (fp32 at every head dim, bf16 at 16 and 32): fp32
+//   FMAs on the CUDA cores (67 TFLOP/s peak); fp32 inputs stay in fp32
+//   throughout (no TF32).  A block owns 128 query rows, 16 to each of its 8
+//   warps, so a row's softmax never leaves its warp.  q * scale is stored in
+//   shared memory once (1/sqrt(hd): exact where hd is a power of 4), and the
+//   softmax takes expf; exp2f with log2(e) folded into the scale ran 5-9 %
+//   faster on the card but missed the fp32 tolerance at hd 256 (PERF.md).  K
+//   and V tiles of `Tile<HD>::kBKV` keys pass into a ring of `kSlots` slots by
+//   cp.async (16 bytes, no registers; 4 bytes where a start or a stride is not
+//   16-byte aligned; bf16 through the registers, widened to fp32), K of tile
+//   t, then V of tile t, then K of tile t + 1: while one slot is multiplied
+//   the next ones load, and one barrier guards each slot.  Every tile row is
+//   stored as it lies in memory, along the head dim, its 16-byte chunks
+//   swizzled by the row (`cpa::chunk`).  Lane (rg, cg) = (lane / 8, lane % 8)
+//   of a warp owns rows 4 i + rg (i < 4) of the warp's 16: their scores at
+//   keys 8 j + cg, and their output at columns 32 j + 4 cg .. + 3 (hd 16: 2
+//   cg, 2 cg + 1). Scores: each 16-byte load gives 4 head-dim values of one
+//   row (q) or key (k), and 4 q and kBKV / 8 k loads feed 2 kBKV FMAs; the
+//   rows and keys of one load are consecutive, in distinct banks.  Only a tile
+//   that reaches past Skv or, causal, past a warp's first row is masked.  p
+//   goes through the warp's own slice of shared memory, [key][rg][i], written
+//   and read as float4s without conflicts, and p @ v reads one float4 of p and
+//   hd / 32 float4s of a v row a key.  Query tiles launch heaviest first
+//   (causal work grows with the tile index).  hd <= 64 fits two blocks an SM
+//   (at most 128 registers a thread: a few spill, which ran faster on the card
+//   than one block an SM without spills); at hd 256 the block takes 208 KB and
+//   32-key tiles, and every load is hidden behind the products of both
+//   warpgroups of the block.
 
 #include <climits>
 #include <cstdint>
@@ -82,174 +105,286 @@
 
 namespace {
 
-constexpr int kBQ = 64;            // query rows per block
-constexpr int kBKV = 64;           // keys per KV tile (== kBQ: one ld below)
-constexpr int kThreads = 256;      // 16 row groups x 16 column groups
-constexpr int kLd = kBQ + 4;       // ld of the transposed tiles: float4
-                                   // aligned, rows on staggered banks
+constexpr int kBQ = 128;           // query rows per block
+constexpr int kWarps = 8;          // each owns 16 of the rows
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRowsW = kBQ / kWarps;
 constexpr float kNegInf = -1e30f;  // the Pallas kernel's masked score
+
+// Keys a K or V tile and slots of the ring, by head dim
+template <int HD>
+struct Tile;
+#define FLASH_TILE(HD, BKV, SLOTS)                                        \
+  template <>                                                             \
+  struct Tile<HD> {                                                       \
+    static constexpr int kBKV = BKV, kSlots = SLOTS;                      \
+  };
+FLASH_TILE(16, 64, 2)
+FLASH_TILE(32, 64, 2)
+FLASH_TILE(64, 64, 2)
+FLASH_TILE(128, 64, 4)
+FLASH_TILE(256, 32, 2)
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);        // round to nearest even
+// 4 consecutive output elements, 16-byte aligned in fp32
+__device__ __forceinline__ void store4(float* p, float a, float b, float c,
+                                       float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b,
+                                       float c, float d) {
+  p[0] = __float2bfloat16(a);      // round to nearest even
+  p[1] = __float2bfloat16(b);
+  p[2] = __float2bfloat16(c);
+  p[3] = __float2bfloat16(d);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  p[0] = a;
+  p[1] = b;
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  p[0] = __float2bfloat16(a);
+  p[1] = __float2bfloat16(b);
 }
 
 template <int HD>
 constexpr size_t smem_bytes() {
-  // q^T [HD][kLd], k^T [HD][kLd], v [kBKV][HD], p^T [kBKV][kLd]; at HD 256
-  // 222,208 bytes, under the 232,448 a block may opt into (one block an SM)
-  return sizeof(float) * (2 * HD * kLd + kBKV * HD + kBKV * kLd);
+  // q * scale [kBQ][HD], the ring [kSlots][kBKV][HD], p [kWarps][kBKV]
+  // [kRowsW]; at HD 128 229,376 bytes, under the 232,448 a block may opt
+  // into, at HD 64 98,304 (two blocks an SM)
+  return sizeof(float) * (kBQ * HD + Tile<HD>::kSlots * Tile<HD>::kBKV * HD
+                          + kWarps * Tile<HD>::kBKV * kRowsW);
 }
-static_assert(smem_bytes<256>() <= 232448, "tiles exceed shared memory");
+static_assert(smem_bytes<128>() <= 232448 && smem_bytes<256>() <= 232448,
+              "tiles exceed shared memory");
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
 
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, HD <= 64 ? 2 : 1)
 flash_attention_kernel(T* __restrict__ out, const T* __restrict__ q,
                        const T* __restrict__ k, const T* __restrict__ v,
-                       int64_t sq, int64_t skv, int64_t n_heads, int group,
-                       int causal, float scale,
-                       int64_t qsb, int64_t qss, int64_t qsh,
+                       int64_t sq, int64_t skv, int64_t n_heads,
+                       int64_t n_batch, int group, int causal, float scale,
+                       int vec, int64_t qsb, int64_t qss, int64_t qsh,
                        int64_t ksb, int64_t kss, int64_t ksh,
                        int64_t vsb, int64_t vss, int64_t vsh) {
-  constexpr int kCols = HD / 16;   // output columns per thread
+  constexpr int BKV = Tile<HD>::kBKV, S = Tile<HD>::kSlots;
+  constexpr int NC = HD / 4;               // 16-byte chunks a row
+  constexpr int TC = BKV / 8;              // keys a thread
+  constexpr int TH = HD >= 32 ? HD / 8 : 2;   // output columns a thread
+  constexpr int kCopies = BKV * NC / kThreads;
+  static_assert(kCopies * kThreads == BKV * NC, "copies");
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                // q^T * scale
-  float* ks = qs + HD * kLd;       // k^T
-  float* vs = ks + HD * kLd;       // v
-  float* ps = vs + kBKV * HD;      // p^T
+  float* qs = smem;                        // q * scale, [kBQ][HD]
+  float* ring = qs + kBQ * HD;             // [S][BKV][HD]
 
   const int tid = threadIdx.x;
-  const int r = tid >> 4;          // rows 4r .. 4r+3 of the tile
-  const int c = tid & 15;          // score cols 4c .. 4c+3; out cols c*kCols..
-  const int64_t q0 = static_cast<int64_t>(blockIdx.x) * kBQ;
-  const int64_t h = blockIdx.y;
-  const int64_t b = blockIdx.z;
+  const int warp = tid / 32, lane = tid % 32;
+  const int rg = lane / 8, cg = lane % 8;
+  float* ps = ring + S * BKV * HD + warp * BKV * kRowsW;   // [BKV][4][4]
+  // block -> (query tile, head, batch), the last query tiles first
+  const int64_t n_qt = (sq + kBQ - 1) / kBQ;
+  const int64_t hb = n_heads * n_batch;
+  const int64_t q0 = (n_qt - 1 - blockIdx.x / hb) * kBQ;
+  const int64_t h = blockIdx.x % n_heads;
+  const int64_t b = blockIdx.x / n_heads % n_batch;
   const T* qb = q + b * qsb + h * qsh;
   const T* kb = k + b * ksb + (h / group) * ksh;
   const T* vb = v + b * vsb + (h / group) * vsh;
 
-  for (int e = tid; e < kBQ * HD; e += kThreads) {
-    const int row = e / HD, d = e % HD;
-    const int64_t qi = q0 + row;
-    qs[d * kLd + row] = qi < sq ? to_float(qb[qi * qss + d]) * scale : 0.f;
+  for (int e = tid; e < kBQ * NC; e += kThreads) {
+    const int r = e / NC, c = e % NC;
+    const int64_t qi = q0 + r;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (qi < sq) {
+      const T* p = qb + qi * qss + 4 * c;
+      x = make_float4(to_float(p[0]) * scale, to_float(p[1]) * scale,
+                      to_float(p[2]) * scale, to_float(p[3]) * scale);
+    }
+    *reinterpret_cast<float4*>(qs + r * HD + 4 * cpa::chunk<HD>(r, c)) = x;
   }
 
-  float acc[4][kCols];
+  // keys a row of this tile can see: all, or (causal) up to its last row
+  const int64_t q_last = (q0 + kBQ < sq ? q0 + kBQ : sq) - 1;
+  const int64_t kv_end = causal ? (q_last + 1 < skv ? q_last + 1 : skv) : skv;
+  const int n_items = 2 * static_cast<int>((kv_end + BKV - 1) / BKV);
+
+  // item 2 t is K tile t, item 2 t + 1 V tile t; keys past skv are zeros
+  auto fill = [&](int item, int slot) {
+    const T* base = (item & 1) ? vb : kb;
+    const int64_t stride = (item & 1) ? vss : kss;
+    const int64_t k0 = static_cast<int64_t>(item >> 1) * BKV;
+    float* dst = ring + slot * BKV * HD;
+#pragma unroll
+    for (int i = 0; i < kCopies; ++i) {
+      const int e = tid + i * kThreads;
+      const int r = e / NC, c = e % NC;
+      const int64_t ki = k0 + r;
+      const bool ok = ki < skv;
+      float* d = dst + r * HD + 4 * cpa::chunk<HD>(r, c);
+      const T* src = ok ? base + ki * stride + 4 * c : base;
+      if constexpr (sizeof(T) == 4) {
+        if (vec) {
+          cpa::copy16(tc::smem_u32(d), src, ok);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            cpa::copy4(tc::smem_u32(d + j), src + (ok ? j : 0), ok);
+        }
+      } else {
+        float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (ok)
+          x = make_float4(to_float(src[0]), to_float(src[1]),
+                          to_float(src[2]), to_float(src[3]));
+        *reinterpret_cast<float4*>(d) = x;
+      }
+    }
+  };
+
+  float acc[4][TH];
   float m[4], l[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < TH; ++j) acc[i][j] = 0.f;
   }
+  const int row0 = warp * kRowsW + rg;     // row 4 i + rg of the warp's
 
-  // keys a row of this tile can see: all, or (causal) up to its last row
-  const int64_t q_last = (q0 + kBQ < sq ? q0 + kBQ : sq) - 1;
-  const int64_t kv_end = causal ? (q_last + 1 < skv ? q_last + 1 : skv) : skv;
-
-  for (int64_t k0 = 0; k0 < kv_end; k0 += kBKV) {
-    __syncthreads();               // the previous tile is consumed
-    for (int e = tid; e < kBKV * HD; e += kThreads) {
-      const int row = e / HD, d = e % HD;
-      const int64_t ki = k0 + row;
-      const bool in = ki < skv;
-      ks[d * kLd + row] = in ? to_float(kb[ki * kss + d]) : 0.f;
-      vs[row * HD + d] = in ? to_float(vb[ki * vss + d]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      const float4 qv = *reinterpret_cast<const float4*>(qs + d * kLd + 4 * r);
-      const float4 kv = *reinterpret_cast<const float4*>(ks + d * kLd + 4 * c);
-      const float qa[4] = {qv.x, qv.y, qv.z, qv.w};
-      const float ka[4] = {kv.x, kv.y, kv.z, kv.w};
+  for (int j = 0; j < S - 1; ++j) {
+    if (j < n_items) fill(j, j);
+    cpa::commit();
+  }
+  for (int it = 0; it < n_items; ++it) {
+    cpa::wait<S - 2>();            // this thread's copies of item it landed
+    __syncthreads();               // everyone's; and item it - 1 is consumed
+    if (it + S - 1 < n_items) fill(it + S - 1, (it + S - 1) % S);
+    cpa::commit();
+    const float* tile = ring + (it % S) * BKV * HD;
+    const int64_t k0 = static_cast<int64_t>(it >> 1) * BKV;
+
+    if ((it & 1) == 0) {
+      // scores of rows 4 i + rg at keys 8 j + cg, d ascending
+      float s[4][TC];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qa[i], ka[j], s[i][j]);
-    }
-
-    // mask, then the online softmax; a row's 16 column groups are 16
-    // neighbouring lanes of one warp, reduced by butterfly shuffles
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int64_t qi = q0 + 4 * r + i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int64_t ki = k0 + 4 * c + j;
-        if (ki >= skv || (causal && qi < ki)) s[i][j] = kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const bool alive = m_new > 0.5f * kNegInf;
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = alive ? expf(s[i][j] - m_new) : 0.f;
-        sum += s[i][j];
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      const float corr = alive ? expf(m[i] - m_new) : 1.f;
-      l[i] = l[i] * corr + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) acc[i][j] *= corr;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(ps + (4 * c + j) * kLd + 4 * r) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    __syncthreads();
-
+        for (int j = 0; j < TC; ++j) s[i][j] = 0.f;
 #pragma unroll 4
-    for (int kk = 0; kk < kBKV; ++kk) {
-      const float4 pv = *reinterpret_cast<const float4*>(ps + kk * kLd + 4 * r);
-      const float pa[4] = {pv.x, pv.y, pv.z, pv.w};
-      const float* vrow = vs + kk * HD + c * kCols;
-      float va[kCols];
-      if constexpr (kCols % 4 == 0) {
+      for (int c = 0; c < NC; ++c) {
+        float4 qv[4];
 #pragma unroll
-        for (int j = 0; j < kCols; j += 4) {
-          const float4 x = *reinterpret_cast<const float4*>(vrow + j);
-          va[j] = x.x; va[j + 1] = x.y; va[j + 2] = x.z; va[j + 3] = x.w;
+        for (int i = 0; i < 4; ++i) {
+          const int r = row0 + 4 * i;
+          qv[i] = lds4(qs + r * HD + 4 * cpa::chunk<HD>(r, c));
         }
-      } else {
 #pragma unroll
-        for (int j = 0; j < kCols; ++j) va[j] = vrow[j];
+        for (int j = 0; j < TC; ++j) {
+          const int key = 8 * j + cg;
+          const float4 kv = lds4(tile + key * HD + 4 * cpa::chunk<HD>(key, c));
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            s[i][j] = fmaf(qv[i].x, kv.x, s[i][j]);
+            s[i][j] = fmaf(qv[i].y, kv.y, s[i][j]);
+            s[i][j] = fmaf(qv[i].z, kv.z, s[i][j]);
+            s[i][j] = fmaf(qv[i].w, kv.w, s[i][j]);
+          }
+        }
+      }
+      // mask (only a tile that reaches past skv or, causal, past the
+      // warp's first row has masked scores), then the online softmax; a
+      // row's 8 column groups are 8 neighbouring lanes of one warp,
+      // reduced by butterfly shuffles
+      const bool edge = k0 + BKV > skv ||
+                        (causal && k0 + BKV - 1 > q0 + warp * kRowsW);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int64_t qi = q0 + row0 + 4 * i;
+        float mx = kNegInf;
+#pragma unroll
+        for (int j = 0; j < TC; ++j) {
+          const int64_t ki = k0 + 8 * j + cg;
+          if (edge && (ki >= skv || (causal && qi < ki))) s[i][j] = kNegInf;
+          mx = fmaxf(mx, s[i][j]);
+        }
+#pragma unroll
+        for (int off = 1; off < 8; off <<= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        const float m_new = fmaxf(m[i], mx);
+        const bool alive = m_new > 0.5f * kNegInf;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < TC; ++j) {
+          s[i][j] = alive ? expf(s[i][j] - m_new) : 0.f;
+          sum += s[i][j];
+        }
+#pragma unroll
+        for (int off = 1; off < 8; off <<= 1)
+          sum += __shfl_xor_sync(0xffffffffu, sum, off);
+        const float corr = alive ? expf(m[i] - m_new) : 1.f;
+        l[i] = l[i] * corr + sum;
+        m[i] = m_new;
+#pragma unroll
+        for (int j = 0; j < TH; ++j) acc[i][j] *= corr;
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < TC; ++j)
+        *reinterpret_cast<float4*>(ps + ((8 * j + cg) * 4 + rg) * 4) =
+            make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+      __syncwarp();
+    } else {
+      // acc += p v over the tile's keys, in key order
+#pragma unroll 4
+      for (int kk = 0; kk < BKV; ++kk) {
+        const float4 p4 = lds4(ps + (kk * 4 + rg) * 4);
+        const float pa[4] = {p4.x, p4.y, p4.z, p4.w};
+        const float* vrow = tile + kk * HD;
+        float va[TH];
+        if constexpr (HD >= 32) {
 #pragma unroll
-        for (int j = 0; j < kCols; ++j)
-          acc[i][j] = fmaf(pa[i], va[j], acc[i][j]);
+          for (int j = 0; j < HD / 32; ++j) {
+            const float4 x = lds4(vrow + 4 * cpa::chunk<HD>(kk, 8 * j + cg));
+            va[4 * j] = x.x; va[4 * j + 1] = x.y;
+            va[4 * j + 2] = x.z; va[4 * j + 3] = x.w;
+          }
+        } else {
+          const float2 x = *reinterpret_cast<const float2*>(
+              vrow + 4 * cpa::chunk<HD>(kk, cg / 2) + 2 * (cg % 2));
+          va[0] = x.x; va[1] = x.y;
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < TH; ++j)
+            acc[i][j] = fmaf(pa[i], va[j], acc[i][j]);
+      }
+      __syncwarp();                // p is read before the next tile's
     }
   }
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int64_t qi = q0 + 4 * r + i;
+    const int64_t qi = q0 + row0 + 4 * i;
     if (qi >= sq) continue;
     const float li = fmaxf(l[i], 1e-30f);
-    T* o = out + ((b * sq + qi) * n_heads + h) * HD + c * kCols;
+    T* o = out + ((b * sq + qi) * n_heads + h) * HD;
+    if constexpr (HD >= 32) {
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) store(o + j, acc[i][j] / li);
+      for (int j = 0; j < HD / 32; ++j)
+        store4(o + 32 * j + 4 * cg, acc[i][4 * j] / li,
+               acc[i][4 * j + 1] / li, acc[i][4 * j + 2] / li,
+               acc[i][4 * j + 3] / li);
+    } else {
+      store2(o + 2 * cg, acc[i][0] / li, acc[i][1] / li);
+    }
   }
 }
 
@@ -263,17 +398,23 @@ cudaError_t launch(void* out, const void* q, const void* k, const void* v,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned int>((sq + kBQ - 1) / kBQ),
-                  static_cast<unsigned int>(h), static_cast<unsigned int>(b));
+  const int64_t blocks = (sq + kBQ - 1) / kBQ * h * b;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  // 16-byte copies of K and V rows: 16-byte-aligned starts and strides
+  int vec = reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+            reinterpret_cast<uintptr_t>(v) % 16 == 0;
+  for (int i = 3; i < 9; ++i) vec = vec && st[i] % 4 == 0;
   const float scale = static_cast<float>(1.0 / std::sqrt(double(HD)));
-  kernel<<<grid, kThreads, smem, stream>>>(
+  kernel<<<static_cast<unsigned int>(blocks), kThreads, smem, stream>>>(
       static_cast<T*>(out), static_cast<const T*>(q),
-      static_cast<const T*>(k), static_cast<const T*>(v), sq, skv, h,
-      static_cast<int>(h / kv), causal, scale, st[0], st[1], st[2], st[3],
-      st[4], st[5], st[6], st[7], st[8]);
+      static_cast<const T*>(k), static_cast<const T*>(v), sq, skv, h, b,
+      static_cast<int>(h / kv), causal, scale, vec, st[0], st[1], st[2],
+      st[3], st[4], st[5], st[6], st[7], st[8]);
   return cudaGetLastError();
 }
 
+// fp32 at every head dim, bf16 at 16 and 32 (the tensor-core kernel takes
+// bf16 at the others)
 template <typename T>
 cudaError_t dispatch(int64_t hd, void* out, const void* q, const void* k,
                      const void* v, int64_t b, int64_t sq, int64_t skv,
@@ -282,11 +423,15 @@ cudaError_t dispatch(int64_t hd, void* out, const void* q, const void* k,
   switch (hd) {
     case 16: return launch<T, 16>(out, q, k, v, b, sq, skv, h, kv, causal, st, stream);
     case 32: return launch<T, 32>(out, q, k, v, b, sq, skv, h, kv, causal, st, stream);
-    case 64: return launch<T, 64>(out, q, k, v, b, sq, skv, h, kv, causal, st, stream);
-    case 128: return launch<T, 128>(out, q, k, v, b, sq, skv, h, kv, causal, st, stream);
-    case 256: return launch<T, 256>(out, q, k, v, b, sq, skv, h, kv, causal, st, stream);
-    default: return cudaErrorInvalidValue;
   }
+  if constexpr (sizeof(T) == 4) {
+    switch (hd) {
+      case 64: return launch<T, 64>(out, q, k, v, b, sq, skv, h, kv, causal, st, stream);
+      case 128: return launch<T, 128>(out, q, k, v, b, sq, skv, h, kv, causal, st, stream);
+      case 256: return launch<T, 256>(out, q, k, v, b, sq, skv, h, kv, causal, st, stream);
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 
@@ -775,9 +920,10 @@ cudaError_t dispatch(int64_t hd, void* out, const void* q, const void* k,
 // out: contiguous [b, sq, h, hd]; q: [b, sq, h, hd], k and v: [b, skv, kv,
 // hd], each with the head dim contiguous and strides (batch, seq, head) in
 // elements.  dtype 0 = float32, 1 = bfloat16 (all four tensors alike).
-// kernel 0 = `flash_attention_kernel` (CUDA cores: either dtype, hd 16, 32,
-// 64, 128 or 256), 1 = `flash_attention_kernel_wgmma` (tensor cores:
-// bfloat16, hd 64, 128 or 256, skv > 0, q, k and v 16-byte aligned with
+// kernel 0 = `flash_attention_kernel` (CUDA cores: float32 at hd 16, 32,
+// 64, 128 or 256, bfloat16 at 16 or 32), 1 =
+// `flash_attention_kernel_wgmma` (tensor cores: bfloat16, hd 64, 128 or
+// 256, skv > 0, q, k and v 16-byte aligned with
 // strides of a multiple of 8 elements, as TMA reads them).  All pointers
 // are device pointers on the current device; `stream` is a cudaStream_t.
 // Returns cudaGetLastError() after the launch (0 = success),

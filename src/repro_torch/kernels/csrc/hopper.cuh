@@ -2,7 +2,9 @@
 // (`flash_attention.cu`, `matmul.cu`, `rglru_scan.cu`): mbarriers, TMA
 // loads and stores, wgmma descriptors and synchronisation, the m64n64k16
 // shared-memory product, register rebalancing (`setmaxnreg`) and the
-// run-time lookup of libcuda's tensor-map encoder.  Each source that
+// run-time lookup of libcuda's tensor-map encoder; and, for the CUDA-core
+// kernels of `flash_attention.cu` and `matmul.cu`, cp.async and the
+// swizzle of their fp32 tiles (`cpa`).  Each source that
 // includes this header gets its own copy (an anonymous namespace), so the
 // libraries stay independent.
 //
@@ -214,4 +216,45 @@ EncodeTiled encode_tiled() {
 }
 
 }  // namespace tc
+
+// cp.async, for the CUDA-core kernels (`matmul_kernel`,
+// `flash_attention_kernel`): copies from device memory into shared memory
+// that pass by the registers, committed in groups and awaited by count.  A
+// source size of 0 reads nothing and writes zeros, so the ragged edge of a
+// tile arrives as zeros; the source address must still be a valid one.
+namespace cpa {
+
+// 16 bytes, both addresses 16-byte aligned, cached in L2 only
+__device__ __forceinline__ void copy16(uint32_t dst, const void* src,
+                                       bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+// 4 bytes, both addresses 4-byte aligned
+__device__ __forceinline__ void copy4(uint32_t dst, const void* src,
+                                      bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
+               :: "r"(dst), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+__device__ __forceinline__ void commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// until at most N of this thread's committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
+}
+
+// Where 16-byte chunk c of row r of a row-major fp32 tile of W floats a
+// row lies in its row: the chunk index XOR-ed with the row, so that the
+// 16-byte loads of one chunk from 8 consecutive rows fall in distinct
+// banks.  Rows of 8 or more chunks XOR with r mod 8; the
+// 4-chunk rows of W = 16, two to 128 bytes, with r / 2 mod 4.
+template <int W>
+__device__ __forceinline__ int chunk(int r, int c) {
+  static_assert(W == 16 || W % 32 == 0, "row width");
+  return W >= 32 ? c ^ (r & 7) : c ^ ((r >> 1) & 3);
+}
+
+}  // namespace cpa
 }  // namespace

@@ -41,15 +41,24 @@
 //   scheduler, no clusters), launched in groups of `kGroupM` tile rows so
 //   that a wave of blocks shares its x rows and y columns in L2.
 // * `matmul_kernel` (fp32 inputs; fp32 stays free of TF32): fp32 FMAs on
-//   the CUDA cores (67 TFLOP/s peak).  256 threads, each holding a
-//   TM x TN sub-tile (TM = BM / 16, TN = BN / 16).  The x and y tiles
-//   pass through shared memory, two stages deep:
-//   while the block multiplies from one stage, each thread holds its share
-//   of the next tiles in registers and stores them to the other stage
-//   afterwards (one barrier per K tile).  x is stored transposed
-//   ([BK][BM]) so that a thread reads its TM rows and its TN columns as
-//   vectors.
-//
+//   the CUDA cores (67 TFLOP/s peak).  Each thread holds 8 x 8 outputs,
+//   so a block has BM BN / 64 threads, in warps of 32 x 64 outputs: lane
+//   (rg, cg) = (lane / 8, lane % 8) takes rows 4 i + rg (i < 8) and columns
+//   32 j + 4 cg .. + 3 (j < 2) of its warp's tile.  The x and y tiles pass
+//   from device memory into shared memory by cp.async (16 bytes, no
+//   registers; 4 bytes where K or N is not a multiple of 4 or a start is
+//   not 16-byte aligned), in a ring of up to `kMaxStages` stages with the
+//   next tiles in flight while one is multiplied (one barrier a K tile).
+//   x stays K-major, as it lies in memory, each 16-byte chunk swizzled by
+//   its row (`cpa::chunk`), and is read along K: one 16-byte load gives a
+//   thread 4 K values of one row, and the four row groups of a warp load
+//   four consecutive rows, in distinct banks.  A y row's 8 chunks under a
+//   warp are 128 consecutive bytes.  So every fragment load is free of
+//   bank conflicts, and 16 of them (4 K steps) feed 256 FMAs a thread.
+//   Registers are not capped: ptxas gives a thread 168 at bk <= 32 and
+//   214-221 at bk = 64 (one 256-thread block an SM); capped at 128 for
+//   two blocks an SM, every tile spilled and ran slower on the card.
+
 // The tiles instantiated below (`MATMUL_TILE` for the CUDA-core kernel,
 // `MATMUL_TC_TILE` for the tensor-core one) are the whole sets the kernels
 // are built for; the Python side (`CUDA_CORE.tiles`, `TENSOR_CORE.tiles` in
@@ -66,144 +75,201 @@
 
 namespace {
 
-constexpr int kThreads = 256;      // 16 x 16 threads over the output tile
+constexpr int kSmemLimit = 232448;       // bytes a block may opt into
+constexpr int kMaxStages = 3;            // of the CUDA-core kernel's ring
+constexpr int kThreadTile = 64;          // outputs a thread: 8 x 8
+constexpr int kWarpM = 32, kWarpN = 64;  // outputs a warp
 
-// N consecutive fp32 elements of shared memory, 4 * N bytes aligned, into
-// registers
-template <int N>
-__device__ __forceinline__ void load_frag(const float* p, float* dst) {
-#pragma unroll
-  for (int i = 0; i < N; i += 4) {
-    const float4 v = *reinterpret_cast<const float4*>(p + i);
-    dst[i] = v.x; dst[i + 1] = v.y; dst[i + 2] = v.z; dst[i + 3] = v.w;
-  }
-}
-template <typename T, int BM, int BK, int BN>
-constexpr size_t smem_bytes() {
-  return 2 * sizeof(T) * (BK * BM + BK * BN);    // two stages of x^T, y
+__host__ __device__ constexpr int min_int(int a, int b) {
+  return a < b ? a : b;
 }
 
-template <typename T, int BM, int BK, int BN>
-__global__ void __launch_bounds__(kThreads)
-matmul_kernel(void* __restrict__ out, const T* __restrict__ x,
-              const T* __restrict__ y, int64_t M, int64_t K, int64_t N,
-              int out_bf16) {
-  constexpr int TM = BM / 16, TN = BN / 16;
-  constexpr int LX = BM * BK / kThreads;        // x elements per thread
-  constexpr int LY = BK * BN / kThreads;        // y elements per thread
-  static_assert(BM % 64 == 0 && BN % 64 == 0 && BK % 16 == 0, "tile");
-  static_assert(LX * kThreads == BM * BK && LY * kThreads == BK * BN, "");
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* xs = reinterpret_cast<T*>(smem_raw);       // [2][BK][BM]
-  T* ys = xs + 2 * BK * BM;                     // [2][BK][BN]
+// stages of the CUDA-core kernel's (x, y) ring: `kMaxStages` where they
+// fit in the shared memory a block may use, else as many as fit (two for
+// the BK = 128 tiles of BM + BN = 192).  core/kernel_tune.py (`cc_stages`)
+// computes the same number
+__host__ __device__ constexpr int cc_stages(int bm, int bk, int bn) {
+  return min_int(kMaxStages, kSmemLimit / ((bm + bn) * bk * 4));
+}
+
+template <int BM, int BK, int BN>
+struct CcCfg {
+  static constexpr int kThreads = BM * BN / kThreadTile;
+  static constexpr int kWarpsN = BN / kWarpN;
+  static constexpr int kStages = cc_stages(BM, BK, BN);
+  static constexpr int kXFloats = BM * BK;                 // a stage's x
+  static constexpr int kStageFloats = BM * BK + BK * BN;   // and y
+  static constexpr size_t kSmem = sizeof(float) * kStages * kStageFloats;
+  // 16-byte chunks of x and of y a thread copies a stage
+  static constexpr int kXCopies = BM * BK / 4 / kThreads;
+  static constexpr int kYCopies = BK * BN / 4 / kThreads;
+  static_assert(BM % kWarpM == 0 && BN % kWarpN == 0 && BK % 16 == 0,
+                "tile");
+  static_assert(kXCopies * kThreads * 4 == BM * BK &&
+                kYCopies * kThreads * 4 == BK * BN, "copies");
+  static_assert(kStages >= 2 && kSmem <= kSmemLimit,
+                "tiles exceed shared memory");
+};
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+template <int BM, int BK, int BN>
+__global__ void __launch_bounds__(CcCfg<BM, BK, BN>::kThreads)
+matmul_kernel(void* __restrict__ out, const float* __restrict__ x,
+              const float* __restrict__ y, int64_t M, int64_t K, int64_t N,
+              int out_bf16, int vec) {
+  using C = CcCfg<BM, BK, BN>;
+  constexpr int S = C::kStages;
+  constexpr int XC = BK / 4, YC = BN / 4;        // 16-byte chunks a row
+  extern __shared__ __align__(16) float smem[];  // [S][x BM x BK, y BK x BN]
 
   const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
+  const int warp = tid / 32, lane = tid % 32;
+  const int rg = lane / 8, cg = lane % 8;
+  const int wm = (warp / C::kWarpsN) * kWarpM;
+  const int wn = (warp % C::kWarpsN) * kWarpN;
   const int64_t m0 = static_cast<int64_t>(blockIdx.y) * BM;
   const int64_t n0 = static_cast<int64_t>(blockIdx.x) * BN;
   const int64_t n_k = (K + BK - 1) / BK;
 
-  // Each thread stages column kx of rows mx + i * RX of the x tile, and
-  // column ny of rows ky + i * RY of the y tile: its columns are the same
-  // for every i, so one base pointer and one column check serve them all.
-  constexpr int RX = kThreads / BK, RY = kThreads / BN;
-  static_assert(RX * BK == kThreads && RY * BN == kThreads, "");
-  const int kx = tid % BK, mx = tid / BK;
-  const int ny = tid % BN, ky = tid / BN;
-  const T* xp = x + (m0 + mx) * K + kx;
-  const T* yp = y + static_cast<int64_t>(ky) * N + n0 + ny;
-  const bool n_ok = n0 + ny < N;
-  T rx[LX], ry[LY];                             // the next tiles, staged
-  auto fetch = [&](int64_t k0) {
-    const bool k_ok = k0 + kx < K;
+  // K tile kt into stage s; what lies past M, K or N arrives as zeros
+  auto load = [&](int64_t kt, int s) {
+    float* xs = smem + s * C::kStageFloats;
+    float* ys = xs + C::kXFloats;
+    const int64_t k0 = kt * BK;
 #pragma unroll
-    for (int i = 0; i < LX; ++i)                // consecutive threads on k
-      rx[i] = (k_ok && m0 + mx + i * RX < M)
-                  ? xp[static_cast<int64_t>(i) * RX * K + k0] : T(0.0f);
+    for (int i = 0; i < C::kXCopies; ++i) {
+      const int e = tid + i * C::kThreads;
+      const int r = e / XC, c = e % XC;
+      const int64_t m = m0 + r, k = k0 + 4 * c;
+      const uint32_t d = tc::smem_u32(xs + r * BK + 4 * cpa::chunk<BK>(r, c));
+      const float* src = x + m * K + k;
+      if (vec) {
+        const bool ok = m < M && k < K;
+        cpa::copy16(d, ok ? src : x, ok);
+      } else {
 #pragma unroll
-    for (int i = 0; i < LY; ++i)                // consecutive threads on n
-      ry[i] = (n_ok && k0 + ky + i * RY < K)
-                  ? yp[(k0 + i * RY) * N] : T(0.0f);
-  };
-  auto stash = [&](int stage) {
-    T* xd = xs + stage * BK * BM + kx * BM + mx;    // transposed
-    T* yd = ys + stage * BK * BN + tid;
-#pragma unroll
-    for (int i = 0; i < LX; ++i) xd[i * RX] = rx[i];
-#pragma unroll
-    for (int i = 0; i < LY; ++i) yd[i * kThreads] = ry[i];
-  };
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
-
-  fetch(0);
-  stash(0);
-  __syncthreads();
-  for (int64_t t = 0; t < n_k; ++t) {
-    const int stage = static_cast<int>(t & 1);
-    if (t + 1 < n_k) fetch((t + 1) * BK);       // loads in flight
-    const T* xc = xs + stage * BK * BM + ty * TM;
-    const T* yc = ys + stage * BK * BN + tx * TN;
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], b[TN];
-      load_frag<TM>(xc + kk * BM, a);
-      load_frag<TN>(yc + kk * BN, b);
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        for (int j = 0; j < 4; ++j) {
+          const bool ok = m < M && k + j < K;
+          cpa::copy4(d + 4 * j, ok ? src + j : x, ok);
+        }
+      }
     }
-    // the other stage was last read before the previous barrier
-    if (t + 1 < n_k) stash(stage ^ 1);
-    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < C::kYCopies; ++i) {
+      const int e = tid + i * C::kThreads;
+      const int r = e / YC, c = e % YC;
+      const int64_t k = k0 + r, n = n0 + 4 * c;
+      const uint32_t d = tc::smem_u32(ys + r * BN + 4 * c);
+      const float* src = y + k * N + n;
+      if (vec) {
+        const bool ok = k < K && n < N;
+        cpa::copy16(d, ok ? src : y, ok);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const bool ok = k < K && n + j < N;
+          cpa::copy4(d + 4 * j, ok ? src + j : y, ok);
+        }
+      }
+    }
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < n_k) load(s, s);
+    cpa::commit();
+  }
+  for (int64_t t = 0; t < n_k; ++t) {
+    cpa::wait<S - 2>();            // this thread's copies of tile t landed
+    __syncthreads();               // everyone's; and tile t - 1 is consumed
+    if (t + S - 1 < n_k) load(t + S - 1, static_cast<int>((t + S - 1) % S));
+    cpa::commit();
+    const float* xs = smem + static_cast<int>(t % S) * C::kStageFloats;
+    const float* ys = xs + C::kXFloats + wn + 4 * cg;
+#pragma unroll 2
+    for (int c = 0; c < BK / 4; ++c) {
+      float a[8][4];               // rows 4 i + rg, K 4 c .. 4 c + 3
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = wm + 4 * i + rg;
+        const float4 v = lds4(xs + r * BK + 4 * cpa::chunk<BK>(r, c));
+        a[i][0] = v.x; a[i][1] = v.y; a[i][2] = v.z; a[i][3] = v.w;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float* yr = ys + (4 * c + kk) * BN;
+        const float4 b0 = lds4(yr), b1 = lds4(yr + 32);
+        const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            acc[i][j] = fmaf(a[i][kk], b[j], acc[i][j]);
+      }
+    }
   }
 
+  const bool n_vec = !out_bf16 && N % 4 == 0;   // 16-byte output rows
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int64_t m = m0 + ty * TM + i;
-    if (m >= M) break;
+  for (int i = 0; i < 8; ++i) {
+    const int64_t m = m0 + wm + 4 * i + rg;
+    if (m >= M) continue;
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int64_t n = n0 + tx * TN + j;
-      if (n < N) {
+    for (int h = 0; h < 2; ++h) {
+      const int64_t n = n0 + wn + 32 * h + 4 * cg;
+      if (n_vec && n + 3 < N) {
+        *reinterpret_cast<float4*>(static_cast<float*>(out) + m * N + n) =
+            make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                        acc[i][4 * h + 3]);
+        continue;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (n + j >= N) break;
         if (out_bf16)
-          static_cast<__nv_bfloat16*>(out)[m * N + n] =
-              __float2bfloat16_rn(acc[i][j]);
+          static_cast<__nv_bfloat16*>(out)[m * N + n + j] =
+              __float2bfloat16_rn(acc[i][4 * h + j]);
         else
-          static_cast<float*>(out)[m * N + n] = acc[i][j];
+          static_cast<float*>(out)[m * N + n + j] = acc[i][4 * h + j];
       }
     }
   }
 }
 
-template <typename T, int BM, int BK, int BN>
+template <int BM, int BK, int BN>
 cudaError_t launch(void* out, const void* x, const void* y, int64_t m,
                    int64_t k, int64_t n, int out_bf16, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<T, BM, BK, BN>();
-  static_assert(smem <= 232448, "tiles exceed shared memory");
-  auto kernel = matmul_kernel<T, BM, BK, BN>;
+  using C = CcCfg<BM, BK, BN>;
+  auto kernel = matmul_kernel<BM, BK, BN>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      static_cast<int>(C::kSmem));
   if (err != cudaSuccess) return err;
+  // 16-byte copies need 16-byte-aligned starts and rows of whole chunks
+  const int vec = (reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(y) % 16 == 0 && k % 4 == 0 &&
+                   n % 4 == 0);
   const dim3 grid(static_cast<unsigned>((n + BN - 1) / BN),
                   static_cast<unsigned>((m + BM - 1) / BM));
-  kernel<<<grid, kThreads, smem, stream>>>(
-      out, static_cast<const T*>(x), static_cast<const T*>(y), m, k, n,
-      out_bf16);
+  kernel<<<grid, C::kThreads, C::kSmem, stream>>>(
+      out, static_cast<const float*>(x), static_cast<const float*>(y), m, k,
+      n, out_bf16, vec);
   return cudaGetLastError();
 }
 
 #define MATMUL_TILE(BM, BK, BN)                                           \
   if (bm == BM && bk == BK && bn == BN)                                   \
-    return launch<T, BM, BK, BN>(out, x, y, m, k, n, out_bf16, stream);
+    return launch<BM, BK, BN>(out, x, y, m, k, n, out_bf16, stream);
 
-template <typename T>
 cudaError_t dispatch(void* out, const void* x, const void* y, int64_t m,
                      int64_t k, int64_t n, int bm, int bk, int bn,
                      int out_bf16, cudaStream_t stream) {
@@ -230,7 +296,6 @@ cudaError_t dispatch(void* out, const void* x, const void* y, int64_t m,
 
 namespace tc {      // (its mbarrier, TMA and wgmma helpers: hopper.cuh)
 
-constexpr int kSmemLimit = 232448;       // bytes a block may opt into
 constexpr int kSmemReserve = 2048;       // alignment slack and mbarriers
 constexpr int kGroupM = 8;               // tile rows per launch group
 constexpr int kProducerRegs = 40;        // setmaxnreg: 384 threads start at
@@ -558,7 +623,7 @@ extern "C" int matmul_launch(int kernel, void* out, const void* x,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   if (kernel == 0 && dtype == 0 && ldy == n) {
-    err = dispatch<float>(out, x, y, m, k, n, bm, bk, bn, out_bf16, s);
+    err = dispatch(out, x, y, m, k, n, bm, bk, bn, out_bf16, s);
   } else if (kernel == 1 && dtype == 1 && k > 0 && k < INT_MAX &&
              m < INT_MAX && ldy < INT_MAX && ldy >= n && k % 8 == 0 &&
              ldy % 8 == 0) {

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.kernel_tune import cc_stages
 from repro_torch.core.multiapp import AppSpec
 from repro_torch.core.space import default_space
 from repro_torch.kernels.costmodel import FusedTorchScorer
@@ -150,6 +151,42 @@ def test_flash_kernel_matches_plain(gpu, b, sq, skv, h, kv, hd, causal,
     tol = 3e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), flash_attention_plain(
         q, k, v, causal=causal).float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("hd,dtype", [(hd, torch.float32)
+                                      for hd in (16, 32, 64, 128, 256)]
+                         + [(16, torch.bfloat16), (32, torch.bfloat16)])
+@pytest.mark.parametrize("sq,skv", [(200, 333), (333, 200), (129, 127),
+                                    (1, 70)])
+def test_flash_cuda_core_off_its_query_block(gpu, sq, skv, hd, dtype):
+    """The CUDA-core kernel with Sq and Skv off a multiple of its 128-row
+    query block and its K / V tiles, both masks, every element within
+    `chip_smoke.FLASH_TOL` of the plain version in float64."""
+    q, k, v = _flash_inputs(gpu, ((2, sq, 4, hd), (2, skv, 2, hd),
+                                  (2, skv, 2, hd)), dtype, seed=sq + hd)
+    for causal in (True, False):
+        before = (CUDA_CORE.launches, TENSOR_CORE.launches)
+        got = flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert (CUDA_CORE.launches, TENSOR_CORE.launches) == \
+            (before[0] + 1, before[1])
+        want = flash_attention_plain(q.double(), k.double(), v.double(),
+                                     causal=causal)
+        atol, rtol = chip_smoke.FLASH_TOL[dtype]
+        assert float(((got.double() - want).abs()
+                      / (atol + rtol * want.abs())).max()) <= 1.0
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_flash_cuda_core_launch_order_changes_no_bit(gpu, hd):
+    """Causal query tiles launch heaviest first and run in any order:
+    two launches on the same inputs give the same bits."""
+    q, k, v = _flash_inputs(gpu, ((2, 700, 8, hd), (2, 700, 2, hd),
+                                  (2, 700, 2, hd)), torch.float32, seed=hd)
+    first = flash_attention(q, k, v, causal=True)
+    second = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_flash_kernel_reads_strided_inputs(gpu):
@@ -502,6 +539,28 @@ def test_matmul_every_tile(gpu, dtype, tile):
         torch.cuda.synchronize()
         assert got.dtype == out_dtype and got.shape == (300, 259)
         assert_matmul_close(x, y, got, bk)
+
+
+@pytest.mark.parametrize("tile", MM_CUDA_CORE.tiles, ids=str)
+def test_matmul_fp32_ragged_against_the_ring(gpu, tile):
+    """fp32 on the CUDA-core kernel at every tile, M and N ragged against
+    the tile, K shorter than one K tile, K just past the ring's stages
+    (`cc_stages`), and K and N off a multiple of 4 (4-byte copies) or on
+    one (16-byte copies); both output dtypes."""
+    bm, bk, bn = tile
+    depth = cc_stages(bm, bk, bn) * bk
+    for m, k, n in ((bm + 3, bk // 2 + 1, bn + 5), (2 * bm - 1, 7, bn - 3),
+                    (bm + 7, depth + 5, 2 * bn + 1),
+                    (bm + 8, depth + 4, bn + 12)):
+        x, y = _matmul_inputs(m, k, n, torch.float32, gpu, seed=bk)
+        for out_dtype in (torch.float32, torch.bfloat16):
+            before = (MM_CUDA_CORE.launches, MM_TENSOR_CORE.launches)
+            got = matmul(x, y, bm=bm, bk=bk, bn=bn, out_dtype=out_dtype)
+            torch.cuda.synchronize()
+            assert (MM_CUDA_CORE.launches, MM_TENSOR_CORE.launches) == \
+                (before[0] + 1, before[1])
+            assert got.dtype == out_dtype and got.shape == (m, n)
+            assert_matmul_close(x, y, got, bk)
 
 
 def test_matmul_output_beyond_2_to_the_31(gpu):

@@ -1,7 +1,8 @@
 """`repro_torch.kernels.flash_attention` on the CPU: its plain version
 against the JAX package's Pallas kernel (interpret mode) and dense oracle,
 the arithmetic of the tensor-core kernel (emulated) against the plain
-version, and the wrapper's contract (dispatch table, TMA check).
+version, the wrapper's contract (dispatch table, TMA check), and the
+CUDA-core kernel's shared memory at each head dim.
 
 Inputs come from numpy with a seed.  Tolerances are those of
 `tests/test_kernels.py`: fp32 3e-4 (two fp32 summation orders over at
@@ -11,6 +12,7 @@ bf16 ulp of an O(1) value); the emulated kernel is held to
 
 import importlib.util
 import math
+import re
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -286,6 +288,31 @@ def test_dispatch_raises_outside_its_table():
         kernel_for(torch.bfloat16, 48)
     with pytest.raises(ValueError):
         kernel_for(torch.float16, 64)
+
+
+CSRC = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+        / "kernels" / "csrc" / "flash_attention.cu")
+
+
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_cuda_core_tiles_fit_a_blocks_shared_memory(hd):
+    """`flash_attention_kernel`'s shared memory at each head dim (its
+    `FLASH_TILE` line): q * scale for the block's query rows, the ring's
+    slots of K or V tiles and each warp's p, within the 232,448 bytes a
+    block may use; at least two slots, each tile copied in whole 16-byte
+    chunks by the block's threads, and two blocks an SM up to hd 64."""
+    text = CSRC.read_text()
+    bq = int(re.search(r"constexpr int kBQ = (\d+);", text).group(1))
+    warps = int(re.search(r"constexpr int kWarps = (\d+);", text).group(1))
+    tiles = {int(h): (int(b), int(s)) for h, b, s in re.findall(
+        r"^FLASH_TILE\((\d+), (\d+), (\d+)\)", text, re.MULTILINE)}
+    assert set(tiles) == set(HEAD_DIMS)
+    bkv, slots = tiles[hd]
+    smem = 4 * (bq * hd + slots * bkv * hd + warps * bkv * (bq // warps))
+    assert slots >= 2 and smem <= 232448
+    assert bkv * hd // 4 % (32 * warps) == 0 and bkv % 8 == 0
+    if hd <= 64:
+        assert 2 * (smem + 1024) <= 233472
 
 
 def test_tma_check_takes_fused_qkv_slices_and_refuses_odd_offsets():

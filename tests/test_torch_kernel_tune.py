@@ -19,8 +19,9 @@ except ImportError:                       # pragma: no cover - container
 from repro.core import kernel_tune as ref_kt
 from repro.core.roofline import HW as RefHW
 from repro_torch.core.kernel_tune import (H100_TC_TILES, H100_TILES,
-                                          TileChip, TileConfig, tc_consumers,
-                                          tc_stages, tile_cost,
+                                          REGS_PER_SM, TileChip, TileConfig,
+                                          block_threads, cc_stages,
+                                          tc_consumers, tc_stages, tile_cost,
                                           tune_matmul_tiles)
 from repro_torch.core.roofline import HW
 from repro_torch.kernels.matmul import CUDA_CORE, TENSOR_CORE
@@ -102,16 +103,20 @@ def test_tiles_the_budgets_rule_out():
     assert big["smem_bytes"] > H100_TILES.smem_bytes and not big["valid"]
     regs = tile_cost(4096, 4096, 4096, TileConfig(256, 16, 256))
     assert regs["smem_bytes"] <= H100_TILES.smem_bytes
-    assert not regs["valid"]                 # 256 accumulators a thread
+    # 1024 threads of 64 accumulators and the rest: over an SM's registers
+    assert block_threads(TileConfig(256, 16, 256), H100_TILES) == 1024
+    assert not regs["valid"]
 
 
 def test_ties_keep_the_order_of_the_tiles():
-    """The fp32 chip still ties tiles that fill the same waves with the
-    same work (at 4096^3 the eleven tiles of 8192 output elements in one
-    block an SM): the ranking keeps their order in `tiles`, and the first
-    of them is picked, whichever way the tuple runs."""
-    tiles = CUDA_CORE.tiles
-    best, _, rank = tune_matmul_tiles(4096, 4096, 4096, dtype_bytes=4)
+    """The fp32 chip still ties tiles that fill the same waves with the same
+    work: at 4096^3 a bm x bn tile and its bn x bm twin at one bk have the
+    same blocks, threads, shared memory, K tiles and refetched bytes.  The
+    ranking keeps their order in `tiles`, and the first of them is picked,
+    whichever way the tuple runs."""
+    tiles = ((128, 32, 64), (64, 32, 128), (128, 16, 64), (64, 16, 128))
+    best, _, rank = tune_matmul_tiles(4096, 4096, 4096, dtype_bytes=4,
+                                      tiles=tiles)
     top = [(t.bm, t.bk, t.bn) for t, lat in rank if lat == rank[0][1]]
     assert len(top) > 1
     assert top == [t for t in tiles if t in top]
@@ -173,6 +178,38 @@ def test_stage_formula_and_consumer_split():
     assert tc_consumers(64, 64) == (1, 64, 64)
 
 
+def test_every_cuda_core_tile_fits_a_blocks_shared_memory():
+    """The fp32 kernel's ring: three stages where they fit, two for the
+    bk = 128 tiles of bm + bn = 192, and every tile's ring within the
+    232,448 bytes a block may use."""
+    for bm, bk, bn in CUDA_CORE.tiles:
+        s = cc_stages(bm, bk, bn)
+        cost = tile_cost(4096, 4096, 4096, TileConfig(bm, bk, bn),
+                         dtype_bytes=4)
+        assert s == (2 if bk == 128 and bm + bn == 192 else 3)
+        assert cost["smem_bytes"] == s * (bm + bn) * bk * 4 <= 232448
+        assert cost["valid"]
+
+
+#: the fp32 products the models' MLPs run at 32k positions (qwen2-0.5b's
+#: up and down projections, recurrentgemma-9b's) and the tile DSE's fp32
+#: product
+FP32_SHAPES = [(8192, 8192, 8192), (32768, 896, 4864), (32768, 4864, 896),
+               (32768, 4096, 12288), (32768, 12288, 4096)]
+
+
+@pytest.mark.parametrize("m,k,n", FP32_SHAPES)
+def test_fp32_pick_is_a_built_tile(m, k, n):
+    """At 8192^3 and the models' MLP shapes the CUDA-core model picks a
+    tile `matmul_kernel` is built for, within its budgets, compute-bound
+    at the fp32 FMA rate."""
+    best, cost, ranking = tune_matmul_tiles(m, k, n, dtype_bytes=4)
+    assert (best.bm, best.bk, best.bn) in CUDA_CORE.tiles
+    assert cost["valid"] and cost["smem_bytes"] <= 232448
+    assert len(ranking) == len(CUDA_CORE.tiles)
+    assert cost["latency_s"] == cost["compute_s"] >= 2.0 * m * k * n / 67e12
+
+
 @settings(max_examples=30, deadline=None)
 @given(m=st.integers(1, 40000), k=st.integers(1, 20000),
        n=st.integers(1, 160000), dtype_bytes=st.sampled_from([2, 4]))
@@ -185,8 +222,8 @@ def test_h100_pick_is_a_kernel_tile_within_budgets(m, k, n, dtype_bytes):
     assert cost["valid"]
     assert cost["smem_bytes"] <= chip.smem_bytes
     if dtype_bytes == 4:
-        regs = (best.bm * best.bn + best.bm * best.bk
-                + best.bk * best.bn) / chip.threads
+        regs = chip.thread_tile + chip.reg_overhead
+        assert block_threads(best, chip) * regs <= REGS_PER_SM
     else:
         regs = best.bm * best.bn / (128 * tc_consumers(best.bm, best.bn)[0])
     assert regs <= chip.reg_budget <= 255

@@ -1,8 +1,10 @@
 """`repro_torch.kernels.matmul` on the CPU: its plain version against the
 JAX package's oracle (`ref.matmul_ref`) and Pallas kernel (interpret
 mode), and the wrapper's contract: each kernel's tile set is the one
-`csrc/matmul.cu` is built for, the dispatch by dtype, the tensor-core
-kernel's stage formula and the zero padding that TMA's alignment needs.
+`csrc/matmul.cu` is built for, the dispatch by dtype, each kernel's stage
+formula (and the CUDA-core kernel's threads and shared memory a tile) as
+the tile model has them, and the zero padding that TMA's alignment
+needs.
 
 Inputs come from numpy with a seed.  Tolerance: |port - reference| <=
 2 gamma_K (|x| @ |y|), gamma_K = K u / (1 - K u) with u = 2^-24 — the
@@ -19,7 +21,9 @@ import pytest
 import torch
 
 from repro.kernels import ops, ref
-from repro_torch.core.kernel_tune import tc_stages
+from repro_torch.core.kernel_tune import (H100_TILES, TileConfig,
+                                          block_threads, cc_stages,
+                                          tc_stages, tile_cost)
 from repro_torch.kernels import build
 from repro_torch.kernels.matmul import (CUDA_CORE, DISPATCH, TENSOR_CORE,
                                         kernel_for, matmul, matmul_plain,
@@ -164,6 +168,33 @@ def test_stage_formula_matches_the_kernel():
     for bm, bk, bn in TENSOR_CORE.tiles:
         s = tc_stages(bm, bk, bn)
         assert s == (limit - reserve) // ((bm + bn) * bk * 2) >= 2
+
+
+def test_cuda_core_ring_matches_the_kernel():
+    """The CUDA-core tile model's constants are `matmul_kernel`'s: the
+    ring's stage formula and depth, the threads a tile (8 x 8 outputs
+    each), the registers the launch bound leaves a thread, and so each
+    tile's shared memory."""
+    text = CSRC.read_text()
+    limit = int(re.search(r"kSmemLimit = (\d+);", text).group(1))
+    depth = int(re.search(r"kMaxStages = (\d+);", text).group(1))
+    per_thread = int(re.search(r"kThreadTile = (\d+);", text).group(1))
+    assert "return min_int(kMaxStages, kSmemLimit / ((bm + bn) * bk * 4));" \
+        in text
+    assert "kThreads = BM * BN / kThreadTile;" in text
+    # the launch bound names the threads alone: no register cap under 255
+    assert "__launch_bounds__(CcCfg<BM, BK, BN>::kThreads)\n" in text
+    assert (H100_TILES.smem_bytes, H100_TILES.stages,
+            H100_TILES.thread_tile, H100_TILES.reg_budget) == \
+        (limit, depth, per_thread, 255)
+    for bm, bk, bn in CUDA_CORE.tiles:
+        stages = min(depth, limit // ((bm + bn) * bk * 4))
+        t = TileConfig(bm, bk, bn)
+        assert cc_stages(bm, bk, bn) == stages >= 2
+        assert block_threads(t, H100_TILES) == bm * bn // per_thread
+        assert tile_cost(8192, 8192, 8192, t, dtype_bytes=4,
+                         chip=H100_TILES)["smem_bytes"] == \
+            stages * (bm * bk + bk * bn) * 4 <= limit
 
 
 @pytest.mark.parametrize("m,k,n", [(33, 65, 17), (200, 384, 136)])
