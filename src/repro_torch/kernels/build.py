@@ -6,7 +6,10 @@ compiled at first use into `build/repro_torch/` at the repository root
 (listed in `.gitignore`), under a name keyed by a hash of the source, the
 `csrc/*.cuh` headers it includes and the flags, so an edited source or
 header is rebuilt and an unchanged one is reused.
-Nothing is compiled or loaded when this module is imported.
+Nothing is compiled or loaded when this module is imported.  A library's
+first load in a process opens the `obs` span `kernels.load` (args: the
+source's `name`, and `built`, whether it was compiled) and, with `obs` on,
+adds to the counter `kernels.built`.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, Sequence, Tuple
+
+from repro_torch import obs
 
 __all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "headers", "library_path",
            "build", "load"]
@@ -97,6 +102,10 @@ def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LOADED.get(name)
         if lib is None:
-            build([name])
-            lib = _LOADED[name] = ctypes.CDLL(str(library_path(name)))
+            built = not library_path(name).exists()
+            with obs.span("kernels.load", name=name, built=built):
+                build([name])
+                lib = _LOADED[name] = ctypes.CDLL(str(library_path(name)))
+            if obs.active():
+                obs.counter("kernels.built", int(built))
         return lib

@@ -42,6 +42,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils import _pytree as pytree
 from torch.utils._pytree import tree_leaves
 
+from repro_torch import obs
 from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.core.roofline import CollectiveStats
 from repro_torch.distributed.sharding import (AxisRules, Layout, fsdp_rules,
@@ -371,7 +372,7 @@ def make_prefill_step(model: Model, rt: Runtime) -> Callable:
     def prefill_step(params, batch):
         # the sampler needs only the last position's logits
         with _no_autograd(params), _over_mesh(params), \
-                full_precision_products():
+                full_precision_products(), obs.span("prefill"):
             logits = model.forward(params, batch, rt, last_only=True)
         return logits[:, -1, :]
     return prefill_step

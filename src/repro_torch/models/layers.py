@@ -22,6 +22,12 @@ Conventions (those of `repro.models.layers`)
   decode-time KV caches stay at `num_kv_heads` width.
 * Layouts are the reference's: q `[B, S, H, hd]`, k/v `[B, S, KV, hd]`,
   `wq` `[d, H*hd]`.
+* The full-sequence attention and the MoE block open `obs` spans (`attn`,
+  `attn.core`, `moe`, `moe.route`, `moe.dispatch`, `moe.experts`,
+  `moe.combine`, `moe.shared`), and `_moe_dispatch` counts the expert
+  slots and the pairs dropped at capacity (`moe.pairs_routed`,
+  `moe.slots`, `moe.pairs_dropped`).  With `obs` off a span is a shared
+  null context and nothing is counted.
 
 """
 
@@ -37,6 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils import _pytree as pytree
 
+from repro_torch import obs
 from repro_torch.distributed.sharding import AxisRules, shard_constraint
 from repro_torch.frontend.trace import (index_from_end, nested_jit, node_of,
                                         scan_slices, scan_stack, tracing)
@@ -759,27 +766,30 @@ def gqa_attention_train(p: Params, x: torch.Tensor, *, n_heads: int,
                         n_kv: int, hd: int, rope_theta: float, rt: Runtime,
                         causal: bool = True, window: int = 0
                         ) -> torch.Tensor:
-    B, S, _ = x.shape
-    q, k, v = gqa_project(p, x, n_heads, n_kv, hd, rt)
-    pos = torch.arange(S, device=x.device)[None, :]
-    cos, sin = rope_cos_sin(pos, hd, rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
-    # context parallelism: the q sequence on the model axis (any head
-    # count); k and v stay replicated within the batch shard
-    q = rt.shard(q, "batch", "attn_seq")
-    if window and window < S:
-        o = local_block_attention(q, k, v, window, rt=rt)
-    elif rt.use_kernels:
-        from repro_torch.kernels.flash_attention import flash_attention
-        no_kernel_backward("flash_attention", q, k, v)
-        no_kernel_on_dtensor("flash_attention", q, k, v)
-        o = flash_attention(q, k, v, causal=causal)
-    else:
-        o = blocked_attention(q, k, v, causal=causal,
-                              kv_block=rt.attn_kv_block)
-    o = rt.shard(o, "batch", "attn_seq")
-    return gqa_out(p, o, rt)
+    with obs.span("attn"):
+        B, S, _ = x.shape
+        q, k, v = gqa_project(p, x, n_heads, n_kv, hd, rt)
+        pos = torch.arange(S, device=x.device)[None, :]
+        cos, sin = rope_cos_sin(pos, hd, rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        # context parallelism: the q sequence on the model axis (any head
+        # count); k and v stay replicated within the batch shard
+        q = rt.shard(q, "batch", "attn_seq")
+        with obs.span("attn.core"):
+            if window and window < S:
+                o = local_block_attention(q, k, v, window, rt=rt)
+            elif rt.use_kernels:
+                from repro_torch.kernels.flash_attention import (
+                    flash_attention)
+                no_kernel_backward("flash_attention", q, k, v)
+                no_kernel_on_dtensor("flash_attention", q, k, v)
+                o = flash_attention(q, k, v, causal=causal)
+            else:
+                o = blocked_attention(q, k, v, causal=causal,
+                                      kv_block=rt.attn_kv_block)
+        o = rt.shard(o, "batch", "attn_seq")
+        return gqa_out(p, o, rt)
 
 
 def gqa_attention_decode(p: Params, x: torch.Tensor,
@@ -855,35 +865,38 @@ def mla_attention_train(p: Params, x: torch.Tensor, *, n_heads: int,
     broadcast to the heads, and the causal attention over q/k of width
     `nope + rope_d` and v of width `v_hd` is `blocked_attention` (no
     kernel, under `use_kernels` too, as in the reference)."""
-    cd = rt.compute_dtype
-    B, S, _ = x.shape
-    q = cd_matmul(x, p["wq"], cd).to(cd)
-    q = rt.shard(q, "batch", None, "qkv_fused")
-    q = split_heads(q, n_heads, nope + rope_d, rt, "batch", "attn_seq")
-    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    with obs.span("attn"):
+        cd = rt.compute_dtype
+        B, S, _ = x.shape
+        q = cd_matmul(x, p["wq"], cd).to(cd)
+        q = rt.shard(q, "batch", None, "qkv_fused")
+        q = split_heads(q, n_heads, nope + rope_d, rt, "batch", "attn_seq")
+        q_nope, q_rope = q[..., :nope], q[..., nope:]
 
-    ckv = cd_matmul(x, p["wdkv"], cd)
-    c_kv, k_rope = ckv[..., :kv_lora], ckv[..., kv_lora:]
-    c_kv = rms_norm(c_kv.to(cd), p["kv_norm"], eps)
-    kv = cd_matmul(c_kv, p["wukv"], cd).to(cd)
-    kv = rt.shard(kv, "batch", None, "qkv_fused")
-    kv = split_heads(kv, n_heads, nope + v_hd, rt, "batch")
-    k_nope, v = kv[..., :nope], kv[..., nope:]
+        ckv = cd_matmul(x, p["wdkv"], cd)
+        c_kv, k_rope = ckv[..., :kv_lora], ckv[..., kv_lora:]
+        c_kv = rms_norm(c_kv.to(cd), p["kv_norm"], eps)
+        kv = cd_matmul(c_kv, p["wukv"], cd).to(cd)
+        kv = rt.shard(kv, "batch", None, "qkv_fused")
+        kv = split_heads(kv, n_heads, nope + v_hd, rt, "batch")
+        k_nope, v = kv[..., :nope], kv[..., nope:]
 
-    pos = torch.arange(S, device=x.device)[None, :]
-    cos, sin = rope_cos_sin(pos, rope_d, rope_theta)
-    q_rope = apply_rope(q_rope, cos, sin)
-    k_rope = apply_rope(k_rope.to(cd)[:, :, None, :], cos, sin)
-    k_rope_b = k_rope.expand(B, S, n_heads, rope_d)
+        pos = torch.arange(S, device=x.device)[None, :]
+        cos, sin = rope_cos_sin(pos, rope_d, rope_theta)
+        q_rope = apply_rope(q_rope, cos, sin)
+        k_rope = apply_rope(k_rope.to(cd)[:, :, None, :], cos, sin)
+        k_rope_b = k_rope.expand(B, S, n_heads, rope_d)
 
-    qf = torch.cat([q_nope, q_rope], -1)
-    kf = torch.cat([k_nope, k_rope_b], -1)
-    qf = rt.shard(qf, "batch", "attn_seq")
-    # the scale is 1/sqrt(nope + rope_d), the full qk head dim
-    o = blocked_attention(qf, kf, v, causal=True, kv_block=rt.attn_kv_block)
-    o = rt.shard(o, "batch", "attn_seq")
-    y = project_rows(o.reshape(B, S, n_heads * v_hd), p["wo"], cd)
-    return rt.shard(y.to(cd), "batch", None, "act_embed")
+        qf = torch.cat([q_nope, q_rope], -1)
+        kf = torch.cat([k_nope, k_rope_b], -1)
+        qf = rt.shard(qf, "batch", "attn_seq")
+        # the scale is 1/sqrt(nope + rope_d), the full qk head dim
+        with obs.span("attn.core"):
+            o = blocked_attention(qf, kf, v, causal=True,
+                                  kv_block=rt.attn_kv_block)
+        o = rt.shard(o, "batch", "attn_seq")
+        y = project_rows(o.reshape(B, S, n_heads * v_hd), p["wo"], cd)
+        return rt.shard(y.to(cd), "batch", None, "act_embed")
 
 
 def mla_attention_decode(p: Params, x: torch.Tensor,
@@ -1086,28 +1099,37 @@ def _moe_dispatch(xg: torch.Tensor, router: torch.Tensor, *,
     slots: (gate [G, T, k], slot [G, T*k], buf [G, E, C, D] in the
     compute dtype), by an index scatter into `slot_to_src` (only the
     padding column, sliced off after, takes more than one write), then a
-    token gather."""
+    token gather.  With `obs` metrics on, it counts the (token, choice)
+    pairs routed, the expert slots, and the pairs dropped at capacity (a
+    0-d tensor, summed on the device without a sync)."""
     G, gsz, D = xg.shape
     n_slots = n_experts * cap
-    gate, _, slot = moe_route({"router": router}, xg, n_experts=n_experts,
-                              top_k=top_k, cap=cap,
-                              normalize_gates=normalize_gates, rt=rt)
-    dev = xg.device
-    src_tok = torch.arange(gsz, device=dev)[None, :, None].expand(
-        G, gsz, top_k).reshape(G, gsz * top_k)
-    gidx = torch.arange(G, device=dev)[:, None]
-    if slot.is_cuda:    # duplicate in-range writes would race on the card
-        assert_unique_slots(slot, n_slots)
-    slot_to_src = torch.full((G, n_slots + 1), gsz, dtype=torch.int64,
-                             device=dev)
-    slot_to_src[gidx, slot] = src_tok
-    # the reference's constraint: the slots lie as their groups (a
-    # plain tensor, a rank's own groups, passes through)
-    slot_to_src = rt.shard(slot_to_src[:, :-1], "batch")  # [G, E*C]
-    x_pad = torch.cat([xg, torch.zeros((G, 1, D), dtype=xg.dtype,
-                                       device=dev)], 1)
-    buf = torch.take_along_dim(x_pad, slot_to_src[..., None], dim=1)
-    return gate, slot, buf.reshape(G, n_experts, cap, D).to(rt.compute_dtype)
+    with obs.span("moe.route"):
+        gate, _, slot = moe_route({"router": router}, xg,
+                                  n_experts=n_experts, top_k=top_k, cap=cap,
+                                  normalize_gates=normalize_gates, rt=rt)
+    with obs.span("moe.dispatch"):
+        if obs.metrics().enabled:
+            obs.counter("moe.pairs_routed", G * gsz * top_k)
+            obs.counter("moe.slots", G * n_slots)
+            obs.counter("moe.pairs_dropped", (slot >= n_slots).sum())
+        dev = xg.device
+        src_tok = torch.arange(gsz, device=dev)[None, :, None].expand(
+            G, gsz, top_k).reshape(G, gsz * top_k)
+        gidx = torch.arange(G, device=dev)[:, None]
+        if slot.is_cuda:    # duplicate in-range writes would race on the card
+            assert_unique_slots(slot, n_slots)
+        slot_to_src = torch.full((G, n_slots + 1), gsz, dtype=torch.int64,
+                                 device=dev)
+        slot_to_src[gidx, slot] = src_tok
+        # the reference's constraint: the slots lie as their groups (a
+        # plain tensor, a rank's own groups, passes through)
+        slot_to_src = rt.shard(slot_to_src[:, :-1], "batch")  # [G, E*C]
+        x_pad = torch.cat([xg, torch.zeros((G, 1, D), dtype=xg.dtype,
+                                           device=dev)], 1)
+        buf = torch.take_along_dim(x_pad, slot_to_src[..., None], dim=1)
+        return gate, slot, buf.reshape(G, n_experts, cap, D).to(
+            rt.compute_dtype)
 
 
 def _moe_combine(y_e: torch.Tensor, slot: torch.Tensor, gate: torch.Tensor,
@@ -1180,32 +1202,37 @@ def moe_block(p: Params, x: torch.Tensor, *, n_experts: int, top_k: int,
     device routes one group, real or padding: here every rank routes the
     groups whole (the group dimension replicated, as is a single group),
     the same work a rank."""
-    cd = rt.compute_dtype
-    B, S, D = x.shape
-    T = B * S
-    gsz = min(rt.moe_group_size, T)
-    n_groups = -(-T // gsz)
-    assert T % gsz == 0, (T, gsz)
-    g_axis = "batch" if n_groups > 1 and \
-        n_groups % rt.axis_size("batch") == 0 else None
-    xg = rt.shard(x.reshape(n_groups, gsz, D), g_axis, None, None)
-    cap = moe_capacity(gsz, top_k, n_experts, capacity_factor)
-    gate, slot, buf = _per_group(
-        functools.partial(_moe_dispatch, n_experts=n_experts, top_k=top_k,
-                          cap=cap, normalize_gates=normalize_gates, rt=rt),
-        3, xg, p["router"], whole=(1,))
-    buf = rt.shard(buf, g_axis, "experts")
+    with obs.span("moe"):
+        cd = rt.compute_dtype
+        B, S, D = x.shape
+        T = B * S
+        gsz = min(rt.moe_group_size, T)
+        n_groups = -(-T // gsz)
+        assert T % gsz == 0, (T, gsz)
+        g_axis = "batch" if n_groups > 1 and \
+            n_groups % rt.axis_size("batch") == 0 else None
+        xg = rt.shard(x.reshape(n_groups, gsz, D), g_axis, None, None)
+        cap = moe_capacity(gsz, top_k, n_experts, capacity_factor)
+        gate, slot, buf = _per_group(
+            functools.partial(_moe_dispatch, n_experts=n_experts,
+                              top_k=top_k, cap=cap,
+                              normalize_gates=normalize_gates, rt=rt),
+            3, xg, p["router"], whole=(1,))
+        buf = rt.shard(buf, g_axis, "experts")
 
-    g1 = torch.einsum("gecd,edf->gecf", buf, p["we1"].to(cd)).float()
-    u1 = torch.einsum("gecd,edf->gecf", buf, p["we3"].to(cd)).float()
-    h = rt.shard((F.silu(g1) * u1).to(cd), g_axis, "experts")
-    y_e = torch.einsum("gecf,efd->gecd", h, p["we2"].to(cd)).to(cd)
-    y_e = rt.shard(y_e, g_axis, "experts")
+        with obs.span("moe.experts"):
+            g1 = torch.einsum("gecd,edf->gecf", buf, p["we1"].to(cd)).float()
+            u1 = torch.einsum("gecd,edf->gecf", buf, p["we3"].to(cd)).float()
+            h = rt.shard((F.silu(g1) * u1).to(cd), g_axis, "experts")
+            y_e = torch.einsum("gecf,efd->gecd", h, p["we2"].to(cd)).to(cd)
+            y_e = rt.shard(y_e, g_axis, "experts")
 
-    y = _combine_by_experts(y_e, slot, gate, cd).reshape(B, S, D)
-    if "shared" in p:
-        y = y + swiglu(p["shared"], x, rt)
-    return rt.shard(y, "batch", None, "act_embed")
+        with obs.span("moe.combine"):
+            y = _combine_by_experts(y_e, slot, gate, cd).reshape(B, S, D)
+        if "shared" in p:
+            with obs.span("moe.shared"):
+                y = y + swiglu(p["shared"], x, rt)
+        return rt.shard(y, "batch", None, "act_embed")
 
 
 # ================================================================== RG-LRU

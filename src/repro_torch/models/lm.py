@@ -28,6 +28,11 @@ repeat of a group's pattern, or a group of one repeat as a whole:
 `units`), as the reference checkpoints its scan bodies.  The optimizer
 decays a leaf by its rank in the reference's layout, where a group of
 several repeats stacks its leaves (`DecoderLM.decay_mask`).
+
+The full-sequence forward opens `obs` spans: `lm.embed`, `layer` for each
+block (its self time the norms and residual adds), `mlp` for a dense
+feed-forward, and `lm.head`; `layers` opens those of the attention and
+the MoE block.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ import torch
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
+from repro_torch import obs
 from repro_torch.models import layers as L
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import Runtime, Spec
@@ -196,31 +202,34 @@ def _feed_forward(cfg: ArchConfig, p: Params, h: torch.Tensor,
         return L.moe_block(p["moe"], h, n_experts=m.num_experts,
                            top_k=m.top_k, capacity_factor=m.capacity_factor,
                            normalize_gates=m.norm_topk_prob, rt=rt)
-    return L.swiglu(p["mlp"], h, rt)
+    with obs.span("mlp"):
+        return L.swiglu(p["mlp"], h, rt)
 
 
 def block_apply_train(cfg: ArchConfig, kind: str, p: Params,
                       x: torch.Tensor, rt: Runtime) -> torch.Tensor:
     _check_block(kind)
-    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    xkw = dict(n_heads=cfg.num_heads, eps=cfg.norm_eps, rt=rt)
-    if kind == "mlstm":
-        return x + L.mlstm_block_train(p["mlstm"], h, **xkw)
-    if kind == "slstm":
-        x = x + L.slstm_block_train(p["slstm"], h, **xkw)
-    elif kind == "rglru":
-        x = x + L.rglru_block_train(p["rglru"], h, n_heads=cfg.num_heads,
-                                    rt=rt)
-    elif cfg.mla is not None:
-        x = x + L.mla_attention_train(p["attn"], h, rt=rt, **_mla_kw(cfg))
-    else:
-        x = x + L.gqa_attention_train(
-            p["attn"], h, n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads,
-            hd=cfg.resolved_head_dim, rope_theta=cfg.rope_theta, rt=rt,
-            causal=True,
-            window=cfg.local_window if kind == "local_attn" else 0)
-    h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + _feed_forward(cfg, p, h2, rt)
+    with obs.span("layer"):
+        h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+        xkw = dict(n_heads=cfg.num_heads, eps=cfg.norm_eps, rt=rt)
+        if kind == "mlstm":
+            return x + L.mlstm_block_train(p["mlstm"], h, **xkw)
+        if kind == "slstm":
+            x = x + L.slstm_block_train(p["slstm"], h, **xkw)
+        elif kind == "rglru":
+            x = x + L.rglru_block_train(p["rglru"], h,
+                                        n_heads=cfg.num_heads, rt=rt)
+        elif cfg.mla is not None:
+            x = x + L.mla_attention_train(p["attn"], h, rt=rt,
+                                          **_mla_kw(cfg))
+        else:
+            x = x + L.gqa_attention_train(
+                p["attn"], h, n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads,
+                hd=cfg.resolved_head_dim, rope_theta=cfg.rope_theta, rt=rt,
+                causal=True,
+                window=cfg.local_window if kind == "local_attn" else 0)
+        h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+        return x + _feed_forward(cfg, p, h2, rt)
 
 
 def block_cache_specs(cfg: ArchConfig, kind: str, batch: int,
@@ -377,11 +386,12 @@ class DecoderLM(nn.Module):
 
     def _embed_inputs(self, params: Params, batch: Dict[str, torch.Tensor],
                       rt: Runtime) -> torch.Tensor:
-        x = self._embed(params, batch["tokens"], rt)
-        if self.cfg.frontend == "vit_stub" and "patch_embeds" in batch:
-            x = torch.cat([batch["patch_embeds"].to(rt.compute_dtype), x],
-                          dim=1)
-        return rt.shard(x, "batch", None, None)
+        with obs.span("lm.embed"):
+            x = self._embed(params, batch["tokens"], rt)
+            if self.cfg.frontend == "vit_stub" and "patch_embeds" in batch:
+                x = torch.cat([batch["patch_embeds"].to(rt.compute_dtype),
+                               x], dim=1)
+            return rt.shard(x, "batch", None, None)
 
     def _logits(self, params: Params, x: torch.Tensor, rt: Runtime
                 ) -> torch.Tensor:
@@ -404,8 +414,9 @@ class DecoderLM(nn.Module):
                            self.kinds[first:first + n], rt)
         if last_only:
             x = x[:, -1:]
-        return rt.shard(self._logits(params, x, rt).to(rt.compute_dtype),
-                        "batch", None, "vocab")
+        with obs.span("lm.head"):
+            logits = self._logits(params, x, rt).to(rt.compute_dtype)
+        return rt.shard(logits, "batch", None, "vocab")
 
     def _unit(self, x: torch.Tensor, layers: List[Params], kinds: List[str],
               rt: Runtime) -> torch.Tensor:

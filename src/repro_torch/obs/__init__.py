@@ -1,11 +1,15 @@
-"""`repro_torch.obs` — zero-dependency observability for the DSE stack.
+"""`repro_torch.obs` — zero-dependency observability for the DSE stack
+and the model path.
 
 Three pillars, one module-level switchboard:
 
   * **tracing** (`trace.Tracer`) — span-based, per-process buffers,
     merged into one Chrome-trace-event JSON (Perfetto-loadable) covering
     Study phases, engine ask/tell rounds, evaluator batch scoring and
-    the cross-evaluation.
+    the cross-evaluation; on the model path, the prefill forward by
+    layer (`span`).  A span also opens a range in any running
+    `torch.profiler` session, so the device's operations can be put down
+    to the span that launched them.
   * **metrics** (`metrics.Metrics`) — counters / gauges / histograms
     (cache hits and misses, per-engine round latency),
     snapshotted into ``StudyResult.meta["telemetry"]`` and the CLI's
@@ -38,13 +42,14 @@ through the evaluator cache).
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import contextlib
+from typing import Any, ContextManager, Dict, Iterator, Optional
 
 from repro_torch.obs.journal import Journal
 from repro_torch.obs.metrics import Metrics
 from repro_torch.obs.oblog import configure as configure_logging
 from repro_torch.obs.oblog import get_logger, log_event
-from repro_torch.obs.trace import Tracer
+from repro_torch.obs.trace import OFF, Tracer
 
 __all__ = [
     "enable", "disable", "active", "tracer", "metrics", "journal",
@@ -100,15 +105,35 @@ def journal() -> Journal:
 
 
 # ------------------------------------------------------------ conveniences
-def span(name: str, **args: Any):
-    return _TRACER.span(name, **args)
+def span(name: str, /, **args: Any) -> ContextManager[None]:
+    """A span over the with-block.  While tracing is on: the tracer's event
+    and a range named `name` in any running `torch.profiler` session, on
+    the profiler's own clock.  While off: the shared `trace.OFF`, which
+    records nothing and calls no torch op."""
+    if not _TRACER.enabled:
+        return OFF
+    return _profiled_span(name, args)
+
+
+@contextlib.contextmanager
+def _profiled_span(name: str, args: Dict[str, Any]) -> Iterator[None]:
+    # a function-scope range, not `torch.profiler.record_function`'s user
+    # annotation: Kineto copies a user annotation onto the device's
+    # timeline, where a reader of the device's operations counts it as
+    # one, and `record_function` is an op that dispatch modes (the
+    # frontend's tracer, the dry-run's counter) see; this range is neither
+    from torch._C._profiler import _RecordFunctionFast
+    with _TRACER.span(name, **args), _RecordFunctionFast(name):
+        yield
 
 
 def instant(name: str, **args: Any) -> None:
     _TRACER.instant(name, **args)
 
 
-def counter(name: str, n: float = 1) -> None:
+def counter(name: str, n: Any = 1) -> None:
+    """Add `n` to counter `name`: a host number, or a 0-d tensor added on
+    its device without a sync (`Metrics.inc`)."""
     _METRICS.inc(name, n)
 
 

@@ -1,4 +1,4 @@
-"""Counters / gauges / histograms for the DSE stack.
+"""Counters / gauges / histograms for the DSE stack and the model path.
 
 A `Metrics` registry is a plain dict triple — no background threads, no
 dependencies.  Counters are always cheap enough to leave on (worker
@@ -13,10 +13,16 @@ good enough for a CLI summary table without a streaming-quantile sketch.
 `export()` / `merge()` round-trip the whole registry through the same
 picklable wire format worker processes use for trace buffers, so a
 parallel Study's telemetry aggregates counters from every worker.
+
+A counter may also take a 0-d tensor (the model path counts on the device:
+`models.layers._moe_dispatch`'s dropped pairs).  The sum then stays a
+tensor on its device, added without a sync, and becomes a float only in
+`export` and `summary`.
 """
 
 from __future__ import annotations
 
+import sys
 from typing import Any, Dict, List
 
 __all__ = ["Metrics"]
@@ -27,12 +33,12 @@ _SAMPLE_CAP = 4096
 class Metrics:
     def __init__(self) -> None:
         self.enabled = False
-        self.counters: Dict[str, float] = {}
+        self.counters: Dict[str, Any] = {}
         self.gauges: Dict[str, float] = {}
         self._hists: Dict[str, Dict[str, Any]] = {}
 
     # ----------------------------------------------------------- recording
-    def inc(self, name: str, n: float = 1) -> None:
+    def inc(self, name: str, n: Any = 1) -> None:
         self.counters[name] = self.counters.get(name, 0) + n
 
     def gauge(self, name: str, value: float) -> None:
@@ -56,8 +62,17 @@ class Metrics:
             h["samples"].append(v)
 
     # ------------------------------------------------------- export / merge
+    def _host_counters(self) -> Dict[str, Any]:
+        """The counters as host numbers: a tensor (a device sum) read back
+        as a float, any other value as it is."""
+        torch = sys.modules.get("torch")
+        if torch is None:
+            return dict(self.counters)
+        return {k: float(v) if isinstance(v, torch.Tensor) else v
+                for k, v in self.counters.items()}
+
     def export(self) -> Dict[str, Any]:
-        return {"counters": dict(self.counters),
+        return {"counters": self._host_counters(),
                 "gauges": dict(self.gauges),
                 "histograms": {k: dict(v, samples=list(v["samples"]))
                                for k, v in self._hists.items()}}
@@ -103,7 +118,7 @@ class Metrics:
                 "p50": _quantile(s, 0.50),
                 "p95": _quantile(s, 0.95),
             }
-        return {"counters": dict(self.counters),
+        return {"counters": self._host_counters(),
                 "gauges": dict(self.gauges), "histograms": hists}
 
 

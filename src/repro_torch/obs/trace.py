@@ -6,12 +6,12 @@ events.  Spans are context managers::
     with tracer.span("search_app", app="resnet"):
         ...
 
-Timestamps are **epoch microseconds** (``time.time_ns() // 1000``), not
-`perf_counter`, so buffers exported from spawned worker processes land on
-the same timeline as the parent's events — a worker's ``search_app`` span
-renders inside the parent's ``study`` span in Perfetto without any clock
-rebasing.  Durations come from `perf_counter_ns` (monotonic, ns
-resolution).
+Both ends of a span are read from ``time.time_ns()`` and stored as
+**epoch microseconds**, not `perf_counter`, so buffers exported from
+spawned worker processes land on the same timeline as the parent's events
+— a worker's ``search_app`` span renders inside the parent's ``study``
+span in Perfetto without any clock rebasing.  It is the clock
+`torch.profiler` (Kineto) stamps its events with.
 
 `export()` returns the raw event list (picklable — this is what
 the parallel Study's workers ship back alongside their Evaluator cache
@@ -19,21 +19,25 @@ shards); `merge()` folds such a list into the parent buffer;
 `chrome_trace()` / `write()` produce the ``{"traceEvents": [...]}``
 JSON that chrome://tracing and https://ui.perfetto.dev load directly.
 
-Everything is allocation-free when disabled: `span` yields immediately
-without creating an event, so tracing can stay threaded through hot code.
+Everything is allocation-free when disabled: `span` returns one shared
+`contextlib.nullcontext()` (`OFF`) without reading a clock or creating an
+event, so tracing can stay threaded through hot code.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import threading
 import time
-from contextlib import contextmanager
 from pathlib import Path
-from typing import Any, Dict, Iterator, List
+from typing import Any, ContextManager, Dict, Iterator, List
 
-__all__ = ["Tracer"]
+__all__ = ["Tracer", "OFF"]
+
+#: the span of a disabled tracer: one shared null context
+OFF = contextlib.nullcontext()
 
 _SCALARS = (str, int, float, bool, type(None))
 
@@ -59,22 +63,23 @@ class Tracer:
         self._events: List[Dict[str, Any]] = []
 
     # ----------------------------------------------------------- recording
-    @contextmanager
-    def span(self, name: str, **args: Any) -> Iterator[None]:
-        """Record one complete ("X") event covering the with-block.  A
-        no-op (no allocation, no clock read) while disabled."""
+    def span(self, name: str, /, **args: Any) -> ContextManager[None]:
+        """Record one complete ("X") event covering the with-block.  While
+        disabled, the shared `OFF` (no allocation, no clock read)."""
         if not self.enabled:
-            yield
-            return
-        ts = time.time_ns() // 1000
-        t0 = time.perf_counter_ns()
+            return OFF
+        return self._span(name, args)
+
+    @contextlib.contextmanager
+    def _span(self, name: str, args: Dict[str, Any]) -> Iterator[None]:
+        t0 = time.time_ns()
         try:
             yield
         finally:
-            dur = (time.perf_counter_ns() - t0) // 1000
+            t1 = time.time_ns()
             self._events.append({
                 "name": name, "cat": "repro_torch", "ph": "X",
-                "ts": int(ts), "dur": int(dur),
+                "ts": t0 // 1000, "dur": max(0, t1 - t0) // 1000,
                 "pid": os.getpid(), "tid": _tid(),
                 "args": _clean_args(args),
             })

@@ -284,3 +284,131 @@ def test_metrics_export_merge_and_summary():
     b.merge(a.export())
     rb.merge(ra.export())
     assert b.summary() == rb.summary()
+
+
+# ------------------------------------------- spans and counters, model path
+
+def test_disabled_span_is_the_shared_null_context():
+    from repro_torch.obs.trace import OFF
+    assert obs.span("prefill") is OFF
+    assert obs.span("kernels.load", name="x", built=False) is OFF
+    assert obs.tracer().span("study") is OFF
+    with obs.span("prefill"):
+        with obs.span("moe"):
+            pass
+    assert len(obs.tracer()) == 0
+
+
+def test_span_is_on_the_profilers_clock_and_unseen_by_dispatch_modes():
+    """An enabled span takes both ends from `time.time_ns()` and opens a
+    host range of its name in a running profiler session, on the same
+    clock; the range is no user annotation (Kineto copies those onto the
+    device's timeline) and no op a dispatch mode sees."""
+    import time
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.seen.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    obs.enable(trace=True, metrics=False, journal=False)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t0 = time.time_ns()
+        with Ops() as mode, obs.span("outer", n=1):
+            with obs.span("inner"):
+                torch.ones(4).sum()
+        t1 = time.time_ns()
+    ev = {e["name"]: e for e in obs.tracer().export() if e.get("ph") == "X"}
+    assert set(ev) == {"outer", "inner"} and ev["outer"]["args"] == {"n": 1}
+    assert t0 // 1000 <= ev["outer"]["ts"] <= ev["inner"]["ts"]
+    assert ev["inner"]["ts"] + ev["inner"]["dur"] \
+        <= ev["outer"]["ts"] + ev["outer"]["dur"] <= t1 // 1000
+    assert not any("profiler" in op for op in mode.seen), mode.seen
+    host = {e.name(): e for e in prof.profiler.kineto_results.events()}
+    for name in ("outer", "inner"):
+        e = host[name]
+        assert not e.is_user_annotation()
+        # the clocks agree to well under a millisecond
+        assert abs(e.start_ns() - ev[name]["ts"] * 1000) < 1_000_000
+        assert t0 - 1_000_000 < e.start_ns() <= e.end_ns() < t1 + 1_000_000
+
+
+def test_counter_takes_a_device_sum_and_reads_it_back_at_export():
+    import torch
+
+    from repro_torch.obs.metrics import Metrics
+    m = Metrics()
+    m.inc("host", 2)
+    m.inc("host", 3)
+    m.inc("dev", torch.tensor(4))
+    m.inc("dev", (torch.arange(6) >= 1).sum())
+    assert isinstance(m.counters["dev"], torch.Tensor)
+    exp = m.export()["counters"]
+    assert exp == {"host": 5, "dev": 9.0}
+    assert type(exp["host"]) is int and type(exp["dev"]) is float
+    assert m.summary()["counters"] == exp
+
+
+def test_pairs_dropped_counts_the_slots_past_capacity():
+    """At a capacity factor that drops pairs, `moe.pairs_dropped` is an
+    independent count: each group's (token, choice) pairs in token-major
+    order, an expert's slots taken first come first served."""
+    import torch
+
+    from repro_torch.models import layers as L
+    g = torch.Generator().manual_seed(3)
+    E, k, d, f, T = 8, 2, 16, 8, 64
+    p = {"router": torch.randn(d, E, generator=g),
+         "we1": torch.randn(E, d, f, generator=g),
+         "we3": torch.randn(E, d, f, generator=g),
+         "we2": torch.randn(E, f, d, generator=g)}
+    x = torch.randn(2, T, d, generator=g)
+    rt = L.Runtime(compute_dtype=torch.float32, moe_group_size=T)
+    cap = L.moe_capacity(T, k, E, 0.5)
+    obs.enable(trace=False, metrics=True, journal=False)
+    L.moe_block(p, x, n_experts=E, top_k=k, capacity_factor=0.5,
+                normalize_gates=False, rt=rt)
+    counters = obs.metrics().export()["counters"]
+    choice = torch.topk(torch.softmax(x @ p["router"], -1), k, -1).indices
+    dropped = 0
+    for group in choice.tolist():
+        taken = [0] * E
+        for token in group:
+            for e in token:
+                taken[e] += 1
+                dropped += taken[e] > cap
+    assert dropped > 0
+    assert counters == {"moe.pairs_routed": 2 * T * k,
+                        "moe.slots": 2 * E * cap,
+                        "moe.pairs_dropped": float(dropped)}
+    obs.disable(reset=True)
+    L.moe_block(p, x, n_experts=E, top_k=k, capacity_factor=0.5,
+                normalize_gates=False, rt=rt)
+    assert obs.metrics().export()["counters"] == {}
+
+
+def test_kernel_load_span_and_counter(monkeypatch, tmp_path):
+    """A library's first load opens `kernels.load` with the source's name
+    and whether it was built, and counts `kernels.built`; a second load
+    of the same source records nothing."""
+    from repro_torch.kernels import build
+    lib = tmp_path / "fake.so"
+    monkeypatch.setattr(build, "_LOADED", {})
+    monkeypatch.setattr(build, "library_path", lambda name: lib)
+    monkeypatch.setattr(build, "build", lambda names: lib.write_bytes(b""))
+    monkeypatch.setattr(build.ctypes, "CDLL", lambda path: ("lib", path))
+    obs.enable(trace=True, metrics=False, journal=False)
+    assert build.load("fake") == ("lib", str(lib))
+    assert build.load("fake") == ("lib", str(lib))
+    loads = [e for e in obs.tracer().export() if e.get("ph") == "X"]
+    assert [(e["name"], e["args"]) for e in loads] == [
+        ("kernels.load", {"name": "fake", "built": True})]
+    assert obs.metrics().export()["counters"] == {"kernels.built": 1}
